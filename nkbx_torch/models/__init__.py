@@ -1,0 +1,7 @@
+from nkbx_torch.models.classifier import (ClassificationModel, MultitaskClassifier,
+                                          SingletaskClassifier, get_model)
+from nkbx_torch.models.convert import from_jax_variables
+from nkbx_torch.models.registry import create_backbone, list_backbones
+
+__all__ = ["ClassificationModel", "MultitaskClassifier", "SingletaskClassifier",
+           "create_backbone", "from_jax_variables", "get_model", "list_backbones"]

@@ -1,0 +1,122 @@
+"""Single/multi-task classifiers and the model factory (counterpart of
+``nkbx/models/classifier.py``).
+
+The backbone computes in its compute dtype (bf16 on the card) with f32
+parameters; the heads compute in f32.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Union
+
+import torch
+from torch import nn
+
+from nkbx_torch.core.runtime import resolve_device
+from nkbx_torch.models.registry import create_backbone
+
+# same strategy names as nkbx's INIT_STRATEGIES (reference model.py:45-57);
+# torch's own functions are the distributions nkbx reproduces
+INIT_STRATEGIES = {
+    "kaiming_normal_": lambda w, g: nn.init.kaiming_normal_(w, nonlinearity="relu",
+                                                            generator=g),
+    "kaiming_uniform_": lambda w, g: nn.init.kaiming_uniform_(w, nonlinearity="relu",
+                                                              generator=g),
+    "xavier_normal_": lambda w, g: nn.init.xavier_normal_(w, generator=g),
+    "xavier_uniform_": lambda w, g: nn.init.xavier_uniform_(w, generator=g),
+}
+
+
+def _head(emb_size: int, n: int, init: str, generator: torch.Generator) -> nn.Linear:
+    head = nn.Linear(emb_size, n)
+    INIT_STRATEGIES[init](head.weight.data, generator)
+    head.bias.data.zero_()
+    return head
+
+
+class SingletaskClassifier(nn.Module):
+    def __init__(self, backbone: nn.Module, n_classes: int, classifier_dropout: float = 0.0,
+                 classifier_initialization: str = "kaiming_normal_", generator=None):
+        super().__init__()
+        self.backbone = backbone
+        self.dropout = nn.Dropout(classifier_dropout)
+        self.head = _head(backbone.num_features, n_classes, classifier_initialization,
+                          generator)
+
+    def forward(self, x):
+        return self.head(self.dropout(self.backbone(x).float()))
+
+
+class MultitaskClassifier(nn.Module):
+    def __init__(self, backbone: nn.Module, classes: Dict[str, List],
+                 classifier_dropout: float = 0.0,
+                 classifier_initialization: str = "kaiming_normal_", generator=None):
+        super().__init__()
+        self.backbone = backbone
+        self.dropout = nn.Dropout(classifier_dropout)
+        self.targets = sorted(classes)
+        for t in self.targets:
+            self.add_module(f"head_{t}", _head(backbone.num_features, len(classes[t]),
+                                               classifier_initialization, generator))
+
+    def forward(self, x):
+        emb = self.dropout(self.backbone(x).float())
+        return {t: getattr(self, f"head_{t}")(emb) for t in self.targets}
+
+
+class ClassificationModel:
+    """Module plus metadata (what :func:`get_model` returns).
+
+    Attributes: module (the classifier, in eval mode), classes (list, or
+    {target: list}), task ('single' | 'multi'), emb_size, input_size,
+    dtype (compute dtype), device."""
+
+    def __init__(self, module, classes, task, emb_size, input_size, dtype, device):
+        self.module = module
+        self.classes = classes
+        self.task = task
+        self.emb_size = emb_size
+        self.input_size = tuple(input_size)
+        self.dtype = dtype
+        self.device = device
+
+    def __call__(self, x):
+        with torch.inference_mode():
+            return self.module(x)
+
+
+def get_model(cfg_model: dict, classes: Union[list, dict], input_size=(224, 224),
+              seed: int = 0, dtype=torch.bfloat16, device=None) -> ClassificationModel:
+    """Build a classifier from a config dict (nkbx's keys: task, model,
+    backbone_dropout, classifier_dropout, classifier_initialization,
+    backbone_opts, checkpoint). Weights come from a ``torch.Generator``
+    seeded with ``seed``, or from ``checkpoint``, a port ``state_dict`` file.
+    ``device`` defaults to ``cuda`` and raises without a card."""
+    if cfg_model.get("scripted", False):
+        raise NotImplementedError("serving bundles are not ported to nkbx_torch yet "
+                                  "(ROADMAP.md); build the model and wrap it in "
+                                  "nkbx_torch.export.ServingModule")
+    dev = resolve_device(device)
+    backbone = create_backbone(
+        cfg_model["model"], pretrained=cfg_model.get("pretrained", False),
+        drop_rate=cfg_model.get("backbone_dropout", 0.0) or 0.0, dtype=dtype,
+        img_size=input_size, **(cfg_model.get("backbone_opts") or {}))
+    gen = torch.Generator().manual_seed(seed)
+    backbone.reset_parameters(gen)
+    task = cfg_model.get("task", "single")
+    common = dict(classifier_dropout=cfg_model.get("classifier_dropout", 0.0) or 0.0,
+                  classifier_initialization=cfg_model.get("classifier_initialization",
+                                                          "kaiming_normal_"),
+                  generator=gen)
+    if task == "single":
+        module = SingletaskClassifier(backbone, len(classes), **common)
+    elif task == "multi":
+        module = MultitaskClassifier(backbone, classes, **common)
+    else:
+        raise ValueError(f"Unknown task {task!r}")
+    ckpt = cfg_model.get("checkpoint")
+    if ckpt:
+        module.load_state_dict(torch.load(ckpt, map_location="cpu", weights_only=True))
+    module.to(dev).eval()
+    return ClassificationModel(module, classes, task, backbone.num_features, input_size,
+                               dtype, dev)

@@ -1,0 +1,65 @@
+"""Transform specs and Compose (counterpart of ``nkbx/transforms/spec.py``),
+so far for the serving path: the device stage is Normalize only.
+
+The host stage (geometry) and the random device ops (flips, photometric,
+dropout, blur, ...) are not ported yet (ROADMAP.md, A9); a pipeline that
+names one raises ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence
+
+HOST = "host"
+DEVICE = "device"
+MARKER = "marker"
+
+
+@dataclasses.dataclass
+class Transform:
+    stage = HOST
+
+
+@dataclasses.dataclass
+class Normalize(Transform):
+    mean: Sequence[float] = (0.485, 0.456, 0.406)
+    std: Sequence[float] = (0.229, 0.224, 0.225)
+    max_pixel_value: float = 255.0
+    p: float = 1.0
+    always_apply: bool = True
+    stage = DEVICE
+
+
+@dataclasses.dataclass
+class ToTensorV2(Transform):
+    """Layout marker for API compatibility; the port keeps NHWC."""
+
+    transpose_mask: bool = False
+    stage = MARKER
+
+
+class Compose:
+    """A pipeline of transform specs; its device stage is one fused batched
+    function of a uint8 NHWC batch (:meth:`device_apply`)."""
+
+    def __init__(self, transforms: Sequence[Transform]):
+        self.transforms = [t for t in transforms if t.stage != MARKER]
+        for t in self.transforms:
+            if not isinstance(t, Normalize):
+                raise NotImplementedError(
+                    f"{type(t).__name__} is not ported to nkbx_torch yet; the port's "
+                    "device stage is Normalize only (ROADMAP.md, A9)")
+        self.device_transforms = self.transforms
+        self._device_fn = None
+
+    def device_apply(self, batch, out_dtype=None):
+        """Normalize a uint8 NHWC batch on its device; float32 by default, or
+        ``out_dtype`` (the model's compute dtype) straight out."""
+        import torch
+
+        from nkbx_torch.transforms.device import build_device_fn
+
+        if self._device_fn is None:
+            self._device_fn = build_device_fn(self.device_transforms)
+        return self._device_fn(batch, torch.float32 if out_dtype is None else out_dtype)
