@@ -64,12 +64,33 @@ class MultitaskClassifier(nn.Module):
         return {t: getattr(self, f"head_{t}")(emb) for t in self.targets}
 
 
+def is_backbone_param(name: str) -> bool:
+    """True if a parameter name (``module.named_parameters()``) belongs to
+    the backbone, False for a classifier head (``head``, ``head_<target>``):
+    nkbx's rule (classifier.py:75-84), on dotted names."""
+    for part in name.split("."):
+        if part == "backbone":
+            return True
+        if part.startswith("head"):
+            return False
+    return False
+
+
+def param_labels(module: nn.Module) -> Dict[str, str]:
+    """{parameter name: 'backbone' | 'classifier'}, the two optimizer groups
+    (nkbx ``param_labels``, classifier.py:87-91)."""
+    return {name: "backbone" if is_backbone_param(name) else "classifier"
+            for name, _ in module.named_parameters()}
+
+
 class ClassificationModel:
     """Module plus metadata (what :func:`get_model` returns).
 
-    Attributes: module (the classifier, in eval mode), classes (list, or
-    {target: list}), task ('single' | 'multi'), emb_size, input_size,
-    dtype (compute dtype), device."""
+    Attributes: module (the classifier with f32 parameters, handed back in
+    eval mode; the train step puts it in train mode, where dropout with a
+    rate above 0 is active), classes (list, or {target: list}), task
+    ('single' | 'multi'), emb_size, input_size, dtype (compute dtype),
+    device. Calling the model is inference only."""
 
     def __init__(self, module, classes, task, emb_size, input_size, dtype, device):
         self.module = module

@@ -184,7 +184,8 @@ class SwinTransformer(nn.Module):
                 dim *= 2
                 grid = (grid[0] // 2, grid[1] // 2)
         self.norm = LayerNorm(dim, 1e-5, dtype)
-        self.dropout = nn.Dropout(drop_rate)
+        # as in nkbx, the embedding dropout exists only with a rate above 0
+        self.dropout = nn.Dropout(drop_rate) if drop_rate > 0 else nn.Identity()
 
     def reset_parameters(self, generator: torch.Generator):
         """flax's initialisers, drawn from ``generator``: lecun-normal Dense

@@ -1,3 +1,4 @@
-from nkbx_torch.transforms.spec import Compose, Normalize, ToTensorV2
+from nkbx_torch.transforms.spec import (Compose, HorizontalFlip, Normalize, ToTensorV2,
+                                       VerticalFlip)
 
-__all__ = ["Compose", "Normalize", "ToTensorV2"]
+__all__ = ["Compose", "HorizontalFlip", "Normalize", "ToTensorV2", "VerticalFlip"]

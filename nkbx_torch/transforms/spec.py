@@ -1,7 +1,8 @@
-"""Transform specs and Compose (counterpart of ``nkbx/transforms/spec.py``),
-so far for the serving path: the device stage is Normalize only.
+"""Transform specs and Compose (counterpart of ``nkbx/transforms/spec.py``)
+for the serving and training paths: the device stage is the random flips
+and Normalize.
 
-The host stage (geometry) and the random device ops (flips, photometric,
+The host stage (geometry) and the other random device ops (photometric,
 dropout, blur, ...) are not ported yet (ROADMAP.md, A9); a pipeline that
 names one raises ``NotImplementedError``.
 """
@@ -32,6 +33,21 @@ class Normalize(Transform):
 
 
 @dataclasses.dataclass
+class HorizontalFlip(Transform):
+    p: float = 0.5
+    stage = DEVICE
+
+
+@dataclasses.dataclass
+class VerticalFlip(Transform):
+    p: float = 0.5
+    stage = DEVICE
+
+
+PORTED_DEVICE_OPS = (HorizontalFlip, VerticalFlip, Normalize)
+
+
+@dataclasses.dataclass
 class ToTensorV2(Transform):
     """Layout marker for API compatibility; the port keeps NHWC."""
 
@@ -46,20 +62,31 @@ class Compose:
     def __init__(self, transforms: Sequence[Transform]):
         self.transforms = [t for t in transforms if t.stage != MARKER]
         for t in self.transforms:
-            if not isinstance(t, Normalize):
+            if not isinstance(t, PORTED_DEVICE_OPS):
                 raise NotImplementedError(
                     f"{type(t).__name__} is not ported to nkbx_torch yet; the port's "
-                    "device stage is Normalize only (ROADMAP.md, A9)")
+                    "device stage is HorizontalFlip, VerticalFlip and Normalize "
+                    "(ROADMAP.md, A9)")
+        seen_norm = False
+        for t in self.transforms:
+            if isinstance(t, Normalize):
+                seen_norm = True
+            elif seen_norm:
+                raise ValueError(f"{type(t).__name__} appears after Normalize; the fused device "
+                                 "stage applies Normalize last, so put random ops before it.")
         self.device_transforms = self.transforms
         self._device_fn = None
 
-    def device_apply(self, batch, out_dtype=None):
-        """Normalize a uint8 NHWC batch on its device; float32 by default, or
-        ``out_dtype`` (the model's compute dtype) straight out."""
+    def device_apply(self, batch, out_dtype=None, generator=None, gates=None):
+        """The device stage of a uint8 NHWC batch on its device: the random
+        flips when a ``generator`` (training) or the flips' ``gates`` are
+        given, then Normalize; float32 by default, or ``out_dtype`` (the
+        model's compute dtype) straight out."""
         import torch
 
         from nkbx_torch.transforms.device import build_device_fn
 
         if self._device_fn is None:
             self._device_fn = build_device_fn(self.device_transforms)
-        return self._device_fn(batch, torch.float32 if out_dtype is None else out_dtype)
+        return self._device_fn(batch, torch.float32 if out_dtype is None else out_dtype,
+                               generator=generator, gates=gates)

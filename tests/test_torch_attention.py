@@ -3,8 +3,8 @@
 The port's plain version is held against nkbx's ``reference_attention`` in
 the three mask regimes of tests/test_fused_attention.py, and the port's
 entry on a CPU tensor against the Pallas kernel run in interpret mode. The
-CUDA kernel itself is held against the plain version on the card
-(``-m cuda``; it skips where there is none).
+CUDA kernel itself is held against the plain version on the card by
+tests/test_torch_cuda.py, which imports no JAX.
 
 Tolerances: float32 1e-4 (the same math; the remaining differences are the
 order of sums and nkbx's Newton-refined approximate reciprocal). bfloat16
@@ -111,25 +111,3 @@ def test_smem_need_of_window12_exceeds_default_limit():
     # N=144 needs the raised dynamic shared-memory limit, and fits a block
     assert 48 * 1024 < tattn.smem_bytes(144, 32) <= tattn._MAX_SMEM
     assert tattn.smem_bytes(49, 32) < 48 * 1024
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
-@pytest.mark.parametrize("g,n,heads,d,m", CASES + [(16, 144, 4, 32, 4)])
-def test_kernel_matches_reference_on_card(cuda_device, dtype, tol, g, n, heads, d, m):
-    qkv, bias, mask = (torch.from_numpy(a).to(cuda_device) for a in _inputs(g, n, heads, d, m))
-    qkv = qkv.to(dtype)
-    scale, hd = d ** -0.5, heads * d
-    before = tattn.fused_attention_qkv.launches
-    got = tattn.fused_attention_qkv(qkv, bias, mask, scale, heads)
-    torch.cuda.synchronize()
-    assert tattn.fused_attention_qkv.launches == before + 1
-    want = tattn.reference_attention(*_split(qkv, hd), bias, mask, scale, heads)
-    assert (got.float() - want.float()).abs().max().item() <= tol

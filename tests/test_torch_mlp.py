@@ -3,7 +3,8 @@
 The port's plain version is held against nkbx's ``reference_ln_mlp``, and
 the port's entry on a CPU tensor against the Pallas kernel run in interpret
 mode (which needs at least 128 rows, nkbx/ops/mlp.py:145). The CUDA kernel
-itself is held against the plain version on the card (``-m cuda``).
+itself is held against the plain version on the card by
+tests/test_torch_cuda.py, which imports no JAX.
 
 Tolerances: float32 1e-4 (the same math; the remaining differences are
 nkbx's rational erf and approximate reciprocal against torch's erf, and the
@@ -126,25 +127,3 @@ def test_fused_mlp_mode_precedence(monkeypatch, env_mlp, env_ln, flag, on_cuda, 
 
 def test_mode_is_plain_where_no_tile_fits():
     assert tmlp.fused_mlp_mode(True, torch.zeros(2, 4096), 16384) is None
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 5e-4), (torch.bfloat16, 1.25e-1)])
-@pytest.mark.parametrize("r,c,f,gamma", [(1000, 96, 384, True), (49, 768, 3072, False),
-                                         (300, 192, 768, False), (100, 40, 160, True)])
-def test_kernel_matches_reference_on_card(cuda_device, dtype, tol, r, c, f, gamma):
-    a = _inputs(r, c, f, seed=4, gamma=gamma)
-    args, g = _order(a, lambda v, dt: _torch(v, dt).to(cuda_device), dtype)
-    before = tmlp.fused_ln_mlp.launches
-    got = tmlp.fused_ln_mlp(*args, gamma=g, eps=1e-5)
-    torch.cuda.synchronize()
-    assert tmlp.fused_ln_mlp.launches == before + 1
-    want = tmlp.reference_ln_mlp(*args, gamma=g, eps=1e-5)
-    assert (got.float() - want.float()).abs().max().item() <= tol
