@@ -5,24 +5,30 @@
 
 1. Builds every kernel in nkbx_torch/ops/csrc with nvcc (all at once) and
    prints the build time and ptxas's register/shared-memory report.
-2. Holds each kernel against its plain PyTorch version on the card, at the
-   shapes the Swin-T serving path gives it at bucket 64 (and one window-12
-   case), in bf16 and in f32 with TF32 off; prints the errors against the
-   stated tolerances and the times of the kernel, the plain version and, for
-   window attention, scaled_dot_product_attention on the same inputs.
-3. The same for the backward kernels, window attention (K2) and LN -> MLP
-   (K6), at the shapes of a batch-64 Swin-T train step (and window 12 for
-   K2, a ragged tile with a layer-scale and an FMA width for K6); for K2 the
-   library time is the backward alone of scaled_dot_product_attention with
-   the additive mask requiring grad, and the SDPA backend that ran.
-4. Drives the serving path: get_model(swin_tiny_patch4_window7_224, bf16,
-   random weights from a seed) in a ServingModule with buckets (1, 8, 64)
-   answers requests of 1, 5, 64 and 70 seeded uint8 224x224 images. Checks
-   the launch counts, finite logits of the right shapes, and agreement with
-   the same model run through the plain versions; then times benchmark(64)
-   through the kernels and through the plain versions, the peak memory, and
-   a profile of where the device time goes.
-5. Drives the training path: the same model at full width and depth (bf16,
+2. Holds each forward kernel against its plain PyTorch version on the card,
+   in bf16 and in f32 with TF32 off; prints the errors against the stated
+   tolerances and the times of the kernel, the plain version and, for
+   attention, scaled_dot_product_attention on the same inputs. Window
+   attention (K1) and LN -> MLP (K5) at the shapes the Swin-T serving path
+   gives them at bucket 64 (and window 12; K5 also at ViT-B's C = 768 with
+   B*197 rows); full-sequence attention (K3) at ViT-B's 12 heads of width
+   64 at bucket 64 for N = 50, 197 (the main shape) and 577, and a small
+   case with a learned (H, N, N) bias and a mask of M = 2.
+3. The same for the backward kernels: K2 and K6 at the shapes of a batch-64
+   Swin-T train step (and window 12 for K2, a ragged tile with a layer-scale
+   and an FMA width for K6, ViT-B's MLP for K6), K4 at K3's shapes (dbias
+   checked in the small case). The library time of a backward is the
+   backward alone of scaled_dot_product_attention, with the SDPA backend
+   that ran.
+4. Drives the serving path of swin_tiny_patch4_window7_224 and of
+   vit_base_patch16_224 (fused_attention and fused_mlp on), bf16, random
+   weights from a seed: a ServingModule with buckets (1, 8, 64) answers
+   requests of 1, 5, 64 and 70 seeded uint8 224x224 images. Checks each
+   kernel's launch count, finite logits of the right shapes, and agreement
+   with the same model run through the plain versions in bf16 and f32; then
+   times benchmark(64) through the kernels and through the plain versions,
+   the peak memory, and a profile of where the device time goes.
+5. Drives the training path of both models at full width and depth (bf16,
    10 classes), nadam with two groups, cross-entropy, flips + Normalize, a
    seeded uint8 batch of 64 with the last 6 rows masked out. 5 steps through
    the kernels (launch counts per step, finite grads, falling loss) and the
@@ -31,10 +37,10 @@
    in f32 (TF32 off), through the kernels and through the plain versions
    (launch counts checked): in f32 the kernels agree with plain, and in bf16
    they are no farther from the f32 grads than plain bf16 is (within 2x).
-   Then step time, img/s and peak memory
-   of both paths, and a profile of one step.
-6. Prints the kernels' JSON line, the card's name and power limit, and last
-   {"ok": true, "device": {...}}.
+   Then step time, img/s and peak memory of both paths, and a profile of
+   one step.
+6. Prints the kernels' JSON line (all six kernels), the card's name and
+   power limit, and last {"ok": true, "device": {...}}.
 
 Exits non-zero, before printing any result, without a CUDA device, outside
 a checkout of the repository, or when any check fails.
@@ -187,6 +193,10 @@ def check_attention():
 
 # --- phase 2: LN -> MLP (K5) --------------------------------------------------
 
+# ViT-B's MLP (C = 768) at buckets 64 and 8: B*197 rows, a ragged last tile
+VIT_MLP_CASES = [("vit-b64", BUCKET * 197, 768, False), ("vit-b8", 8 * 197, 768, False)]
+
+
 def mlp_case(r, c, dtype, gen, gamma=False):
     f = 4 * c
     dt = DT[dtype]
@@ -207,6 +217,7 @@ def check_mlp():
     cases = [(s, BUCKET * (56 >> s) ** 2, 96 << s, False) for s in range(4)]
     cases.append(("ragged+gamma", 1000, 96, True))
     cases.append(("fma-width", 1000, 40, True))  # F = 160: the float-FMA kernel in bf16 too
+    cases += VIT_MLP_CASES
     for stage, r, c, use_gamma in cases:
         for dtype in ("bf16", "f32"):
             args, gamma = mlp_case(r, c, dtype, gen, use_gamma)
@@ -312,6 +323,7 @@ def check_mlp_bwd():
     cases = [(s, BUCKET * (56 >> s) ** 2, 96 << s, False) for s in range(4)]
     cases.append(("ragged+gamma", 1000, 96, True))
     cases.append(("fma-width", 1000, 40, True))
+    cases += VIT_MLP_CASES
     names = ("dx", "ds", "db", "dw0", "db0", "dw1", "db1", "dgamma")
     for stage, r, c, use_gamma in cases:
         for dtype in ("bf16", "f32"):
@@ -352,16 +364,158 @@ def check_mlp_bwd():
     return rows, worst
 
 
-def per_forward(rows, key):
-    """One bucket-64 forward's (or batch-64 train step's) time: each stage's
-    launches times its time."""
-    vals = [r[key] for r in rows]
-    if any(v is None for v in vals):
-        return None
-    return sum(d * v for d, v in zip(DEPTHS, vals))
+# --- phases 2-3: full-sequence attention (K3, K4) --------------------------------
+
+VIT_HEADS, VIT_D = 12, 64  # ViT-B: 12 heads of width 64
 
 
-# --- phase 3: the serving path --------------------------------------------------
+def sep_case(g, n, heads, m, bh, dtype, gen):
+    """q, k, v (G, N, H*64) and go in ``dtype``; a bias of ``bh`` heads (zeros
+    when shared, as ViT's) and a mask of M groups (zeros when M = 1)."""
+    c = heads * VIT_D
+    q, k, v, go = (torch.randn(g, n, c, generator=gen, device=DEV).to(DT[dtype])
+                   for _ in range(4))
+    if bh == 1:
+        bias = torch.zeros(1, n, n, device=DEV)
+    else:
+        bias = (0.5 * torch.randn(bh, n, n, generator=gen, device=DEV)).contiguous()
+    if m > 1:
+        mask = torch.where(torch.rand(m, n, n, generator=gen, device=DEV) < 0.2, -100.0, 0.0)
+    else:
+        mask = torch.zeros(1, n, n, device=DEV)
+    return q, k, v, bias, mask, go
+
+
+def sep_sdpa_inputs(q, k, v, bias, mask, heads):
+    """q, k, v as (G/M, M*H, N, D) and bias + mask as (1, M*H, N, N), so one
+    scaled_dot_product_attention call computes the same function."""
+    g, n, c = q.shape
+    m, d = mask.shape[0], c // heads
+    qs, ks, vs = (t.view(g // m, m, n, heads, d).permute(0, 1, 3, 2, 4)
+                  .reshape(g // m, m * heads, n, d).contiguous() for t in (q, k, v))
+    am = (bias.expand(heads, n, n)[None] + mask[:, None]).reshape(1, m * heads, n, n)
+    return qs, ks, vs, am.to(q.dtype).contiguous()
+
+
+# (label, G, heads, M, bias heads): ViT-B at bucket 64 for patch 32 at 224 px,
+# patch 16 at 224 px (the main shape) and patch 16 at 384 px; then a small
+# case with a learned (H, N, N) bias and a mask of M = 2, which checks dbias
+SEP_CASES = [("N=50", BUCKET, 50, VIT_HEADS, 1, 1), ("N=197", BUCKET, 197, VIT_HEADS, 1, 1),
+             ("N=577", BUCKET, 577, VIT_HEADS, 1, 1), ("dbias", 8, 197, 4, 2, 4)]
+
+
+def check_sep_attention():
+    gen = torch.Generator(device=DEV).manual_seed(5)
+    tol = {"f32": lambda ref: 1e-4, "bf16": lambda ref: 2 * bf16_ulp(ref)}
+    rows, worst = {}, {"bf16": 0.0, "f32": 0.0}
+    for label, g, n, heads, m, bh in SEP_CASES:
+        for dtype in ("bf16", "f32"):
+            q, k, v, bias, mask, _ = sep_case(g, n, heads, m, bh, dtype, gen)
+            got = A.fused_attention(q, k, v, bias, mask, VIT_D ** -0.5, heads)
+            torch.cuda.synchronize()
+            ref = A.reference_attention(q, k, v, bias, mask, VIT_D ** -0.5, heads)
+            err, lim = max_err(got, ref), tol[dtype](float(ref.float().abs().max()))
+            worst[dtype] = max(worst[dtype], err)
+            ok = err <= lim
+            log(f"K3 {label} G={g} H={heads} N={n} M={m} bias heads {bh} {dtype}: "
+                f"max|err| {err:.3e} (tol {lim:.3e}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"attention disagrees with its plain version at {label} {dtype}")
+            if dtype != "bf16" or label == "dbias":
+                continue
+            scale = VIT_D ** -0.5
+            ms = cuda_ms(lambda: A.fused_attention(q, k, v, bias, mask, scale, heads))
+            plain = cuda_ms(lambda: A.reference_attention(q, k, v, bias, mask, scale, heads))
+            qs, ks, vs, am = sep_sdpa_inputs(q, k, v, bias, mask, heads)
+            lib = cuda_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=am,
+                                                                  scale=scale))
+            c = heads * VIT_D
+            nbytes = 2 * g * n * 4 * c + 4 * (bh + m) * n * n
+            b, by = bound_ms(nbytes, 4 * g * heads * n * n * VIT_D, "bf16")
+            log(f"   bf16 times: kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa {lib:.4f} ms, "
+                f"bound {b:.4f} ms ({by})")
+            rows[label] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b, bound_by=by)
+            del qs, ks, vs, am
+    return rows, worst
+
+
+def check_sep_attention_bwd():
+    gen = torch.Generator(device=DEV).manual_seed(6)
+    # dq, dk, dv against max|plain|: f32 1e-4; bf16 4 ulps (P, dS*scale and
+    # the outputs round to bf16, so a last-bit difference flips a rounding).
+    # dbias, an f32 sum over groups: 1e-4 of its largest value.
+    tol = {"f32": 1e-4, "bf16": 4 * 2.0 ** -8}
+    rows, worst = {}, {"bf16": 0.0, "f32": 0.0}
+    for label, g, n, heads, m, bh in SEP_CASES:
+        learned = bh > 1  # a learned bias needs dbias; ViT's constant zeros do not
+        for dtype in ("bf16", "f32"):
+            q, k, v, bias, mask, go = sep_case(g, n, heads, m, bh, dtype, gen)
+            scale = VIT_D ** -0.5
+            got = A.fused_attention_bwd(q, k, v, bias, mask, go, scale, heads,
+                                        need_dbias=learned)
+            torch.cuda.synchronize()
+            want = A.reference_attention_sep_bwd(q, k, v, bias, mask, go, scale, heads)
+            errs = [max_err(a, b) for a, b in zip(got[:3], want[:3])]
+            lim = tol[dtype] * max(float(w.float().abs().max()) for w in want[:3])
+            err = max(errs)
+            worst[dtype] = max(worst[dtype], err)
+            ok = err <= lim
+            msg = ""
+            if learned:
+                err_b, lim_b = max_err(got[3], want[3]), 1e-4 * float(want[3].abs().max())
+                ok = ok and err_b <= lim_b
+                msg = f", dbias {err_b:.3e} (tol {lim_b:.3e})"
+            log(f"K4 {label} G={g} H={heads} N={n} M={m} bias heads {bh} {dtype}: max|err| "
+                f"dq/dk/dv {err:.3e} (tol {lim:.3e}){msg} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"attention backward disagrees with its plain version at {label} {dtype}")
+            if dtype != "bf16" or learned:
+                continue
+            ms = cuda_ms(lambda: A.fused_attention_bwd(q, k, v, bias, mask, go, scale, heads,
+                                                       need_dbias=False))
+            plain = cuda_ms(lambda: A.reference_attention_sep_bwd(q, k, v, bias, mask, go, scale,
+                                                                  heads), iters=5)
+            lib, backend = None, "not measured"
+            try:  # a yardstick only: the port never calls SDPA
+                qs, ks, vs, am = sep_sdpa_inputs(q, k, v, bias, mask, heads)
+                qs, ks, vs = (t.requires_grad_() for t in (qs, ks, vs))
+                out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=am, scale=scale)
+                gout = sep_sdpa_inputs(go, go, go, bias, mask, heads)[0]
+
+                def sdpa_bwd():
+                    return torch.autograd.grad(out, (qs, ks, vs), gout, retain_graph=True)
+
+                lib = cuda_ms(sdpa_bwd)
+                backend = sdpa_backend(sdpa_bwd)
+                del qs, ks, vs, am, out, gout
+            except RuntimeError as e:
+                log(f"   sdpa backward: not measured ({e})")
+            c = heads * VIT_D
+            nbytes = 2 * g * n * 7 * c + 4 * (bh + m) * n * n
+            b, by = bound_ms(nbytes, 10 * g * heads * n * n * VIT_D, "bf16")
+            log(f"   bf16 times: kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa backward "
+                f"{lib if lib is None else round(lib, 4)} ms ({backend}), bound {b:.4f} ms ({by})")
+            rows[label] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b, bound_by=by,
+                               backend=backend)
+    return rows, worst
+
+
+# --- phases 4-5: the serving and training paths ---------------------------------
+
+COUNTED = {"window_attention": (A, "fused_attention_qkv"), "ln_mlp": (M, "fused_ln_mlp"),
+           "window_attention_bwd": (A, "fused_attention_qkv_bwd"),
+           "ln_mlp_bwd": (M, "fused_ln_mlp_bwd"), "attention": (A, "fused_attention"),
+           "attention_bwd": (A, "fused_attention_bwd")}
+
+
+def zero_counts():
+    for mod, fn in COUNTED.values():
+        getattr(mod, fn).launches = 0
+
+
+def read_counts():
+    return {name: getattr(mod, fn).launches for name, (mod, fn) in COUNTED.items()}
+
 
 def set_plain(on):
     for k in ("NKBX_FUSED_ATTENTION", "NKBX_FUSED_MLP"):
@@ -371,11 +525,39 @@ def set_plain(on):
             os.environ.pop(k, None)
 
 
-def ln_mlp_blocks(dtype):
-    """The swin_tiny blocks whose MLP takes the LN-MLP kernels in ``dtype``
-    (with the NKBX_FUSED_* switches unset)."""
-    return sum(d for d, c in zip(DEPTHS, (96, 192, 384, 768))
-               if M.fused_mlp_mode(None, torch.empty(1, c, dtype=dtype, device=DEV), 4 * c))
+class Path:
+    """One model of the smoke run: its config (full width and depth, random
+    weights from seed 0, 10 classes), its attention kernels, and the widths
+    of its blocks' MLPs."""
+
+    def __init__(self, label, cfg, attention, widths):
+        self.label, self.cfg, self.attention, self.widths = label, cfg, attention, widths
+
+    def model(self, dtype):
+        return get_model(self.cfg, [f"class{i}" for i in range(10)], seed=0, dtype=dtype)
+
+    def ln_mlp_blocks(self, dtype):
+        """The blocks whose MLP takes the LN-MLP kernels in ``dtype`` (with the
+        NKBX_FUSED_* switches unset)."""
+        flag = (self.cfg.get("backbone_opts") or {}).get("fused_mlp")
+        return sum(M.fused_mlp_mode(flag, torch.empty(1, c, dtype=dtype, device=DEV), 4 * c,
+                                    auto=flag is None) == "ln" for c in self.widths)
+
+    def expected(self, dtype, backward):
+        """Each kernel's launches in one forward (and backward)."""
+        n = self.ln_mlp_blocks(dtype)
+        want = dict.fromkeys(COUNTED, 0)
+        want[self.attention], want["ln_mlp"] = len(self.widths), n
+        if backward:
+            want[self.attention + "_bwd"], want["ln_mlp_bwd"] = len(self.widths), n
+        return want
+
+
+SWIN = Path("swin_tiny", {"model": "swin_tiny_patch4_window7_224"}, "window_attention",
+            [c for d, c in zip(DEPTHS, (96, 192, 384, 768)) for _ in range(d)])
+VIT = Path("vit_base", {"model": "vit_base_patch16_224",
+                        "backbone_opts": {"fused_attention": True, "fused_mlp": True}},
+           "attention", [768] * 12)
 
 
 def serve_all(serving, requests):
@@ -384,7 +566,33 @@ def serve_all(serving, requests):
     return outs
 
 
-def profile_forward(serving, x, step_ms):
+def device_events(prof):
+    """Kernel events only (a CPU op's device time repeats its kernels')."""
+    def dev_us(e):
+        return getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+
+    events = [(dev_us(e), e) for e in prof.key_averages()
+              if dev_us(e) > 0 and str(getattr(e, "device_type", "")).endswith("CUDA")]
+    return sorted(events, key=lambda t: -t[0])
+
+
+def report_profile(prof, reps, what, step_ms, fname):
+    events = device_events(prof)
+    if not events:
+        log("profile: no device time recorded (not measured)")
+        return
+    total = sum(us for us, _ in events) / 1e3 / reps
+    log(f"profile: device busy {total:.3f} ms {what}, against {step_ms:.3f} ms unprofiled "
+        f"(idle share {1 - total / step_ms:.3f})")
+    lines = [f"{us / 1e3 / reps:10.4f} ms  {e.count // reps:5d}x  {e.key[:90]}"
+             for us, e in events]
+    for line in lines[:12]:
+        log("  " + line)
+    with open(os.path.join(OUT_DIR, fname), "w") as fh:
+        fh.write("\n".join(lines) + "\n")
+
+
+def profile_forward(path, serving, x, step_ms):
     """Device time by kernel over 3 forwards at bucket 64 (torch.profiler) of
     the batch ``x`` already on the card: the work that ``compute_p50_ms``
     times. The idle share is against ``step_ms``, that p50 measured without
@@ -398,32 +606,15 @@ def profile_forward(serving, x, step_ms):
         for _ in range(3):
             serving(x)
         torch.cuda.synchronize()
-
-    def dev_us(e):
-        return getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
-
-    # kernel events only: a CPU op's device time repeats its kernels' time
-    events = [e for e in prof.key_averages()
-              if dev_us(e) > 0 and str(getattr(e, "device_type", "")).endswith("CUDA")]
-    if not events:
-        log("profile: no device time recorded (not measured)")
-        return
-    total = sum(dev_us(e) for e in events) / 1e3 / 3
-    log(f"profile: device busy {total:.3f} ms per bucket-64 forward, against "
-        f"{step_ms:.3f} ms compute_p50 unprofiled (idle share {1 - total / step_ms:.3f})")
-    events.sort(key=lambda e: -dev_us(e))
-    lines = [f"{dev_us(e) / 1e3 / 3:10.4f} ms  {e.count // 3:5d}x  {e.key[:90]}"
-             for e in events]
-    for line in lines[:12]:
-        log("  " + line)
-    with open(os.path.join(OUT_DIR, "profile_bucket64.txt"), "w") as fh:
-        fh.write("\n".join(lines) + "\n")
+    report_profile(prof, 3, f"per bucket-64 {path.label} forward", step_ms,
+                   f"profile_bucket64_{path.label}.txt")
 
 
-def check_path():
-    classes = [f"class{i}" for i in range(10)]
-    model = get_model({"model": "swin_tiny_patch4_window7_224"}, classes, seed=0,
-                      dtype=torch.bfloat16)
+def check_path(path):
+    """Serving: a ServingModule with buckets (1, 8, 64) answers requests of 1,
+    5, 64 and 70 images through the kernels (launch counts, finite logits),
+    and agrees with the plain versions in bf16 and in f32."""
+    model = path.model(torch.bfloat16)
     serving = ServingModule(model, buckets=(1, 8, BUCKET), warm_up_on_load=False)
     rng = np.random.default_rng(0)
     sizes = (1, 5, 64, 70)
@@ -431,18 +622,16 @@ def check_path():
     forwards = 1 + 1 + 1 + 2  # 70 = a chunk of 64 and a bucket-8 chunk of 6
 
     set_plain(False)
-    A.fused_attention_qkv.launches = 0
-    M.fused_ln_mlp.launches = 0
+    zero_counts()
     outs = serve_all(serving, requests)
-    la, lm = A.fused_attention_qkv.launches, M.fused_ln_mlp.launches
-    stages_on = ln_mlp_blocks(torch.bfloat16)
-    log(f"path: {forwards} forwards; launches: window_attention {la} (expect {12 * forwards}), "
-        f"ln_mlp {lm} (expect {stages_on * forwards})")
-    if la != 12 * forwards or lm != stages_on * forwards or la == 0 or lm == 0:
-        fail("the serving path did not go through the kernels as expected")
+    counts = read_counts()
+    want = {k: v * forwards for k, v in path.expected(torch.bfloat16, False).items()}
+    log(f"path {path.label}: {forwards} forwards; launches {counts} (expect {want})")
+    if counts != want or not counts[path.attention] or not counts["ln_mlp"]:
+        fail(f"the {path.label} serving path did not go through the kernels as expected")
     for n, o in zip(sizes, outs):
         if tuple(o.shape) != (n, 10) or o.dtype != torch.float32 or not torch.isfinite(o).all():
-            fail(f"logits of request {n}: shape {tuple(o.shape)}, dtype {o.dtype}")
+            fail(f"{path.label} logits of request {n}: shape {tuple(o.shape)}, dtype {o.dtype}")
 
     set_plain(True)
     plain = serve_all(serving, requests)
@@ -451,23 +640,23 @@ def check_path():
     for n, o, p in zip(sizes, outs, plain):
         rel = max_err(o, p) / float(p.abs().max())
         worst_rel = max(worst_rel, rel)
-        log(f"path request {n}: max|kernel - plain| / max|plain| = {rel:.3e} (tol 5.0e-02)")
+        log(f"path {path.label} request {n}: max|kernel - plain| / max|plain| = {rel:.3e} "
+            f"(tol 5.0e-02)")
     if worst_rel > 5e-2:
-        fail("bf16 logits through the kernels disagree with the plain versions")
+        fail(f"{path.label} bf16 logits through the kernels disagree with the plain versions")
 
     # the same check in f32 (TF32 off), where the kernels should agree closely
-    m32 = get_model({"model": "swin_tiny_patch4_window7_224"}, classes, seed=0,
-                    dtype=torch.float32)
-    s32 = ServingModule(m32, buckets=(8,), warm_up_on_load=False)
+    s32 = ServingModule(path.model(torch.float32), buckets=(8,), warm_up_on_load=False)
     o32 = serve_all(s32, requests[1:2])[0]
     set_plain(True)
     p32 = serve_all(s32, requests[1:2])[0]
     set_plain(False)
     rel32 = max_err(o32, p32) / float(p32.abs().max())
-    log(f"path f32 request 5: max|kernel - plain| / max|plain| = {rel32:.3e} (tol 1.0e-03)")
+    log(f"path {path.label} f32 request 5: max|kernel - plain| / max|plain| = {rel32:.3e} "
+        f"(tol 1.0e-03)")
     if rel32 > 1e-3:
-        fail("f32 logits through the kernels disagree with the plain versions")
-    del m32, s32
+        fail(f"{path.label} f32 logits through the kernels disagree with the plain versions")
+    del s32
 
     bench = {}
     for label, plain_on in (("kernels", False), ("plain", True), ("kernels", False)):
@@ -476,51 +665,33 @@ def check_path():
         r = serving.benchmark(BUCKET, iters=20)
         r["max_memory_allocated_mb"] = torch.cuda.max_memory_allocated() / 2 ** 20
         bench.setdefault(label, []).append(r)
-        log(f"benchmark({BUCKET}) {label}: {json.dumps(r)}")
+        log(f"benchmark({BUCKET}) {path.label} {label}: {json.dumps(r)}")
     set_plain(False)
     try:  # a measurement only: the checks above decide the run
-        profile_forward(serving, torch.as_tensor(requests[2], device=DEV),
+        profile_forward(path, serving, torch.as_tensor(requests[2], device=DEV),
                         bench["kernels"][-1]["compute_p50_ms"])
     except Exception as e:  # noqa: BLE001
         log(f"profile: not measured ({type(e).__name__}: {e})")
-    return la, lm, bench
+    return counts
 
 
-# --- phase 5: the training path --------------------------------------------------
-
-COUNTED = {"window_attention": (A, "fused_attention_qkv"), "ln_mlp": (M, "fused_ln_mlp"),
-           "window_attention_bwd": (A, "fused_attention_qkv_bwd"),
-           "ln_mlp_bwd": (M, "fused_ln_mlp_bwd")}
-
-
-def zero_counts():
-    for mod, fn in COUNTED.values():
-        getattr(mod, fn).launches = 0
-
-
-def read_counts():
-    return {name: getattr(mod, fn).launches for name, (mod, fn) in COUNTED.items()}
-
-
-def expected_launches(dtype):
-    """Each kernel's launches in one swin_tiny forward and backward."""
-    n = ln_mlp_blocks(dtype)
-    return {"window_attention": 12, "ln_mlp": n, "window_attention_bwd": 12, "ln_mlp_bwd": n}
-
-
-def check_grads(model, init, criterion, pipe, images, labels, mask):
+def check_grads(path, model, init, criterion, pipe, images, labels, mask):
     """Every tensor's grads of one backward of the batch from the weights
     ``init``: bf16 and f32 (TF32 off), each through the kernels and through
     the plain versions, with the launch counts of each.
 
-    f32: kernels against plain within 1e-3 of each tensor's largest value.
-    bf16: the two paths round to bf16 at the same points but in a different
-    order of sums, so their grads differ by bf16 noise, which is largest
-    (a few 1e-2 of the tensor's largest value) in the relative-position-bias
-    tables, sums of dS over every window. The yardstick is the plain bf16
-    path's own distance from the f32 grads: through the kernels each tensor
-    must lie within twice that distance (plus 1e-3) of the f32 grads. A wrong
-    bf16 backward, off by O(1), fails."""
+    Each difference is taken against the larger of the tensor's largest
+    value and 1e-4 of the largest value of all grads: ViT's key biases get
+    no gradient in exact arithmetic (a shift of a whole score row), only
+    rounding noise, which the floor keeps from counting as a disagreement.
+    f32: kernels against plain within 1e-3. bf16: the two paths round to
+    bf16 at the same points but in a different order of sums, so their grads
+    differ by bf16 noise, which is largest (a few 1e-2 of the tensor's
+    largest value) in Swin's relative-position-bias tables, sums of dS over
+    every window. The yardstick is the plain bf16 path's own distance from
+    the f32 grads: through the kernels each tensor must lie within twice
+    that distance (plus 1e-3) of the f32 grads. A wrong bf16 backward, off by
+    O(1), fails."""
     def grads(module, x, plain):
         set_plain(plain)
         module.zero_grad(set_to_none=True)
@@ -531,82 +702,59 @@ def check_grads(model, init, criterion, pipe, images, labels, mask):
         set_plain(False)
         return out, read_counts()
 
-    def rel(got, want):
-        return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
-
-    m32 = get_model({"model": "swin_tiny_patch4_window7_224"}, model.classes, seed=0,
-                    dtype=torch.float32)
+    m32 = path.model(torch.float32)
     g = {}
     for dtype, module in ((torch.float32, m32.module), (torch.bfloat16, model.module)):
         module.load_state_dict(init)
         module.train()
         x = pipe.device_apply(images, out_dtype=dtype)
-        want = expected_launches(dtype)
+        want = path.expected(dtype, True)
         for plain in (False, True):
             g[dtype, plain], counts = grads(module, x, plain)
             ok = counts == (dict.fromkeys(want, 0) if plain else want)
-            log(f"grads {DTYPE_NAME[dtype]} {'plain' if plain else 'kernels'}: launches {counts} "
-                f"{'ok' if ok else 'FAIL'}")
+            log(f"grads {path.label} {DTYPE_NAME[dtype]} {'plain' if plain else 'kernels'}: "
+                f"launches {counts} {'ok' if ok else 'FAIL'}")
             if not ok or want["ln_mlp_bwd"] == 0:
                 fail("the gradient check did not compare the kernels with the plain path")
     del m32
     g32 = g[torch.float32, True]
+    floor = 1e-4 * max(float(t.abs().max()) for t in g32.values())
+
+    def rel(got, want):
+        return float((got - want).abs().max()) / max(float(want.abs().max()), floor)
+
     worst = max((rel(g[torch.float32, False][n], g32[n]), n) for n in g32)
-    log(f"grads f32: max |kernels - plain| / max|plain| per tensor = {worst[0]:.3e} "
-        f"({worst[1]}; tol 1.0e-03)")
+    log(f"grads {path.label} f32: max |kernels - plain| / max|plain| per tensor = "
+        f"{worst[0]:.3e} ({worst[1]}; tol 1.0e-03)")
     if worst[0] > 1e-3:
-        fail("f32 grads through the kernels disagree with the plain path")
+        fail(f"{path.label} f32 grads through the kernels disagree with the plain path")
     gk, gp = g[torch.bfloat16, False], g[torch.bfloat16, True]
     rows = [(rel(gk[n], g32[n]), rel(gp[n], g32[n]), rel(gk[n], gp[n]), n) for n in g32]
     bad = [r for r in rows if not r[0] <= 2 * r[1] + 1e-3]
     ratio = max(rows, key=lambda r: r[0] / max(r[1], 1e-30))
-    log(f"grads bf16: per tensor, distance from the f32 grads through the kernels / through "
-        f"plain at most {ratio[0] / max(ratio[1], 1e-30):.3f} ({ratio[3]}: {ratio[0]:.3e} / "
-        f"{ratio[1]:.3e}; tol 2 x plain + 1e-3); largest distance from f32 (/ its max) "
-        f"kernels {max(r[0] for r in rows):.3e}, plain {max(r[1] for r in rows):.3e}; "
-        f"{len(bad)} tensors off")
+    log(f"grads {path.label} bf16: per tensor, distance from the f32 grads through the kernels "
+        f"/ through plain at most {ratio[0] / max(ratio[1], 1e-30):.3f} ({ratio[3]}: "
+        f"{ratio[0]:.3e} / {ratio[1]:.3e}; tol 2 x plain + 1e-3); largest distance from f32 "
+        f"(/ its max) kernels {max(r[0] for r in rows):.3e}, plain "
+        f"{max(r[1] for r in rows):.3e}; {len(bad)} tensors off")
     rows.sort(key=lambda r: -r[2])
     for r in rows[:4]:
         log(f"  {r[3]}: kernels - plain {r[2]:.3e}, kernels - f32 {r[0]:.3e}, "
             f"plain - f32 {r[1]:.3e}")
     if bad:
-        fail(f"bf16 grads through the kernels are farther from f32 than plain bf16: {bad[:5]}")
+        fail(f"{path.label} bf16 grads through the kernels are farther from f32 than plain "
+             f"bf16: {bad[:5]}")
 
 
-def profile_step(step_fn, step_ms):
-    """Device time by kernel over one train step (torch.profiler)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        step_fn()
-        torch.cuda.synchronize()
-
-    def dev_us(e):
-        return getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
-
-    events = [e for e in prof.key_averages()
-              if dev_us(e) > 0 and str(getattr(e, "device_type", "")).endswith("CUDA")]
-    if not events:
-        log("profile: no device time recorded (not measured)")
-        return
-    total = sum(dev_us(e) for e in events) / 1e3
-    log(f"profile: device busy {total:.3f} ms in one batch-64 train step, against "
-        f"{step_ms:.3f} ms unprofiled (idle share {1 - total / step_ms:.3f})")
-    events.sort(key=lambda e: -dev_us(e))
-    lines = [f"{dev_us(e) / 1e3:10.4f} ms  {e.count:5d}x  {e.key[:90]}" for e in events]
-    for line in lines[:12]:
-        log("  " + line)
-    with open(os.path.join(OUT_DIR, "profile_train_step.txt"), "w") as fh:
-        fh.write("\n".join(lines) + "\n")
-
-
-def check_train():
+def check_train(path):
+    """Training: 5 full-width steps on a seeded batch of 64 (the last 6 rows
+    masked out) through the kernels and through the plain versions from the
+    same weights; one backward's grads (check_grads); step time, img/s and
+    peak memory of both paths; a profile of one step."""
     from nkbx_torch.train import TrainState, build_train_step, get_loss, get_optimizer
     from nkbx_torch.transforms import Compose, HorizontalFlip, Normalize, VerticalFlip
 
-    classes = [f"class{i}" for i in range(10)]
-    model = get_model({"model": "swin_tiny_patch4_window7_224"}, classes, seed=0,
-                      dtype=torch.bfloat16)
+    model = path.model(torch.bfloat16)
     init = {k: v.clone() for k, v in model.module.state_dict().items()}
     pipe = Compose([HorizontalFlip(), VerticalFlip(), Normalize()])
     criterion = get_loss({"type": "CrossEntropyLoss"})
@@ -642,27 +790,27 @@ def check_train():
         return losses, counts, finite
 
     set_plain(False)
-    want = expected_launches(torch.bfloat16)
+    want = path.expected(torch.bfloat16, True)
     losses, counts, finite = five_steps(False)
-    log(f"train: kernels, 5 steps, losses {[round(x, 5) for x in losses]}, launches per step "
-        f"{counts[0]} (expect {want})")
+    log(f"train {path.label}: kernels, 5 steps, losses {[round(x, 5) for x in losses]}, "
+        f"launches per step {counts[0]} (expect {want})")
     if any(c != want for c in counts) or want["ln_mlp_bwd"] == 0:
-        fail(f"the train step did not go through the kernels as expected: {counts}")
+        fail(f"the {path.label} train step did not go through the kernels as expected: {counts}")
     if not finite or not all(np.isfinite(losses)):
-        fail("non-finite loss or gradient through the kernels")
+        fail(f"{path.label}: non-finite loss or gradient through the kernels")
     if not losses[-1] < losses[0]:
-        fail(f"the loss did not fall on the repeated batch: {losses}")
+        fail(f"{path.label}: the loss did not fall on the repeated batch: {losses}")
     launches = {k: sum(c[k] for c in counts) for k in want}
     plain_losses, plain_counts, _ = five_steps(True)
     if any(sum(c.values()) for c in plain_counts):
         fail(f"the plain path launched kernels: {plain_counts}")
     rel = max(abs(a - b) / abs(b) for a, b in zip(losses, plain_losses))
-    log(f"train: plain, 5 steps, losses {[round(x, 5) for x in plain_losses]}; max |kernels - "
-        f"plain| / |plain| = {rel:.3e} (tol 5.0e-03)")
+    log(f"train {path.label}: plain, 5 steps, losses {[round(x, 5) for x in plain_losses]}; "
+        f"max |kernels - plain| / |plain| = {rel:.3e} (tol 5.0e-03)")
     if rel > 5e-3:
-        fail("bf16 losses through the kernels disagree with the plain path")
+        fail(f"{path.label} bf16 losses through the kernels disagree with the plain path")
     set_plain(False)
-    check_grads(model, init, criterion, Compose([Normalize()]), images, labels, mask)
+    check_grads(path, model, init, criterion, Compose([Normalize()]), images, labels, mask)
 
     bench = {}
     for label, plain_on in (("kernels", False), ("plain", True), ("kernels", False)):
@@ -678,15 +826,22 @@ def check_train():
         r = {"step_ms": ms, "images_per_sec": BUCKET / ms * 1e3,
              "max_memory_allocated_mb": torch.cuda.max_memory_allocated() / 2 ** 20}
         bench.setdefault(label, []).append(r)
-        log(f"train step (batch {BUCKET}) {label}: {json.dumps(r)}")
+        log(f"train step {path.label} (batch {BUCKET}) {label}: {json.dumps(r)}")
     set_plain(False)
     try:  # a measurement only: the checks above decide the run
+        from torch.profiler import ProfilerActivity, profile
+
         state, step = fresh(False)
         state, _ = step(state)
-        profile_step(lambda: step(state), bench["kernels"][-1]["step_ms"])
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            step(state)
+            torch.cuda.synchronize()
+        report_profile(prof, 1, f"in one batch-64 {path.label} train step",
+                       bench["kernels"][-1]["step_ms"], f"profile_train_step_{path.label}.txt")
     except Exception as e:  # noqa: BLE001
         log(f"profile: not measured ({type(e).__name__}: {e})")
-    return launches, bench
+    return launches
 
 
 def main():
@@ -711,29 +866,44 @@ def main():
     mlp_rows, mlp_err = check_mlp()
     attn_bwd_rows, attn_bwd_err = check_attention_bwd()
     mlp_bwd_rows, mlp_bwd_err = check_mlp_bwd()
-    la, lm, _ = check_path()
-    train_launches, _ = check_train()
+    sep_rows, sep_err = check_sep_attention()
+    sep_bwd_rows, sep_bwd_err = check_sep_attention_bwd()
+    served = {p.label: check_path(p) for p in (SWIN, VIT)}
+    trained = {p.label: check_train(p) for p in (SWIN, VIT)}
 
     fwd, step = "one bucket-64 swin_tiny forward, bf16", "one batch-64 swin_tiny train step, bf16"
+    vfwd = "one bucket-64 vit_base_patch16_224 forward, bf16 (12 launches at N=197)"
+    vstep = "one batch-64 vit_base_patch16_224 train step, bf16 (12 launches at N=197)"
     kernels = []
-    for name, src, replaces, rows, err, launches, per in (
+    for name, src, replaces, rows, err, launched, per in (
             ("window_attention", "nkbx_torch/ops/csrc/window_attention.cu",
-             "nkbx/ops/attention.py:302", attn_rows[:4], attn_err, la, fwd),
+             "nkbx/ops/attention.py:302", attn_rows[:4], attn_err, served, fwd),
             ("ln_mlp", "nkbx_torch/ops/csrc/ln_mlp.cu", "nkbx/ops/mlp.py:504",
-             mlp_rows[:4], mlp_err, lm, fwd),
+             mlp_rows[:4], mlp_err, served, fwd),
             ("window_attention_bwd", "nkbx_torch/ops/csrc/window_attention_bwd.cu",
-             "nkbx/ops/attention.py:313", attn_bwd_rows[:4], attn_bwd_err,
-             train_launches["window_attention_bwd"], step),
+             "nkbx/ops/attention.py:313", attn_bwd_rows[:4], attn_bwd_err, trained, step),
             ("ln_mlp_bwd", "nkbx_torch/ops/csrc/ln_mlp_bwd.cu", "nkbx/ops/mlp.py:520",
-             mlp_bwd_rows[:4], mlp_bwd_err, train_launches["ln_mlp_bwd"], step)):
-        bound = per_forward(rows, "bound_ms")
+             mlp_bwd_rows[:4], mlp_bwd_err, trained, step),
+            ("attention", "nkbx_torch/ops/csrc/attention.cu", "nkbx/ops/attention.py:275",
+             [sep_rows["N=197"]] * 12, sep_err, served, vfwd),
+            ("attention_bwd", "nkbx_torch/ops/csrc/attention_bwd.cu",
+             "nkbx/ops/attention.py:285", [sep_bwd_rows["N=197"]] * 12, sep_bwd_err, trained,
+             vstep)):
+        def total(key):
+            vals = [r[key] for r in rows]
+            if any(v is None for v in vals):
+                return None
+            # Swin: each stage's launches times its time; ViT: 12 launches alike
+            return sum(vals) if len(rows) == 12 else sum(d * v for d, v in zip(DEPTHS, vals))
+
+        by_path = {label: counts[name] for label, counts in launched.items()}
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": launches, "max_abs_err": err["bf16"], "max_abs_err_f32": err["f32"],
-            "ms": per_forward(rows, "ms"), "plain_ms": per_forward(rows, "plain_ms"),
-            "bound_ms": bound,
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": err["bf16"], "max_abs_err_f32": err["f32"],
+            "ms": total("ms"), "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
             "bound_by": max(rows, key=lambda r: r["bound_ms"])["bound_by"],
-            "library_ms": per_forward(rows, "library_ms") if "library_ms" in rows[0] else None,
+            "library_ms": total("library_ms") if "library_ms" in rows[0] else None,
             "per": per,
         })
     log(json.dumps({"kernels": kernels}))

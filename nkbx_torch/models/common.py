@@ -60,15 +60,23 @@ class Dense(nn.Linear):
         return F.linear(x.to(self.dtype), self.weight.to(self.dtype), b)
 
 
-def mlp_tail(x, shortcut, norm: LayerNorm, fc1: Dense, fc2: Dense, *, flag, gamma=None):
+def mlp_tail(x, shortcut, norm: LayerNorm, fc1: Dense, fc2: Dense, *, flag, auto: bool = True,
+             gamma=None, drop_rate: float = 0.0, train: bool = False):
     """Transformer-block MLP half, ``shortcut + [gamma *] MLP(norm(x))``,
     with one dispatch point (:func:`nkbx_torch.ops.mlp.fused_mlp_mode`): the
-    fused LN-MLP kernel, or its plain version."""
+    fused LN-MLP kernel, or its plain version. ``auto`` is the family's
+    default for ``flag=None`` (nkbx ``mlp_tail``, common.py:249). With
+    ``drop_rate`` above 0 in training, the torch-parity Dropout between the
+    two Denses is active and the plain version runs (the kernels draw no
+    random numbers), as in nkbx."""
     dt = fc1.dtype
+    if drop_rate > 0 and train:
+        y = fc2(F.dropout(F.gelu(fc1(norm(x))), drop_rate, training=True))
+        return shortcut + (y if gamma is None else y * gamma.to(y.dtype))
     w0 = fc1.weight.t().to(dt).contiguous()
     w1 = fc2.weight.t().to(dt).contiguous()
     args = (x, norm.weight, norm.bias, w0, fc1.bias, w1, fc2.bias, shortcut)
-    if fused_mlp_mode(flag, x, w0.shape[1]) == "ln":
+    if fused_mlp_mode(flag, x, w0.shape[1], auto) == "ln":
         return fused_ln_mlp(*args, gamma=gamma, eps=norm.eps)
     return reference_ln_mlp(*args, gamma=gamma, eps=norm.eps)
 

@@ -5,9 +5,13 @@ The port's module names follow the flax tree, so the conversion is a walk:
 ``backbone.stage0_block0.attn.qkv.weight``. Per leaf:
 
 - Dense ``kernel`` (in, out) -> ``weight`` (out, in);
+- attention DenseGeneral ``kernel``: query/key/value (C, H, D) -> ``weight``
+  (H*D, C), ``out`` (H, D, C) -> ``weight`` (C, H*D); their (H, D) ``bias``
+  -> (H*D,) (nkbx/models/convert.py:486-509 documents the flax layouts);
 - Conv ``kernel`` HWIO -> ``weight`` OIHW;
 - LayerNorm ``scale`` -> ``weight``;
-- ``bias`` and ``relative_position_bias_table`` as they are.
+- other ``bias``, ``relative_position_bias_table``, ``cls_token`` and
+  ``pos_embed`` as they are.
 """
 
 from __future__ import annotations
@@ -16,16 +20,23 @@ import numpy as np
 import torch
 
 
-def _leaf(name: str, value: np.ndarray):
+def _leaf(path: tuple, value: np.ndarray):
+    name = path[-1]
     if name == "kernel":
         if value.ndim == 2:
             return "weight", value.T
+        if value.ndim == 3 and path[-2] == "out":
+            return "weight", value.reshape(-1, value.shape[-1]).T
+        if value.ndim == 3:
+            return "weight", value.reshape(value.shape[0], -1).T
         if value.ndim == 4:
             return "weight", value.transpose(3, 2, 0, 1)
         raise ValueError(f"kernel of rank {value.ndim} has no port layout")
     if name == "scale":
         return "weight", value
-    if name in ("bias", "relative_position_bias_table"):
+    if name == "bias":
+        return name, value.reshape(-1)
+    if name in ("relative_position_bias_table", "cls_token", "pos_embed"):
         return name, value
     raise KeyError(f"flax leaf {name!r} has no counterpart in the port")
 
@@ -46,7 +57,7 @@ def from_jax_variables(variables: dict, reference=None) -> dict:
             if isinstance(value, dict):
                 walk(value, prefix + (key,))
             else:
-                name, arr = _leaf(key, np.asarray(value, np.float32))
+                name, arr = _leaf(prefix + (key,), np.asarray(value, np.float32))
                 out[".".join(prefix + (name,))] = torch.from_numpy(np.array(arr, order="C"))
 
     walk(variables["params"], ())

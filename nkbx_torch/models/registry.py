@@ -1,14 +1,14 @@
 """Backbone registry of the port (counterpart of ``nkbx/models/registry.py``).
 
-The port holds the Swin family so far; every other nkbx name raises, and
-ROADMAP.md says when it comes.
+The port holds the Swin and ViT/DeiT families so far; every other nkbx name
+raises, and ROADMAP.md says when it comes.
 """
 
 from __future__ import annotations
 
 import torch
 
-from nkbx_torch.models import swin
+from nkbx_torch.models import swin, vit
 
 _REGISTRY = {
     "swin_tiny_patch4_window7_224": swin.swin_tiny_patch4_window7_224,
@@ -17,6 +17,13 @@ _REGISTRY = {
     "swin_large_patch4_window7_224": swin.swin_large_patch4_window7_224,
     "swin_base_patch4_window12_384": swin.swin_base_patch4_window12_384,
     "swin_large_patch4_window12_384": swin.swin_large_patch4_window12_384,
+    **{name: getattr(vit, name) for name in (
+        "vit_tiny_patch16_224", "vit_small_patch16_224", "vit_small_patch32_224",
+        "vit_base_patch16_224", "vit_base_patch32_224", "vit_large_patch16_224",
+        "deit_tiny_patch16_224", "deit_small_patch16_224", "deit_base_patch16_224",
+        "vit_tiny_patch16_384", "vit_small_patch16_384", "vit_small_patch32_384",
+        "vit_base_patch16_384", "vit_base_patch32_384", "vit_large_patch16_384",
+        "vit_large_patch32_384")},
 }
 
 
@@ -29,6 +36,10 @@ def create_backbone(name: str, pretrained: bool = False, drop_rate: float = 0.0,
     """Build a backbone module by its nkbx name; ``module.num_features`` is
     the embedding size. ``**opts`` are the family's fields (Swin:
     ``fused_attention``, ``fused_mlp``)."""
+    if name.lower().startswith("unicom"):
+        raise NotImplementedError(
+            f"backbone {name!r}: the unicom ViTs wait for masked BatchNorm in nkbx_torch "
+            "(ROADMAP.md B6)")
     if name not in _REGISTRY:
         raise NotImplementedError(
             f"backbone {name!r} is not ported to nkbx_torch yet (ported: "

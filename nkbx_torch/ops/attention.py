@@ -1,25 +1,31 @@
-"""Packed-qkv window attention: the CUDA kernels and their plain PyTorch
-versions, forward and backward.
+"""Attention: the CUDA kernels and their plain PyTorch versions, forward and
+backward, for both of nkbx's entries (``nkbx/ops/attention.py``).
 
-Counterpart of ``nkbx/ops/attention.py`` for Swin: the forward kernel
-``csrc/window_attention.cu`` replaces the Pallas ``_fwd_kernel_packed`` and
-the backward kernel ``csrc/window_attention_bwd.cu`` replaces
-``_bwd_kernel_packed``. :func:`fused_attention_qkv` is differentiable through
-one ``torch.autograd.Function``: on CUDA tensors both halves are the kernels,
-on CPU tensors both are the plain versions.
+- :func:`fused_attention_qkv`, Swin's window attention on the packed qkv
+  Dense output: ``csrc/window_attention.cu`` replaces the Pallas
+  ``_fwd_kernel_packed`` and ``csrc/window_attention_bwd.cu``
+  ``_bwd_kernel_packed``.
+- :func:`fused_attention`, the ViT family's full-sequence attention on
+  separate q, k, v: ``csrc/attention.cu`` replaces ``_fwd_kernel_sep`` and
+  ``csrc/attention_bwd.cu`` ``_bwd_kernel_sep``.
+
+Each entry is differentiable through one ``torch.autograd.Function``: on
+CUDA tensors both halves are the kernels, on CPU tensors both are the plain
+versions.
 
 Layout contract, the same as nkbx's:
-  qkv  : (G, N, 3*H*D)  the qkv Dense output, minor dim factored (3, H, D)
-  bias : (H, N, N) f32  learned relative-position bias, or (1, N, N) broadcast
-  mask : (M, N, N) f32  additive shift mask, G % M == 0; window g takes
-                        mask[g % M]; zeros (1, N, N) when unused
-  out  : (G, N, H*D)    heads packed head-major in the minor dim
+  qkv     : (G, N, 3*H*D) the qkv Dense output, minor dim factored (3, H, D)
+  q, k, v : (G, N, H*D)   heads packed head-major in the minor dim
+  bias    : (H, N, N) f32 learned additive bias, or (1, N, N) broadcast
+  mask    : (M, N, N) f32 additive constant mask, G % M == 0; group g takes
+                          mask[g % M]; zeros (1, N, N) when unused
+  out     : (G, N, H*D)
 
 Numerics: scores and softmax in f32, probabilities rounded to the compute
-dtype before P*V, P*V accumulated in f32 (as the Pallas kernel does). The
-backward recomputes P in f32 (nothing but qkv, bias and mask is saved) and
-rounds at the points of nkbx's ``_core_bwd`` (see
-:func:`reference_attention_bwd`).
+dtype before P*V, P*V accumulated in f32 (as the Pallas kernels do). The
+backward recomputes P in f32 (nothing but the inputs, bias and mask is
+saved) and rounds at the points of nkbx's ``_core_bwd`` (see
+:func:`_reference_bwd`).
 """
 
 from __future__ import annotations
@@ -36,21 +42,26 @@ _SIGNATURES = {"nkbx_window_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                          ctypes.c_float, _I, _P]}
 _BWD_SIGNATURES = {"nkbx_window_attention_bwd": [_P] * 7 + [_I] * 6 + [ctypes.c_float, _I,
                                                                         _I, _P]}
+_SEP_SIGNATURES = {"nkbx_attention": [_P] * 6 + [_I] * 5 + [ctypes.c_float, _I, _P]}
+_SEP_BWD_SIGNATURES = {"nkbx_attention_bwd": [_P] * 12 + [_I] * 5 + [ctypes.c_float, _I, _I,
+                                                                      _P]}
 _MAX_SMEM = 232_448  # bytes of shared memory one H100 block may have
 _BWD_BLOCKS = 1024  # the backward groups windows per block down to about this many blocks
+HEAD_DIM = 64  # the only head width attention.cu and attention_bwd.cu take (every ViT's)
 
 
-def resolve_fused(flag, x: torch.Tensor) -> bool:
+def resolve_fused(flag, x: torch.Tensor, auto: bool = True) -> bool:
     """Resolve a model's fused-attention flag, with nkbx's precedence: the
     ``NKBX_FUSED_ATTENTION=0|1`` env override, then the flag (True/False),
-    then auto (None), which means the kernel wherever the tensor is on a
-    CUDA device."""
+    then auto (None): the family's default, ``auto`` (Swin: True, ViT:
+    False), where True means the kernel wherever the tensor is on a CUDA
+    device."""
     env = os.environ.get("NKBX_FUSED_ATTENTION", "")
     if env:
         return env not in ("0", "false", "False")
     if flag is not None:
         return bool(flag)
-    return x.is_cuda
+    return auto and x.is_cuda
 
 
 def smem_bytes(n: int, d: int) -> int:
@@ -173,6 +184,176 @@ def fused_attention_qkv_bwd(qkv, bias, mask, go, scale: float, heads: int):
 fused_attention_qkv_bwd.launches = 0  # kernel launches, counted by the wrapper
 
 
+# --- separate q/k/v (ViT) -----------------------------------------------------------
+
+
+def _align128(nbytes: int) -> int:
+    return -(-nbytes // 128) * 128
+
+
+def _padded_keys(n: int) -> int:
+    return -(-n // 64) * 64
+
+
+def sep_smem_bytes(n: int, itemsize: int) -> int:
+    """Shared memory of one block of the forward kernel (attention.cu): the
+    q tile (32, 72), one key or value tile (64, 72), the f32 score rows (32,
+    Np+4) and the rounded P rows (32, Np+8), Np = N rounded up to 64."""
+    np_, ld = _padded_keys(n), HEAD_DIM + 8
+    return (_align128(32 * ld * itemsize) + _align128(64 * ld * itemsize)
+            + _align128(32 * (np_ + 4) * 4) + _align128(32 * (np_ + 8) * itemsize))
+
+
+def sep_bwd_smem_bytes(n: int, itemsize: int) -> int:
+    """Shared memory of a block of the larger of the backward's two kernels
+    (attention_bwd.cu): the rows kernel holds 16 rows of f32 P and dP (Np+4)
+    and of rounded dS·scale (Np+8) beside q, go (16, 72) and k, v (64, 72)
+    tiles; the cols kernel holds fixed (64, 72) and (32, 72) tiles."""
+    np_, ld = _padded_keys(n), HEAD_DIM + 8
+    rows = (2 * _align128(16 * ld * itemsize) + 2 * _align128(64 * ld * itemsize)
+            + 2 * _align128(16 * (np_ + 4) * 4) + _align128(16 * (np_ + 8) * itemsize))
+    cols = (2 * _align128(64 * ld * itemsize) + 4 * _align128(32 * ld * itemsize)
+            + _align128(2 * 32 * 68 * 4) + _align128(3 * 32 * 4))
+    return max(rows, cols)
+
+
+def _check_sep(q, k, v, bias, mask, heads: int, smem) -> tuple:
+    """Validate the separate-q/k/v kernels' inputs; returns (G, N, M)."""
+    g, n, hd = q.shape
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"attention kernel takes float32 or bfloat16, got {q.dtype}")
+    for name, t in (("k", k), ("v", v)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{name} {tuple(t.shape)} {t.dtype} is not q's {tuple(q.shape)} "
+                             f"{q.dtype} on {q.device}")
+    if hd != heads * HEAD_DIM:
+        raise ValueError(f"attention kernel takes heads of width {HEAD_DIM}; q's minor dim "
+                         f"{hd} is not {heads} of them")
+    m = mask.shape[0]
+    if bias.shape[1:] != (n, n) or bias.shape[0] not in (1, heads):
+        raise ValueError(f"bias {tuple(bias.shape)} is not ({heads}|1, {n}, {n})")
+    if mask.shape[1:] != (n, n) or g % m:
+        raise ValueError(f"mask {tuple(mask.shape)} does not tile G={g} groups of N={n}")
+    if smem(n, q.element_size()) > _MAX_SMEM:
+        raise ValueError(f"sequence of N={n} needs {smem(n, q.element_size())} B of shared "
+                         "memory")
+    for name, t in (("bias", bias), ("mask", mask)):
+        if t.device != q.device or t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32 on {q.device}, got {t.dtype} on {t.device}")
+    return g, n, m
+
+
+def _aligned(t):
+    """Contiguous, at a 16-byte aligned address (the kernels load 16 bytes at
+    a time)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _sep_forward(q, k, v, bias, mask, scale: float, heads: int):
+    """The forward half: the kernel on a CUDA tensor, the plain version on a
+    CPU tensor."""
+    if not q.is_cuda:
+        return reference_attention(q, k, v, bias, mask, scale, heads)
+    g, n, m = _check_sep(q, k, v, bias, mask, heads, sep_smem_bytes)
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    bias, mask = bias.contiguous(), mask.contiguous()
+    out = torch.empty_like(q)
+    if g == 0 or n == 0:
+        return out
+    lib = _build.load("attention", _SEP_SIGNATURES)
+    dev = q.device
+    with torch.cuda.device(dev):
+        err = lib.nkbx_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), mask.data_ptr(),
+            out.data_ptr(), g, n, heads, bias.shape[0], m, float(scale),
+            int(q.dtype == torch.bfloat16), torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "attention launch")
+    fused_attention.launches += 1
+    return out
+
+
+class _Attention(torch.autograd.Function):
+    """K3 forward, K4 backward. Saves q, k, v, bias and mask only, as nkbx's
+    VJP does (attention.py:372-373): P is recomputed. The backward's two
+    kernels pass three f32 statistics per (group, head, row) between them in
+    scratch that lives for the backward alone."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, mask, scale, heads):
+        ctx.save_for_backward(q, k, v, bias, mask)
+        ctx.scale, ctx.heads = scale, heads
+        return _sep_forward(q, k, v, bias, mask, scale, heads)
+
+    @staticmethod
+    def backward(ctx, go):
+        q, k, v, bias, mask = ctx.saved_tensors
+        dq, dk, dv, dbias = fused_attention_bwd(q, k, v, bias, mask, go, ctx.scale, ctx.heads,
+                                                need_dbias=ctx.needs_input_grad[3])
+        dbias = None if dbias is None else dbias.to(bias.dtype)
+        return dq, dk, dv, dbias, None, None, None
+
+
+def fused_attention(q, k, v, bias, mask, scale: float, heads: int):
+    """softmax(q kᵀ·scale + bias + mask) v on separate q, k, v; see the module
+    docstring for the layout. Differentiable in q, k, v and bias; the mask
+    gets no gradient. On CUDA tensors the forward and the backward launch the
+    kernels (heads of width 64 only; anything else raises); on CPU tensors
+    they compute the plain versions."""
+    return _Attention.apply(q, k, v, bias, mask, scale, heads)
+
+
+fused_attention.launches = 0  # forward kernel launches, counted by _sep_forward
+
+
+def fused_attention_bwd(q, k, v, bias, mask, go, scale: float, heads: int,
+                        need_dbias: bool = True):
+    """Backward of :func:`fused_attention`: ``(dq, dk, dv, dbias)``, dq, dk,
+    dv in q's dtype and dbias (bias heads, N, N) in f32, or None when
+    ``need_dbias`` is False (a constant bias, as ViT's zeros: the kernel then
+    skips the sum). On a CUDA tensor this launches the kernels (and the
+    fixed-order dbias reduction); on a CPU tensor it computes
+    :func:`reference_attention_sep_bwd`."""
+    if not q.is_cuda:
+        dq, dk, dv, dbias = reference_attention_sep_bwd(q, k, v, bias, mask, go, scale, heads)
+        return dq, dk, dv, dbias if need_dbias else None
+    g, n, m = _check_sep(q, k, v, bias, mask, heads, sep_bwd_smem_bytes)
+    dev, dt = q.device, q.dtype
+    if go.shape != q.shape or go.dtype != dt or go.device != dev:
+        raise ValueError(f"cotangent {tuple(go.shape)} {go.dtype} is not q's "
+                         f"{tuple(q.shape)} {dt} on {dev}")
+    q, k, v, go = _aligned(q), _aligned(k), _aligned(v), _aligned(go)
+    bias, mask = bias.contiguous(), mask.contiguous()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
+    f32 = dict(dtype=torch.float32, device=dev)
+    dbias = torch.zeros((bias.shape[0], n, n), **f32) if need_dbias else None
+    if g == 0 or n == 0:
+        return dq, dk, dv, dbias
+    stats = torch.empty(3 * g * heads * n, **f32)
+    wpb, partial = 1, None
+    if need_dbias:
+        wpb = max(1, g * heads * -(-n // 16) // _BWD_BLOCKS)
+        partial = torch.empty((heads, -(-g // wpb), n, n), **f32)
+    lib = _build.load("attention_bwd", _SEP_BWD_SIGNATURES)
+    with torch.cuda.device(dev):
+        err = lib.nkbx_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), mask.data_ptr(),
+            go.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
+            None if dbias is None else dbias.data_ptr(),
+            None if partial is None else partial.data_ptr(), g, n, heads, bias.shape[0], m,
+            float(scale), wpb, int(dt == torch.bfloat16),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "attention_bwd launch")
+    fused_attention_bwd.launches += 1
+    return dq, dk, dv, dbias
+
+
+fused_attention_bwd.launches = 0  # kernel launches, counted by the wrapper
+
+
+# --- plain versions -----------------------------------------------------------------
+
+
 def _heads(t, heads: int):
     """(G, N, H*D) -> (G, H, N, D) in f32."""
     g, n, hd = t.shape
@@ -203,25 +384,38 @@ def reference_attention(q, k, v, bias, mask, scale: float, heads: int):
     return _merge(o.to(q.dtype))
 
 
-def reference_attention_bwd(qkv, bias, mask, go, scale: float, heads: int):
-    """Plain backward of the packed attention: ``(dqkv, dbias_f32)``, the
-    twin of nkbx's ``_core_bwd`` (attention.py:239-269) rounding point by
-    rounding point. P is recomputed in f32; dV = (P in the compute dtype)ᵀ·g;
-    dP = g·Vᵀ; dS = P∘(dP − rowsum(dP∘P)), whose sum over windows is dbias
-    (f32; also over heads when the bias is (1, N, N)); dQ and dK are products
-    with (dS·scale) rounded to the compute dtype; every product accumulates
-    in f32, and dqkv is rounded once, to the compute dtype."""
-    dt = qkv.dtype
-    hd = qkv.shape[-1] // 3
-    q, k, v = (_heads(qkv[..., i * hd:(i + 1) * hd], heads) for i in range(3))
-    g = _heads(go, heads)
-    p = _probabilities(q, k, bias, mask, scale)
+def _reference_bwd(q, k, v, bias, mask, go, scale: float, heads: int):
+    """The plain backward of both entries, the twin of nkbx's ``_core_bwd``
+    (attention.py:239-269) rounding point by rounding point: ``(dq, dk, dv,
+    dbias)``, each (G, N, H*D) in f32 before the one rounding to the compute
+    dtype, and dbias in f32. P is recomputed in f32; dV = (P in the compute
+    dtype)ᵀ·g; dP = g·Vᵀ; dS = P∘(dP − rowsum(dP∘P)), whose sum over groups is
+    dbias (also over heads when the bias is (1, N, N)); dQ and dK are
+    products with (dS·scale) rounded to the compute dtype; every product
+    accumulates in f32."""
+    dt = q.dtype
+    qh, kh, vh, g = (_heads(t, heads) for t in (q, k, v, go))
+    p = _probabilities(qh, kh, bias, mask, scale)
     dv = p.to(dt).float().transpose(-1, -2) @ g
-    dp = g @ v.transpose(-1, -2)
+    dp = g @ vh.transpose(-1, -2)
     ds = p * (dp - (dp * p).sum(-1, keepdim=True))
     dbias = ds.sum(0) if bias.shape[0] != 1 else ds.sum((0, 1))[None]
     dsc = (ds * scale).to(dt).float()
-    dq = dsc @ k
-    dk = dsc.transpose(-1, -2) @ q
-    dqkv = torch.cat([_merge(dq), _merge(dk), _merge(dv)], dim=-1).to(dt)
-    return dqkv, dbias
+    return _merge(dsc @ kh), _merge(dsc.transpose(-1, -2) @ qh), _merge(dv), dbias
+
+
+def reference_attention_bwd(qkv, bias, mask, go, scale: float, heads: int):
+    """Plain backward of the packed attention: ``(dqkv, dbias_f32)``, dqkv
+    rounded once to the compute dtype (see :func:`_reference_bwd`)."""
+    hd = qkv.shape[-1] // 3
+    dq, dk, dv, dbias = _reference_bwd(qkv[..., :hd], qkv[..., hd:2 * hd], qkv[..., 2 * hd:],
+                                       bias, mask, go, scale, heads)
+    return torch.cat([dq, dk, dv], dim=-1).to(qkv.dtype), dbias
+
+
+def reference_attention_sep_bwd(q, k, v, bias, mask, go, scale: float, heads: int):
+    """Plain backward of the separate-q/k/v attention: ``(dq, dk, dv,
+    dbias_f32)``, dq/dk/dv rounded once to the compute dtype (see
+    :func:`_reference_bwd`)."""
+    dq, dk, dv, dbias = _reference_bwd(q, k, v, bias, mask, go, scale, heads)
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype), dbias

@@ -89,18 +89,20 @@ def pick_tile_rows(c: int, tc: bool, smem=smem_bytes):
     return None
 
 
-def fused_mlp_mode(flag, x: torch.Tensor, f: int):
+def fused_mlp_mode(flag, x: torch.Tensor, f: int, auto: bool = True):
     """Resolve a block's MLP lowering for x (..., C) and hidden width F:
     ``"ln"`` (the fused kernels) or None (the plain version). Precedence as
     in nkbx: the ``NKBX_FUSED_MLP=0|1`` env override, then the flag, then
-    auto (the tensor is on a CUDA device); ``NKBX_FUSED_LN_MLP=0`` and a
-    width whose forward or backward tile does not fit shared memory select
-    the plain version (nkbx's ``fused_mlp_viable`` also sizes both)."""
+    auto (None): the family's default, ``auto`` (Swin: True, ViT: False),
+    where True means the kernels wherever the tensor is on a CUDA device;
+    ``NKBX_FUSED_LN_MLP=0`` and a width whose forward or backward tile does
+    not fit shared memory select the plain version (nkbx's
+    ``fused_mlp_viable`` also sizes both)."""
     env = os.environ.get("NKBX_FUSED_MLP", "")
     if env:
         on = env not in ("0", "false", "False")
     else:
-        on = x.is_cuda if flag is None else bool(flag)
+        on = (auto and x.is_cuda) if flag is None else bool(flag)
     if not on or os.environ.get("NKBX_FUSED_LN_MLP", "") in ("0", "false", "False"):
         return None
     c = x.shape[-1]

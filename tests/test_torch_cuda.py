@@ -13,15 +13,21 @@ shows that the kernel, not its plain version, ran:
   tests/test_torch_attention.py, a head-broadcast bias and window 12 (N=144);
 - K5 LN -> MLP and K6 its backward, with a ragged tile, a layer-scale,
   Swin-T's widest width and a width off the tensor-core grid;
-- a tiny Swin's loss backward through the kernels gives every parameter a
-  finite, non-zero gradient (the autograd graph is not cut).
+- K3 full-sequence attention on separate q, k, v and K4 its backward, at
+  the ViT sequences N = 50, 145, 197 and 577 (D = 64), with a (1, N, N) and an
+  (H, N, N) bias, masks of M = 2 and 3, and K4 with and without dbias;
+- a tiny Swin's and a tiny ViT's loss backward through the kernels gives
+  every parameter a finite, non-zero gradient (the autograd graph is not
+  cut).
 
 Tolerances, absolute: K1 f32 1e-4, bf16 3e-2 (P and the output round to
 bf16; a last-bit difference flips one rounding of values of order 1). K2
 dqkv f32 1e-4, bf16 6e-2 (dS*scale rounds to bf16 too); dbias 1e-4 of its
 largest value. K5 f32 5e-4, bf16 1.25e-1 (outputs reach 8, where one bf16
 ulp is 3.1e-2). K6, relative to each gradient's largest value: f32 1e-3,
-bf16 3e-2.
+bf16 3e-2. K3 as K1. K4, relative to each gradient's largest value: f32
+1e-4, bf16 4 bf16 ulps (P, dS*scale and the outputs round to bf16); dbias
+1e-4 of its largest value.
 """
 
 import pathlib
@@ -50,6 +56,16 @@ ATTN_CASES = [
 
 MLP_CASES = [(1000, 96, 384, True), (49, 768, 3072, False), (300, 192, 768, False),
              (100, 40, 160, True)]
+
+SEP_CASES = [
+    # (G, N, heads, M, bias heads); D = 64
+    (4, 50, 2, 1, 1),  # ViT patch 32 at 224 px
+    (2, 145, 2, 1, 1),  # patch 32 at 384 px
+    (2, 197, 3, 1, 1),  # patch 16 at 224 px, the zeros-shaped shared bias
+    (2, 197, 2, 2, 2),  # a learned (H, N, N) bias and a mask of M = 2
+    (1, 577, 2, 1, 1),  # patch 16 at 384 px
+    (3, 17, 1, 3, 1),  # a mask per group
+]
 
 
 @pytest.fixture
@@ -153,6 +169,52 @@ def test_ln_mlp_bwd_kernel_matches_plain_on_card(cuda_device, dtype, r, c, f, ga
         assert ((gv.float() - wv.float()).abs().max() <= tol * wv.float().abs().max()).item()
 
 
+def _sep_inputs(g, n, heads, m, bh, device, dtype):
+    rng = np.random.RandomState(1)
+    q, k, v, go = (rng.randn(g, n, heads * 64).astype(np.float32) for _ in range(4))
+    bias = (rng.randn(bh, n, n) * 0.1).astype(np.float32)
+    mask = np.where(rng.rand(m, n, n) < 0.2, -100.0, 0.0).astype(np.float32)
+    q, k, v, go, bias, mask = (torch.from_numpy(t).to(device) for t in (q, k, v, go, bias, mask))
+    return q.to(dtype), k.to(dtype), v.to(dtype), bias, mask, go.to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("g,n,heads,m,bh", SEP_CASES)
+def test_sep_attention_kernel_matches_plain_on_card(cuda_device, dtype, tol, g, n, heads, m, bh):
+    q, k, v, bias, mask, _ = _sep_inputs(g, n, heads, m, bh, cuda_device, dtype)
+    before = tattn.fused_attention.launches
+    got = tattn.fused_attention(q, k, v, bias, mask, 0.125, heads)
+    torch.cuda.synchronize()
+    assert tattn.fused_attention.launches == before + 1
+    want = tattn.reference_attention(q, k, v, bias, mask, 0.125, heads)
+    assert got.dtype == dtype
+    assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g,n,heads,m,bh", SEP_CASES)
+def test_sep_attention_bwd_kernel_matches_plain_on_card(cuda_device, dtype, g, n, heads, m, bh):
+    q, k, v, bias, mask, go = _sep_inputs(g, n, heads, m, bh, cuda_device, dtype)
+    before = tattn.fused_attention_bwd.launches
+    got = tattn.fused_attention_bwd(q, k, v, bias, mask, go, 0.125, heads)
+    no_dbias = tattn.fused_attention_bwd(q, k, v, bias, mask, go, 0.125, heads,
+                                         need_dbias=False)
+    torch.cuda.synchronize()
+    assert tattn.fused_attention_bwd.launches == before + 2
+    want = tattn.reference_attention_sep_bwd(q, k, v, bias, mask, go, 0.125, heads)
+    tol = 1e-4 if dtype == torch.float32 else 4 * 2.0 ** -8
+    for gv, wv in zip(got[:3], want[:3]):
+        assert gv.dtype == dtype
+        assert ((gv.float() - wv.float()).abs().max() <= tol * wv.float().abs().max()).item()
+    assert got[3].dtype == torch.float32 and got[3].shape == bias.shape
+    assert ((got[3] - want[3]).abs().max() <= 1e-4 * want[3].abs().max()).item()
+    assert no_dbias[3] is None
+    for a, b in zip(got[:3], no_dbias[:3]):
+        assert torch.equal(a, b)  # the same arithmetic, one group per block or several
+
+
 @pytest.mark.cuda
 def test_every_parameter_gets_a_gradient_through_the_kernels(cuda_device):
     from nkbx_torch.models.classifier import SingletaskClassifier
@@ -180,6 +242,34 @@ def test_every_parameter_gets_a_gradient_through_the_kernels(cuda_device):
         assert torch.isfinite(p.grad).all() and p.grad.abs().max() > 0, name
 
 
+@pytest.mark.cuda
+def test_every_vit_parameter_gets_a_gradient_through_the_kernels(cuda_device):
+    from nkbx_torch.models.classifier import SingletaskClassifier
+    from nkbx_torch.models.vit import ViT
+    from nkbx_torch.train import get_loss
+    from nkbx_torch.transforms import Compose, Normalize
+
+    torch.manual_seed(0)
+    backbone = ViT(patch_size=16, dim=128, depth=2, n_heads=2, img_size=(64, 64),
+                   fused_attention=True, fused_mlp=True)
+    module = SingletaskClassifier(backbone, 3).to(cuda_device).train()
+    rng = np.random.default_rng(8)
+    images = torch.from_numpy(rng.integers(0, 256, (4, 64, 64, 3), dtype=np.uint8))
+    x = Compose([Normalize()]).device_apply(images.to(cuda_device))
+    labels = torch.from_numpy(rng.integers(0, 3, 4)).to(cuda_device)
+    mask = torch.tensor([True, True, True, False], device=cuda_device)
+    before = tattn.fused_attention_bwd.launches, tmlp.fused_ln_mlp_bwd.launches
+    loss = get_loss({"type": "CrossEntropyLoss"})(module(x), labels, mask=mask)
+    loss.backward()
+    torch.cuda.synchronize()
+    assert tattn.fused_attention_bwd.launches == before[0] + 2
+    assert tmlp.fused_ln_mlp_bwd.launches == before[1] + 2
+    for name, p in module.named_parameters():
+        assert p.grad is not None and torch.isfinite(p.grad).all(), name
+        # the key Dense's bias shifts whole score rows: zero gradient in exact arithmetic
+        assert name.endswith("key.bias") or p.grad.abs().max() > 0, name
+
+
 def test_card_tests_collect_without_jax_or_nkbx():
     """The card's machine has no JAX: this file must collect (and its card
     tests skip here) with jax, flax and nkbx unimportable and no conftest."""
@@ -192,7 +282,7 @@ def test_card_tests_collect_without_jax_or_nkbx():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-2000:]
-    n = 2 * 2 * len(ATTN_CASES) + 2 * 2 * len(MLP_CASES) + 1
+    n = 2 * 2 * len(ATTN_CASES) + 2 * 2 * len(MLP_CASES) + 2 * 2 * len(SEP_CASES) + 2
     word = "passed" if torch.cuda.is_available() else "skipped"
     assert re.search(rf"\b{n} {word}\b", proc.stdout), proc.stdout[-2000:]
 
