@@ -13,23 +13,29 @@
    gives them at bucket 64 (and window 12; K5 also at ViT-B's C = 768 with
    B*197 rows); full-sequence attention (K3) at ViT-B's 12 heads of width
    64 at bucket 64 for N = 50, 197 (the main shape) and 577, and a small
-   case with a learned (H, N, N) bias and a mask of M = 2.
+   case with a learned (H, N, N) bias and a mask of M = 2; the MLP alone
+   (K7) at the four stage shapes of ConvNeXt-T at bucket 64 (the R and C of
+   K5's Swin-T cases), bucket 1's ragged 49 rows at C = 768, and an FMA
+   width.
 3. The same for the backward kernels: K2 and K6 at the shapes of a batch-64
    Swin-T train step (and window 12 for K2, a ragged tile with a layer-scale
    and an FMA width for K6, ViT-B's MLP for K6), K4 at K3's shapes (dbias
-   checked in the small case). The library time of a backward is the
-   backward alone of scaled_dot_product_attention, with the SDPA backend
-   that ran.
-4. Drives the serving path of swin_tiny_patch4_window7_224 and of
-   vit_base_patch16_224 (fused_attention and fused_mlp on), bf16, random
-   weights from a seed: a ServingModule with buckets (1, 8, 64) answers
+   checked in the small case), K8 at K7's shapes. The library time of a
+   backward is the backward alone of scaled_dot_product_attention, with the
+   SDPA backend that ran; no PyTorch call computes K5-K8.
+4. Drives the serving path of swin_tiny_patch4_window7_224, of
+   vit_base_patch16_224 (fused_attention and fused_mlp on) and of
+   convnext_tiny, twice (through K5 and, under NKBX_FUSED_LN_MLP=0, through
+   K7), bf16, random weights from a seed (ConvNeXt's layer-scales drawn from
+   U[0.1, 1]: at flax's 1e-6 every MLP gradient would sit under the
+   gradient check's floor): a ServingModule with buckets (1, 8, 64) answers
    requests of 1, 5, 64 and 70 seeded uint8 224x224 images. Checks each
    kernel's launch count, finite logits of the right shapes, and agreement
    with the same model run through the plain versions in bf16 and f32; then
    times benchmark(64) through the kernels and through the plain versions,
    the peak memory, and a profile of where the device time goes.
-5. Drives the training path of both models at full width and depth (bf16,
-   10 classes), nadam with two groups, cross-entropy, flips + Normalize, a
+5. Drives the training path of every model of phase 4 at full width and
+   depth (bf16, 10 classes), nadam with two groups, cross-entropy, flips + Normalize, a
    seeded uint8 batch of 64 with the last 6 rows masked out. 5 steps through
    the kernels (launch counts per step, finite grads, falling loss) and the
    same 5 steps from the same weights through the plain versions (losses
@@ -39,13 +45,14 @@
    they are no farther from the f32 grads than plain bf16 is (within 2x).
    Then step time, img/s and peak memory of both paths, and a profile of
    one step.
-6. Prints the kernels' JSON line (all six kernels), the card's name and
+6. Prints the kernels' JSON line (all eight kernels), the card's name and
    power limit, and last {"ok": true, "device": {...}}.
 
 Exits non-zero, before printing any result, without a CUDA device, outside
 a checkout of the repository, or when any check fails.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -55,6 +62,7 @@ import time
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}  # dense bf16 tensor core / f32 without
 DEPTHS = (2, 2, 6, 2)  # swin_tiny blocks per stage
+CONVNEXT_DEPTHS = (3, 3, 9, 3)  # convnext_tiny blocks per stage
 BUCKET = 64
 OUT_DIR = "chiprun_out"
 
@@ -364,6 +372,98 @@ def check_mlp_bwd():
     return rows, worst
 
 
+# --- phases 2-3: the MLP alone (K7, K8) -------------------------------------------
+
+# ConvNeXt-T at bucket/batch 64, stages 0-3 (R = 64 * 56^2 ... 64 * 7^2, C = 96
+# ... 768, F = 4C), bucket 1's stage 3 (49 rows, one ragged 16-row tile), and a
+# width off the tensor-core grid
+MLP_ONLY_CASES = ([(s, BUCKET * (56 >> s) ** 2, 96 << s) for s in range(4)]
+                  + [("b1-s3", 49, 768), ("fma-width", 1000, 40)])
+
+
+def mlp_only_case(r, c, dtype, gen):
+    """x, w0, b0, w1, b1 and dy of the MLP alone."""
+    args, _ = mlp_case(r, c, dtype, gen)
+    dy = torch.randn(r, c, generator=gen, device=DEV).to(DT[dtype])
+    return (args[0], args[3], args[4], args[5], args[6]), dy
+
+
+def check_mlp_only():
+    gen = torch.Generator(device=DEV).manual_seed(7)
+    # f32 5e-4 as K5; bf16 4 ulps of the largest value: the plain version rounds u
+    # to bf16 before the GELU and adds b1 to a rounded product
+    tol = {"f32": lambda ref: 5e-4, "bf16": lambda ref: 4 * bf16_ulp(ref)}
+    rows, worst = [], {"bf16": 0.0, "f32": 0.0}
+    for stage, r, c in MLP_ONLY_CASES:
+        for dtype in ("bf16", "f32"):
+            args, _ = mlp_only_case(r, c, dtype, gen)
+            got = M.fused_mlp(*args)
+            torch.cuda.synchronize()
+            ref = M.reference_mlp(*args)
+            err, lim = max_err(got, ref), tol[dtype](float(ref.float().abs().max()))
+            worst[dtype] = max(worst[dtype], err)
+            ok = err <= lim
+            f = 4 * c
+            tc = M.tensor_cores(DT[dtype], c, f)
+            log(f"K7 stage {stage} R={r} C={c} F={f} tile={M.pick_tile_rows(c, tc, M.mlp_smem_bytes)} "
+                f"tc={tc} {dtype}: max|err| {err:.3e} (tol {lim:.3e}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"MLP kernel disagrees with its plain version at stage {stage} {dtype}")
+            if dtype != "bf16" or not isinstance(stage, int):
+                continue
+            ms = cuda_ms(lambda: M.fused_mlp(*args))
+            plain = cuda_ms(lambda: M.reference_mlp(*args))
+            b, by = bound_ms(2 * (2 * r * c + 2 * c * f) + 4 * (c + f), 4 * r * c * f, "bf16")
+            log(f"   bf16 times: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+                f"bound {b:.4f} ms ({by})")
+            rows.append(dict(stage=stage, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by))
+    return rows, worst
+
+
+def check_mlp_only_bwd():
+    gen = torch.Generator(device=DEV).manual_seed(8)
+    # each gradient against max|plain|, as K6: f32 5e-4; bf16 2e-2 (g, du and dx
+    # round to bf16, and a last-bit difference in f32 flips a rounding)
+    tol = {"f32": 5e-4, "bf16": 2e-2}
+    rows, worst = [], {"bf16": 0.0, "f32": 0.0}
+    names = ("dx", "dw0", "db0", "dw1", "db1")
+    for stage, r, c in MLP_ONLY_CASES:
+        for dtype in ("bf16", "f32"):
+            args, dy = mlp_only_case(r, c, dtype, gen)
+            got = M.fused_mlp_bwd(*args, dy)
+            torch.cuda.synchronize()
+            want = M.reference_mlp_bwd(*args, dy)
+            rel = {}
+            for name, gv, wv in zip(names, got, want):
+                if gv.dtype != wv.dtype or gv.shape != wv.shape:
+                    fail(f"MLP backward: {name} is {gv.dtype} {tuple(gv.shape)}, plain "
+                         f"{wv.dtype} {tuple(wv.shape)}")
+                rel[name] = max_err(gv, wv) / max(float(wv.float().abs().max()), 1e-30)
+                worst[dtype] = max(worst[dtype], max_err(gv, wv))
+            bad = max(rel.values())
+            ok = bad <= tol[dtype]
+            f = 4 * c
+            tc = M.tensor_cores(DT[dtype], c, f)
+            log(f"K8 stage {stage} R={r} C={c} F={f} tile="
+                f"{M.pick_tile_rows(c, tc, M.mlp_bwd_smem_bytes)} tc={tc} {dtype}: max rel err "
+                f"{bad:.3e} ({max(rel, key=rel.get)}; tol {tol[dtype]:.1e}) "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"MLP backward disagrees with its plain version at stage {stage} {dtype}")
+            if dtype != "bf16" or not isinstance(stage, int):
+                continue
+            ms = cuda_ms(lambda: M.fused_mlp_bwd(*args, dy), iters=5)
+            plain = cuda_ms(lambda: M.reference_mlp_bwd(*args, dy), iters=5)
+            # x, dy in, dx out; w0, w1 in, dw0, dw1 out; the biases and theirs in f32.
+            # The u recompute, dw1, dg, dw0 and dx: 2*R*C*F operations each
+            b, by = bound_ms(2 * (3 * r * c + 4 * c * f) + 4 * 2 * (c + f), 10 * r * c * f,
+                             "bf16")
+            log(f"   bf16 times: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+                f"bound {b:.4f} ms ({by})")
+            rows.append(dict(stage=stage, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by))
+    return rows, worst
+
+
 # --- phases 2-3: full-sequence attention (K3, K4) --------------------------------
 
 VIT_HEADS, VIT_D = 12, 64  # ViT-B: 12 heads of width 64
@@ -505,7 +605,8 @@ def check_sep_attention_bwd():
 COUNTED = {"window_attention": (A, "fused_attention_qkv"), "ln_mlp": (M, "fused_ln_mlp"),
            "window_attention_bwd": (A, "fused_attention_qkv_bwd"),
            "ln_mlp_bwd": (M, "fused_ln_mlp_bwd"), "attention": (A, "fused_attention"),
-           "attention_bwd": (A, "fused_attention_bwd")}
+           "attention_bwd": (A, "fused_attention_bwd"), "mlp": (M, "fused_mlp"),
+           "mlp_bwd": (M, "fused_mlp_bwd")}
 
 
 def zero_counts():
@@ -527,30 +628,57 @@ def set_plain(on):
 
 class Path:
     """One model of the smoke run: its config (full width and depth, random
-    weights from seed 0, 10 classes), its attention kernels, and the widths
-    of its blocks' MLPs."""
+    weights from seed 0, 10 classes), its attention kernels (None for
+    ConvNeXt), the widths of its blocks' MLPs, the environment it runs under
+    (``NKBX_FUSED_LN_MLP=0`` takes K7/K8), and whether its layer-scales are
+    drawn anew."""
 
-    def __init__(self, label, cfg, attention, widths):
+    def __init__(self, label, cfg, attention, widths, env=None, layer_scale=False):
         self.label, self.cfg, self.attention, self.widths = label, cfg, attention, widths
+        self.env, self.layer_scale = env or {}, layer_scale
 
     def model(self, dtype):
-        return get_model(self.cfg, [f"class{i}" for i in range(10)], seed=0, dtype=dtype)
+        model = get_model(self.cfg, [f"class{i}" for i in range(10)], seed=0, dtype=dtype)
+        if self.layer_scale:  # seeded U[0.1, 1], the same in every dtype
+            gen = torch.Generator().manual_seed(1)
+            for name, p in model.module.named_parameters():
+                if name.endswith("layer_scale"):
+                    p.data.copy_(0.1 + 0.9 * torch.rand(p.shape, generator=gen))
+        return model
 
-    def ln_mlp_blocks(self, dtype):
-        """The blocks whose MLP takes the LN-MLP kernels in ``dtype`` (with the
-        NKBX_FUSED_* switches unset)."""
-        flag = (self.cfg.get("backbone_opts") or {}).get("fused_mlp")
-        return sum(M.fused_mlp_mode(flag, torch.empty(1, c, dtype=dtype, device=DEV), 4 * c,
-                                    auto=flag is None) == "ln" for c in self.widths)
+    @contextlib.contextmanager
+    def environment(self):
+        saved = {k: os.environ.get(k) for k in self.env}
+        os.environ.update(self.env)
+        try:
+            yield
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
 
     def expected(self, dtype, backward):
-        """Each kernel's launches in one forward (and backward)."""
-        n = self.ln_mlp_blocks(dtype)
+        """Each kernel's launches in one forward (and backward), from the
+        gate's answer for each block (with the NKBX_FUSED_MLP switch unset)."""
+        flag = (self.cfg.get("backbone_opts") or {}).get("fused_mlp")
+        modes = [M.fused_mlp_mode(flag, torch.empty(1, c, dtype=dtype, device=DEV), 4 * c,
+                                  auto=flag is None) for c in self.widths]
         want = dict.fromkeys(COUNTED, 0)
-        want[self.attention], want["ln_mlp"] = len(self.widths), n
+        want["ln_mlp"], want["mlp"] = modes.count("ln"), modes.count("mlp")
+        if self.attention:
+            want[self.attention] = len(self.widths)
         if backward:
-            want[self.attention + "_bwd"], want["ln_mlp_bwd"] = len(self.widths), n
+            want["ln_mlp_bwd"], want["mlp_bwd"] = want["ln_mlp"], want["mlp"]
+            if self.attention:
+                want[self.attention + "_bwd"] = len(self.widths)
         return want
+
+
+def mlp_kernels_ran(want, backward):
+    suffix = "_bwd" if backward else ""
+    return want["ln_mlp" + suffix] + want["mlp" + suffix] > 0
 
 
 SWIN = Path("swin_tiny", {"model": "swin_tiny_patch4_window7_224"}, "window_attention",
@@ -558,6 +686,12 @@ SWIN = Path("swin_tiny", {"model": "swin_tiny_patch4_window7_224"}, "window_atte
 VIT = Path("vit_base", {"model": "vit_base_patch16_224",
                         "backbone_opts": {"fused_attention": True, "fused_mlp": True}},
            "attention", [768] * 12)
+CONVNEXT_WIDTHS = [c for d, c in zip(CONVNEXT_DEPTHS, (96, 192, 384, 768)) for _ in range(d)]
+CONVNEXT = Path("convnext_tiny", {"model": "convnext_tiny"}, None, CONVNEXT_WIDTHS,
+                layer_scale=True)
+CONVNEXT_MLP = Path("convnext_tiny_mlp", {"model": "convnext_tiny"}, None, CONVNEXT_WIDTHS,
+                    env={"NKBX_FUSED_LN_MLP": "0"}, layer_scale=True)
+PATHS = (SWIN, VIT, CONVNEXT, CONVNEXT_MLP)
 
 
 def serve_all(serving, requests):
@@ -615,6 +749,10 @@ def check_path(path):
     5, 64 and 70 images through the kernels (launch counts, finite logits),
     and agrees with the plain versions in bf16 and in f32."""
     model = path.model(torch.bfloat16)
+    if path.layer_scale:
+        scales = [p for n, p in model.module.named_parameters() if n.endswith("layer_scale")]
+        log(f"path {path.label}: {len(scales)} layer_scale tensors drawn from U[0.1, 1] (seed "
+            f"1), mean {float(torch.cat(scales).detach().mean()):.4f}; environment {path.env}")
     serving = ServingModule(model, buckets=(1, 8, BUCKET), warm_up_on_load=False)
     rng = np.random.default_rng(0)
     sizes = (1, 5, 64, 70)
@@ -627,7 +765,8 @@ def check_path(path):
     counts = read_counts()
     want = {k: v * forwards for k, v in path.expected(torch.bfloat16, False).items()}
     log(f"path {path.label}: {forwards} forwards; launches {counts} (expect {want})")
-    if counts != want or not counts[path.attention] or not counts["ln_mlp"]:
+    if (counts != want or not mlp_kernels_ran(want, False)
+            or (path.attention and not counts[path.attention])):
         fail(f"the {path.label} serving path did not go through the kernels as expected")
     for n, o in zip(sizes, outs):
         if tuple(o.shape) != (n, 10) or o.dtype != torch.float32 or not torch.isfinite(o).all():
@@ -714,7 +853,7 @@ def check_grads(path, model, init, criterion, pipe, images, labels, mask):
             ok = counts == (dict.fromkeys(want, 0) if plain else want)
             log(f"grads {path.label} {DTYPE_NAME[dtype]} {'plain' if plain else 'kernels'}: "
                 f"launches {counts} {'ok' if ok else 'FAIL'}")
-            if not ok or want["ln_mlp_bwd"] == 0:
+            if not ok or not mlp_kernels_ran(want, True):
                 fail("the gradient check did not compare the kernels with the plain path")
     del m32
     g32 = g[torch.float32, True]
@@ -794,7 +933,7 @@ def check_train(path):
     losses, counts, finite = five_steps(False)
     log(f"train {path.label}: kernels, 5 steps, losses {[round(x, 5) for x in losses]}, "
         f"launches per step {counts[0]} (expect {want})")
-    if any(c != want for c in counts) or want["ln_mlp_bwd"] == 0:
+    if any(c != want for c in counts) or not mlp_kernels_ran(want, True):
         fail(f"the {path.label} train step did not go through the kernels as expected: {counts}")
     if not finite or not all(np.isfinite(losses)):
         fail(f"{path.label}: non-finite loss or gradient through the kernels")
@@ -868,33 +1007,47 @@ def main():
     mlp_bwd_rows, mlp_bwd_err = check_mlp_bwd()
     sep_rows, sep_err = check_sep_attention()
     sep_bwd_rows, sep_bwd_err = check_sep_attention_bwd()
-    served = {p.label: check_path(p) for p in (SWIN, VIT)}
-    trained = {p.label: check_train(p) for p in (SWIN, VIT)}
+    mlp_only_rows, mlp_only_err = check_mlp_only()
+    mlp_only_bwd_rows, mlp_only_bwd_err = check_mlp_only_bwd()
+    served, trained = {}, {}
+    for p in PATHS:
+        with p.environment():
+            served[p.label] = check_path(p)
+    for p in PATHS:
+        with p.environment():
+            trained[p.label] = check_train(p)
 
     fwd, step = "one bucket-64 swin_tiny forward, bf16", "one batch-64 swin_tiny train step, bf16"
     vfwd = "one bucket-64 vit_base_patch16_224 forward, bf16 (12 launches at N=197)"
     vstep = "one batch-64 vit_base_patch16_224 train step, bf16 (12 launches at N=197)"
+    cfwd = "one bucket-64 convnext_tiny forward under NKBX_FUSED_LN_MLP=0, bf16 (3/3/9/3 launches)"
+    cstep = "one batch-64 convnext_tiny train step under NKBX_FUSED_LN_MLP=0, bf16"
     kernels = []
-    for name, src, replaces, rows, err, launched, per in (
+    # each row is one launch at a stage's shape; ``mult`` its launches per forward or step
+    for name, src, replaces, rows, err, launched, per, mult in (
             ("window_attention", "nkbx_torch/ops/csrc/window_attention.cu",
-             "nkbx/ops/attention.py:302", attn_rows[:4], attn_err, served, fwd),
+             "nkbx/ops/attention.py:302", attn_rows[:4], attn_err, served, fwd, DEPTHS),
             ("ln_mlp", "nkbx_torch/ops/csrc/ln_mlp.cu", "nkbx/ops/mlp.py:504",
-             mlp_rows[:4], mlp_err, served, fwd),
+             mlp_rows[:4], mlp_err, served, fwd, DEPTHS),
             ("window_attention_bwd", "nkbx_torch/ops/csrc/window_attention_bwd.cu",
-             "nkbx/ops/attention.py:313", attn_bwd_rows[:4], attn_bwd_err, trained, step),
+             "nkbx/ops/attention.py:313", attn_bwd_rows[:4], attn_bwd_err, trained, step,
+             DEPTHS),
             ("ln_mlp_bwd", "nkbx_torch/ops/csrc/ln_mlp_bwd.cu", "nkbx/ops/mlp.py:520",
-             mlp_bwd_rows[:4], mlp_bwd_err, trained, step),
+             mlp_bwd_rows[:4], mlp_bwd_err, trained, step, DEPTHS),
             ("attention", "nkbx_torch/ops/csrc/attention.cu", "nkbx/ops/attention.py:275",
-             [sep_rows["N=197"]] * 12, sep_err, served, vfwd),
+             [sep_rows["N=197"]], sep_err, served, vfwd, (12,)),
             ("attention_bwd", "nkbx_torch/ops/csrc/attention_bwd.cu",
-             "nkbx/ops/attention.py:285", [sep_bwd_rows["N=197"]] * 12, sep_bwd_err, trained,
-             vstep)):
+             "nkbx/ops/attention.py:285", [sep_bwd_rows["N=197"]], sep_bwd_err, trained,
+             vstep, (12,)),
+            ("mlp", "nkbx_torch/ops/csrc/ln_mlp.cu", "nkbx/ops/mlp.py:250", mlp_only_rows,
+             mlp_only_err, served, cfwd, CONVNEXT_DEPTHS),
+            ("mlp_bwd", "nkbx_torch/ops/csrc/ln_mlp_bwd.cu", "nkbx/ops/mlp.py:265",
+             mlp_only_bwd_rows, mlp_only_bwd_err, trained, cstep, CONVNEXT_DEPTHS)):
         def total(key):
             vals = [r[key] for r in rows]
             if any(v is None for v in vals):
                 return None
-            # Swin: each stage's launches times its time; ViT: 12 launches alike
-            return sum(vals) if len(rows) == 12 else sum(d * v for d, v in zip(DEPTHS, vals))
+            return sum(m * v for m, v in zip(mult, vals, strict=True))
 
         by_path = {label: counts[name] for label, counts in launched.items()}
         kernels.append({
@@ -906,6 +1059,14 @@ def main():
             "library_ms": total("library_ms") if "library_ms" in rows[0] else None,
             "per": per,
         })
+    # K5/K6 on the other models' paths: ConvNeXt-T's stages have Swin-T's R and C
+    # (3/3/9/3 launches; K6 timed without the layer-scale that ConvNeXt's recomputes
+    # y for), ViT-B's 12 launches at R = 12608
+    for k, rows in ((kernels[1], mlp_rows), (kernels[3], mlp_bwd_rows)):
+        for key in ("ms", "plain_ms", "bound_ms"):
+            k[key + "_by_path"] = {
+                "convnext_tiny": sum(m * r[key] for m, r in zip(CONVNEXT_DEPTHS, rows[:4])),
+                "vit_base": 12 * rows[4][key]}
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

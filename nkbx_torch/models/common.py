@@ -15,7 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from nkbx_torch.ops.mlp import fused_ln_mlp, fused_mlp_mode, reference_ln_mlp
+from nkbx_torch.ops.mlp import fused_ln_mlp, fused_mlp, fused_mlp_mode, reference_ln_mlp
 
 
 class LayerNorm(nn.Module):
@@ -63,20 +63,25 @@ class Dense(nn.Linear):
 def mlp_tail(x, shortcut, norm: LayerNorm, fc1: Dense, fc2: Dense, *, flag, auto: bool = True,
              gamma=None, drop_rate: float = 0.0, train: bool = False):
     """Transformer-block MLP half, ``shortcut + [gamma *] MLP(norm(x))``,
-    with one dispatch point (:func:`nkbx_torch.ops.mlp.fused_mlp_mode`): the
-    fused LN-MLP kernel, or its plain version. ``auto`` is the family's
-    default for ``flag=None`` (nkbx ``mlp_tail``, common.py:249). With
-    ``drop_rate`` above 0 in training, the torch-parity Dropout between the
-    two Denses is active and the plain version runs (the kernels draw no
-    random numbers), as in nkbx."""
+    with one dispatch point (:func:`nkbx_torch.ops.mlp.fused_mlp_mode`), as
+    nkbx's ``mlp_tail`` (common.py:249-298): the fused LN-MLP kernels
+    (``"ln"``), the MLP-only kernels after the plain LayerNorm (``"mlp"``),
+    or the plain version (None). ``auto`` is the family's default for
+    ``flag=None``. With ``drop_rate`` above 0 in training, the torch-parity
+    Dropout between the two Denses is active and the plain version runs
+    (the kernels draw no random numbers), as in nkbx."""
     dt = fc1.dtype
     if drop_rate > 0 and train:
         y = fc2(F.dropout(F.gelu(fc1(norm(x))), drop_rate, training=True))
         return shortcut + (y if gamma is None else y * gamma.to(y.dtype))
     w0 = fc1.weight.t().to(dt).contiguous()
     w1 = fc2.weight.t().to(dt).contiguous()
+    mode = fused_mlp_mode(flag, x, w0.shape[1], auto)
+    if mode == "mlp":
+        y = fused_mlp(norm(x), w0, fc1.bias, w1, fc2.bias)
+        return shortcut + (y if gamma is None else y * gamma.to(y.dtype))
     args = (x, norm.weight, norm.bias, w0, fc1.bias, w1, fc2.bias, shortcut)
-    if fused_mlp_mode(flag, x, w0.shape[1], auto) == "ln":
+    if mode == "ln":
         return fused_ln_mlp(*args, gamma=gamma, eps=norm.eps)
     return reference_ln_mlp(*args, gamma=gamma, eps=norm.eps)
 

@@ -10,8 +10,11 @@ The port's module names follow the flax tree, so the conversion is a walk:
   -> (H*D,) (nkbx/models/convert.py:486-509 documents the flax layouts);
 - Conv ``kernel`` HWIO -> ``weight`` OIHW;
 - LayerNorm ``scale`` -> ``weight``;
-- other ``bias``, ``relative_position_bias_table``, ``cls_token`` and
-  ``pos_embed`` as they are.
+- other ``bias``, ``relative_position_bias_table``, ``cls_token``,
+  ``pos_embed`` and ``layer_scale`` as they are.
+
+A depthwise Conv kernel (kh, kw, 1, C) takes the same rank-4 rule, to the
+(C, 1, kh, kw) weight of a grouped ``nn.Conv2d``.
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ def _leaf(path: tuple, value: np.ndarray):
         return "weight", value
     if name == "bias":
         return name, value.reshape(-1)
-    if name in ("relative_position_bias_table", "cls_token", "pos_embed"):
+    if name in ("relative_position_bias_table", "cls_token", "pos_embed", "layer_scale"):
         return name, value
     raise KeyError(f"flax leaf {name!r} has no counterpart in the port")
 

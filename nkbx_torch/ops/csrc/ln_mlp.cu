@@ -1,33 +1,40 @@
 // Fused LayerNorm -> Dense -> exact GELU -> Dense -> layer-scale -> residual,
-// forward only: the transformer-block MLP half.
+// forward only: the transformer-block MLP half; and its LN-free member, the
+// MLP alone.
 //
-// Replaces the Pallas kernel nkbx/ops/mlp.py:504 `_lnmlp_fwd_kernel` (entry
-// `fused_ln_mlp`). For each row of x (R, C):
+// Replaces two Pallas kernels: nkbx/ops/mlp.py:504 `_lnmlp_fwd_kernel`
+// (entry `fused_ln_mlp`, K5; C entry `nkbx_ln_mlp`) and nkbx/ops/mlp.py:250
+// `_fwd_kernel` (entry `fused_mlp`, K7; C entry `nkbx_mlp`). For each row of
+// x (R, C), K5 computes:
 //   h   = LayerNorm(x) in float (flax fast variance E[x^2] - mu^2, clamped
 //         at 0), rounded to the storage type T
 //   g   = gelu(h @ w0 + b0) with float accumulation and the exact (erf) GELU
 //         in float, rounded to T
 //   y   = g @ w1 + b1 with float accumulation, rounded to T
 //   out = sc + y * gamma, in T (mlp.py:515-517)
+// K7 is the same kernel with the template flag LN off: h is x itself (read
+// straight into the operand buffer), and out = y (mlp.py:250-262): no
+// LayerNorm, layer-scale or residual.
 // The (R, F) hidden activations never reach device memory: F is walked in
 // chunks of kChunk, and each chunk's g lives in shared memory only.
 //
 // What bounds it on an H100: at Swin-T stage 1 (C=96, F=384) the function
-// moves x, sc and out (6*C bytes a row in bf16) for 4*C*F operations, about
-// 256 operations per byte, close to the bf16 ridge of ~295; at the wider
-// stages (F = 4C) the operations per byte grow with C and the tensor cores
-// are the roof. So the products must run on the tensor cores, and the
-// design keeps device traffic to one pass: a block holds its rows' LN output,
-// one GELU chunk and the float accumulators in shared memory, and streams
-// the weights from L2 (every block reads the same w0 and w1).
+// moves x, sc and out (6*C bytes a row in bf16; K7 4*C) for 4*C*F
+// operations, about 256 operations per byte (K7 384), near or above the
+// bf16 ridge of ~295; at the wider stages (F = 4C) the operations per byte
+// grow with C and the tensor cores are the roof. So the products must run
+// on the tensor cores, and the design keeps device traffic to one pass: a
+// block holds its rows' LN output (or x), one GELU chunk and the float
+// accumulators in shared memory, and streams the weights from L2 (every
+// block reads the same w0 and w1).
 //
-// Two kernels:
+// Two kernels, each in both members (LN on or off):
 // - ln_mlp_tc_kernel, bf16 with C % 32 == 0 and F % 64 == 0 (every Swin
-//   width): warp-level bf16 tensor-core products (WMMA 16x16x16, float
-//   accumulators). 8 warps; a block owns TR = 16*NRT rows. A (h or g) is
-//   read from shared memory; the weights come through shared memory in
-//   32-row slabs, two in flight (cp.async, double-buffered), so the
-//   products do not wait on L2. Not yet Hopper's wgmma/TMA.
+//   and ConvNeXt width): warp-level bf16 tensor-core products (WMMA
+//   16x16x16, float accumulators). 8 warps; a block owns TR = 16*NRT rows.
+//   A (h or g) is read from shared memory; the weights come through shared
+//   memory in 32-row slabs, two in flight (cp.async, double-buffered), so
+//   the products do not wait on L2. Not yet Hopper's wgmma/TMA.
 // - ln_mlp_fma_kernel, float (and bf16 at other widths): the same steps with
 //   float FMAs on the CUDA cores; 256 threads in a 16 x 16 grid, thread
 //   (ty, tx) computing rows ty + 16*r and columns tx + 16*q of each 64-wide
@@ -79,8 +86,22 @@ __device__ void layer_norm_tile(const T* __restrict__ x, const float* __restrict
   }
 }
 
-// out = sc + round(y + b1) * round(gamma), each step rounded to T.
-template <typename T, int kThreads>
+// Without the LayerNorm (K7): rows row0 .. row0+tr-1 of x into hs as they
+// are; rows past R become zeros (mlp.py:253-255).
+template <typename T, typename H, int kThreads>
+__device__ void load_tile(const T* __restrict__ x, H* hs, int ldh, int tr, int row0, int rows,
+                          int c) {
+  for (int idx = threadIdx.x; idx < tr * c; idx += kThreads) {
+    const int r = idx / c, j = idx - r * c;
+    const int gr = row0 + r;
+    hs[r * ldh + j] = nkbx::from_f<H>(gr < rows ? nkbx::to_f(x[static_cast<size_t>(gr) * c + j])
+                                                : 0.f);
+  }
+}
+
+// LN: out = sc + round(y + b1) * round(gamma), each step rounded to T.
+// Without (K7): out = round(y + b1).
+template <typename T, int kThreads, bool LN>
 __device__ void epilogue(const float* ys, int ldy, const float* __restrict__ b1,
                          const float* __restrict__ gamma, const T* __restrict__ sc,
                          T* __restrict__ out, int tr, int row0, int rows, int c) {
@@ -90,8 +111,12 @@ __device__ void epilogue(const float* ys, int ldy, const float* __restrict__ b1,
     if (gr >= rows) break;
     const size_t o = static_cast<size_t>(gr) * c + j;
     const float y = nkbx::round_to<T>(ys[r * ldy + j] + b1[j]);
-    const float t = nkbx::round_to<T>(y * nkbx::round_to<T>(gamma[j]));
-    out[o] = nkbx::from_f<T>(nkbx::to_f(sc[o]) + t);
+    if constexpr (LN) {
+      const float t = nkbx::round_to<T>(y * nkbx::round_to<T>(gamma[j]));
+      out[o] = nkbx::from_f<T>(nkbx::to_f(sc[o]) + t);
+    } else {
+      out[o] = nkbx::from_f<T>(y);
+    }
   }
 }
 
@@ -146,7 +171,7 @@ __device__ __forceinline__ void slab_ready(bool issued_next) {
   __syncthreads();
 }
 
-template <int NRT>
+template <bool LN, int NRT>
 __global__ void __launch_bounds__(kTcThreads)
 ln_mlp_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_s,
                  const float* __restrict__ ln_b, const bf16* __restrict__ w0,
@@ -170,8 +195,11 @@ ln_mlp_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_s,
   const int row0 = blockIdx.x * TR;
   const int warp = threadIdx.x / 32;
 
-  // 1. LayerNorm into hs (bf16); zero the accumulators.
-  layer_norm_tile<bf16, bf16, kTcThreads>(x, ln_s, ln_b, hs, ldh, TR, row0, rows, c, eps);
+  // 1. LayerNorm (or x itself) into hs (bf16); zero the accumulators.
+  if constexpr (LN)
+    layer_norm_tile<bf16, bf16, kTcThreads>(x, ln_s, ln_b, hs, ldh, TR, row0, rows, c, eps);
+  else
+    load_tile<bf16, bf16, kTcThreads>(x, hs, ldh, TR, row0, rows, c);
   for (int i = threadIdx.x; i < TR * ldy; i += kTcThreads) ys[i] = 0.f;
   __syncthreads();
 
@@ -271,7 +299,7 @@ ln_mlp_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_s,
   }
 
   // 3. Epilogue.
-  epilogue<bf16, kTcThreads>(ys, ldy, b1, gamma, sc, out, TR, row0, rows, c);
+  epilogue<bf16, kTcThreads, LN>(ys, ldy, b1, gamma, sc, out, TR, row0, rows, c);
 }
 
 // --- float FMAs (float, and bf16 at widths the tensor-core kernel does not take)
@@ -284,7 +312,7 @@ size_t fma_smem_bytes(int tr, int c) {
   return static_cast<size_t>(tr) * (2 * (c + 1) + kChunk + 1) * sizeof(float);
 }
 
-template <typename T, int RT>
+template <typename T, bool LN, int RT>
 __global__ void __launch_bounds__(kFmaThreads)
 ln_mlp_fma_kernel(const T* __restrict__ x, const float* __restrict__ ln_s,
                   const float* __restrict__ ln_b, const T* __restrict__ w0,
@@ -301,8 +329,11 @@ ln_mlp_fma_kernel(const T* __restrict__ x, const float* __restrict__ ln_s,
   float* gs = ys + TR * ldc;
   const int row0 = blockIdx.x * TR;
 
-  // 1. LayerNorm into hs (float holding T-rounded values); zero ys.
-  layer_norm_tile<T, float, kFmaThreads>(x, ln_s, ln_b, hs, ldc, TR, row0, rows, c, eps);
+  // 1. LayerNorm (or x itself) into hs (float holding T values); zero ys.
+  if constexpr (LN)
+    layer_norm_tile<T, float, kFmaThreads>(x, ln_s, ln_b, hs, ldc, TR, row0, rows, c, eps);
+  else
+    load_tile<T, float, kFmaThreads>(x, hs, ldc, TR, row0, rows, c);
   for (int i = threadIdx.x; i < TR * ldc; i += kFmaThreads) ys[i] = 0.f;
   __syncthreads();
 
@@ -374,19 +405,19 @@ ln_mlp_fma_kernel(const T* __restrict__ x, const float* __restrict__ ln_s,
   }
 
   // 3. Epilogue.
-  epilogue<T, kFmaThreads>(ys, ldc, b1, gamma, sc, out, TR, row0, rows, c);
+  epilogue<T, kFmaThreads, LN>(ys, ldc, b1, gamma, sc, out, TR, row0, rows, c);
 }
 
 // --- launch -------------------------------------------------------------------
 
 struct Args {
-  const void *x, *ln_s, *ln_b, *w0, *b0, *w1, *b1, *gamma, *sc;
+  const void *x, *ln_s, *ln_b, *w0, *b0, *w1, *b1, *gamma, *sc;  // K7: ln_s, ln_b, gamma, sc null
   void* out;
   int rows, c, f;
   float eps;
 };
 
-template <typename K, typename T>
+template <typename T, typename K>
 cudaError_t launch(K kernel, int tr, size_t smem, int threads, const Args& a,
                    cudaStream_t stream) {
   cudaError_t err = nkbx::allow_smem(kernel, smem);
@@ -401,43 +432,58 @@ cudaError_t launch(K kernel, int tr, size_t smem, int threads, const Args& a,
   return cudaGetLastError();
 }
 
+template <bool LN>
 cudaError_t launch_tc(int tr, const Args& a, cudaStream_t s) {
   const size_t smem = tc_smem_bytes(tr, a.c);
   switch (tr) {
-    case 16: return launch<decltype(&ln_mlp_tc_kernel<1>), bf16>(ln_mlp_tc_kernel<1>, tr, smem, kTcThreads, a, s);
-    case 32: return launch<decltype(&ln_mlp_tc_kernel<2>), bf16>(ln_mlp_tc_kernel<2>, tr, smem, kTcThreads, a, s);
-    case 64: return launch<decltype(&ln_mlp_tc_kernel<4>), bf16>(ln_mlp_tc_kernel<4>, tr, smem, kTcThreads, a, s);
+    case 16: return launch<bf16>(ln_mlp_tc_kernel<LN, 1>, tr, smem, kTcThreads, a, s);
+    case 32: return launch<bf16>(ln_mlp_tc_kernel<LN, 2>, tr, smem, kTcThreads, a, s);
+    case 64: return launch<bf16>(ln_mlp_tc_kernel<LN, 4>, tr, smem, kTcThreads, a, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <typename T>
+template <typename T, bool LN>
 cudaError_t launch_fma(int tr, const Args& a, cudaStream_t s) {
   const size_t smem = fma_smem_bytes(tr, a.c);
   switch (tr) {
-    case 16: return launch<decltype(&ln_mlp_fma_kernel<T, 1>), T>(ln_mlp_fma_kernel<T, 1>, tr, smem, kFmaThreads, a, s);
-    case 32: return launch<decltype(&ln_mlp_fma_kernel<T, 2>), T>(ln_mlp_fma_kernel<T, 2>, tr, smem, kFmaThreads, a, s);
-    case 64: return launch<decltype(&ln_mlp_fma_kernel<T, 4>), T>(ln_mlp_fma_kernel<T, 4>, tr, smem, kFmaThreads, a, s);
+    case 16: return launch<T>(ln_mlp_fma_kernel<T, LN, 1>, tr, smem, kFmaThreads, a, s);
+    case 32: return launch<T>(ln_mlp_fma_kernel<T, LN, 2>, tr, smem, kFmaThreads, a, s);
+    case 64: return launch<T>(ln_mlp_fma_kernel<T, LN, 4>, tr, smem, kFmaThreads, a, s);
     default: return cudaErrorInvalidValue;
   }
+}
+
+template <bool LN>
+int launch_any(const Args& a, int tile_rows, int is_bf16, int tensor_cores, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tensor_cores) {
+    if (!is_bf16 || a.c % kSlabK || a.f % kChunk) return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(launch_tc<LN>(tile_rows, a, s));
+  }
+  return static_cast<int>(is_bf16 ? launch_fma<bf16, LN>(tile_rows, a, s)
+                                  : launch_fma<float, LN>(tile_rows, a, s));
 }
 
 }  // namespace
 
-// x, sc, out (R, C); w0 (C, F); w1 (F, C) in float (is_bf16 = 0) or bf16;
-// ln_s, ln_b, b1, gamma (C) and b0 (F) in float. tile_rows is 16, 32 or 64;
-// tensor_cores = 1 takes the bf16 tensor-core kernel (C % 32 == 0,
+// K5. x, sc, out (R, C); w0 (C, F); w1 (F, C) in float (is_bf16 = 0) or
+// bf16; ln_s, ln_b, b1, gamma (C) and b0 (F) in float. tile_rows is 16, 32
+// or 64; tensor_cores = 1 takes the bf16 tensor-core kernel (C % 32 == 0,
 // F % 64 == 0). Returns the CUDA error code of the launch (0 on success).
 extern "C" int nkbx_ln_mlp(const void* x, const void* ln_s, const void* ln_b, const void* w0,
                            const void* b0, const void* w1, const void* b1, const void* gamma,
                            const void* sc, void* out, int rows, int c, int f, int tile_rows,
                            float eps, int is_bf16, int tensor_cores, void* stream) {
   const Args a{x, ln_s, ln_b, w0, b0, w1, b1, gamma, sc, out, rows, c, f, eps};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (tensor_cores) {
-    if (!is_bf16 || c % kSlabK || f % kChunk) return static_cast<int>(cudaErrorInvalidValue);
-    return static_cast<int>(launch_tc(tile_rows, a, s));
-  }
-  return static_cast<int>(is_bf16 ? launch_fma<bf16>(tile_rows, a, s)
-                                  : launch_fma<float>(tile_rows, a, s));
+  return launch_any<true>(a, tile_rows, is_bf16, tensor_cores, stream);
+}
+
+// K7: out = gelu(x @ w0 + b0) @ w1 + b1 on x, out (R, C), the other
+// arguments as for nkbx_ln_mlp.
+extern "C" int nkbx_mlp(const void* x, const void* w0, const void* b0, const void* w1,
+                        const void* b1, void* out, int rows, int c, int f, int tile_rows,
+                        int is_bf16, int tensor_cores, void* stream) {
+  const Args a{x, nullptr, nullptr, w0, b0, w1, b1, nullptr, nullptr, out, rows, c, f, 0.f};
+  return launch_any<false>(a, tile_rows, is_bf16, tensor_cores, stream);
 }

@@ -1,8 +1,12 @@
 // Fused LayerNorm -> Dense -> exact GELU -> Dense -> layer-scale -> residual,
-// backward: the transformer-block MLP half.
+// backward: the transformer-block MLP half; and its LN-free member, the
+// backward of the MLP alone.
 //
-// Replaces the Pallas kernel nkbx/ops/mlp.py:520 `_lnmlp_bwd_kernel` (the VJP
-// of `fused_ln_mlp`). For rows x (R, C), the cotangent dy and the forward's
+// Replaces two Pallas kernels: nkbx/ops/mlp.py:520 `_lnmlp_bwd_kernel` (the
+// VJP of `fused_ln_mlp`, K6; C entry `nkbx_ln_mlp_bwd`) and nkbx/ops/mlp.py:265
+// `_bwd_kernel` (the VJP of `fused_mlp`, K8; C entry `nkbx_mlp_bwd`).
+//
+// K6. For rows x (R, C), the cotangent dy and the forward's
 // parameters it returns dx and the f32 sums over rows of ds, db (LayerNorm),
 // dw0, db0, dw1, db1 and dgamma, at the rounding points of mlp.py:520-570:
 //   h = round(LN(x)), u = h w0 + b0, g = round(gelu(u)), gelu'(u) from the
@@ -12,8 +16,17 @@
 //   db0 = sum du; dh = round(du) w0^T; ds = sum dh * xhat; db = sum dh;
 //   dx = rstd * (dh*s - mean(dh*s) - xhat * mean(dh*s*xhat)).
 //
-// What bounds it on an H100: the operations. The function does 12*R*C*F
-// (two products to recompute u and y, four backward products), which at
+// K8 is the same row kernel with the template flag LN off (mlp.py:265-305):
+// x and dy are read straight into the operand buffers that hold h and dy2
+// in K6, and are themselves the weight-gradient kernel's operands, so the
+// row kernel writes no h or dy2; u = x w0 + b0, g = round(gelu(u)),
+// dw1 = g^T dy, db1 = sum dy, du = (dy w1^T) * gelu'(u), dw0 = x^T round(du),
+// db0 = sum du, and dx = round(round(du) w0^T) is the last product, with no
+// LayerNorm backward after it.
+//
+// What bounds it on an H100: the operations. K6 does 12*R*C*F (two products
+// to recompute u and y, four backward products; K8 and K6 without a
+// layer-scale 10*R*C*F: y is not recomputed), which at
 // Swin-T's F = 4C is far above the ~295 operations per byte of the bf16
 // ridge; x, dy and dx are a small share of the bytes.
 //
@@ -66,12 +79,13 @@ __device__ __forceinline__ void gelu_and_grad(float u, float* g, float* dg) {
 __host__ __device__ inline size_t align256(size_t b) { return (b + 255) / 256 * 256; }
 
 // Byte offsets of the row kernel's shared memory; every part 256-byte
-// aligned. Mirrored by `bwd_smem_bytes` in nkbx_torch/ops/mlp.py.
+// aligned. K8 (ln false) keeps no row statistics. Mirrored by
+// `bwd_smem_bytes` and `mlp_bwd_smem_bytes` in nkbx_torch/ops/mlp.py.
 struct RowLayout {
   size_t hs, d2s, acc, ch, gch, wbuf, stats, red, total;
 };
 
-__host__ __device__ inline RowLayout row_layout(int tr, int c, bool tc) {
+__host__ __device__ inline RowLayout row_layout(int tr, int c, bool tc, bool ln) {
   RowLayout L;
   size_t o = 0;
   const size_t hbytes = tc ? 2 : 4;
@@ -82,7 +96,7 @@ __host__ __device__ inline RowLayout row_layout(int tr, int c, bool tc) {
   L.ch = o;    o += align256(tc ? 4 * tr * kLdu * 4 : 2 * tr * kLdf * 4);
   L.gch = o;   o += align256(tc ? tr * kLdg * 2 : tr * kLdf * 4);
   L.wbuf = o;  o += tc ? align256(2 * kSlabElems * 2) : 0;
-  L.stats = o; o += align256(2 * tr * 4);
+  L.stats = o; o += ln ? align256(2 * tr * 4) : 0;
   L.red = o;   o += align256(kThreads * 4);
   L.total = o;
   return L;
@@ -90,9 +104,9 @@ __host__ __device__ inline RowLayout row_layout(int tr, int c, bool tc) {
 
 struct RowArgs {
   const void *x, *dy, *w0, *w1;          // storage type T
-  const float *ln_s, *ln_b, *b0, *b1, *gamma;
-  void *dx, *h, *dy2, *gact, *du;        // storage type T
-  float *part_c, *part_f;                // (4, tiles, C), (tiles, F)
+  const float *ln_s, *ln_b, *b0, *b1, *gamma;  // K8: ln_s, ln_b, gamma null
+  void *dx, *h, *dy2, *gact, *du;        // storage type T; K8: h, dy2 null
+  float *part_c, *part_f;                // (4, tiles, C) (K8: (tiles, C)), (tiles, F)
   int rows, c, f, tiles, has_gamma;
   float eps;
 };
@@ -312,14 +326,14 @@ __device__ void fma_gemm_wide(const float* A, int fn, float* accs, int lda, int 
 
 // --- the row-tile kernel ---------------------------------------------------------
 
-template <typename T, bool TC, int NRT>
+template <typename T, bool TC, bool LN, int NRT>
 __global__ void __launch_bounds__(kThreads) ln_mlp_bwd_row_kernel(RowArgs a) {
   using AT = typename std::conditional<TC, bf16, float>::type;
   constexpr int TR = 16 * NRT;
   constexpr int ldc = TC ? kLdu : kLdf;  // float chunk stride
   constexpr int ldg = TC ? kLdg : kLdf;  // A-operand chunk stride
   extern __shared__ __align__(256) unsigned char smem[];
-  const RowLayout L = row_layout(TR, a.c, TC);
+  const RowLayout L = row_layout(TR, a.c, TC, LN);
   const int c = a.c, f = a.f;
   const int ldh = TC ? c + 8 : c + 1, lda = TC ? c + 4 : c + 1;
   AT* hs = reinterpret_cast<AT*>(smem + L.hs);
@@ -345,37 +359,48 @@ __global__ void __launch_bounds__(kThreads) ln_mlp_bwd_row_kernel(RowArgs a) {
 
   // 0. LayerNorm: h = round(LN(x)) and dy2 = round(dy * round(gamma)) into
   //    shared memory (zeros past R) and to device memory; row statistics.
-  for (int r = warp; r < TR; r += kWarps) {
-    const int gr = row0 + r;
-    AT* hr = hs + r * ldh;
-    AT* dr = d2s + r * ldh;
-    if (gr >= a.rows) {
-      for (int j = lane; j < c; j += 32) hr[j] = dr[j] = nkbx::from_f<AT>(0.f);
-      if (lane == 0) mu_s[r] = rstd_s[r] = 0.f;
-      continue;
+  //    K8: x and dy into shared memory as they are (zeros past R).
+  if constexpr (!LN) {
+    for (int idx = threadIdx.x; idx < TR * c; idx += kThreads) {
+      const int r = idx / c, j = idx - r * c;
+      const bool in = row0 + r < a.rows;
+      const size_t o = static_cast<size_t>(row0 + r) * c + j;
+      hs[r * ldh + j] = nkbx::from_f<AT>(in ? nkbx::to_f(x[o]) : 0.f);
+      d2s[r * ldh + j] = nkbx::from_f<AT>(in ? nkbx::to_f(dy[o]) : 0.f);
     }
-    const T* xr = x + static_cast<size_t>(gr) * c;
-    float s = 0.f, s2 = 0.f;
-    for (int j = lane; j < c; j += 32) {
-      const float v = nkbx::to_f(xr[j]);
-      s += v;
-      s2 += v * v;
-    }
-    const float mu = nkbx::warp_sum(s) * inv_c;
-    const float var = fmaxf(nkbx::warp_sum(s2) * inv_c - mu * mu, 0.f);
-    const float rstd = rsqrtf(var + a.eps);
-    if (lane == 0) {
-      mu_s[r] = mu;
-      rstd_s[r] = rstd;
-    }
-    const size_t o = static_cast<size_t>(gr) * c;
-    for (int j = lane; j < c; j += 32) {
-      const float hv = nkbx::round_to<T>((nkbx::to_f(xr[j]) - mu) * rstd * a.ln_s[j] + a.ln_b[j]);
-      const float dv = nkbx::round_to<T>(nkbx::to_f(dy[o + j]) * nkbx::round_to<T>(a.gamma[j]));
-      hr[j] = nkbx::from_f<AT>(hv);
-      dr[j] = nkbx::from_f<AT>(dv);
-      static_cast<T*>(a.h)[o + j] = nkbx::from_f<T>(hv);
-      static_cast<T*>(a.dy2)[o + j] = nkbx::from_f<T>(dv);
+  } else {
+    for (int r = warp; r < TR; r += kWarps) {
+      const int gr = row0 + r;
+      AT* hr = hs + r * ldh;
+      AT* dr = d2s + r * ldh;
+      if (gr >= a.rows) {
+        for (int j = lane; j < c; j += 32) hr[j] = dr[j] = nkbx::from_f<AT>(0.f);
+        if (lane == 0) mu_s[r] = rstd_s[r] = 0.f;
+        continue;
+      }
+      const T* xr = x + static_cast<size_t>(gr) * c;
+      float s = 0.f, s2 = 0.f;
+      for (int j = lane; j < c; j += 32) {
+        const float v = nkbx::to_f(xr[j]);
+        s += v;
+        s2 += v * v;
+      }
+      const float mu = nkbx::warp_sum(s) * inv_c;
+      const float var = fmaxf(nkbx::warp_sum(s2) * inv_c - mu * mu, 0.f);
+      const float rstd = rsqrtf(var + a.eps);
+      if (lane == 0) {
+        mu_s[r] = mu;
+        rstd_s[r] = rstd;
+      }
+      const size_t o = static_cast<size_t>(gr) * c;
+      for (int j = lane; j < c; j += 32) {
+        const float hv = nkbx::round_to<T>((nkbx::to_f(xr[j]) - mu) * rstd * a.ln_s[j] + a.ln_b[j]);
+        const float dv = nkbx::round_to<T>(nkbx::to_f(dy[o + j]) * nkbx::round_to<T>(a.gamma[j]));
+        hr[j] = nkbx::from_f<AT>(hv);
+        dr[j] = nkbx::from_f<AT>(dv);
+        static_cast<T*>(a.h)[o + j] = nkbx::from_f<T>(hv);
+        static_cast<T*>(a.dy2)[o + j] = nkbx::from_f<T>(dv);
+      }
     }
   }
   for (int i = threadIdx.x; i < TR * lda; i += kThreads) acc[i] = 0.f;
@@ -392,7 +417,7 @@ __global__ void __launch_bounds__(kThreads) ln_mlp_bwd_row_kernel(RowArgs a) {
 
   // 1. With a layer-scale only: y = round(g @ w1 + b1) into acc, and the
   //    tile's dgamma = sum over rows of round(dy * y).
-  if (a.has_gamma) {
+  if (LN && a.has_gamma) {
     for (int f0 = 0; f0 < f; f0 += kChunk) {
       u_chunk(f0);
       __syncthreads();
@@ -459,39 +484,55 @@ __global__ void __launch_bounds__(kThreads) ln_mlp_bwd_row_kernel(RowArgs a) {
     __syncthreads();
   }
 
-  // 3. LayerNorm backward. Column sums of the tile (ds, db, db1), one thread
-  //    per column, rows in order; then dx, one warp per row.
-  for (int j = threadIdx.x; j < c; j += kThreads) {
-    float sds = 0.f, sdb = 0.f, sdb1 = 0.f;
-    for (int r = 0; r < TR && row0 + r < a.rows; ++r) {
-      const float xh = (nkbx::to_f(x[static_cast<size_t>(row0 + r) * c + j]) - mu_s[r]) * rstd_s[r];
-      const float dh = acc[r * lda + j];
-      sds = fmaf(dh, xh, sds);
-      sdb += dh;
-      sdb1 += nkbx::to_f(d2s[r * ldh + j]);
+  // 3. K8: the tile's db1 = sum of dy, one thread per column, rows in
+  //    order; dx = round(dh).
+  if constexpr (!LN) {
+    for (int j = threadIdx.x; j < c; j += kThreads) {
+      float sdb1 = 0.f;
+      for (int r = 0; r < TR && row0 + r < a.rows; ++r) sdb1 += nkbx::to_f(d2s[r * ldh + j]);
+      a.part_c[static_cast<size_t>(tile) * c + j] = sdb1;
     }
-    a.part_c[(0 * static_cast<size_t>(a.tiles) + tile) * c + j] = sds;
-    a.part_c[(1 * static_cast<size_t>(a.tiles) + tile) * c + j] = sdb;
-    a.part_c[(2 * static_cast<size_t>(a.tiles) + tile) * c + j] = sdb1;
-  }
-  T* dx = static_cast<T*>(a.dx);
-  for (int r = warp; r < TR; r += kWarps) {
-    const int gr = row0 + r;
-    if (gr >= a.rows) continue;
-    const T* xr = x + static_cast<size_t>(gr) * c;
-    const float mu = mu_s[r], rstd = rstd_s[r];
-    float m1 = 0.f, m2 = 0.f;
-    for (int j = lane; j < c; j += 32) {
-      const float dxh = acc[r * lda + j] * a.ln_s[j];
-      m1 += dxh;
-      m2 += dxh * ((nkbx::to_f(xr[j]) - mu) * rstd);
+    T* dx = static_cast<T*>(a.dx);
+    for (int idx = threadIdx.x; idx < TR * c; idx += kThreads) {
+      const int r = idx / c, j = idx - r * c;
+      if (row0 + r < a.rows)
+        dx[static_cast<size_t>(row0 + r) * c + j] = nkbx::from_f<T>(acc[r * lda + j]);
     }
-    m1 = nkbx::warp_sum(m1) * inv_c;
-    m2 = nkbx::warp_sum(m2) * inv_c;
-    for (int j = lane; j < c; j += 32) {
-      const float xh = (nkbx::to_f(xr[j]) - mu) * rstd;
-      const float dxh = acc[r * lda + j] * a.ln_s[j];
-      dx[static_cast<size_t>(gr) * c + j] = nkbx::from_f<T>(rstd * (dxh - m1 - xh * m2));
+  } else {
+    // 3. LayerNorm backward. Column sums of the tile (ds, db, db1), one thread
+    //    per column, rows in order; then dx, one warp per row.
+    for (int j = threadIdx.x; j < c; j += kThreads) {
+      float sds = 0.f, sdb = 0.f, sdb1 = 0.f;
+      for (int r = 0; r < TR && row0 + r < a.rows; ++r) {
+        const float xh = (nkbx::to_f(x[static_cast<size_t>(row0 + r) * c + j]) - mu_s[r]) * rstd_s[r];
+        const float dh = acc[r * lda + j];
+        sds = fmaf(dh, xh, sds);
+        sdb += dh;
+        sdb1 += nkbx::to_f(d2s[r * ldh + j]);
+      }
+      a.part_c[(0 * static_cast<size_t>(a.tiles) + tile) * c + j] = sds;
+      a.part_c[(1 * static_cast<size_t>(a.tiles) + tile) * c + j] = sdb;
+      a.part_c[(2 * static_cast<size_t>(a.tiles) + tile) * c + j] = sdb1;
+    }
+    T* dx = static_cast<T*>(a.dx);
+    for (int r = warp; r < TR; r += kWarps) {
+      const int gr = row0 + r;
+      if (gr >= a.rows) continue;
+      const T* xr = x + static_cast<size_t>(gr) * c;
+      const float mu = mu_s[r], rstd = rstd_s[r];
+      float m1 = 0.f, m2 = 0.f;
+      for (int j = lane; j < c; j += 32) {
+        const float dxh = acc[r * lda + j] * a.ln_s[j];
+        m1 += dxh;
+        m2 += dxh * ((nkbx::to_f(xr[j]) - mu) * rstd);
+      }
+      m1 = nkbx::warp_sum(m1) * inv_c;
+      m2 = nkbx::warp_sum(m2) * inv_c;
+      for (int j = lane; j < c; j += 32) {
+        const float xh = (nkbx::to_f(xr[j]) - mu) * rstd;
+        const float dxh = acc[r * lda + j] * a.ln_s[j];
+        dx[static_cast<size_t>(gr) * c + j] = nkbx::from_f<T>(rstd * (dxh - m1 - xh * m2));
+      }
     }
   }
 }
@@ -613,21 +654,21 @@ colsum_kernel(const float* __restrict__ in, OutT* __restrict__ out, int rows, lo
 
 // --- launch ------------------------------------------------------------------------
 
-template <typename T, bool TC, int NRT>
+template <typename T, bool TC, bool LN, int NRT>
 cudaError_t launch_tile(const RowArgs& a, cudaStream_t s) {
-  const size_t smem = row_layout(16 * NRT, a.c, TC).total;
-  cudaError_t err = nkbx::allow_smem(ln_mlp_bwd_row_kernel<T, TC, NRT>, smem);
+  const size_t smem = row_layout(16 * NRT, a.c, TC, LN).total;
+  cudaError_t err = nkbx::allow_smem(ln_mlp_bwd_row_kernel<T, TC, LN, NRT>, smem);
   if (err != cudaSuccess) return err;
-  ln_mlp_bwd_row_kernel<T, TC, NRT><<<a.tiles, kThreads, smem, s>>>(a);
+  ln_mlp_bwd_row_kernel<T, TC, LN, NRT><<<a.tiles, kThreads, smem, s>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T, bool TC>
+template <typename T, bool TC, bool LN>
 cudaError_t launch_rows(int tr, const RowArgs& a, cudaStream_t s) {
   switch (tr) {
-    case 16: return launch_tile<T, TC, 1>(a, s);
-    case 32: return launch_tile<T, TC, 2>(a, s);
-    case 64: return launch_tile<T, TC, 4>(a, s);
+    case 16: return launch_tile<T, TC, LN, 1>(a, s);
+    case 32: return launch_tile<T, TC, LN, 2>(a, s);
+    case 64: return launch_tile<T, TC, LN, 4>(a, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -659,22 +700,27 @@ cudaError_t weight_grad(const void* A, const void* B, void* out, float* part, in
   return colsum<T>(part, out, 1, slabs, static_cast<long long>(M) * N, s);
 }
 
-template <typename T>
+// The row kernel, then the fixed-order sums: the C-sized vectors (K6: ds,
+// db, db1[, dgamma]; K8: db1), db0, dw1 = g^T dy2 (K8: g^T dy) and
+// dw0 = h^T du (K8: x^T du).
+template <typename T, bool LN>
 cudaError_t launch_all(const RowArgs& a, int tr, bool tc, void* dw0, void* dw1, void* dvec_c,
                        void* db0, float* part_w, int slab_rows, cudaStream_t s) {
   cudaError_t err;
   if constexpr (std::is_same<T, bf16>::value)
-    err = tc ? launch_rows<bf16, true>(tr, a, s) : launch_rows<bf16, false>(tr, a, s);
+    err = tc ? launch_rows<bf16, true, LN>(tr, a, s) : launch_rows<bf16, false, LN>(tr, a, s);
   else
-    err = launch_rows<T, false>(tr, a, s);
+    err = launch_rows<T, false, LN>(tr, a, s);
   if (err != cudaSuccess) return err;
-  err = colsum<float>(a.part_c, dvec_c, 3 + a.has_gamma, a.tiles, a.c, s);
+  err = colsum<float>(a.part_c, dvec_c, LN ? 3 + a.has_gamma : 1, a.tiles, a.c, s);
   if (err != cudaSuccess) return err;
   err = colsum<float>(a.part_f, db0, 1, a.tiles, a.f, s);
   if (err != cudaSuccess) return err;
-  err = weight_grad<T>(a.gact, a.dy2, dw1, part_w, a.rows, a.f, a.c, slab_rows, tc, s);
+  const void* b1op = LN ? static_cast<const void*>(a.dy2) : a.dy;
+  const void* a0op = LN ? static_cast<const void*>(a.h) : a.x;
+  err = weight_grad<T>(a.gact, b1op, dw1, part_w, a.rows, a.f, a.c, slab_rows, tc, s);
   if (err != cudaSuccess) return err;
-  return weight_grad<T>(a.h, a.du, dw0, part_w, a.rows, a.c, a.f, slab_rows, tc, s);
+  return weight_grad<T>(a0op, a.du, dw0, part_w, a.rows, a.c, a.f, slab_rows, tc, s);
 }
 
 }  // namespace
@@ -706,7 +752,34 @@ extern "C" int nkbx_ln_mlp_bwd(const void* x, const void* ln_s, const void* ln_b
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* pw = static_cast<float*>(part_w);
   return static_cast<int>(
-      is_bf16 ? launch_all<bf16>(a, tile_rows, tensor_cores != 0, dw0, dw1, dvec_c, db0, pw,
-                                 slab_rows, s)
-              : launch_all<float>(a, tile_rows, false, dw0, dw1, dvec_c, db0, pw, slab_rows, s));
+      is_bf16 ? launch_all<bf16, true>(a, tile_rows, tensor_cores != 0, dw0, dw1, dvec_c, db0,
+                                       pw, slab_rows, s)
+              : launch_all<float, true>(a, tile_rows, false, dw0, dw1, dvec_c, db0, pw,
+                                        slab_rows, s));
+}
+
+// K8. x, dy, dx (R, C); w0, dw0 (C, F); w1, dw1 (F, C); gact, du (R, F) in
+// float (is_bf16 = 0) or bf16; b0 (F), b1 (C), db1 (C) and db0 (F) in
+// float; scratch part_c (tiles, C), part_f (tiles, F) and part_w as for
+// nkbx_ln_mlp_bwd. Returns the CUDA error code of the launches.
+extern "C" int nkbx_mlp_bwd(const void* x, const void* w0, const void* b0, const void* w1,
+                            const void* b1, const void* dy, void* dx, void* dw0, void* dw1,
+                            void* db1, void* db0, void* gact, void* du, void* part_c,
+                            void* part_f, void* part_w, int rows, int c, int f, int tile_rows,
+                            int slab_rows, int is_bf16, int tensor_cores, void* stream) {
+  if (tensor_cores && (!is_bf16 || c % kSlabK || f % kChunk))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const RowArgs a{x, dy, w0, w1,
+                  nullptr, nullptr,
+                  static_cast<const float*>(b0), static_cast<const float*>(b1), nullptr,
+                  dx, nullptr, nullptr, gact, du,
+                  static_cast<float*>(part_c), static_cast<float*>(part_f),
+                  rows, c, f, (rows + tile_rows - 1) / tile_rows, 0, 0.f};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* pw = static_cast<float*>(part_w);
+  return static_cast<int>(
+      is_bf16 ? launch_all<bf16, false>(a, tile_rows, tensor_cores != 0, dw0, dw1, db1, db0,
+                                        pw, slab_rows, s)
+              : launch_all<float, false>(a, tile_rows, false, dw0, dw1, db1, db0, pw,
+                                         slab_rows, s));
 }

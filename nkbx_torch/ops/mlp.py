@@ -1,19 +1,23 @@
-"""Fused LayerNorm -> MLP -> layer-scale -> residual: the CUDA kernels and
-their plain PyTorch versions, forward and backward.
+"""Fused MLPs: the CUDA kernels and their plain PyTorch versions, forward
+and backward. Counterpart of ``nkbx/ops/mlp.py``, both of its members:
 
-Counterpart of the LN-fused half of ``nkbx/ops/mlp.py``: the forward kernel
-``csrc/ln_mlp.cu`` replaces the Pallas ``_lnmlp_fwd_kernel`` and the
-backward kernels ``csrc/ln_mlp_bwd.cu`` replace ``_lnmlp_bwd_kernel``.
-``shortcut + gamma * (gelu(LN(x) @ w0 + b0) @ w1 + b1)`` with flax LayerNorm
-semantics (f32 statistics, fast variance), f32 accumulation, the exact GELU
-in f32, and the compute-dtype rounding points of nkbx's kernels.
-:func:`fused_ln_mlp` is differentiable through one ``torch.autograd.Function``:
-on CUDA tensors both halves are the kernels, on CPU tensors both are the
-plain versions.
+- LN-fused, ``shortcut + gamma * (gelu(LN(x) @ w0 + b0) @ w1 + b1)`` with
+  flax LayerNorm semantics (f32 statistics, fast variance):
+  :func:`fused_ln_mlp`, the kernels K5 (``csrc/ln_mlp.cu``, replacing the
+  Pallas ``_lnmlp_fwd_kernel``) and K6 (``csrc/ln_mlp_bwd.cu``, replacing
+  ``_lnmlp_bwd_kernel``);
+- MLP-only, ``gelu(x @ w0 + b0) @ w1 + b1``: :func:`fused_mlp`, the kernels
+  K7 and K8, the same sources' LN-free members (C entries ``nkbx_mlp`` and
+  ``nkbx_mlp_bwd``, replacing the Pallas ``_fwd_kernel`` and
+  ``_bwd_kernel``).
 
-nkbx's MLP-only kernel (``fused_mlp``, taken there under
-``NKBX_FUSED_LN_MLP=0``) is not ported yet: here that setting selects the
-plain version.
+All of them accumulate in f32, evaluate the exact GELU in f32, and round to
+the compute dtype at the points of nkbx's kernels. Each entry is
+differentiable through one ``torch.autograd.Function``: on CUDA tensors both
+halves are the kernels, on CPU tensors both are the plain versions.
+:func:`fused_mlp_mode` picks between them as nkbx does: the LN-fused kernels
+unless ``NKBX_FUSED_LN_MLP=0`` or their tiles do not fit, then the MLP-only
+ones, then the plain version.
 """
 
 from __future__ import annotations
@@ -28,8 +32,10 @@ import torch.nn.functional as F
 from nkbx_torch.ops import _build
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"nkbx_ln_mlp": [_P] * 10 + [_I, _I, _I, _I, ctypes.c_float, _I, _I, _P]}
-_BWD_SIGNATURES = {"nkbx_ln_mlp_bwd": [_P] * 21 + [_I] * 5 + [ctypes.c_float] + [_I] * 3 + [_P]}
+_SIGNATURES = {"nkbx_ln_mlp": [_P] * 10 + [_I, _I, _I, _I, ctypes.c_float, _I, _I, _P],
+               "nkbx_mlp": [_P] * 6 + [_I] * 6 + [_P]}
+_BWD_SIGNATURES = {"nkbx_ln_mlp_bwd": [_P] * 21 + [_I] * 5 + [ctypes.c_float] + [_I] * 3 + [_P],
+                   "nkbx_mlp_bwd": [_P] * 16 + [_I] * 7 + [_P]}
 _CHUNK = 64  # kChunk of ln_mlp.cu and ln_mlp_bwd.cu
 _TILE_ROWS = (64, 32, 16)  # row tiles the kernels are instantiated for
 _MAX_SMEM = 232_448  # bytes of shared memory one H100 block may have
@@ -56,25 +62,42 @@ def smem_bytes(tile_rows: int, c: int, tc: bool) -> int:
     return tile_rows * (2 * (c + 1) + _CHUNK + 1) * 4
 
 
+def mlp_smem_bytes(tile_rows: int, c: int, tc: bool) -> int:
+    """Shared memory of one K7 block: the layout of K5 (``smem_bytes``), with
+    the rows of x where K5 keeps the LayerNorm output."""
+    return smem_bytes(tile_rows, c, tc)
+
+
 def _align(n: int) -> int:
     return -(-n // 256) * 256
 
 
-def bwd_smem_bytes(tile_rows: int, c: int, tc: bool) -> int:
-    """Shared memory of one block of the backward row-tile kernel (mirrors
-    ``RowLayout`` in ln_mlp_bwd.cu). Tensor cores: bf16 h and dy2 rows
-    (C+8 each), f32 y-then-dh accumulators (C+4), two f32 chunk pairs (68)
-    for the split-k partial sums of u and dgl, one bf16 chunk (72), two
-    staged weight slabs of 128x40 bf16; FMA: f32 h, dy2 and accumulators
-    (C+1 each), three f32 chunks (65); then the per-row statistics and a
-    256-float scratch. Each part starts 256-byte aligned."""
+def _row_layout_bytes(tile_rows: int, c: int, tc: bool, ln: bool) -> int:
     tr = tile_rows
     if tc:
         parts = [tr * (c + 8) * 2, tr * (c + 8) * 2, tr * (c + 4) * 4,
                  4 * tr * (_CHUNK + 4) * 4, tr * (_CHUNK + 8) * 2, 2 * 128 * 40 * 2]
     else:
         parts = [tr * (c + 1) * 4] * 3 + [2 * tr * (_CHUNK + 1) * 4, tr * (_CHUNK + 1) * 4]
-    return sum(_align(p) for p in parts) + _align(2 * tr * 4) + _align(256 * 4)
+    stats = _align(2 * tr * 4) if ln else 0
+    return sum(_align(p) for p in parts) + stats + _align(256 * 4)
+
+
+def bwd_smem_bytes(tile_rows: int, c: int, tc: bool) -> int:
+    """Shared memory of one block of K6's row-tile kernel (mirrors
+    ``row_layout`` in ln_mlp_bwd.cu). Tensor cores: bf16 h and dy2 rows
+    (C+8 each), f32 y-then-dh accumulators (C+4), two f32 chunk pairs (68)
+    for the split-k partial sums of u and dgl, one bf16 chunk (72), two
+    staged weight slabs of 128x40 bf16; FMA: f32 h, dy2 and accumulators
+    (C+1 each), three f32 chunks (65); then the per-row statistics and a
+    256-float scratch. Each part starts 256-byte aligned."""
+    return _row_layout_bytes(tile_rows, c, tc, ln=True)
+
+
+def mlp_bwd_smem_bytes(tile_rows: int, c: int, tc: bool) -> int:
+    """Shared memory of one block of K8's row-tile kernel: K6's layout with x
+    and dy in place of h and dy2, and no per-row statistics."""
+    return _row_layout_bytes(tile_rows, c, tc, ln=False)
 
 
 def pick_tile_rows(c: int, tc: bool, smem=smem_bytes):
@@ -91,25 +114,32 @@ def pick_tile_rows(c: int, tc: bool, smem=smem_bytes):
 
 def fused_mlp_mode(flag, x: torch.Tensor, f: int, auto: bool = True):
     """Resolve a block's MLP lowering for x (..., C) and hidden width F:
-    ``"ln"`` (the fused kernels) or None (the plain version). Precedence as
-    in nkbx: the ``NKBX_FUSED_MLP=0|1`` env override, then the flag, then
-    auto (None): the family's default, ``auto`` (Swin: True, ViT: False),
-    where True means the kernels wherever the tensor is on a CUDA device;
-    ``NKBX_FUSED_LN_MLP=0`` and a width whose forward or backward tile does
-    not fit shared memory select the plain version (nkbx's
-    ``fused_mlp_viable`` also sizes both)."""
+    ``"ln"`` (K5/K6, :func:`fused_ln_mlp`), ``"mlp"`` (K7/K8 after a plain
+    LayerNorm, :func:`fused_mlp`) or None (the plain version). Precedence as
+    in nkbx (mlp.py:216-234): the ``NKBX_FUSED_MLP=0|1`` env override, then
+    the flag, then auto (None): the family's default, ``auto`` (Swin and
+    ConvNeXt: True, ViT: False), where True means the kernels wherever the
+    tensor is on a CUDA device. Then ``"ln"`` where K5's and K6's tiles both
+    fit shared memory and ``NKBX_FUSED_LN_MLP`` is not 0, else ``"mlp"``
+    where K7's and K8's tiles both fit theirs, else None (nkbx's
+    ``fused_mlp_viable`` also sizes forward and backward)."""
     env = os.environ.get("NKBX_FUSED_MLP", "")
     if env:
         on = env not in ("0", "false", "False")
     else:
         on = (auto and x.is_cuda) if flag is None else bool(flag)
-    if not on or os.environ.get("NKBX_FUSED_LN_MLP", "") in ("0", "false", "False"):
+    if not on:
         return None
     c = x.shape[-1]
     tc = tensor_cores(x.dtype, c, f)
-    fits = (pick_tile_rows(c, tc) is not None
-            and pick_tile_rows(c, tc, bwd_smem_bytes) is not None)
-    return "ln" if fits else None
+
+    def fits(fwd, bwd):
+        return pick_tile_rows(c, tc, fwd) is not None and pick_tile_rows(c, tc, bwd) is not None
+
+    ln_off = os.environ.get("NKBX_FUSED_LN_MLP", "") in ("0", "false", "False")
+    if not ln_off and fits(smem_bytes, bwd_smem_bytes):
+        return "ln"
+    return "mlp" if fits(mlp_smem_bytes, mlp_bwd_smem_bytes) else None
 
 
 def _check(x, w0, w1, dev_tensors, vecs):
@@ -118,7 +148,7 @@ def _check(x, w0, w1, dev_tensors, vecs):
     c, f = x.shape[-1], w0.shape[1]
     dt, dev = x.dtype, x.device
     if dt not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"LN-MLP kernel takes float32 or bfloat16, got {dt}")
+        raise TypeError(f"MLP kernels take float32 or bfloat16, got {dt}")
     if tuple(w0.shape) != (c, f) or tuple(w1.shape) != (f, c):
         raise ValueError(f"w0 {tuple(w0.shape)} / w1 {tuple(w1.shape)} are not (C, F) / (F, C)")
     for name, t in dev_tensors:
@@ -281,6 +311,144 @@ def _launch_bwd(x2, vecs, w0, w1, dy2, dx, dw0, dw1, dvec_c, db0, c, f, tc, has_
 
 
 fused_ln_mlp_bwd.launches = 0  # kernel launches, counted by the wrapper
+
+
+# --- MLP-only: gelu(x @ w0 + b0) @ w1 + b1 (K7, K8) ---------------------------------
+
+
+def _mlp_forward(x, w0, b0, w1, b1):
+    """K7 on (R, C) rows of a CUDA tensor; the plain version on a CPU tensor."""
+    if not x.is_cuda:
+        return reference_mlp(x, w0, b0, w1, b1)
+    c, f = x.shape[-1], w0.shape[1]
+    c, f, tc, (b0c, b1c) = _check(x, w0, w1, [], [("b0", b0, f), ("b1", b1, c)])
+    tr = pick_tile_rows(c, tc, mlp_smem_bytes)
+    if tr is None:
+        raise ValueError(f"MLP kernel: no row tile fits shared memory at C={c}")
+    x2, w0, w1 = x.contiguous(), w0.contiguous(), w1.contiguous()
+    out = torch.empty_like(x2)
+    if x2.shape[0] == 0:
+        return out
+    lib = _build.load("ln_mlp", _SIGNATURES)
+    dev = x.device
+    with torch.cuda.device(dev):
+        err = lib.nkbx_mlp(
+            x2.data_ptr(), w0.data_ptr(), b0c.data_ptr(), w1.data_ptr(), b1c.data_ptr(),
+            out.data_ptr(), x2.shape[0], c, f, tr, int(x.dtype == torch.bfloat16), int(tc),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "mlp launch")
+    fused_mlp.launches += 1
+    return out
+
+
+class _Mlp(torch.autograd.Function):
+    """K7 forward, K8 backward, on (R, C) rows. Saves the inputs and
+    recomputes the rest."""
+
+    @staticmethod
+    def forward(ctx, x, w0, b0, w1, b1):
+        ctx.save_for_backward(x, w0, b0, w1, b1)
+        return _mlp_forward(x, w0, b0, w1, b1)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return fused_mlp_bwd(*ctx.saved_tensors, dy)
+
+
+def fused_mlp(x, w0, b0, w1, b1):
+    """``gelu(x @ w0 + b0) @ w1 + b1`` with the exact GELU; x (..., C), w0
+    (C, F) and w1 (F, C) in the compute dtype, b0 and b1 f32; leading dims
+    are flattened to rows. Differentiable in every argument. On CUDA tensors
+    the forward and the backward launch K7 and K8; on CPU tensors they
+    compute the plain versions."""
+    c = x.shape[-1]
+    return _Mlp.apply(x.reshape(-1, c), w0, b0, w1, b1).reshape(x.shape)
+
+
+fused_mlp.launches = 0  # K7 launches, counted by _mlp_forward
+
+
+def fused_mlp_bwd(x, w0, b0, w1, b1, dy):
+    """Backward of :func:`fused_mlp` on (R, C) rows: ``(dx, dw0, db0, dw1,
+    db1)``, dx in x's dtype, dw0/dw1 in the weights' dtype and db0/db1 in
+    the biases' dtype (nkbx casts them so, mlp.py:383-384). On a CUDA tensor
+    this launches K8 (a row-tile kernel, then fixed-order reductions of the
+    weight and bias gradients); on a CPU tensor it computes
+    :func:`reference_mlp_bwd`."""
+    if not x.is_cuda:
+        return reference_mlp_bwd(x, w0, b0, w1, b1, dy)
+    dev, dt = x.device, x.dtype
+    c, f = x.shape[-1], w0.shape[1]
+    c, f, tc, (b0c, b1c) = _check(x, w0, w1, [("dy", dy)], [("b0", b0, f), ("b1", b1, c)])
+    tr = pick_tile_rows(c, tc, mlp_bwd_smem_bytes)
+    if tr is None:
+        raise ValueError(f"MLP backward kernel: no row tile fits shared memory at C={c}")
+    x2, dy2 = x.reshape(-1, c).contiguous(), dy.reshape(-1, c).contiguous()
+    w0, w1 = w0.contiguous(), w1.contiguous()
+    rows = x2.shape[0]
+    f32 = dict(dtype=torch.float32, device=dev)
+    dx, dw0, dw1 = torch.empty_like(x2), torch.empty_like(w0), torch.empty_like(w1)
+    db1, db0 = torch.empty(c, **f32), torch.empty(f, **f32)
+    if rows == 0:
+        for t in (dw0, dw1, db1, db0):
+            t.zero_()
+    else:
+        tiles = -(-rows // tr)
+        # g = gelu(u) and round(du) (rows, F) in the compute dtype, for dw1 and dw0
+        gact, du = (torch.empty((rows, f), dtype=dt, device=dev) for _ in range(2))
+        part_c, part_f = torch.empty((tiles, c), **f32), torch.empty((tiles, f), **f32)
+        slab = _wgrad_split(rows, c, f)
+        part_w = torch.empty((-(-rows // slab), c * f), **f32)
+        lib = _build.load("ln_mlp_bwd", _BWD_SIGNATURES)
+        with torch.cuda.device(dev):
+            err = lib.nkbx_mlp_bwd(
+                x2.data_ptr(), w0.data_ptr(), b0c.data_ptr(), w1.data_ptr(), b1c.data_ptr(),
+                dy2.data_ptr(), dx.data_ptr(), dw0.data_ptr(), dw1.data_ptr(), db1.data_ptr(),
+                db0.data_ptr(), gact.data_ptr(), du.data_ptr(), part_c.data_ptr(),
+                part_f.data_ptr(), part_w.data_ptr(), rows, c, f, tr, slab,
+                int(dt == torch.bfloat16), int(tc), torch.cuda.current_stream(dev).cuda_stream)
+        _build.check(err, "mlp_bwd launch")
+        fused_mlp_bwd.launches += 1
+    return dx, dw0, db0.to(b0.dtype), dw1, db1.to(b1.dtype)
+
+
+fused_mlp_bwd.launches = 0  # K8 launches, counted by the wrapper
+
+
+def reference_mlp(x, w0, b0, w1, b1):
+    """Plain PyTorch version with flax Dense semantics, the twin of nkbx's
+    ``reference_mlp`` (mlp.py:469-475): the biases added in the compute
+    dtype, the exact GELU."""
+    dt = x.dtype
+    u = x @ w0 + b0.to(dt)
+    return F.gelu(u) @ w1 + b1.to(dt)
+
+
+def reference_mlp_bwd(x, w0, b0, w1, b1, dy):
+    """Plain backward on (R, C) rows: ``(dx, dw0, db0, dw1, db1)``, the twin
+    of nkbx's ``_bwd_kernel`` (mlp.py:265-305) rounding point by rounding
+    point: u = x·w0 + b0 in f32; one erf shared by GELU and GELU'; g rounded
+    to the compute dtype before dw1 = gᵀ·dy; db1 = Σ dy in f32; du =
+    (dy·w1ᵀ)∘GELU'(u) in f32, rounded to the compute dtype for dw0 = xᵀ·du
+    and dx = du·w0ᵀ, while db0 sums the f32 du. Products accumulate in f32;
+    dx is in x's dtype, the weights' and biases' gradients in theirs."""
+    dt = x.dtype
+    xf, dyf = x.float(), dy.float()
+    u = xf @ w0.float() + b0.float()
+    cdf = 0.5 * (1.0 + torch.erf(u * math.sqrt(0.5)))
+    pdf = torch.exp(-0.5 * u * u) * (1.0 / math.sqrt(2.0 * math.pi))
+    g = (u * cdf).to(dt).float()
+    dw1 = g.t() @ dyf
+    db1 = dyf.sum(0)
+    du = (dyf @ w1.float().t()) * (cdf + u * pdf)
+    dub = du.to(dt).float()
+    dw0 = xf.t() @ dub
+    db0 = du.sum(0)
+    dx = (dub @ w0.float().t()).to(dt)
+    return dx, dw0.to(w0.dtype), db0.to(b0.dtype), dw1.to(w1.dtype), db1.to(b1.dtype)
+
+
+# --- plain versions of the LN-fused kernels ------------------------------------------
 
 
 def reference_ln_mlp(x, ln_scale, ln_bias, w0, b0, w1, b1, shortcut, gamma=None,

@@ -13,12 +13,16 @@ shows that the kernel, not its plain version, ran:
   tests/test_torch_attention.py, a head-broadcast bias and window 12 (N=144);
 - K5 LN -> MLP and K6 its backward, with a ragged tile, a layer-scale,
   Swin-T's widest width and a width off the tensor-core grid;
+- K7 the MLP alone and K8 its backward at the same shapes (ConvNeXt-T's
+  widths 96, 192 and 768, ragged last tiles, and C = 40 off the
+  tensor-core grid);
 - K3 full-sequence attention on separate q, k, v and K4 its backward, at
   the ViT sequences N = 50, 145, 197 and 577 (D = 64), with a (1, N, N) and an
   (H, N, N) bias, masks of M = 2 and 3, and K4 with and without dbias;
-- a tiny Swin's and a tiny ViT's loss backward through the kernels gives
-  every parameter a finite, non-zero gradient (the autograd graph is not
-  cut).
+- a tiny Swin's, a tiny ViT's and a tiny ConvNeXt's loss backward through
+  the kernels (the ConvNeXt through K5/K6, and through K7/K8 under
+  ``NKBX_FUSED_LN_MLP=0``) gives every parameter a finite, non-zero
+  gradient (the autograd graph is not cut).
 
 Tolerances, absolute: K1 f32 1e-4, bf16 3e-2 (P and the output round to
 bf16; a last-bit difference flips one rounding of values of order 1). K2
@@ -27,7 +31,9 @@ largest value. K5 f32 5e-4, bf16 1.25e-1 (outputs reach 8, where one bf16
 ulp is 3.1e-2). K6, relative to each gradient's largest value: f32 1e-3,
 bf16 3e-2. K3 as K1. K4, relative to each gradient's largest value: f32
 1e-4, bf16 4 bf16 ulps (P, dS*scale and the outputs round to bf16); dbias
-1e-4 of its largest value.
+1e-4 of its largest value. K7 f32 5e-4, bf16 6.25e-2 (the plain version
+rounds u to bf16 before the GELU and adds b1 to a rounded product; the
+outputs stay under 4, where one bf16 ulp is 1.6e-2). K8 as K6.
 """
 
 import pathlib
@@ -56,6 +62,7 @@ ATTN_CASES = [
 
 MLP_CASES = [(1000, 96, 384, True), (49, 768, 3072, False), (300, 192, 768, False),
              (100, 40, 160, True)]
+MLP_ONLY_CASES = [(r, c, f) for r, c, f, _ in MLP_CASES]
 
 SEP_CASES = [
     # (G, N, heads, M, bias heads); D = 64
@@ -169,6 +176,38 @@ def test_ln_mlp_bwd_kernel_matches_plain_on_card(cuda_device, dtype, r, c, f, ga
         assert ((gv.float() - wv.float()).abs().max() <= tol * wv.float().abs().max()).item()
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 5e-4), (torch.bfloat16, 6.25e-2)])
+@pytest.mark.parametrize("r,c,f", MLP_ONLY_CASES)
+def test_mlp_kernel_matches_reference_on_card(cuda_device, dtype, tol, r, c, f):
+    args, _, _, _ = _mlp_inputs(r, c, f, False, cuda_device, dtype, seed=6)
+    x, _, _, w0, b0, w1, b1 = args
+    before = tmlp.fused_mlp.launches
+    got = tmlp.fused_mlp(x, w0, b0, w1, b1)
+    torch.cuda.synchronize()
+    assert tmlp.fused_mlp.launches == before + 1
+    want = tmlp.reference_mlp(x, w0, b0, w1, b1)
+    assert got.dtype == dtype and got.shape == x.shape
+    assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("r,c,f", MLP_ONLY_CASES)
+def test_mlp_bwd_kernel_matches_plain_on_card(cuda_device, dtype, r, c, f):
+    args, _, _, dy = _mlp_inputs(r, c, f, False, cuda_device, dtype, seed=7)
+    x, _, _, w0, b0, w1, b1 = args
+    before = tmlp.fused_mlp_bwd.launches
+    got = tmlp.fused_mlp_bwd(x, w0, b0, w1, b1, dy)
+    torch.cuda.synchronize()
+    assert tmlp.fused_mlp_bwd.launches == before + 1
+    want = tmlp.reference_mlp_bwd(x, w0, b0, w1, b1, dy)
+    tol = 1e-3 if dtype == torch.float32 else 3e-2
+    for gv, wv in zip(got, want):
+        assert gv.dtype == wv.dtype and gv.shape == wv.shape
+        assert ((gv.float() - wv.float()).abs().max() <= tol * wv.float().abs().max()).item()
+
+
 def _sep_inputs(g, n, heads, m, bh, device, dtype):
     rng = np.random.RandomState(1)
     q, k, v, go = (rng.randn(g, n, heads * 64).astype(np.float32) for _ in range(4))
@@ -270,6 +309,38 @@ def test_every_vit_parameter_gets_a_gradient_through_the_kernels(cuda_device):
         assert name.endswith("key.bias") or p.grad.abs().max() > 0, name
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("ln_off", [False, True])
+def test_every_convnext_parameter_gets_a_gradient_through_the_kernels(cuda_device, monkeypatch,
+                                                                      ln_off):
+    from nkbx_torch.models.classifier import SingletaskClassifier
+    from nkbx_torch.models.convnext import ConvNeXt
+    from nkbx_torch.train import get_loss
+    from nkbx_torch.transforms import Compose, Normalize
+
+    monkeypatch.delenv("NKBX_FUSED_MLP", raising=False)
+    monkeypatch.setenv("NKBX_FUSED_LN_MLP", "0" if ln_off else "")
+    torch.manual_seed(0)
+    backbone = ConvNeXt(depths=(1, 1), dims=(32, 64), fused_mlp=True)
+    for block in (backbone.ConvNeXtBlock_0, backbone.ConvNeXtBlock_1):
+        block.layer_scale.data.uniform_(0.1, 1.0)  # at flax's 1e-6 the MLP grads vanish
+    module = SingletaskClassifier(backbone, 3).to(cuda_device).train()
+    rng = np.random.default_rng(9)
+    images = torch.from_numpy(rng.integers(0, 256, (4, 64, 64, 3), dtype=np.uint8))
+    x = Compose([Normalize()]).device_apply(images.to(cuda_device))
+    labels = torch.from_numpy(rng.integers(0, 3, 4)).to(cuda_device)
+    mask = torch.tensor([True, True, True, False], device=cuda_device)
+    before = tmlp.fused_ln_mlp_bwd.launches, tmlp.fused_mlp_bwd.launches
+    loss = get_loss({"type": "CrossEntropyLoss"})(module(x), labels, mask=mask)
+    loss.backward()
+    torch.cuda.synchronize()
+    want = (before[0], before[1] + 2) if ln_off else (before[0] + 2, before[1])
+    assert (tmlp.fused_ln_mlp_bwd.launches, tmlp.fused_mlp_bwd.launches) == want
+    for name, p in module.named_parameters():
+        assert p.grad is not None, name
+        assert torch.isfinite(p.grad).all() and p.grad.abs().max() > 0, name
+
+
 def test_card_tests_collect_without_jax_or_nkbx():
     """The card's machine has no JAX: this file must collect (and its card
     tests skip here) with jax, flax and nkbx unimportable and no conftest."""
@@ -282,7 +353,8 @@ def test_card_tests_collect_without_jax_or_nkbx():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-2000:]
-    n = 2 * 2 * len(ATTN_CASES) + 2 * 2 * len(MLP_CASES) + 2 * 2 * len(SEP_CASES) + 2
+    n = (2 * 2 * len(ATTN_CASES) + 2 * 2 * len(MLP_CASES) + 2 * 2 * len(MLP_ONLY_CASES)
+         + 2 * 2 * len(SEP_CASES) + 2 + 2)
     word = "passed" if torch.cuda.is_available() else "skipped"
     assert re.search(rf"\b{n} {word}\b", proc.stdout), proc.stdout[-2000:]
 

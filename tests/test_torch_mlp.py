@@ -114,7 +114,7 @@ def test_tensor_core_kernel_takes_bf16_at_aligned_widths(dtype, c, f, want):
     ("", "", False, True, None),
     ("0", "", True, True, None),
     ("1", "", False, False, "ln"),
-    ("", "0", None, True, None),
+    ("", "0", None, True, "mlp"),  # nkbx's MLP-only kernels (K7/K8)
 ])
 def test_fused_mlp_mode_precedence(monkeypatch, env_mlp, env_ln, flag, on_cuda, want):
     monkeypatch.setenv("NKBX_FUSED_MLP", env_mlp)
