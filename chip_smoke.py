@@ -16,13 +16,18 @@
    case with a learned (H, N, N) bias and a mask of M = 2; the MLP alone
    (K7) at the four stage shapes of ConvNeXt-T at bucket 64 (the R and C of
    K5's Swin-T cases), bucket 1's ragged 49 rows at C = 768, and an FMA
-   width.
+   width. The fused bottleneck chain (K9) at ResNet-50's stage shapes at
+   batch 64 with ghost_bn = 2, in each dtype at the stages and bands that
+   nkbx's rule (stat_band) gives (bf16 stages 1-3, th = 8/7/2; f32 stages
+   1-2, th = 4/4), and a small single-band case (th = H): the output and the
+   six per-tile statistics against the plain chain on the same bands.
 3. The same for the backward kernels: K2 and K6 at the shapes of a batch-64
    Swin-T train step (and window 12 for K2, a ragged tile with a layer-scale
    and an FMA width for K6, ViT-B's MLP for K6), K4 at K3's shapes (dbias
-   checked in the small case), K8 at K7's shapes. The library time of a
-   backward is the backward alone of scaled_dot_product_attention, with the
-   SDPA backend that ran; no PyTorch call computes K5-K8.
+   checked in the small case), K8 at K7's shapes, K10 at K9's (all ten
+   gradients). The library time of a backward is the backward alone of
+   scaled_dot_product_attention, with the SDPA backend that ran; no PyTorch
+   call computes K5-K10.
 4. Drives the serving path of swin_tiny_patch4_window7_224, of
    vit_base_patch16_224 (fused_attention and fused_mlp on) and of
    convnext_tiny, twice (through K5 and, under NKBX_FUSED_LN_MLP=0, through
@@ -35,17 +40,32 @@
    times benchmark(64) through the kernels and through the plain versions,
    the peak memory, and a profile of where the device time goes.
 5. Drives the training path of every model of phase 4 at full width and
-   depth (bf16, 10 classes), nadam with two groups, cross-entropy, flips + Normalize, a
-   seeded uint8 batch of 64 with the last 6 rows masked out. 5 steps through
-   the kernels (launch counts per step, finite grads, falling loss) and the
-   same 5 steps from the same weights through the plain versions (losses
-   agree). Every tensor's grads of one backward of that batch, in bf16 and
-   in f32 (TF32 off), through the kernels and through the plain versions
-   (launch counts checked): in f32 the kernels agree with plain, and in bf16
-   they are no farther from the f32 grads than plain bf16 is (within 2x).
-   Then step time, img/s and peak memory of both paths, and a profile of
-   one step.
-6. Prints the kernels' JSON line (all eight kernels), the card's name and
+   depth (bf16, 10 classes), and of resnet50 with ghost_bn = 2 and the fused
+   chain (nkbx's ghost2_fused recipe; the chain runs in training only, so
+   this path has no serving phase), nadam with two groups, cross-entropy,
+   flips + Normalize, a seeded uint8 batch of 64 with the last 6 rows masked
+   out (every row valid for ResNet: ghost BN is the recipe with
+   drop_last=True). 5 steps through the kernels (launch counts per step,
+   finite grads, falling loss) and the same 5 steps from the same weights
+   through the plain versions (NKBX_FUSED_CHAIN=0 runs the plain chain on
+   the same bands; losses agree). For ResNet also the BatchNorm running
+   statistics after the 5 steps, the same 5 steps in f32 through the
+   kernels and the plain chain (losses and running statistics held
+   tightly: bf16 rounding noise grows along a trajectory of 50 layers of
+   ghost-BN statistics; the later bf16 losses keep only a loose 3e-2). Every
+   tensor's grads of one backward of that batch, in bf16 and in f32 (TF32
+   off), through the kernels and through the plain versions (launch counts
+   checked): in f32 the kernels agree with plain, and in bf16 they are no
+   farther from the f32 grads than plain bf16 is (within 2x). For ResNet
+   the f32 grads are held against the plain path's own sensitivity to a
+   1-ulp perturbation of its input (check_gated_grads), and in bf16 each of
+   the step's chain blocks: K9/K10 on the inputs and upstream gradient
+   recorded from one train step, against the plain chain at check_chain's
+   tolerances (check_chain_blocks). Then step time, img/s and peak memory
+   of both paths (for ResNet also of the unfused ghost-BN resnet50 from the
+   same weights, the model a user would run without the chain), and a
+   profile of one step.
+6. Prints the kernels' JSON line (all ten kernels), the card's name and
    power limit, and last {"ok": true, "device": {...}}.
 
 Exits non-zero, before printing any result, without a CUDA device, outside
@@ -88,6 +108,7 @@ try:
     from nkbx_torch.models.swin import _shift_attn_mask
     from nkbx_torch.ops import _build
     from nkbx_torch.ops import attention as A
+    from nkbx_torch.ops import bottleneck as BN
     from nkbx_torch.ops import mlp as M
 except ImportError as e:
     fail(f"run from the root of an nkbx checkout: {e}")
@@ -600,13 +621,161 @@ def check_sep_attention_bwd():
     return rows, worst
 
 
+# --- phases 2-3: the fused bottleneck chain (K9, K10) ------------------------------
+
+# ResNet-50 at batch 64, 224 px, ghost_bn = 2: its identity blocks per stage
+# (2, 3, 5, 2), each stage's (H = W, C, M); stat_band gives bf16 bands 8/7/2/None
+# and f32 bands 4/4/None/None
+RESNET_STAGES = [(2, 56, 256, 64), (3, 28, 512, 128), (5, 14, 1024, 256), (2, 7, 2048, 512)]
+GHOST = 2
+CHAIN_GRADS = ("dx", "dw1", "dw2", "dw3", "ds1", "db1", "ds2", "db2", "ds3", "db3")
+
+
+def chain_cases():
+    """(label, B, H, C, M, dtype, th): the stages whose band stat_band gives in
+    each dtype (bf16: stages 1-3; f32: 1-2), and a small single-band case."""
+    cases = []
+    for dtype, itemsize in (("bf16", 2), ("f32", 4)):
+        for s, (_, h, c, m) in enumerate(RESNET_STAGES, 1):
+            th = BN.stat_band(BUCKET, h, h, c, m, GHOST, itemsize)
+            if th is not None:
+                cases.append((f"stage {s}", BUCKET, h, c, m, dtype, th))
+        cases.append(("single-band", 8, 14, 128, 32, dtype, 14))
+    return cases
+
+
+def chain_case(b, h, c, m, dtype, gen):
+    dt = DT[dtype]
+
+    def rn(*shape, s=1.0):
+        return s * torch.randn(*shape, generator=gen, device=DEV)
+
+    def uni(n):
+        return 0.8 + 0.4 * torch.rand(n, generator=gen, device=DEV)
+
+    x = rn(b, h, h, c).to(dt)
+    args = (x, rn(c, m, s=c ** -0.5).to(dt), rn(3, 3, m, m, s=(9 * m) ** -0.5).to(dt),
+            rn(m, c, s=m ** -0.5).to(dt), uni(m), rn(m, s=0.1), uni(m), rn(m, s=0.1), uni(c),
+            rn(c, s=0.1))
+    return args, rn(b, h, h, c).to(dt)
+
+
+def chain_work(b, h, c, m, th, itemsize):
+    """Bytes and operations of one K9 and one K10 call: each input read once,
+    each output written once; conv1 once per image row, the 3x3 conv over the
+    core rows, conv3; the backward adds the recompute's three products, dw3
+    and da2, dw2 over the core rows, da1 and dw1 over the ext rows (each
+    tile's th + 2 rows) and dx's core rows."""
+    rows = b * h * h
+    ext = rows // th * (th + 2)
+    nt = b // GHOST * h // th
+    wbytes = itemsize * (2 * c * m + 9 * m * m)
+    vec = 4 * (4 * m + 2 * c)
+    c1, c2, c3 = 2 * rows * c * m, 2 * rows * 9 * m * m, 2 * rows * m * c
+    fwd_bytes = 2 * itemsize * rows * c + wbytes + vec + 4 * nt * (4 * m + 2 * c)
+    bwd_bytes = 3 * itemsize * rows * c + wbytes + 4 * (2 * c * m + 9 * m * m) + 3 * vec
+    bwd_ops = (c1 + c2 + c3) + 2 * c3 + c2 + 2 * ext * 9 * m * m + 2 * ext * c * m + c1
+    return fwd_bytes, c1 + c2 + c3, bwd_bytes, bwd_ops
+
+
+CHAIN_TOL = {"bf16": (2e-2, 2e-2), "f32": (5e-4, 3e-3)}  # statistics, gradients
+
+
+def compare_chain(label, args, dout, th):
+    """K9 and K10 against the plain chain on the same inputs and band, at
+    check_chain's tolerances. Logs the output's error, its flipped gates, and
+    each statistic's and gradient's error; returns (ok, output max|err|, the
+    gradients' largest max|err|, K9's and K10's outputs)."""
+    dtype = DTYPE_NAME[args[0].dtype]
+    b, h, _, c = args[0].shape
+    m = args[1].shape[1]
+    kw = dict(g=GHOST, th=th)
+    out, stats = BN.fused_chain_fwd(*args, **kw)
+    grads = BN.fused_chain_bwd(*args, dout, **kw)
+    torch.cuda.synchronize()
+    pout, pstats = BN.reference_chain(*args, **kw)
+    pgrads = BN.reference_chain_bwd(*args, dout, **kw)
+    err = max_err(out, pout)
+    lim = 4 * bf16_ulp(float(pout.float().abs().max())) if dtype == "bf16" else 5e-4
+    flips = int(((out.float() > 0) != (pout.float() > 0)).sum())
+    tol_stat, tol_grad = CHAIN_TOL[dtype]
+    stat_err, grad_l2 = {}, {}
+    for i, (name, got, want) in enumerate(zip(("m1", "v1", "m2", "v2", "m3", "v3")
+                                              + CHAIN_GRADS, stats + tuple(grads),
+                                              pstats + tuple(pgrads))):
+        if got.shape != want.shape or got.dtype != want.dtype:
+            fail(f"chain {label} {dtype}: {name} is {got.dtype} {tuple(got.shape)}, plain "
+                 f"{want.dtype} {tuple(want.shape)}")
+        d, w = got.float() - want.float(), want.float()
+        if i < 6:
+            stat_err[name] = float(d.abs().max()) / max(float(w.abs().max()), 1e-30)
+        else:
+            grad_l2[name] = float(d.norm()) / max(float(w.norm()), 1e-30)
+    grad_err = max(max_err(a, b_) for a, b_ in zip(grads, pgrads))
+    ok = err <= lim and max(stat_err.values()) <= tol_stat and max(grad_l2.values()) <= tol_grad
+    log(f"K9/K10 {label} B={b} H=W={h} C={c} M={m} th={th} {dtype}: out max|err| {err:.3e} "
+        f"(tol {lim:.3e}), {flips} output gates flipped; statistics max|err| / max|plain| "
+        f"at most {max(stat_err.values()):.3e} ({max(stat_err, key=stat_err.get)}; tol "
+        f"{tol_stat:.0e}); gradients |kernel - plain| / |plain| (L2) "
+        f"{' '.join(f'{n} {v:.2e}' for n, v in grad_l2.items())} (tol {tol_grad:.0e}) "
+        f"{'ok' if ok else 'FAIL'}")
+    return ok, err, grad_err, grad_l2
+
+
+def check_chain():
+    """K9 and K10 against the plain chain on the same inputs and bands. The
+    output within 4 bf16 ulps of its largest value (a1, a2, y3 and the residual
+    sum round to bf16, so a last-bit difference in f32 flips a rounding) and
+    5e-4 in f32; each of the six statistics within 2e-2 (bf16) / 5e-4 (f32)
+    of its largest value. Each of the ten gradients by its relative L2 error,
+    |kernel - plain| / |plain|: bf16 2e-2, f32 3e-3. Not elementwise: a relu
+    gate (z1, z2 or the output's) whose input lies within rounding noise of 0
+    falls on different sides in the two programs (the output's flips are
+    counted: at stage 1, a few in f32 and hundreds in bf16 among 51M), and
+    each flip moves the gradient elements behind it by their whole size."""
+    gen = torch.Generator(device=DEV).manual_seed(9)
+    rows = {}
+    worst = {"fwd": {"bf16": 0.0, "f32": 0.0}, "bwd": {"bf16": 0.0, "f32": 0.0},
+             "bwd_l2": {"bf16": 0.0, "f32": 0.0}}
+    for label, b, h, c, m, dtype, th in chain_cases():
+        args, dout = chain_case(b, h, c, m, dtype, gen)
+        ok, err, grad_err, grad_l2 = compare_chain(label, args, dout, th)
+        if not ok:
+            fail(f"the bottleneck chain kernels disagree with the plain chain at {label} {dtype}")
+        worst["fwd"][dtype] = max(worst["fwd"][dtype], err)
+        worst["bwd"][dtype] = max(worst["bwd"][dtype], grad_err)
+        worst["bwd_l2"][dtype] = max(worst["bwd_l2"][dtype], *grad_l2.values())
+        if dtype != "bf16" or label == "single-band":
+            del args, dout
+            continue
+        kw = dict(g=GHOST, th=th)
+        fb, fo, bb, bo = chain_work(b, h, c, m, th, 2)
+        t = dict(ms=cuda_ms(lambda: BN.fused_chain_fwd(*args, **kw), iters=5),
+                 plain_ms=cuda_ms(lambda: BN.reference_chain(*args, **kw), iters=3, warm=1),
+                 bwd_ms=cuda_ms(lambda: BN.fused_chain_bwd(*args, dout, **kw), iters=3, warm=1),
+                 bwd_plain_ms=cuda_ms(lambda: BN.reference_chain_bwd(*args, dout, **kw),
+                                      iters=3, warm=1))
+        t["bound_ms"], t["bound_by"] = bound_ms(fb, fo, "bf16")
+        t["bwd_bound_ms"], t["bwd_bound_by"] = bound_ms(bb, bo, "bf16")
+        log(f"   bf16 times a launch: K9 {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']}); K10 {t['bwd_ms']:.4f} ms, plain "
+            f"{t['bwd_plain_ms']:.4f} ms, bound {t['bwd_bound_ms']:.4f} ms ({t['bwd_bound_by']})")
+        rows[label] = t
+        del args, dout
+    log(f"K9/K10 worst: out max|err| bf16 {worst['fwd']['bf16']:.3e}, f32 "
+        f"{worst['fwd']['f32']:.3e}; gradients relative L2 bf16 {worst['bwd_l2']['bf16']:.3e}, "
+        f"f32 {worst['bwd_l2']['f32']:.3e}")
+    return rows, worst
+
+
 # --- phases 4-5: the serving and training paths ---------------------------------
 
 COUNTED = {"window_attention": (A, "fused_attention_qkv"), "ln_mlp": (M, "fused_ln_mlp"),
            "window_attention_bwd": (A, "fused_attention_qkv_bwd"),
            "ln_mlp_bwd": (M, "fused_ln_mlp_bwd"), "attention": (A, "fused_attention"),
            "attention_bwd": (A, "fused_attention_bwd"), "mlp": (M, "fused_mlp"),
-           "mlp_bwd": (M, "fused_mlp_bwd")}
+           "mlp_bwd": (M, "fused_mlp_bwd"), "bottleneck": (BN, "fused_chain"),
+           "bottleneck_bwd": (BN, "fused_chain_bwd")}
 
 
 def zero_counts():
@@ -619,26 +788,70 @@ def read_counts():
 
 
 def set_plain(on):
-    for k in ("NKBX_FUSED_ATTENTION", "NKBX_FUSED_MLP"):
+    for k in ("NKBX_FUSED_ATTENTION", "NKBX_FUSED_MLP", "NKBX_FUSED_CHAIN"):
         if on:
             os.environ[k] = "0"
         else:
             os.environ.pop(k, None)
 
 
+def block_counts(cfg, attention, widths):
+    """A transformer's launches per forward (and backward): each block's MLP
+    kernel from the gate's answer for its width (with the NKBX_FUSED_MLP
+    switch unset), and its attention kernel (None for ConvNeXt)."""
+    flag = (cfg.get("backbone_opts") or {}).get("fused_mlp")
+
+    def counts(dtype, backward):
+        modes = [M.fused_mlp_mode(flag, torch.empty(1, c, dtype=dtype, device=DEV), 4 * c,
+                                  auto=flag is None) for c in widths]
+        want = dict.fromkeys(COUNTED, 0)
+        want["ln_mlp"], want["mlp"] = modes.count("ln"), modes.count("mlp")
+        if attention:
+            want[attention] = len(widths)
+        if backward:
+            want["ln_mlp_bwd"], want["mlp_bwd"] = want["ln_mlp"], want["mlp"]
+            if attention:
+                want[attention + "_bwd"] = len(widths)
+        return want
+
+    return counts
+
+
+def chain_counts(dtype, backward):
+    """ResNet-50 with the fused chain: one K9 (and K10) launch per identity
+    block whose stage stat_band gives a band in ``dtype`` (bf16 2 + 3 + 5,
+    f32 2 + 3)."""
+    itemsize = torch.empty(0, dtype=dtype).element_size()
+    n = sum(k for k, h, c, m in RESNET_STAGES
+            if BN.stat_band(BUCKET, h, h, c, m, GHOST, itemsize) is not None)
+    want = dict.fromkeys(COUNTED, 0)
+    want["bottleneck"] = n
+    if backward:
+        want["bottleneck_bwd"] = n
+    return want
+
+
 class Path:
     """One model of the smoke run: its config (full width and depth, random
-    weights from seed 0, 10 classes), its attention kernels (None for
-    ConvNeXt), the widths of its blocks' MLPs, the environment it runs under
-    (``NKBX_FUSED_LN_MLP=0`` takes K7/K8), and whether its layer-scales are
-    drawn anew."""
+    weights from seed 0, 10 classes); ``counts(dtype, backward)``, each
+    kernel's launches in one forward (and backward); its attention kernel;
+    the environment it runs under (``NKBX_FUSED_LN_MLP=0`` takes K7/K8);
+    whether its layer-scales are drawn anew; whether it serves (the fused
+    chain runs in training only); and whether it is a ReLU net with ghost
+    BatchNorm: every row of its training batch valid (the recipe with
+    drop_last=True), its running statistics and f32 trajectory checked, its
+    f32 grads held by check_gated_grads and its bf16 chain blocks by
+    check_chain_blocks; and ``yardstick``, the config of the model a user
+    would run without the kernels (timed beside the step, not compared)."""
 
-    def __init__(self, label, cfg, attention, widths, env=None, layer_scale=False):
-        self.label, self.cfg, self.attention, self.widths = label, cfg, attention, widths
+    def __init__(self, label, cfg, counts, attention=None, env=None, layer_scale=False,
+                 serves=True, ghost_bn=False, yardstick=None):
+        self.label, self.cfg, self.counts, self.attention = label, cfg, counts, attention
         self.env, self.layer_scale = env or {}, layer_scale
+        self.serves, self.ghost_bn, self.yardstick = serves, ghost_bn, yardstick
 
-    def model(self, dtype):
-        model = get_model(self.cfg, [f"class{i}" for i in range(10)], seed=0, dtype=dtype)
+    def model(self, dtype, cfg=None):
+        model = get_model(cfg or self.cfg, [f"class{i}" for i in range(10)], seed=0, dtype=dtype)
         if self.layer_scale:  # seeded U[0.1, 1], the same in every dtype
             gen = torch.Generator().manual_seed(1)
             for name, p in model.module.named_parameters():
@@ -659,39 +872,31 @@ class Path:
                 else:
                     os.environ[k] = v
 
-    def expected(self, dtype, backward):
-        """Each kernel's launches in one forward (and backward), from the
-        gate's answer for each block (with the NKBX_FUSED_MLP switch unset)."""
-        flag = (self.cfg.get("backbone_opts") or {}).get("fused_mlp")
-        modes = [M.fused_mlp_mode(flag, torch.empty(1, c, dtype=dtype, device=DEV), 4 * c,
-                                  auto=flag is None) for c in self.widths]
-        want = dict.fromkeys(COUNTED, 0)
-        want["ln_mlp"], want["mlp"] = modes.count("ln"), modes.count("mlp")
-        if self.attention:
-            want[self.attention] = len(self.widths)
-        if backward:
-            want["ln_mlp_bwd"], want["mlp_bwd"] = want["ln_mlp"], want["mlp"]
-            if self.attention:
-                want[self.attention + "_bwd"] = len(self.widths)
-        return want
+
+def kernels_ran(want, backward):
+    """Whether a path's expected counts launch some kernel in that direction."""
+    return any(v > 0 for k, v in want.items() if k.endswith("_bwd") == backward)
 
 
-def mlp_kernels_ran(want, backward):
-    suffix = "_bwd" if backward else ""
-    return want["ln_mlp" + suffix] + want["mlp" + suffix] > 0
-
-
-SWIN = Path("swin_tiny", {"model": "swin_tiny_patch4_window7_224"}, "window_attention",
-            [c for d, c in zip(DEPTHS, (96, 192, 384, 768)) for _ in range(d)])
-VIT = Path("vit_base", {"model": "vit_base_patch16_224",
-                        "backbone_opts": {"fused_attention": True, "fused_mlp": True}},
-           "attention", [768] * 12)
+SWIN_WIDTHS = [c for d, c in zip(DEPTHS, (96, 192, 384, 768)) for _ in range(d)]
+SWIN_CFG = {"model": "swin_tiny_patch4_window7_224"}
+SWIN = Path("swin_tiny", SWIN_CFG, block_counts(SWIN_CFG, "window_attention", SWIN_WIDTHS),
+            "window_attention")
+VIT_CFG = {"model": "vit_base_patch16_224",
+           "backbone_opts": {"fused_attention": True, "fused_mlp": True}}
+VIT = Path("vit_base", VIT_CFG, block_counts(VIT_CFG, "attention", [768] * 12), "attention")
 CONVNEXT_WIDTHS = [c for d, c in zip(CONVNEXT_DEPTHS, (96, 192, 384, 768)) for _ in range(d)]
-CONVNEXT = Path("convnext_tiny", {"model": "convnext_tiny"}, None, CONVNEXT_WIDTHS,
+CONVNEXT_CFG = {"model": "convnext_tiny"}
+CONVNEXT = Path("convnext_tiny", CONVNEXT_CFG, block_counts(CONVNEXT_CFG, None, CONVNEXT_WIDTHS),
                 layer_scale=True)
-CONVNEXT_MLP = Path("convnext_tiny_mlp", {"model": "convnext_tiny"}, None, CONVNEXT_WIDTHS,
+CONVNEXT_MLP = Path("convnext_tiny_mlp", CONVNEXT_CFG,
+                    block_counts(CONVNEXT_CFG, None, CONVNEXT_WIDTHS),
                     env={"NKBX_FUSED_LN_MLP": "0"}, layer_scale=True)
-PATHS = (SWIN, VIT, CONVNEXT, CONVNEXT_MLP)
+RESNET = Path("resnet50_ghost2_fused",
+              {"model": "resnet50", "backbone_opts": {"ghost_bn": GHOST, "fused_bottleneck": True}},
+              chain_counts, serves=False, ghost_bn=True,
+              yardstick={"model": "resnet50", "backbone_opts": {"ghost_bn": GHOST}})
+PATHS = (SWIN, VIT, CONVNEXT, CONVNEXT_MLP, RESNET)
 
 
 def serve_all(serving, requests):
@@ -763,9 +968,9 @@ def check_path(path):
     zero_counts()
     outs = serve_all(serving, requests)
     counts = read_counts()
-    want = {k: v * forwards for k, v in path.expected(torch.bfloat16, False).items()}
+    want = {k: v * forwards for k, v in path.counts(torch.bfloat16, False).items()}
     log(f"path {path.label}: {forwards} forwards; launches {counts} (expect {want})")
-    if (counts != want or not mlp_kernels_ran(want, False)
+    if (counts != want or not kernels_ran(want, False)
             or (path.attention and not counts[path.attention])):
         fail(f"the {path.label} serving path did not go through the kernels as expected")
     for n, o in zip(sizes, outs):
@@ -847,15 +1052,21 @@ def check_grads(path, model, init, criterion, pipe, images, labels, mask):
         module.load_state_dict(init)
         module.train()
         x = pipe.device_apply(images, out_dtype=dtype)
-        want = path.expected(dtype, True)
+        want = path.counts(dtype, True)
         for plain in (False, True):
             g[dtype, plain], counts = grads(module, x, plain)
             ok = counts == (dict.fromkeys(want, 0) if plain else want)
             log(f"grads {path.label} {DTYPE_NAME[dtype]} {'plain' if plain else 'kernels'}: "
                 f"launches {counts} {'ok' if ok else 'FAIL'}")
-            if not ok or not mlp_kernels_ran(want, True):
+            if not ok or not kernels_ran(want, True):
                 fail("the gradient check did not compare the kernels with the plain path")
+        if path.ghost_bn and dtype == torch.float32:  # plain on the input perturbed by ~1 ulp
+            gen = torch.Generator(device=DEV).manual_seed(11)
+            noise = torch.randn(x.shape, generator=gen, device=DEV)
+            g[dtype, "perturbed"], _ = grads(module, x * (1 + 2.0 ** -23 * noise), True)
     del m32
+    if path.ghost_bn:
+        return check_gated_grads(path, g)
     g32 = g[torch.float32, True]
     floor = 1e-4 * max(float(t.abs().max()) for t in g32.values())
 
@@ -885,11 +1096,98 @@ def check_grads(path, model, init, criterion, pipe, images, labels, mask):
              f"bf16: {bad[:5]}")
 
 
+def check_running_stats(path, got, want, tol, what):
+    """Every BatchNorm running statistic after 5 steps through the kernels
+    against the plain path's, each within ``tol`` of its largest value."""
+    worst = max((max_err(got[n], want[n]) / float(want[n].abs().max()), n) for n in got)
+    log(f"train {path.label} {what}: {len(got)} BatchNorm running statistics after 5 steps, max "
+        f"|kernels - plain| / max|plain| = {worst[0]:.3e} ({worst[1]}; tol {tol:.0e})")
+    if worst[0] > tol:
+        fail(f"{path.label} {what} running statistics through the kernels disagree with plain")
+
+
+def check_gated_grads(path, g):
+    """The f32 grad check of a ReLU network with ghost BN: the grads through
+    the kernels against the plain path's, by relative L2 error, over all
+    tensors together and per tensor. The yardstick is the plain path's own
+    sensitivity to rounding: its grads on the input perturbed by ~1 f32 ulp.
+    The kernels must lie from plain within twice that distance plus a floor
+    (all tensors 1e-3, per tensor 1e-2). Rounding-level differences move relu
+    gates that sit near 0 to the other side, and ghost BatchNorm over groups
+    as small as 98 rows (stage 4) carries them through every later gradient,
+    so neither a fixed elementwise tolerance nor the f32 grads of another
+    dtype is the right ruler. bf16 has no model-level grad check: at random
+    init a 1-ulp perturbation moves its grads by more than their own size, so
+    such a ruler passes anything; check_chain_blocks holds K9/K10 on the bf16
+    step's own block inputs instead."""
+    gk, gp, gq = g[torch.float32, False], g[torch.float32, True], g[torch.float32, "perturbed"]
+
+    def l2(a, b, names):
+        d = sum(float((a[n] - b[n]).float().norm()) ** 2 for n in names) ** 0.5
+        return d / max(sum(float(b[n].float().norm()) ** 2 for n in names) ** 0.5, 1e-30)
+
+    k_all, p_all = l2(gk, gp, gp), l2(gq, gp, gp)
+    rows = [(l2(gk, gp, [n]), l2(gq, gp, [n]), n) for n in gp]
+    bad = [r for r in rows if r[0] > 2 * r[1] + 1e-2]
+    worst = max(rows, key=lambda r: r[0] / (2 * r[1] + 1e-2))
+    log(f"grads {path.label} f32: |kernels - plain| / |plain| (L2) over all tensors {k_all:.3e}, "
+        f"plain on a 1-ulp-perturbed input {p_all:.3e} (tol 2x + 1e-03); per tensor worst "
+        f"{worst[2]}: {worst[0]:.3e} against {worst[1]:.3e} (tol 2x + 1e-02); "
+        f"{len(bad)} tensors off")
+    if k_all > 2 * p_all + 1e-3 or bad:
+        fail(f"{path.label} f32 grads through the kernels disagree with plain: {bad[:5]}")
+
+
+def check_chain_blocks(path, model, init, criterion, pipe, images, labels, mask):
+    """K9 and K10 on the real inputs of one bf16 train step: one forward and
+    backward through the kernels from the weights ``init`` records every
+    fused_chain call's inputs, band and upstream gradient; then each block's
+    K9 and K10 are held against the plain chain on those tensors at
+    check_chain's tolerances. One call per chain block of the step."""
+    from nkbx_torch.models import resnet as R
+
+    calls, chain = [], R.fused_chain
+
+    def recording(*args, g, th, eps):
+        out, stats = chain(*args, g=g, th=th, eps=eps)
+        rec = {"args": tuple(a.detach().clone() for a in args), "g": g, "th": th}
+        out.register_hook(lambda d: rec.__setitem__("dout", d.detach().clone()))
+        calls.append(rec)
+        return out, stats
+
+    module = model.module
+    module.load_state_dict(init)
+    module.train()
+    module.zero_grad(set_to_none=True)
+    set_plain(False)
+    R.fused_chain = recording
+    try:
+        criterion(module(pipe.device_apply(images, out_dtype=torch.bfloat16)), labels,
+                  mask=mask).backward()
+        torch.cuda.synchronize()
+    finally:
+        R.fused_chain = chain
+    want = path.counts(torch.bfloat16, True)["bottleneck"]
+    if len(calls) != want or any("dout" not in r or r["g"] != GHOST for r in calls):
+        fail(f"{path.label}: recorded {len(calls)} chain calls of one bf16 step, expected {want}")
+    worst = 0.0
+    for i, rec in enumerate(calls):
+        ok, _, _, grad_l2 = compare_chain(f"{path.label} block {i}", rec["args"], rec["dout"],
+                                          rec["th"])
+        if not ok:
+            fail(f"{path.label}: K9/K10 disagree with the plain chain on block {i}'s inputs")
+        worst = max(worst, *grad_l2.values())
+    log(f"blocks {path.label} bf16: K9/K10 held against the plain chain on the {len(calls)} "
+        f"chain blocks' inputs of one step; gradients' relative L2 at most {worst:.3e}")
+    del calls
+
+
 def check_train(path):
     """Training: 5 full-width steps on a seeded batch of 64 (the last 6 rows
-    masked out) through the kernels and through the plain versions from the
-    same weights; one backward's grads (check_grads); step time, img/s and
-    peak memory of both paths; a profile of one step."""
+    masked out, or every row valid for a ghost-BN path) through the kernels
+    and through the plain versions from the same weights, and the BatchNorm
+    running statistics after them; one backward's grads (check_grads); step
+    time, img/s and peak memory of both paths; a profile of one step."""
     from nkbx_torch.train import TrainState, build_train_step, get_loss, get_optimizer
     from nkbx_torch.transforms import Compose, HorizontalFlip, Normalize, VerticalFlip
 
@@ -907,17 +1205,18 @@ def check_train(path):
                              device=DEV)
     labels = torch.as_tensor(rng.integers(0, 10, BUCKET), device=DEV)
     mask = torch.ones(BUCKET, dtype=torch.bool, device=DEV)
-    mask[-6:] = False
+    if not path.ghost_bn:
+        mask[-6:] = False
 
-    def fresh(plain):
+    def fresh(plain, mdl=model):
         set_plain(plain)
-        model.module.load_state_dict(init)
-        state = TrainState.create(model, seed=0)
-        step = build_train_step(model, criterion, bundle, augment_fn=pipe.device_apply)
+        mdl.module.load_state_dict(init)
+        state = TrainState.create(mdl, seed=0)
+        step = build_train_step(mdl, criterion, bundle, augment_fn=pipe.device_apply)
         return state, lambda st: step(st, images, labels, mask, 1.0, 1.0)
 
-    def five_steps(plain):
-        state, step = fresh(plain)
+    def five_steps(plain, mdl=model):
+        state, step = fresh(plain, mdl)
         losses, counts = [], []
         for _ in range(5):
             zero_counts()
@@ -925,35 +1224,70 @@ def check_train(path):
             torch.cuda.synchronize()
             counts.append(read_counts())
             losses.append(float(metrics["loss"]))
-        finite = all(bool(torch.isfinite(p.grad).all()) for p in model.module.parameters())
-        return losses, counts, finite
+        finite = all(bool(torch.isfinite(p.grad).all()) for p in mdl.module.parameters())
+        return losses, counts, finite, running_stats(mdl)
+
+    def running_stats(mdl):
+        return {n: b.clone() for n, b in mdl.module.named_buffers()
+                if n.endswith(("running_mean", "running_var"))}
 
     set_plain(False)
-    want = path.expected(torch.bfloat16, True)
-    losses, counts, finite = five_steps(False)
+    want = path.counts(torch.bfloat16, True)
+    losses, counts, finite, stats = five_steps(False)
     log(f"train {path.label}: kernels, 5 steps, losses {[round(x, 5) for x in losses]}, "
         f"launches per step {counts[0]} (expect {want})")
-    if any(c != want for c in counts) or not mlp_kernels_ran(want, True):
+    if any(c != want for c in counts) or not kernels_ran(want, True):
         fail(f"the {path.label} train step did not go through the kernels as expected: {counts}")
     if not finite or not all(np.isfinite(losses)):
         fail(f"{path.label}: non-finite loss or gradient through the kernels")
     if not losses[-1] < losses[0]:
         fail(f"{path.label}: the loss did not fall on the repeated batch: {losses}")
     launches = {k: sum(c[k] for c in counts) for k in want}
-    plain_losses, plain_counts, _ = five_steps(True)
+    plain_losses, plain_counts, _, plain_stats = five_steps(True)
     if any(sum(c.values()) for c in plain_counts):
         fail(f"the plain path launched kernels: {plain_counts}")
-    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, plain_losses))
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, plain_losses)]
+    # with BatchNorm (resnet50: 50 layers of ghost-BN statistics, down to 56 rows a
+    # tile at stage 3) bf16 rounding noise grows along the trajectory: there the first
+    # step's loss, a forward from the same weights, keeps 5e-3 and the later steps a
+    # loose 3e-2 that catches only gross faults; the trajectory is held tightly in
+    # f32 below, and the kernels on the bf16 step's own block inputs in
+    # check_chain_blocks
+    tol = [5e-3] + [3e-2 if stats else 5e-3] * 4
     log(f"train {path.label}: plain, 5 steps, losses {[round(x, 5) for x in plain_losses]}; "
-        f"max |kernels - plain| / |plain| = {rel:.3e} (tol 5.0e-03)")
-    if rel > 5e-3:
+        f"per step |kernels - plain| / |plain| {[f'{r:.2e}' for r in rel]} (tol "
+        f"{[f'{t:.0e}' for t in tol]})")
+    if any(r > t for r, t in zip(rel, tol)):
         fail(f"{path.label} bf16 losses through the kernels disagree with the plain path")
+    if stats:
+        check_running_stats(path, stats, plain_stats, 5e-2, "bf16")
+        m32 = path.model(torch.float32)
+        want32 = path.counts(torch.float32, True)
+        k32, c32, finite32, s32 = five_steps(False, m32)
+        p32, _, _, ps32 = five_steps(True, m32)
+        del m32
+        rel32 = [abs(a - b) / abs(b) for a, b in zip(k32, p32)]
+        log(f"train {path.label} f32: 5 steps, losses kernels {[round(x, 6) for x in k32]}, "
+            f"plain {[round(x, 6) for x in p32]}; max |kernels - plain| / |plain| "
+            f"{max(rel32):.3e} (tol 5.0e-03); launches per step {c32[0]} (expect {want32})")
+        if any(c != want32 for c in c32) or not finite32 or max(rel32) > 5e-3:
+            fail(f"{path.label} f32 train steps through the kernels disagree with the plain path")
+        check_running_stats(path, s32, ps32, 1e-3, "f32")
     set_plain(False)
     check_grads(path, model, init, criterion, Compose([Normalize()]), images, labels, mask)
+    if path.ghost_bn:
+        check_chain_blocks(path, model, init, criterion, Compose([Normalize()]), images, labels,
+                           mask)
 
+    # the yardstick: the same weights in the model a user would run without the
+    # kernels (resnet50: the unfused ghost-BN blocks, cuDNN convolutions and the
+    # eager BatchNorm), timed only: its statistics groups differ from the chain's
+    runs = [("kernels", False, model), ("plain", True, model)]
+    if path.yardstick:
+        runs.append(("unfused", False, path.model(torch.bfloat16, path.yardstick)))
     bench = {}
-    for label, plain_on in (("kernels", False), ("plain", True), ("kernels", False)):
-        state, step = fresh(plain_on)
+    for label, plain_on, mdl in runs + [("kernels", False, model)]:
+        state, step = fresh(plain_on, mdl)
         state, _ = step(state)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -970,14 +1304,18 @@ def check_train(path):
     try:  # a measurement only: the checks above decide the run
         from torch.profiler import ProfilerActivity, profile
 
-        state, step = fresh(False)
-        state, _ = step(state)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            step(state)
+        for label, _, mdl in runs:
+            if label == "plain":
+                continue
+            state, step = fresh(False, mdl)
+            state, _ = step(state)
             torch.cuda.synchronize()
-        report_profile(prof, 1, f"in one batch-64 {path.label} train step",
-                       bench["kernels"][-1]["step_ms"], f"profile_train_step_{path.label}.txt")
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                step(state)
+                torch.cuda.synchronize()
+            name = path.label if label == "kernels" else f"{path.label}_{label}"
+            report_profile(prof, 1, f"in one batch-64 {name} train step",
+                           bench[label][-1]["step_ms"], f"profile_train_step_{name}.txt")
     except Exception as e:  # noqa: BLE001
         log(f"profile: not measured ({type(e).__name__}: {e})")
     return launches
@@ -1009,10 +1347,12 @@ def main():
     sep_bwd_rows, sep_bwd_err = check_sep_attention_bwd()
     mlp_only_rows, mlp_only_err = check_mlp_only()
     mlp_only_bwd_rows, mlp_only_bwd_err = check_mlp_only_bwd()
+    chain_rows, chain_err = check_chain()
     served, trained = {}, {}
     for p in PATHS:
-        with p.environment():
-            served[p.label] = check_path(p)
+        if p.serves:
+            with p.environment():
+                served[p.label] = check_path(p)
     for p in PATHS:
         with p.environment():
             trained[p.label] = check_train(p)
@@ -1022,6 +1362,12 @@ def main():
     vstep = "one batch-64 vit_base_patch16_224 train step, bf16 (12 launches at N=197)"
     cfwd = "one bucket-64 convnext_tiny forward under NKBX_FUSED_LN_MLP=0, bf16 (3/3/9/3 launches)"
     cstep = "one batch-64 convnext_tiny train step under NKBX_FUSED_LN_MLP=0, bf16"
+    rfwd = "the forward of one batch-64 resnet50 ghost_bn=2 train step, bf16 (2/3/5 launches)"
+    rstep = "the backward of one batch-64 resnet50 ghost_bn=2 train step, bf16 (2/3/5 launches)"
+    chain_fwd = [chain_rows[f"stage {s}"] for s in (1, 2, 3)]
+    chain_bwd = [{k: r["bwd_" + k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
+                 for r in chain_fwd]
+    chain_mult = tuple(k for k, *_ in RESNET_STAGES[:3])
     kernels = []
     # each row is one launch at a stage's shape; ``mult`` its launches per forward or step
     for name, src, replaces, rows, err, launched, per, mult in (
@@ -1042,7 +1388,12 @@ def main():
             ("mlp", "nkbx_torch/ops/csrc/ln_mlp.cu", "nkbx/ops/mlp.py:250", mlp_only_rows,
              mlp_only_err, served, cfwd, CONVNEXT_DEPTHS),
             ("mlp_bwd", "nkbx_torch/ops/csrc/ln_mlp_bwd.cu", "nkbx/ops/mlp.py:265",
-             mlp_only_bwd_rows, mlp_only_bwd_err, trained, cstep, CONVNEXT_DEPTHS)):
+             mlp_only_bwd_rows, mlp_only_bwd_err, trained, cstep, CONVNEXT_DEPTHS),
+            ("bottleneck", "nkbx_torch/ops/csrc/bottleneck.cu", "nkbx/ops/bottleneck.py:177",
+             chain_fwd, chain_err["fwd"], trained, rfwd, chain_mult),
+            ("bottleneck_bwd", "nkbx_torch/ops/csrc/bottleneck_bwd.cu",
+             "nkbx/ops/bottleneck.py:222", chain_bwd, chain_err["bwd"], trained, rstep,
+             chain_mult)):
         def total(key):
             vals = [r[key] for r in rows]
             if any(v is None for v in vals):
@@ -1067,6 +1418,9 @@ def main():
             k[key + "_by_path"] = {
                 "convnext_tiny": sum(m * r[key] for m, r in zip(CONVNEXT_DEPTHS, rows[:4])),
                 "vit_base": 12 * rows[4][key]}
+    # K10 is held by each gradient's relative L2 (check_chain): its worst, beside max|err|
+    kernels[9]["max_rel_l2"], kernels[9]["max_rel_l2_f32"] = (chain_err["bwd_l2"]["bf16"],
+                                                              chain_err["bwd_l2"]["f32"])
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -2,7 +2,10 @@
 ``nkbx/models/classifier.py``).
 
 The backbone computes in its compute dtype (bf16 on the card) with f32
-parameters; the heads compute in f32.
+parameters; the heads compute in f32. ``forward(x, mask=None)`` hands
+``mask`` (B, 1, 1, 1) to the backbone, whose BatchNorms weight padded rows
+out of their statistics in training (the families without BatchNorm ignore
+it), as nkbx's classifiers do.
 """
 
 from __future__ import annotations
@@ -43,8 +46,8 @@ class SingletaskClassifier(nn.Module):
         self.head = _head(backbone.num_features, n_classes, classifier_initialization,
                           generator)
 
-    def forward(self, x):
-        return self.head(self.dropout(self.backbone(x).float()))
+    def forward(self, x, mask=None):
+        return self.head(self.dropout(self.backbone(x, mask=mask).float()))
 
 
 class MultitaskClassifier(nn.Module):
@@ -59,8 +62,8 @@ class MultitaskClassifier(nn.Module):
             self.add_module(f"head_{t}", _head(backbone.num_features, len(classes[t]),
                                                classifier_initialization, generator))
 
-    def forward(self, x):
-        emb = self.dropout(self.backbone(x).float())
+    def forward(self, x, mask=None):
+        emb = self.dropout(self.backbone(x, mask=mask).float())
         return {t: getattr(self, f"head_{t}")(emb) for t in self.targets}
 
 

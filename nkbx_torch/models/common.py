@@ -90,3 +90,121 @@ def init_dense_(module: nn.Linear, generator: torch.Generator):
     lecun_normal_(module.weight.data, module.weight.shape[1], generator)
     if module.bias is not None:
         module.bias.data.zero_()
+
+
+def init_conv_(conv: nn.Conv2d, generator: torch.Generator):
+    """flax ``nn.Conv``'s defaults: a lecun-normal kernel (fan-in kh·kw·in/groups)
+    and a zero bias."""
+    w = conv.weight
+    lecun_normal_(w.data, w.shape[1] * w.shape[2] * w.shape[3], generator)
+    if conv.bias is not None:
+        conv.bias.data.zero_()
+
+
+class TorchBatchNorm(nn.Module):
+    """nkbx's BatchNorm (nkbx/models/common.py:52-141) over the last dim of x.
+
+    f32 statistics with the fast variance E[x²]−μ² clamped at 0; the output
+    ``(x − μ)·(rsqrt(var + ε)·scale) + bias`` in f32, cast to ``dtype`` (x's
+    dtype when None). Eval mode normalises with the running statistics.
+    Training updates them as torch does, with the unbiased variance: EMA
+    ``momentum·old + (1 − momentum)·new``. Three modes in training:
+
+    - exact: statistics over every row;
+    - masked: ``mask`` (broadcastable to x, e.g. (B, 1, 1, 1)) weights padded
+      rows out; n = unmasked elements / C;
+    - ghost (``ghost_bn=g``): statistics per group of g consecutive rows over
+      (g, spatial); the running statistics take the mean of the groups'
+      (unbiased with n = g·spatial); g must divide the batch and a mask
+      raises, as in nkbx.
+
+    Parameters ``weight`` (flax ``scale``) and ``bias`` and buffers
+    ``running_mean``/``running_var`` (flax ``batch_stats`` ``mean``/``var``)
+    are f32."""
+
+    def __init__(self, features: int, momentum: float = 0.9, eps: float = 1e-5,
+                 dtype=None, ghost_bn: int = 0):
+        super().__init__()
+        self.momentum, self.eps, self.dtype, self.ghost_bn = momentum, eps, dtype, ghost_bn
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+
+    def reset_parameters(self):
+        for t, v in ((self.weight, 1.0), (self.bias, 0.0), (self.running_mean, 0.0),
+                     (self.running_var, 1.0)):
+            t.data.fill_(v)
+
+    @torch.no_grad()
+    def update_running(self, mean, unbiased_var):
+        """EMA of the running statistics toward ``mean`` and ``unbiased_var``."""
+        m = self.momentum
+        self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
+        self.running_var.copy_(m * self.running_var + (1.0 - m) * unbiased_var)
+
+    def forward(self, x, mask=None):
+        dtype = self.dtype or x.dtype
+        xf = x.float()
+        if not self.training:
+            mean, var = self.running_mean, self.running_var
+        elif self.ghost_bn:
+            if mask is not None:
+                raise ValueError("ghost_bn is incompatible with masked (padded) batches — "
+                                 "use drop_last=True with the max-throughput recipe")
+            b, g = x.shape[0], self.ghost_bn
+            if b % g:
+                raise ValueError(f"ghost_bn={g} must divide the batch ({b})")
+            xg = xf.reshape((b // g, g) + tuple(x.shape[1:]))
+            axes = tuple(range(1, xg.dim() - 1))  # (g, spatial) per group
+            gmean = xg.mean(axes)
+            gvar = torch.clamp((xg * xg).mean(axes) - gmean * gmean, min=0)
+            n = float(g * math.prod(x.shape[1:-1]))
+            self.update_running(gmean.detach().mean(0),
+                                (gvar.detach() * (n / max(n - 1.0, 1.0))).mean(0))
+            inv = torch.rsqrt(gvar + self.eps) * self.weight
+            bshape = (b // g,) + (1,) * (xg.dim() - 2) + (x.shape[-1],)
+            y = (xg - gmean.reshape(bshape)) * inv.reshape(bshape) + self.bias
+            return y.reshape(x.shape).to(dtype)
+        else:
+            axes = tuple(range(x.dim() - 1))
+            if mask is None:
+                mean = xf.mean(axes)
+                var = torch.clamp((xf * xf).mean(axes) - mean * mean, min=0)
+                n = float(math.prod(x.shape[:-1]))
+                unbias = n / max(n - 1.0, 1.0)
+            else:
+                where = torch.broadcast_to(mask.to(torch.bool), x.shape)
+                count = where.sum(axes, dtype=torch.float32)
+                mean = torch.where(where, xf, 0.0).sum(axes) / count
+                var = torch.clamp(torch.where(where, xf * xf, 0.0).sum(axes) / count
+                                  - mean * mean, min=0)
+                n = where.sum(dtype=torch.float32) / x.shape[-1]
+                unbias = n / torch.clamp(n - 1.0, min=1.0)
+            self.update_running(mean.detach(), var.detach() * unbias)
+        inv = torch.rsqrt(var + self.eps) * self.weight
+        return ((xf - mean) * inv + self.bias).to(dtype)
+
+
+class ConvBN(nn.Module):
+    """Conv (no bias) + :class:`TorchBatchNorm` + optional relu on NHWC x
+    (nkbx/models/common.py:144-191), with torch-style symmetric k//2 padding
+    and groups. The convolution computes in ``dtype`` on the channels-last
+    NCHW view ``x.permute(0, 3, 1, 2)``. ``mask`` reaches the BatchNorm in
+    training only."""
+
+    def __init__(self, features_in: int, features: int, kernel_size: int = 3,
+                 strides: int = 1, groups: int = 1, act: bool = True, dtype=torch.float32,
+                 ghost_bn: int = 0):
+        super().__init__()
+        self.dtype, self.act = dtype, act
+        self.Conv_0 = nn.Conv2d(features_in, features, kernel_size, stride=strides,
+                                padding=kernel_size // 2, groups=groups, bias=False)
+        self.BatchNorm_0 = TorchBatchNorm(features, dtype=dtype, ghost_bn=ghost_bn)
+
+    def forward(self, x, mask=None):
+        c = self.Conv_0
+        y = F.conv2d(x.to(self.dtype).permute(0, 3, 1, 2), c.weight.to(self.dtype),
+                     stride=c.stride, padding=c.padding, groups=c.groups)
+        y = self.BatchNorm_0(y.permute(0, 2, 3, 1), mask=mask if self.training else None)
+        return torch.relu(y) if self.act else y

@@ -9,12 +9,15 @@ The port's module names follow the flax tree, so the conversion is a walk:
   (H*D, C), ``out`` (H, D, C) -> ``weight`` (C, H*D); their (H, D) ``bias``
   -> (H*D,) (nkbx/models/convert.py:486-509 documents the flax layouts);
 - Conv ``kernel`` HWIO -> ``weight`` OIHW;
-- LayerNorm ``scale`` -> ``weight``;
+- LayerNorm and BatchNorm ``scale`` -> ``weight``;
+- BatchNorm ``batch_stats`` ``mean`` -> ``running_mean``, ``var`` ->
+  ``running_var``;
 - other ``bias``, ``relative_position_bias_table``, ``cls_token``,
   ``pos_embed`` and ``layer_scale`` as they are.
 
 A depthwise Conv kernel (kh, kw, 1, C) takes the same rank-4 rule, to the
-(C, 1, kh, kw) weight of a grouped ``nn.Conv2d``.
+(C, 1, kh, kw) weight of a grouped ``nn.Conv2d``; so does the ResNet s2d
+stem's (4, 4, 12, 64) kernel, to its OIHW (64, 12, 4, 4) weight.
 """
 
 from __future__ import annotations
@@ -44,26 +47,34 @@ def _leaf(path: tuple, value: np.ndarray):
     raise KeyError(f"flax leaf {name!r} has no counterpart in the port")
 
 
+_STATS = {"mean": "running_mean", "var": "running_var"}
+
+
+def _stat_leaf(path: tuple, value: np.ndarray):
+    if path[-1] not in _STATS:
+        raise KeyError(f"flax batch_stats leaf {path[-1]!r} has no counterpart in the port")
+    return _STATS[path[-1]], value
+
+
 def from_jax_variables(variables: dict, reference=None) -> dict:
-    """nkbx ``{'params': ...}`` tree of numpy arrays -> port ``state_dict``.
+    """nkbx ``{'params': ..., 'batch_stats': ...}`` tree of numpy arrays -> port
+    ``state_dict`` (parameters and running statistics).
 
     With ``reference`` (a port module or its state_dict), a port entry that
     the tree leaves unset, a converted entry the port does not have, or a
     shape that differs raises."""
-    stats = variables.get("batch_stats")
-    if stats:
-        raise NotImplementedError("batch_stats have no counterpart in the ported families")
     out = {}
 
-    def walk(tree, prefix):
+    def walk(tree, prefix, leaf):
         for key, value in tree.items():
             if isinstance(value, dict):
-                walk(value, prefix + (key,))
+                walk(value, prefix + (key,), leaf)
             else:
-                name, arr = _leaf(prefix + (key,), np.asarray(value, np.float32))
+                name, arr = leaf(prefix + (key,), np.asarray(value, np.float32))
                 out[".".join(prefix + (name,))] = torch.from_numpy(np.array(arr, order="C"))
 
-    walk(variables["params"], ())
+    walk(variables["params"], (), _leaf)
+    walk(variables.get("batch_stats") or {}, (), _stat_leaf)
     if reference is not None:
         ref = reference.state_dict() if hasattr(reference, "state_dict") else reference
         missing = sorted(set(ref) - set(out))

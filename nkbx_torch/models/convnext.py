@@ -108,8 +108,9 @@ class ConvNeXt(nn.Module):
             elif isinstance(mod, ConvNeXtBlock):
                 mod.layer_scale.data.fill_(1e-6)
 
-    def forward(self, x):
-        """x: (B, H, W, 3) NHWC, any dtype -> (B, num_features) float32."""
+    def forward(self, x, mask=None):
+        """x: (B, H, W, 3) NHWC, any dtype -> (B, num_features) float32.
+        ``mask`` is accepted and ignored: the family has no batch statistics."""
         dt = self.dtype
         x = self.LayerNorm_0(_conv_same(x, self.Conv_0, dt))
         for name in self._order:

@@ -1,14 +1,14 @@
 """Backbone registry of the port (counterpart of ``nkbx/models/registry.py``).
 
-The port holds the Swin, ViT/DeiT and ConvNeXt families so far; every other
-nkbx name raises, and ROADMAP.md says when it comes.
+The port holds the Swin, ViT/DeiT, ConvNeXt and ResNet families so far; every
+other nkbx name raises, and ROADMAP.md says when it comes.
 """
 
 from __future__ import annotations
 
 import torch
 
-from nkbx_torch.models import convnext, swin, vit
+from nkbx_torch.models import convnext, resnet, swin, vit
 
 _REGISTRY = {
     "swin_tiny_patch4_window7_224": swin.swin_tiny_patch4_window7_224,
@@ -26,6 +26,7 @@ _REGISTRY = {
         "vit_large_patch32_384")},
     **{name: getattr(convnext, name) for name in (
         "convnext_tiny", "convnext_small", "convnext_base", "convnext_large", "convnext_xlarge")},
+    **{name: getattr(resnet, name) for name in resnet.NAMES},
 }
 
 
@@ -37,15 +38,17 @@ def create_backbone(name: str, pretrained: bool = False, drop_rate: float = 0.0,
                     dtype=torch.bfloat16, img_size=(224, 224), **opts):
     """Build a backbone module by its nkbx name; ``module.num_features`` is
     the embedding size. ``**opts`` are the family's fields (Swin and ViT:
-    ``fused_attention``, ``fused_mlp``; ConvNeXt: ``fused_mlp``)."""
+    ``fused_attention``, ``fused_mlp``; ConvNeXt: ``fused_mlp``; ResNet:
+    ``ghost_bn``, ``fused_bottleneck``, ``s2d_stem``)."""
     if name.lower().startswith("unicom"):
         raise NotImplementedError(
-            f"backbone {name!r}: the unicom ViTs wait for masked BatchNorm in nkbx_torch "
+            f"backbone {name!r}: the unicom ViTs (UnicomViT: no class token, the flattened-token "
+            "feature head with its BatchNorm1d pair) are not ported to nkbx_torch yet "
             "(ROADMAP.md B6)")
     if name not in _REGISTRY:
         raise NotImplementedError(
-            f"backbone {name!r} is not ported to nkbx_torch yet (ported: the Swin, ViT/DeiT "
-            f"and ConvNeXt families, {list_backbones()}); ROADMAP.md lists the order of the "
+            f"backbone {name!r} is not ported to nkbx_torch yet (ported: the Swin, ViT/DeiT, "
+            f"ConvNeXt and ResNet families, {list_backbones()}); ROADMAP.md lists the order of the "
             "port")
     if pretrained:
         raise NotImplementedError(

@@ -205,8 +205,9 @@ class SwinTransformer(nn.Module):
         lecun_normal_(w.data, w.shape[1] * w.shape[2] * w.shape[3], generator)
         self.patch_embed.bias.data.zero_()
 
-    def forward(self, x):
-        """x: (B, H, W, 3) NHWC, any dtype -> (B, num_features) float32."""
+    def forward(self, x, mask=None):
+        """x: (B, H, W, 3) NHWC, any dtype -> (B, num_features) float32.
+        ``mask`` is accepted and ignored: the family has no batch statistics."""
         dt = self.dtype
         x = F.conv2d(x.to(dt).permute(0, 3, 1, 2), self.patch_embed.weight.to(dt),
                      self.patch_embed.bias.to(dt), stride=self.patch_embed.stride)

@@ -148,8 +148,9 @@ class ViT(nn.Module):
         self.cls_token.data.zero_()
         self.pos_embed.data.normal_(0.0, 0.02, generator=generator)
 
-    def forward(self, x):
-        """x: (B, H, W, 3) NHWC, any dtype -> (B, num_features) float32."""
+    def forward(self, x, mask=None):
+        """x: (B, H, W, 3) NHWC, any dtype -> (B, num_features) float32.
+        ``mask`` is accepted and ignored: the family has no batch statistics."""
         dt = self.dtype
         x = F.conv2d(x.to(dt).permute(0, 3, 1, 2), self.patch_embed.weight.to(dt),
                      self.patch_embed.bias.to(dt), stride=self.patch_embed.stride)

@@ -40,22 +40,25 @@ def _detach(tree):
 
 
 _UNPORTED = {"grad_accum_steps": 1, "scan_steps": 1, "ema_decay": 0.0, "mixup": None,
-             "masked_bn": False, "log_gradients": False}
+             "log_gradients": False}
 
 
 def build_train_step(model, criterion, bundle: OptimizerBundle, augment_fn=None,
-                     freeze_semantics: str = "decay", **options):
+                     freeze_semantics: str = "decay", masked_bn: bool = False, **options):
     """Returns ``step(state, image_u8, label, mask, lr_factor, freeze_scale)
     -> (state, metrics)``, nkbx's train step (engine.py:83).
 
     ``augment_fn(image_u8, out_dtype=..., generator=...)`` is the device
     stage (``Compose.device_apply``): it receives the model's compute dtype
     and the state's generator. ``freeze_semantics`` is ``"decay"`` or
-    ``"torch"`` (see :mod:`nkbx_torch.train.optim`). The step advances
-    ``state`` in place and leaves each parameter's raw gradient in
-    ``.grad``. nkbx's other options (``grad_accum_steps``, ``scan_steps``,
-    ``ema_decay``, ``mixup``, ``masked_bn``, ``log_gradients``) are not
-    ported: any value but the default raises."""
+    ``"torch"`` (see :mod:`nkbx_torch.train.optim`). ``masked_bn=True``
+    weights padded batch rows out of the BatchNorm statistics: the model
+    gets ``mask.reshape(-1, 1, 1, 1)`` in training (nkbx engine.py:150-159).
+    The step advances ``state`` in place (BatchNorm running statistics
+    included) and leaves each parameter's raw gradient in ``.grad``. nkbx's
+    other options (``grad_accum_steps``, ``scan_steps``, ``ema_decay``,
+    ``mixup``, ``log_gradients``) are not ported: any value but the default
+    raises."""
     for name, value in options.items():
         if name not in _UNPORTED:
             raise TypeError(f"build_train_step got an unexpected option {name!r}")
@@ -71,7 +74,7 @@ def build_train_step(model, criterion, bundle: OptimizerBundle, augment_fn=None,
         x = (augment_fn(image, out_dtype=dtype, generator=state.generator)
              if augment_fn is not None else image)
         module.zero_grad(set_to_none=True)
-        preds = module(x)
+        preds = module(x, mask=mask.reshape(-1, 1, 1, 1)) if masked_bn else module(x)
         loss_out = criterion(preds, label, mask=mask)
         (loss_out["loss"] if isinstance(loss_out, dict) else loss_out).backward()
         apply_updates(bundle, state.opt_state, state.groups, lr_factor, freeze_scale,

@@ -19,10 +19,14 @@ shows that the kernel, not its plain version, ran:
 - K3 full-sequence attention on separate q, k, v and K4 its backward, at
   the ViT sequences N = 50, 145, 197 and 577 (D = 64), with a (1, N, N) and an
   (H, N, N) bias, masks of M = 2 and 3, and K4 with and without dbias;
-- a tiny Swin's, a tiny ViT's and a tiny ConvNeXt's loss backward through
-  the kernels (the ConvNeXt through K5/K6, and through K7/K8 under
-  ``NKBX_FUSED_LN_MLP=0``) gives every parameter a finite, non-zero
-  gradient (the autograd graph is not cut).
+- K9 the fused bottleneck chain and K10 its backward, banded (th = 4, 7, 2,
+  widths 8 and 14) and single-band (th = H), against the plain chain: the
+  output, the six per-tile statistics and the ten gradients; a width the
+  kernels do not take raises;
+- a tiny Swin's, a tiny ViT's, a tiny ConvNeXt's and a tiny fused ResNet's
+  loss backward through the kernels (the ConvNeXt through K5/K6, and through
+  K7/K8 under ``NKBX_FUSED_LN_MLP=0``) gives every parameter a finite,
+  non-zero gradient (the autograd graph is not cut).
 
 Tolerances, absolute: K1 f32 1e-4, bf16 3e-2 (P and the output round to
 bf16; a last-bit difference flips one rounding of values of order 1). K2
@@ -33,7 +37,13 @@ bf16 3e-2. K3 as K1. K4, relative to each gradient's largest value: f32
 1e-4, bf16 4 bf16 ulps (P, dS*scale and the outputs round to bf16); dbias
 1e-4 of its largest value. K7 f32 5e-4, bf16 6.25e-2 (the plain version
 rounds u to bf16 before the GELU and adds b1 to a rounded product; the
-outputs stay under 4, where one bf16 ulp is 1.6e-2). K8 as K6.
+outputs stay under 4, where one bf16 ulp is 1.6e-2). K8 as K6. K9's
+output: f32 5e-4, bf16 4 bf16 ulps of its largest value (a1, a2, y3 and the
+residual sum round to bf16); K9's statistics and K10's gradients, relative
+to each one's largest value: f32 5e-4, bf16 2e-2 (elementwise holds at these
+small shapes; at ResNet-50's, relu gates within rounding noise of 0 flip
+between the two programs, and chip_smoke.py holds the gradients by their
+relative L2 error).
 """
 
 import pathlib
@@ -46,6 +56,7 @@ import pytest
 import torch
 
 from nkbx_torch.ops import attention as tattn
+from nkbx_torch.ops import bottleneck as tbn
 from nkbx_torch.ops import mlp as tmlp
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -341,6 +352,89 @@ def test_every_convnext_parameter_gets_a_gradient_through_the_kernels(cuda_devic
         assert torch.isfinite(p.grad).all() and p.grad.abs().max() > 0, name
 
 
+CHAIN_CASES = [
+    # (B, H = W, C, M, th): banded at ResNet-50's three bands, and one band
+    (4, 8, 64, 16, 4),
+    (4, 14, 64, 32, 7),
+    (2, 14, 128, 64, 2),
+    (4, 8, 64, 16, 8),
+]
+
+
+def _chain_inputs(b, h, c, m, device, dtype):
+    rng = np.random.RandomState(3)
+    mk = lambda *s, sc=1.0: torch.from_numpy((rng.randn(*s) * sc).astype(np.float32))  # noqa: E731
+    uni = lambda n: torch.from_numpy(rng.uniform(0.8, 1.2, n).astype(np.float32))  # noqa: E731
+    args = [mk(b, h, h, c), mk(c, m, sc=c ** -0.5), mk(3, 3, m, m, sc=(9 * m) ** -0.5),
+            mk(m, c, sc=m ** -0.5), uni(m), mk(m, sc=0.1), uni(m), mk(m, sc=0.1), uni(c),
+            mk(c, sc=0.1)]
+    args = [t.to(device) for t in args]
+    for i in range(4):
+        args[i] = args[i].to(dtype)
+    return args, mk(b, h, h, c).to(device).to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,c,m,th", CHAIN_CASES)
+def test_chain_kernels_match_plain_on_card(cuda_device, dtype, b, h, c, m, th):
+    args, dout = _chain_inputs(b, h, c, m, cuda_device, dtype)
+    before = tbn.fused_chain.launches, tbn.fused_chain_bwd.launches
+    out, stats = tbn.fused_chain_fwd(*args, g=2, th=th)
+    grads = tbn.fused_chain_bwd(*args, dout, g=2, th=th)
+    torch.cuda.synchronize()
+    assert (tbn.fused_chain.launches, tbn.fused_chain_bwd.launches) == (before[0] + 1,
+                                                                        before[1] + 1)
+    pout, pstats = tbn.reference_chain(*args, g=2, th=th)
+    pgrads = tbn.reference_chain_bwd(*args, dout, g=2, th=th)
+    ref = pout.float().abs().max().item()
+    tol = 5e-4 if dtype == torch.float32 else 4 * 2.0 ** (np.floor(np.log2(ref)) - 7)
+    assert out.dtype == dtype and (out.float() - pout.float()).abs().max().item() <= tol
+    rel = 5e-4 if dtype == torch.float32 else 2e-2
+    names = ("m1", "v1", "m2", "v2", "m3", "v3", "dx", "dw1", "dw2", "dw3", "ds1", "db1", "ds2",
+             "db2", "ds3", "db3")
+    for name, got, want in zip(names, tuple(stats) + tuple(grads), tuple(pstats) + tuple(pgrads)):
+        assert got.shape == want.shape and got.dtype == want.dtype, name
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= rel * want.float().abs().max().item(), (name, err)
+
+
+@pytest.mark.cuda
+def test_chain_kernels_refuse_what_they_cannot_take(cuda_device):
+    args, dout = _chain_inputs(2, 8, 12, 8, cuda_device, torch.float32)  # C = 12
+    with pytest.raises(ValueError, match="multiples of 8"):
+        tbn.fused_chain(*args, g=2, th=4)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        tbn.fused_chain_bwd(*args, dout, g=2, th=4)
+
+
+@pytest.mark.cuda
+def test_every_resnet_parameter_gets_a_gradient_through_the_kernels(cuda_device, monkeypatch):
+    from nkbx_torch.models.classifier import SingletaskClassifier
+    from nkbx_torch.models.resnet import Bottleneck, ResNet
+    from nkbx_torch.train import get_loss
+
+    monkeypatch.delenv("NKBX_FUSED_CHAIN", raising=False)
+    torch.manual_seed(0)
+    backbone = ResNet(stage_sizes=(2,), block_cls=Bottleneck, stem_width=8, ghost_bn=2,
+                      fused_bottleneck=True)
+    module = SingletaskClassifier(backbone, 3).to(cuda_device).train()
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(rng.normal(size=(4, 32, 32, 3)).astype(np.float32)).to(cuda_device)
+    labels = torch.from_numpy(rng.integers(0, 3, 4)).to(cuda_device)
+    before = tbn.fused_chain.launches, tbn.fused_chain_bwd.launches
+    loss = get_loss({"type": "CrossEntropyLoss"})(module(x), labels,
+                                                  mask=torch.ones(4, dtype=torch.bool,
+                                                                  device=cuda_device))
+    loss.backward()
+    torch.cuda.synchronize()
+    assert (tbn.fused_chain.launches, tbn.fused_chain_bwd.launches) == (before[0] + 1,
+                                                                        before[1] + 1)
+    for name, p in module.named_parameters():
+        assert p.grad is not None, name
+        assert torch.isfinite(p.grad).all() and p.grad.abs().max() > 0, name
+
+
 def test_card_tests_collect_without_jax_or_nkbx():
     """The card's machine has no JAX: this file must collect (and its card
     tests skip here) with jax, flax and nkbx unimportable and no conftest."""
@@ -354,7 +448,7 @@ def test_card_tests_collect_without_jax_or_nkbx():
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-2000:]
     n = (2 * 2 * len(ATTN_CASES) + 2 * 2 * len(MLP_CASES) + 2 * 2 * len(MLP_ONLY_CASES)
-         + 2 * 2 * len(SEP_CASES) + 2 + 2)
+         + 2 * 2 * len(SEP_CASES) + 2 + 2 + 2 * len(CHAIN_CASES) + 2)
     word = "passed" if torch.cuda.is_available() else "skipped"
     assert re.search(rf"\b{n} {word}\b", proc.stdout), proc.stdout[-2000:]
 

@@ -361,7 +361,7 @@ def test_eval_step_metrics_and_no_grad():
 
 @pytest.mark.parametrize("option,value", [("grad_accum_steps", 2), ("scan_steps", 4),
                                           ("ema_decay", 0.999), ("mixup", {"alpha": 0.2}),
-                                          ("masked_bn", True), ("log_gradients", True)])
+                                          ("log_gradients", True)])
 def test_unported_train_options_raise(option, value):
     model = _port_model(None)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
