@@ -20,7 +20,14 @@
    batch 64 with ghost_bn = 2, in each dtype at the stages and bands that
    nkbx's rule (stat_band) gives (bf16 stages 1-3, th = 8/7/2; f32 stages
    1-2, th = 4/4), and a small single-band case (th = H): the output and the
-   six per-tile statistics against the plain chain on the same bands.
+   six per-tile statistics against the plain chain on the same bands. The
+   ResNet-family probes: X1, the matmul with the BatchNorm-apply + relu
+   epilogue and the output's statistics, at the probe's three shapes (bf16)
+   and its test shape (f32), its sums bit-identical across two launches,
+   timed also against torch.matmul with the eager epilogue; X2, the 3x3
+   grouped convolution, at resnext50_32x4d's four stages (bf16; f32 at
+   stages 1-2) and the probe's check shapes, timed also against cuDNN's
+   grouped convolution.
 3. The same for the backward kernels: K2 and K6 at the shapes of a batch-64
    Swin-T train step (and window 12 for K2, a ragged tile with a layer-scale
    and an FMA width for K6, ViT-B's MLP for K6), K4 at K3's shapes (dbias
@@ -64,8 +71,20 @@
    tolerances (check_chain_blocks). Then step time, img/s and peak memory
    of both paths (for ResNet also of the unfused ghost-BN resnet50 from the
    same weights, the model a user would run without the chain), and a
-   profile of one step.
-6. Prints the kernels' JSON line (all ten kernels), the card's name and
+   profile of one step. Then resnet50 with exact BatchNorm, which runs no
+   kernel of ours (its launch counts are read and must stay 0):
+   RESNET_EXACT, bench.py's program (224 px, 1000 classes, batch 128, bf16,
+   flips + Normalize, sgd at lr 0.1): step 0's loss against f32, finite
+   losses and grads, 2 warm-up and 5 timed steps (step ms, img/s, peak
+   memory) and a profile of one step by kind of kernel; RESNET_MASKED,
+   masked_bn=True on the batch of 64 with 6 padded rows: in f32 one step
+   equals the exact step on the 58 valid rows (loss, running statistics,
+   grads by check_gated_grads), then the bf16 step timed against the exact
+   step at batch 64.
+6. The probe path: the command-line probes of X1 and X2 (``python -m
+   nkbx_torch.ops.matmul_bn`` and ``python -m nkbx_torch.ops.grouped_conv
+   --wide``), their launch counts set to 0 before and read after.
+7. Prints the kernels' JSON line (all twelve kernels), the card's name and
    power limit, and last {"ok": true, "device": {...}}.
 
 Exits non-zero, before printing any result, without a CUDA device, outside
@@ -109,6 +128,8 @@ try:
     from nkbx_torch.ops import _build
     from nkbx_torch.ops import attention as A
     from nkbx_torch.ops import bottleneck as BN
+    from nkbx_torch.ops import grouped_conv as GC
+    from nkbx_torch.ops import matmul_bn as MB
     from nkbx_torch.ops import mlp as M
 except ImportError as e:
     fail(f"run from the root of an nkbx checkout: {e}")
@@ -768,6 +789,120 @@ def check_chain():
     return rows, worst
 
 
+# --- phase 2: the ResNet-family probes (X1, X2) -----------------------------------
+
+MB_F32_CASE = (2048, 128, 256)  # the probe's test shape (tests/test_experiments_pallas.py)
+
+
+def mb_library(x, w, scale, bias):
+    """The library's version of X1's function: torch.matmul (cuBLAS, the
+    product rounded to x's dtype) and the eager epilogue and sums. A
+    yardstick, timed here only."""
+    y = torch.relu(torch.matmul(x, w).float() * scale + bias)
+    return y.to(x.dtype), y.sum(0), (y * y).sum(0)
+
+
+def ulp_err(got, want):
+    """The largest |got - want| in units of one bf16 ulp of each value of
+    want plus 2^-16 of the largest |want|: near 0 a bf16 ulp is finer than
+    the rounding noise of the f32 sums that both sides round from (a value
+    that one side's sums put a hair below a relu's 0 and the other's a hair
+    above), so each value's own ulp alone would fail on noise."""
+    w = want.float()
+    ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(2.0 ** -126))) - 7)
+    return float(((got.float() - w).abs() / (ulp + 2.0 ** -16 * w.abs().max())).max())
+
+
+def check_matmul_bn():
+    """X1 against its plain version (f32 product, TF32 off) at the probe's
+    three shapes in bf16 and its test shape in f32: y within one bf16 ulp of
+    each value (the f32 products sum in another order, so a rounding may fall
+    to the other neighbour; ulp_err) and 2e-5 of its largest value in f32; the sums
+    within 1e-4 of their largest value; the sums of a second launch equal to
+    the first's bit for bit. Times (bf16) of the kernel, the plain version
+    and torch.matmul with the eager epilogue (mb_library)."""
+    rows, worst = [], {"bf16": 0.0, "f32": 0.0}
+    cases = [(n, c, c, "bf16") for n, c in MB.SHAPES] + [(*MB_F32_CASE, "f32")]
+    for i, (n, cin, cout, dtype) in enumerate(cases):
+        args = MB.inputs(n, cin, cout, DT[dtype], DEV, seed=10 + i)
+        y, s, q = MB.fused_matmul_bn_relu_stats(*args)
+        again = MB.fused_matmul_bn_relu_stats(*args)
+        torch.cuda.synchronize()
+        py, ps, pq = MB.reference_matmul_bn_relu_stats(*args)
+        err = max_err(y, py)
+        worst[dtype] = max(worst[dtype], err)
+        if dtype == "bf16":
+            y_ok, y_msg = ulp_err(y, py) <= 1, f"{ulp_err(y, py):.2f} ulps (tol 1)"
+        else:
+            lim = 2e-5 * float(py.abs().max())
+            y_ok, y_msg = err <= lim, f"{err:.3e} (tol {lim:.3e})"
+        sums = max(max_err(a, b) / float(b.abs().max()) for a, b in ((s, ps), (q, pq)))
+        same = all(torch.equal(a, b) for a, b in zip((y, s, q), again))
+        ok = y_ok and sums <= 1e-4 and same
+        log(f"X1 N={n} Cin={cin} Cout={cout} {dtype}: y max|err| {y_msg}, sums max|err| / "
+            f"max|plain| {sums:.3e} (tol 1e-4), a second launch bit-identical: {same} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"matmul_bn disagrees with its plain version at N={n} C={cin} {dtype}")
+        if dtype != "bf16":
+            continue
+        lib_y = mb_library(*args)[0]
+        b, by = bound_ms(*MB.work(n, cin, cout, 2), "bf16")
+        t = dict(ms=cuda_ms(lambda: MB.fused_matmul_bn_relu_stats(*args)),
+                 plain_ms=cuda_ms(lambda: MB.reference_matmul_bn_relu_stats(*args), iters=5),
+                 library_ms=cuda_ms(lambda: mb_library(*args)), bound_ms=b, bound_by=by)
+        log(f"   bf16 times: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, matmul + "
+            f"eager epilogue {t['library_ms']:.4f} ms (its y {ulp_err(lib_y, py):.2f} ulps from "
+            f"plain), bound {b:.4f} ms ({by})")
+        rows.append(t)
+        del args, y, again, py, lib_y
+    return rows, worst
+
+
+def check_grouped_conv():
+    """X2 against its plain version (the probe's rotations x taps of f32
+    FMAs) at resnext50_32x4d's four stages in bf16, stages 1-2 in f32 (TF32
+    off), and the probe's check shapes (gw = 4 and 8, C = 8 gw, x (2, 8, 8,
+    C)) in both: bf16 within one ulp of each value (ulp_err), f32 1e-5 of
+    the largest value. Logged beside it: max|d| against cuDNN's grouped convolution
+    (F.conv2d(groups=C/gw)). Times (bf16, the stages) of the kernel, the
+    plain version and cuDNN."""
+    rows, worst = [], {"bf16": 0.0, "f32": 0.0}
+    cases = [(name, b, h, c, gw, dtype) for dtype in ("bf16", "f32")
+             for name, b, h, c, gw in GC.STAGES if dtype == "bf16" or gw <= 8]
+    cases += [("check", 2, 8, 8 * gw, gw, dtype) for gw in (4, 8) for dtype in ("bf16", "f32")]
+    for i, (name, b, h, c, gw, dtype) in enumerate(cases):
+        x, w = GC.inputs(b, h, c, gw, DT[dtype], DEV, seed=20 + i)
+        wvec = GC.build_wvec(w, gw)
+        got = GC.gconv(x, wvec, gw)
+        torch.cuda.synchronize()
+        want = GC.reference_gconv(x, wvec, gw)
+        err = max_err(got, want)
+        worst[dtype] = max(worst[dtype], err)
+        if dtype == "bf16":
+            ok, msg = ulp_err(got, want) <= 1, f"{ulp_err(got, want):.2f} ulps (tol 1)"
+        else:
+            lim = 1e-5 * float(want.abs().max())
+            ok, msg = err <= lim, f"{err:.3e} (tol {lim:.3e})"
+        lib_d = max_err(got, GC.conv2d_grouped(x, w, gw))
+        log(f"X2 {name} B={b} H=W={h} C={c} gw={gw} {dtype}: max|err| {msg}; max|d| against "
+            f"cuDNN {lib_d:.3e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"gconv disagrees with its plain version at {name} {dtype}")
+        if dtype != "bf16" or name == "check":
+            continue
+        b_ms, by = bound_ms(*GC.work(b, h, c, gw, 2), "bf16")
+        t = dict(stage=name, ms=cuda_ms(lambda: GC.gconv(x, wvec, gw)),
+                 plain_ms=cuda_ms(lambda: GC.reference_gconv(x, wvec, gw), iters=3, warm=1),
+                 library_ms=cuda_ms(lambda: GC.conv2d_grouped(x, w, gw)), bound_ms=b_ms,
+                 bound_by=by)
+        log(f"   bf16 times: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, cuDNN "
+            f"{t['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({by})")
+        rows.append(t)
+        del x, w, wvec, got, want
+    return rows, worst
+
+
 # --- phases 4-5: the serving and training paths ---------------------------------
 
 COUNTED = {"window_attention": (A, "fused_attention_qkv"), "ln_mlp": (M, "fused_ln_mlp"),
@@ -775,7 +910,8 @@ COUNTED = {"window_attention": (A, "fused_attention_qkv"), "ln_mlp": (M, "fused_
            "ln_mlp_bwd": (M, "fused_ln_mlp_bwd"), "attention": (A, "fused_attention"),
            "attention_bwd": (A, "fused_attention_bwd"), "mlp": (M, "fused_mlp"),
            "mlp_bwd": (M, "fused_mlp_bwd"), "bottleneck": (BN, "fused_chain"),
-           "bottleneck_bwd": (BN, "fused_chain_bwd")}
+           "bottleneck_bwd": (BN, "fused_chain_bwd"),
+           "matmul_bn": (MB, "fused_matmul_bn_relu_stats"), "grouped_conv": (GC, "gconv")}
 
 
 def zero_counts():
@@ -916,10 +1052,13 @@ def device_events(prof):
 
 
 def report_profile(prof, reps, what, step_ms, fname):
+    """Logs the device time, the idle share against ``step_ms`` and the
+    largest kernels, and writes every kernel's line to ``fname``; returns
+    the kernel events (an empty list when none was recorded)."""
     events = device_events(prof)
     if not events:
         log("profile: no device time recorded (not measured)")
-        return
+        return events
     total = sum(us for us, _ in events) / 1e3 / reps
     log(f"profile: device busy {total:.3f} ms {what}, against {step_ms:.3f} ms unprofiled "
         f"(idle share {1 - total / step_ms:.3f})")
@@ -929,6 +1068,7 @@ def report_profile(prof, reps, what, step_ms, fname):
         log("  " + line)
     with open(os.path.join(OUT_DIR, fname), "w") as fh:
         fh.write("\n".join(lines) + "\n")
+    return events
 
 
 def profile_forward(path, serving, x, step_ms):
@@ -1097,16 +1237,17 @@ def check_grads(path, model, init, criterion, pipe, images, labels, mask):
 
 
 def check_running_stats(path, got, want, tol, what):
-    """Every BatchNorm running statistic after 5 steps through the kernels
-    against the plain path's, each within ``tol`` of its largest value."""
+    """Every BatchNorm running statistic of ``got`` (after 5 steps through
+    the kernels, say) against ``want``'s (the plain path's), each within
+    ``tol`` of its largest value; ``what`` says which two."""
     worst = max((max_err(got[n], want[n]) / float(want[n].abs().max()), n) for n in got)
-    log(f"train {path.label} {what}: {len(got)} BatchNorm running statistics after 5 steps, max "
-        f"|kernels - plain| / max|plain| = {worst[0]:.3e} ({worst[1]}; tol {tol:.0e})")
+    log(f"train {path.label} {what}: {len(got)} BatchNorm running statistics, max "
+        f"|got - want| / max|want| = {worst[0]:.3e} ({worst[1]}; tol {tol:.0e})")
     if worst[0] > tol:
-        fail(f"{path.label} {what} running statistics through the kernels disagree with plain")
+        fail(f"{path.label} {what}: the running statistics disagree")
 
 
-def check_gated_grads(path, g):
+def check_gated_grads(path, g, what=("kernels", "plain")):
     """The f32 grad check of a ReLU network with ghost BN: the grads through
     the kernels against the plain path's, by relative L2 error, over all
     tensors together and per tensor. The yardstick is the plain path's own
@@ -1119,7 +1260,9 @@ def check_gated_grads(path, g):
     dtype is the right ruler. bf16 has no model-level grad check: at random
     init a 1-ulp perturbation moves its grads by more than their own size, so
     such a ruler passes anything; check_chain_blocks holds K9/K10 on the bf16
-    step's own block inputs instead."""
+    step's own block inputs instead. ``what`` names the two sides in the log
+    (check_resnet_masked holds the masked step against the exact step on the
+    valid rows with the same ruler)."""
     gk, gp, gq = g[torch.float32, False], g[torch.float32, True], g[torch.float32, "perturbed"]
 
     def l2(a, b, names):
@@ -1130,12 +1273,13 @@ def check_gated_grads(path, g):
     rows = [(l2(gk, gp, [n]), l2(gq, gp, [n]), n) for n in gp]
     bad = [r for r in rows if r[0] > 2 * r[1] + 1e-2]
     worst = max(rows, key=lambda r: r[0] / (2 * r[1] + 1e-2))
-    log(f"grads {path.label} f32: |kernels - plain| / |plain| (L2) over all tensors {k_all:.3e}, "
-        f"plain on a 1-ulp-perturbed input {p_all:.3e} (tol 2x + 1e-03); per tensor worst "
+    a, b = what
+    log(f"grads {path.label} f32: |{a} - {b}| / |{b}| (L2) over all tensors {k_all:.3e}, "
+        f"{b} on a 1-ulp-perturbed input {p_all:.3e} (tol 2x + 1e-03); per tensor worst "
         f"{worst[2]}: {worst[0]:.3e} against {worst[1]:.3e} (tol 2x + 1e-02); "
         f"{len(bad)} tensors off")
     if k_all > 2 * p_all + 1e-3 or bad:
-        fail(f"{path.label} f32 grads through the kernels disagree with plain: {bad[:5]}")
+        fail(f"{path.label} f32 grads of {a} disagree with {b}: {bad[:5]}")
 
 
 def check_chain_blocks(path, model, init, criterion, pipe, images, labels, mask):
@@ -1260,7 +1404,8 @@ def check_train(path):
     if any(r > t for r, t in zip(rel, tol)):
         fail(f"{path.label} bf16 losses through the kernels disagree with the plain path")
     if stats:
-        check_running_stats(path, stats, plain_stats, 5e-2, "bf16")
+        check_running_stats(path, stats, plain_stats, 5e-2,
+                            "bf16, kernels against plain after 5 steps")
         m32 = path.model(torch.float32)
         want32 = path.counts(torch.float32, True)
         k32, c32, finite32, s32 = five_steps(False, m32)
@@ -1272,7 +1417,7 @@ def check_train(path):
             f"{max(rel32):.3e} (tol 5.0e-03); launches per step {c32[0]} (expect {want32})")
         if any(c != want32 for c in c32) or not finite32 or max(rel32) > 5e-3:
             fail(f"{path.label} f32 train steps through the kernels disagree with the plain path")
-        check_running_stats(path, s32, ps32, 1e-3, "f32")
+        check_running_stats(path, s32, ps32, 1e-3, "f32, kernels against plain after 5 steps")
     set_plain(False)
     check_grads(path, model, init, criterion, Compose([Normalize()]), images, labels, mask)
     if path.ghost_bn:
@@ -1321,6 +1466,262 @@ def check_train(path):
     return launches
 
 
+# --- phase 5: resnet50 with exact and masked BatchNorm -----------------------------
+
+EXACT_BATCH = 128  # bench.py's batch
+MASKED_VALID = BUCKET - 6  # the rows of the masked batch that count
+RESNET_EXACT = Path("resnet50_exact", {"model": "resnet50"},
+                    lambda dtype, backward: dict.fromkeys(COUNTED, 0), serves=False)
+RESNET_MASKED = Path("resnet50_masked", {"model": "resnet50"}, RESNET_EXACT.counts,
+                     serves=False)
+
+
+def sgd_step(model, masked_bn, augment):
+    """bench.py's optimizer, sgd at lr 0.1, and cross-entropy: (state, step)."""
+    from nkbx_torch.train import TrainState, build_train_step, get_loss, get_optimizer
+
+    step = build_train_step(model, get_loss({"type": "CrossEntropyLoss"}),
+                            get_optimizer({"type": "sgd", "lr": 0.1}), augment_fn=augment,
+                            masked_bn=masked_bn)
+    return TrainState.create(model, seed=0), step
+
+
+def no_launches(path, counts):
+    """These paths run no kernel of ours: every count must stay 0."""
+    if any(counts.values()):
+        fail(f"{path.label} launched port kernels it should not: {counts}")
+
+
+def kernel_kinds(events, reps):
+    """Device ms a step by kind of kernel, from the kernels' names."""
+    kinds = dict.fromkeys(("cudnn convolution", "cublas gemm", "reductions", "elementwise",
+                           "optimizer foreach", "other"), 0.0)
+    for us, e in events:
+        k = e.key.lower()
+        if "multi_tensor" in k or "foreach" in k:
+            kind = "optimizer foreach"
+        elif any(w in k for w in ("conv", "cudnn", "fprop", "dgrad", "wgrad", "implicit")):
+            kind = "cudnn convolution"
+        elif "gemm" in k or "nvjet" in k:  # nvjet: cuBLASLt's Hopper GEMMs
+            kind = "cublas gemm"
+        elif "reduce" in k:
+            kind = "reductions"
+        elif "elementwise" in k or "vectorized" in k:
+            kind = "elementwise"
+        else:
+            kind = "other"
+        kinds[kind] += us / 1e3 / reps
+    return kinds
+
+
+def profile_step(step, state, label, batch, step_ms):
+    """One train step under torch.profiler: device time, launches, idle
+    share against ``step_ms`` and the time by kind of kernel (the eager
+    BatchNorm is the reductions and most of the elementwise kernels)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    try:  # a measurement only: the checks decide the run
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            step(state)
+            torch.cuda.synchronize()
+        events = report_profile(prof, 1, f"in one batch-{batch} {label} train step", step_ms,
+                                f"profile_train_step_{label}.txt")
+    except Exception as e:  # noqa: BLE001
+        log(f"profile: not measured ({type(e).__name__}: {e})")
+        return {}
+    if not events:
+        return {}
+    device = sum(us for us, _ in events) / 1e3
+    kinds = kernel_kinds(events, 1)
+    out = {"device_ms": device, "launches": sum(e.count for _, e in events),
+           "idle_share": 1 - device / step_ms, "by_kind_ms": kinds,
+           "reductions_and_elementwise_share": (kinds["reductions"] + kinds["elementwise"])
+           / device,
+           "cudnn_share": kinds["cudnn convolution"] / device}
+    log(f"profile {label}: {json.dumps(out)}")
+    return out
+
+
+def check_resnet_exact():
+    """RESNET_EXACT: bench.py's program (bench.py:52-74) through the port:
+    resnet50 at 224 px, 1000 classes, batch 128, bf16, exact BatchNorm,
+    HorizontalFlip(p=0.5) + Normalize on the card, cross-entropy, sgd at lr
+    0.1, every row valid, random weights from seed 0. No kernel of ours runs
+    on it (the counts, read around the bf16 steps, stay 0); its numerics
+    against nkbx are held on the CPU (tests/test_torch_resnet.py). Checks:
+    step 0's loss within 0.5% of the same step in f32 (TF32 off); finite
+    losses and grads. Two warm-up steps, then 5 timed steps (host clock,
+    synchronised): step ms, img/s and peak memory; then a profile of one
+    step."""
+    from nkbx_torch.transforms import Compose, HorizontalFlip, Normalize
+
+    classes = [f"c{i}" for i in range(1000)]
+    rng = np.random.default_rng(0)
+    images = torch.as_tensor(rng.integers(0, 255, (EXACT_BATCH, 224, 224, 3), dtype=np.uint8),
+                             device=DEV)
+    labels = torch.as_tensor(rng.integers(0, 1000, EXACT_BATCH), device=DEV)
+    mask = torch.ones(EXACT_BATCH, dtype=torch.bool, device=DEV)
+    pipe = Compose([HorizontalFlip(p=0.5), Normalize()])
+
+    def first_step(dtype):
+        model = get_model(RESNET_EXACT.cfg, classes, seed=0, dtype=dtype)
+        state, step = sgd_step(model, False, pipe.device_apply)
+        state, metrics = step(state, images, labels, mask, 1.0, 1.0)
+        return model, state, step, float(metrics["loss"])
+
+    loss32 = first_step(torch.float32)[3]
+    torch.cuda.empty_cache()
+    zero_counts()
+    model, state, step, loss0 = first_step(torch.bfloat16)
+    state, _ = step(state, images, labels, mask, 1.0, 1.0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(5):
+        state, metrics = step(state, images, labels, mask, 1.0, 1.0)
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / 5 * 1e3
+    counts = read_counts()
+    r = {"step_ms": ms, "images_per_sec": EXACT_BATCH / ms * 1e3,
+         "max_memory_allocated_mb": torch.cuda.max_memory_allocated() / 2 ** 20}
+    losses = [loss0] + [float(v) for v in losses]
+    rel = abs(loss0 - loss32) / abs(loss32)
+    finite = all(bool(torch.isfinite(p.grad).all()) for p in model.module.parameters())
+    log(f"train {RESNET_EXACT.label} (batch {EXACT_BATCH}, bf16): step 0 and the 5 timed "
+        f"steps' losses {[round(x, 5) for x in losses]}; step 0 against f32 {loss32:.6f}: "
+        f"|bf16 - f32| / |f32| {rel:.3e} (tol 5e-03); finite grads {finite}; launches {counts}")
+    no_launches(RESNET_EXACT, counts)
+    if rel > 5e-3 or not finite or not all(np.isfinite(losses)):
+        fail(f"{RESNET_EXACT.label}: step 0's bf16 loss is off f32 or a loss or grad is not finite")
+    log(f"train step {RESNET_EXACT.label} (batch {EXACT_BATCH}): {json.dumps(r)}")
+    r["profile"] = profile_step(lambda st: step(st, images, labels, mask, 1.0, 1.0), state,
+                                RESNET_EXACT.label, EXACT_BATCH, ms)
+    return r
+
+
+def check_resnet_masked():
+    """RESNET_MASKED: resnet50 with exact BatchNorm and masked_bn=True
+    (build_train_step's option; TorchBatchNorm's mask branch) on the batch of
+    64 whose last 6 rows are padding (random pixels, which must not count).
+    In f32 (TF32 off), Normalize only (flips draw per row), sgd at lr 0.1:
+    one step equals the exact-BN step on the 58 valid rows alone from the
+    same weights: loss within 1e-4 relative, every running statistic within
+    1e-3 of its largest value, the grads by check_gated_grads (relu gates
+    flip under rounding noise; the yardstick is the exact step's change on
+    its input perturbed by ~1 f32 ulp). Then, in bf16 with flips +
+    Normalize, the masked step against the exact-BN step at batch 64 (every
+    row valid), in turns (exact, masked, masked, exact), each a warm-up and
+    5 timed steps. No kernel of ours runs on either (the counts stay 0)."""
+    from nkbx_torch.transforms import Compose, HorizontalFlip, Normalize
+
+    classes = [f"class{i}" for i in range(10)]
+    rng = np.random.default_rng(0)
+    images = torch.as_tensor(rng.integers(0, 256, (BUCKET, 224, 224, 3), dtype=np.uint8),
+                             device=DEV)
+    labels = torch.as_tensor(rng.integers(0, 10, BUCKET), device=DEV)
+    mask = torch.arange(BUCKET, device=DEV) < MASKED_VALID
+    valid = torch.ones(MASKED_VALID, dtype=torch.bool, device=DEV)
+    norm = Compose([Normalize()]).device_apply
+    noise = torch.randn(MASKED_VALID, 224, 224, 3, device=DEV,
+                        generator=torch.Generator(device=DEV).manual_seed(11))
+
+    def perturbed(image, out_dtype=torch.float32, generator=None):
+        return norm(image, out_dtype=out_dtype) * (1 + 2.0 ** -23 * noise)
+
+    model = get_model(RESNET_MASKED.cfg, classes, seed=0, dtype=torch.float32)
+    init = {k: v.clone() for k, v in model.module.state_dict().items()}
+
+    def one_step(masked_bn, n, augment):
+        model.module.load_state_dict(init)
+        state, step = sgd_step(model, masked_bn, augment)
+        zero_counts()
+        _, metrics = step(state, images[:n], labels[:n], mask[:n] if masked_bn else valid,
+                          1.0, 1.0)
+        torch.cuda.synchronize()
+        no_launches(RESNET_MASKED, read_counts())
+        return (float(metrics["loss"]), {k: p.grad.clone() for k, p in
+                                         model.module.named_parameters()},
+                {k: b.clone() for k, b in model.module.named_buffers()
+                 if k.endswith(("running_mean", "running_var"))})
+
+    loss_m, grads_m, stats_m = one_step(True, BUCKET, norm)
+    loss_e, grads_e, stats_e = one_step(False, MASKED_VALID, norm)
+    _, grads_q, _ = one_step(False, MASKED_VALID, perturbed)
+    rel = abs(loss_m - loss_e) / abs(loss_e)
+    log(f"train {RESNET_MASKED.label} f32: loss of the masked batch {loss_m:.7f}, of its "
+        f"{MASKED_VALID} valid rows alone {loss_e:.7f}: relative {rel:.3e} (tol 1e-04)")
+    if rel > 1e-4:
+        fail(f"{RESNET_MASKED.label}: the masked step's loss is not the valid rows' loss")
+    check_running_stats(RESNET_MASKED, stats_m, stats_e, 1e-3,
+                        "f32 masked step against the exact step on the valid rows")
+    check_gated_grads(RESNET_MASKED, {(torch.float32, False): grads_m,
+                                      (torch.float32, True): grads_e,
+                                      (torch.float32, "perturbed"): grads_q},
+                      what=("masked", "exact on the valid rows"))
+    del model, init, grads_m, grads_e, grads_q, noise
+    torch.cuda.empty_cache()
+
+    model = get_model(RESNET_MASKED.cfg, classes, seed=0, dtype=torch.bfloat16)
+    init = {k: v.clone() for k, v in model.module.state_dict().items()}
+    pipe = Compose([HorizontalFlip(p=0.5), Normalize()]).device_apply
+    every = torch.ones(BUCKET, dtype=torch.bool, device=DEV)
+    bench = {}
+    for label, masked_bn in (("exact", False), ("masked", True), ("masked", True),
+                             ("exact", False)):
+        model.module.load_state_dict(init)
+        state, step = sgd_step(model, masked_bn, pipe)
+        batch_mask = mask if masked_bn else every
+        zero_counts()
+        state, _ = step(state, images, labels, batch_mask, 1.0, 1.0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            state, metrics = step(state, images, labels, batch_mask, 1.0, 1.0)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / 5 * 1e3
+        no_launches(RESNET_MASKED, read_counts())
+        if not np.isfinite(float(metrics["loss"])):
+            fail(f"{RESNET_MASKED.label}: a non-finite bf16 {label} loss")
+        r = {"step_ms": ms, "images_per_sec": BUCKET / ms * 1e3,
+             "max_memory_allocated_mb": torch.cuda.max_memory_allocated() / 2 ** 20}
+        bench.setdefault(label, []).append(r)
+        log(f"train step {RESNET_MASKED.label} (batch {BUCKET}, bf16) {label}: {json.dumps(r)}")
+    return bench
+
+
+# --- the probe path: the command-line probes of X1 and X2 ---------------------------
+
+PROBE_ITERS = 3  # timed launches a shape in each probe
+
+
+def drive_probes():
+    """The probe path: the two probes a user runs, ``python -m
+    nkbx_torch.ops.matmul_bn`` and ``python -m nkbx_torch.ops.grouped_conv
+    --wide`` (their ``main``), with every count set to 0 just before and
+    read just after. Each launches its kernel PROBE_ITERS + 2 times a shape.
+    Their outputs are held too: X1 within one bf16 ulp and 1e-4 (sums) of
+    the plain version, X2 within 4 bf16 ulps of cuDNN's largest output."""
+    zero_counts()
+    mb_rows = MB.main(iters=PROBE_ITERS)
+    gc_rows = GC.main(wide=True, iters=PROBE_ITERS)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want = dict.fromkeys(COUNTED, 0)
+    want["matmul_bn"] = len(MB.SHAPES) * (PROBE_ITERS + 2)
+    want["grouped_conv"] = len(GC.STAGES) * (PROBE_ITERS + 2)
+    log(f"path probe: launches {counts} (expect {want})")
+    if counts != want:
+        fail("the probes did not go through X1 and X2 as expected")
+    bad = [r for r in mb_rows if not (r["y_ulps"] <= 1 and r["sums_rel"] <= 1e-4)]
+    bad += [r for r in gc_rows if not r["max_abs_d"] <= 4 * bf16_ulp(r["library_max"])]
+    if bad:
+        fail(f"a probe's kernel disagrees with its reference: {bad}")
+    return counts
+
+
 def main():
     os.makedirs(OUT_DIR, exist_ok=True)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1348,6 +1749,8 @@ def main():
     mlp_only_rows, mlp_only_err = check_mlp_only()
     mlp_only_bwd_rows, mlp_only_bwd_err = check_mlp_only_bwd()
     chain_rows, chain_err = check_chain()
+    mb_rows, mb_err = check_matmul_bn()
+    gc_rows, gc_err = check_grouped_conv()
     served, trained = {}, {}
     for p in PATHS:
         if p.serves:
@@ -1356,6 +1759,11 @@ def main():
     for p in PATHS:
         with p.environment():
             trained[p.label] = check_train(p)
+    exact = check_resnet_exact()
+    masked = check_resnet_masked()
+    log(f"resnet50 exact BN (batch {EXACT_BATCH}) and masked BN (batch {BUCKET}): "
+        f"{json.dumps({'exact': exact, 'masked_vs_exact_batch64': masked})}")
+    probed = {"probe": drive_probes()}
 
     fwd, step = "one bucket-64 swin_tiny forward, bf16", "one batch-64 swin_tiny train step, bf16"
     vfwd = "one bucket-64 vit_base_patch16_224 forward, bf16 (12 launches at N=197)"
@@ -1393,7 +1801,13 @@ def main():
              chain_fwd, chain_err["fwd"], trained, rfwd, chain_mult),
             ("bottleneck_bwd", "nkbx_torch/ops/csrc/bottleneck_bwd.cu",
              "nkbx/ops/bottleneck.py:222", chain_bwd, chain_err["bwd"], trained, rstep,
-             chain_mult)):
+             chain_mult),
+            ("matmul_bn", "nkbx_torch/ops/csrc/matmul_bn.cu",
+             "experiments/pallas_fused_matmul_bn.py:30", mb_rows, mb_err, probed,
+             "one launch at each of the probe's three shapes, bf16", (1,) * len(mb_rows)),
+            ("grouped_conv", "nkbx_torch/ops/csrc/grouped_conv.cu",
+             "experiments/r3_grouped_conv_vpu.py:75", gc_rows, gc_err, probed,
+             "one launch at each of resnext50_32x4d's four stages, bf16", (1,) * len(gc_rows))):
         def total(key):
             vals = [r[key] for r in rows]
             if any(v is None for v in vals):

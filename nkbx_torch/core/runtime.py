@@ -19,3 +19,17 @@ def resolve_device(device=None) -> torch.device:
             "nkbx_torch runs on a CUDA card by default and none is available; "
             "pass device='cpu' to run the plain PyTorch versions on the CPU")
     return dev
+
+
+def cuda_ms(fn, iters: int) -> float:
+    """Milliseconds of one call of ``fn`` on the current CUDA stream: one
+    call to warm up, then ``iters`` calls between two CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / iters

@@ -44,7 +44,7 @@ def create_backbone(name: str, pretrained: bool = False, drop_rate: float = 0.0,
         raise NotImplementedError(
             f"backbone {name!r}: the unicom ViTs (UnicomViT: no class token, the flattened-token "
             "feature head with its BatchNorm1d pair) are not ported to nkbx_torch yet "
-            "(ROADMAP.md B6)")
+            "(ROADMAP.md A7)")
     if name not in _REGISTRY:
         raise NotImplementedError(
             f"backbone {name!r} is not ported to nkbx_torch yet (ported: the Swin, ViT/DeiT, "

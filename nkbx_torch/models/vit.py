@@ -22,7 +22,7 @@ dropout rate above 0 in training both fused paths are off, as in nkbx
 the input size the model is built for (``img_size``), as flax sizes it at
 init; a forward at another size raises.
 
-The unicom ViTs wait for masked BatchNorm (ROADMAP.md B6): their names raise.
+The unicom ViTs wait for the ``UnicomViT`` module (ROADMAP.md A7): their names raise.
 """
 
 from __future__ import annotations

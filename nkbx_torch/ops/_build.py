@@ -25,6 +25,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "nkbx_torch"
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
          "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+MAX_SMEM = 232_448  # bytes of shared memory one H100 block may have
 
 _libs: dict = {}
 

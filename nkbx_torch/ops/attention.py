@@ -45,7 +45,7 @@ _BWD_SIGNATURES = {"nkbx_window_attention_bwd": [_P] * 7 + [_I] * 6 + [ctypes.c_
 _SEP_SIGNATURES = {"nkbx_attention": [_P] * 6 + [_I] * 5 + [ctypes.c_float, _I, _P]}
 _SEP_BWD_SIGNATURES = {"nkbx_attention_bwd": [_P] * 12 + [_I] * 5 + [ctypes.c_float, _I, _I,
                                                                       _P]}
-_MAX_SMEM = 232_448  # bytes of shared memory one H100 block may have
+_MAX_SMEM = _build.MAX_SMEM
 _BWD_BLOCKS = 1024  # the backward groups windows per block down to about this many blocks
 HEAD_DIM = 64  # the only head width attention.cu and attention_bwd.cu take (every ViT's)
 

@@ -38,7 +38,7 @@ _BWD_SIGNATURES = {"nkbx_ln_mlp_bwd": [_P] * 21 + [_I] * 5 + [ctypes.c_float] + 
                    "nkbx_mlp_bwd": [_P] * 16 + [_I] * 7 + [_P]}
 _CHUNK = 64  # kChunk of ln_mlp.cu and ln_mlp_bwd.cu
 _TILE_ROWS = (64, 32, 16)  # row tiles the kernels are instantiated for
-_MAX_SMEM = 232_448  # bytes of shared memory one H100 block may have
+_MAX_SMEM = _build.MAX_SMEM
 _TWO_BLOCKS_SMEM = 113_000  # at most this per block keeps two blocks on an SM
 _WGRAD_TILE = 64  # output tile of the weight-gradient kernel (ln_mlp_bwd.cu)
 _WGRAD_BLOCKS = 528  # the weight-gradient kernel splits rows until about this many blocks

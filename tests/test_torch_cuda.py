@@ -23,6 +23,11 @@ shows that the kernel, not its plain version, ran:
   widths 8 and 14) and single-band (th = H), against the plain chain: the
   output, the six per-tile statistics and the ten gradients; a width the
   kernels do not take raises;
+- X1 the matmul with the BatchNorm-apply + relu epilogue and the output's
+  statistics, at small shapes (ragged row and column tiles) and one probe
+  shape, its sums bit for bit the same in two runs; X2 the 3x3 grouped
+  convolution at the probe's check shapes, ragged widths, gw = 1 and 32 and
+  resnext50's stage 2; both wrappers refuse a wrong dtype, shape or device;
 - a tiny Swin's, a tiny ViT's, a tiny ConvNeXt's and a tiny fused ResNet's
   loss backward through the kernels (the ConvNeXt through K5/K6, and through
   K7/K8 under ``NKBX_FUSED_LN_MLP=0``) gives every parameter a finite,
@@ -43,7 +48,11 @@ residual sum round to bf16); K9's statistics and K10's gradients, relative
 to each one's largest value: f32 5e-4, bf16 2e-2 (elementwise holds at these
 small shapes; at ResNet-50's, relu gates within rounding noise of 0 flip
 between the two programs, and chip_smoke.py holds the gradients by their
-relative L2 error).
+relative L2 error). X1: y f32 2e-5 of its largest value, bf16 one bf16 ulp
+of each value plus 2^-16 of the largest (the f32 products differ in the
+order of their sums, so a rounding may fall to the other neighbour, and
+near 0 that noise is coarser than a bf16 ulp); the sums 1e-4 of their
+largest value. X2: f32 1e-5 of its largest value, bf16 as X1's y.
 """
 
 import pathlib
@@ -57,6 +66,8 @@ import torch
 
 from nkbx_torch.ops import attention as tattn
 from nkbx_torch.ops import bottleneck as tbn
+from nkbx_torch.ops import grouped_conv as tgc
+from nkbx_torch.ops import matmul_bn as tmb
 from nkbx_torch.ops import mlp as tmlp
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -435,6 +446,112 @@ def test_every_resnet_parameter_gets_a_gradient_through_the_kernels(cuda_device,
         assert torch.isfinite(p.grad).all() and p.grad.abs().max() > 0, name
 
 
+MB_CASES = [
+    # (N, Cin, Cout, tile_rows): one tile; ragged row and column tiles; a probe shape
+    (128, 16, 16, 128),
+    (300, 48, 80, 100),
+    (4096, 256, 144, 1024),
+    (50_176, 512, 512, 1024),
+]
+
+
+def _ulp_err(got, want):
+    """The largest |got - want| in units of one bf16 ulp of each value of
+    want plus 2^-16 of the largest |want| (near 0 a bf16 ulp is finer than
+    the rounding noise of the f32 sums both sides round from)."""
+    w = want.float()
+    ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(2.0 ** -126))) - 7)
+    return ((got.float() - w).abs() / (ulp + 2.0 ** -16 * w.abs().max())).max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,cin,cout,tile_rows", MB_CASES)
+def test_matmul_bn_kernel_matches_plain_on_card(cuda_device, dtype, n, cin, cout, tile_rows):
+    args = tmb.inputs(n, cin, cout, dtype, cuda_device)
+    before = tmb.fused_matmul_bn_relu_stats.launches
+    y, s, q = tmb.fused_matmul_bn_relu_stats(*args, tile_rows=tile_rows)
+    torch.cuda.synchronize()
+    assert tmb.fused_matmul_bn_relu_stats.launches == before + 1
+    py, ps, pq = tmb.reference_matmul_bn_relu_stats(*args)
+    assert y.dtype == dtype and s.dtype == q.dtype == torch.float32
+    if dtype == torch.float32:
+        assert (y - py).abs().max().item() <= 2e-5 * py.abs().max().item()
+    else:
+        assert _ulp_err(y, py) <= 1
+    for got, want in ((s, ps), (q, pq)):
+        assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_matmul_bn_sums_are_bit_identical_across_runs(cuda_device, dtype):
+    """The column sums add the row tiles' partials in a fixed order."""
+    args = tmb.inputs(200_704, 256, 256, dtype, cuda_device)
+    first = tmb.fused_matmul_bn_relu_stats(*args)
+    second = tmb.fused_matmul_bn_relu_stats(*args)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_matmul_bn_kernel_refuses_what_it_cannot_take(cuda_device):
+    x, w, scale, bias = tmb.inputs(64, 32, 32, torch.float32, cuda_device)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tmb.fused_matmul_bn_relu_stats(x.half(), w.half(), scale, bias, tile_rows=64)
+    with pytest.raises(TypeError, match="w must be"):
+        tmb.fused_matmul_bn_relu_stats(x, w.cpu(), scale, bias, tile_rows=64)
+    with pytest.raises(TypeError, match="scale and bias"):
+        tmb.fused_matmul_bn_relu_stats(x, w, scale.cpu(), bias, tile_rows=64)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        tmb.fused_matmul_bn_relu_stats(x[:, :24], w[:24], scale, bias, tile_rows=64)
+    with pytest.raises(ValueError, match="tile_rows"):
+        tmb.fused_matmul_bn_relu_stats(x[:48], w, scale, bias, tile_rows=64)
+
+
+GC_CASES = [
+    # (B, H, W, C, gw): the probe's check shapes, ragged widths, gw 1 and 32, stage 2
+    (2, 8, 8, 32, 4),
+    (2, 8, 8, 64, 8),
+    (1, 5, 9, 32, 1),
+    (3, 7, 7, 64, 32),
+    (64, 28, 28, 256, 8),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,w,c,gw", GC_CASES)
+def test_gconv_kernel_matches_plain_on_card(cuda_device, dtype, b, h, w, c, gw):
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    x = torch.randn(b, h, w, c, generator=gen, device=cuda_device).to(dtype)
+    wvec = tgc.build_wvec((0.1 * torch.randn(3, 3, gw, c, generator=gen, device=cuda_device))
+                          .to(dtype), gw)
+    before = tgc.gconv.launches
+    got = tgc.gconv(x, wvec, gw)
+    torch.cuda.synchronize()
+    assert tgc.gconv.launches == before + 1
+    want = tgc.reference_gconv(x, wvec, gw)
+    assert got.dtype == dtype and got.shape == x.shape
+    if dtype == torch.float32:
+        assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+    else:
+        assert _ulp_err(got, want) <= 1
+
+
+@pytest.mark.cuda
+def test_gconv_kernel_refuses_what_it_cannot_take(cuda_device):
+    x = torch.zeros(1, 4, 4, 64, device=cuda_device)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tgc.gconv(x.half(), torch.zeros(36, 64, device=cuda_device).half(), 4)
+    with pytest.raises(TypeError, match="wvec must be"):
+        tgc.gconv(x, torch.zeros(36, 64), 4)
+    with pytest.raises(ValueError, match="at most 32"):
+        tgc.gconv(x, torch.zeros(576, 64, device=cuda_device), 64)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        tgc.gconv(x[..., :48], torch.zeros(36, 48, device=cuda_device), 4)
+
+
 def test_card_tests_collect_without_jax_or_nkbx():
     """The card's machine has no JAX: this file must collect (and its card
     tests skip here) with jax, flax and nkbx unimportable and no conftest."""
@@ -448,7 +565,8 @@ def test_card_tests_collect_without_jax_or_nkbx():
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-2000:]
     n = (2 * 2 * len(ATTN_CASES) + 2 * 2 * len(MLP_CASES) + 2 * 2 * len(MLP_ONLY_CASES)
-         + 2 * 2 * len(SEP_CASES) + 2 + 2 + 2 * len(CHAIN_CASES) + 2)
+         + 2 * 2 * len(SEP_CASES) + 2 + 2 + 2 * len(CHAIN_CASES) + 2
+         + 2 * len(MB_CASES) + 2 + 1 + 2 * len(GC_CASES) + 1)
     word = "passed" if torch.cuda.is_available() else "skipped"
     assert re.search(rf"\b{n} {word}\b", proc.stdout), proc.stdout[-2000:]
 

@@ -1,7 +1,10 @@
 """nkbx_torch stands alone: it imports neither JAX nor flax nor anything of
-nkbx, and its entry points run on a CUDA card unless asked for the CPU."""
+nkbx or of its experiments/ probes (it keeps its own copies of what it needs
+from them), and its entry points run on a CUDA card unless asked for the
+CPU."""
 
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -18,9 +21,15 @@ import importlib, json, sys
 for name in {modules!r}:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "nkbx"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "nkbx", "experiments",
+                                    "pallas_fused_matmul_bn", "pallas_batch_norm")
+             or m.startswith(("r3_", "r4_", "r5_")))
 print(json.dumps(bad))
 """
+
+# an import statement that would reach JAX, nkbx or the probes under experiments/
+FORBIDDEN_IMPORT = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|nkbx|experiments|pallas_\w+"
+                              r"|r[345]_\w+)\b", re.MULTILINE)
 
 
 def _run(code):
@@ -39,8 +48,17 @@ def test_port_imports_no_jax_flax_or_nkbx():
     assert proc.stdout.strip().splitlines()[-1] == "[]"
 
 
+def test_port_sources_import_no_jax_flax_nkbx_or_experiments():
+    """No import statement to them even on a path the import probe does not
+    reach, and no reach into experiments/ through sys.path."""
+    for path in sorted((ROOT / "nkbx_torch").rglob("*.py")):
+        src = path.read_text()
+        assert not FORBIDDEN_IMPORT.search(src) and "sys.path" not in src, path.name
+
+
 def test_chip_smoke_imports_no_jax_flax_or_nkbx():
     src = (ROOT / "chip_smoke.py").read_text()
+    assert not FORBIDDEN_IMPORT.search(src) and "sys.path" not in src
     for word in ("import jax", "from jax", "import flax", "from flax", "import nkbx ",
                  "from nkbx ", "from nkbx."):
         assert word not in src

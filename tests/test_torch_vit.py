@@ -279,7 +279,7 @@ def test_registry_names_and_unicom():
     model = get_model({"model": "vit_small_patch32_384"}, list("ab"), input_size=(384, 384),
                       device="cpu", dtype=torch.float32)
     assert model.module.backbone.pos_embed.shape == (1, 145, 384) and model.emb_size == 384
-    with pytest.raises(NotImplementedError, match="ROADMAP.md B6"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A7"):
         get_model({"model": "unicom ViT-B/32"}, list("ab"), device="cpu")
 
 
