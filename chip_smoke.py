@@ -27,7 +27,12 @@
    timed also against torch.matmul with the eager epilogue; X2, the 3x3
    grouped convolution, at resnext50_32x4d's four stages (bf16; f32 at
    stages 1-2) and the probe's check shapes, timed also against cuDNN's
-   grouped convolution.
+   grouped convolution. X3-X7, the Swin layout probes (copy, transpose of a
+   G-minor tensor, window gather and scatter, merge, split, pad8), at the
+   probes' shapes in bf16 and each function's last shape in f32: equal bit
+   for bit to their plain versions and to a second launch; timed with the
+   L2 flushed before every launch against their plain versions, the
+   library's one call and their bytes bound (a share over 100% fails).
 3. The same for the backward kernels: K2 and K6 at the shapes of a batch-64
    Swin-T train step (and window 12 for K2, a ragged tile with a layer-scale
    and an FMA width for K6, ViT-B's MLP for K6), K4 at K3's shapes (dbias
@@ -81,10 +86,19 @@
    equals the exact step on the 58 valid rows (loss, running statistics,
    grads by check_gated_grads), then the bf16 step timed against the exact
    step at batch 64.
-6. The probe path: the command-line probes of X1 and X2 (``python -m
-   nkbx_torch.ops.matmul_bn`` and ``python -m nkbx_torch.ops.grouped_conv
-   --wide``), their launch counts set to 0 before and read after.
-7. Prints the kernels' JSON line (all twelve kernels), the card's name and
+6. The trainer path (check_trainer): a seeded ImageFolder of BMP files and
+   a config in nkbx's form (swin_tiny, batch 64, 2 epochs) under
+   build/trainer_smoke/; ``python -m nkbx_torch.train -cfg`` in a
+   subprocess; no nkbx module after loading the config; ``train``'s
+   per-step losses equal to the bare step's, with each step's launches;
+   SIGTERM in epoch 2 and a resumed run equal to the uninterrupted one;
+   the loader's, the trainer's and the bare step's img/s and the idle
+   share of an epoch.
+7. The probe path: the command-line probes of X1-X7 (``python -m
+   nkbx_torch.ops.matmul_bn``, ``python -m nkbx_torch.ops.grouped_conv
+   --wide`` and ``python -m nkbx_torch.ops.layout``), their launch counts
+   set to 0 before and read after.
+8. Prints the kernels' JSON line (all 17 kernels), the card's name and
    power limit, and last {"ok": true, "device": {...}}.
 
 Exits non-zero, before printing any result, without a CUDA device, outside
@@ -94,9 +108,14 @@ a checkout of the repository, or when any check fails.
 import contextlib
 import json
 import os
+import shutil
+import signal
+import struct
 import subprocess
 import sys
+import textwrap
 import time
+from collections import defaultdict
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}  # dense bf16 tensor core / f32 without
@@ -128,7 +147,9 @@ try:
     from nkbx_torch.ops import _build
     from nkbx_torch.ops import attention as A
     from nkbx_torch.ops import bottleneck as BN
+    from nkbx_torch.core.runtime import cold_ms
     from nkbx_torch.ops import grouped_conv as GC
+    from nkbx_torch.ops import layout as L
     from nkbx_torch.ops import matmul_bn as MB
     from nkbx_torch.ops import mlp as M
 except ImportError as e:
@@ -903,6 +924,66 @@ def check_grouped_conv():
     return rows, worst
 
 
+# --- phase 2: the Swin layout probes (X3-X7) --------------------------------------
+
+# each row of the kernels line: its name, the TPU kernel it replaces, and the
+# wrappers whose launches it counts (X7: the merge, split and pad8 of probe2)
+LAYOUT_ROWS = {
+    "X3": ("layout_stream", "experiments/r3_layout_tax.py:52", ("layout_stream",)),
+    "X4": ("layout_transpose", "experiments/r3_layout_tax.py:56", ("layout_transpose",)),
+    "X5": ("window_gather", "experiments/r3_map_attention_probe.py:44", ("window_gather",)),
+    "X6": ("window_scatter", "experiments/r3_map_attention_probe.py:52", ("window_scatter",)),
+    "X7": ("window_merge_split_pad8", "experiments/r3_map_attention_probe2.py:64",
+           ("window_merge", "window_split", "window_pad8")),
+}
+LAYOUT_ITERS = 20  # cold-L2 launches timed a case
+
+
+def check_layout():
+    """X3-X7 against their plain versions (the kernels' index arithmetic as
+    one PyTorch gather) at every probe shape in bf16 and, for each function,
+    at its last shape in f32: equal bit for bit (they move bits), and a
+    second launch equal to the first. Times (bf16) with a cold L2, flushed
+    before every launch (at X3/X4's stages 3-4 and at X7 input and output fit
+    the H100's 50 MB L2, and back-to-back launches would read them from
+    there): the kernel, the plain version, the library's one call (clone,
+    permute().contiguous(), F.pad), the bytes bound and the kernel's share of
+    it. A share over 1 fails: the timing would be wrong, not the kernel."""
+    rows, worst = defaultdict(list), {"bf16": 0.0, "f32": 0.0}
+    cases = L.probe_cases()
+    last = {fn: i for i, (_, _, fn, *_) in enumerate(cases)}
+    for i, (row, name, fn, plain, library, shape) in enumerate(cases):
+        for dtype in ("bf16", "f32") if last[fn] == i else ("bf16",):
+            x = L.inputs(shape, DT[dtype], DEV, seed=30 + i)
+            got, again = fn(x), fn(x)
+            torch.cuda.synchronize()
+            want = plain(x)
+            err = max_err(got, want)
+            worst[dtype] = max(worst[dtype], err)
+            ok = (torch.equal(got, want) and torch.equal(got, again)
+                  and got.data_ptr() != x.data_ptr())
+            log(f"{row} {name} {dtype}: equal to its plain version and to a second launch: "
+                f"{ok} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"{fn.__name__} disagrees with its plain version at {name} {dtype}")
+            if dtype != "bf16":
+                continue
+            b, by = bound_ms(L.work(shape, want.numel(), 2), 0, "bf16")
+            t = dict(case=name, ms=cold_ms(lambda: fn(x), LAYOUT_ITERS),
+                     plain_ms=cold_ms(lambda: plain(x), LAYOUT_ITERS),
+                     library_ms=cold_ms(lambda: library(x), LAYOUT_ITERS), bound_ms=b, bound_by=by)
+            t["bound_share"] = b / t["ms"]
+            log(f"   bf16 times (cold L2): kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+                f"library {t['library_ms']:.4f} ms, bound {b:.4f} ms ({by}), kernel at "
+                f"{100 * t['bound_share']:.1f}% of the bound, library at "
+                f"{100 * b / t['library_ms']:.1f}%")
+            if t["bound_share"] > 1.0:
+                fail(f"{row} {name}: the kernel times under its bytes bound; the timing is wrong")
+            rows[row].append(t)
+        del x, got, again, want
+    return rows, worst
+
+
 # --- phases 4-5: the serving and training paths ---------------------------------
 
 COUNTED = {"window_attention": (A, "fused_attention_qkv"), "ln_mlp": (M, "fused_ln_mlp"),
@@ -911,7 +992,11 @@ COUNTED = {"window_attention": (A, "fused_attention_qkv"), "ln_mlp": (M, "fused_
            "attention_bwd": (A, "fused_attention_bwd"), "mlp": (M, "fused_mlp"),
            "mlp_bwd": (M, "fused_mlp_bwd"), "bottleneck": (BN, "fused_chain"),
            "bottleneck_bwd": (BN, "fused_chain_bwd"),
-           "matmul_bn": (MB, "fused_matmul_bn_relu_stats"), "grouped_conv": (GC, "gconv")}
+           "matmul_bn": (MB, "fused_matmul_bn_relu_stats"), "grouped_conv": (GC, "gconv"),
+           "layout_stream": (L, "stream"), "layout_transpose": (L, "transpose_in_kernel"),
+           "window_gather": (L, "gather_windows"), "window_scatter": (L, "scatter_windows"),
+           "window_merge": (L, "merge_windows"), "window_split": (L, "split_windows"),
+           "window_pad8": (L, "pad8")}
 
 
 def zero_counts():
@@ -1692,31 +1777,323 @@ def check_resnet_masked():
     return bench
 
 
+# --- phase 7: the trainer path, from a config file ---------------------------------
+
+TRAINER_DIR = os.path.join("build", "trainer_smoke")  # data and runs: a run's checkpoints
+# (~340 MB each) are too large to bring back under OUT_DIR
+TRAINER_SPLITS = (("train", 150), ("val", 70))  # images of 10 classes, 160-320 px
+N_CLASSES = 10
+
+
+def write_bmp(path, img):
+    """A uint8 (H, W, 3) RGB image as a 24-bit bottom-up BMP."""
+    h, w = img.shape[:2]
+    stride = (3 * w + 3) // 4 * 4
+    rows = np.zeros((h, stride), np.uint8)
+    rows[:, :3 * w] = img[::-1, :, ::-1].reshape(h, 3 * w)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<2sIHHI", b"BM", 54 + rows.size, 0, 0, 54))
+        f.write(struct.pack("<IiiHHIIiiII", 40, w, h, 1, 24, 0, rows.size, 2835, 2835, 0, 0))
+        f.write(rows.tobytes())
+
+
+def write_image_folder(root, seed=0):
+    """A seeded ImageFolder of uint8 BMP files, 160-320 px a side, whose
+    classes differ in their mean colour."""
+    rng = np.random.default_rng(seed)
+    for split, n in TRAINER_SPLITS:
+        for i in range(n):
+            c = i % N_CLASSES
+            d = os.path.join(root, split, f"class{c}")
+            os.makedirs(d, exist_ok=True)
+            h, w = (int(v) for v in rng.integers(160, 321, 2))
+            tint = np.array([(c * 37) % 96, (c * 59) % 96, (c * 83) % 96]) - 48
+            img = np.clip(rng.integers(0, 256, (h, w, 3)) + tint, 0, 255).astype(np.uint8)
+            write_bmp(os.path.join(d, f"{i}.bmp"), img)
+
+
+def trainer_config(data, run):
+    """The text of the smoke's config file. Its first line is the shipped
+    configs' own import of the transforms (configs/singletask_config.py),
+    which the port's load_config resolves to nkbx_torch.transforms."""
+    with open(os.path.join("configs", "singletask_config.py")) as f:
+        header = next(line for line in f if line.startswith("import"))
+    return header + textwrap.dedent(f"""
+        task = "single"
+        n_epochs = 2
+        seed = 0
+        enable_mixed_precision = True
+        train_data = {{"type": "ImageFolder", "root": "{data}/train", "batch_size": {BUCKET},
+                      "shuffle": True, "num_workers": 8, "drop_last": False}}
+        val_data = {{"type": "ImageFolder", "root": "{data}/val", "batch_size": {BUCKET},
+                    "shuffle": False, "num_workers": 8}}
+        train_pipeline = T.Compose([
+            T.LongestMaxSize(224), T.PadIfNeeded(224, 224, border_mode=0, value=0),
+            T.HorizontalFlip(p=0.5), T.Normalize(), T.ToTensorV2()])
+        val_pipeline = T.Compose([
+            T.LongestMaxSize(224), T.PadIfNeeded(224, 224, border_mode=0, value=0),
+            T.Normalize(), T.ToTensorV2()])
+        model = {{"task": "single", "model": "swin_tiny_patch4_window7_224", "pretrained": False}}
+        optimizer = {{"type": "nadam", "backbone_lr": 1e-5, "classifier_lr": 1e-4,
+                     "backbone_weight_decay": 0.05, "classifier_weight_decay": 0.05}}
+        lr_policy = {{"type": "cosine", "n_epochs": 2}}
+        backbone_state_policy = {{0: "freeze", 1: "unfreeze"}}
+        criterion = {{"task": "single", "type": "CrossEntropyLoss"}}
+        experiment = {{"comet": None, "local": {{"path": "{run}"}}}}
+    """)
+
+
+def nkbx_modules():
+    return sorted(m for m in sys.modules if m == "nkbx" or m.startswith("nkbx."))
+
+
+class StepRecorder:
+    """Wraps ``build_train_step`` so that each step of a ``train`` run
+    records its loss and its kernels' launches, and, at step ``kill_at``
+    (1-based), sends this process a SIGTERM after the step."""
+
+    def __init__(self, build, kill_at=None):
+        self.build, self.kill_at, self.steps = build, kill_at, []
+
+    def __call__(self, *args, **kwargs):
+        step = self.build(*args, **kwargs)
+
+        def recorded(state, image, label, mask, lr_factor, freeze_scale):
+            before = read_counts()
+            state, metrics = step(state, image, label, mask, lr_factor, freeze_scale)
+            after = read_counts()
+            self.steps.append((metrics["loss"].detach().float().clone(),
+                               {k: after[k] - before[k] for k in after if after[k] != before[k]}))
+            if self.kill_at == len(self.steps):
+                os.kill(os.getpid(), signal.SIGTERM)
+            return state, metrics
+
+        recorded.masked_bn = step.masked_bn
+        return recorded
+
+
+def read_metrics_csv(path):
+    with open(path) as f:
+        head, *rows = [line.rstrip("\n").split("\t") for line in f]
+    return [dict(zip(head, r)) for r in rows]
+
+
+def check_trainer():
+    """The path users run: ``python -m nkbx_torch.train -cfg CONFIG`` on a
+    seeded ImageFolder of BMP files (150 train and 70 val images of 10
+    classes) with a config that imports the transforms as nkbx's configs do:
+    swin_tiny_patch4_window7_224 at full width and depth, bf16, batch 64
+    with the last batch padded and masked (drop_last False), LongestMaxSize +
+    PadIfNeeded + HorizontalFlip + Normalize, nadam with backbone and head
+    lrs, cosine, {0: freeze, 1: unfreeze}, 2 epochs. Checks:
+    (a) the CLI in a subprocess exits 0 and leaves classes.json, a 2-row
+        metrics.csv, weights/best and weights/last;
+    (d) loading the config leaves no nkbx module in sys.modules;
+    (b) in this process, epoch 1's per-step losses through ``train`` equal
+        (bit for bit) those of ``build_train_step`` driven directly on the
+        same loader's batches from the same weights and generator seed, and
+        every step launches K1, K2, K5 and K6 12 times each;
+    (c) a run sent SIGTERM during batch 0 of epoch 2 saves a cursor at batch
+        1, and ``train(resume_from=...)`` then ends with the uninterrupted
+        run's weights, bit for bit (cuDNN held to deterministic algorithms;
+        every kernel of ours sums in a fixed order);
+    (e) the decoder the loader took, the loader's img/s, the trainer's img/s
+        against the bare step's on the same batches, and the idle share of
+        one epoch (device busy time from torch.profiler against the
+        unprofiled epoch).
+    Returns the launch counts of the in-process uninterrupted run."""
+    from nkbx_torch.data import get_dataset
+    from nkbx_torch.logging import get_local_experiment
+    from nkbx_torch.train import (TrainState, backbone_state_factor, build_train_step, get_loss,
+                                  get_optimizer, get_scheduler, preempt)
+    from nkbx_torch.train import trainer as TR
+    from nkbx_torch.train.engine import _put_batch, train_epoch
+    from nkbx_torch.utils import load_config
+
+    shutil.rmtree(TRAINER_DIR, ignore_errors=True)
+    data = os.path.join(TRAINER_DIR, "data")
+    write_image_folder(data)
+    cfg_path = os.path.join(TRAINER_DIR, "config.py")
+    with open(cfg_path, "w") as f:
+        f.write(trainer_config(data, os.path.join(TRAINER_DIR, "run_cli")))
+
+    # (a) the CLI
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "nkbx_torch.train", "-cfg", cfg_path],
+                          capture_output=True, text=True, timeout=900)
+    cli_s = time.perf_counter() - t0
+    with open(os.path.join(OUT_DIR, "trainer_cli.log"), "w") as f:
+        f.write(proc.stdout + proc.stderr)
+    run = os.path.join(TRAINER_DIR, "run_cli")
+    rows = read_metrics_csv(os.path.join(run, "metrics.csv")) if proc.returncode == 0 else []
+    have = [n for n in ("classes.json", "metrics.csv", "weights/best", "weights/last")
+            if os.path.exists(os.path.join(run, n))]
+    log(f"trainer (a): python -m nkbx_torch.train exit {proc.returncode} in {cli_s:.1f} s; "
+        f"{have}; metrics.csv rows {len(rows)}")
+    if proc.returncode != 0 or len(have) != 4 or len(rows) != 2:
+        fail(f"the train CLI failed (log in {OUT_DIR}/trainer_cli.log): {proc.stderr[-2000:]}")
+    shutil.copy(os.path.join(run, "metrics.csv"), os.path.join(OUT_DIR, "trainer_metrics.csv"))
+    for r in rows:
+        log(f"   epoch {r['Epoch']}: train loss {float(r['train loss']):.4f}, val loss "
+            f"{float(r['Val loss']):.4f}, val balanced accuracy "
+            f"{float(r['Val balanced accuracy']):.4f}, train images/sec "
+            f"{float(r['train images/sec/chip']):.1f}")
+        if not all(np.isfinite(float(r[k])) for k in ("train loss", "Val loss")):
+            fail("the CLI's losses are not finite")
+
+    # (d) the config loads without nkbx
+    before = nkbx_modules()
+    cfg = load_config(cfg_path)
+    log(f"trainer (d): nkbx modules before loading the config {before}, after {nkbx_modules()}")
+    if before or nkbx_modules():
+        fail("loading the config left nkbx modules in sys.modules")
+
+    def setup(name):
+        cfg.experiment = {"comet": None, "local": {"path": os.path.join(TRAINER_DIR, name)}}
+        train_loader = get_dataset(cfg.train_data, cfg.train_pipeline)
+        classes = train_loader.dataset.classes
+        val_loader = get_dataset({**cfg.val_data, "classes": classes}, cfg.val_pipeline)
+        model = get_model(cfg.model, classes, seed=cfg.seed, dtype=torch.bfloat16)
+        return (model, train_loader, val_loader, get_loss(cfg.criterion),
+                get_local_experiment(cfg.experiment["local"]))
+
+    def run_train(name, kill_at=None, resume_from=None):
+        model, train_loader, val_loader, criterion, exp = setup(name)
+        recorder = StepRecorder(build_train_step, kill_at)
+        TR.build_train_step = recorder
+        try:
+            state = TR.train(model, train_loader, val_loader, criterion, None, exp, cfg,
+                             resume_from=resume_from)
+        finally:
+            TR.build_train_step = build_train_step
+        return state, recorder.steps, exp.path
+
+    cudnn_deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        # (b) train() against the bare step
+        zero_counts()
+        full, full_steps, _ = run_train("run_full")
+        torch.cuda.synchronize()
+        counts = read_counts()
+        per_epoch = -(-TRAINER_SPLITS[0][1] // BUCKET)
+        model, train_loader, _, criterion, _ = setup("run_bare")
+        state = TrainState.create(model, seed=cfg.seed)
+        step = build_train_step(model, criterion, get_optimizer(cfg.optimizer),
+                                augment_fn=train_loader.pipeline.device_apply,
+                                masked_bn=TR._has_batchnorm(model.module))
+        lr0 = get_scheduler(cfg.lr_policy)(0)
+        fs0 = backbone_state_factor(cfg.backbone_state_policy, 0)
+        t0 = time.perf_counter()
+        batches = list(train_loader.epoch(0))
+        loader_s = time.perf_counter() - t0
+        bare = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in batches:
+            dev = _put_batch(b, DEV)
+            state, m = step(state, dev["image"], dev["label"], dev["mask"], lr0, fs0)
+            bare.append(m["loss"].float())
+        torch.cuda.synchronize()
+        bare_s = time.perf_counter() - t0
+        got = torch.stack([loss for loss, _ in full_steps[:per_epoch]])
+        want = torch.stack(bare)
+        per_step = SWIN.counts(torch.bfloat16, True)
+        per_step = {k: v for k, v in per_step.items() if v}
+        steps_ok = all(c == per_step for _, c in full_steps)
+        log(f"trainer (b): epoch 1 losses through train() {got.tolist()}, bare steps "
+            f"{want.tolist()}, equal: {torch.equal(got, want)}; launches per step "
+            f"{full_steps[0][1]} (expect {per_step} every step: {steps_ok}); the run's "
+            f"launches {counts}")
+        if not torch.equal(got, want) or not steps_ok or len(full_steps) != 2 * per_epoch:
+            fail("train() does not step as build_train_step does, or missed a kernel")
+
+        # (e) rates and the idle share of one epoch
+        n_valid = TRAINER_SPLITS[0][1]
+        rows = read_metrics_csv(os.path.join(TRAINER_DIR, "run_full", "metrics.csv"))
+        rates = {"decoder": train_loader.decoder, "loader_img_s": n_valid / loader_s,
+                 "bare_step_img_s": n_valid / bare_s,
+                 "trainer_img_s": [float(r["train images/sec/chip"]) for r in rows]}
+        lr1, fs1 = get_scheduler(cfg.lr_policy)(1), backbone_state_factor(
+            cfg.backbone_state_policy, 1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = train_epoch(state, train_loader, step, 1, lr1, fs1, progress=False)
+        torch.cuda.synchronize()
+        epoch_ms = (time.perf_counter() - t0) * 1e3
+        rates["epoch_ms"] = epoch_ms
+        try:  # a measurement only: the checks decide the run
+            from torch.profiler import ProfilerActivity, profile
+
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                state, _ = train_epoch(state, train_loader, step, 1, lr1, fs1, progress=False)
+                torch.cuda.synchronize()
+            events = report_profile(prof, 1, "in one train epoch (3 steps, loader included)",
+                                    epoch_ms, "profile_trainer_epoch.txt")
+            if events:
+                rates["idle_share"] = 1 - sum(us for us, _ in events) / 1e3 / epoch_ms
+        except Exception as e:  # noqa: BLE001
+            log(f"profile: not measured ({type(e).__name__}: {e})")
+        log(f"trainer (e): {json.dumps(rates)}")
+        del model, state, step, batches
+
+        # (c) SIGTERM during batch 0 of epoch 2, then resume
+        handler = signal.getsignal(signal.SIGTERM)
+        preempt.reset()
+        preempt.install()
+        try:
+            run_train("run_cut", kill_at=per_epoch + 1)
+        finally:
+            signal.signal(signal.SIGTERM, handler)
+            preempt.reset()
+        last = os.path.join(TRAINER_DIR, "run_cut", "weights", "last")
+        with open(last + ".cursor.json") as f:
+            cursor = json.load(f)
+        resumed, resumed_steps, _ = run_train("run_resumed", resume_from=last)
+        want_sd, got_sd = full.module.state_dict(), resumed.module.state_dict()
+        diff = max(max_err(got_sd[k], want_sd[k]) for k in want_sd)
+        same = all(torch.equal(got_sd[k], want_sd[k]) for k in want_sd)
+        log(f"trainer (c): cursor {cursor}; the resumed run took {len(resumed_steps)} steps; "
+            f"its weights equal the uninterrupted run's: {same} (max |d| {diff:.3e})")
+        if cursor.get("epoch") != 1 or cursor.get("batch") != 1 or not same:
+            fail("a preempted and resumed run does not end where the uninterrupted one does")
+    finally:
+        torch.backends.cudnn.deterministic = cudnn_deterministic
+    return counts
+
+
 # --- the probe path: the command-line probes of X1 and X2 ---------------------------
 
 PROBE_ITERS = 3  # timed launches a shape in each probe
 
 
 def drive_probes():
-    """The probe path: the two probes a user runs, ``python -m
-    nkbx_torch.ops.matmul_bn`` and ``python -m nkbx_torch.ops.grouped_conv
-    --wide`` (their ``main``), with every count set to 0 just before and
-    read just after. Each launches its kernel PROBE_ITERS + 2 times a shape.
-    Their outputs are held too: X1 within one bf16 ulp and 1e-4 (sums) of
-    the plain version, X2 within 4 bf16 ulps of cuDNN's largest output."""
+    """The probe path: the probes a user runs, ``python -m
+    nkbx_torch.ops.matmul_bn``, ``python -m nkbx_torch.ops.grouped_conv
+    --wide`` and ``python -m nkbx_torch.ops.layout`` (their ``main``), with
+    every count set to 0 just before and read just after. Each launches its
+    kernels PROBE_ITERS + 2 times a shape. Their outputs are held too: X1
+    within one bf16 ulp and 1e-4 (sums) of the plain version, X2 within 4
+    bf16 ulps of cuDNN's largest output, X3-X7 equal to their plain versions
+    and the library calls."""
     zero_counts()
     mb_rows = MB.main(iters=PROBE_ITERS)
     gc_rows = GC.main(wide=True, iters=PROBE_ITERS)
+    layout_rows = L.main(iters=PROBE_ITERS)
     torch.cuda.synchronize()
     counts = read_counts()
     want = dict.fromkeys(COUNTED, 0)
     want["matmul_bn"] = len(MB.SHAPES) * (PROBE_ITERS + 2)
     want["grouped_conv"] = len(GC.STAGES) * (PROBE_ITERS + 2)
+    for name, (mod, fn) in COUNTED.items():
+        if mod is L:
+            want[name] = sum(c[2] is getattr(L, fn) for c in L.probe_cases()) * (PROBE_ITERS + 2)
     log(f"path probe: launches {counts} (expect {want})")
     if counts != want:
-        fail("the probes did not go through X1 and X2 as expected")
+        fail("the probes did not go through X1-X7 as expected")
     bad = [r for r in mb_rows if not (r["y_ulps"] <= 1 and r["sums_rel"] <= 1e-4)]
     bad += [r for r in gc_rows if not r["max_abs_d"] <= 4 * bf16_ulp(r["library_max"])]
+    bad += [r for r in layout_rows if not r["equal"]]
     if bad:
         fail(f"a probe's kernel disagrees with its reference: {bad}")
     return counts
@@ -1751,6 +2128,7 @@ def main():
     chain_rows, chain_err = check_chain()
     mb_rows, mb_err = check_matmul_bn()
     gc_rows, gc_err = check_grouped_conv()
+    layout_rows, layout_err = check_layout()
     served, trained = {}, {}
     for p in PATHS:
         if p.serves:
@@ -1763,6 +2141,8 @@ def main():
     masked = check_resnet_masked()
     log(f"resnet50 exact BN (batch {EXACT_BATCH}) and masked BN (batch {BUCKET}): "
         f"{json.dumps({'exact': exact, 'masked_vs_exact_batch64': masked})}")
+    trainer_counts = check_trainer()
+    served["trainer"] = trained["trainer"] = trainer_counts
     probed = {"probe": drive_probes()}
 
     fwd, step = "one bucket-64 swin_tiny forward, bf16", "one batch-64 swin_tiny train step, bf16"
@@ -1824,6 +2204,17 @@ def main():
             "library_ms": total("library_ms") if "library_ms" in rows[0] else None,
             "per": per,
         })
+    for row, (name, replaces, counted) in LAYOUT_ROWS.items():
+        rows = layout_rows[row]
+        kernels.append({
+            "name": name, "route": "cuda", "source": "nkbx_torch/ops/csrc/layout.cu",
+            "replaces": replaces, "launches": sum(probed["probe"][c] for c in counted),
+            "launches_by_path": {"probe": sum(probed["probe"][c] for c in counted)},
+            "max_abs_err": layout_err["bf16"], "max_abs_err_f32": layout_err["f32"],
+            **{k: sum(r[k] for r in rows) for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+            "bound_by": "bytes", "bound_share": [r["bound_share"] for r in rows],
+            "per": f"one launch at each of {row}'s shapes, bf16: "
+                   + ", ".join(r["case"] for r in rows)})
     # K5/K6 on the other models' paths: ConvNeXt-T's stages have Swin-T's R and C
     # (3/3/9/3 launches; K6 timed without the layer-scale that ConvNeXt's recomputes
     # y for), ViT-B's 12 launches at R = 12608

@@ -1,0 +1,5 @@
+from nkbx_torch.logging.experiment import (LocalExperiment, TrainLogger, get_comet_experiment,
+                                           get_local_experiment, log_metrics, make_image_grid)
+
+__all__ = ["LocalExperiment", "TrainLogger", "get_comet_experiment", "get_local_experiment",
+           "log_metrics", "make_image_grid"]

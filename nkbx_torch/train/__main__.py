@@ -1,0 +1,63 @@
+"""The port's training CLI, nkbx's ``train.py`` surface:
+
+    python -m nkbx_torch.train -cfg CONFIG [--resume RUN/weights/last] [--device cpu]
+
+The config is one of nkbx's Python config files (``import nkbx.transforms
+as T`` builds the port's transforms). Training runs on the CUDA card unless
+the config's ``device`` or ``--device`` names the CPU. A SIGTERM saves the
+full train state with a batch cursor; ``--resume`` continues from it.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description="Train arguments")
+    parser.add_argument("-cfg", "--config", help="Config file path", type=str, required=True)
+    parser.add_argument("--resume", type=str, default=None,
+                        help="a checkpoint directory (weights/last) to resume from")
+    parser.add_argument("--device", type=str, default=None,
+                        help="cuda (the default) or cpu; overrides the config's device")
+    args = parser.parse_args(argv)
+    logging.basicConfig(level=logging.INFO, format="[nkbx_torch] %(message)s")
+
+    import torch
+
+    from nkbx_torch.core.runtime import resolve_device
+    from nkbx_torch.data import get_dataset
+    from nkbx_torch.logging import get_comet_experiment, get_local_experiment
+    from nkbx_torch.models import get_model
+    from nkbx_torch.train import get_loss, preempt
+    from nkbx_torch.train.trainer import check_options, train
+    from nkbx_torch.utils import load_config
+
+    cfg = load_config(args.config)
+    check_options(cfg)
+    device = resolve_device(args.device or cfg.device)
+    if cfg.get("preempt_checkpoint", True):
+        preempt.install()
+
+    train_loader = get_dataset(cfg.train_data, cfg.train_pipeline)
+    classes = train_loader.dataset.classes
+    if "classes" not in cfg.val_data:
+        cfg.val_data = {**cfg.val_data, "classes": classes}
+    val_loader = get_dataset(cfg.val_data, cfg.val_pipeline)
+    print(f"[nkbx_torch] device {device}; loader decoder: {train_loader.decoder}", flush=True)
+
+    dtype = torch.bfloat16 if cfg.enable_mixed_precision else torch.float32
+    input_size = cfg.train_pipeline.output_size() or (224, 224)
+    model = get_model(cfg.model, classes, input_size=input_size, seed=cfg.get("seed", 0),
+                      dtype=dtype, device=device)
+    criterion = get_loss(cfg.criterion, device=device)
+    comet_experiment = get_comet_experiment(cfg.experiment.get("comet"))
+    local_experiment = get_local_experiment(cfg.experiment["local"])
+    print(f"Run dir: {local_experiment.path}", flush=True)
+    train(model, train_loader, val_loader, criterion, comet_experiment, local_experiment, cfg,
+          resume_from=args.resume)
+
+
+if __name__ == "__main__":
+    main()

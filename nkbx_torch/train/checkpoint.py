@@ -1,0 +1,104 @@
+"""Checkpoints with full train-state resume (counterpart of
+``nkbx/train/checkpoint.py``).
+
+Layout under ``<run>/weights/``:
+
+- ``best/`` and ``last/``: ``train_state.pt`` (``torch.save``) with the
+  module's state dict (BatchNorm running statistics included), the
+  optimizer's step counts, moments and NAdam products, the generator's
+  state, the step, and the meta ``epoch`` and ``best_val_acc``;
+- ``last.cursor.json``: the mid-epoch preemption cursor, nkbx's keys
+  (``epoch``, ``batch``, ``step``, ``batch_size``, ``process_count``);
+- ``best.pt`` and ``last.pt``: the module's state dict alone, where nkbx
+  writes msgpacks; ``get_model``'s ``checkpoint`` key loads them.
+
+A save writes into ``<path>.tmp`` and swaps it into place, so the previous
+checkpoint survives a preemption during the save.
+"""
+
+from __future__ import annotations
+
+import json
+import shutil
+from pathlib import Path
+
+import torch
+
+STATE_FILE = "train_state.pt"
+
+
+def _payload(state, epoch: int, best_val_acc: float):
+    return {
+        "module": state.module.state_dict(),
+        "opt_state": {label: {"count": st.count, "mu": st.mu, "nu": st.nu,
+                              "mu_product": st.mu_product}
+                      for label, st in state.opt_state.items()},
+        "generator": state.generator.get_state(),
+        "step": int(state.step),
+        "meta": {"epoch": int(epoch), "best_val_acc": float(best_val_acc)},
+    }
+
+
+def save_checkpoint(path, state, epoch: int, best_val_acc: float = 0.0,
+                    cursor: dict | None = None):
+    """Save the full train state to the directory ``path``, crash-safe.
+
+    ``cursor`` (the mid-epoch preemption cursor) is written as the sidecar
+    ``<path>.cursor.json``; ``None`` (every end-of-epoch save) removes a
+    stale one. The cursor pins the state's ``step``, so one that does not
+    match its checkpoint is ignored on resume."""
+    path = Path(path).resolve()
+    tmp = path.with_name(path.name + ".tmp")
+    if tmp.exists():
+        shutil.rmtree(tmp)
+    tmp.mkdir(parents=True)
+    torch.save(_payload(state, epoch, best_val_acc), tmp / STATE_FILE)
+    if path.exists():
+        shutil.rmtree(path)
+    tmp.rename(path)
+    cursor_path = path.with_name(path.name + ".cursor.json")
+    if cursor is None:
+        cursor_path.unlink(missing_ok=True)
+    else:
+        ctmp = cursor_path.with_suffix(".json.tmp")
+        ctmp.write_text(json.dumps(cursor))
+        ctmp.rename(cursor_path)
+
+
+def load_cursor(path) -> dict | None:
+    """The preemption cursor beside the checkpoint ``path``, if present and
+    readable."""
+    cursor_path = Path(path).resolve()
+    cursor_path = cursor_path.with_name(cursor_path.name + ".cursor.json")
+    if not cursor_path.exists():
+        return None
+    try:
+        return json.loads(cursor_path.read_text())
+    except (OSError, ValueError):
+        return None
+
+
+@torch.no_grad()
+def restore_train_state(path, state):
+    """Load the checkpoint ``path`` into ``state`` (a :class:`TrainState` of
+    the same model and optimizer groups) in place; returns (state, epoch,
+    best_val_acc)."""
+    payload = torch.load(Path(path) / STATE_FILE, map_location="cpu", weights_only=True)
+    state.module.load_state_dict(payload["module"])
+    for label, saved in payload["opt_state"].items():
+        st = state.opt_state[label]
+        if len(saved["mu"]) != len(st.mu):
+            raise ValueError(f"checkpoint {path}: optimizer group {label!r} holds "
+                             f"{len(saved['mu'])} tensors, the model {len(st.mu)}")
+        for dst, src in zip(st.mu + st.nu, saved["mu"] + saved["nu"]):
+            dst.copy_(src)
+        st.count, st.mu_product = int(saved["count"]), float(saved["mu_product"])
+    state.generator.set_state(payload["generator"])
+    state.step = int(payload["step"])
+    meta = payload["meta"]
+    return state, int(meta["epoch"]), float(meta["best_val_acc"])
+
+
+def save_weights(path, module):
+    """The module's state dict alone (``best.pt``, ``last.pt``)."""
+    torch.save(module.state_dict(), path)

@@ -1,16 +1,26 @@
-"""Transform specs and Compose (counterpart of ``nkbx/transforms/spec.py``)
-for the serving and training paths: the device stage is the random flips
-and Normalize.
+"""Transform specs and Compose (counterpart of ``nkbx/transforms/spec.py``),
+with nkbx's names and parameters so that its config files run unchanged.
 
-The host stage (geometry) and the other random device ops (photometric,
-dropout, blur, ...) are not ported yet (ROADMAP.md, A9); a pipeline that
-names one raises ``NotImplementedError``.
+A pipeline splits into two stages, as in nkbx:
+
+- the host stage, the geometry before the first device op (LongestMaxSize,
+  SmallestMaxSize, PadIfNeeded, Resize, CenterCrop, RandomCrop): numpy per
+  sample in the loader's threads (:mod:`nkbx_torch.transforms.host`), so
+  that every batch has one static (H, W);
+- the device stage, one batched function of the uint8 batch on its device:
+  the random flips and Normalize (:mod:`nkbx_torch.transforms.device`).
+
+Every other device op of nkbx is declared here with its parameters, so a
+config that names one loads; :class:`Compose` then raises, naming the
+ROADMAP item that ports it (A9).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from typing import Optional, Sequence, Tuple, Union
+
+import numpy as np
 
 HOST = "host"
 DEVICE = "device"
@@ -22,14 +32,79 @@ class Transform:
     stage = HOST
 
 
+# --- host stage: geometry, per sample in the loader ------------------------------------
+
+
 @dataclasses.dataclass
-class Normalize(Transform):
-    mean: Sequence[float] = (0.485, 0.456, 0.406)
-    std: Sequence[float] = (0.229, 0.224, 0.225)
-    max_pixel_value: float = 255.0
-    p: float = 1.0
+class LongestMaxSize(Transform):
+    """Resize so the longest side equals ``max_size``, keeping aspect ratio."""
+
+    max_size: int = 1024
+    interpolation: int = 1  # cv2.INTER_LINEAR
     always_apply: bool = True
-    stage = DEVICE
+    p: float = 1.0
+    stage = HOST
+
+    def out_size(self, h, w):
+        scale = self.max_size / max(h, w)
+        return max(1, round(h * scale)), max(1, round(w * scale))
+
+
+@dataclasses.dataclass
+class SmallestMaxSize(Transform):
+    max_size: int = 1024
+    interpolation: int = 1
+    always_apply: bool = True
+    p: float = 1.0
+    stage = HOST
+
+    def out_size(self, h, w):
+        scale = self.max_size / min(h, w)
+        return max(1, round(h * scale)), max(1, round(w * scale))
+
+
+@dataclasses.dataclass
+class PadIfNeeded(Transform):
+    """Center-pad to at least (min_height, min_width)."""
+
+    min_height: int = 1024
+    min_width: int = 1024
+    border_mode: int = 0  # constant
+    value: Union[int, Sequence[int]] = 0
+    always_apply: bool = True
+    p: float = 1.0
+    stage = HOST
+
+
+@dataclasses.dataclass
+class Resize(Transform):
+    height: int = 224
+    width: int = 224
+    interpolation: int = 1
+    always_apply: bool = True
+    p: float = 1.0
+    stage = HOST
+
+
+@dataclasses.dataclass
+class CenterCrop(Transform):
+    height: int = 224
+    width: int = 224
+    always_apply: bool = True
+    p: float = 1.0
+    stage = HOST
+
+
+@dataclasses.dataclass
+class RandomCrop(Transform):
+    height: int = 224
+    width: int = 224
+    always_apply: bool = True
+    p: float = 1.0
+    stage = HOST
+
+
+# --- device stage: the ported ops ------------------------------------------------------
 
 
 @dataclasses.dataclass
@@ -44,7 +119,130 @@ class VerticalFlip(Transform):
     stage = DEVICE
 
 
+@dataclasses.dataclass
+class Normalize(Transform):
+    mean: Sequence[float] = (0.485, 0.456, 0.406)
+    std: Sequence[float] = (0.229, 0.224, 0.225)
+    max_pixel_value: float = 255.0
+    p: float = 1.0
+    always_apply: bool = True
+    stage = DEVICE
+
+
 PORTED_DEVICE_OPS = (HorizontalFlip, VerticalFlip, Normalize)
+
+
+# --- device stage: nkbx's other ops, declared with their parameters, not ported (A9) ---
+
+
+@dataclasses.dataclass
+class RandomBrightnessContrast(Transform):
+    brightness_limit: Union[float, Tuple[float, float]] = 0.2
+    contrast_limit: Union[float, Tuple[float, float]] = 0.2
+    brightness_by_max: bool = True
+    p: float = 0.5
+    stage = DEVICE
+
+
+@dataclasses.dataclass
+class HueSaturationValue(Transform):
+    hue_shift_limit: Union[float, Tuple[float, float]] = 20
+    sat_shift_limit: Union[float, Tuple[float, float]] = 30
+    val_shift_limit: Union[float, Tuple[float, float]] = 20
+    p: float = 0.5
+    stage = DEVICE
+
+
+@dataclasses.dataclass
+class CoarseDropout(Transform):
+    max_holes: int = 8
+    min_holes: Optional[int] = None
+    max_height: Union[int, float] = 8
+    min_height: Optional[Union[int, float]] = None
+    max_width: Union[int, float] = 8
+    min_width: Optional[Union[int, float]] = None
+    fill_value: Union[int, float, Sequence[float]] = 0
+    p: float = 0.5
+    stage = DEVICE
+
+
+@dataclasses.dataclass
+class Rotate(Transform):
+    limit: Union[float, Tuple[float, float]] = 90
+    border_mode: str = "reflect101"
+    value: float = 0.0
+    p: float = 0.5
+    stage = DEVICE
+
+
+@dataclasses.dataclass
+class ShiftScaleRotate(Transform):
+    shift_limit: Union[float, Tuple[float, float]] = 0.0625
+    scale_limit: Union[float, Tuple[float, float]] = 0.1
+    rotate_limit: Union[float, Tuple[float, float]] = 45
+    border_mode: str = "reflect101"
+    value: float = 0.0
+    p: float = 0.5
+    stage = DEVICE
+
+
+@dataclasses.dataclass
+class RandAugment(Transform):
+    num_ops: int = 2
+    magnitude: int = 9
+    num_magnitude_bins: int = 31
+    num_affine_grids: int = 4
+    p: float = 1.0
+    stage = DEVICE
+
+
+@dataclasses.dataclass
+class TrivialAugmentWide(Transform):
+    num_magnitude_bins: int = 31
+    num_affine_grids: int = 4
+    p: float = 1.0
+    stage = DEVICE
+
+
+@dataclasses.dataclass
+class MotionBlur(Transform):
+    blur_limit: Union[int, Tuple[int, int]] = 7
+    allow_shifted: bool = True
+    p: float = 0.5
+    stage = DEVICE
+
+
+@dataclasses.dataclass
+class RandomShadow(Transform):
+    shadow_roi: Tuple[float, float, float, float] = (0.0, 0.5, 1.0, 1.0)
+    num_shadows_lower: int = 1
+    num_shadows_upper: int = 2
+    shadow_intensity: float = 0.5
+    p: float = 0.5
+    stage = DEVICE
+
+
+@dataclasses.dataclass
+class RandomFog(Transform):
+    fog_coef_lower: float = 0.3
+    fog_coef_upper: float = 1.0
+    alpha_coef: float = 0.08
+    p: float = 0.5
+    stage = DEVICE
+
+
+@dataclasses.dataclass
+class RandomRain(Transform):
+    slant_lower: int = -10
+    slant_upper: int = 10
+    drop_length: int = 20
+    drop_width: int = 1
+    drop_color: Tuple[int, int, int] = (200, 200, 200)
+    blur_value: int = 7
+    brightness_coefficient: float = 0.7
+    rain_type: Optional[str] = None
+    p: float = 0.5
+    stage = DEVICE
 
 
 @dataclasses.dataclass
@@ -56,26 +254,46 @@ class ToTensorV2(Transform):
 
 
 class Compose:
-    """A pipeline of transform specs; its device stage is one fused batched
-    function of a uint8 NHWC batch (:meth:`device_apply`)."""
+    """A pipeline of transform specs split into a host stage (the geometry up
+    to the first device op) and a device stage, one fused batched function
+    of a uint8 NHWC batch (:meth:`device_apply`)."""
 
     def __init__(self, transforms: Sequence[Transform]):
         self.transforms = [t for t in transforms if t.stage != MARKER]
-        for t in self.transforms:
+        split = next((i for i, t in enumerate(self.transforms) if t.stage == DEVICE),
+                     len(self.transforms))
+        self.host_transforms = self.transforms[:split]
+        self.device_transforms = self.transforms[split:]
+        for t in self.device_transforms:
+            if t.stage == HOST:
+                raise ValueError(
+                    f"Host-stage transform {type(t).__name__} appears after a device-stage "
+                    "transform; geometry must come before random photometric ops.")
             if not isinstance(t, PORTED_DEVICE_OPS):
                 raise NotImplementedError(
                     f"{type(t).__name__} is not ported to nkbx_torch yet; the port's "
                     "device stage is HorizontalFlip, VerticalFlip and Normalize "
                     "(ROADMAP.md, A9)")
         seen_norm = False
-        for t in self.transforms:
+        for t in self.device_transforms:
             if isinstance(t, Normalize):
                 seen_norm = True
             elif seen_norm:
                 raise ValueError(f"{type(t).__name__} appears after Normalize; the fused device "
                                  "stage applies Normalize last, so put random ops before it.")
-        self.device_transforms = self.transforms
         self._device_fn = None
+
+    def host_apply(self, img: np.ndarray, rng: Optional[np.random.Generator] = None):
+        """The host stage of one uint8 HWC image."""
+        from nkbx_torch.transforms import host as H
+
+        return H.apply_host(self.host_transforms, img, rng)
+
+    def output_size(self, in_h: int = 1024, in_w: int = 768):
+        """The static (H, W) the host stage gives every input, or None."""
+        from nkbx_torch.transforms import host as H
+
+        return H.infer_output_size(self.host_transforms, in_h, in_w)
 
     def device_apply(self, batch, out_dtype=None, generator=None, gates=None):
         """The device stage of a uint8 NHWC batch on its device: the random

@@ -28,6 +28,13 @@ shows that the kernel, not its plain version, ran:
   shape, its sums bit for bit the same in two runs; X2 the 3x3 grouped
   convolution at the probe's check shapes, ragged widths, gw = 1 and 32 and
   resnext50's stage 2; both wrappers refuse a wrong dtype, shape or device;
+- X3-X7, the Swin layout probes (copy, transpose, window gather and
+  scatter, merge, split and pad8), at small, ragged, odd and unaligned
+  shapes and one probe shape each, equal bit for bit to their plain
+  versions, each a fresh tensor; a wrong dtype is refused;
+- one epoch of the config-driven trainer (``nkbx_torch.train.train``) on a
+  tiny Swin through K1, K2, K5 and K6 over an ImageFolder of BMP files,
+  with finite metrics, a checkpoint and the launch counts of its steps;
 - a tiny Swin's, a tiny ViT's, a tiny ConvNeXt's and a tiny fused ResNet's
   loss backward through the kernels (the ConvNeXt through K5/K6, and through
   K7/K8 under ``NKBX_FUSED_LN_MLP=0``) gives every parameter a finite,
@@ -57,6 +64,7 @@ largest value. X2: f32 1e-5 of its largest value, bf16 as X1's y.
 
 import pathlib
 import re
+import struct
 import subprocess
 import sys
 
@@ -67,6 +75,7 @@ import torch
 from nkbx_torch.ops import attention as tattn
 from nkbx_torch.ops import bottleneck as tbn
 from nkbx_torch.ops import grouped_conv as tgc
+from nkbx_torch.ops import layout as tlayout
 from nkbx_torch.ops import matmul_bn as tmb
 from nkbx_torch.ops import mlp as tmlp
 
@@ -552,6 +561,104 @@ def test_gconv_kernel_refuses_what_it_cannot_take(cuda_device):
         tgc.gconv(x[..., :48], torch.zeros(36, 48, device=cuda_device), 4)
 
 
+LAYOUT_CASES = [  # (function, input shape); the last of each function is a probe shape
+    ("stream", (3, 5, 7)), ("stream", (2, 49, 288)), ("stream", (64, 49, 2304)),
+    ("transpose_in_kernel", (5, 3, 7)), ("transpose_in_kernel", (3, 5, 129)),
+    ("transpose_in_kernel", (49, 2304, 64)),
+    ("gather_windows", (2, 7, 21, 5)), ("gather_windows", (512, 7, 56, 288)),
+    ("scatter_windows", (2, 3, 49, 5)), ("scatter_windows", (512, 8, 49, 288)),
+    ("merge_windows", (2, 7, 7, 3)), ("merge_windows", (512, 7, 7, 288)),
+    ("split_windows", (2, 49, 3)), ("split_windows", (512, 49, 288)),
+    ("pad8", (2, 7, 7, 3)), ("pad8", (512, 7, 7, 288)),
+]
+LAYOUT_PLAIN = {"stream": tlayout.reference_copy,
+                "transpose_in_kernel": tlayout.reference_transpose,
+                "gather_windows": tlayout.reference_gather_windows,
+                "scatter_windows": tlayout.reference_scatter_windows,
+                "merge_windows": tlayout.reference_merge_windows,
+                "split_windows": tlayout.reference_split_windows, "pad8": tlayout.reference_pad8}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name,shape", LAYOUT_CASES)
+def test_layout_kernels_match_plain_on_card(cuda_device, dtype, name, shape):
+    fn = getattr(tlayout, name)
+    x = torch.randn(*shape, device=cuda_device).to(dtype)
+    unaligned = torch.randn(x.numel() + 1, device=cuda_device).to(dtype)[1:].view(shape)
+    for t in (x, unaligned):
+        before = fn.launches
+        got = fn(t)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        assert torch.equal(got, LAYOUT_PLAIN[name](t)) and got.data_ptr() != t.data_ptr()
+
+
+@pytest.mark.cuda
+def test_layout_kernels_refuse_what_they_cannot_take(cuda_device):
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tlayout.stream(torch.zeros(4, 4, dtype=torch.float16, device=cuda_device))
+    with pytest.raises(ValueError, match="non-empty"):
+        tlayout.pad8(torch.zeros(0, 7, 7, 8, device=cuda_device))
+
+
+def _write_bmp(path, img):
+    h, w = img.shape[:2]
+    stride = (3 * w + 3) // 4 * 4
+    rows = np.zeros((h, stride), np.uint8)
+    rows[:, :3 * w] = img[::-1, :, ::-1].reshape(h, 3 * w)
+    path.write_bytes(struct.pack("<2sIHHI", b"BM", 54 + rows.size, 0, 0, 54)
+                     + struct.pack("<IiiHHIIiiII", 40, w, h, 1, 24, 0, rows.size, 0, 0, 0, 0)
+                     + rows.tobytes())
+
+
+@pytest.mark.cuda
+def test_trainer_epoch_through_the_kernels(cuda_device, tmp_path):
+    from nkbx_torch import transforms as T
+    from nkbx_torch.data import get_dataset
+    from nkbx_torch.logging import get_local_experiment
+    from nkbx_torch.models.classifier import ClassificationModel, SingletaskClassifier
+    from nkbx_torch.models.swin import SwinTransformer
+    from nkbx_torch.train import get_loss
+    from nkbx_torch.train.trainer import train
+    from nkbx_torch.utils import Config
+
+    rng = np.random.default_rng(0)
+    for split, n in (("train", 12), ("val", 6)):
+        for i in range(n):
+            d = tmp_path / split / f"c{i % 3}"
+            d.mkdir(parents=True, exist_ok=True)
+            h, w = rng.integers(20, 60, 2)
+            _write_bmp(d / f"{i}.bmp", rng.integers(0, 256, (h, w, 3), dtype=np.uint8))
+    pipe = [T.LongestMaxSize(32), T.PadIfNeeded(32, 32)]
+    cfg = Config({
+        "task": "single", "n_epochs": 1,
+        "train_data": {"root": str(tmp_path / "train"), "batch_size": 5, "shuffle": True},
+        "val_data": {"root": str(tmp_path / "val"), "batch_size": 5},
+        "train_pipeline": T.Compose(pipe + [T.HorizontalFlip(), T.Normalize()]),
+        "val_pipeline": T.Compose(pipe + [T.Normalize()]),
+        "optimizer": {"type": "adam", "backbone_lr": 1e-3, "classifier_lr": 1e-3},
+        "criterion": {"type": "CrossEntropyLoss"},
+        "experiment": {"comet": None, "local": {"path": str(tmp_path / "run")}}})
+    train_loader = get_dataset(cfg.train_data, cfg.train_pipeline)
+    val_loader = get_dataset(cfg.val_data, cfg.val_pipeline)
+    backbone = SwinTransformer(embed_dim=16, depths=(2, 2), n_heads=(1, 2), window=2,
+                               img_size=(32, 32), fused_attention=True, fused_mlp=True)
+    module = SingletaskClassifier(backbone, 3).to(cuda_device)
+    model = ClassificationModel(module, ["c0", "c1", "c2"], "single", backbone.num_features,
+                                (32, 32), torch.float32, cuda_device)
+    exp = get_local_experiment(cfg.experiment["local"])
+    before = tattn.fused_attention_qkv_bwd.launches, tmlp.fused_ln_mlp_bwd.launches
+    state = train(model, train_loader, val_loader, get_loss(cfg.criterion), None, exp, cfg)
+    torch.cuda.synchronize()
+    assert state.step == 3  # 12 images, batch 5
+    assert tattn.fused_attention_qkv_bwd.launches == before[0] + 4 * 3
+    assert tmlp.fused_ln_mlp_bwd.launches == before[1] + 4 * 3
+    lines = (exp.path / "metrics.csv").read_text().splitlines()
+    assert len(lines) == 2 and "nan" not in lines[1].lower()
+    assert (exp.path / "weights" / "last").is_dir() and (exp.path / "weights" / "last.pt").exists()
+
+
 def test_card_tests_collect_without_jax_or_nkbx():
     """The card's machine has no JAX: this file must collect (and its card
     tests skip here) with jax, flax and nkbx unimportable and no conftest."""
@@ -566,7 +673,7 @@ def test_card_tests_collect_without_jax_or_nkbx():
     assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-2000:]
     n = (2 * 2 * len(ATTN_CASES) + 2 * 2 * len(MLP_CASES) + 2 * 2 * len(MLP_ONLY_CASES)
          + 2 * 2 * len(SEP_CASES) + 2 + 2 + 2 * len(CHAIN_CASES) + 2
-         + 2 * len(MB_CASES) + 2 + 1 + 2 * len(GC_CASES) + 1)
+         + 2 * len(MB_CASES) + 2 + 1 + 2 * len(GC_CASES) + 1 + 2 * len(LAYOUT_CASES) + 1 + 1)
     word = "passed" if torch.cuda.is_available() else "skipped"
     assert re.search(rf"\b{n} {word}\b", proc.stdout), proc.stdout[-2000:]
 

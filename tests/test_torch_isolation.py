@@ -3,6 +3,7 @@ nkbx or of its experiments/ probes (it keeps its own copies of what it needs
 from them), and its entry points run on a CUDA card unless asked for the
 CPU."""
 
+import json
 import pathlib
 import re
 import subprocess
@@ -89,3 +90,37 @@ def test_resolve_device_defaults_to_cuda():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             resolve_device()
+
+
+_CONFIG_PROBE = """
+import json, sys
+{pre}
+from nkbx_torch.utils import load_config
+before = {{m: id(sys.modules[m]) for m in sys.modules if m == "nkbx" or m.startswith("nkbx.")}}
+loaded, refused = [], []
+for path in {paths!r}:
+    try:
+        cfg = load_config(path)
+        pipes = [cfg.get(k) for k in ("train_pipeline", "val_pipeline", "inference_pipeline")]
+        loaded.append(sorted({{type(p).__module__ for p in pipes if p is not None}}))
+    except NotImplementedError as e:
+        assert "A9" in str(e), e
+        refused.append(path)
+after = {{m: id(sys.modules[m]) for m in sys.modules if m == "nkbx" or m.startswith("nkbx.")}}
+print(json.dumps([before == after, sorted(after), loaded, len(refused)]))
+"""
+
+
+@pytest.mark.parametrize("pre", ["", "import nkbx.transforms, nkbx.utils"])
+def test_config_loader_leaves_sys_modules_as_it_found_it(pre):
+    """Every shipped config runs in the port (``import nkbx.transforms as T``
+    builds the port's transforms) or raises naming A9; afterwards no nkbx
+    module is left where none was, and a process that imported the real
+    nkbx keeps exactly its entries."""
+    paths = sorted(str(p) for p in (ROOT / "configs").glob("*.py"))
+    proc = _run(_CONFIG_PROBE.format(pre=pre, paths=paths))
+    assert proc.returncode == 0, proc.stderr
+    same, left, loaded, n_refused = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert same and (left if pre else not left)
+    assert loaded and all(m == ["nkbx_torch.transforms.spec"] for m in loaded)
+    assert len(loaded) + n_refused == len(paths)

@@ -1,0 +1,283 @@
+"""The port's config-driven trainer (``nkbx_torch.train.train`` and its CLI)
+on the CPU.
+
+- A 2-epoch lockstep against ``nkbx.train.train``: the tiny Swin of
+  tests/test_torch_train.py (embed 16, depths (2, 2), heads (1, 2), window
+  2, 32 px) with nkbx's weights carried across, an ImageFolder of 24 train
+  and 12 val PNG files the test writes, LongestMaxSize(32) +
+  PadIfNeeded(32, 32) + Normalize (no flips: the two draw them from
+  different generators by design), f32, batch 5 with a padded last batch,
+  nadam with backbone and head lrs, cosine, and a freeze flip {0: freeze, 1:
+  unfreeze}. Every value of ``metrics.csv`` (losses, balanced accuracies,
+  ROC-AUCs, per class and mean, train and val; not the images a second)
+  within 1e-4 relative, and the final weights within 1e-4 (+1e-4 relative)
+  but the key biases, whose gradient is rounding noise (see the test).
+- Resume: ``resnet_tiny_test`` (BatchNorm, so the masked step, and flips
+  drawn from the state's generator), preempted at batch 1 of epoch 1 and
+  resumed from ``weights/last``, ends with the weights and running
+  statistics of an uninterrupted run within 1e-6.
+- Every trainer option the port does not run raises, naming its ROADMAP
+  item; Comet raises.
+- The CLI, ``python -m nkbx_torch.train -cfg ... --device cpu``, on a
+  config that says ``import nkbx.transforms as T``, over BMP files: exit
+  without error, ``classes.json``, a 2-row ``metrics.csv``, ``best/``,
+  ``last/`` and the weights files, which ``get_model`` loads.
+"""
+
+import csv
+import signal
+import textwrap
+
+import cv2
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import nkbx.transforms as JT
+from nkbx.data import get_dataset as jget_dataset
+from nkbx.logging import get_local_experiment as jget_local_experiment
+from nkbx.models.classifier import ClassificationModel as JModel
+from nkbx.models.classifier import SingletaskClassifier as JSingle
+from nkbx.models.swin import SwinTransformer as JSwin
+from nkbx.train import get_loss as jget_loss
+from nkbx.train import train as jtrain
+from nkbx.utils.config import Config as JConfig
+from nkbx_torch import transforms as T
+from nkbx_torch.data import get_dataset
+from nkbx_torch.logging import get_local_experiment
+from nkbx_torch.models import from_jax_variables, get_model
+from nkbx_torch.models.classifier import ClassificationModel, SingletaskClassifier
+from nkbx_torch.models.swin import SwinTransformer
+from nkbx_torch.train import get_loss, preempt
+from nkbx_torch.train.__main__ import main as cli_main
+from nkbx_torch.train.trainer import UNPORTED, check_options, train
+from nkbx_torch.utils import Config
+
+TINY = dict(embed_dim=16, depths=(2, 2), n_heads=(1, 2), window=2)
+SIZE = 32
+
+
+def _write_folder(root, ext, n_train=8, n_val=4, classes=3, seed=0):
+    rng = np.random.default_rng(seed)
+    for split, n in (("train", n_train), ("val", n_val)):
+        for c in range(classes):
+            d = root / split / f"c{c}"
+            d.mkdir(parents=True)
+            for i in range(n):
+                h, w = int(rng.integers(24, 70)), int(rng.integers(24, 70))
+                img = rng.integers(0, 256, (h, w, 3)).astype(np.int32) + 50 * (c - 1)
+                cv2.imwrite(str(d / f"{i}{ext}"), np.clip(img, 0, 255).astype(np.uint8))
+    return root
+
+
+def _cfg(root, run, M, model=None, flips=False, n_epochs=2):
+    """The config dict, with pipelines built from the transforms module M
+    (the port's or nkbx's)."""
+    geometry = [M.LongestMaxSize(SIZE), M.PadIfNeeded(SIZE, SIZE)]
+    return {
+        "task": "single", "n_epochs": n_epochs, "seed": 0, "enable_mixed_precision": False,
+        "train_data": {"type": "ImageFolder", "root": str(root / "train"), "batch_size": 5,
+                       "shuffle": True, "num_workers": 2, "drop_last": False},
+        "val_data": {"type": "ImageFolder", "root": str(root / "val"), "batch_size": 5,
+                     "shuffle": False, "num_workers": 2},
+        "train_pipeline": M.Compose(geometry + ([M.HorizontalFlip()] if flips else [])
+                                    + [M.Normalize()]),
+        "val_pipeline": M.Compose(geometry + [M.Normalize()]),
+        "model": model or {"task": "single", "model": "swin (built by the test)"},
+        "optimizer": {"type": "nadam", "backbone_lr": 1e-3, "classifier_lr": 1e-2,
+                      "backbone_weight_decay": 0.05, "classifier_weight_decay": 0.01},
+        "lr_policy": {"type": "cosine", "n_epochs": n_epochs},
+        "backbone_state_policy": {0: "freeze", 1: "unfreeze"},
+        "criterion": {"task": "single", "type": "CrossEntropyLoss"},
+        "experiment": {"comet": None, "local": {"path": str(run)}},
+    }
+
+
+def _read_csv(path):
+    with open(path, newline="") as f:
+        rows = list(csv.DictReader(f, delimiter="\t"))
+    return {k: [float(r[k]) if r[k] else np.nan for r in rows] for k in rows[0]}
+
+
+@pytest.fixture(scope="module")
+def lockstep(tmp_path_factory):
+    """Both trainers on the same files from the same weights."""
+    tmp = tmp_path_factory.mktemp("lockstep")
+    root = _write_folder(tmp, ".png")
+    jcfg = JConfig(_cfg(root, tmp / "nkbx", JT))
+    jtrain_loader = jget_dataset(jcfg.train_data, jcfg.train_pipeline)
+    classes = jtrain_loader.dataset.classes
+    jcfg.val_data = {**jcfg.val_data, "classes": classes}
+    jmodule = JSingle(backbone=JSwin(dtype=jnp.float32, fused_attention=False, fused_mlp=False,
+                                     **TINY), n_classes=len(classes))
+    variables = jmodule.init(jax.random.PRNGKey(0), jnp.zeros((1, SIZE, SIZE, 3)), train=False)
+    variables = jax.device_get(variables)
+    jmodel = JModel(jmodule, variables, classes, "single", 32)
+    jexp = jget_local_experiment(jcfg.experiment["local"])
+    with pytest.warns(UserWarning, match="Partial"):  # nkbx's unmasked-BN notice, no BN here
+        jstate = jtrain(jmodel, jtrain_loader, jget_dataset(jcfg.val_data, jcfg.val_pipeline),
+                        jget_loss(jcfg.criterion), None, jexp, jcfg)
+
+    cfg = Config(_cfg(root, tmp / "port", T))
+    train_loader = get_dataset(cfg.train_data, cfg.train_pipeline)
+    cfg.val_data = {**cfg.val_data, "classes": classes}
+    backbone = SwinTransformer(dtype=torch.float32, img_size=(SIZE, SIZE), **TINY)
+    module = SingletaskClassifier(backbone, len(classes))
+    module.load_state_dict(from_jax_variables(variables, reference=module))
+    model = ClassificationModel(module.eval(), classes, "single", backbone.num_features,
+                                (SIZE, SIZE), torch.float32, torch.device("cpu"))
+    exp = get_local_experiment(cfg.experiment["local"])
+    state = train(model, train_loader, get_dataset(cfg.val_data, cfg.val_pipeline),
+                  get_loss(cfg.criterion), None, exp, cfg)
+    want = from_jax_variables({"params": jax.device_get(jstate.params)})
+    return exp.path, jexp.path, state, want
+
+
+def test_metrics_csv_matches_nkbx(lockstep):
+    port_dir, nkbx_dir, _, _ = lockstep
+    got, want = _read_csv(port_dir / "metrics.csv"), _read_csv(nkbx_dir / "metrics.csv")
+    assert got.keys() == want.keys() and len(got["Epoch"]) == 2
+    for k in got:
+        if k != "train images/sec/chip":
+            np.testing.assert_allclose(got[k], want[k], rtol=1e-4, atol=0, err_msg=k)
+    assert {"train loss", "Val loss", "Val balanced accuracy", "Val ROC AUC"} <= got.keys()
+
+
+def test_final_weights_match_nkbx(lockstep):
+    """The key bias (the middle third of each qkv bias) shifts every score
+    of a query by the same amount, so its gradient is 0 but for rounding
+    noise, and NAdam turns that noise into steps of up to ±lr: there the
+    bound is 2·lr·lr_factor summed over the unfrozen steps (epoch 1: 5
+    steps at 1e-3 · 0.5)."""
+    _, _, state, want = lockstep
+    key_bias_bound = 2 * 1e-3 * 0.5 * 5
+    for name, p in state.module.named_parameters():
+        got, ref = p.detach().numpy(), want[name].numpy()
+        bound = 1e-4 + 1e-4 * np.abs(ref)
+        if name.endswith("attn.qkv.bias"):
+            c = ref.size // 3
+            bound[c:2 * c] = key_bias_bound
+        assert (np.abs(got - ref) <= bound).all(), (name, np.abs(got - ref).max())
+
+
+def test_run_artifacts(lockstep):
+    port_dir, nkbx_dir, _, _ = lockstep
+    assert (port_dir / "classes.json").read_text() == (nkbx_dir / "classes.json").read_text()
+    for name in ("best", "last", "best.pt", "last.pt"):
+        assert (port_dir / "weights" / name).exists(), name
+    assert (port_dir / "train_batch_1.png").exists()
+
+
+class PreemptAt:
+    """A loader that raises the preemption flag as it yields batch ``batch``
+    of epoch ``epoch``: the epoch loop sees the flag before it steps that
+    batch, so ``batch`` batches of the epoch were consumed."""
+
+    def __init__(self, inner, epoch, batch):
+        self.inner, self.at = inner, (epoch, batch)
+
+    def epoch(self, e, start_batch=0):
+        for i, b in enumerate(self.inner.epoch(e, start_batch)):
+            if (e, i) == self.at:
+                preempt._handler(None, None)
+            yield b
+
+    def __len__(self):
+        return len(self.inner)
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+
+def _resnet_run(root, run, wrap=None, resume_from=None):
+    cfg = Config(_cfg(root, run, T, flips=True,
+                      model={"task": "single", "model": "resnet_tiny_test"}))
+    train_loader = get_dataset(cfg.train_data, cfg.train_pipeline)
+    val_loader = get_dataset({**cfg.val_data, "classes": train_loader.dataset.classes},
+                             cfg.val_pipeline)
+    model = get_model(cfg.model, train_loader.dataset.classes, input_size=(SIZE, SIZE),
+                      dtype=torch.float32, device="cpu")
+    exp = get_local_experiment(cfg.experiment["local"])
+    loader = wrap(train_loader) if wrap else train_loader
+    state = train(model, loader, val_loader, get_loss(cfg.criterion), None, exp, cfg,
+                  resume_from=resume_from)
+    return exp.path, state
+
+
+def test_preempted_and_resumed_run_equals_an_uninterrupted_one(tmp_path):
+    root = _write_folder(tmp_path, ".png", seed=1)
+    _, full = _resnet_run(root, tmp_path / "full")
+    preempt.reset()
+    try:
+        cut_dir, cut = _resnet_run(root, tmp_path / "cut", wrap=lambda lo: PreemptAt(lo, 1, 1))
+    finally:
+        preempt.reset()
+    cursor = (cut_dir / "weights" / "last.cursor.json").read_text()
+    assert '"epoch": 1' in cursor and '"batch": 1' in cursor
+    assert len(_read_csv(cut_dir / "metrics.csv")["Epoch"]) == 1
+    res_dir, resumed = _resnet_run(root, tmp_path / "resumed",
+                                   resume_from=cut_dir / "weights" / "last")
+    want, got = full.module.state_dict(), resumed.module.state_dict()
+    assert resumed.step == full.step
+    for k in want:
+        np.testing.assert_allclose(got[k].numpy(), want[k].numpy(), rtol=0, atol=1e-6, err_msg=k)
+    assert not (res_dir / "weights" / "last.cursor.json").exists()
+
+
+@pytest.mark.parametrize("key", sorted(UNPORTED))
+def test_unported_trainer_options_raise(key):
+    value = {"mixup": {"mixup_alpha": 0.2}, "mesh": {"data": 2}, "steps_per_dispatch": 4,
+             "grad_accum_steps": 2, "model_ema_decay": 0.999}.get(key, True)
+    with pytest.raises(NotImplementedError, match=UNPORTED[key][1]):
+        check_options(Config({"task": "single", key: value}))
+    check_options(Config({"task": "single", key: UNPORTED[key][0]}))
+
+
+def test_cli_trains_from_a_config_file(tmp_path, monkeypatch):
+    root = _write_folder(tmp_path, ".bmp", n_train=4, n_val=2, seed=2)
+    config = tmp_path / "config.py"
+    config.write_text(textwrap.dedent(f"""
+        import nkbx.transforms as T
+
+        task = "single"
+        n_epochs = 2
+        enable_mixed_precision = False
+        train_data = {{"type": "ImageFolder", "root": "{root / 'train'}", "batch_size": 5,
+                      "shuffle": True, "num_workers": 2}}
+        val_data = {{"type": "ImageFolder", "root": "{root / 'val'}", "batch_size": 5}}
+        train_pipeline = T.Compose([T.LongestMaxSize(32), T.PadIfNeeded(32, 32),
+                                    T.HorizontalFlip(), T.Normalize(), T.ToTensorV2()])
+        val_pipeline = T.Compose([T.LongestMaxSize(32), T.PadIfNeeded(32, 32), T.Normalize()])
+        model = {{"task": "single", "model": "resnet_tiny_test"}}
+        optimizer = {{"type": "adam", "backbone_lr": 1e-3, "classifier_lr": 1e-3}}
+        lr_policy = {{"type": "cosine", "n_epochs": 2}}
+        backbone_state_policy = {{0: "freeze", 1: "unfreeze"}}
+        criterion = {{"task": "single", "type": "CrossEntropyLoss"}}
+        experiment = {{"comet": None, "local": {{"path": "{tmp_path / 'run'}"}}}}
+    """))
+    handler = signal.getsignal(signal.SIGTERM)
+    try:
+        cli_main(["-cfg", str(config), "--device", "cpu"])
+    finally:
+        signal.signal(signal.SIGTERM, handler)
+    run = tmp_path / "run"
+    assert (run / "classes.json").exists()
+    assert len(_read_csv(run / "metrics.csv")["Epoch"]) == 2
+    for name in ("best", "last", "best.pt", "last.pt"):
+        assert (run / "weights" / name).exists(), name
+    model = get_model({"model": "resnet_tiny_test", "checkpoint": str(run / "weights/last.pt")},
+                      ["c0", "c1", "c2"], input_size=(32, 32), device="cpu")
+    assert torch.isfinite(model(torch.zeros(1, 32, 32, 3))).all()
+
+
+def test_comet_section_raises(tmp_path):
+    root = _write_folder(tmp_path, ".png", n_train=2, n_val=1, seed=3)
+    cfg = Config(_cfg(root, tmp_path / "run", T,
+                      model={"task": "single", "model": "resnet_tiny_test"}))
+    loader = get_dataset(cfg.train_data, cfg.train_pipeline)
+    model = get_model(cfg.model, loader.dataset.classes, input_size=(SIZE, SIZE), device="cpu")
+    with pytest.raises(NotImplementedError, match="locally only"):
+        train(model, loader, loader, get_loss(cfg.criterion), object(),
+              get_local_experiment(cfg.experiment["local"]), cfg)
