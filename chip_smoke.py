@@ -12,8 +12,13 @@
    attention (K1) and LN -> MLP (K5) at the shapes the Swin-T serving path
    gives them at bucket 64 (and window 12; K5 also at ViT-B's C = 768 with
    B*197 rows); full-sequence attention (K3) at ViT-B's 12 heads of width
-   64 at bucket 64 for N = 50, 197 (the main shape) and 577, and a small
-   case with a learned (H, N, N) bias and a mask of M = 2; the MLP alone
+   64 at bucket 64 for N = 50, 197 (the main shape) and 577, a small
+   case with a learned (H, N, N) bias and a mask of M = 2, and small cases
+   at N = 1, 17, 63, 64 and 65 with None for the bias and mask or a
+   learned bias and a mask, two launches bit-identical; at ViT-B's three
+   sequences timed with a cold L2 twice, with the zero tensors against
+   SDPA's float mask and with None (the ViT's path) against SDPA
+   unmasked, with each time's share of the bytes bound; the MLP alone
    (K7) at the four stage shapes of ConvNeXt-T at bucket 64 (the R and C of
    K5's Swin-T cases), bucket 1's ragged 49 rows at C = 768, and an FMA
    width. The fused bottleneck chain (K9) at ResNet-50's stage shapes at
@@ -26,8 +31,9 @@
    and its test shape (f32), its sums bit-identical across two launches,
    timed also against torch.matmul with the eager epilogue; X2, the 3x3
    grouped convolution, at resnext50_32x4d's four stages (bf16; f32 at
-   stages 1-2) and the probe's check shapes, timed also against cuDNN's
-   grouped convolution. X3-X7, the Swin layout probes (copy, transpose of a
+   stages 1-2) and the probe's check shapes, two launches bit-identical,
+   timed with a cold L2 against cuDNN's grouped convolution and its bytes
+   bound. X3-X7, the Swin layout probes (copy, transpose of a
    G-minor tensor, window gather and scatter, merge, split, pad8), at the
    probes' shapes in bf16 and each function's last shape in f32: equal bit
    for bit to their plain versions and to a second launch; timed with the
@@ -567,38 +573,94 @@ SEP_CASES = [("N=50", BUCKET, 50, VIT_HEADS, 1, 1), ("N=197", BUCKET, 197, VIT_H
              ("N=577", BUCKET, 577, VIT_HEADS, 1, 1), ("dbias", 8, 197, 4, 2, 4)]
 
 
+# K3 alone at key counts around its 64-key tile: (label, G, N, heads, M, bias heads);
+# M or bias heads None pass None for an absent mask or bias
+SEP_RAGGED = [(f"N={n} {kind}", 2, n, 2, m, bh) for n in (1, 17, 63, 64, 65)
+              for kind, m, bh in (("none", None, None), ("learned", 2, 2))]
+SEP_ITERS = 20  # cold-L2 launches timed a case
+
+
+def sep_bound(g, n, heads, bh, m):
+    """K3's least time: q, k, v read and o written once, and the bias and
+    mask when given; 4 N^2 D operations per (group, head)."""
+    nbytes = 2 * g * n * 4 * heads * VIT_D + 4 * ((bh or 0) + (m or 0)) * n * n
+    return bound_ms(nbytes, 4 * g * heads * n * n * VIT_D, "bf16")
+
+
 def check_sep_attention():
+    """K3 against its plain version at SEP_CASES (bf16 and f32) and at the
+    ragged SEP_RAGGED (bf16, f32), with None for an absent bias or mask, a
+    second launch bit-identical. At ViT-B's three sequences (bf16) each of
+    the kernel, the plain version and SDPA is timed with a cold L2 (at N =
+    50 the inputs fit the 50 MB L2) three times: with the (1, N, N) zeros,
+    like for like with SDPA's float mask; with a learned (H, N, N) bias and
+    a (1, N, N) mask, against SDPA given their sum; and with None, the ViT's
+    path, against SDPA without a mask. Each is first held against plain at
+    that shape (2 ulps, a second launch bit-identical); each row logs its
+    share of the bytes bound, and a share over 100% fails."""
     gen = torch.Generator(device=DEV).manual_seed(5)
     tol = {"f32": lambda ref: 1e-4, "bf16": lambda ref: 2 * bf16_ulp(ref)}
     rows, worst = {}, {"bf16": 0.0, "f32": 0.0}
-    for label, g, n, heads, m, bh in SEP_CASES:
+    for label, g, n, heads, m, bh in SEP_CASES + SEP_RAGGED:
         for dtype in ("bf16", "f32"):
-            q, k, v, bias, mask, _ = sep_case(g, n, heads, m, bh, dtype, gen)
-            got = A.fused_attention(q, k, v, bias, mask, VIT_D ** -0.5, heads)
+            q, k, v, bias, mask, _ = sep_case(g, n, heads, m or 1, bh or 1, dtype, gen)
+            bias, mask = (bias if bh else None), (mask if m else None)
+            scale = VIT_D ** -0.5
+            got = A.fused_attention(q, k, v, bias, mask, scale, heads)
+            again = A.fused_attention(q, k, v, bias, mask, scale, heads)
             torch.cuda.synchronize()
-            ref = A.reference_attention(q, k, v, bias, mask, VIT_D ** -0.5, heads)
+            ref = A.reference_attention(q, k, v, bias, mask, scale, heads)
             err, lim = max_err(got, ref), tol[dtype](float(ref.float().abs().max()))
             worst[dtype] = max(worst[dtype], err)
-            ok = err <= lim
+            ok = err <= lim and torch.equal(got, again)
             log(f"K3 {label} G={g} H={heads} N={n} M={m} bias heads {bh} {dtype}: "
-                f"max|err| {err:.3e} (tol {lim:.3e}) {'ok' if ok else 'FAIL'}")
+                f"max|err| {err:.3e} (tol {lim:.3e}), a second launch equal "
+                f"{torch.equal(got, again)} {'ok' if ok else 'FAIL'}")
             if not ok:
                 fail(f"attention disagrees with its plain version at {label} {dtype}")
-            if dtype != "bf16" or label == "dbias":
+            if dtype != "bf16" or label not in ("N=50", "N=197", "N=577"):
                 continue
-            scale = VIT_D ** -0.5
-            ms = cuda_ms(lambda: A.fused_attention(q, k, v, bias, mask, scale, heads))
-            plain = cuda_ms(lambda: A.reference_attention(q, k, v, bias, mask, scale, heads))
-            qs, ks, vs, am = sep_sdpa_inputs(q, k, v, bias, mask, heads)
-            lib = cuda_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=am,
-                                                                  scale=scale))
-            c = heads * VIT_D
-            nbytes = 2 * g * n * 4 * c + 4 * (bh + m) * n * n
-            b, by = bound_ms(nbytes, 4 * g * heads * n * n * VIT_D, "bf16")
-            log(f"   bf16 times: kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa {lib:.4f} ms, "
-                f"bound {b:.4f} ms ({by})")
-            rows[label] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b, bound_by=by)
-            del qs, ks, vs, am
+            t = {}
+            # a learned (H, N, N) bias and a mask of -100s: the bias/mask path on its own planes
+            lb = (0.5 * torch.randn(heads, n, n, generator=gen, device=DEV)).contiguous()
+            lm = torch.where(torch.rand(1, n, n, generator=gen, device=DEV) < 0.2, -100.0, 0.0)
+            for how, b_, m_ in (("zeros", bias, mask), ("learned", lb, lm), ("none", None, None)):
+                # the operands timed below, each held against plain at this shape
+                got = A.fused_attention(q, k, v, b_, m_, scale, heads)
+                again = A.fused_attention(q, k, v, b_, m_, scale, heads)
+                torch.cuda.synchronize()
+                ref = A.reference_attention(q, k, v, b_, m_, scale, heads)
+                err, lim = max_err(got, ref), tol[dtype](float(ref.float().abs().max()))
+                worst[dtype] = max(worst[dtype], err)
+                ok = err <= lim and torch.equal(got, again)
+                log(f"K3 {label} with {how} {dtype}: max|err| {err:.3e} (tol {lim:.3e}), a second "
+                    f"launch equal {torch.equal(got, again)} {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    fail(f"attention with {how} disagrees with its plain version at {label}")
+                del got, again, ref
+                b_ms, by = sep_bound(g, n, heads, None if b_ is None else b_.shape[0],
+                                     None if m_ is None else m_.shape[0])
+                ms = cold_ms(lambda: A.fused_attention(q, k, v, b_, m_, scale, heads), SEP_ITERS)
+                plain = cold_ms(lambda: A.reference_attention(q, k, v, b_, m_, scale, heads),
+                                SEP_ITERS)
+                qs, ks, vs, am = sep_sdpa_inputs(q, k, v, b_ if b_ is not None else bias,
+                                                 m_ if m_ is not None else mask, heads)
+                am = am if b_ is not None else None
+                lib = cold_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=am,
+                                                                      scale=scale), SEP_ITERS)
+                sdpa = "with its float mask" if am is not None else "unmasked"
+                log(f"   bf16 times (cold L2) with {how}: kernel {ms:.4f} ms, plain "
+                    f"{plain:.4f} ms, sdpa {sdpa} {lib:.4f} ms, bound {b_ms:.4f} ms ({by}), "
+                    f"kernel at {100 * b_ms / ms:.1f}% of the bound, sdpa at "
+                    f"{100 * b_ms / lib:.1f}%")
+                t[how] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=by,
+                              bound_share=b_ms / ms)
+                del qs, ks, vs, am
+                if b_ms > ms:
+                    fail(f"K3 {label} with {how} timed under its bound: the timing is wrong")
+            # the ViT's path passes None: the row's numbers; the others' beside them
+            rows[label] = dict(t["none"], **{f"{k_}_{how}": v_ for how in ("zeros", "learned")
+                                             for k_, v_ in t[how].items()})
     return rows, worst
 
 
@@ -880,14 +942,19 @@ def check_matmul_bn():
     return rows, worst
 
 
+GC_ITERS = 20  # cold-L2 launches timed a stage
+
+
 def check_grouped_conv():
     """X2 against its plain version (the probe's rotations x taps of f32
     FMAs) at resnext50_32x4d's four stages in bf16, stages 1-2 in f32 (TF32
     off), and the probe's check shapes (gw = 4 and 8, C = 8 gw, x (2, 8, 8,
     C)) in both: bf16 within one ulp of each value (ulp_err), f32 1e-5 of
-    the largest value. Logged beside it: max|d| against cuDNN's grouped convolution
-    (F.conv2d(groups=C/gw)). Times (bf16, the stages) of the kernel, the
-    plain version and cuDNN."""
+    the largest value, a second launch bit-identical. Logged beside it:
+    max|d| against cuDNN's grouped convolution (F.conv2d(groups=C/gw)).
+    Times (bf16, the stages) with a cold L2 (stages 2-4 fit the 50 MB L2) of
+    the kernel, the plain version and cuDNN, and the kernel's share of its
+    bytes bound (a share over 1 fails: the timing would be wrong)."""
     rows, worst = [], {"bf16": 0.0, "f32": 0.0}
     cases = [(name, b, h, c, gw, dtype) for dtype in ("bf16", "f32")
              for name, b, h, c, gw in GC.STAGES if dtype == "bf16" or gw <= 8]
@@ -895,7 +962,7 @@ def check_grouped_conv():
     for i, (name, b, h, c, gw, dtype) in enumerate(cases):
         x, w = GC.inputs(b, h, c, gw, DT[dtype], DEV, seed=20 + i)
         wvec = GC.build_wvec(w, gw)
-        got = GC.gconv(x, wvec, gw)
+        got, again = GC.gconv(x, wvec, gw), GC.gconv(x, wvec, gw)
         torch.cuda.synchronize()
         want = GC.reference_gconv(x, wvec, gw)
         err = max_err(got, want)
@@ -905,22 +972,29 @@ def check_grouped_conv():
         else:
             lim = 1e-5 * float(want.abs().max())
             ok, msg = err <= lim, f"{err:.3e} (tol {lim:.3e})"
+        ok = ok and torch.equal(got, again)
         lib_d = max_err(got, GC.conv2d_grouped(x, w, gw))
-        log(f"X2 {name} B={b} H=W={h} C={c} gw={gw} {dtype}: max|err| {msg}; max|d| against "
-            f"cuDNN {lib_d:.3e} {'ok' if ok else 'FAIL'}")
+        log(f"X2 {name} B={b} H=W={h} C={c} gw={gw} {dtype}: max|err| {msg}; a second launch "
+            f"equal {torch.equal(got, again)}; max|d| against cuDNN {lib_d:.3e} "
+            f"{'ok' if ok else 'FAIL'}")
         if not ok:
             fail(f"gconv disagrees with its plain version at {name} {dtype}")
         if dtype != "bf16" or name == "check":
             continue
         b_ms, by = bound_ms(*GC.work(b, h, c, gw, 2), "bf16")
-        t = dict(stage=name, ms=cuda_ms(lambda: GC.gconv(x, wvec, gw)),
-                 plain_ms=cuda_ms(lambda: GC.reference_gconv(x, wvec, gw), iters=3, warm=1),
-                 library_ms=cuda_ms(lambda: GC.conv2d_grouped(x, w, gw)), bound_ms=b_ms,
+        t = dict(stage=name, ms=cold_ms(lambda: GC.gconv(x, wvec, gw), GC_ITERS),
+                 plain_ms=cold_ms(lambda: GC.reference_gconv(x, wvec, gw), 3),
+                 library_ms=cold_ms(lambda: GC.conv2d_grouped(x, w, gw), GC_ITERS), bound_ms=b_ms,
                  bound_by=by)
-        log(f"   bf16 times: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, cuDNN "
-            f"{t['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({by})")
+        t["bound_share"] = b_ms / t["ms"]
+        log(f"   bf16 times (cold L2): kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+            f"cuDNN {t['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({by}), kernel at "
+            f"{100 * t['bound_share']:.1f}% of the bound, cuDNN at "
+            f"{100 * b_ms / t['library_ms']:.1f}%")
+        if t["bound_share"] > 1.0:
+            fail(f"X2 {name}: the kernel times under its bytes bound; the timing is wrong")
         rows.append(t)
-        del x, w, wvec, got, want
+        del x, w, wvec, got, again, want
     return rows, worst
 
 
@@ -2146,7 +2220,10 @@ def main():
     probed = {"probe": drive_probes()}
 
     fwd, step = "one bucket-64 swin_tiny forward, bf16", "one batch-64 swin_tiny train step, bf16"
-    vfwd = "one bucket-64 vit_base_patch16_224 forward, bf16 (12 launches at N=197)"
+    vfwd = ("one bucket-64 vit_base_patch16_224 forward, bf16 (12 launches at N=197, bias and "
+            "mask None; library: SDPA unmasked; *_zeros: with the (1, N, N) zeros against SDPA's "
+            "float mask; *_learned: a learned (12, N, N) bias and a (1, N, N) mask against SDPA "
+            "given their sum), cold L2")
     vstep = "one batch-64 vit_base_patch16_224 train step, bf16 (12 launches at N=197)"
     cfwd = "one bucket-64 convnext_tiny forward under NKBX_FUSED_LN_MLP=0, bf16 (3/3/9/3 launches)"
     cstep = "one batch-64 convnext_tiny train step under NKBX_FUSED_LN_MLP=0, bf16"
@@ -2187,7 +2264,8 @@ def main():
              "one launch at each of the probe's three shapes, bf16", (1,) * len(mb_rows)),
             ("grouped_conv", "nkbx_torch/ops/csrc/grouped_conv.cu",
              "experiments/r3_grouped_conv_vpu.py:75", gc_rows, gc_err, probed,
-             "one launch at each of resnext50_32x4d's four stages, bf16", (1,) * len(gc_rows))):
+             "one launch at each of resnext50_32x4d's four stages, bf16, cold L2",
+             (1,) * len(gc_rows))):
         def total(key):
             vals = [r[key] for r in rows]
             if any(v is None for v in vals):
@@ -2223,6 +2301,13 @@ def main():
             k[key + "_by_path"] = {
                 "convnext_tiny": sum(m * r[key] for m, r in zip(CONVNEXT_DEPTHS, rows[:4])),
                 "vit_base": 12 * rows[4][key]}
+    # K3 with the zero tensors beside the ViT's None; K3 and X2 shares of their bounds
+    kernels[4].update({f"{key}_{how}": 12 * sep_rows["N=197"][f"{key}_{how}"]
+                       for how in ("zeros", "learned")
+                       for key in ("ms", "plain_ms", "library_ms", "bound_ms")})
+    kernels[4]["bound_share"] = {lab: sep_rows[lab]["bound_share"]
+                                 for lab in ("N=50", "N=197", "N=577")}
+    kernels[11]["bound_share"] = [r["bound_share"] for r in gc_rows]
     # K10 is held by each gradient's relative L2 (check_chain): its worst, beside max|err|
     kernels[9]["max_rel_l2"], kernels[9]["max_rel_l2_f32"] = (chain_err["bwd_l2"]["bf16"],
                                                               chain_err["bwd_l2"]["f32"])

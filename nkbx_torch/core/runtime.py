@@ -39,6 +39,7 @@ def cuda_ms(fn, iters: int) -> float:
 
 
 _FLUSH_BYTES = 256 << 20  # five times the H100's 50 MB L2
+_HOLD_CYCLES = 1_000_000  # about 0.5 ms of the card's clock: longer than a call's host work
 
 
 def cold_ms(fn, iters: int) -> float:
@@ -46,13 +47,19 @@ def cold_ms(fn, iters: int) -> float:
     cold L2 cache: one call to warm up, then ``iters`` calls, each after a
     256 MB read that evicts the cache and timed alone between two CUDA
     events. Back-to-back calls on a tensor that fits the L2 would read it
-    from there and time under the memory's bound."""
+    from there and time under the memory's bound. A spin kernel after the
+    read holds the stream while the host enqueues the call, so that the
+    host's own time (Python, argument checks, launch) does not open a gap
+    between the two events. The spin is ``torch.cuda._sleep``, a private
+    PyTorch function (used by PyTorch's own tests) that may change between
+    releases."""
     fn()
     flush = torch.ones(_FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
     events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
               for _ in range(iters)]
     for a, b in events:
         flush.sum()
+        torch.cuda._sleep(_HOLD_CYCLES)
         a.record()
         fn()
         b.record()

@@ -99,6 +99,13 @@ def load(name: str, signatures: dict) -> ctypes.CDLL:
     return lib
 
 
+def aligned(t):
+    """``t`` contiguous at a 16-byte aligned address: the kernels move 16
+    bytes at a time (a contiguous view may start at any element)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def check(err: int, what: str):
     """Raise when a C entry reported a CUDA error (a refused launch never
     runs, and a later synchronize would not report it)."""

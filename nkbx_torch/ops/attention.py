@@ -16,9 +16,11 @@ versions.
 Layout contract, the same as nkbx's:
   qkv     : (G, N, 3*H*D) the qkv Dense output, minor dim factored (3, H, D)
   q, k, v : (G, N, H*D)   heads packed head-major in the minor dim
-  bias    : (H, N, N) f32 learned additive bias, or (1, N, N) broadcast
+  bias    : (H, N, N) f32 learned additive bias, or (1, N, N) broadcast;
+                          for the separate-q/k/v entry also None, meaning zeros
   mask    : (M, N, N) f32 additive constant mask, G % M == 0; group g takes
-                          mask[g % M]; zeros (1, N, N) when unused
+                          mask[g % M]; zeros (1, N, N) when unused, or (separate
+                          q/k/v) None
   out     : (G, N, H*D)
 
 Numerics: scores and softmax in f32, probabilities rounded to the compute
@@ -196,10 +198,17 @@ def _padded_keys(n: int) -> int:
 
 
 def sep_smem_bytes(n: int, itemsize: int) -> int:
-    """Shared memory of one block of the forward kernel (attention.cu): the
-    q tile (32, 72), one key or value tile (64, 72), the f32 score rows (32,
-    Np+4) and the rounded P rows (32, Np+8), Np = N rounded up to 64."""
-    np_, ld = _padded_keys(n), HEAD_DIM + 8
+    """Shared memory of one block of the forward kernel (attention.cu). bf16
+    (the streaming kernel), whatever N is: a ring of 4 key/value tiles (64,
+    72) and the q tile (128, 72), or where a bias or mask is given the 8
+    warps' f32 staging rows (16, 68) of both planes, which cover the q tile.
+    float (the first design): the q tile (32, 72), one key or value tile (64,
+    72), the f32 score rows (32, Np+4) and the P rows (32, Np+8), Np = N
+    rounded up to 64."""
+    ld = HEAD_DIM + 8
+    if itemsize == 2:
+        return 4 * 64 * ld * 2 + max(128 * ld * 2, 8 * 2 * 16 * 68 * 4)
+    np_ = _padded_keys(n)
     return (_align128(32 * ld * itemsize) + _align128(64 * ld * itemsize)
             + _align128(32 * (np_ + 4) * 4) + _align128(32 * (np_ + 8) * itemsize))
 
@@ -229,25 +238,23 @@ def _check_sep(q, k, v, bias, mask, heads: int, smem) -> tuple:
     if hd != heads * HEAD_DIM:
         raise ValueError(f"attention kernel takes heads of width {HEAD_DIM}; q's minor dim "
                          f"{hd} is not {heads} of them")
-    m = mask.shape[0]
-    if bias.shape[1:] != (n, n) or bias.shape[0] not in (1, heads):
+    m = 1 if mask is None else mask.shape[0]
+    if bias is not None and (bias.shape[1:] != (n, n) or bias.shape[0] not in (1, heads)):
         raise ValueError(f"bias {tuple(bias.shape)} is not ({heads}|1, {n}, {n})")
-    if mask.shape[1:] != (n, n) or g % m:
+    if mask is not None and (mask.shape[1:] != (n, n) or g % m):
         raise ValueError(f"mask {tuple(mask.shape)} does not tile G={g} groups of N={n}")
     if smem(n, q.element_size()) > _MAX_SMEM:
         raise ValueError(f"sequence of N={n} needs {smem(n, q.element_size())} B of shared "
                          "memory")
     for name, t in (("bias", bias), ("mask", mask)):
-        if t.device != q.device or t.dtype != torch.float32:
+        if t is not None and (t.device != q.device or t.dtype != torch.float32):
             raise TypeError(f"{name} must be float32 on {q.device}, got {t.dtype} on {t.device}")
     return g, n, m
 
 
-def _aligned(t):
-    """Contiguous, at a 16-byte aligned address (the kernels load 16 bytes at
-    a time)."""
-    t = t.contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
+def _ptr(t):
+    """A tensor's address, or None (a null pointer) for an absent one."""
+    return None if t is None else t.data_ptr()
 
 
 def _sep_forward(q, k, v, bias, mask, scale: float, heads: int):
@@ -256,8 +263,8 @@ def _sep_forward(q, k, v, bias, mask, scale: float, heads: int):
     if not q.is_cuda:
         return reference_attention(q, k, v, bias, mask, scale, heads)
     g, n, m = _check_sep(q, k, v, bias, mask, heads, sep_smem_bytes)
-    q, k, v = _aligned(q), _aligned(k), _aligned(v)
-    bias, mask = bias.contiguous(), mask.contiguous()
+    q, k, v = (_build.aligned(t) for t in (q, k, v))
+    bias, mask = (None if t is None else _build.aligned(t) for t in (bias, mask))
     out = torch.empty_like(q)
     if g == 0 or n == 0:
         return out
@@ -265,8 +272,8 @@ def _sep_forward(q, k, v, bias, mask, scale: float, heads: int):
     dev = q.device
     with torch.cuda.device(dev):
         err = lib.nkbx_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), mask.data_ptr(),
-            out.data_ptr(), g, n, heads, bias.shape[0], m, float(scale),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias), _ptr(mask), out.data_ptr(), g,
+            n, heads, 1 if bias is None else bias.shape[0], m, float(scale),
             int(q.dtype == torch.bfloat16), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "attention launch")
     fused_attention.launches += 1
@@ -277,7 +284,8 @@ class _Attention(torch.autograd.Function):
     """K3 forward, K4 backward. Saves q, k, v, bias and mask only, as nkbx's
     VJP does (attention.py:372-373): P is recomputed. The backward's two
     kernels pass three f32 statistics per (group, head, row) between them in
-    scratch that lives for the backward alone."""
+    scratch that lives for the backward alone; an absent bias or mask
+    reaches them as (1, N, N) zeros."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, mask, scale, heads):
@@ -288,6 +296,9 @@ class _Attention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, go):
         q, k, v, bias, mask = ctx.saved_tensors
+        if bias is None or mask is None:
+            zero = torch.zeros((1,) + q.shape[1:2] * 2, dtype=torch.float32, device=q.device)
+            bias, mask = (zero if t is None else t for t in (bias, mask))
         dq, dk, dv, dbias = fused_attention_bwd(q, k, v, bias, mask, go, ctx.scale, ctx.heads,
                                                 need_dbias=ctx.needs_input_grad[3])
         dbias = None if dbias is None else dbias.to(bias.dtype)
@@ -296,10 +307,11 @@ class _Attention(torch.autograd.Function):
 
 def fused_attention(q, k, v, bias, mask, scale: float, heads: int):
     """softmax(q kᵀ·scale + bias + mask) v on separate q, k, v; see the module
-    docstring for the layout. Differentiable in q, k, v and bias; the mask
-    gets no gradient. On CUDA tensors the forward and the backward launch the
-    kernels (heads of width 64 only; anything else raises); on CPU tensors
-    they compute the plain versions."""
+    docstring for the layout. ``bias`` or ``mask`` None means zeros, which the
+    forward kernel then does not read. Differentiable in q, k, v and bias;
+    the mask gets no gradient. On CUDA tensors the forward and the backward
+    launch the kernels (heads of width 64 only; anything else raises); on CPU
+    tensors they compute the plain versions."""
     return _Attention.apply(q, k, v, bias, mask, scale, heads)
 
 
@@ -322,7 +334,7 @@ def fused_attention_bwd(q, k, v, bias, mask, go, scale: float, heads: int,
     if go.shape != q.shape or go.dtype != dt or go.device != dev:
         raise ValueError(f"cotangent {tuple(go.shape)} {go.dtype} is not q's "
                          f"{tuple(q.shape)} {dt} on {dev}")
-    q, k, v, go = _aligned(q), _aligned(k), _aligned(v), _aligned(go)
+    q, k, v, go = (_build.aligned(t) for t in (q, k, v, go))
     bias, mask = bias.contiguous(), mask.contiguous()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
     f32 = dict(dtype=torch.float32, device=dev)
@@ -367,18 +379,23 @@ def _merge(t):
 
 
 def _probabilities(q, k, bias, mask, scale: float):
-    """f32 softmax(q kᵀ·scale + bias + mask) of (G, H, N, D) f32 q and k."""
+    """f32 softmax(q kᵀ·scale + bias + mask) of (G, H, N, D) f32 q and k; a
+    None bias or mask adds nothing."""
     g, heads, n, _ = q.shape
-    m = mask.shape[0]
     s = q @ k.transpose(-1, -2) * scale
-    s = s + bias.expand(heads, n, n)[None].float()
-    s = (s.reshape(g // m, m, heads, n, n) + mask[None, :, None].float()).reshape(g, heads, n, n)
+    if bias is not None:
+        s = s + bias.expand(heads, n, n)[None].float()
+    if mask is not None:
+        m = mask.shape[0]
+        s = (s.reshape(g // m, m, heads, n, n)
+             + mask[None, :, None].float()).reshape(g, heads, n, n)
     return torch.softmax(s, dim=-1)
 
 
 def reference_attention(q, k, v, bias, mask, scale: float, heads: int):
     """Plain PyTorch version (separate q/k/v of shape (G, N, H*D)), the twin
-    of nkbx's ``reference_attention``."""
+    of nkbx's ``reference_attention``; ``bias`` or ``mask`` None means
+    zeros."""
     p = _probabilities(_heads(q, heads), _heads(k, heads), bias, mask, scale).to(q.dtype)
     o = p.float() @ _heads(v, heads)
     return _merge(o.to(q.dtype))
@@ -399,7 +416,7 @@ def _reference_bwd(q, k, v, bias, mask, go, scale: float, heads: int):
     dv = p.to(dt).float().transpose(-1, -2) @ g
     dp = g @ vh.transpose(-1, -2)
     ds = p * (dp - (dp * p).sum(-1, keepdim=True))
-    dbias = ds.sum(0) if bias.shape[0] != 1 else ds.sum((0, 1))[None]
+    dbias = ds.sum(0) if bias is not None and bias.shape[0] != 1 else ds.sum((0, 1))[None]
     dsc = (ds * scale).to(dt).float()
     return _merge(dsc @ kh), _merge(dsc.transpose(-1, -2) @ qh), _merge(dv), dbias
 

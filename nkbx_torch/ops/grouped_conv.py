@@ -115,7 +115,7 @@ def _launch(x, wvec, gw):
     if lib.nkbx_gconv_smem_bytes(w, gw) > _build.MAX_SMEM:
         raise ValueError(f"gconv kernel: an image row of W={w} does not fit a block's shared "
                          "memory")
-    x, wvec = x.contiguous(), wvec.contiguous()
+    x, wvec = _build.aligned(x), _build.aligned(wvec)
     out = torch.empty_like(x)
     with torch.cuda.device(dev):
         err = lib.nkbx_gconv(x.data_ptr(), wvec.data_ptr(), out.data_ptr(), b, h, w, c, gw,

@@ -82,12 +82,6 @@ def fused_matmul_bn_relu_stats(x, w, scale, bias, tile_rows: int = 1024):
     return _launch(x, w, scale, bias)
 
 
-def _aligned(t):
-    """t contiguous at a 16-byte aligned address (the kernels' vector loads)."""
-    t = t.contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
-
-
 def _launch(x, w, scale, bias):
     (n, cin), cout = x.shape, w.shape[1]
     dt, dev = x.dtype, x.device
@@ -102,7 +96,7 @@ def _launch(x, w, scale, bias):
                          f"Cin={cin}, Cout={cout}")
     if n == 0:
         raise ValueError("matmul_bn kernel needs at least one row")
-    x, w = (_aligned(t) for t in (x, w))
+    x, w = (_build.aligned(t) for t in (x, w))
     scale, bias = (t.to(torch.float32).contiguous() for t in (scale, bias))
     f32 = dict(dtype=torch.float32, device=dev)
     tiles = -(-n // _TILE_ROWS[dt])

@@ -11,8 +11,11 @@ runs, ``nkbx`` and ``nkbx.transforms`` in ``sys.modules`` resolve to
 :mod:`nkbx_torch.transforms`, so the same files build the port's pipelines
 unchanged; afterwards ``sys.modules`` holds exactly the ``nkbx`` entries it
 held before (none, or the real package's in a process that imported it).
-Unlike nkbx, the config's directory is not put on the import path: a config
-that imports a sibling module does not load.
+As in nkbx, the config's directory goes on the import path, so a config may
+import a sibling module. Modules of that directory that hold transforms are
+imported afresh while the config runs (so their ``nkbx.transforms`` is the
+port's too) and leave ``sys.modules`` as they found it afterwards; the main
+script and modules holding no transforms are not touched.
 """
 
 from __future__ import annotations
@@ -127,13 +130,57 @@ def _is_nkbx(name: str) -> bool:
     return name == "nkbx" or name.startswith("nkbx.")
 
 
+def _imported_from(name: str, module, folder: Path) -> bool:
+    """True for a module imported with ``folder`` as its root on the import
+    path (a sibling file or package of a config there), but the port's own
+    and a script run as the main module."""
+    f = getattr(module, "__file__", None)
+    if not f or name in ("__main__", "__mp_main__") or name.split(".")[0] == "nkbx_torch":
+        return False
+    p = Path(f).resolve()
+    if not p.is_relative_to(folder):
+        return False
+    return len(p.relative_to(folder).parts) == name.count(".") + 1 + (p.name == "__init__.py")
+
+
+def _of_transforms(name) -> bool:
+    return isinstance(name, str) and (_is_nkbx(name) or name == "nkbx_torch.transforms"
+                                      or name.startswith("nkbx_torch.transforms."))
+
+
+def _holds_transforms(value, depth: int = 2) -> bool:
+    """True when ``value`` is, or in lists, tuples, sets and dicts up to
+    ``depth`` levels holds, a module, class, function or object of nkbx or
+    of the port's transforms."""
+    if isinstance(value, types.ModuleType):
+        return _of_transforms(value.__name__)
+    if isinstance(value, (type, types.FunctionType)):
+        return _of_transforms(value.__module__)
+    if _of_transforms(type(value).__module__):
+        return True
+    if depth and isinstance(value, (list, tuple, set, frozenset)):
+        return any(_holds_transforms(v, depth - 1) for v in value)
+    if depth and isinstance(value, dict):
+        return any(_holds_transforms(v, depth - 1) for v in value.values())
+    return False
+
+
 @contextlib.contextmanager
-def _nkbx_transforms_resolve_to_port():
+def _nkbx_transforms_resolve_to_port(folder: Path, config_name: str):
     """``nkbx`` and ``nkbx.transforms`` name the port's transforms inside
-    the block; every ``nkbx`` entry of ``sys.modules`` is as before after."""
+    the block. A module of the config's ``folder`` (but the config itself
+    and the main script) that holds nkbx's or the port's transforms is
+    imported anew there: a sibling that an nkbx load left in ``sys.modules``
+    holds nkbx's objects. After the block every ``nkbx`` entry and every
+    such module in ``sys.modules`` is as before; a module of ``folder``
+    holding none of them is left alone, as nkbx's loader leaves it."""
     import nkbx_torch.transforms as port_transforms
 
-    saved = {k: v for k, v in sys.modules.items() if _is_nkbx(k)}
+    def ours(k, v):
+        return _is_nkbx(k) or (k != config_name and _imported_from(k, v, folder) and any(
+            _holds_transforms(x) for a, x in vars(v).items() if not a.startswith("__")))
+
+    saved = {k: v for k, v in sys.modules.items() if ours(k, v)}
     for k in saved:
         del sys.modules[k]
     alias = types.ModuleType("nkbx", "nkbx's transforms, resolved to nkbx_torch.transforms")
@@ -142,16 +189,19 @@ def _nkbx_transforms_resolve_to_port():
     try:
         yield
     finally:
-        for k in [k for k in sys.modules if _is_nkbx(k)]:
+        for k in [k for k, v in list(sys.modules.items()) if ours(k, v)]:
             del sys.modules[k]
         sys.modules.update(saved)
 
 
 def _run_config(path: Path, mod_name: str) -> types.ModuleType:
+    folder = path.parent.resolve()
+    if str(folder) not in sys.path:
+        sys.path.append(str(folder))  # siblings import, as nkbx/utils/config.py:145-147
     spec = importlib.util.spec_from_file_location(mod_name, path)
     module = importlib.util.module_from_spec(spec)
     sys.modules[mod_name] = module  # dataclasses and pickling inside configs resolve
-    with _nkbx_transforms_resolve_to_port():
+    with _nkbx_transforms_resolve_to_port(folder, mod_name):
         spec.loader.exec_module(module)
     return module
 
@@ -169,7 +219,7 @@ def load_config(path) -> Config:
 def read_py_config(path):
     """nkbx's reference-compatible helper: returns ``"import <stem> as
     cfg"`` for the caller to exec. The config is run here and registered
-    under its stem, where nkbx puts its directory on the import path."""
+    under its stem, with its directory on the import path as nkbx's."""
     path = Path(path)
     _run_config(path, path.stem)
     return f"import {path.stem} as cfg"

@@ -18,7 +18,9 @@ shows that the kernel, not its plain version, ran:
   tensor-core grid);
 - K3 full-sequence attention on separate q, k, v and K4 its backward, at
   the ViT sequences N = 50, 145, 197 and 577 (D = 64), with a (1, N, N) and an
-  (H, N, N) bias, masks of M = 2 and 3, and K4 with and without dbias;
+  (H, N, N) bias, masks of M = 2 and 3, and K4 with and without dbias; K3
+  also at N = 1, 17, 63, 64, 65, 197 and 577 with None for an absent bias or
+  mask, two launches bit-identical;
 - K9 the fused bottleneck chain and K10 its backward, banded (th = 4, 7, 2,
   widths 8 and 14) and single-band (th = H), against the plain chain: the
   output, the six per-tile statistics and the ten gradients; a width the
@@ -27,7 +29,9 @@ shows that the kernel, not its plain version, ran:
   statistics, at small shapes (ragged row and column tiles) and one probe
   shape, its sums bit for bit the same in two runs; X2 the 3x3 grouped
   convolution at the probe's check shapes, ragged widths, gw = 1 and 32 and
-  resnext50's stage 2; both wrappers refuse a wrong dtype, shape or device;
+  resnext50's stage 2, and at every group width 1-32 with H and W of 7, 13
+  and 57 and C from 32 to 1024, two launches bit-identical; both wrappers
+  refuse a wrong dtype, shape or device;
 - X3-X7, the Swin layout probes (copy, transpose, window gather and
   scatter, merge, split and pad8), at small, ragged, odd and unaligned
   shapes and one probe shape each, equal bit for bit to their plain
@@ -45,7 +49,8 @@ bf16; a last-bit difference flips one rounding of values of order 1). K2
 dqkv f32 1e-4, bf16 6e-2 (dS*scale rounds to bf16 too); dbias 1e-4 of its
 largest value. K5 f32 5e-4, bf16 1.25e-1 (outputs reach 8, where one bf16
 ulp is 3.1e-2). K6, relative to each gradient's largest value: f32 1e-3,
-bf16 3e-2. K3 as K1. K4, relative to each gradient's largest value: f32
+bf16 3e-2. K3 as K1; at ragged N f32 1e-4, bf16 2 bf16 ulps of the largest
+output. K4, relative to each gradient's largest value: f32
 1e-4, bf16 4 bf16 ulps (P, dS*scale and the outputs round to bf16); dbias
 1e-4 of its largest value. K7 f32 5e-4, bf16 6.25e-2 (the plain version
 rounds u to bf16 before the GELU and adds b1 to a rounded product; the
@@ -260,6 +265,39 @@ def test_sep_attention_kernel_matches_plain_on_card(cuda_device, dtype, tol, g, 
     want = tattn.reference_attention(q, k, v, bias, mask, 0.125, heads)
     assert got.dtype == dtype
     assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+# the streaming K3 at ragged N: (bias heads, M) or None for an absent bias or mask
+SEP_RAGGED_N = [1, 17, 63, 64, 65, 197, 577]
+SEP_OPERANDS = {"shared": (1, 1), "per_head_m2": (2, 2), "none": (None, None),
+                "bias_no_mask": (2, None), "mask_no_bias": (None, 2)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("operands", list(SEP_OPERANDS))
+@pytest.mark.parametrize("n", SEP_RAGGED_N)
+def test_sep_attention_kernel_at_ragged_n(cuda_device, dtype, operands, n):
+    """K3 against its plain version at every ragged key count around the
+    64-key tile, with a shared or per-head bias, masks of M = 1 and 2, and
+    None for an absent bias or mask: bf16 within 2 bf16 ulps of the largest
+    output (P and the output round to bf16), f32 1e-4; a second launch is
+    bit-identical (the sums run in a fixed order)."""
+    bh, m = SEP_OPERANDS[operands]
+    q, k, v, bias, mask, _ = _sep_inputs(2, n, 2, m or 1, bh or 1, cuda_device, dtype)
+    bias = bias if bh else None
+    mask = mask if m else None
+    before = tattn.fused_attention.launches
+    got = tattn.fused_attention(q, k, v, bias, mask, 0.125, 2)
+    again = tattn.fused_attention(q, k, v, bias, mask, 0.125, 2)
+    torch.cuda.synchronize()
+    assert tattn.fused_attention.launches == before + 2
+    want = tattn.reference_attention(q, k, v, bias, mask, 0.125, 2)
+    big = want.float().abs().max().item()
+    tol = 1e-4 if dtype == torch.float32 else 2 * 2.0 ** (np.floor(np.log2(big)) - 7)
+    assert got.dtype == dtype
+    assert (got.float() - want.float()).abs().max().item() <= tol
+    assert torch.equal(got, again)
 
 
 @pytest.mark.cuda
@@ -548,6 +586,43 @@ def test_gconv_kernel_matches_plain_on_card(cuda_device, dtype, b, h, w, c, gw):
         assert _ulp_err(got, want) <= 1
 
 
+# (B, H, W, C, gw): every group width, ragged H and W of 7, 13 and 57, C from 32
+# to 1024, C only a multiple of 32 (96), and gw = C (one group)
+GC_WIDTH_CASES = [
+    (1, 7, 13, 32, 1),
+    (2, 13, 7, 64, 2),
+    (1, 57, 13, 96, 4),
+    (2, 13, 57, 128, 8),
+    (1, 7, 57, 512, 16),
+    (2, 57, 7, 1024, 32),
+    (1, 13, 13, 32, 32),
+    (2, 7, 7, 1024, 4),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,w,c,gw", GC_WIDTH_CASES)
+def test_gconv_kernel_at_every_group_width(cuda_device, dtype, b, h, w, c, gw):
+    """X2 against its plain version at every group width the kernel takes
+    (bf16: the tensor-core kernel with block-diagonal packing for gw < 8),
+    f32 within 1e-5 of the largest value, bf16 within one ulp of each value
+    (as X1's y); a second launch is bit-identical."""
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    x = torch.randn(b, h, w, c, generator=gen, device=cuda_device).to(dtype)
+    wvec = tgc.build_wvec((0.1 * torch.randn(3, 3, gw, c, generator=gen, device=cuda_device))
+                          .to(dtype), gw)
+    got, again = tgc.gconv(x, wvec, gw), tgc.gconv(x, wvec, gw)
+    torch.cuda.synchronize()
+    want = tgc.reference_gconv(x, wvec, gw)
+    assert got.dtype == dtype and got.shape == x.shape
+    if dtype == torch.float32:
+        assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+    else:
+        assert _ulp_err(got, want) <= 1
+    assert torch.equal(got, again)
+
+
 @pytest.mark.cuda
 def test_gconv_kernel_refuses_what_it_cannot_take(cuda_device):
     x = torch.zeros(1, 4, 4, 64, device=cuda_device)
@@ -673,7 +748,8 @@ def test_card_tests_collect_without_jax_or_nkbx():
     assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-2000:]
     n = (2 * 2 * len(ATTN_CASES) + 2 * 2 * len(MLP_CASES) + 2 * 2 * len(MLP_ONLY_CASES)
          + 2 * 2 * len(SEP_CASES) + 2 + 2 + 2 * len(CHAIN_CASES) + 2
-         + 2 * len(MB_CASES) + 2 + 1 + 2 * len(GC_CASES) + 1 + 2 * len(LAYOUT_CASES) + 1 + 1)
+         + 2 * len(MB_CASES) + 2 + 1 + 2 * len(GC_CASES) + 1 + 2 * len(LAYOUT_CASES) + 1 + 1
+         + 2 * len(SEP_RAGGED_N) * len(SEP_OPERANDS) + 2 * len(GC_WIDTH_CASES))
     word = "passed" if torch.cuda.is_available() else "skipped"
     assert re.search(rf"\b{n} {word}\b", proc.stdout), proc.stdout[-2000:]
 

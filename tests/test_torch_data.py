@@ -24,6 +24,7 @@
 """
 
 import builtins
+import os
 import struct
 import sys
 import warnings
@@ -443,6 +444,65 @@ def test_read_py_config_returns_an_import_line(tmp_path):
     assert line == "import port_cfg_probe as cfg"
     assert isinstance(scope["cfg"].pipe, T.Compose) and scope["cfg"].pipe.output_size() == (8, 8)
     del sys.modules["port_cfg_probe"]
+
+
+@pytest.mark.parametrize("port_first", [False, True], ids=["nkbx_first", "port_first"])
+def test_config_importing_a_sibling_loads_as_under_nkbx(tmp_path, port_first):
+    """A config that imports a sibling module of its directory (nkbx puts
+    the directory on sys.path) gives the same values under the port as
+    under nkbx, in either load order, each side's pipeline built from its
+    own transforms."""
+    from nkbx.utils.config import load_config as nkbx_load_config
+
+    sib = f"sib_aug_{int(port_first)}"
+    (tmp_path / f"{sib}.py").write_text(
+        "import nkbx.transforms as T\nSIZE = 16\n"
+        "def pipe():\n    return T.Compose([T.Resize(SIZE, SIZE), T.HorizontalFlip(p=0.5)])\n")
+    path = tmp_path / "cfg_with_sibling.py"
+    path.write_text(f"import {sib}\ntrain_pipeline = {sib}.pipe()\n"
+                    f"n_epochs = {sib}.SIZE // 8\nbatch_size = {sib}.SIZE * 4\n")
+    loads = [load_config, nkbx_load_config]
+    got, want = (f(path) for f in (loads if port_first else loads[::-1]))
+    if not port_first:
+        got, want = want, got
+    assert got.asdict().keys() == want.asdict().keys()
+    assert (got.n_epochs, got.batch_size) == (want.n_epochs, want.batch_size) == (2, 64)
+    assert isinstance(got.train_pipeline, T.Compose)
+    assert isinstance(want.train_pipeline, JT.Compose)
+    assert ([type(t).__name__ for t in got.train_pipeline.transforms]
+            == [type(t).__name__ for t in want.train_pipeline.transforms])
+    assert got.train_pipeline.output_size() == (16, 16)
+    assert sys.modules[sib].T is JT  # nkbx's sibling stays nkbx's after the port's load
+    del sys.modules[sib]
+
+
+def test_config_loaded_from_a_script_in_its_folder_keeps_main_and_plain_siblings(tmp_path):
+    """A script run as the main module from the config's folder loads the
+    config: while the config runs, ``__main__`` is still the script and a
+    sibling that holds no transforms is still the script's own module (the
+    loader re-imports only siblings holding transforms), and a sibling that
+    holds transforms names the port's."""
+    import subprocess
+
+    (tmp_path / "helper_plain.py").write_text("MARK = 'as imported'\n")
+    (tmp_path / "helper_aug.py").write_text("import nkbx.transforms as T\n")
+    (tmp_path / "cfg_main.py").write_text(
+        "import sys\nimport __main__\nimport helper_aug\nimport helper_plain\n"
+        "main_mark = __main__.MARK\nmain_is_script = sys.modules['__main__'] is __main__\n"
+        "helper_mark = helper_plain.MARK\naug_module = helper_aug.T.__name__\n")
+    (tmp_path / "run_cfg.py").write_text(
+        "import sys\nMARK = 'the script'\nimport helper_plain\n"
+        "helper_plain.MARK = 'set by the script'\n"
+        "from nkbx_torch.utils import load_config\n"
+        "cfg = load_config('cfg_main.py')\n"
+        "print(cfg.main_mark, cfg.main_is_script, cfg.helper_mark, cfg.aug_module, sep='|')\n"
+        "print(sys.modules['__main__'].MARK, sys.modules['helper_plain'] is helper_plain,\n"
+        "      'helper_aug' in sys.modules, 'nkbx' in sys.modules, sep='|')\n")
+    proc = subprocess.run([sys.executable, "run_cfg.py"], cwd=tmp_path, capture_output=True,
+                          text=True, timeout=120, env={**os.environ, "PYTHONPATH": str(ROOT)})
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert proc.stdout.splitlines()[-2:] == [
+        "the script|True|set by the script|nkbx_torch.transforms", "the script|True|False|False"]
 
 
 def test_png_writer_round_trips(tmp_path):

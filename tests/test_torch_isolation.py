@@ -49,12 +49,24 @@ def test_port_imports_no_jax_flax_or_nkbx():
     assert proc.stdout.strip().splitlines()[-1] == "[]"
 
 
+# the one use of sys.path the port makes: the config loader puts a config's own
+# directory there, as nkbx's loader does (nkbx/utils/config.py:145-147)
+CONFIG_PATH_USE = ("if str(folder) not in sys.path:", "sys.path.append(str(folder))")
+
+
 def test_port_sources_import_no_jax_flax_nkbx_or_experiments():
     """No import statement to them even on a path the import probe does not
-    reach, and no reach into experiments/ through sys.path."""
+    reach, and no reach into experiments/ through sys.path: no source names
+    sys.path but the config loader, which adds only the config's directory."""
     for path in sorted((ROOT / "nkbx_torch").rglob("*.py")):
         src = path.read_text()
-        assert not FORBIDDEN_IMPORT.search(src) and "sys.path" not in src, path.name
+        assert not FORBIDDEN_IMPORT.search(src), path.name
+        uses = [line.strip().split("  #")[0] for line in src.splitlines() if "sys.path" in line]
+        if path.relative_to(ROOT).as_posix() == "nkbx_torch/utils/config.py":
+            assert tuple(uses) == CONFIG_PATH_USE, uses
+            assert "experiments" not in src
+        else:
+            assert not uses, path.name
 
 
 def test_chip_smoke_imports_no_jax_flax_or_nkbx():

@@ -128,9 +128,68 @@ def test_packed_backward_is_the_shared_core():
 @pytest.mark.parametrize("n,fits", [(50, True), (145, True), (197, True), (577, True),
                                     (2000, False)])
 def test_smem_gate_takes_every_vit_sequence(n, fits):
+    """The bf16 forward streams keys, so it takes any N; the f32 forward
+    (score rows in shared memory) and the backward hold rows of N."""
+    assert tattn.sep_smem_bytes(n, 2) <= tattn._MAX_SMEM
+    assert (tattn.sep_smem_bytes(n, 4) <= tattn._MAX_SMEM) is fits
     for itemsize in (2, 4):
-        assert (tattn.sep_smem_bytes(n, itemsize) <= tattn._MAX_SMEM) is fits
         assert (tattn.sep_bwd_smem_bytes(n, itemsize) <= tattn._MAX_SMEM) is fits
+
+
+def test_bf16_forward_smem_does_not_grow_with_n():
+    """The streaming forward's shared memory is its 4 (64, 72) key/value
+    tiles and 8 warps' (16, 68) f32 bias and mask staging rows, which cover
+    its (128, 72) q tile, at every N; the backward's gate still refuses what
+    K4 cannot hold."""
+    sizes = {tattn.sep_smem_bytes(n, 2) for n in (1, 17, 64, 65, 197, 577, 2000, 10_000)}
+    assert sizes == {4 * 64 * 72 * 2 + 8 * 2 * 16 * 68 * 4}
+    q = torch.zeros(1, 2000, D, dtype=torch.bfloat16)
+    tattn._check_sep(q, q, q, None, None, 1, tattn.sep_smem_bytes)
+    with pytest.raises(ValueError, match="shared memory"):
+        tattn._check_sep(q, q, q, None, None, 1, tattn.sep_bwd_smem_bytes)
+
+
+@pytest.mark.parametrize("dtype,atol", [(np.float32, 5e-4), ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("none_bias,none_mask", [(True, True), (True, False), (False, True)])
+def test_absent_bias_or_mask_matches_nkbx_zeros(dtype, atol, none_bias, none_mask):
+    """``None`` for the bias or the mask (what the ViT passes) against
+    nkbx's Pallas kernel (interpret mode) given zeros in its place: the
+    plain version and the entry on CPU tensors, f32 and bf16."""
+    g, n, heads, m = 2, 197, 2, 2
+    q, k, v, bias, mask, _ = _attn_inputs(g, n, heads, m, heads, seed=4)
+    if none_bias:
+        bias = np.zeros((1, n, n), np.float32)
+    if none_mask:
+        mask = np.zeros((1, n, n), np.float32)
+    jdt = jnp.float32 if dtype is np.float32 else jnp.bfloat16
+    tdt = torch.float32 if dtype is np.float32 else torch.bfloat16
+    scale = D ** -0.5
+    want = np.asarray(jattn.fused_attention(*(jnp.asarray(t, jdt) for t in (q, k, v)),
+                                            jnp.asarray(bias), jnp.asarray(mask), scale, heads,
+                                            interpret=True), np.float32)
+    tq, tk, tv = (torch.from_numpy(t).to(tdt) for t in (q, k, v))
+    tb = None if none_bias else torch.from_numpy(bias)
+    tm = None if none_mask else torch.from_numpy(mask)
+    for fn in (tattn.reference_attention, tattn.fused_attention):
+        got = fn(tq, tk, tv, tb, tm, scale, heads)
+        assert got.dtype == tdt
+        np.testing.assert_allclose(got.float().numpy(), want, atol=atol, rtol=0,
+                                   err_msg=fn.__name__)
+
+
+def test_absent_bias_and_mask_train_like_zeros():
+    """The autograd entry with None: its gradients equal those with (1, N, N)
+    zeros, which the backward substitutes."""
+    q, k, v, _, _, go = (torch.from_numpy(t) for t in _attn_inputs(2, 50, 2, 1, 1, seed=6))
+    zero = torch.zeros(1, 50, 50)
+    grads = []
+    for bias, mask in ((None, None), (zero, zero)):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = tattn.fused_attention(*leaves, bias, mask, D ** -0.5, 2)
+        out.backward(go)
+        grads.append([out.detach()] + [t.grad for t in leaves])
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
 
 
 # --- the tiny ViT against nkbx's ---------------------------------------------------
@@ -173,6 +232,28 @@ def _port(fused):
     variables, _ = _jax_side(fused)
     module.load_state_dict(from_jax_variables(variables, reference=module))
     return module.eval()
+
+
+def test_fused_vit_passes_no_bias_or_mask(monkeypatch):
+    """The ViT's fused path hands the kernel None for nkbx's zero bias and
+    mask (so the kernel reads neither), and its f32 logits match nkbx's
+    fused ViT within 5e-4."""
+    from nkbx_torch.models import vit as tvit
+
+    seen = []
+
+    def recording(q, k, v, bias, mask, scale, heads):
+        seen.append((bias, mask))
+        return tattn.fused_attention(q, k, v, bias, mask, scale, heads)
+
+    monkeypatch.setattr(tvit, "fused_attention", recording)
+    _, predict = _jax_side(True)
+    module = _port(True)
+    images = _images(2, seed=5)
+    with torch.inference_mode():
+        got = module(build_device_fn([Normalize()])(torch.from_numpy(images)))
+    assert seen == [(None, None)] * TINY["depth"]
+    np.testing.assert_allclose(got.numpy(), predict(images), atol=5e-4, rtol=0)
 
 
 @pytest.mark.parametrize("fused", [False, True, None])
