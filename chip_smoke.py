@@ -114,6 +114,7 @@ a checkout of the repository, or when any check fails.
 import contextlib
 import json
 import os
+import re
 import shutil
 import signal
 import struct
@@ -664,64 +665,118 @@ def check_sep_attention():
     return rows, worst
 
 
+# K4 alone at query and key counts around its 64-row tiles: (label, G, N, heads, M,
+# bias heads); None passes None, the learned operands ask for dbias
+SEP_BWD_RAGGED = [(f"N={n} {kind}", 2, n, 2, m, bh) for n in (1, 17, 63, 64, 65)
+                  for kind, m, bh in (("none", None, None), ("learned", 2, 2))]
+
+
+def sep_bwd_bound(g, n, heads, bh, m):
+    """K4's least time: q, k, v and go read and dq, dk, dv written once, and
+    the bias and mask when given; 10 N^2 D operations per (group, head), its
+    five products."""
+    nbytes = 2 * g * n * 7 * heads * VIT_D + 4 * ((bh or 0) + (m or 0)) * n * n
+    return bound_ms(nbytes, 10 * g * heads * n * n * VIT_D, "bf16")
+
+
+def hold_sep_bwd(what, q, k, v, bias, mask, go, heads, dtype, need_dbias, worst):
+    """K4 twice against its plain version on these operands: dq, dk, dv within
+    1e-4 (f32) or 4 bf16 ulps (bf16, P, dS*scale and the outputs round) of
+    the largest value, dbias within 1e-4 of its largest, the second launch
+    bit-identical; fails otherwise."""
+    scale = VIT_D ** -0.5
+    got = A.fused_attention_bwd(q, k, v, bias, mask, go, scale, heads, need_dbias=need_dbias)
+    again = A.fused_attention_bwd(q, k, v, bias, mask, go, scale, heads, need_dbias=need_dbias)
+    torch.cuda.synchronize()
+    want = A.reference_attention_sep_bwd(q, k, v, bias, mask, go, scale, heads)
+    big = max(float(w.float().abs().max()) for w in want[:3])
+    lim = 1e-4 * big if dtype == "f32" else 4 * bf16_ulp(big)
+    err = max(max_err(a, b) for a, b in zip(got[:3], want[:3]))
+    same = all(torch.equal(a, b) for a, b in zip(got[:3], again[:3]))
+    ok, msg = err <= lim and same, ""
+    if need_dbias:
+        err_b, lim_b = max_err(got[3], want[3]), 1e-4 * float(want[3].abs().max())
+        same = same and torch.equal(got[3], again[3])
+        ok = ok and err_b <= lim_b and same
+        msg = f", dbias {err_b:.3e} (tol {lim_b:.3e})"
+    worst[dtype] = max(worst[dtype], err)
+    log(f"K4 {what} {dtype}: max|err| dq/dk/dv {err:.3e} (tol {lim:.3e}){msg}, a second "
+        f"launch equal {same} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"attention backward disagrees with its plain version at {what} {dtype}")
+
+
+def sdpa_bwd_fn(q, k, v, bias, mask, go, heads, scale, masked):
+    """A closure of SDPA's backward alone on the same function (a float mask
+    of bias + mask when ``masked``, else none), and its backend."""
+    qs, ks, vs, am = sep_sdpa_inputs(q, k, v, bias, mask, heads)
+    qs, ks, vs = (t.requires_grad_() for t in (qs, ks, vs))
+    out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=am if masked else None,
+                                         scale=scale)
+    gout = sep_sdpa_inputs(go, go, go, bias, mask, heads)[0]
+
+    def sdpa_bwd():
+        return torch.autograd.grad(out, (qs, ks, vs), gout, retain_graph=True)
+
+    return sdpa_bwd, sdpa_backend(sdpa_bwd)
+
+
 def check_sep_attention_bwd():
+    """K4 against its plain version (hold_sep_bwd) at SEP_CASES (bf16 and f32;
+    dbias in the small case) and at the ragged SEP_BWD_RAGGED (bf16, f32;
+    None, or a learned bias and mask with dbias). At ViT-B's three sequences
+    (bf16) each of the kernel, the plain version and SDPA's backward is timed
+    with a cold L2 three times: with None, the ViT's path, against SDPA's
+    unmasked backward; with the (1, N, N) zeros, like for like with SDPA's
+    float mask; with a learned (H, N, N) bias and a (1, N, N) mask, without
+    dbias, against SDPA given their sum. Each set is first held against plain
+    at that shape; each row logs the SDPA backend and its share of the bound,
+    and a share over 100% fails."""
     gen = torch.Generator(device=DEV).manual_seed(6)
-    # dq, dk, dv against max|plain|: f32 1e-4; bf16 4 ulps (P, dS*scale and
-    # the outputs round to bf16, so a last-bit difference flips a rounding).
-    # dbias, an f32 sum over groups: 1e-4 of its largest value.
-    tol = {"f32": 1e-4, "bf16": 4 * 2.0 ** -8}
     rows, worst = {}, {"bf16": 0.0, "f32": 0.0}
-    for label, g, n, heads, m, bh in SEP_CASES:
-        learned = bh > 1  # a learned bias needs dbias; ViT's constant zeros do not
+    for label, g, n, heads, m, bh in SEP_CASES + SEP_BWD_RAGGED:
+        learned = bool(bh) and bh > 1  # a learned bias needs dbias; the constant zeros do not
         for dtype in ("bf16", "f32"):
-            q, k, v, bias, mask, go = sep_case(g, n, heads, m, bh, dtype, gen)
-            scale = VIT_D ** -0.5
-            got = A.fused_attention_bwd(q, k, v, bias, mask, go, scale, heads,
-                                        need_dbias=learned)
-            torch.cuda.synchronize()
-            want = A.reference_attention_sep_bwd(q, k, v, bias, mask, go, scale, heads)
-            errs = [max_err(a, b) for a, b in zip(got[:3], want[:3])]
-            lim = tol[dtype] * max(float(w.float().abs().max()) for w in want[:3])
-            err = max(errs)
-            worst[dtype] = max(worst[dtype], err)
-            ok = err <= lim
-            msg = ""
-            if learned:
-                err_b, lim_b = max_err(got[3], want[3]), 1e-4 * float(want[3].abs().max())
-                ok = ok and err_b <= lim_b
-                msg = f", dbias {err_b:.3e} (tol {lim_b:.3e})"
-            log(f"K4 {label} G={g} H={heads} N={n} M={m} bias heads {bh} {dtype}: max|err| "
-                f"dq/dk/dv {err:.3e} (tol {lim:.3e}){msg} {'ok' if ok else 'FAIL'}")
-            if not ok:
-                fail(f"attention backward disagrees with its plain version at {label} {dtype}")
-            if dtype != "bf16" or learned:
+            q, k, v, bias, mask, go = sep_case(g, n, heads, m or 1, bh or 1, dtype, gen)
+            bias, mask = (bias if bh else None), (mask if m else None)
+            hold_sep_bwd(f"{label} G={g} H={heads} N={n} M={m} bias heads {bh}", q, k, v, bias,
+                         mask, go, heads, dtype, learned, worst)
+            if dtype != "bf16" or label not in ("N=50", "N=197", "N=577"):
                 continue
-            ms = cuda_ms(lambda: A.fused_attention_bwd(q, k, v, bias, mask, go, scale, heads,
-                                                       need_dbias=False))
-            plain = cuda_ms(lambda: A.reference_attention_sep_bwd(q, k, v, bias, mask, go, scale,
-                                                                  heads), iters=5)
-            lib, backend = None, "not measured"
-            try:  # a yardstick only: the port never calls SDPA
-                qs, ks, vs, am = sep_sdpa_inputs(q, k, v, bias, mask, heads)
-                qs, ks, vs = (t.requires_grad_() for t in (qs, ks, vs))
-                out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=am, scale=scale)
-                gout = sep_sdpa_inputs(go, go, go, bias, mask, heads)[0]
-
-                def sdpa_bwd():
-                    return torch.autograd.grad(out, (qs, ks, vs), gout, retain_graph=True)
-
-                lib = cuda_ms(sdpa_bwd)
-                backend = sdpa_backend(sdpa_bwd)
-                del qs, ks, vs, am, out, gout
-            except RuntimeError as e:
-                log(f"   sdpa backward: not measured ({e})")
-            c = heads * VIT_D
-            nbytes = 2 * g * n * 7 * c + 4 * (bh + m) * n * n
-            b, by = bound_ms(nbytes, 10 * g * heads * n * n * VIT_D, "bf16")
-            log(f"   bf16 times: kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa backward "
-                f"{lib if lib is None else round(lib, 4)} ms ({backend}), bound {b:.4f} ms ({by})")
-            rows[label] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b, bound_by=by,
-                               backend=backend)
+            t = {}
+            scale = VIT_D ** -0.5
+            lb = (0.5 * torch.randn(heads, n, n, generator=gen, device=DEV)).contiguous()
+            lm = torch.where(torch.rand(1, n, n, generator=gen, device=DEV) < 0.2, -100.0, 0.0)
+            for how, b_, m_ in (("none", None, None), ("zeros", bias, mask), ("learned", lb, lm)):
+                hold_sep_bwd(f"{label} with {how}", q, k, v, b_, m_, go, heads, dtype, False,
+                             worst)
+                b_ms, by = sep_bwd_bound(g, n, heads, None if b_ is None else b_.shape[0],
+                                         None if m_ is None else m_.shape[0])
+                ms = cold_ms(lambda: A.fused_attention_bwd(q, k, v, b_, m_, go, scale, heads,
+                                                           need_dbias=False), SEP_ITERS)
+                plain = cold_ms(lambda: A.reference_attention_sep_bwd(q, k, v, b_, m_, go, scale,
+                                                                      heads), SEP_ITERS)
+                lib, backend = None, "not measured"
+                try:  # a yardstick only: the port never calls SDPA
+                    fn, backend = sdpa_bwd_fn(q, k, v, bias if b_ is None else b_,
+                                              mask if m_ is None else m_, go, heads, scale,
+                                              masked=b_ is not None)
+                    lib = cold_ms(fn, SEP_ITERS)
+                    del fn
+                except RuntimeError as e:
+                    log(f"   sdpa backward: not measured ({e})")
+                sdpa = "with its float mask" if b_ is not None else "unmasked"
+                log(f"   bf16 times (cold L2) with {how}: kernel {ms:.4f} ms, plain "
+                    f"{plain:.4f} ms, sdpa backward {sdpa} "
+                    f"{'not measured' if lib is None else f'{lib:.4f} ms'} ({backend}), bound "
+                    f"{b_ms:.4f} ms ({by}), kernel at {100 * b_ms / ms:.1f}% of the bound")
+                t[how] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=by,
+                              bound_share=b_ms / ms, backend=backend)
+                if b_ms > ms:
+                    fail(f"K4 {label} with {how} timed under its bound: the timing is wrong")
+            # the ViT's path passes None: the row's numbers; the others' beside them
+            rows[label] = dict(t["none"], **{f"{k_}_{how}": v_ for how in ("zeros", "learned")
+                                             for k_, v_ in t[how].items()})
     return rows, worst
 
 
@@ -1144,6 +1199,7 @@ class Path:
         self.label, self.cfg, self.counts, self.attention = label, cfg, counts, attention
         self.env, self.layer_scale = env or {}, layer_scale
         self.serves, self.ghost_bn, self.yardstick = serves, ghost_bn, yardstick
+        self.profiled = {}  # {kernel name: device ms in the profiled train step}
 
     def model(self, dtype, cfg=None):
         model = get_model(cfg or self.cfg, [f"class{i}" for i in range(10)], seed=0, dtype=dtype)
@@ -1618,8 +1674,15 @@ def check_train(path):
                 step(state)
                 torch.cuda.synchronize()
             name = path.label if label == "kernels" else f"{path.label}_{label}"
-            report_profile(prof, 1, f"in one batch-64 {name} train step",
-                           bench[label][-1]["step_ms"], f"profile_train_step_{name}.txt")
+            events = report_profile(prof, 1, f"in one batch-64 {name} train step",
+                                    bench[label][-1]["step_ms"], f"profile_train_step_{name}.txt")
+            if label == "kernels" and path.attention and events:
+                # the attention backward's kernels (K2: window_attention_bwd*, K4:
+                # attention_bwd_*) by their names' prefix after the namespace
+                bwd = path.attention + "_bwd"
+                ms = sum(us for us, e in events if re.search(rf"(^|[^\w]){bwd}", e.key)) / 1e3
+                path.profiled[bwd] = ms
+                log(f"profile: {bwd} kernels {ms:.3f} ms in one batch-64 {name} train step")
     except Exception as e:  # noqa: BLE001
         log(f"profile: not measured ({type(e).__name__}: {e})")
     return launches
@@ -2224,7 +2287,9 @@ def main():
             "mask None; library: SDPA unmasked; *_zeros: with the (1, N, N) zeros against SDPA's "
             "float mask; *_learned: a learned (12, N, N) bias and a (1, N, N) mask against SDPA "
             "given their sum), cold L2")
-    vstep = "one batch-64 vit_base_patch16_224 train step, bf16 (12 launches at N=197)"
+    vstep = ("one batch-64 vit_base_patch16_224 train step, bf16 (12 launches at N=197, bias and "
+             "mask None; library: SDPA's unmasked backward; *_zeros, *_learned as for K3, no "
+             "dbias), cold L2")
     cfwd = "one bucket-64 convnext_tiny forward under NKBX_FUSED_LN_MLP=0, bf16 (3/3/9/3 launches)"
     cstep = "one batch-64 convnext_tiny train step under NKBX_FUSED_LN_MLP=0, bf16"
     rfwd = "the forward of one batch-64 resnet50 ghost_bn=2 train step, bf16 (2/3/5 launches)"
@@ -2307,6 +2372,15 @@ def main():
                        for key in ("ms", "plain_ms", "library_ms", "bound_ms")})
     kernels[4]["bound_share"] = {lab: sep_rows[lab]["bound_share"]
                                  for lab in ("N=50", "N=197", "N=577")}
+    # K4 the same; the ViT train step's K4 device time from its profile
+    kernels[5].update({f"{key}_{how}": None if sep_bwd_rows["N=197"][f"{key}_{how}"] is None
+                       else 12 * sep_bwd_rows["N=197"][f"{key}_{how}"]
+                       for how in ("zeros", "learned")
+                       for key in ("ms", "plain_ms", "library_ms", "bound_ms")})
+    kernels[5]["bound_share"] = {lab: sep_bwd_rows[lab]["bound_share"]
+                                 for lab in ("N=50", "N=197", "N=577")}
+    kernels[5]["sdpa_backend"] = sep_bwd_rows["N=197"]["backend"]
+    kernels[5]["profile_ms_per_step"] = VIT.profiled.get("attention_bwd")
     kernels[11]["bound_share"] = [r["bound_share"] for r in gc_rows]
     # K10 is held by each gradient's relative L2 (check_chain): its worst, beside max|err|
     kernels[9]["max_rel_l2"], kernels[9]["max_rel_l2_f32"] = (chain_err["bwd_l2"]["bf16"],

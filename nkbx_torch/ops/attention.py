@@ -285,7 +285,7 @@ class _Attention(torch.autograd.Function):
     VJP does (attention.py:372-373): P is recomputed. The backward's two
     kernels pass three f32 statistics per (group, head, row) between them in
     scratch that lives for the backward alone; an absent bias or mask
-    reaches them as (1, N, N) zeros."""
+    reaches them as None, which neither kernel reads."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, mask, scale, heads):
@@ -296,9 +296,6 @@ class _Attention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, go):
         q, k, v, bias, mask = ctx.saved_tensors
-        if bias is None or mask is None:
-            zero = torch.zeros((1,) + q.shape[1:2] * 2, dtype=torch.float32, device=q.device)
-            bias, mask = (zero if t is None else t for t in (bias, mask))
         dq, dk, dv, dbias = fused_attention_bwd(q, k, v, bias, mask, go, ctx.scale, ctx.heads,
                                                 need_dbias=ctx.needs_input_grad[3])
         dbias = None if dbias is None else dbias.to(bias.dtype)
@@ -322,10 +319,12 @@ def fused_attention_bwd(q, k, v, bias, mask, go, scale: float, heads: int,
                         need_dbias: bool = True):
     """Backward of :func:`fused_attention`: ``(dq, dk, dv, dbias)``, dq, dk,
     dv in q's dtype and dbias (bias heads, N, N) in f32, or None when
-    ``need_dbias`` is False (a constant bias, as ViT's zeros: the kernel then
-    skips the sum). On a CUDA tensor this launches the kernels (and the
-    fixed-order dbias reduction); on a CPU tensor it computes
-    :func:`reference_attention_sep_bwd`."""
+    ``need_dbias`` is False (a constant bias: the kernel then skips the sum)
+    or the bias is None. ``bias`` or ``mask`` None means zeros, which no
+    kernel reads (the ViT's path). On a CUDA tensor this launches the
+    kernels (and the fixed-order dbias reduction); on a CPU tensor it
+    computes :func:`reference_attention_sep_bwd`."""
+    need_dbias = need_dbias and bias is not None
     if not q.is_cuda:
         dq, dk, dv, dbias = reference_attention_sep_bwd(q, k, v, bias, mask, go, scale, heads)
         return dq, dk, dv, dbias if need_dbias else None
@@ -335,13 +334,13 @@ def fused_attention_bwd(q, k, v, bias, mask, go, scale: float, heads: int,
         raise ValueError(f"cotangent {tuple(go.shape)} {go.dtype} is not q's "
                          f"{tuple(q.shape)} {dt} on {dev}")
     q, k, v, go = (_build.aligned(t) for t in (q, k, v, go))
-    bias, mask = bias.contiguous(), mask.contiguous()
+    bias, mask = (None if t is None else _build.aligned(t) for t in (bias, mask))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
     f32 = dict(dtype=torch.float32, device=dev)
     dbias = torch.zeros((bias.shape[0], n, n), **f32) if need_dbias else None
     if g == 0 or n == 0:
         return dq, dk, dv, dbias
-    stats = torch.empty(3 * g * heads * n, **f32)
+    stats = torch.empty(3 * g * heads * _padded_keys(n), **f32)
     wpb, partial = 1, None
     if need_dbias:
         wpb = max(1, g * heads * -(-n // 16) // _BWD_BLOCKS)
@@ -349,11 +348,10 @@ def fused_attention_bwd(q, k, v, bias, mask, go, scale: float, heads: int,
     lib = _build.load("attention_bwd", _SEP_BWD_SIGNATURES)
     with torch.cuda.device(dev):
         err = lib.nkbx_attention_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), mask.data_ptr(),
-            go.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
-            None if dbias is None else dbias.data_ptr(),
-            None if partial is None else partial.data_ptr(), g, n, heads, bias.shape[0], m,
-            float(scale), wpb, int(dt == torch.bfloat16),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias), _ptr(mask), go.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(), _ptr(dbias),
+            _ptr(partial), g, n, heads, 1 if bias is None else bias.shape[0], m, float(scale),
+            wpb, int(dt == torch.bfloat16),
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "attention_bwd launch")
     fused_attention_bwd.launches += 1
@@ -407,16 +405,19 @@ def _reference_bwd(q, k, v, bias, mask, go, scale: float, heads: int):
     dbias)``, each (G, N, H*D) in f32 before the one rounding to the compute
     dtype, and dbias in f32. P is recomputed in f32; dV = (P in the compute
     dtype)ᵀ·g; dP = g·Vᵀ; dS = P∘(dP − rowsum(dP∘P)), whose sum over groups is
-    dbias (also over heads when the bias is (1, N, N)); dQ and dK are
-    products with (dS·scale) rounded to the compute dtype; every product
-    accumulates in f32."""
+    dbias (also over heads when the bias is (1, N, N); None for a None bias);
+    dQ and dK are products with (dS·scale) rounded to the compute dtype;
+    every product accumulates in f32."""
     dt = q.dtype
     qh, kh, vh, g = (_heads(t, heads) for t in (q, k, v, go))
     p = _probabilities(qh, kh, bias, mask, scale)
     dv = p.to(dt).float().transpose(-1, -2) @ g
     dp = g @ vh.transpose(-1, -2)
     ds = p * (dp - (dp * p).sum(-1, keepdim=True))
-    dbias = ds.sum(0) if bias is not None and bias.shape[0] != 1 else ds.sum((0, 1))[None]
+    if bias is None:
+        dbias = None
+    else:
+        dbias = ds.sum(0) if bias.shape[0] != 1 else ds.sum((0, 1))[None]
     dsc = (ds * scale).to(dt).float()
     return _merge(dsc @ kh), _merge(dsc.transpose(-1, -2) @ qh), _merge(dv), dbias
 
@@ -432,7 +433,7 @@ def reference_attention_bwd(qkv, bias, mask, go, scale: float, heads: int):
 
 def reference_attention_sep_bwd(q, k, v, bias, mask, go, scale: float, heads: int):
     """Plain backward of the separate-q/k/v attention: ``(dq, dk, dv,
-    dbias_f32)``, dq/dk/dv rounded once to the compute dtype (see
-    :func:`_reference_bwd`)."""
+    dbias_f32)``, dq/dk/dv rounded once to the compute dtype, dbias None for
+    a None bias (see :func:`_reference_bwd`)."""
     dq, dk, dv, dbias = _reference_bwd(q, k, v, bias, mask, go, scale, heads)
     return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype), dbias

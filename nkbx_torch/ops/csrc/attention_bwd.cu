@@ -88,8 +88,8 @@ attention_bwd_rows_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           const T* __restrict__ v, const float* __restrict__ bias,
                           const float* __restrict__ mask, const T* __restrict__ go,
                           T* __restrict__ dq, Stats stats, float* __restrict__ partial,
-                          int g_total, int n, int heads, int bias_heads, int m, float scale,
-                          int wpb) {
+                          int g_total, int n, int heads, int bias_heads, int m, int sld,
+                          float scale, int wpb) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int np = nkbx::padded_keys(n), lds = np + 4, ldp = np + 8;
   const int i0 = blockIdx.x * kRowsA, h = blockIdx.y, chunk = blockIdx.z;
@@ -108,7 +108,7 @@ attention_bwd_rows_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* dps = reinterpret_cast<float*>(carve(static_cast<size_t>(kRowsA) * lds * 4));
   T* dss = reinterpret_cast<T*>(carve(static_cast<size_t>(kRowsA) * ldp * sizeof(T)));
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const float* bh = bias + static_cast<size_t>(min(h, bias_heads - 1)) * n * n;
+  const float* bh = bias ? bias + static_cast<size_t>(min(h, bias_heads - 1)) * n * n : nullptr;
   float* part = partial == nullptr
                     ? nullptr
                     : partial + (static_cast<size_t>(h) * gridDim.z + chunk) * n * n;
@@ -139,7 +139,7 @@ attention_bwd_rows_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     // 2. One warp per row: P (the forward's arithmetic), rowsum(dP o P), dS,
     //    its partial dbias sum, round(dS * scale), and the row statistics.
-    const float* mg = mask + static_cast<size_t>(g % m) * n * n;
+    const float* mg = mask ? mask + static_cast<size_t>(g % m) * n * n : nullptr;
     for (int r = warp; r < kRowsA; r += kWarps) {
       const int i = i0 + r;
       float* pr = ps + r * lds;
@@ -149,11 +149,13 @@ attention_bwd_rows_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int j = lane; j < np; j += 32) dsr[j] = nkbx::from_f<T>(0.f);
         continue;
       }
-      const float* bi = bh + static_cast<size_t>(i) * n;
-      const float* mi = mg + static_cast<size_t>(i) * n;
+      const float* bi = bh ? bh + static_cast<size_t>(i) * n : nullptr;
+      const float* mi = mg ? mg + static_cast<size_t>(i) * n : nullptr;
       float mx = -FLT_MAX;
       for (int j = lane; j < n; j += 32) {
-        const float s = pr[j] * scale + bi[j] + mi[j];
+        float s = pr[j] * scale;
+        if (bi) s += bi[j];
+        if (mi) s += mi[j];
         pr[j] = s;
         mx = fmaxf(mx, s);
       }
@@ -182,7 +184,7 @@ attention_bwd_rows_kernel(const T* __restrict__ q, const T* __restrict__ k,
         dsr[j] = nkbx::from_f<T>(ds * scale);
       }
       if (lane == 0) {
-        const size_t row = (static_cast<size_t>(g) * heads + h) * n + i;
+        const size_t row = (static_cast<size_t>(g) * heads + h) * sld + i;
         stats.max[row] = mx;
         stats.inv[row] = inv;
         stats.rs[row] = rs;
@@ -217,7 +219,7 @@ attention_bwd_cols_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           const T* __restrict__ v, const float* __restrict__ bias,
                           const float* __restrict__ mask, const T* __restrict__ go,
                           T* __restrict__ dk, T* __restrict__ dv, Stats stats, int n, int heads,
-                          int bias_heads, int m, float scale) {
+                          int bias_heads, int m, int sld, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int j0 = blockIdx.x * kTk, h = blockIdx.y, g = blockIdx.z;
   const int c = heads * D;
@@ -237,9 +239,9 @@ attention_bwd_cols_kernel(const T* __restrict__ q, const T* __restrict__ k,
   T* dst = reinterpret_cast<T*>(carve(kRowsB * kLd * sizeof(T)));
   float* st = reinterpret_cast<float*>(carve(3 * kRowsB * 4));
   const size_t head0 = static_cast<size_t>(g) * n * c + h * D;
-  const size_t row0 = (static_cast<size_t>(g) * heads + h) * n;
-  const float* bh = bias + static_cast<size_t>(min(h, bias_heads - 1)) * n * n;
-  const float* mg = mask + static_cast<size_t>(g % m) * n * n;
+  const size_t row0 = (static_cast<size_t>(g) * heads + h) * sld;
+  const float* bh = bias ? bias + static_cast<size_t>(min(h, bias_heads - 1)) * n * n : nullptr;
+  const float* mg = mask ? mask + static_cast<size_t>(g % m) * n * n : nullptr;
   const int warp = threadIdx.x / 32;
 
   nkbx::load_rows(ks, k + head0, c, j0, kTk, n);
@@ -281,7 +283,9 @@ attention_bwd_cols_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float pv = 0.f, ds = 0.f;
       if (i < n && j < n) {
         const size_t e = static_cast<size_t>(i) * n + j;
-        const float s = ss[r * kLdB + cc] * scale + bh[e] + mg[e];
+        float s = ss[r * kLdB + cc] * scale;
+        if (bh) s += bh[e];
+        if (mg) s += mg[e];
         pv = expf(s - st[r]) * st[kRowsB + r];
         ds = pv * (dps[r * kLdB + cc] - st[2 * kRowsB + r]);
       }
@@ -340,7 +344,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* bias
   if (err != cudaSuccess) return err;
   err = nkbx::allow_smem(attention_bwd_cols_kernel<T>, cols_smem);
   if (err != cudaSuccess) return err;
-  const size_t rows = static_cast<size_t>(g) * heads * n;
+  const int sld = nkbx::padded_keys(n);
+  const size_t rows = static_cast<size_t>(g) * heads * sld;
   const Stats st{stats, stats + rows, stats + 2 * rows};
   const int chunks = (g + wpb - 1) / wpb;
   const T* qt = static_cast<const T*>(q);
@@ -352,13 +357,13 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* bias
   attention_bwd_rows_kernel<T>
       <<<dim3((n + kRowsA - 1) / kRowsA, heads, chunks), kThreads, rows_smem, stream>>>(
           qt, kt, vt, bt, mt, got, static_cast<T*>(dq), st, static_cast<float*>(partial), g, n,
-          heads, bias_heads, m, scale, wpb);
+          heads, bias_heads, m, sld, scale, wpb);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   attention_bwd_cols_kernel<T>
       <<<dim3((n + kTk - 1) / kTk, heads, g), kThreads, cols_smem, stream>>>(
           qt, kt, vt, bt, mt, got, static_cast<T*>(dk), static_cast<T*>(dv), st, n, heads,
-          bias_heads, m, scale);
+          bias_heads, m, sld, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess || partial == nullptr) return err;
   const dim3 grid((n * n + 255) / 256, bias_heads);
@@ -371,8 +376,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* bias
 }  // namespace
 
 // q, k, v, go, dq, dk, dv (G, N, H*64) in float (is_bf16 = 0) or bf16; bias
-// (bias_heads, N, N) and mask (M, N, N) in float; stats, float scratch of
-// 3*G*H*N. With dbias (bias_heads, N, N) float and the scratch partial
+// (bias_heads, N, N) and mask (M, N, N) in float, or null for zeros (never
+// read); stats, float scratch of 3*G*H*Np, Np = N rounded up to 64. With dbias (bias_heads, N, N) float and the scratch partial
 // (H, ceil(G / groups_per_block), N, N) float, dbias is computed; pass null
 // for both to skip it (groups_per_block is then 1). Returns the CUDA error
 // code of the launches (0 on success).

@@ -19,8 +19,9 @@ shows that the kernel, not its plain version, ran:
 - K3 full-sequence attention on separate q, k, v and K4 its backward, at
   the ViT sequences N = 50, 145, 197 and 577 (D = 64), with a (1, N, N) and an
   (H, N, N) bias, masks of M = 2 and 3, and K4 with and without dbias; K3
-  also at N = 1, 17, 63, 64, 65, 197 and 577 with None for an absent bias or
-  mask, two launches bit-identical;
+  also at N = 1, 17, 63, 64, 65, 197 and 577 and K4 at N = 1, 17, 63, 64,
+  65 and 197 with None for an absent bias or mask (K4's tensor-core pair in
+  bf16), two launches bit-identical;
 - K9 the fused bottleneck chain and K10 its backward, banded (th = 4, 7, 2,
   widths 8 and 14) and single-band (th = H), against the plain chain: the
   output, the six per-tile statistics and the ten gradients; a width the
@@ -51,8 +52,9 @@ largest value. K5 f32 5e-4, bf16 1.25e-1 (outputs reach 8, where one bf16
 ulp is 3.1e-2). K6, relative to each gradient's largest value: f32 1e-3,
 bf16 3e-2. K3 as K1; at ragged N f32 1e-4, bf16 2 bf16 ulps of the largest
 output. K4, relative to each gradient's largest value: f32
-1e-4, bf16 4 bf16 ulps (P, dS*scale and the outputs round to bf16); dbias
-1e-4 of its largest value. K7 f32 5e-4, bf16 6.25e-2 (the plain version
+1e-4, bf16 4 bf16 ulps (P, dS*scale and the outputs round to bf16; at
+ragged N 4 ulps of the largest of dq, dk, dv); dbias 1e-4 of its largest
+value. K7 f32 5e-4, bf16 6.25e-2 (the plain version
 rounds u to bf16 before the GELU and adds b1 to a rounded product; the
 outputs stay under 4, where one bf16 ulp is 1.6e-2). K8 as K6. K9's
 output: f32 5e-4, bf16 4 bf16 ulps of its largest value (a1, a2, y3 and the
@@ -321,6 +323,49 @@ def test_sep_attention_bwd_kernel_matches_plain_on_card(cuda_device, dtype, g, n
     assert no_dbias[3] is None
     for a, b in zip(got[:3], no_dbias[:3]):
         assert torch.equal(a, b)  # the same arithmetic, one group per block or several
+
+
+# K4 at query and key counts around its 64-row tiles: (bias heads, M, need_dbias),
+# None for an absent bias or mask ("none" is the ViT's path)
+SEP_BWD_RAGGED_N = [1, 17, 63, 64, 65, 197]
+SEP_BWD_OPERANDS = {"none": (None, None, False), "learned_no_dbias": (2, 2, False),
+                    "learned_dbias": (2, 2, True), "bias_no_mask": (2, None, True),
+                    "mask_no_bias": (None, 2, False)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("operands", list(SEP_BWD_OPERANDS))
+@pytest.mark.parametrize("n", SEP_BWD_RAGGED_N)
+def test_sep_attention_bwd_kernel_at_ragged_n(cuda_device, dtype, operands, n):
+    """K4 against its plain version at ragged N, with None for an absent bias
+    or mask (no dbias then) and a learned bias and mask with and without
+    dbias: dq, dk, dv within 4 bf16 ulps of the largest value (P, dS*scale
+    and the outputs round to bf16) or 1e-4 of it in f32, dbias within 1e-4
+    of its largest; a second launch is bit-identical and the launch count
+    moves by two."""
+    bh, m, need_dbias = SEP_BWD_OPERANDS[operands]
+    q, k, v, bias, mask, go = _sep_inputs(2, n, 2, m or 1, bh or 1, cuda_device, dtype)
+    bias = bias if bh else None
+    mask = mask if m else None
+    before = tattn.fused_attention_bwd.launches
+    got = tattn.fused_attention_bwd(q, k, v, bias, mask, go, 0.125, 2, need_dbias=need_dbias)
+    again = tattn.fused_attention_bwd(q, k, v, bias, mask, go, 0.125, 2, need_dbias=need_dbias)
+    torch.cuda.synchronize()
+    assert tattn.fused_attention_bwd.launches == before + 2
+    want = tattn.reference_attention_sep_bwd(q, k, v, bias, mask, go, 0.125, 2)
+    big = max(w.float().abs().max().item() for w in want[:3])
+    tol = 1e-4 * big if dtype == torch.float32 else 4 * 2.0 ** (np.floor(np.log2(big)) - 7)
+    for gv, av, wv in zip(got[:3], again[:3], want[:3]):
+        assert gv.dtype == dtype and gv.shape == q.shape
+        assert (gv.float() - wv.float()).abs().max().item() <= tol
+        assert torch.equal(gv, av)
+    if need_dbias:
+        assert got[3].dtype == torch.float32 and got[3].shape == bias.shape
+        assert ((got[3] - want[3]).abs().max() <= 1e-4 * want[3].abs().max()).item()
+        assert torch.equal(got[3], again[3])
+    else:
+        assert got[3] is None
 
 
 @pytest.mark.cuda
@@ -749,7 +794,8 @@ def test_card_tests_collect_without_jax_or_nkbx():
     n = (2 * 2 * len(ATTN_CASES) + 2 * 2 * len(MLP_CASES) + 2 * 2 * len(MLP_ONLY_CASES)
          + 2 * 2 * len(SEP_CASES) + 2 + 2 + 2 * len(CHAIN_CASES) + 2
          + 2 * len(MB_CASES) + 2 + 1 + 2 * len(GC_CASES) + 1 + 2 * len(LAYOUT_CASES) + 1 + 1
-         + 2 * len(SEP_RAGGED_N) * len(SEP_OPERANDS) + 2 * len(GC_WIDTH_CASES))
+         + 2 * len(SEP_RAGGED_N) * len(SEP_OPERANDS) + 2 * len(GC_WIDTH_CASES)
+         + 2 * len(SEP_BWD_RAGGED_N) * len(SEP_BWD_OPERANDS))
     word = "passed" if torch.cuda.is_available() else "skipped"
     assert re.search(rf"\b{n} {word}\b", proc.stdout), proc.stdout[-2000:]
 

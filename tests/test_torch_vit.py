@@ -75,27 +75,34 @@ def _attn_inputs(g, n, heads, m, bh, seed=0):
     return q, k, v, bias, mask, go
 
 
-@pytest.mark.parametrize("g,n,heads,m,bh", ATTN_CASES)
+@pytest.mark.parametrize("g,n,heads,m,bh", ATTN_CASES + [(2, 197, 2, None, None)])
 def test_attention_matches_pallas_interpret(g, n, heads, m, bh):
     """Forward: the port's entry on CPU tensors (the plain version) against
     nkbx's Pallas kernel; backward: the plain backward and the port's
-    autograd Function against jax.vjp of the Pallas kernel."""
-    q, k, v, bias, mask, go = _attn_inputs(g, n, heads, m, bh)
+    autograd Function against jax.vjp of the Pallas kernel. ``m`` and ``bh``
+    None: the port gets None for the bias and the mask (the ViT's path), and
+    nkbx the constant (1, N, N) zeros its hook passes; no dbias."""
+    q, k, v, bias, mask, go = _attn_inputs(g, n, heads, m or 1, bh or 1)
+    if bh is None:
+        bias, mask = np.zeros_like(bias), np.zeros_like(mask)
     scale = D ** -0.5
-    jmask = jnp.asarray(mask)
-    want, vjp = jax.vjp(lambda a, b, c, d: jattn.fused_attention(a, b, c, d, jmask, scale, heads,
-                                                                 interpret=True),
-                        *(jnp.asarray(t) for t in (q, k, v, bias)))
+    jbias, jmask = jnp.asarray(bias), jnp.asarray(mask)
+    leaves_np = (q, k, v, bias) if bh else (q, k, v)
+    want, vjp = jax.vjp(lambda a, b, c, d=jbias: jattn.fused_attention(a, b, c, d, jmask, scale,
+                                                                       heads, interpret=True),
+                        *(jnp.asarray(t) for t in leaves_np))
     wants = vjp(jnp.asarray(go))
-    leaves = [torch.from_numpy(t).requires_grad_() for t in (q, k, v, bias)]
+    leaves = [torch.from_numpy(t).requires_grad_() for t in leaves_np]
+    tbias, tmask = (leaves[3], torch.from_numpy(mask)) if bh else (None, None)
     before = tattn.fused_attention.launches, tattn.fused_attention_bwd.launches
-    got = tattn.fused_attention(*leaves, torch.from_numpy(mask), scale, heads)
+    got = tattn.fused_attention(*leaves[:3], tbias, tmask, scale, heads)
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
     got.backward(torch.from_numpy(go))
-    plain = tattn.reference_attention_sep_bwd(*(torch.from_numpy(t) for t in (q, k, v, bias)),
-                                              torch.from_numpy(mask), torch.from_numpy(go),
-                                              scale, heads)
+    plain = tattn.reference_attention_sep_bwd(*(torch.from_numpy(t) for t in (q, k, v)),
+                                              None if tbias is None else torch.from_numpy(bias),
+                                              tmask, torch.from_numpy(go), scale, heads)
     assert (tattn.fused_attention.launches, tattn.fused_attention_bwd.launches) == before
+    assert (plain[3] is None) is (bh is None)
     for name, leaf, p, w in zip(("dq", "dk", "dv", "dbias"), leaves, plain, wants):
         w = np.asarray(w)
         atol = 1e-4 * np.abs(w).max() if name == "dbias" else 1e-4
@@ -113,6 +120,45 @@ def test_attention_bwd_skips_dbias_for_a_constant_bias():
     ref = tattn.reference_attention_sep_bwd(q, k, v, bias, mask, go, D ** -0.5, 2)
     for a, b in zip(out[:3], ref[:3]):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_bwd_takes_none_for_bias_and_mask(dtype):
+    """``fused_attention_bwd`` with None for the bias and the mask (what the
+    ViT's backward passes): no dbias, even when asked for, and dq, dk, dv
+    equal to the call with explicit (1, N, N) zeros."""
+    q, k, v, bias, mask, go = (torch.from_numpy(t) for t in _attn_inputs(2, 50, 2, 1, 1, seed=7))
+    q, k, v, go = (t.to(dtype) for t in (q, k, v, go))
+    zero = torch.zeros_like(bias)
+    none = tattn.fused_attention_bwd(q, k, v, None, None, go, D ** -0.5, 2)
+    zeros = tattn.fused_attention_bwd(q, k, v, zero, zero, go, D ** -0.5, 2, need_dbias=False)
+    assert none[3] is None and zeros[3] is None
+    for a, b in zip(none[:3], zeros[:3]):
+        assert a.dtype == dtype and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("mask_given", [False, True])
+def test_none_bias_leaves_no_gradient(monkeypatch, mask_given):
+    """Through ``_Attention`` a None bias reaches the backward as None, which
+    returns no dbias; q, k and v get theirs."""
+    q, k, v, _, mask, go = (torch.from_numpy(t) for t in _attn_inputs(2, 17, 2, 1, 1, seed=8))
+    mask = mask if mask_given else None
+    seen = []
+
+    def recording(*args, **kwargs):
+        out = bwd(*args, **kwargs)
+        seen.append((args[3], args[4], kwargs.get("need_dbias"), out[3]))
+        return out
+
+    bwd = tattn.fused_attention_bwd
+    monkeypatch.setattr(tattn, "fused_attention_bwd", recording)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    tattn.fused_attention(*leaves, None, mask, D ** -0.5, 2).backward(go)
+    assert len(seen) == 1
+    bias_seen, mask_seen, need_dbias, dbias = seen[0]
+    assert bias_seen is None and dbias is None and need_dbias is False
+    assert mask_seen is mask
+    assert all(t.grad is not None and torch.isfinite(t.grad).all() for t in leaves)
 
 
 def test_packed_backward_is_the_shared_core():
@@ -179,7 +225,8 @@ def test_absent_bias_or_mask_matches_nkbx_zeros(dtype, atol, none_bias, none_mas
 
 def test_absent_bias_and_mask_train_like_zeros():
     """The autograd entry with None: its gradients equal those with (1, N, N)
-    zeros, which the backward substitutes."""
+    zeros (the backward passes None on, and the plain version adds
+    nothing)."""
     q, k, v, _, _, go = (torch.from_numpy(t) for t in _attn_inputs(2, 50, 2, 1, 1, seed=6))
     zero = torch.zeros(1, 50, 50)
     grads = []
