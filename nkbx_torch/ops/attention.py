@@ -213,12 +213,19 @@ def sep_smem_bytes(n: int, itemsize: int) -> int:
             + _align128(32 * (np_ + 4) * 4) + _align128(32 * (np_ + 8) * itemsize))
 
 
-def sep_bwd_smem_bytes(n: int, itemsize: int) -> int:
+def sep_bwd_smem_bytes(n: int, itemsize: int, streaming: bool = False) -> int:
     """Shared memory of a block of the larger of the backward's two kernels
-    (attention_bwd.cu): the rows kernel holds 16 rows of f32 P and dP (Np+4)
-    and of rounded dS·scale (Np+8) beside q, go (16, 72) and k, v (64, 72)
-    tiles; the cols kernel holds fixed (64, 72) and (32, 72) tiles."""
+    (attention_bwd.cu). ``streaming`` (bf16 with no bias and no mask, the
+    tensor-core pair), whatever N is: the cols kernel's k and v tiles (64,
+    72) and 3 ring slots of q and go tiles with 64 rows of three f32
+    statistics, above the rows kernel's 8 tiles. Otherwise (the first
+    design) the rows kernel holds 16 rows of f32 P and dP (Np+4) and of
+    rounded dS·scale (Np+8) beside q, go (16, 72) and k, v (64, 72) tiles;
+    the cols kernel holds fixed (64, 72) and (32, 72) tiles."""
     np_, ld = _padded_keys(n), HEAD_DIM + 8
+    if streaming:
+        tile = 64 * ld * 2
+        return max(8 * tile, 2 * tile + 3 * (2 * tile + 3 * 64 * 4))
     rows = (2 * _align128(16 * ld * itemsize) + 2 * _align128(64 * ld * itemsize)
             + 2 * _align128(16 * (np_ + 4) * 4) + _align128(16 * (np_ + 8) * itemsize))
     cols = (2 * _align128(64 * ld * itemsize) + 4 * _align128(32 * ld * itemsize)
@@ -328,7 +335,9 @@ def fused_attention_bwd(q, k, v, bias, mask, go, scale: float, heads: int,
     if not q.is_cuda:
         dq, dk, dv, dbias = reference_attention_sep_bwd(q, k, v, bias, mask, go, scale, heads)
         return dq, dk, dv, dbias if need_dbias else None
-    g, n, m = _check_sep(q, k, v, bias, mask, heads, sep_bwd_smem_bytes)
+    streaming = q.dtype == torch.bfloat16 and bias is None and mask is None
+    g, n, m = _check_sep(q, k, v, bias, mask, heads,
+                         lambda n_, size: sep_bwd_smem_bytes(n_, size, streaming))
     dev, dt = q.device, q.dtype
     if go.shape != q.shape or go.dtype != dt or go.device != dev:
         raise ValueError(f"cotangent {tuple(go.shape)} {go.dtype} is not q's "

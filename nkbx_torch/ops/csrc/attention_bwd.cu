@@ -40,6 +40,7 @@
 #include <cfloat>
 
 #include "attention_tile.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -373,6 +374,384 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* bias
   return cudaGetLastError();
 }
 
+// --- bf16, no bias and no mask: the tensor-core pair ---------------------------------
+
+using bf16 = __nv_bfloat16;
+using nkbx::cp_async16;
+using nkbx::ldmatrix_x4;
+using nkbx::ldmatrix_x4_trans;
+using nkbx::mma_bf16;
+using nkbx::pack_bf16;
+using nkbx::smem_addr;
+constexpr int kTcThreads = 128;              // 4 warps, 16 rows or keys each
+constexpr int kTcRows = 64;                  // query rows (rows_tc) or keys (cols_tc) a block
+constexpr int kTcLd = D + 8;                 // row stride of the shared tiles: 144 bytes
+constexpr int kTcTile = kTcRows * kTcLd * 2;  // bytes of one 64-row tile
+constexpr int kTcSlots = 3;                  // ring slots: the step's and two steps ahead
+constexpr int kTcStats = 3 * kTcRows * 4;    // bytes of 64 rows' max, inv and rs
+// rows_tc: the q and go tiles, then 3 slots of a K and a V tile (73,728 B)
+constexpr size_t kRowsTcSmem = static_cast<size_t>(2 + 2 * kTcSlots) * kTcTile;
+// cols_tc: the k and v tiles, then 3 slots of a q and a go tile and their rows'
+// statistics (76,032 B); either kernel fits three blocks an SM
+constexpr int kColsSlot = 2 * kTcTile + kTcStats;
+constexpr size_t kColsTcSmem = 2 * kTcTile + static_cast<size_t>(kTcSlots) * kColsSlot;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// 2^x on the special-function unit.
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Rows row0 .. row0 + 63 of one head's (n, D) slice (src at the head's first
+// element, stride c) into a shared tile by 16-byte cp.async; rows past n are
+// zero-filled.
+__device__ __forceinline__ void copy_tile(unsigned dst, const bf16* __restrict__ src, int c,
+                                          int row0, int n) {
+  for (int i = threadIdx.x; i < kTcRows * (D / 8); i += kTcThreads) {
+    const int r = i / (D / 8), ch = i % (D / 8);
+    const bool in = row0 + r < n;
+    cp_async16(dst + (r * kTcLd + ch * 8) * 2,
+               src + static_cast<size_t>(in ? row0 + r : 0) * c + ch * 8, in ? 16 : 0);
+  }
+}
+
+// The A fragments of a warp's 16 rows r0 .. r0 + 15 of a tile, over all D.
+__device__ __forceinline__ void load_a(unsigned (&a)[D / 16][4], unsigned tile, int r0) {
+  const int lane = threadIdx.x % 32, mi = lane / 8;
+  const int r = r0 + (mi % 2) * 8 + lane % 8;
+#pragma unroll
+  for (int kc = 0; kc < D / 16; ++kc)
+    ldmatrix_x4(a[kc], tile + (r * kTcLd + kc * 16 + (mi / 2) * 8) * 2);
+}
+
+// c = a (16 x D) times (rows r0 .. r0 + 15 of a tile)^T: the products of a
+// warp's 16 rows with 16 rows of a shared tile. c[nt] holds rows lane/4
+// (elements 0, 1) and lane/4 + 8 (2, 3) at the tile rows r0 + nt*8 +
+// 2 (lane % 4) + {0, 1}.
+__device__ __forceinline__ void dot_rows(float (&c)[2][4], const unsigned (&a)[D / 16][4],
+                                         unsigned tile, int r0) {
+  const int lane = threadIdx.x % 32, mi = lane / 8;
+  const int row = r0 + (mi / 2) * 8 + lane % 8;
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt) c[nt][0] = c[nt][1] = c[nt][2] = c[nt][3] = 0.f;
+#pragma unroll
+  for (int kc = 0; kc < D / 16; ++kc) {
+    // matrices: rows +0..7 / d +0..7, rows +0..7 / d +8..15, rows +8..15 / ...
+    unsigned b[4];
+    ldmatrix_x4(b, tile + (row * kTcLd + kc * 16 + (mi % 2) * 8) * 2);
+    mma_bf16(c[0], a[kc], b[0], b[1]);
+    mma_bf16(c[1], a[kc], b[2], b[3]);
+  }
+}
+
+// acc += a (16 x 16, k = the tile rows r0 .. r0 + 15) times those rows of a
+// tile over all D columns (ldmatrix.trans).
+__device__ __forceinline__ void acc_rows(float (&acc)[D / 8][4], const unsigned (&a)[4],
+                                         unsigned tile, int r0) {
+  const int lane = threadIdx.x % 32, mi = lane / 8;
+  const int row = r0 + (mi % 2) * 8 + lane % 8;
+#pragma unroll
+  for (int dp = 0; dp < D / 16; ++dp) {
+    // matrices: rows +0..7 / d +0..7, rows +8..15 / d +0..7, rows +0..7 / d +8..15, ...
+    unsigned b[4];
+    ldmatrix_x4_trans(b, tile + (row * kTcLd + dp * 16 + (mi / 2) * 8) * 2);
+    mma_bf16(acc[2 * dp], a, b[0], b[1]);
+    mma_bf16(acc[2 * dp + 1], a, b[2], b[3]);
+  }
+}
+
+// Store a warp's 16 x D float accumulator as bf16 rows row0 + lane/4 (+ 8),
+// rows at or past n skipped.
+__device__ __forceinline__ void store_rows(bf16* __restrict__ dst, const float (&acc)[D / 8][4],
+                                           int row0, int n, int c) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int hi = 0; hi < 2; ++hi) {
+    const int i = row0 + lane / 4 + hi * 8;
+    if (i >= n) continue;
+    bf16* p = dst + static_cast<size_t>(i) * c + (lane % 4) * 2;
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt)
+      *reinterpret_cast<unsigned*>(p + nt * 8) = pack_bf16(acc[nt][2 * hi], acc[nt][2 * hi + 1]);
+  }
+}
+
+// The lanes of a quad (the four that share a fragment row) combined.
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// Rows kernel: a block owns 64 query rows of one (g, h), 16 a warp, with
+// their q and go fragments in registers. The stream is the key tiles twice,
+// each step a K and a V tile in one ring slot (one cp.async commit group; the
+// q and go tiles ride in the first), two steps ahead of the one multiplied.
+// Pass 1: S = q K^T and dP = go V^T; a running max, sum of exp(s - max) and
+// sum of exp(s - max) dP, rescaled online, give each row's max, 1/sum and
+// rs = rowsum(dP o P). Pass 2: S and dP again, P = exp(s - max) / sum and
+// dS = P o (dP - rs) in float, round(dS * scale) as the A fragments of
+// dQ += round(dS * scale) K.
+__global__ void __launch_bounds__(kTcThreads, 3)
+attention_bwd_rows_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, const bf16* __restrict__ go,
+                      bf16* __restrict__ dq, Stats stats, int n, int heads, int sld,
+                      float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const unsigned qs = smem_addr(smem), gs = qs + kTcTile, ring = gs + kTcTile;
+  const int i0 = blockIdx.x * kTcRows, h = blockIdx.y, g = blockIdx.z;
+  const int c = heads * D, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const size_t head0 = static_cast<size_t>(g) * n * c + h * D;
+  const int nk = (n + kTk - 1) / kTk, steps = 2 * nk;
+  const int row0 = i0 + warp * 16;
+  const bool busy = row0 < n;  // a warp with no row below n only copies and waits
+
+  copy_tile(qs, q + head0, c, i0, n);
+  copy_tile(gs, go + head0, c, i0, n);
+  int issued = 0;
+  auto issue = [&](int t) {  // step t's K and V tiles (key tile t % nk) into slot t % 3
+    if (t < steps) {
+      const unsigned slot = ring + (t % kTcSlots) * 2 * kTcTile;
+      copy_tile(slot, k + head0, c, (t % nk) * kTk, n);
+      copy_tile(slot + kTcTile, v + head0, c, (t % nk) * kTk, n);
+    }
+    nkbx::cp_async_commit();
+  };
+  auto ready = [&](int t) {  // step t's tiles resident in every thread's view
+    __syncthreads();  // the slot about to be refilled is no longer read
+    while (issued <= t + kTcSlots - 1) issue(issued++);
+    nkbx::cp_async_wait<kTcSlots - 1>();
+    __syncthreads();
+  };
+
+  unsigned qf[D / 16][4], gf[D / 16][4];
+  float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.f, 0.f}, dot[2] = {0.f, 0.f};
+
+  // 1. Statistics over the key tiles.
+  for (int t = 0; t < nk; ++t) {
+    ready(t);
+    if (t == 0 && busy) {
+      load_a(qf, qs, warp * 16);
+      load_a(gf, gs, warp * 16);
+    }
+    if (!busy) continue;
+    const unsigned kt = ring + (t % kTcSlots) * 2 * kTcTile, vt = kt + kTcTile;
+    const int j0 = t * kTk;
+    float s[4][2][4], dp[4][2][4];
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      dot_rows(s[np], qf, kt, np * 16);
+      dot_rows(dp[np], gf, vt, np * 16);
+    }
+#pragma unroll
+    for (int np = 0; np < 4; ++np)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = j0 + np * 16 + nt * 8 + (lane % 4) * 2 + e % 2;
+          s[np][nt][e] = key < n ? s[np][nt][e] * scale : -INFINITY;
+        }
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      float tmax = -INFINITY;
+#pragma unroll
+      for (int np = 0; np < 4; ++np)
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+          tmax = fmaxf(tmax, fmaxf(s[np][nt][2 * hi], s[np][nt][2 * hi + 1]));
+      const float mnew = fmaxf(mx[hi], quad_max(tmax));
+      const float alpha = mx[hi] == -INFINITY ? 0.f : exp2_approx((mx[hi] - mnew) * kLog2e);
+      float a_sum = sum[hi] * alpha, a_dot = dot[hi] * alpha;
+#pragma unroll
+      for (int np = 0; np < 4; ++np)
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int e = 2 * hi; e < 2 * hi + 2; ++e) {
+            const float ex = exp2_approx((s[np][nt][e] - mnew) * kLog2e);
+            a_sum += ex;
+            a_dot = fmaf(ex, dp[np][nt][e], a_dot);
+          }
+      mx[hi] = mnew;
+      sum[hi] = a_sum;  // this lane's share; the quad adds its four after the pass
+      dot[hi] = a_dot;
+    }
+  }
+  float inv[2], rs[2];
+#pragma unroll
+  for (int hi = 0; hi < 2; ++hi) {
+    inv[hi] = 1.f / quad_sum(sum[hi]);
+    rs[hi] = quad_sum(dot[hi]) * inv[hi];
+    const int i = row0 + lane / 4 + hi * 8;
+    if (busy && lane % 4 == 0 && i < n) {
+      const size_t row = (static_cast<size_t>(g) * heads + h) * sld + i;
+      stats.max[row] = mx[hi];
+      stats.inv[row] = inv[hi];
+      stats.rs[row] = rs[hi];
+    }
+  }
+
+  // 2. dQ: recompute each tile's S and dP 16 keys at a time, dS in float,
+  //    round(dS * scale) in registers as the A fragments of dS K.
+  float acc[D / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < D / 8; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+  for (int t = 0; t < nk; ++t) {
+    ready(nk + t);
+    if (!busy) continue;
+    const unsigned kt = ring + ((nk + t) % kTcSlots) * 2 * kTcTile, vt = kt + kTcTile;
+#pragma unroll
+    for (int kc = 0; kc < kTk / 16; ++kc) {
+      float s[2][4], dp[2][4];
+      dot_rows(s, qf, kt, kc * 16);
+      dot_rows(dp, gf, vt, kc * 16);
+      float ds[2][4];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = t * kTk + kc * 16 + nt * 8 + (lane % 4) * 2 + e % 2;
+          const float p = exp2_approx((s[nt][e] * scale - mx[e / 2]) * kLog2e) * inv[e / 2];
+          ds[nt][e] = key < n ? p * (dp[nt][e] - rs[e / 2]) * scale : 0.f;
+        }
+      const unsigned a[4] = {pack_bf16(ds[0][0], ds[0][1]), pack_bf16(ds[0][2], ds[0][3]),
+                             pack_bf16(ds[1][0], ds[1][1]), pack_bf16(ds[1][2], ds[1][3])};
+      acc_rows(acc, a, kt, kc * 16);
+    }
+  }
+  nkbx::cp_async_wait<0>();
+  if (busy) store_rows(dq + head0, acc, row0, n, c);
+}
+
+// Cols kernel: a block owns 64 keys of one (g, h), 16 a warp, with their K
+// and V fragments in registers, and walks the queries in 64-row tiles of q,
+// go and the rows kernel's three statistics through a 3-slot cp.async ring,
+// two tiles ahead. Per 16 query rows: S^T = K q^T and dP^T = V go^T, P^T =
+// exp(s - max) / sum from the statistics (the same score products, so the
+// same P), dS^T = P^T o (dP^T - rs); dV += round(P^T) go and dK +=
+// round(dS^T * scale) q in float registers, each rounded once at the end.
+__global__ void __launch_bounds__(kTcThreads, 3)
+attention_bwd_cols_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, const bf16* __restrict__ go,
+                      bf16* __restrict__ dk, bf16* __restrict__ dv, Stats stats, int n,
+                      int heads, int sld, float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const unsigned ks = smem_addr(smem), vs = ks + kTcTile, ring = vs + kTcTile;
+  const int j0 = blockIdx.x * kTcRows, h = blockIdx.y, g = blockIdx.z;
+  const int c = heads * D, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const size_t head0 = static_cast<size_t>(g) * n * c + h * D;
+  const size_t srow = (static_cast<size_t>(g) * heads + h) * sld;
+  const int nq = (n + kTcRows - 1) / kTcRows;
+  const int key0 = j0 + warp * 16;
+  const bool busy = key0 < n;
+
+  copy_tile(ks, k + head0, c, j0, n);
+  copy_tile(vs, v + head0, c, j0, n);
+  int issued = 0;
+  auto issue = [&](int t) {  // query tile t: q, go and 64 rows of each statistic
+    if (t < nq) {
+      const unsigned slot = ring + (t % kTcSlots) * kColsSlot;
+      copy_tile(slot, q + head0, c, t * kTcRows, n);
+      copy_tile(slot + kTcTile, go + head0, c, t * kTcRows, n);
+      if (threadIdx.x < 3 * kTcRows / 4) {  // 16 chunks of 4 rows a statistic
+        const int which = threadIdx.x / (kTcRows / 4), ch = threadIdx.x % (kTcRows / 4);
+        const float* src = which == 0 ? stats.max : which == 1 ? stats.inv : stats.rs;
+        cp_async16(slot + 2 * kTcTile + (which * kTcRows + ch * 4) * 4,
+                   src + srow + t * kTcRows + ch * 4, 16);
+      }
+    }
+    nkbx::cp_async_commit();
+  };
+  auto ready = [&](int t) {
+    __syncthreads();
+    while (issued <= t + kTcSlots - 1) issue(issued++);
+    nkbx::cp_async_wait<kTcSlots - 1>();
+    __syncthreads();
+  };
+
+  unsigned kf[D / 16][4], vf[D / 16][4];
+  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < D / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[nt][e] = dv_acc[nt][e] = 0.f;
+  for (int t = 0; t < nq; ++t) {
+    ready(t);
+    if (t == 0 && busy) {
+      load_a(kf, ks, warp * 16);
+      load_a(vf, vs, warp * 16);
+    }
+    if (!busy) continue;
+    const unsigned qt = ring + (t % kTcSlots) * kColsSlot, gt = qt + kTcTile;
+    const float* st = reinterpret_cast<const float*>(smem + (qt - ks) + 2 * kTcTile);
+    const int i0 = t * kTcRows;
+#pragma unroll
+    for (int kc = 0; kc < kTcRows / 16; ++kc) {
+      float s[2][4], dp[2][4];
+      dot_rows(s, kf, qt, kc * 16);
+      dot_rows(dp, vf, gt, kc * 16);
+      float p[2][4], ds[2][4];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const int r = kc * 16 + nt * 8 + (lane % 4) * 2;  // query rows r, r + 1 of the tile
+        const float2 m2 = *reinterpret_cast<const float2*>(st + r);
+        const float2 i2 = *reinterpret_cast<const float2*>(st + kTcRows + r);
+        const float2 r2 = *reinterpret_cast<const float2*>(st + 2 * kTcRows + r);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool odd = e % 2;
+          const float pv = exp2_approx((s[nt][e] * scale - (odd ? m2.y : m2.x)) * kLog2e) *
+                           (odd ? i2.y : i2.x);
+          const bool in = i0 + r + odd < n;  // statistics past n are never written
+          p[nt][e] = in ? pv : 0.f;
+          ds[nt][e] = in ? pv * (dp[nt][e] - (odd ? r2.y : r2.x)) * scale : 0.f;
+        }
+      }
+      const unsigned pa[4] = {pack_bf16(p[0][0], p[0][1]), pack_bf16(p[0][2], p[0][3]),
+                              pack_bf16(p[1][0], p[1][1]), pack_bf16(p[1][2], p[1][3])};
+      const unsigned da[4] = {pack_bf16(ds[0][0], ds[0][1]), pack_bf16(ds[0][2], ds[0][3]),
+                              pack_bf16(ds[1][0], ds[1][1]), pack_bf16(ds[1][2], ds[1][3])};
+      acc_rows(dv_acc, pa, gt, kc * 16);
+      acc_rows(dk_acc, da, qt, kc * 16);
+    }
+  }
+  nkbx::cp_async_wait<0>();
+  if (!busy) return;
+  store_rows(dk + head0, dk_acc, key0, n, c);
+  store_rows(dv + head0, dv_acc, key0, n, c);
+}
+
+cudaError_t launch_tc(const void* q, const void* k, const void* v, const void* go, void* dq,
+                      void* dk, void* dv, float* stats, int g, int n, int heads, float scale,
+                      cudaStream_t stream) {
+  cudaError_t err = nkbx::allow_smem(attention_bwd_rows_tc, kRowsTcSmem);
+  if (err != cudaSuccess) return err;
+  err = nkbx::allow_smem(attention_bwd_cols_tc, kColsTcSmem);
+  if (err != cudaSuccess) return err;
+  const int sld = nkbx::padded_keys(n);
+  const size_t rows = static_cast<size_t>(g) * heads * sld;
+  const Stats st{stats, stats + rows, stats + 2 * rows};
+  const bf16* qt = static_cast<const bf16*>(q);
+  const bf16* kt = static_cast<const bf16*>(k);
+  const bf16* vt = static_cast<const bf16*>(v);
+  const bf16* got = static_cast<const bf16*>(go);
+  const dim3 grid((n + kTcRows - 1) / kTcRows, heads, g);
+  attention_bwd_rows_tc<<<grid, kTcThreads, kRowsTcSmem, stream>>>(
+      qt, kt, vt, got, static_cast<bf16*>(dq), st, n, heads, sld, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  attention_bwd_cols_tc<<<grid, kTcThreads, kColsTcSmem, stream>>>(
+      qt, kt, vt, got, static_cast<bf16*>(dk), static_cast<bf16*>(dv), st, n, heads, sld, scale);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // q, k, v, go, dq, dk, dv (G, N, H*64) in float (is_bf16 = 0) or bf16; bias
@@ -388,6 +767,8 @@ extern "C" int nkbx_attention_bwd(const void* q, const void* k, const void* v, c
                                   int groups_per_block, int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* st = static_cast<float*>(stats);
+  if (is_bf16 && bias == nullptr && mask == nullptr)
+    return static_cast<int>(launch_tc(q, k, v, go, dq, dk, dv, st, g, n, heads, scale, s));
   const int wpb = partial == nullptr ? 1 : groups_per_block;
   return static_cast<int>(
       is_bf16 ? launch<__nv_bfloat16>(q, k, v, bias, mask, go, dq, dk, dv, st, dbias, partial, g,

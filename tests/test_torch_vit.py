@@ -195,6 +195,19 @@ def test_bf16_forward_smem_does_not_grow_with_n():
         tattn._check_sep(q, q, q, None, None, 1, tattn.sep_bwd_smem_bytes)
 
 
+def test_bf16_backward_smem_without_bias_or_mask_does_not_grow_with_n():
+    """K4's tensor-core pair (bf16, None for the bias and the mask) streams
+    both q and keys: its shared memory is the cols kernel's k and v tiles
+    and 3 ring slots of q and go tiles and 64 rows of three statistics at
+    every N, so its gate takes any N; f32 and a given bias keep the first
+    design's gate."""
+    tile = 64 * 72 * 2
+    sizes = {tattn.sep_bwd_smem_bytes(n, 2, streaming=True) for n in (1, 65, 197, 577, 10_000)}
+    assert sizes == {2 * tile + 3 * (2 * tile + 3 * 64 * 4)}
+    assert sizes.pop() <= tattn._MAX_SMEM
+    assert tattn.sep_bwd_smem_bytes(2000, 2) > tattn._MAX_SMEM
+
+
 @pytest.mark.parametrize("dtype,atol", [(np.float32, 5e-4), ("bfloat16", 2e-2)])
 @pytest.mark.parametrize("none_bias,none_mask", [(True, True), (True, False), (False, True)])
 def test_absent_bias_or_mask_matches_nkbx_zeros(dtype, atol, none_bias, none_mask):
