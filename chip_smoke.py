@@ -42,10 +42,16 @@
 3. The same for the backward kernels: K2 and K6 at the shapes of a batch-64
    Swin-T train step (and window 12 for K2, a ragged tile with a layer-scale
    and an FMA width for K6, ViT-B's MLP for K6), K4 at K3's shapes (dbias
-   checked in the small case), K8 at K7's shapes, K10 at K9's (all ten
-   gradients). The library time of a backward is the backward alone of
-   scaled_dot_product_attention, with the SDPA backend that ran; no PyTorch
-   call computes K5-K10.
+   checked in the small case) and at N = 1, 17, 63, 64 and 65 with None or
+   a learned bias and mask with dbias, in bf16 and f32, 4 bf16 ulps of the
+   largest gradient, a second launch bit-identical; at ViT-B's three
+   sequences timed with a cold L2 with None (the ViT's path, the
+   tensor-core pair) against SDPA's unmasked backward, with the zeros and
+   with a learned bias and mask (no dbias) against SDPA given their float
+   mask, each first held against plain, with its share of the bound; K8 at
+   K7's shapes, K10 at K9's (all ten gradients). The library time of a
+   backward is the backward alone of scaled_dot_product_attention, with the
+   SDPA backend that ran; no PyTorch call computes K5-K10.
 4. Drives the serving path of swin_tiny_patch4_window7_224, of
    vit_base_patch16_224 (fused_attention and fused_mlp on) and of
    convnext_tiny, twice (through K5 and, under NKBX_FUSED_LN_MLP=0, through
@@ -82,7 +88,8 @@
    tolerances (check_chain_blocks). Then step time, img/s and peak memory
    of both paths (for ResNet also of the unfused ghost-BN resnet50 from the
    same weights, the model a user would run without the chain), and a
-   profile of one step. Then resnet50 with exact BatchNorm, which runs no
+   profile of one step, with the attention backward's device time in it
+   (K2 for Swin-T, K4 for ViT-B). Then resnet50 with exact BatchNorm, which runs no
    kernel of ours (its launch counts are read and must stay 0):
    RESNET_EXACT, bench.py's program (224 px, 1000 classes, batch 128, bf16,
    flips + Normalize, sgd at lr 0.1): step 0's loss against f32, finite

@@ -311,8 +311,8 @@ class _Attention(torch.autograd.Function):
 
 def fused_attention(q, k, v, bias, mask, scale: float, heads: int):
     """softmax(q kᵀ·scale + bias + mask) v on separate q, k, v; see the module
-    docstring for the layout. ``bias`` or ``mask`` None means zeros, which the
-    forward kernel then does not read. Differentiable in q, k, v and bias;
+    docstring for the layout. ``bias`` or ``mask`` None means zeros, which
+    neither kernel then reads. Differentiable in q, k, v and bias;
     the mask gets no gradient. On CUDA tensors the forward and the backward
     launch the kernels (heads of width 64 only; anything else raises); on CPU
     tensors they compute the plain versions."""

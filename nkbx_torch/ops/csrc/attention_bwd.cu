@@ -9,33 +9,64 @@
 //   dQ = round(dS * scale) K;  dK = round(dS * scale)^T Q
 // every product accumulating in float, each output rounded once to T
 // (attention.py:239-269). dbias = sum over groups of dS (also over heads
-// when the bias is shared), in float, only when asked for.
+// when the bias is shared), in float, only when asked for. A null bias or
+// mask adds nothing and is never read (the ViT's zeros).
 //
 // What bounds it on an H100: at ViT-B/16 (N = 197) a (g, h) reads 4*N*D and
 // writes 3*N*D values for 10*N*N*D operations (five products), about 280
 // operations per byte in bf16: at the ridge of the card, so the products
-// run on the tensor cores (bf16 WMMA; float FMAs for float storage, through
-// attention_tile.cuh). The (N, N) P, dP and dS never reach device memory.
+// run on the tensor cores. The (N, N) P, dP and dS never reach device
+// memory. dK and dV sum over every query row, and dQ over every key, so
+// each output has a kernel of its own that recomputes P from the same score
+// products: a rows kernel (dQ and the per-row statistics max, 1/sum and
+// rs = rowsum(dP o P), 3*G*H*Np floats, Np = N rounded up to 64) and then a
+// cols kernel (dK, dV) that reads them. No atomics: each output element is
+// written once by one thread, and a second launch is bit-identical.
 //
-// dK and dV sum over every query row, and at N = 577 their float
-// accumulators would not fit a block beside the rows they sum. So two
-// kernels, each recomputing P from the same tile products:
-// - rows: a block owns 16 query rows of one head and a run of `wpb` groups,
-//   one after the other. It holds the rows' whole float P and dP rows
-//   (streaming K and V in 64-key tiles), forms rowsum(dP o P) and dS, writes
-//   dQ = round(dS*scale) K (streaming K again), and writes the per-row max,
-//   reciprocal sum and rowsum(dP o P) of each group (G*H*N floats each).
-//   With dbias it sums the groups' dS rows, each element always by the same
-//   thread in group order, into its own slice of a float partial buffer
-//   (heads, chunks, N, N); a third kernel sums the slices in a fixed order:
-//   deterministic, no atomics. Without dbias (ViT's constant zero bias) a
-//   block takes one group and nothing is summed.
-// - cols: a block owns 64 keys of one (g, h), holds their K and V tiles and
-//   dK, dV accumulators in registers, and walks the queries in 32-row tiles:
-//   it recomputes the P and dP tile, P = exp(s - max) * reciprocal sum from
-//   the rows kernel's statistics (the same score products, so the same P),
-//   dS from the rowsum, and accumulates round(P)^T go and round(dS*scale)^T q.
-// Not yet Hopper's wgmma/TMA, and tiles are loaded without overlap.
+// Which operands go where:
+// - bf16 with a null bias and mask (the ViT's path): the tensor-core pair
+//   attention_bwd_rows_tc / attention_bwd_cols_tc below. Its rs is taken
+//   online as sum(exp(s - max) dP) / sum(exp(s - max)), equal to nkbx's
+//   rowsum(dP o P) in exact arithmetic but summed in another float order.
+//   It does 9 N*N*D-sized products for the function's 5 (S twice in the
+//   rows kernel, once more in the cols kernel; dP likewise), and buys with
+//   them what bound the first design: no score row in shared memory, no
+//   bias or mask plane read, K and V read twice per 64 query rows (the
+//   first design: K twice and V once per 16), and every copy in flight
+//   behind products. The products are
+//   mma.sync m16n8k16 (bf16 in, float accumulate) fed by ldmatrix (.trans
+//   where the tile's rows are the product's depth); exp is the
+//   special-function unit's 2^x. 4 warps a block, 16 rows or keys a warp,
+//   three blocks an SM (73.7 and 76.0 KB of shared memory whatever N is).
+//   - rows_tc: a block owns 64 query rows of one (g, h), their q and go
+//     fragments in registers. K and V stream in 64-key tiles, a K and a V
+//     tile a step, through a 3-slot cp.async ring two steps ahead of the one
+//     multiplied. Pass 1: S = q K^T and dP = go V^T; a running max, sum of
+//     exp(s - max) and sum of exp(s - max) dP, rescaled online, give the
+//     statistics. Pass 2: S and dP again 16 keys at a time, P and dS in
+//     float registers, round(dS * scale) as the A fragments of dQ +=
+//     round(dS * scale) K; dQ rounded once.
+//   - cols_tc: a block owns 64 keys of one (g, h), their K and V fragments
+//     in registers, and walks the queries in 64-row tiles of q, go and the
+//     three statistics through the same kind of ring. Per 16 query rows:
+//     S^T = K q^T, dP^T = V go^T, P^T from the statistics, dS^T; dV +=
+//     round(P^T) go and dK += round(dS^T * scale) q in float registers,
+//     each rounded once at the end. Query rows past N read statistics that
+//     were never written and contribute zeros by selection.
+// - f32, a given bias or mask (the zeros yardstick, a frozen learned
+//   bias), and dbias: the first design, rows and cols kernels on warp-level
+//   16x16 tiles (bf16 WMMA, float FMAs through attention_tile.cuh), kept as
+//   K3's f32 kernel was. rows: a block owns 16 query rows of one head and a
+//   run of `wpb` groups, holds their whole float P and dP rows in shared
+//   memory (streaming K and V in 64-key tiles, loaded without overlap),
+//   reads the bias and mask at every score, forms dS and dQ and writes the
+//   statistics. With dbias it sums the groups' dS rows, each element always
+//   by the same thread in group order, into its own slice of a float partial
+//   buffer (heads, chunks, N, N); a third kernel sums the slices in a fixed
+//   order. Without dbias a block takes one group. cols: a block owns 64 keys
+//   of one (g, h), holds their K and V tiles and dK, dV accumulators, and
+//   walks the queries in 32-row tiles, staging P and dS through shared
+//   memory.
 
 #include <cfloat>
 
