@@ -57,6 +57,7 @@ namespace {
 
 using nkbx::ColMajor;
 using nkbx::cp_async16;
+using nkbx::exp2_approx;
 using nkbx::ldmatrix_x4;
 using nkbx::ldmatrix_x4_trans;
 using nkbx::mma_bf16;
@@ -199,13 +200,6 @@ constexpr int kExFloats = 16 * kExLd;                    // one plane's rows of 
 constexpr int kExBytes = kTcWarps * 2 * kExFloats * 4;   // 69,632 B
 constexpr size_t kTcExtraSmem = kExBytes + static_cast<size_t>(kTcStages) * kTcTile * 2;
 static_assert(kExBytes >= kTcQTile * 2, "the staging rows cover the q tile");
-
-// 2^x on the special-function unit.
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // Rows row0 .. row0 + rows - 1 of one head's (n, D) slice (src at the head's
 // first element, stride c) into a shared tile; rows past n are zero-filled.

@@ -109,7 +109,7 @@ size_t cols_smem_bytes() {
 }
 
 struct Stats {
-  float* max;  // (G, H, N): the row maximum of the scores
+  float* max;  // (G, H, Np), Np = N rounded up to 64: the row maximum of the scores
   float* inv;  // the reciprocal of the row sum of exp(s - max)
   float* rs;   // rowsum(dP o P)
 };
@@ -409,6 +409,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* bias
 
 using bf16 = __nv_bfloat16;
 using nkbx::cp_async16;
+using nkbx::exp2_approx;
 using nkbx::ldmatrix_x4;
 using nkbx::ldmatrix_x4_trans;
 using nkbx::mma_bf16;
@@ -427,13 +428,6 @@ constexpr size_t kRowsTcSmem = static_cast<size_t>(2 + 2 * kTcSlots) * kTcTile;
 constexpr int kColsSlot = 2 * kTcTile + kTcStats;
 constexpr size_t kColsTcSmem = 2 * kTcTile + static_cast<size_t>(kTcSlots) * kColsSlot;
 constexpr float kLog2e = 1.4426950408889634f;
-
-// 2^x on the special-function unit.
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // Rows row0 .. row0 + 63 of one head's (n, D) slice (src at the head's first
 // element, stride c) into a shared tile by 16-byte cp.async; rows past n are

@@ -1,6 +1,7 @@
-// The primitives of the mma.sync kernels (grouped_conv.cu, attention.cu):
-// 16-byte cp.async copies into shared memory with their commit groups,
-// ldmatrix, and the warp-level m16n8k16 product of bf16 operands into float
+// The primitives of the mma.sync kernels (grouped_conv.cu, attention.cu,
+// attention_bwd.cu): 16-byte cp.async copies into shared memory with their
+// commit groups, ldmatrix, the special-function unit's 2^x, and the
+// warp-level m16n8k16 product of bf16 operands into float
 // accumulators. Fragment layouts are PTX's: A (16 x 16) in four registers,
 // a0 = row lane/4, k 2(lane%4) + {0, 1}; a1 the row + 8; a2, a3 k + 8. B
 // (16 x 8) in two, b0 = k 2(lane%4) + {0, 1}, column lane/4; b1 k + 8. C
@@ -54,6 +55,13 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], 
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 2^x on the special-function unit.
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // Two floats rounded to bf16 (to nearest even) in one register, lo first.
