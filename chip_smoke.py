@@ -41,7 +41,14 @@
    library's one call and their bytes bound (a share over 100% fails).
 3. The same for the backward kernels: K2 and K6 at the shapes of a batch-64
    Swin-T train step (and window 12 for K2, a ragged tile with a layer-scale
-   and an FMA width for K6, ViT-B's MLP for K6), K4 at K3's shapes (dbias
+   and an FMA width for K6, ViT-B's MLP for K6); K2 in bf16 on its
+   tensor-core design and in f32 on its first design (the route checked by
+   its count), also at N = 16, 17, 48, 63, 64 and 65 with a shared and a
+   per-head bias and a G its windows-per-block count does not divide, dqkv
+   within 4 * 2^-8 of its largest value, dbias 1e-4 of its largest, a
+   second launch bit-identical; at the stages and window 12 timed with a
+   cold L2 against plain and SDPA's backward, with the SDPA backend and
+   the share of the bound; K4 at K3's shapes (dbias
    checked in the small case) and at N = 1, 17, 63, 64 and 65 with None or
    a learned bias and mask with dbias, in bf16 and f32, 4 bf16 ulps of the
    largest gradient, a second launch bit-identical; at ViT-B's three
@@ -89,8 +96,10 @@
    of both paths (for ResNet also of the unfused ghost-BN resnet50 from the
    same weights, the model a user would run without the chain), and a
    profile of one step, with the attention backward's device time in it
-   (K2 for Swin-T, K4 for ViT-B). Then resnet50 with exact BatchNorm, which runs no
-   kernel of ours (its launch counts are read and must stay 0):
+   (K2 for Swin-T with its dbias reduction, K4 for ViT-B; Swin-T's bf16 K2
+   launches all on the tensor-core design). Then resnet50 with exact
+   BatchNorm, which runs no kernel of ours (its launch counts are read and
+   must stay 0):
    RESNET_EXACT, bench.py's program (224 px, 1000 classes, batch 128, bf16,
    flips + Normalize, sgd at lr 0.1): step 0's loss against f32, finite
    losses and grads, 2 warm-up and 5 timed steps (step ms, img/s, peak
@@ -343,12 +352,65 @@ def sdpa_backend(fn):
     return "math"
 
 
+# K2 alone at windows around its 16-row slabs, with a shared and a per-head bias:
+# (label, heads, N, bias heads); G is ragged_windows' (one mask, M = 1)
+ATTN_BWD_RAGGED = [(f"N={n} Hb={bh}", 2, n, bh) for n in (16, 17, 48, 63, 64, 65)
+                   for bh in (1, 2)]
+ATTN_BWD_ITERS = 20  # cold-L2 launches timed a case
+
+
+def attn_bwd_bound(g, n, heads, m):
+    """K2's least time: qkv and go read and dqkv written once, the bias and
+    mask read and dbias written once; 10 N^2 D operations per (window,
+    head), its five products."""
+    nbytes = 2 * g * n * 7 * heads * 32 + 4 * (2 * heads + m) * n * n
+    return bound_ms(nbytes, 10 * g * heads * n * n * 32, "bf16")
+
+
+def ragged_windows(heads, n):
+    """A G that the tensor-core design's windows-per-block count does not
+    divide on this card: two full runs of windows per block and one more."""
+    sms = torch.cuda.get_device_properties(DEV).multi_processor_count
+    return 2 * max(1, sms * A.bwd_tc_blocks_per_sm(n) // heads) + 1
+
+
+def hold_attention_bwd(what, qkv, bias, mask, go, scale, heads, dtype, worst):
+    """K2 twice against its plain version on these operands: dqkv within
+    1e-4 (f32) or 4 * 2^-8 (bf16: P, dS*scale and the outputs round to
+    bf16, so a last-bit difference flips a rounding) of its largest value,
+    dbias within 1e-4 of its largest; the second launch bit-identical; the
+    design the wrapper's route names (the tensor cores for bf16 at D = 32, N
+    <= 144) launched. Fails otherwise."""
+    n, d = qkv.shape[1], qkv.shape[2] // 3 // heads
+    tc = A.bwd_takes_tc(n, d, qkv.dtype)
+    before = A.fused_attention_qkv_bwd.tc_launches
+    dqkv, dbias = A.fused_attention_qkv_bwd(qkv, bias, mask, go, scale, heads)
+    dqkv2, dbias2 = A.fused_attention_qkv_bwd(qkv, bias, mask, go, scale, heads)
+    torch.cuda.synchronize()
+    routed = A.fused_attention_qkv_bwd.tc_launches - before == (2 if tc else 0)
+    rq, rb = A.reference_attention_bwd(qkv, bias, mask, go, scale, heads)
+    err, err_b = max_err(dqkv, rq), max_err(dbias, rb)
+    lim = (1e-4 if dtype == "f32" else 4 * 2.0 ** -8) * float(rq.float().abs().max())
+    lim_b = 1e-4 * float(rb.abs().max())
+    same = torch.equal(dqkv, dqkv2) and torch.equal(dbias, dbias2)
+    worst[dtype] = max(worst[dtype], err)
+    ok = err <= lim and err_b <= lim_b and same and routed
+    log(f"K2 {what} {dtype} ({'tensor cores' if tc else 'first design'}): max|err| dqkv "
+        f"{err:.3e} (tol {lim:.3e}), dbias {err_b:.3e} (tol {lim_b:.3e}), a second launch equal "
+        f"{same}, routed {routed} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"window attention backward disagrees with its plain version at {what} {dtype}")
+
+
 def check_attention_bwd():
+    """K2 against its plain version (hold_attention_bwd) at Swin-T's four
+    stages at batch 64 and at window 12 (bf16: the tensor-core design; f32:
+    the first design), and at the ragged ATTN_BWD_RAGGED (bf16, f32). At
+    the stages and window 12 (bf16) the kernel, the plain version and SDPA's
+    backward are timed with a cold L2 (cold_ms), after each set was held
+    against plain; each row logs the SDPA backend and its share of the
+    bytes bound, and a share over 100% fails."""
     gen = torch.Generator(device=DEV).manual_seed(3)
-    # dqkv against max|plain|: f32 1e-4; bf16 4 ulps (P, dS*scale and the
-    # outputs round to bf16, so a last-bit difference flips a rounding).
-    # dbias, an f32 sum over windows: 1e-4 of its largest value.
-    tol = {"f32": 1e-4, "bf16": 4 * 2.0 ** -8}
     rows, worst = [], {"bf16": 0.0, "f32": 0.0}
     cases = [(s, BUCKET * (8 >> s) ** 2, 3 << s, (8 >> s) ** 2 if s < 3 else 1, 56 >> s, 7)
              for s in range(4)]
@@ -358,23 +420,14 @@ def check_attention_bwd():
             qkv, bias, mask, scale = attn_case(g, heads, m, grid, window, dtype, gen)
             n, c = window * window, heads * 32
             go = torch.randn(g, n, c, generator=gen, device=DEV).to(DT[dtype])
-            dqkv, dbias = A.fused_attention_qkv_bwd(qkv, bias, mask, go, scale, heads)
-            torch.cuda.synchronize()
-            rq, rb = A.reference_attention_bwd(qkv, bias, mask, go, scale, heads)
-            err, err_b = max_err(dqkv, rq), max_err(dbias, rb)
-            lim = tol[dtype] * float(rq.float().abs().max())
-            lim_b = 1e-4 * float(rb.abs().max())
-            worst[dtype] = max(worst[dtype], err)
-            ok = err <= lim and err_b <= lim_b
-            log(f"K2 stage {stage} G={g} H={heads} N={n} M={m} {dtype}: max|err| dqkv {err:.3e} "
-                f"(tol {lim:.3e}), dbias {err_b:.3e} (tol {lim_b:.3e}) {'ok' if ok else 'FAIL'}")
-            if not ok:
-                fail(f"window attention backward disagrees with its plain version at stage "
-                     f"{stage} {dtype}")
+            hold_attention_bwd(f"stage {stage} G={g} H={heads} N={n} M={m}", qkv, bias, mask, go,
+                               scale, heads, dtype, worst)
             if dtype != "bf16":
                 continue
-            ms = cuda_ms(lambda: A.fused_attention_qkv_bwd(qkv, bias, mask, go, scale, heads))
-            plain = cuda_ms(lambda: A.reference_attention_bwd(qkv, bias, mask, go, scale, heads))
+            ms = cold_ms(lambda: A.fused_attention_qkv_bwd(qkv, bias, mask, go, scale, heads),
+                         ATTN_BWD_ITERS)
+            plain = cold_ms(lambda: A.reference_attention_bwd(qkv, bias, mask, go, scale, heads),
+                            ATTN_BWD_ITERS)
             lib, backend = None, "not measured"
             try:  # a yardstick only: the port never calls SDPA
                 q, k, v, am = (t.detach().requires_grad_() for t in
@@ -385,17 +438,28 @@ def check_attention_bwd():
                 def sdpa_bwd():
                     return torch.autograd.grad(out, (q, k, v, am), gout, retain_graph=True)
 
-                lib = cuda_ms(sdpa_bwd)
+                lib = cold_ms(sdpa_bwd, ATTN_BWD_ITERS)
                 backend = sdpa_backend(sdpa_bwd)
                 del q, k, v, am, out, gout
             except RuntimeError as e:
                 log(f"   sdpa backward: not measured ({e})")
-            nbytes = 2 * g * n * 7 * c + 4 * (2 * heads + m) * n * n
-            b, by = bound_ms(nbytes, 10 * g * heads * n * n * 32, "bf16")
-            log(f"   bf16 times: kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa backward "
-                f"{lib if lib is None else round(lib, 4)} ms ({backend}), bound {b:.4f} ms ({by})")
+            b, by = attn_bwd_bound(g, n, heads, m)
+            log(f"   bf16 times (cold L2): kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa backward "
+                f"{'not measured' if lib is None else f'{lib:.4f} ms'} ({backend}), bound "
+                f"{b:.4f} ms ({by}), kernel at {100 * b / ms:.1f}% of the bound")
+            if b > ms:
+                fail(f"K2 stage {stage} timed under its bound: the timing is wrong")
             rows.append(dict(stage=stage, ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b,
-                             bound_by=by, backend=backend))
+                             bound_by=by, bound_share=b / ms, backend=backend))
+    for label, heads, n, bh in ATTN_BWD_RAGGED:
+        g, m = ragged_windows(heads, n), 1
+        for dtype in ("bf16", "f32"):
+            qkv = torch.randn(g, n, 3 * heads * 32, generator=gen, device=DEV).to(DT[dtype])
+            go = torch.randn(g, n, heads * 32, generator=gen, device=DEV).to(DT[dtype])
+            bias = (0.5 * torch.randn(bh, n, n, generator=gen, device=DEV)).contiguous()
+            mask = torch.where(torch.rand(m, n, n, generator=gen, device=DEV) < 0.2, -100.0, 0.0)
+            hold_attention_bwd(f"{label} G={g} H={heads} M={m}", qkv, bias, mask, go, 32 ** -0.5,
+                               heads, dtype, worst)
     return rows, worst
 
 
@@ -1207,6 +1271,7 @@ class Path:
         self.env, self.layer_scale = env or {}, layer_scale
         self.serves, self.ghost_bn, self.yardstick = serves, ghost_bn, yardstick
         self.profiled = {}  # {kernel name: device ms in the profiled train step}
+        self.tc_launches = None  # K2's tensor-core launches in the 5 bf16 steps (Swin)
 
     def model(self, dtype, cfg=None):
         model = get_model(cfg or self.cfg, [f"class{i}" for i in range(10)], seed=0, dtype=dtype)
@@ -1599,7 +1664,14 @@ def check_train(path):
 
     set_plain(False)
     want = path.counts(torch.bfloat16, True)
+    tc0 = A.fused_attention_qkv_bwd.tc_launches
     losses, counts, finite, stats = five_steps(False)
+    if path.attention == "window_attention":  # bf16 Swin-T: K2 on its tensor-core design
+        path.tc_launches = A.fused_attention_qkv_bwd.tc_launches - tc0
+        log(f"train {path.label}: K2's tensor-core design launched {path.tc_launches} times "
+            f"in 5 steps")
+        if path.tc_launches != sum(c["window_attention_bwd"] for c in counts):
+            fail(f"{path.label}: K2 did not take its tensor-core design in every bf16 launch")
     log(f"train {path.label}: kernels, 5 steps, losses {[round(x, 5) for x in losses]}, "
         f"launches per step {counts[0]} (expect {want})")
     if any(c != want for c in counts) or not kernels_ran(want, True):
@@ -1684,8 +1756,9 @@ def check_train(path):
             events = report_profile(prof, 1, f"in one batch-64 {name} train step",
                                     bench[label][-1]["step_ms"], f"profile_train_step_{name}.txt")
             if label == "kernels" and path.attention and events:
-                # the attention backward's kernels (K2: window_attention_bwd*, K4:
-                # attention_bwd_*) by their names' prefix after the namespace
+                # the attention backward's kernels (K2: window_attention_bwd* with its
+                # dbias reduction, K4: attention_bwd_*) by their names' prefix after the
+                # namespace
                 bwd = path.attention + "_bwd"
                 ms = sum(us for us, e in events if re.search(rf"(^|[^\w]){bwd}", e.key)) / 1e3
                 path.profiled[bwd] = ms
@@ -2389,6 +2462,14 @@ def main():
     kernels[5]["sdpa_backend"] = sep_bwd_rows["N=197"]["backend"]
     kernels[5]["profile_ms_per_step"] = VIT.profiled.get("attention_bwd")
     kernels[11]["bound_share"] = [r["bound_share"] for r in gc_rows]
+    # K2: cold-L2 shares of the bound, SDPA's backend, window 12, the tensor-core
+    # launches of the Swin-T train path and its step's K2 device time (the reduction in)
+    kernels[2]["bound_share"] = {r["stage"]: r["bound_share"] for r in attn_bwd_rows}
+    kernels[2]["sdpa_backend"] = attn_bwd_rows[0]["backend"]
+    kernels[2].update({f"{key}_w12": attn_bwd_rows[4][key]
+                       for key in ("ms", "plain_ms", "library_ms", "bound_ms")})
+    kernels[2]["launches_tc_swin_train"] = SWIN.tc_launches
+    kernels[2]["profile_ms_per_step"] = SWIN.profiled.get("window_attention_bwd")
     # K10 is held by each gradient's relative L2 (check_chain): its worst, beside max|err|
     kernels[9]["max_rel_l2"], kernels[9]["max_rel_l2_f32"] = (chain_err["bwd_l2"]["bf16"],
                                                               chain_err["bwd_l2"]["f32"])

@@ -97,7 +97,7 @@ class WindowAttention(nn.Module):
         bias = self.relative_position_bias_table[self.relative_position_index]
         bias = bias.reshape(n, n, self.n_heads).permute(2, 0, 1).float().contiguous()
         scale = (c // self.n_heads) ** -0.5
-        if resolve_fused(self.fused, qkv):
+        if resolve_fused(self.fused, qkv, groups=bn):  # nkbx's per-call-site gate
             y = fused_attention_qkv(qkv, bias, attn_mask, scale, self.n_heads)
         else:
             y = reference_attention(qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:],

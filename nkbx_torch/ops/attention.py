@@ -4,7 +4,8 @@ backward, for both of nkbx's entries (``nkbx/ops/attention.py``).
 - :func:`fused_attention_qkv`, Swin's window attention on the packed qkv
   Dense output: ``csrc/window_attention.cu`` replaces the Pallas
   ``_fwd_kernel_packed`` and ``csrc/window_attention_bwd.cu``
-  ``_bwd_kernel_packed``.
+  ``_bwd_kernel_packed`` (bf16 with heads of width 32 and N up to 144 on
+  its tensor-core design, anything else on its first design).
 - :func:`fused_attention`, the ViT family's full-sequence attention on
   separate q, k, v: ``csrc/attention.cu`` replaces ``_fwd_kernel_sep`` and
   ``csrc/attention_bwd.cu`` ``_bwd_kernel_sep``.
@@ -43,27 +44,39 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"nkbx_window_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                          ctypes.c_float, _I, _P]}
 _BWD_SIGNATURES = {"nkbx_window_attention_bwd": [_P] * 7 + [_I] * 6 + [ctypes.c_float, _I,
-                                                                        _I, _P]}
+                                                                        _I, _P],
+                   "nkbx_window_attention_bwd_tc": [_P] * 7 + [_I] * 6 + [ctypes.c_float, _I,
+                                                                           _P]}
 _SEP_SIGNATURES = {"nkbx_attention": [_P] * 6 + [_I] * 5 + [ctypes.c_float, _I, _P]}
 _SEP_BWD_SIGNATURES = {"nkbx_attention_bwd": [_P] * 12 + [_I] * 5 + [ctypes.c_float, _I, _I,
                                                                       _P]}
 _MAX_SMEM = _build.MAX_SMEM
-_BWD_BLOCKS = 1024  # the backward groups windows per block down to about this many blocks
+_BWD_BLOCKS = 1024  # the first backward groups windows per block down to about this many blocks
+TC_HEAD_DIM, TC_MAX_N = 32, 144  # the bf16 backward's tensor-core design takes these
 HEAD_DIM = 64  # the only head width attention.cu and attention_bwd.cu take (every ViT's)
 
 
-def resolve_fused(flag, x: torch.Tensor, auto: bool = True) -> bool:
-    """Resolve a model's fused-attention flag, with nkbx's precedence: the
+_AUTO_MIN_GROUPS = 1  # nkbx's default NKBX_FUSED_MIN_G: the gate stays open at every G
+
+
+def resolve_fused(flag, x: torch.Tensor, auto: bool = True, groups=None) -> bool:
+    """Resolve a model's fused-attention flag, with nkbx's precedence
+    (``nkbx/ops/attention.py`` ``resolve_fused``): the
     ``NKBX_FUSED_ATTENTION=0|1`` env override, then the flag (True/False),
     then auto (None): the family's default, ``auto`` (Swin: True, ViT:
     False), where True means the kernel wherever the tensor is on a CUDA
-    device."""
+    device. In auto mode ``groups`` (the call site's G = batch·windows)
+    gates the kernel per call site: G below ``NKBX_FUSED_MIN_G`` (default
+    1) takes the plain version."""
     env = os.environ.get("NKBX_FUSED_ATTENTION", "")
     if env:
         return env not in ("0", "false", "False")
     if flag is not None:
         return bool(flag)
-    return auto and x.is_cuda
+    if not (auto and x.is_cuda):
+        return False
+    min_g = int(os.environ.get("NKBX_FUSED_MIN_G", _AUTO_MIN_GROUPS))
+    return groups is None or groups >= min_g
 
 
 def smem_bytes(n: int, d: int) -> int:
@@ -72,10 +85,47 @@ def smem_bytes(n: int, d: int) -> int:
 
 
 def bwd_smem_bytes(n: int, d: int) -> int:
-    """Shared memory of one block of the backward kernel
+    """Shared memory of one block of the backward's first design
     (window_attention_bwd.cu): q, k, v and g rows padded to D+1, and one
     (N, N) buffer that holds P, then the scaled dS."""
     return (4 * n * (d + 1) + n * n) * 4
+
+
+def _padded16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def bwd_tc_smem_bytes(n: int, d: int = TC_HEAD_DIM) -> int:
+    """Shared memory of one block of the backward's tensor-core design, the
+    window padded to KP = N rounded up to 16: a 2-slot ring of the q, k, v
+    and go tiles (KP, D+8) bf16, one (KP, KP+8) bf16 tile for P and then
+    dS·scale, and the f32 dbias partial (KP, KP)."""
+    kp = _padded16(n)
+    return 2 * 4 * kp * (d + 8) * 2 + kp * (kp + 8) * 2 + 4 * kp * kp
+
+
+def bwd_takes_tc(n: int, d: int, dtype) -> bool:
+    """Whether the backward runs the tensor-core design (bf16, D = 32, N up
+    to 144: every Swin window) rather than the first design."""
+    return dtype == torch.bfloat16 and d == TC_HEAD_DIM and 1 <= n <= TC_MAX_N
+
+
+def bwd_tc_blocks_per_sm(n: int) -> int:
+    """Blocks of the tensor-core design one SM holds: three up to N = 64
+    (its launch bounds), else as many as its shared memory allows (228 KB an
+    SM, 1 KB reserved a block)."""
+    if _padded16(n) <= 64:
+        return 3
+    return max(1, min(3, 233_472 // (bwd_tc_smem_bytes(n) + 1024)))
+
+
+def bwd_tc_windows_per_block(g: int, heads: int, n: int, sms: int) -> int:
+    """Windows per block of the tensor-core design: the (head, run of
+    windows) blocks fill the card's resident slots once, so that each block
+    writes its dbias partial once (Swin-T stage 0 on 132 SMs: 32 windows,
+    384 blocks)."""
+    per_head = max(1, sms * bwd_tc_blocks_per_sm(n) // heads)
+    return max(1, -(-g // per_head))
 
 
 def _check(qkv, bias, mask, heads: int, smem) -> tuple:
@@ -155,35 +205,48 @@ def fused_attention_qkv_bwd(qkv, bias, mask, go, scale: float, heads: int):
     """Backward of :func:`fused_attention_qkv`: ``(dqkv, dbias)``, dqkv
     (G, N, 3·H·D) in qkv's dtype and dbias (bias heads, N, N) in f32. On a
     CUDA tensor this launches the kernel (and its fixed-order dbias
-    reduction); on a CPU tensor it computes :func:`reference_attention_bwd`."""
+    reduction): the tensor-core design where :func:`bwd_takes_tc`, else the
+    first design; on a CPU tensor it computes :func:`reference_attention_bwd`."""
     if not qkv.is_cuda:
         return reference_attention_bwd(qkv, bias, mask, go, scale, heads)
-    g, n, d, m = _check(qkv, bias, mask, heads, bwd_smem_bytes)
     dev, dt = qkv.device, qkv.dtype
+    g, n, d, m = _check(qkv, bias, mask, heads, lambda n_, d_: (
+        bwd_tc_smem_bytes(n_, d_) if bwd_takes_tc(n_, d_, dt) else bwd_smem_bytes(n_, d_)))
+    tc = bwd_takes_tc(n, d, dt)
     if tuple(go.shape) != (g, n, heads * d) or go.dtype != dt or go.device != dev:
         raise ValueError(f"cotangent {tuple(go.shape)} {go.dtype} is not ({g}, {n}, "
                          f"{heads * d}) {dt} on {dev}")
-    qkv, bias, mask, go = qkv.contiguous(), bias.contiguous(), mask.contiguous(), go.contiguous()
+    qkv, go = _build.aligned(qkv), _build.aligned(go)  # the tensor-core design copies 16 B
+    bias, mask = bias.contiguous(), mask.contiguous()
     dqkv = torch.empty_like(qkv)
     dbias = torch.empty((bias.shape[0], n, n), dtype=torch.float32, device=dev)
     if g == 0:
         return dqkv, dbias.zero_()
-    wpb = max(1, g * heads // _BWD_BLOCKS)
+    if tc:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        wpb = bwd_tc_windows_per_block(g, heads, n, sms)
+    else:
+        wpb = max(1, g * heads // _BWD_BLOCKS)
     chunks = -(-g // wpb)
     partial = torch.empty((heads, chunks, n, n), dtype=torch.float32, device=dev)
     lib = _build.load("window_attention_bwd", _BWD_SIGNATURES)
-    with torch.cuda.device(dev):
-        err = lib.nkbx_window_attention_bwd(
-            qkv.data_ptr(), bias.data_ptr(), mask.data_ptr(), go.data_ptr(), dqkv.data_ptr(),
+    args = (qkv.data_ptr(), bias.data_ptr(), mask.data_ptr(), go.data_ptr(), dqkv.data_ptr(),
             dbias.data_ptr(), partial.data_ptr(), g, n, heads, d, bias.shape[0], m,
-            float(scale), wpb, int(dt == torch.bfloat16),
-            torch.cuda.current_stream(dev).cuda_stream)
+            float(scale), wpb)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if tc:
+            err = lib.nkbx_window_attention_bwd_tc(*args, stream)
+        else:
+            err = lib.nkbx_window_attention_bwd(*args, int(dt == torch.bfloat16), stream)
     _build.check(err, "window_attention_bwd launch")
     fused_attention_qkv_bwd.launches += 1
+    fused_attention_qkv_bwd.tc_launches += tc
     return dqkv, dbias
 
 
-fused_attention_qkv_bwd.launches = 0  # kernel launches, counted by the wrapper
+fused_attention_qkv_bwd.launches = 0  # kernel launches (either design), counted by the wrapper
+fused_attention_qkv_bwd.tc_launches = 0  # those of the tensor-core design
 
 
 # --- separate q/k/v (ViT) -----------------------------------------------------------

@@ -408,13 +408,16 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* bias
 // --- bf16, no bias and no mask: the tensor-core pair ---------------------------------
 
 using bf16 = __nv_bfloat16;
+using nkbx::acc_rows;
 using nkbx::cp_async16;
+using nkbx::dot_rows;
 using nkbx::exp2_approx;
-using nkbx::ldmatrix_x4;
-using nkbx::ldmatrix_x4_trans;
-using nkbx::mma_bf16;
+using nkbx::load_a;
 using nkbx::pack_bf16;
+using nkbx::quad_max;
+using nkbx::quad_sum;
 using nkbx::smem_addr;
+using nkbx::store_rows;
 constexpr int kTcThreads = 128;              // 4 warps, 16 rows or keys each
 constexpr int kTcRows = 64;                  // query rows (rows_tc) or keys (cols_tc) a block
 constexpr int kTcLd = D + 8;                 // row stride of the shared tiles: 144 bytes
@@ -440,78 +443,6 @@ __device__ __forceinline__ void copy_tile(unsigned dst, const bf16* __restrict__
     cp_async16(dst + (r * kTcLd + ch * 8) * 2,
                src + static_cast<size_t>(in ? row0 + r : 0) * c + ch * 8, in ? 16 : 0);
   }
-}
-
-// The A fragments of a warp's 16 rows r0 .. r0 + 15 of a tile, over all D.
-__device__ __forceinline__ void load_a(unsigned (&a)[D / 16][4], unsigned tile, int r0) {
-  const int lane = threadIdx.x % 32, mi = lane / 8;
-  const int r = r0 + (mi % 2) * 8 + lane % 8;
-#pragma unroll
-  for (int kc = 0; kc < D / 16; ++kc)
-    ldmatrix_x4(a[kc], tile + (r * kTcLd + kc * 16 + (mi / 2) * 8) * 2);
-}
-
-// c = a (16 x D) times (rows r0 .. r0 + 15 of a tile)^T: the products of a
-// warp's 16 rows with 16 rows of a shared tile. c[nt] holds rows lane/4
-// (elements 0, 1) and lane/4 + 8 (2, 3) at the tile rows r0 + nt*8 +
-// 2 (lane % 4) + {0, 1}.
-__device__ __forceinline__ void dot_rows(float (&c)[2][4], const unsigned (&a)[D / 16][4],
-                                         unsigned tile, int r0) {
-  const int lane = threadIdx.x % 32, mi = lane / 8;
-  const int row = r0 + (mi / 2) * 8 + lane % 8;
-#pragma unroll
-  for (int nt = 0; nt < 2; ++nt) c[nt][0] = c[nt][1] = c[nt][2] = c[nt][3] = 0.f;
-#pragma unroll
-  for (int kc = 0; kc < D / 16; ++kc) {
-    // matrices: rows +0..7 / d +0..7, rows +0..7 / d +8..15, rows +8..15 / ...
-    unsigned b[4];
-    ldmatrix_x4(b, tile + (row * kTcLd + kc * 16 + (mi % 2) * 8) * 2);
-    mma_bf16(c[0], a[kc], b[0], b[1]);
-    mma_bf16(c[1], a[kc], b[2], b[3]);
-  }
-}
-
-// acc += a (16 x 16, k = the tile rows r0 .. r0 + 15) times those rows of a
-// tile over all D columns (ldmatrix.trans).
-__device__ __forceinline__ void acc_rows(float (&acc)[D / 8][4], const unsigned (&a)[4],
-                                         unsigned tile, int r0) {
-  const int lane = threadIdx.x % 32, mi = lane / 8;
-  const int row = r0 + (mi % 2) * 8 + lane % 8;
-#pragma unroll
-  for (int dp = 0; dp < D / 16; ++dp) {
-    // matrices: rows +0..7 / d +0..7, rows +8..15 / d +0..7, rows +0..7 / d +8..15, ...
-    unsigned b[4];
-    ldmatrix_x4_trans(b, tile + (row * kTcLd + dp * 16 + (mi / 2) * 8) * 2);
-    mma_bf16(acc[2 * dp], a, b[0], b[1]);
-    mma_bf16(acc[2 * dp + 1], a, b[2], b[3]);
-  }
-}
-
-// Store a warp's 16 x D float accumulator as bf16 rows row0 + lane/4 (+ 8),
-// rows at or past n skipped.
-__device__ __forceinline__ void store_rows(bf16* __restrict__ dst, const float (&acc)[D / 8][4],
-                                           int row0, int n, int c) {
-  const int lane = threadIdx.x % 32;
-#pragma unroll
-  for (int hi = 0; hi < 2; ++hi) {
-    const int i = row0 + lane / 4 + hi * 8;
-    if (i >= n) continue;
-    bf16* p = dst + static_cast<size_t>(i) * c + (lane % 4) * 2;
-#pragma unroll
-    for (int nt = 0; nt < D / 8; ++nt)
-      *reinterpret_cast<unsigned*>(p + nt * 8) = pack_bf16(acc[nt][2 * hi], acc[nt][2 * hi + 1]);
-  }
-}
-
-// The lanes of a quad (the four that share a fragment row) combined.
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
 // Rows kernel: a block owns 64 query rows of one (g, h), 16 a warp, with
@@ -562,8 +493,8 @@ attention_bwd_rows_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int t = 0; t < nk; ++t) {
     ready(t);
     if (t == 0 && busy) {
-      load_a(qf, qs, warp * 16);
-      load_a(gf, gs, warp * 16);
+      load_a<kTcLd>(qf, qs, warp * 16);
+      load_a<kTcLd>(gf, gs, warp * 16);
     }
     if (!busy) continue;
     const unsigned kt = ring + (t % kTcSlots) * 2 * kTcTile, vt = kt + kTcTile;
@@ -571,8 +502,8 @@ attention_bwd_rows_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     float s[4][2][4], dp[4][2][4];
 #pragma unroll
     for (int np = 0; np < 4; ++np) {
-      dot_rows(s[np], qf, kt, np * 16);
-      dot_rows(dp[np], gf, vt, np * 16);
+      dot_rows<kTcLd>(s[np], qf, kt, np * 16);
+      dot_rows<kTcLd>(dp[np], gf, vt, np * 16);
     }
 #pragma unroll
     for (int np = 0; np < 4; ++np)
@@ -635,8 +566,8 @@ attention_bwd_rows_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int kc = 0; kc < kTk / 16; ++kc) {
       float s[2][4], dp[2][4];
-      dot_rows(s, qf, kt, kc * 16);
-      dot_rows(dp, gf, vt, kc * 16);
+      dot_rows<kTcLd>(s, qf, kt, kc * 16);
+      dot_rows<kTcLd>(dp, gf, vt, kc * 16);
       float ds[2][4];
 #pragma unroll
       for (int nt = 0; nt < 2; ++nt)
@@ -648,7 +579,7 @@ attention_bwd_rows_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
         }
       const unsigned a[4] = {pack_bf16(ds[0][0], ds[0][1]), pack_bf16(ds[0][2], ds[0][3]),
                              pack_bf16(ds[1][0], ds[1][1]), pack_bf16(ds[1][2], ds[1][3])};
-      acc_rows(acc, a, kt, kc * 16);
+      acc_rows<kTcLd>(acc, a, kt, kc * 16);
     }
   }
   nkbx::cp_async_wait<0>();
@@ -710,8 +641,8 @@ attention_bwd_cols_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int t = 0; t < nq; ++t) {
     ready(t);
     if (t == 0 && busy) {
-      load_a(kf, ks, warp * 16);
-      load_a(vf, vs, warp * 16);
+      load_a<kTcLd>(kf, ks, warp * 16);
+      load_a<kTcLd>(vf, vs, warp * 16);
     }
     if (!busy) continue;
     const unsigned qt = ring + (t % kTcSlots) * kColsSlot, gt = qt + kTcTile;
@@ -720,8 +651,8 @@ attention_bwd_cols_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int kc = 0; kc < kTcRows / 16; ++kc) {
       float s[2][4], dp[2][4];
-      dot_rows(s, kf, qt, kc * 16);
-      dot_rows(dp, vf, gt, kc * 16);
+      dot_rows<kTcLd>(s, kf, qt, kc * 16);
+      dot_rows<kTcLd>(dp, vf, gt, kc * 16);
       float p[2][4], ds[2][4];
 #pragma unroll
       for (int nt = 0; nt < 2; ++nt) {
@@ -743,8 +674,8 @@ attention_bwd_cols_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                               pack_bf16(p[1][0], p[1][1]), pack_bf16(p[1][2], p[1][3])};
       const unsigned da[4] = {pack_bf16(ds[0][0], ds[0][1]), pack_bf16(ds[0][2], ds[0][3]),
                               pack_bf16(ds[1][0], ds[1][1]), pack_bf16(ds[1][2], ds[1][3])};
-      acc_rows(dv_acc, pa, gt, kc * 16);
-      acc_rows(dk_acc, da, qt, kc * 16);
+      acc_rows<kTcLd>(dv_acc, pa, gt, kc * 16);
+      acc_rows<kTcLd>(dk_acc, da, qt, kc * 16);
     }
   }
   nkbx::cp_async_wait<0>();

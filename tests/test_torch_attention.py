@@ -111,3 +111,101 @@ def test_smem_need_of_window12_exceeds_default_limit():
     # N=144 needs the raised dynamic shared-memory limit, and fits a block
     assert 48 * 1024 < tattn.smem_bytes(144, 32) <= tattn._MAX_SMEM
     assert tattn.smem_bytes(49, 32) < 48 * 1024
+
+
+class _Like:
+    """What the gate reads of a tensor: where it lies."""
+
+    def __init__(self, is_cuda):
+        self.is_cuda = is_cuda
+
+
+@pytest.mark.parametrize("env", ["", "0", "1"])
+@pytest.mark.parametrize("min_g", [None, "1", "256"])
+def test_resolve_fused_with_groups_matches_nkbx(monkeypatch, env, min_g):
+    """The port's gate against nkbx's on every (flag, auto, groups) under
+    the env override and NKBX_FUSED_MIN_G: on a CUDA tensor the port's auto
+    is nkbx's auto (the family's default on the accelerator), on a CPU
+    tensor it is False."""
+    monkeypatch.setenv("NKBX_FUSED_ATTENTION", env)
+    if min_g is None:
+        monkeypatch.delenv("NKBX_FUSED_MIN_G", raising=False)
+    else:
+        monkeypatch.setenv("NKBX_FUSED_MIN_G", min_g)
+    for flag in (None, True, False):
+        for auto in (True, False):
+            for groups in (None, 1, 64, 255, 256, 4096):
+                for on_cuda in (True, False):
+                    want = jattn.resolve_fused(flag, auto and on_cuda, groups)
+                    got = tattn.resolve_fused(flag, _Like(on_cuda), auto, groups)
+                    assert got is want, (flag, auto, groups, on_cuda)
+
+
+def test_swin_call_sites_pass_their_groups_to_the_gate(monkeypatch):
+    """A tiny Swin at batch 2 (G = 32 windows at stage 0, 8 at stage 1): with
+    NKBX_FUSED_MIN_G=16 every stage-0 call site takes the kernel's entry and
+    every stage-1 call site the plain version, as nkbx's gate answers; the
+    gate sees the tensor as if it lay on a card, which the CPU cannot show
+    otherwise."""
+    from nkbx_torch.models import swin as tswin
+
+    monkeypatch.delenv("NKBX_FUSED_ATTENTION", raising=False)
+    monkeypatch.setenv("NKBX_FUSED_MIN_G", "16")
+    answers, entries = [], []
+
+    def gate(flag, x, auto=True, groups=None):
+        answers.append((groups, tattn.resolve_fused(flag, _Like(True), auto, groups)))
+        return answers[-1][1]
+
+    def entry(qkv, *args):
+        entries.append(qkv.shape[0])
+        return tattn.fused_attention_qkv(qkv, *args)
+
+    monkeypatch.setattr(tswin, "resolve_fused", gate)
+    monkeypatch.setattr(tswin, "fused_attention_qkv", entry)
+    model = tswin.SwinTransformer(embed_dim=16, depths=(2, 2), n_heads=(1, 2), window=2,
+                                  img_size=(32, 32))
+    x = torch.from_numpy(np.random.default_rng(0).normal(size=(2, 32, 32, 3)).astype(np.float32))
+    out = model(x)
+    assert out.shape == (2, 32) and torch.isfinite(out).all()
+    assert [g for g, _ in answers] == [32, 32, 8, 8]
+    for g, got in answers:
+        assert got is jattn.resolve_fused(None, True, g) is (g >= 16)
+    assert entries == [32, 32]
+
+
+@pytest.mark.parametrize("n,want", [(16, 16), (17, 32), (48, 48), (49, 64), (63, 64),
+                                    (64, 64), (65, 80), (144, 144)])
+def test_bwd_tc_sizing(n, want):
+    """The backward's tensor-core design pads a window to KP = N rounded up
+    to 16: its shared memory (the q/k/v/go ring, one bf16 P/dS tile, the f32
+    dbias partial) fits a block at every N it takes, three blocks an SM to N
+    = 64 (Swin-T: 65 KB) and one at window 12 (214 KB, above the 48 KB
+    default); bf16 at D = 32 and N <= 144 takes it, anything else the first
+    design."""
+    kp = want
+    assert tattn.bwd_tc_smem_bytes(n) == 2 * 4 * kp * 40 * 2 + kp * (kp + 8) * 2 + 4 * kp * kp
+    assert tattn.bwd_tc_smem_bytes(n) <= tattn._MAX_SMEM
+    assert tattn.bwd_tc_blocks_per_sm(n) == (3 if kp <= 64 else
+                                             max(1, 233_472 // (tattn.bwd_tc_smem_bytes(n) + 1024)))
+    if kp <= 64:
+        assert 3 * (tattn.bwd_tc_smem_bytes(n) + 1024) <= 233_472
+    assert tattn.bwd_takes_tc(n, 32, torch.bfloat16)
+    assert not tattn.bwd_takes_tc(n, 32, torch.float32)
+    assert not tattn.bwd_takes_tc(n, 16, torch.bfloat16)
+
+
+def test_bwd_tc_route_limits_and_windows_per_block():
+    assert tattn.bwd_tc_smem_bytes(49) == 66_560
+    assert 48 * 1024 < tattn.bwd_tc_smem_bytes(144) == 218_880 <= tattn._MAX_SMEM
+    assert tattn.bwd_tc_blocks_per_sm(144) == 1
+    assert not tattn.bwd_takes_tc(145, 32, torch.bfloat16)
+    assert not tattn.bwd_takes_tc(0, 32, torch.bfloat16)
+    # Swin-T's stages at batch 64 on 132 SMs fill 384 resident slots once
+    for s in range(4):
+        g, heads = 64 * (8 >> s) ** 2, 3 << s
+        wpb = tattn.bwd_tc_windows_per_block(g, heads, 49, 132)
+        assert heads * -(-g // wpb) == 384
+    # window 12 (swin_base at 384 px, batch 16): one block an SM
+    assert 4 * -(-256 // tattn.bwd_tc_windows_per_block(256, 4, 144, 132)) <= 132
+    assert tattn.bwd_tc_windows_per_block(3, 24, 49, 132) == 1
