@@ -9,8 +9,16 @@
    in bf16 and in f32 with TF32 off; prints the errors against the stated
    tolerances and the times of the kernel, the plain version and, for
    attention, scaled_dot_product_attention on the same inputs. Window
-   attention (K1) and LN -> MLP (K5) at the shapes the Swin-T serving path
-   gives them at bucket 64 (and window 12; K5 also at ViT-B's C = 768 with
+   attention (K1) at the shapes the Swin-T serving path gives it at bucket
+   64 with the shifted-window masks and at window 12, bf16 on its
+   tensor-core design and f32 on its first design (the route checked by its
+   count), also at N = 16, 17, 48, 63, 64 and 65 with a shared and a
+   per-head bias and a G its windows-per-block count does not divide,
+   within 2 bf16 ulps of the largest output (f32 1e-4), a second launch
+   bit-identical; at the stages and window 12 timed with a cold L2 against
+   its first design (through its C entry), plain and SDPA, with the SDPA
+   backend and the share of the bound. LN -> MLP (K5) at the shapes the
+   Swin-T serving path gives it at bucket 64 (also at ViT-B's C = 768 with
    B*197 rows); full-sequence attention (K3) at ViT-B's 12 heads of width
    64 at bucket 64 for N = 50, 197 (the main shape) and 577, a small
    case with a learned (H, N, N) bias and a mask of M = 2, and small cases
@@ -69,7 +77,9 @@
    kernel's launch count, finite logits of the right shapes, and agreement
    with the same model run through the plain versions in bf16 and f32; then
    times benchmark(64) through the kernels and through the plain versions,
-   the peak memory, and a profile of where the device time goes.
+   the peak memory, and a profile of where the device time goes, with the
+   attention kernel's device time in it (Swin-T's bf16 K1 launches all on
+   its tensor-core design).
 5. Drives the training path of every model of phase 4 at full width and
    depth (bf16, 10 classes), and of resnet50 with ghost_bn = 2 and the fused
    chain (nkbx's ghost2_fused recipe; the chain runs in training only, so
@@ -95,9 +105,10 @@
    tolerances (check_chain_blocks). Then step time, img/s and peak memory
    of both paths (for ResNet also of the unfused ghost-BN resnet50 from the
    same weights, the model a user would run without the chain), and a
-   profile of one step, with the attention backward's device time in it
-   (K2 for Swin-T with its dbias reduction, K4 for ViT-B; Swin-T's bf16 K2
-   launches all on the tensor-core design). Then resnet50 with exact
+   profile of one step, with the attention kernels' device time in it
+   (K1 and K2 for Swin-T, K2 with its dbias reduction, K3 and K4 for
+   ViT-B; Swin-T's bf16 K1 and K2 launches all on their tensor-core
+   designs). Then resnet50 with exact
    BatchNorm, which runs no kernel of ours (its launch counts are read and
    must stay 0):
    RESNET_EXACT, bench.py's program (224 px, 1000 classes, batch 128, bf16,
@@ -245,43 +256,129 @@ def attn_sdpa_inputs(qkv, bias, mask, heads):
     return q, k, v, am
 
 
+# Swin-T's four stages at bucket 64, shifted blocks for stages 0-2 (the mask with
+# M windows), none at stage 3; then window 12: (stage, G, heads, M, grid, window)
+SWIN_ATTN_CASES = [(s, BUCKET * (8 >> s) ** 2, 3 << s, (8 >> s) ** 2 if s < 3 else 1, 56 >> s, 7)
+                   for s in range(4)] + [("w12", 256, 4, 64, 96, 12)]
+# K1 and K2 alone at windows around their 16-row slabs, with a shared and a per-head
+# bias: (label, heads, N, bias heads); G is ragged_windows' (one mask, M = 1)
+ATTN_RAGGED = [(f"N={n} Hb={bh}", 2, n, bh) for n in (16, 17, 48, 63, 64, 65) for bh in (1, 2)]
+ATTN_ITERS = 20  # cold-L2 launches timed a case (K1, K2)
+
+
+def attn_fwd_bound(g, n, heads, m):
+    """K1's least time: qkv read and the output written once, the bias and
+    mask read once; 4 N^2 D operations per (window, head), its two
+    products."""
+    nbytes = 2 * g * n * 4 * heads * 32 + 4 * (heads + m) * n * n
+    return bound_ms(nbytes, 4 * g * heads * n * n * 32, "bf16")
+
+
+def ragged_windows(heads, n, blocks_per_sm, windows_per_block):
+    """A G that a tensor-core design's windows-per-block count does not
+    divide on this card: two runs of a head's blocks and one more window,
+    one more where that count divides it."""
+    sms = torch.cuda.get_device_properties(DEV).multi_processor_count
+    g = 2 * max(1, sms * blocks_per_sm(n) // heads) + 1
+    return g + (g % windows_per_block(g, heads, n, sms) == 0)
+
+
+def hold_attention(what, qkv, bias, mask, scale, heads, dtype, worst):
+    """K1 twice against its plain version on these operands: within 1e-4
+    (f32) or 2 bf16 ulps of the largest output (bf16: P and the output round
+    to bf16, so a last-bit difference flips a rounding); the second launch
+    bit-identical; the design the wrapper's route names (the tensor cores for
+    bf16 at D = 32, N <= 144) launched. Fails otherwise."""
+    n, d = qkv.shape[1], qkv.shape[2] // 3 // heads
+    tc = A.takes_tc(n, d, qkv.dtype)
+    before = A.fused_attention_qkv.tc_launches
+    got = A.fused_attention_qkv(qkv, bias, mask, scale, heads)
+    again = A.fused_attention_qkv(qkv, bias, mask, scale, heads)
+    torch.cuda.synchronize()
+    routed = A.fused_attention_qkv.tc_launches - before == (2 if tc else 0)
+    ref = attn_plain(qkv, bias, mask, scale, heads)
+    err = max_err(got, ref)
+    lim = 1e-4 if dtype == "f32" else 2 * bf16_ulp(float(ref.float().abs().max()))
+    same = torch.equal(got, again)
+    worst[dtype] = max(worst[dtype], err)
+    ok = err <= lim and same and routed
+    log(f"K1 {what} {dtype} ({'tensor cores' if tc else 'first design'}): max|err| {err:.3e} "
+        f"(tol {lim:.3e}), a second launch equal {same}, routed {routed} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"window attention disagrees with its plain version at {what} {dtype}")
+
+
+def first_design(qkv, bias, mask, scale, heads):
+    """K1's first design (window_attention_kernel) on bf16 operands that the
+    wrapper sends to the tensor cores, launched through its C entry: a
+    yardstick timed beside the new design, held against plain first, and
+    launched by no path. Returns the launch."""
+    g, n, c3 = qkv.shape
+    out = torch.empty(g, n, c3 // 3, dtype=qkv.dtype, device=DEV)
+    lib = _build.load("window_attention", A._SIGNATURES)
+
+    def launch():
+        _build.check(lib.nkbx_window_attention(
+            qkv.data_ptr(), bias.data_ptr(), mask.data_ptr(), out.data_ptr(), g, n, heads,
+            c3 // 3 // heads, bias.shape[0], mask.shape[0], float(scale), 1,
+            torch.cuda.current_stream().cuda_stream), "window_attention launch")
+
+    launch()
+    torch.cuda.synchronize()
+    ref = attn_plain(qkv, bias, mask, scale, heads)
+    err, lim = max_err(out, ref), 2 * bf16_ulp(float(ref.float().abs().max()))
+    if err > lim:
+        fail(f"K1's first design disagrees with plain: {err:.3e} (tol {lim:.3e})")
+    return launch
+
+
 def check_attention():
+    """K1 against its plain version (hold_attention) at SWIN_ATTN_CASES (bf16:
+    the tensor-core design; f32: the first design), and at the ragged
+    ATTN_RAGGED at a G that the windows-per-block count does not divide
+    (bf16, f32). At the stages and window 12 (bf16) the kernel, its first
+    design (first_design), the plain version and SDPA are timed with a cold
+    L2 (cold_ms), after each set was held against plain; each row logs the
+    SDPA backend and its share of the bytes bound, and a share over 100%
+    fails."""
     gen = torch.Generator(device=DEV).manual_seed(1)
-    tol = {"f32": lambda ref: 1e-4, "bf16": lambda ref: 2 * bf16_ulp(ref)}
     rows, worst = [], {"bf16": 0.0, "f32": 0.0}
-    # (stage, G, heads, M, grid, window): Swin-T at bucket 64, shifted blocks
-    # for stages 0-2 (the mask with M windows), none at stage 3; then window 12
-    cases = [(s, BUCKET * (8 >> s) ** 2, 3 << s, (8 >> s) ** 2 if s < 3 else 1, 56 >> s, 7)
-             for s in range(4)]
-    cases.append(("w12", 256, 4, 64, 96, 12))
-    for stage, g, heads, m, grid, window in cases:
+    for stage, g, heads, m, grid, window in SWIN_ATTN_CASES:
+        n = window * window
         for dtype in ("bf16", "f32"):
             qkv, bias, mask, scale = attn_case(g, heads, m, grid, window, dtype, gen)
-            got = A.fused_attention_qkv(qkv, bias, mask, scale, heads)
-            torch.cuda.synchronize()
-            ref = attn_plain(qkv, bias, mask, scale, heads)
-            err, lim = max_err(got, ref), tol[dtype](float(ref.float().abs().max()))
-            worst[dtype] = max(worst[dtype], err)
-            ok = err <= lim
-            log(f"K1 stage {stage} G={g} H={heads} N={window ** 2} M={m} {dtype}: "
-                f"max|err| {err:.3e} (tol {lim:.3e}) {'ok' if ok else 'FAIL'}")
-            if not ok:
-                fail(f"window attention disagrees with its plain version at stage {stage} {dtype}")
+            hold_attention(f"stage {stage} G={g} H={heads} N={n} M={m}", qkv, bias, mask,
+                           scale, heads, dtype, worst)
             if dtype != "bf16":
                 continue
-            n, c = window * window, heads * 32
-            ms = cuda_ms(lambda: A.fused_attention_qkv(qkv, bias, mask, scale, heads))
-            plain = cuda_ms(lambda: attn_plain(qkv, bias, mask, scale, heads))
+            first = cold_ms(first_design(qkv, bias, mask, scale, heads), ATTN_ITERS)
+            ms = cold_ms(lambda: A.fused_attention_qkv(qkv, bias, mask, scale, heads),
+                         ATTN_ITERS)
+            plain = cold_ms(lambda: attn_plain(qkv, bias, mask, scale, heads), ATTN_ITERS)
             q, k, v, am = attn_sdpa_inputs(qkv, bias, mask, heads)
-            lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=am,
-                                                                  scale=scale))
-            nbytes = 2 * g * n * 4 * c + 4 * (heads + m) * n * n
-            b, by = bound_ms(nbytes, 4 * g * heads * n * n * 32, "bf16")
-            log(f"   bf16 times: kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa {lib:.4f} ms, "
-                f"bound {b:.4f} ms ({by})")
-            rows.append(dict(stage=stage, ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b,
-                             bound_by=by))
+
+            def sdpa():
+                return F.scaled_dot_product_attention(q, k, v, attn_mask=am, scale=scale)
+
+            lib, backend = cold_ms(sdpa, ATTN_ITERS), sdpa_backend(sdpa)
+            b, by = attn_fwd_bound(g, n, heads, m)
+            log(f"   bf16 times (cold L2): kernel {ms:.4f} ms, first design {first:.4f} ms, "
+                f"plain {plain:.4f} ms, sdpa {lib:.4f} ms ({backend}), bound {b:.4f} ms "
+                f"({by}), kernel at {100 * b / ms:.1f}% of the bound")
+            if b > ms:
+                fail(f"K1 stage {stage} timed under its bound: the timing is wrong")
+            rows.append(dict(stage=stage, ms=ms, first_ms=first, plain_ms=plain, library_ms=lib,
+                             bound_ms=b, bound_by=by, bound_share=b / ms, backend=backend))
             del q, k, v, am
+    for label, heads, n, bh in ATTN_RAGGED:
+        g = ragged_windows(heads, n, A.fwd_tc_blocks_per_sm, A.fwd_tc_windows_per_block)
+        for dtype in ("bf16", "f32"):
+            qkv = torch.randn(g, n, 3 * heads * 32, generator=gen, device=DEV).to(DT[dtype])
+            bias = (0.5 * torch.randn(bh, n, n, generator=gen, device=DEV)).contiguous()
+            mask = torch.where(torch.rand(1, n, n, generator=gen, device=DEV) < 0.2, -100.0, 0.0)
+            hold_attention(f"{label} G={g} H={heads} M=1", qkv, bias, mask, 32 ** -0.5, heads,
+                           dtype, worst)
     return rows, worst
 
 
@@ -352,26 +449,12 @@ def sdpa_backend(fn):
     return "math"
 
 
-# K2 alone at windows around its 16-row slabs, with a shared and a per-head bias:
-# (label, heads, N, bias heads); G is ragged_windows' (one mask, M = 1)
-ATTN_BWD_RAGGED = [(f"N={n} Hb={bh}", 2, n, bh) for n in (16, 17, 48, 63, 64, 65)
-                   for bh in (1, 2)]
-ATTN_BWD_ITERS = 20  # cold-L2 launches timed a case
-
-
 def attn_bwd_bound(g, n, heads, m):
     """K2's least time: qkv and go read and dqkv written once, the bias and
     mask read and dbias written once; 10 N^2 D operations per (window,
     head), its five products."""
     nbytes = 2 * g * n * 7 * heads * 32 + 4 * (2 * heads + m) * n * n
     return bound_ms(nbytes, 10 * g * heads * n * n * 32, "bf16")
-
-
-def ragged_windows(heads, n):
-    """A G that the tensor-core design's windows-per-block count does not
-    divide on this card: two full runs of windows per block and one more."""
-    sms = torch.cuda.get_device_properties(DEV).multi_processor_count
-    return 2 * max(1, sms * A.bwd_tc_blocks_per_sm(n) // heads) + 1
 
 
 def hold_attention_bwd(what, qkv, bias, mask, go, scale, heads, dtype, worst):
@@ -382,7 +465,7 @@ def hold_attention_bwd(what, qkv, bias, mask, go, scale, heads, dtype, worst):
     design the wrapper's route names (the tensor cores for bf16 at D = 32, N
     <= 144) launched. Fails otherwise."""
     n, d = qkv.shape[1], qkv.shape[2] // 3 // heads
-    tc = A.bwd_takes_tc(n, d, qkv.dtype)
+    tc = A.takes_tc(n, d, qkv.dtype)
     before = A.fused_attention_qkv_bwd.tc_launches
     dqkv, dbias = A.fused_attention_qkv_bwd(qkv, bias, mask, go, scale, heads)
     dqkv2, dbias2 = A.fused_attention_qkv_bwd(qkv, bias, mask, go, scale, heads)
@@ -403,19 +486,15 @@ def hold_attention_bwd(what, qkv, bias, mask, go, scale, heads, dtype, worst):
 
 
 def check_attention_bwd():
-    """K2 against its plain version (hold_attention_bwd) at Swin-T's four
-    stages at batch 64 and at window 12 (bf16: the tensor-core design; f32:
-    the first design), and at the ragged ATTN_BWD_RAGGED (bf16, f32). At
-    the stages and window 12 (bf16) the kernel, the plain version and SDPA's
-    backward are timed with a cold L2 (cold_ms), after each set was held
-    against plain; each row logs the SDPA backend and its share of the
-    bytes bound, and a share over 100% fails."""
+    """K2 against its plain version (hold_attention_bwd) at SWIN_ATTN_CASES
+    (bf16: the tensor-core design; f32: the first design), and at the ragged
+    ATTN_RAGGED (bf16, f32). At the stages and window 12 (bf16) the kernel,
+    the plain version and SDPA's backward are timed with a cold L2
+    (cold_ms), after each set was held against plain; each row logs the SDPA
+    backend and its share of the bytes bound, and a share over 100% fails."""
     gen = torch.Generator(device=DEV).manual_seed(3)
     rows, worst = [], {"bf16": 0.0, "f32": 0.0}
-    cases = [(s, BUCKET * (8 >> s) ** 2, 3 << s, (8 >> s) ** 2 if s < 3 else 1, 56 >> s, 7)
-             for s in range(4)]
-    cases.append(("w12", 256, 4, 64, 96, 12))
-    for stage, g, heads, m, grid, window in cases:
+    for stage, g, heads, m, grid, window in SWIN_ATTN_CASES:
         for dtype in ("bf16", "f32"):
             qkv, bias, mask, scale = attn_case(g, heads, m, grid, window, dtype, gen)
             n, c = window * window, heads * 32
@@ -425,9 +504,9 @@ def check_attention_bwd():
             if dtype != "bf16":
                 continue
             ms = cold_ms(lambda: A.fused_attention_qkv_bwd(qkv, bias, mask, go, scale, heads),
-                         ATTN_BWD_ITERS)
+                         ATTN_ITERS)
             plain = cold_ms(lambda: A.reference_attention_bwd(qkv, bias, mask, go, scale, heads),
-                            ATTN_BWD_ITERS)
+                            ATTN_ITERS)
             lib, backend = None, "not measured"
             try:  # a yardstick only: the port never calls SDPA
                 q, k, v, am = (t.detach().requires_grad_() for t in
@@ -438,7 +517,7 @@ def check_attention_bwd():
                 def sdpa_bwd():
                     return torch.autograd.grad(out, (q, k, v, am), gout, retain_graph=True)
 
-                lib = cold_ms(sdpa_bwd, ATTN_BWD_ITERS)
+                lib = cold_ms(sdpa_bwd, ATTN_ITERS)
                 backend = sdpa_backend(sdpa_bwd)
                 del q, k, v, am, out, gout
             except RuntimeError as e:
@@ -451,8 +530,8 @@ def check_attention_bwd():
                 fail(f"K2 stage {stage} timed under its bound: the timing is wrong")
             rows.append(dict(stage=stage, ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b,
                              bound_by=by, bound_share=b / ms, backend=backend))
-    for label, heads, n, bh in ATTN_BWD_RAGGED:
-        g, m = ragged_windows(heads, n), 1
+    for label, heads, n, bh in ATTN_RAGGED:
+        g, m = ragged_windows(heads, n, A.bwd_tc_blocks_per_sm, A.bwd_tc_windows_per_block), 1
         for dtype in ("bf16", "f32"):
             qkv = torch.randn(g, n, 3 * heads * 32, generator=gen, device=DEV).to(DT[dtype])
             go = torch.randn(g, n, heads * 32, generator=gen, device=DEV).to(DT[dtype])
@@ -1270,8 +1349,11 @@ class Path:
         self.label, self.cfg, self.counts, self.attention = label, cfg, counts, attention
         self.env, self.layer_scale = env or {}, layer_scale
         self.serves, self.ghost_bn, self.yardstick = serves, ghost_bn, yardstick
-        self.profiled = {}  # {kernel name: device ms in the profiled train step}
-        self.tc_launches = None  # K2's tensor-core launches in the 5 bf16 steps (Swin)
+        # {(kernel name, "serve" | "train"): device ms in the profiled bucket-64
+        # forward or train step}
+        self.profiled = {}
+        # {(kernel name, "serve" | "train"): tensor-core launches of K1 and K2 (Swin)}
+        self.tc_launches = {}
 
     def model(self, dtype, cfg=None):
         model = get_model(cfg or self.cfg, [f"class{i}" for i in range(10)], seed=0, dtype=dtype)
@@ -1358,12 +1440,21 @@ def report_profile(prof, reps, what, step_ms, fname):
     return events
 
 
+def kernel_ms(events, name, reps):
+    """Device ms of one kernel of ours in a profile, by its names' prefix
+    after the namespace (K1: window_attention*, K3: attention_*; a backward
+    name with its reduction, K2: window_attention_bwd*, K4: attention_bwd_*),
+    a forward's name not followed by ``_bwd``."""
+    pat = rf"(^|[^\w]){name}" + ("" if name.endswith("_bwd") else "(?!_bwd)")
+    return sum(us for us, e in events if re.search(pat, e.key)) / 1e3 / reps
+
+
 def profile_forward(path, serving, x, step_ms):
     """Device time by kernel over 3 forwards at bucket 64 (torch.profiler) of
     the batch ``x`` already on the card: the work that ``compute_p50_ms``
     times. The idle share is against ``step_ms``, that p50 measured without
     the profiler; a negative share would mean the two measure different
-    work."""
+    work. Records the attention kernel's ms a forward."""
     from torch.profiler import ProfilerActivity, profile
 
     serving(x)
@@ -1372,8 +1463,11 @@ def profile_forward(path, serving, x, step_ms):
         for _ in range(3):
             serving(x)
         torch.cuda.synchronize()
-    report_profile(prof, 3, f"per bucket-64 {path.label} forward", step_ms,
-                   f"profile_bucket64_{path.label}.txt")
+    events = report_profile(prof, 3, f"per bucket-64 {path.label} forward", step_ms,
+                            f"profile_bucket64_{path.label}.txt")
+    if path.attention and events:
+        ms = path.profiled[(path.attention, "serve")] = kernel_ms(events, path.attention, 3)
+        log(f"profile: {path.attention} kernels {ms:.3f} ms a bucket-64 {path.label} forward")
 
 
 def check_path(path):
@@ -1392,6 +1486,7 @@ def check_path(path):
     forwards = 1 + 1 + 1 + 2  # 70 = a chunk of 64 and a bucket-8 chunk of 6
 
     set_plain(False)
+    tc0 = A.fused_attention_qkv.tc_launches
     zero_counts()
     outs = serve_all(serving, requests)
     counts = read_counts()
@@ -1400,6 +1495,12 @@ def check_path(path):
     if (counts != want or not kernels_ran(want, False)
             or (path.attention and not counts[path.attention])):
         fail(f"the {path.label} serving path did not go through the kernels as expected")
+    if path.attention == "window_attention":  # bf16 Swin-T: K1 on its tensor-core design
+        tc = path.tc_launches[("window_attention", "serve")] = (A.fused_attention_qkv.tc_launches
+                                                                - tc0)
+        log(f"path {path.label}: K1's tensor-core design launched {tc} times")
+        if tc != counts["window_attention"]:
+            fail(f"{path.label}: K1 did not take its tensor-core design in every bf16 launch")
     for n, o in zip(sizes, outs):
         if tuple(o.shape) != (n, 10) or o.dtype != torch.float32 or not torch.isfinite(o).all():
             fail(f"{path.label} logits of request {n}: shape {tuple(o.shape)}, dtype {o.dtype}")
@@ -1664,14 +1765,17 @@ def check_train(path):
 
     set_plain(False)
     want = path.counts(torch.bfloat16, True)
-    tc0 = A.fused_attention_qkv_bwd.tc_launches
+    fns = (A.fused_attention_qkv, A.fused_attention_qkv_bwd)
+    tc0 = [fn.tc_launches for fn in fns]
     losses, counts, finite, stats = five_steps(False)
-    if path.attention == "window_attention":  # bf16 Swin-T: K2 on its tensor-core design
-        path.tc_launches = A.fused_attention_qkv_bwd.tc_launches - tc0
-        log(f"train {path.label}: K2's tensor-core design launched {path.tc_launches} times "
-            f"in 5 steps")
-        if path.tc_launches != sum(c["window_attention_bwd"] for c in counts):
-            fail(f"{path.label}: K2 did not take its tensor-core design in every bf16 launch")
+    if path.attention == "window_attention":  # bf16 Swin-T: K1 and K2 on the tensor cores
+        for name, fn, t0 in zip(("window_attention", "window_attention_bwd"), fns, tc0):
+            tc = path.tc_launches[(name, "train")] = fn.tc_launches - t0
+            log(f"train {path.label}: {name}'s tensor-core design launched {tc} times in 5 "
+                f"steps")
+            if tc != sum(c[name] for c in counts):
+                fail(f"{path.label}: {name} did not take its tensor-core design in every bf16 "
+                     "launch")
     log(f"train {path.label}: kernels, 5 steps, losses {[round(x, 5) for x in losses]}, "
         f"launches per step {counts[0]} (expect {want})")
     if any(c != want for c in counts) or not kernels_ran(want, True):
@@ -1756,13 +1860,10 @@ def check_train(path):
             events = report_profile(prof, 1, f"in one batch-64 {name} train step",
                                     bench[label][-1]["step_ms"], f"profile_train_step_{name}.txt")
             if label == "kernels" and path.attention and events:
-                # the attention backward's kernels (K2: window_attention_bwd* with its
-                # dbias reduction, K4: attention_bwd_*) by their names' prefix after the
-                # namespace
-                bwd = path.attention + "_bwd"
-                ms = sum(us for us, e in events if re.search(rf"(^|[^\w]){bwd}", e.key)) / 1e3
-                path.profiled[bwd] = ms
-                log(f"profile: {bwd} kernels {ms:.3f} ms in one batch-64 {name} train step")
+                for kernel in (path.attention, path.attention + "_bwd"):
+                    ms = path.profiled[(kernel, "train")] = kernel_ms(events, kernel, 1)
+                    log(f"profile: {kernel} kernels {ms:.3f} ms in one batch-64 {name} train "
+                        "step")
     except Exception as e:  # noqa: BLE001
         log(f"profile: not measured ({type(e).__name__}: {e})")
     return launches
@@ -2460,7 +2561,7 @@ def main():
     kernels[5]["bound_share"] = {lab: sep_bwd_rows[lab]["bound_share"]
                                  for lab in ("N=50", "N=197", "N=577")}
     kernels[5]["sdpa_backend"] = sep_bwd_rows["N=197"]["backend"]
-    kernels[5]["profile_ms_per_step"] = VIT.profiled.get("attention_bwd")
+    kernels[5]["profile_ms_per_step"] = VIT.profiled.get(("attention_bwd", "train"))
     kernels[11]["bound_share"] = [r["bound_share"] for r in gc_rows]
     # K2: cold-L2 shares of the bound, SDPA's backend, window 12, the tensor-core
     # launches of the Swin-T train path and its step's K2 device time (the reduction in)
@@ -2468,8 +2569,21 @@ def main():
     kernels[2]["sdpa_backend"] = attn_bwd_rows[0]["backend"]
     kernels[2].update({f"{key}_w12": attn_bwd_rows[4][key]
                        for key in ("ms", "plain_ms", "library_ms", "bound_ms")})
-    kernels[2]["launches_tc_swin_train"] = SWIN.tc_launches
-    kernels[2]["profile_ms_per_step"] = SWIN.profiled.get("window_attention_bwd")
+    kernels[2]["launches_tc_swin_train"] = SWIN.tc_launches[("window_attention_bwd", "train")]
+    kernels[2]["profile_ms_per_step"] = SWIN.profiled.get(("window_attention_bwd", "train"))
+    # K1 the same (cold-L2 shares, window 12, its first design's cold ms beside), the
+    # tensor-core launches of the Swin-T serving and train paths, and its device time
+    # in a bucket-64 forward's and a train step's profile
+    kernels[0]["bound_share"] = {r["stage"]: r["bound_share"] for r in attn_rows}
+    kernels[0]["sdpa_backend"] = attn_rows[0]["backend"]
+    kernels[0]["first_design_ms"] = sum(m * r["first_ms"]
+                                        for m, r in zip(DEPTHS, attn_rows[:4], strict=True))
+    kernels[0].update({f"{key}_w12": attn_rows[4][key]
+                       for key in ("ms", "first_ms", "plain_ms", "library_ms", "bound_ms")})
+    kernels[0]["launches_tc_swin_serve"] = SWIN.tc_launches[("window_attention", "serve")]
+    kernels[0]["launches_tc_swin_train"] = SWIN.tc_launches[("window_attention", "train")]
+    kernels[0]["profile_ms_per_forward"] = SWIN.profiled.get(("window_attention", "serve"))
+    kernels[0]["profile_ms_per_step"] = SWIN.profiled.get(("window_attention", "train"))
     # K10 is held by each gradient's relative L2 (check_chain): its worst, beside max|err|
     kernels[9]["max_rel_l2"], kernels[9]["max_rel_l2_f32"] = (chain_err["bwd_l2"]["bf16"],
                                                               chain_err["bwd_l2"]["f32"])

@@ -4,8 +4,8 @@ backward, for both of nkbx's entries (``nkbx/ops/attention.py``).
 - :func:`fused_attention_qkv`, Swin's window attention on the packed qkv
   Dense output: ``csrc/window_attention.cu`` replaces the Pallas
   ``_fwd_kernel_packed`` and ``csrc/window_attention_bwd.cu``
-  ``_bwd_kernel_packed`` (bf16 with heads of width 32 and N up to 144 on
-  its tensor-core design, anything else on its first design).
+  ``_bwd_kernel_packed`` (each: bf16 with heads of width 32 and N up to 144
+  on its tensor-core design, anything else on its first design).
 - :func:`fused_attention`, the ViT family's full-sequence attention on
   separate q, k, v: ``csrc/attention.cu`` replaces ``_fwd_kernel_sep`` and
   ``csrc/attention_bwd.cu`` ``_bwd_kernel_sep``.
@@ -41,8 +41,8 @@ import torch
 from nkbx_torch.ops import _build
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"nkbx_window_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                         ctypes.c_float, _I, _P]}
+_SIGNATURES = {"nkbx_window_attention": [_P] * 4 + [_I] * 6 + [ctypes.c_float, _I, _P],
+               "nkbx_window_attention_tc": [_P] * 4 + [_I] * 6 + [ctypes.c_float, _I, _P]}
 _BWD_SIGNATURES = {"nkbx_window_attention_bwd": [_P] * 7 + [_I] * 6 + [ctypes.c_float, _I,
                                                                         _I, _P],
                    "nkbx_window_attention_bwd_tc": [_P] * 7 + [_I] * 6 + [ctypes.c_float, _I,
@@ -52,7 +52,7 @@ _SEP_BWD_SIGNATURES = {"nkbx_attention_bwd": [_P] * 12 + [_I] * 5 + [ctypes.c_fl
                                                                       _P]}
 _MAX_SMEM = _build.MAX_SMEM
 _BWD_BLOCKS = 1024  # the first backward groups windows per block down to about this many blocks
-TC_HEAD_DIM, TC_MAX_N = 32, 144  # the bf16 backward's tensor-core design takes these
+TC_HEAD_DIM, TC_MAX_N = 32, 144  # the bf16 tensor-core designs of K1 and K2 take these
 HEAD_DIM = 64  # the only head width attention.cu and attention_bwd.cu take (every ViT's)
 
 
@@ -80,7 +80,9 @@ def resolve_fused(flag, x: torch.Tensor, auto: bool = True, groups=None) -> bool
 
 
 def smem_bytes(n: int, d: int) -> int:
-    """Shared memory of one block of the forward kernel (window_attention.cu)."""
+    """Shared memory of one block of the forward's first design
+    (window_attention.cu): q, k, v rows padded to D+1 and the (N, N) float
+    scores."""
     return (3 * n * (d + 1) + n * n) * 4
 
 
@@ -95,6 +97,41 @@ def _padded16(n: int) -> int:
     return -(-n // 16) * 16
 
 
+def takes_tc(n: int, d: int, dtype) -> bool:
+    """Whether the forward and the backward run their tensor-core designs
+    (bf16, D = 32, N up to 144: every Swin window) rather than their first
+    designs."""
+    return dtype == torch.bfloat16 and d == TC_HEAD_DIM and 1 <= n <= TC_MAX_N
+
+
+def _runs_of_windows(g: int, heads: int, blocks_per_sm: int, sms: int) -> int:
+    """Windows per block of a tensor-core design: the (head, run of windows)
+    blocks fill the card's resident slots about once."""
+    per_head = max(1, sms * blocks_per_sm // heads)
+    return max(1, -(-g // per_head))
+
+
+def fwd_tc_smem_bytes(n: int, d: int = TC_HEAD_DIM) -> int:
+    """Shared memory of one block of the forward's tensor-core design, the
+    window padded to KP = N rounded up to 16: a 2-slot ring of the q, k and v
+    tiles (KP, D+8) bf16, and nothing of size (N, N)."""
+    return 2 * 3 * _padded16(n) * (d + 8) * 2
+
+
+def fwd_tc_blocks_per_sm(n: int) -> int:
+    """Blocks of the forward's tensor-core design one SM holds, as its launch
+    bounds promise: four of up to 4 warps (N <= 64), else one (its scores
+    and bias + mask in registers need the register file)."""
+    return 4 if _padded16(n) <= 64 else 1
+
+
+def fwd_tc_windows_per_block(g: int, heads: int, n: int, sms: int) -> int:
+    """Windows per block of the forward's tensor-core design, whose blocks
+    take their runs in the order of the windows' mask index (Swin-T stage 0
+    on 132 SMs: 24 windows, 513 blocks)."""
+    return _runs_of_windows(g, heads, fwd_tc_blocks_per_sm(n), sms)
+
+
 def bwd_tc_smem_bytes(n: int, d: int = TC_HEAD_DIM) -> int:
     """Shared memory of one block of the backward's tensor-core design, the
     window padded to KP = N rounded up to 16: a 2-slot ring of the q, k, v
@@ -102,12 +139,6 @@ def bwd_tc_smem_bytes(n: int, d: int = TC_HEAD_DIM) -> int:
     dS·scale, and the f32 dbias partial (KP, KP)."""
     kp = _padded16(n)
     return 2 * 4 * kp * (d + 8) * 2 + kp * (kp + 8) * 2 + 4 * kp * kp
-
-
-def bwd_takes_tc(n: int, d: int, dtype) -> bool:
-    """Whether the backward runs the tensor-core design (bf16, D = 32, N up
-    to 144: every Swin window) rather than the first design."""
-    return dtype == torch.bfloat16 and d == TC_HEAD_DIM and 1 <= n <= TC_MAX_N
 
 
 def bwd_tc_blocks_per_sm(n: int) -> int:
@@ -124,8 +155,7 @@ def bwd_tc_windows_per_block(g: int, heads: int, n: int, sms: int) -> int:
     windows) blocks fill the card's resident slots once, so that each block
     writes its dbias partial once (Swin-T stage 0 on 132 SMs: 32 windows,
     384 blocks)."""
-    per_head = max(1, sms * bwd_tc_blocks_per_sm(n) // heads)
-    return max(1, -(-g // per_head))
+    return _runs_of_windows(g, heads, bwd_tc_blocks_per_sm(n), sms)
 
 
 def _check(qkv, bias, mask, heads: int, smem) -> tuple:
@@ -150,26 +180,36 @@ def _check(qkv, bias, mask, heads: int, smem) -> tuple:
 
 
 def _forward(qkv, bias, mask, scale: float, heads: int):
-    """The forward half: the kernel on a CUDA tensor, the plain version on a
-    CPU tensor."""
+    """The forward half: on a CUDA tensor the kernel, its tensor-core design
+    where :func:`takes_tc`, else its first design; on a CPU tensor the plain
+    version."""
     if not qkv.is_cuda:
         hd = qkv.shape[-1] // 3
         q, k, v = qkv[..., :hd], qkv[..., hd:2 * hd], qkv[..., 2 * hd:]
         return reference_attention(q, k, v, bias, mask, scale, heads)
-    g, n, d, m = _check(qkv, bias, mask, heads, smem_bytes)
-    dev = qkv.device
-    qkv, bias, mask = qkv.contiguous(), bias.contiguous(), mask.contiguous()
-    out = torch.empty((g, n, heads * d), dtype=qkv.dtype, device=dev)
+    dev, dt = qkv.device, qkv.dtype
+    g, n, d, m = _check(qkv, bias, mask, heads, lambda n_, d_: (
+        fwd_tc_smem_bytes(n_, d_) if takes_tc(n_, d_, dt) else smem_bytes(n_, d_)))
+    tc = takes_tc(n, d, dt)
+    qkv = _build.aligned(qkv)  # the tensor-core design copies 16 B
+    bias, mask = bias.contiguous(), mask.contiguous()
+    out = torch.empty((g, n, heads * d), dtype=dt, device=dev)
     if g == 0:
         return out
     lib = _build.load("window_attention", _SIGNATURES)
+    args = (qkv.data_ptr(), bias.data_ptr(), mask.data_ptr(), out.data_ptr(), g, n, heads, d,
+            bias.shape[0], m, float(scale))
     with torch.cuda.device(dev):
-        err = lib.nkbx_window_attention(
-            qkv.data_ptr(), bias.data_ptr(), mask.data_ptr(), out.data_ptr(), g, n, heads,
-            d, bias.shape[0], m, float(scale), int(qkv.dtype == torch.bfloat16),
-            torch.cuda.current_stream(dev).cuda_stream)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if tc:
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
+            err = lib.nkbx_window_attention_tc(*args, fwd_tc_windows_per_block(g, heads, n, sms),
+                                               stream)
+        else:
+            err = lib.nkbx_window_attention(*args, int(dt == torch.bfloat16), stream)
     _build.check(err, "window_attention launch")
     fused_attention_qkv.launches += 1
+    fused_attention_qkv.tc_launches += tc
     return out
 
 
@@ -198,21 +238,22 @@ def fused_attention_qkv(qkv, bias, mask, scale: float, heads: int):
     return _WindowAttention.apply(qkv, bias, mask, scale, heads)
 
 
-fused_attention_qkv.launches = 0  # forward kernel launches, counted by _forward
+fused_attention_qkv.launches = 0  # forward kernel launches (either design), counted by _forward
+fused_attention_qkv.tc_launches = 0  # those of the tensor-core design
 
 
 def fused_attention_qkv_bwd(qkv, bias, mask, go, scale: float, heads: int):
     """Backward of :func:`fused_attention_qkv`: ``(dqkv, dbias)``, dqkv
     (G, N, 3·H·D) in qkv's dtype and dbias (bias heads, N, N) in f32. On a
     CUDA tensor this launches the kernel (and its fixed-order dbias
-    reduction): the tensor-core design where :func:`bwd_takes_tc`, else the
+    reduction): the tensor-core design where :func:`takes_tc`, else the
     first design; on a CPU tensor it computes :func:`reference_attention_bwd`."""
     if not qkv.is_cuda:
         return reference_attention_bwd(qkv, bias, mask, go, scale, heads)
     dev, dt = qkv.device, qkv.dtype
     g, n, d, m = _check(qkv, bias, mask, heads, lambda n_, d_: (
-        bwd_tc_smem_bytes(n_, d_) if bwd_takes_tc(n_, d_, dt) else bwd_smem_bytes(n_, d_)))
-    tc = bwd_takes_tc(n, d, dt)
+        bwd_tc_smem_bytes(n_, d_) if takes_tc(n_, d_, dt) else bwd_smem_bytes(n_, d_)))
+    tc = takes_tc(n, d, dt)
     if tuple(go.shape) != (g, n, heads * d) or go.dtype != dt or go.device != dev:
         raise ValueError(f"cotangent {tuple(go.shape)} {go.dtype} is not ({g}, {n}, "
                          f"{heads * d}) {dt} on {dev}")

@@ -1,12 +1,14 @@
 // The primitives of the mma.sync kernels (grouped_conv.cu, attention.cu,
-// attention_bwd.cu, window_attention_bwd.cu): 16-byte cp.async copies into
-// shared memory with their commit groups, ldmatrix, the special-function
-// unit's 2^x, the warp-level m16n8k16 product of bf16 operands into float
-// accumulators, quad reductions, and the attention backwards' products of a
-// warp's 16 rows with the rows of a shared bf16 tile of row stride LD. Fragment layouts are PTX's: A (16 x 16) in four registers,
-// a0 = row lane/4, k 2(lane%4) + {0, 1}; a1 the row + 8; a2, a3 k + 8. B
-// (16 x 8) in two, b0 = k 2(lane%4) + {0, 1}, column lane/4; b1 k + 8. C
-// (16 x 8) c0, c1 = row lane/4, columns 2(lane%4) + {0, 1}; c2, c3 the row + 8.
+// attention_bwd.cu, window_attention.cu, window_attention_bwd.cu): 16-byte
+// cp.async copies into shared memory with their commit groups, a padded head
+// slice copied by rows, ldmatrix, the special-function unit's 2^x, the
+// warp-level m16n8k16 product of bf16 operands into float accumulators, quad
+// reductions, and the window and backward kernels' products of a warp's 16
+// rows with the rows of a shared bf16 tile of row stride LD. Fragment layouts
+// are PTX's: A (16 x 16) in four registers, a0 = row lane/4, k 2(lane%4) +
+// {0, 1}; a1 the row + 8; a2, a3 k + 8. B (16 x 8) in two, b0 = k 2(lane%4) +
+// {0, 1}, column lane/4; b1 k + 8. C (16 x 8) c0, c1 = row lane/4, columns
+// 2(lane%4) + {0, 1}; c2, c3 the row + 8.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -33,6 +35,21 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Rows 0 .. ROWS-1 of an (n, D) bf16 slice (src at its first element, row
+// stride ld) into a shared tile of row stride LD by 16-byte cp.async, spread
+// over the block's THREADS threads; rows at or past n are zero-filled.
+template <int ROWS, int D, int LD, int THREADS>
+__device__ __forceinline__ void copy_rows(unsigned dst, const __nv_bfloat16* __restrict__ src,
+                                          int ld, int n) {
+  constexpr int kChunks = D / 8;
+  for (int i = threadIdx.x; i < ROWS * kChunks; i += THREADS) {
+    const int r = i / kChunks, ch = i % kChunks;
+    const bool in = r < n;
+    cp_async16(dst + (r * LD + ch * 8) * 2, src + static_cast<size_t>(in ? r : 0) * ld + ch * 8,
+               in ? 16 : 0);
+  }
 }
 
 // Four 8x8 b16 matrices, row addresses from lanes 0-7, 8-15, 16-23, 24-31.

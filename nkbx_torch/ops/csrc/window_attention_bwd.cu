@@ -256,21 +256,6 @@ struct Tc {
   static constexpr size_t kSmem = 2 * kSlot + kPBytes + static_cast<size_t>(4) * KP * KP;
 };
 
-// Rows 0 .. KP-1 of one head's (n, D) slice (src at the head's first
-// element, row stride ld) into a shared tile by 16-byte cp.async; rows past
-// n are zero-filled.
-template <int KP>
-__device__ __forceinline__ void copy_rows(unsigned dst, const bf16* __restrict__ src, int ld,
-                                          int n) {
-  constexpr int kChunks = kTcD / 8;
-  for (int i = threadIdx.x; i < KP * kChunks; i += Tc<KP>::kThreads) {
-    const int r = i / kChunks, ch = i % kChunks;
-    const bool in = r < n;
-    cp_async16(dst + (r * kTcLd + ch * 8) * 2, src + static_cast<size_t>(in ? r : 0) * ld + ch * 8,
-               in ? 16 : 0);
-  }
-}
-
 // The A fragment of the transpose of a (rows, keys) tile of row stride ld:
 // A[m][k] = tile[k0 + k][m0 + m] for m, k in 0 .. 15 (ldmatrix.trans).
 __device__ __forceinline__ void load_a_trans(unsigned (&a)[4], unsigned tile, int ld, int k0,
@@ -327,10 +312,13 @@ window_attention_bwd_tc(const bf16* __restrict__ qkv, const float* __restrict__ 
     if (g < g1) {
       const unsigned slot = ring + ((g - g0) % 2) * S::kSlot;
       const bf16* src = qkv + static_cast<size_t>(g) * n * 3 * c + h * D;
-      copy_rows<KP>(slot, src, 3 * c, n);
-      copy_rows<KP>(slot + S::kTile, src + c, 3 * c, n);
-      copy_rows<KP>(slot + 2 * S::kTile, src + 2 * c, 3 * c, n);
-      copy_rows<KP>(slot + 3 * S::kTile, go + static_cast<size_t>(g) * n * c + h * D, c, n);
+      auto copy = [&](unsigned dst, const bf16* from, int ld) {
+        nkbx::copy_rows<KP, D, kTcLd, S::kThreads>(dst, from, ld, n);
+      };
+      copy(slot, src, 3 * c);
+      copy(slot + S::kTile, src + c, 3 * c);
+      copy(slot + 2 * S::kTile, src + 2 * c, 3 * c);
+      copy(slot + 3 * S::kTile, go + static_cast<size_t>(g) * n * c + h * D, c);
     }
     nkbx::cp_async_commit();
   };

@@ -190,17 +190,17 @@ def test_bwd_tc_sizing(n, want):
                                              max(1, 233_472 // (tattn.bwd_tc_smem_bytes(n) + 1024)))
     if kp <= 64:
         assert 3 * (tattn.bwd_tc_smem_bytes(n) + 1024) <= 233_472
-    assert tattn.bwd_takes_tc(n, 32, torch.bfloat16)
-    assert not tattn.bwd_takes_tc(n, 32, torch.float32)
-    assert not tattn.bwd_takes_tc(n, 16, torch.bfloat16)
+    assert tattn.takes_tc(n, 32, torch.bfloat16)
+    assert not tattn.takes_tc(n, 32, torch.float32)
+    assert not tattn.takes_tc(n, 16, torch.bfloat16)
 
 
 def test_bwd_tc_route_limits_and_windows_per_block():
     assert tattn.bwd_tc_smem_bytes(49) == 66_560
     assert 48 * 1024 < tattn.bwd_tc_smem_bytes(144) == 218_880 <= tattn._MAX_SMEM
     assert tattn.bwd_tc_blocks_per_sm(144) == 1
-    assert not tattn.bwd_takes_tc(145, 32, torch.bfloat16)
-    assert not tattn.bwd_takes_tc(0, 32, torch.bfloat16)
+    assert not tattn.takes_tc(145, 32, torch.bfloat16)
+    assert not tattn.takes_tc(0, 32, torch.bfloat16)
     # Swin-T's stages at batch 64 on 132 SMs fill 384 resident slots once
     for s in range(4):
         g, heads = 64 * (8 >> s) ** 2, 3 << s
@@ -209,3 +209,50 @@ def test_bwd_tc_route_limits_and_windows_per_block():
     # window 12 (swin_base at 384 px, batch 16): one block an SM
     assert 4 * -(-256 // tattn.bwd_tc_windows_per_block(256, 4, 144, 132)) <= 132
     assert tattn.bwd_tc_windows_per_block(3, 24, 49, 132) == 1
+
+
+@pytest.mark.parametrize("n,want", [(16, 16), (17, 32), (48, 48), (49, 64), (63, 64),
+                                    (64, 64), (65, 80), (144, 144)])
+def test_fwd_tc_sizing(n, want):
+    """The forward's tensor-core design pads a window to KP = N rounded up
+    to 16: its shared memory is the q/k/v ring alone, with no (N, N) term,
+    and fits its blocks at every N it takes, four blocks an SM to N = 64
+    (Swin-T: 30 KB) and one above; bf16 at D = 32 and N <= 144 takes it,
+    anything else the first design."""
+    kp = want
+    assert tattn.fwd_tc_smem_bytes(n) == 2 * 3 * kp * 40 * 2
+    assert tattn.fwd_tc_blocks_per_sm(n) == (4 if kp <= 64 else 1)
+    assert tattn.fwd_tc_blocks_per_sm(n) * (tattn.fwd_tc_smem_bytes(n) + 1024) <= 233_472
+    assert tattn.fwd_tc_smem_bytes(n) <= tattn._MAX_SMEM
+    assert tattn.takes_tc(n, 32, torch.bfloat16)
+    assert not tattn.takes_tc(n, 32, torch.float32)
+    assert not tattn.takes_tc(n, 64, torch.bfloat16)
+
+
+def test_fwd_tc_route_limits_and_windows_per_block():
+    assert tattn.fwd_tc_smem_bytes(49) == 30_720
+    assert 48 * 1024 < tattn.fwd_tc_smem_bytes(144) == 69_120 < tattn.smem_bytes(144, 32)
+    assert not tattn.takes_tc(145, 32, torch.bfloat16)
+    assert not tattn.takes_tc(0, 32, torch.bfloat16)
+    # Swin-T's stages at bucket 64 on 132 SMs fill most of the 528 resident slots once
+    for s, blocks in enumerate((513, 516, 516, 528)):
+        g, heads = 64 * (8 >> s) ** 2, 3 << s
+        wpb = tattn.fwd_tc_windows_per_block(g, heads, 49, 132)
+        assert heads * -(-g // wpb) == blocks
+    assert tattn.fwd_tc_windows_per_block(4096, 3, 49, 132) == 24
+    # window 12 (swin_base at 384 px, batch 16): one block an SM
+    assert 4 * -(-256 // tattn.fwd_tc_windows_per_block(256, 4, 144, 132)) <= 132
+    assert tattn.fwd_tc_windows_per_block(3, 24, 49, 132) == 1
+
+
+def test_packed_entry_on_cpu_counts_no_launch_of_either_design():
+    """A bf16 CPU tensor at a shape the tensor-core design takes computes
+    the plain version: neither launch count moves."""
+    qkv, bias, mask = _inputs(4, 49, 2, 32, 2, seed=7)
+    qkv = torch.from_numpy(qkv).bfloat16()
+    bias, mask = torch.from_numpy(bias), torch.from_numpy(mask)
+    before = tattn.fused_attention_qkv.launches, tattn.fused_attention_qkv.tc_launches
+    got = tattn.fused_attention_qkv(qkv, bias, mask, 32 ** -0.5, 2)
+    want = tattn.reference_attention(*_split(qkv, 64), bias, mask, 32 ** -0.5, 2)
+    assert torch.equal(got, want)
+    assert (tattn.fused_attention_qkv.launches, tattn.fused_attention_qkv.tc_launches) == before

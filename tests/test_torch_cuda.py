@@ -11,10 +11,12 @@ shows that the kernel, not its plain version, ran:
 
 - K1 window attention and K2 its backward, in the three mask regimes of
   tests/test_torch_attention.py, a head-broadcast bias and window 12 (N=144);
-  K2's route (bf16 at D = 32 and N <= 144 on its tensor-core design, f32 on
-  its first design) at Swin-T's four stage geometries, window 12, ragged N
-  = 16, 17, 48, 63, 64, 65 with a shared and a per-head bias, and a G that
-  its windows-per-block count does not divide, two launches bit-identical;
+  K1's and K2's routes (bf16 at D = 32 and N <= 144 on their tensor-core
+  designs, f32 on their first designs) at Swin-T's four stage geometries,
+  window 12, ragged N = 16, 17, 48, 63, 64, 65 with a shared and a per-head
+  bias, and a G that their windows-per-block counts do not divide (K1's
+  with two masks whose boundary falls inside a run), two launches
+  bit-identical;
 - K5 LN -> MLP and K6 its backward, with a ragged tile, a layer-scale,
   Swin-T's widest width and a width off the tensor-core grid;
 - K7 the MLP alone and K8 its backward at the same shapes (ConvNeXt-T's
@@ -55,7 +57,8 @@ dqkv f32 1e-4, bf16 6e-2 (dS*scale rounds to bf16 too); dbias 1e-4 of its
 largest value. K5 f32 5e-4, bf16 1.25e-1 (outputs reach 8, where one bf16
 ulp is 3.1e-2). K6, relative to each gradient's largest value: f32 1e-3,
 bf16 3e-2. K3 as K1; at ragged N f32 1e-4, bf16 2 bf16 ulps of the largest
-output. K2's route tests: dqkv
+output. K1's route tests: 2 bf16 ulps of the largest output (f32 1e-4).
+K2's route tests: dqkv
 within 4 bf16 ulps of its largest value (f32 1e-4 of it), dbias 1e-4 of its
 largest. K4, relative to each gradient's largest value: f32
 1e-4, bf16 4 bf16 ulps (P, dS*scale and the outputs round to bf16; at
@@ -410,7 +413,7 @@ def test_window_attention_bwd_tc_matches_plain_on_card(cuda_device, dtype, g, n,
     """bf16 at D = 32 takes K2's tensor-core design, f32 its first design
     (the route by dtype and shape), each held to the plain version."""
     qkv, bias, mask, go = _attn_inputs(g, n, heads, 32, m, bh, cuda_device, dtype)
-    assert tattn.bwd_takes_tc(n, 32, dtype) is (dtype == torch.bfloat16)
+    assert tattn.takes_tc(n, 32, dtype) is (dtype == torch.bfloat16)
     _hold_window_bwd(qkv, bias, mask, go, heads, dtype == torch.bfloat16)
 
 
@@ -427,6 +430,52 @@ def test_window_attention_bwd_tc_at_a_ragged_run_of_windows(cuda_device, n):
     assert wpb > 1 and g % wpb
     qkv, bias, mask, go = _attn_inputs(g, n, heads, 32, 1, heads, cuda_device, torch.bfloat16)
     _hold_window_bwd(qkv, bias, mask, go, heads, True)
+
+
+def _hold_window_fwd(qkv, bias, mask, heads, tc):
+    """K1 twice against its plain version: within 2 bf16 ulps of the largest
+    output (P and the output round to bf16) or 1e-4 in f32; the second launch
+    bit-identical; two launches, of the tensor-core design when ``tc``."""
+    before = tattn.fused_attention_qkv.launches, tattn.fused_attention_qkv.tc_launches
+    got = tattn.fused_attention_qkv(qkv, bias, mask, 32 ** -0.5, heads)
+    again = tattn.fused_attention_qkv(qkv, bias, mask, 32 ** -0.5, heads)
+    torch.cuda.synchronize()
+    assert tattn.fused_attention_qkv.launches == before[0] + 2
+    assert tattn.fused_attention_qkv.tc_launches == before[1] + (2 if tc else 0)
+    hd = qkv.shape[-1] // 3
+    want = tattn.reference_attention(qkv[..., :hd], qkv[..., hd:2 * hd], qkv[..., 2 * hd:],
+                                     bias, mask, 32 ** -0.5, heads)
+    big = want.float().abs().max().item()
+    tol = 1e-4 if qkv.dtype == torch.float32 else 2 * 2.0 ** (np.floor(np.log2(big)) - 7)
+    assert got.dtype == qkv.dtype and got.shape == want.shape
+    assert (got.float() - want.float()).abs().max().item() <= tol
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("g,n,heads,m,bh", TC_BWD_CASES)
+def test_window_attention_tc_matches_plain_on_card(cuda_device, dtype, g, n, heads, m, bh):
+    """bf16 at D = 32 takes K1's tensor-core design, f32 its first design
+    (the route by dtype and shape), each held to the plain version."""
+    qkv, bias, mask, _ = _attn_inputs(g, n, heads, 32, m, bh, cuda_device, dtype)
+    assert tattn.takes_tc(n, 32, dtype) is (dtype == torch.bfloat16)
+    _hold_window_fwd(qkv, bias, mask, heads, dtype == torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [49, 144])
+def test_window_attention_tc_at_a_ragged_run_of_windows(cuda_device, n):
+    """A G that the tensor-core design's windows-per-block count does not
+    divide, and two masks whose boundary falls inside a block's run (the
+    blocks take their windows in the order of the mask index)."""
+    heads = 4
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    g = 2 * max(1, sms * tattn.fwd_tc_blocks_per_sm(n) // heads) + 2
+    wpb = tattn.fwd_tc_windows_per_block(g, heads, n, sms)
+    assert wpb > 1 and g % wpb and (g // 2) % wpb
+    qkv, bias, mask, _ = _attn_inputs(g, n, heads, 32, 2, heads, cuda_device, torch.bfloat16)
+    _hold_window_fwd(qkv, bias, mask, heads, True)
 
 
 @pytest.mark.cuda
@@ -856,7 +905,8 @@ def test_card_tests_collect_without_jax_or_nkbx():
          + 2 * 2 * len(SEP_CASES) + 2 + 2 + 2 * len(CHAIN_CASES) + 2
          + 2 * len(MB_CASES) + 2 + 1 + 2 * len(GC_CASES) + 1 + 2 * len(LAYOUT_CASES) + 1 + 1
          + 2 * len(SEP_RAGGED_N) * len(SEP_OPERANDS) + 2 * len(GC_WIDTH_CASES)
-         + 2 * len(SEP_BWD_RAGGED_N) * len(SEP_BWD_OPERANDS) + 2 * len(TC_BWD_CASES) + 2)
+         + 2 * len(SEP_BWD_RAGGED_N) * len(SEP_BWD_OPERANDS) + 2 * len(TC_BWD_CASES) + 2
+         + 2 * len(TC_BWD_CASES) + 2)
     word = "passed" if torch.cuda.is_available() else "skipped"
     assert re.search(rf"\b{n} {word}\b", proc.stdout), proc.stdout[-2000:]
 
