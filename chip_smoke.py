@@ -18,8 +18,14 @@
    bit-identical; at the stages and window 12 timed with a cold L2 against
    its first design (through its C entry), plain and SDPA, with the SDPA
    backend and the share of the bound. LN -> MLP (K5) at the shapes the
-   Swin-T serving path gives it at bucket 64 (also at ViT-B's C = 768 with
-   B*197 rows); full-sequence attention (K3) at ViT-B's 12 heads of width
+   Swin-T serving path gives it at bucket 64, ConvNeXt-T's with its
+   layer-scale and ViT-B's (C = 768, B*197 rows at buckets 64 and 8), a
+   ragged tile and a width off the tensor-core grid: bf16 on its GEMM route
+   and f32 on its first design (the route checked by count), 4 bf16 ulps of
+   the largest value (f32 5e-4), a second launch bit-identical; timed with a
+   cold L2 against its first design (through its C entry), plain and its
+   two products alone through torch.matmul (not one call), each with its
+   share of the bound; full-sequence attention (K3) at ViT-B's 12 heads of width
    64 at bucket 64 for N = 50, 197 (the main shape) and 577, a small
    case with a learned (H, N, N) bias and a mask of M = 2, and small cases
    at N = 1, 17, 63, 64 and 65 with None for the bias and mask or a
@@ -48,8 +54,9 @@
    L2 flushed before every launch against their plain versions, the
    library's one call and their bytes bound (a share over 100% fails).
 3. The same for the backward kernels: K2 and K6 at the shapes of a batch-64
-   Swin-T train step (and window 12 for K2, a ragged tile with a layer-scale
-   and an FMA width for K6, ViT-B's MLP for K6); K2 in bf16 on its
+   Swin-T train step (and window 12 for K2; K6 at K5's shapes, its route by
+   count, each gradient within 2e-2 of its largest (f32 5e-4), timed as K5
+   with its products alone through torch.matmul); K2 in bf16 on its
    tensor-core design and in f32 on its first design (the route checked by
    its count), also at N = 16, 17, 48, 63, 64 and 65 with a shared and a
    per-head bias and a G its windows-per-block count does not divide, dqkv
@@ -78,8 +85,8 @@
    with the same model run through the plain versions in bf16 and f32; then
    times benchmark(64) through the kernels and through the plain versions,
    the peak memory, and a profile of where the device time goes, with the
-   attention kernel's device time in it (Swin-T's bf16 K1 launches all on
-   its tensor-core design).
+   attention kernel's and K5's device time in it (Swin-T's bf16 K1 launches
+   all on its tensor-core design, every bf16 K5 launch on its GEMM route).
 5. Drives the training path of every model of phase 4 at full width and
    depth (bf16, 10 classes), and of resnet50 with ghost_bn = 2 and the fused
    chain (nkbx's ghost2_fused recipe; the chain runs in training only, so
@@ -105,10 +112,13 @@
    tolerances (check_chain_blocks). Then step time, img/s and peak memory
    of both paths (for ResNet also of the unfused ghost-BN resnet50 from the
    same weights, the model a user would run without the chain), and a
-   profile of one step, with the attention kernels' device time in it
-   (K1 and K2 for Swin-T, K2 with its dbias reduction, K3 and K4 for
-   ViT-B; Swin-T's bf16 K1 and K2 launches all on their tensor-core
-   designs). Then resnet50 with exact
+   profile of one step through the kernels and one through the plain
+   versions, with the attention and MLP kernels' device time in it (K1 and
+   K2 for Swin-T, K2 with its dbias reduction, K3 and K4 for ViT-B, K5 and
+   K6 for the three transformers-and-ConvNeXt; Swin-T's bf16 K1 and K2
+   launches all on their tensor-core designs, every bf16 K5/K6 launch on
+   its GEMM route; a profile that records no device time fails the run).
+   Then resnet50 with exact
    BatchNorm, which runs no kernel of ours (its launch counts are read and
    must stay 0):
    RESNET_EXACT, bench.py's program (224 px, 1000 classes, batch 128, bf16,
@@ -384,8 +394,17 @@ def check_attention():
 
 # --- phase 2: LN -> MLP (K5) --------------------------------------------------
 
-# ViT-B's MLP (C = 768) at buckets 64 and 8: B*197 rows, a ragged last tile
-VIT_MLP_CASES = [("vit-b64", BUCKET * 197, 768, False), ("vit-b8", 8 * 197, 768, False)]
+# The timed LN -> MLP shapes, bf16: Swin-T's four stages at bucket/batch 64 (R =
+# 64 * 56^2 ... 64 * 7^2, C = 96 ... 768, F = 4C), ConvNeXt-T's four stages (the
+# same R and C) with its layer-scale, ViT-B's MLP (C = 768) at buckets 64 and 8
+# (B*197 rows, a ragged last tile): (label, R, C, layer-scale)
+MLP_TIMED = ([(f"s{s}", BUCKET * (56 >> s) ** 2, 96 << s, False) for s in range(4)]
+             + [(f"cnx-s{s}", BUCKET * (56 >> s) ** 2, 96 << s, True) for s in range(4)]
+             + [("vit-b64", BUCKET * 197, 768, False), ("vit-b8", 8 * 197, 768, False)])
+# held only: a ragged tile with a layer-scale, and a width off the tensor-core grid
+# (F = 160: the float-FMA kernel in bf16 too)
+MLP_HELD = [("ragged+gamma", 1000, 96, True), ("fma-width", 1000, 40, True)]
+MLP_ITERS = 10  # cold-L2 launches timed a case (K5, K6)
 
 
 def mlp_case(r, c, dtype, gen, gamma=False):
@@ -401,36 +420,109 @@ def mlp_case(r, c, dtype, gen, gamma=False):
     return args, (1 + rn(c, s=0.1) if gamma else None)
 
 
+def mlp_vecs(args, gamma):
+    """The f32 vectors of the C entries: ln_scale, ln_bias, b0, b1, gamma."""
+    c = args[0].shape[-1]
+    g = torch.ones(c, device=DEV) if gamma is None else gamma
+    return [t.float().contiguous() for t in (args[1], args[2], args[4], args[6], g)]
+
+
+def mlp_first_design(args, gamma):
+    """K5's first design (the row-tile kernel, ln_mlp_tc_kernel) on bf16
+    operands that the wrapper sends to the GEMM route, launched through its C
+    entry: a yardstick timed beside the new design, held against plain first
+    and launched by no path. Returns the launch."""
+    x, w0, w1, sc = args[0], args[3], args[5], args[7]
+    out = torch.empty_like(x)
+    vecs = mlp_vecs(args, gamma)
+
+    def launch():
+        M._launch_fwd_rows(x, vecs, w0, w1, sc, out, True, 1e-5)
+
+    launch()
+    torch.cuda.synchronize()
+    ref = M.reference_ln_mlp(*args, gamma=gamma, eps=1e-5)
+    err, lim = max_err(out, ref), 4 * bf16_ulp(float(ref.float().abs().max()))
+    if err > lim:
+        fail(f"K5's first design disagrees with plain: {err:.3e} (tol {lim:.3e})")
+    return launch
+
+
+def mlp_matmuls(args):
+    """The forward's two products alone through torch.matmul on the same
+    operands (h = LN(x) rounded, the hidden rounded): a reference for the
+    GEMM mainloop, two cuBLAS calls, not one call of the same function."""
+    h = F.layer_norm(args[0].float(), args[0].shape[-1:], eps=1e-5).to(args[0].dtype)
+    g = torch.empty(h.shape[0], args[3].shape[1], dtype=h.dtype, device=DEV)
+
+    def run():
+        torch.matmul(h, args[3], out=g)
+        return torch.matmul(g, args[5])
+
+    return run
+
+
+def mlp_bound(r, c):
+    """K5's least time: x, sc and out, the weights and vectors moved once;
+    4 R C F operations (its two products)."""
+    f = 4 * c
+    return bound_ms(2 * (3 * r * c + 2 * c * f) + 4 * (4 * c + f), 4 * r * c * f, "bf16")
+
+
+def time_shares(label, times, b, by, what):
+    """Log each time's share of the bound; a share over 100% fails."""
+    log(f"   {what} {label} bf16 times (cold L2): " + ", ".join(
+        f"{k} {v:.4f} ms ({100 * b / v:.1f}%)" for k, v in times.items())
+        + f"; bound {b:.4f} ms ({by})")
+    if any(b > v for v in times.values()):
+        fail(f"{what} {label} timed under its bound: the timing is wrong")
+
+
 def check_mlp():
+    """K5 against its plain version at MLP_TIMED and MLP_HELD, bf16 and f32
+    (5e-4; bf16 4 ulps of the largest value), a second launch bit-identical,
+    and its route by count: bf16 at the tensor-core widths on the GEMM route
+    (fused_ln_mlp.gemm_launches), f32 and C = 40 on the first design. At
+    MLP_TIMED (bf16) the new design, the first design (through its C entry),
+    the plain version and the two products alone through torch.matmul are
+    timed with a cold L2, each with its share of the bound."""
     gen = torch.Generator(device=DEV).manual_seed(2)
     tol = {"f32": lambda ref: 5e-4, "bf16": lambda ref: 4 * bf16_ulp(ref)}
-    rows, worst = [], {"bf16": 0.0, "f32": 0.0}
-    cases = [(s, BUCKET * (56 >> s) ** 2, 96 << s, False) for s in range(4)]
-    cases.append(("ragged+gamma", 1000, 96, True))
-    cases.append(("fma-width", 1000, 40, True))  # F = 160: the float-FMA kernel in bf16 too
-    cases += VIT_MLP_CASES
-    for stage, r, c, use_gamma in cases:
+    rows, worst = {}, {"bf16": 0.0, "f32": 0.0}
+    for label, r, c, use_gamma in MLP_TIMED + MLP_HELD:
         for dtype in ("bf16", "f32"):
             args, gamma = mlp_case(r, c, dtype, gen, use_gamma)
+            gemm = M.tensor_cores(DT[dtype], c, 4 * c)
+            g0 = M.fused_ln_mlp.gemm_launches
             got = M.fused_ln_mlp(*args, gamma=gamma, eps=1e-5)
+            again = M.fused_ln_mlp(*args, gamma=gamma, eps=1e-5)
             torch.cuda.synchronize()
+            routed = M.fused_ln_mlp.gemm_launches - g0 == (2 if gemm else 0)
             ref = M.reference_ln_mlp(*args, gamma=gamma, eps=1e-5)
             err, lim = max_err(got, ref), tol[dtype](float(ref.float().abs().max()))
+            same = torch.equal(got, again)
             worst[dtype] = max(worst[dtype], err)
-            ok = err <= lim
-            log(f"K5 stage {stage} R={r} C={c} F={4 * c} tile={M.pick_tile_rows(c, M.tensor_cores(DT[dtype], c, 4 * c))} tc={M.tensor_cores(DT[dtype], c, 4 * c)} {dtype}: "
-                f"max|err| {err:.3e} (tol {lim:.3e}) {'ok' if ok else 'FAIL'}")
+            ok = err <= lim and same and routed
+            log(f"K5 {label} R={r} C={c} F={4 * c} gamma={use_gamma} {dtype} "
+                f"({'GEMM route' if gemm else 'first design'}): max|err| {err:.3e} (tol "
+                f"{lim:.3e}), a second launch equal {same}, routed {routed} "
+                f"{'ok' if ok else 'FAIL'}")
             if not ok:
-                fail(f"LN-MLP disagrees with its plain version at stage {stage} {dtype}")
-            if dtype != "bf16" or use_gamma:
+                fail(f"LN-MLP disagrees with its plain version at {label} {dtype}")
+            if dtype != "bf16" or not gemm or (label, r, c, use_gamma) in MLP_HELD:
                 continue
-            ms = cuda_ms(lambda: M.fused_ln_mlp(*args, eps=1e-5))
-            plain = cuda_ms(lambda: M.reference_ln_mlp(*args, eps=1e-5))
-            f = 4 * c
-            b, by = bound_ms(2 * (3 * r * c + 2 * c * f) + 4 * (4 * c + f), 4 * r * c * f, "bf16")
-            log(f"   bf16 times: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-                f"bound {b:.4f} ms ({by})")
-            rows.append(dict(stage=stage, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by))
+            times = {"kernel": cold_ms(lambda: M.fused_ln_mlp(*args, gamma=gamma, eps=1e-5),
+                                       MLP_ITERS),
+                     "first design": cold_ms(mlp_first_design(args, gamma), MLP_ITERS),
+                     "plain": cold_ms(lambda: M.reference_ln_mlp(*args, gamma=gamma, eps=1e-5),
+                                      MLP_ITERS),
+                     "matmuls": cold_ms(mlp_matmuls(args), MLP_ITERS)}
+            b, by = mlp_bound(r, c)
+            time_shares(label, times, b, by, "K5")
+            rows[label] = dict(ms=times["kernel"], first_ms=times["first design"],
+                               plain_ms=times["plain"], matmul_ms=times["matmuls"], bound_ms=b,
+                               bound_by=by, bound_share=b / times["kernel"])
+            del args, got, again, ref
     return rows, worst
 
 
@@ -542,24 +634,79 @@ def check_attention_bwd():
     return rows, worst
 
 
+def mlp_bwd_first_design(args, gamma, dy):
+    """K6's first design (the row-tile kernel and its reductions) through its
+    C entry on bf16 operands that the wrapper sends to the GEMM route, as
+    mlp_first_design; held against plain first (2e-2 of each gradient's
+    largest value). Returns the launch."""
+    x, w0, w1 = args[0], args[3], args[5]
+    c, f = x.shape[-1], w0.shape[1]
+    f32 = dict(dtype=torch.float32, device=DEV)
+    dx, dw0, dw1 = torch.empty_like(x), torch.empty_like(w0), torch.empty_like(w1)
+    dvec_c, db0 = torch.empty((4, c), **f32), torch.empty(f, **f32)
+    vecs = mlp_vecs(args, gamma)
+
+    def launch():
+        M._launch_bwd(x, vecs, w0, w1, dy, dx, dw0, dw1, dvec_c, db0, c, f, True,
+                      gamma is not None, 1e-5)
+
+    launch()
+    torch.cuda.synchronize()
+    want = M.reference_ln_mlp_bwd(*args[:7], gamma, dy, 1e-5)
+    got = (dx, dvec_c[0], dvec_c[1], dw0, db0, dw1, dvec_c[2], dvec_c[3])
+    bad = max(max_err(g, w) / max(float(w.float().abs().max()), 1e-30)
+              for g, w in zip(got, want) if w is not None)
+    if bad > 2e-2:
+        fail(f"K6's first design disagrees with plain: {bad:.3e} (tol 2e-2)")
+    return launch
+
+
+def mlp_bwd_matmuls(args, gamma, dy):
+    """The backward's products alone through torch.matmul on bf16 operands
+    of the right shapes (u and dgl, dh, dw1 and dw0, and g w1 with a
+    layer-scale): a reference for the GEMM mainloop, five or six cuBLAS
+    calls, not one call of the same function."""
+    x, w0, w1 = args[0], args[3], args[5]
+    h = F.layer_norm(x.float(), x.shape[-1:], eps=1e-5).to(x.dtype)
+    g = torch.matmul(h, w0)
+    du = torch.matmul(dy, w1.t())
+
+    def run():
+        torch.matmul(h, w0, out=g)
+        torch.matmul(dy, w1.t(), out=du)
+        if gamma is not None:
+            torch.matmul(g, w1)
+        torch.matmul(du, w0.t())
+        torch.matmul(g.t(), dy)
+        return torch.matmul(h.t(), du)
+
+    return run
+
+
 def check_mlp_bwd():
+    """K6 against its plain version at MLP_TIMED and MLP_HELD, bf16 and f32,
+    each gradient within 2e-2 (bf16; h, g, du and dx round to bf16, and a
+    last-bit difference in f32 flips a rounding) or 5e-4 (f32) of its
+    largest value, a second launch bit-identical, and its route by count
+    (fused_ln_mlp_bwd.gemm_launches). At MLP_TIMED (bf16) the new design,
+    the first design, plain and the products alone through torch.matmul,
+    timed with a cold L2 with their shares of the bound: 10 R C F
+    operations, 12 with a layer-scale (y is recomputed for dgamma)."""
     gen = torch.Generator(device=DEV).manual_seed(4)
-    # each gradient against max|plain|: f32 5e-4; bf16 2e-2 (h, g, du and dx
-    # round to bf16, and a last-bit difference in f32 flips a rounding)
     tol = {"f32": 5e-4, "bf16": 2e-2}
-    rows, worst = [], {"bf16": 0.0, "f32": 0.0}
-    cases = [(s, BUCKET * (56 >> s) ** 2, 96 << s, False) for s in range(4)]
-    cases.append(("ragged+gamma", 1000, 96, True))
-    cases.append(("fma-width", 1000, 40, True))
-    cases += VIT_MLP_CASES
+    rows, worst = {}, {"bf16": 0.0, "f32": 0.0}
     names = ("dx", "ds", "db", "dw0", "db0", "dw1", "db1", "dgamma")
-    for stage, r, c, use_gamma in cases:
+    for label, r, c, use_gamma in MLP_TIMED + MLP_HELD:
         for dtype in ("bf16", "f32"):
             args, gamma = mlp_case(r, c, dtype, gen, use_gamma)
             args = args[:7]
             dy = torch.randn(r, c, generator=gen, device=DEV).to(DT[dtype])
+            gemm = M.tensor_cores(DT[dtype], c, 4 * c)
+            g0 = M.fused_ln_mlp_bwd.gemm_launches
             got = M.fused_ln_mlp_bwd(*args, gamma, dy, 1e-5)
+            again = M.fused_ln_mlp_bwd(*args, gamma, dy, 1e-5)
             torch.cuda.synchronize()
+            routed = M.fused_ln_mlp_bwd.gemm_launches - g0 == (2 if gemm else 0)
             want = M.reference_ln_mlp_bwd(*args, gamma, dy, 1e-5)
             rel = {}
             for name, gv, wv in zip(names, got, want):
@@ -568,27 +715,33 @@ def check_mlp_bwd():
                 if gv is not None:
                     rel[name] = max_err(gv, wv) / max(float(wv.float().abs().max()), 1e-30)
                     worst[dtype] = max(worst[dtype], max_err(gv, wv))
+            same = all(a is None or torch.equal(a, b) for a, b in zip(got, again))
             bad = max(rel.values())
-            ok = bad <= tol[dtype]
-            f = 4 * c
-            tc = M.tensor_cores(DT[dtype], c, f)
-            log(f"K6 stage {stage} R={r} C={c} F={f} tile="
-                f"{M.pick_tile_rows(c, tc, M.bwd_smem_bytes)} tc={tc} {dtype}: max rel err "
-                f"{bad:.3e} ({max(rel, key=rel.get)}; tol {tol[dtype]:.1e}) "
-                f"{'ok' if ok else 'FAIL'}")
+            ok = bad <= tol[dtype] and same and routed
+            log(f"K6 {label} R={r} C={c} F={4 * c} gamma={use_gamma} {dtype} "
+                f"({'GEMM route' if gemm else 'first design'}): max rel err {bad:.3e} "
+                f"({max(rel, key=rel.get)}; tol {tol[dtype]:.1e}), a second launch equal "
+                f"{same}, routed {routed} {'ok' if ok else 'FAIL'}")
             if not ok:
-                fail(f"LN-MLP backward disagrees with its plain version at stage {stage} {dtype}")
-            if dtype != "bf16" or use_gamma:
+                fail(f"LN-MLP backward disagrees with its plain version at {label} {dtype}")
+            if dtype != "bf16" or not gemm or (label, r, c, use_gamma) in MLP_HELD:
                 continue
-            ms = cuda_ms(lambda: M.fused_ln_mlp_bwd(*args, None, dy, 1e-5), iters=5)
-            plain = cuda_ms(lambda: M.reference_ln_mlp_bwd(*args, None, dy, 1e-5), iters=5)
+            del got, again, want
+            times = {"kernel": cold_ms(lambda: M.fused_ln_mlp_bwd(*args, gamma, dy, 1e-5),
+                                       MLP_ITERS),
+                     "first design": cold_ms(mlp_bwd_first_design(args, gamma, dy), MLP_ITERS),
+                     "plain": cold_ms(lambda: M.reference_ln_mlp_bwd(*args, gamma, dy, 1e-5),
+                                      MLP_ITERS),
+                     "matmuls": cold_ms(mlp_bwd_matmuls(args, gamma, dy), MLP_ITERS)}
+            f = 4 * c
+            # x, dy in, dx out; w0, w1 in, dw0, dw1 out; the f32 vectors and theirs
             nbytes = 2 * (3 * r * c + 4 * c * f) + 4 * 2 * (4 * c + f)
-            # without a layer-scale: the u recompute, dgl, dh, dw1 and dw0, 2*R*C*F
-            # each (recomputing y serves only dgamma)
-            b, by = bound_ms(nbytes, 10 * r * c * f, "bf16")
-            log(f"   bf16 times: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-                f"bound {b:.4f} ms ({by})")
-            rows.append(dict(stage=stage, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by))
+            b, by = bound_ms(nbytes, (12 if use_gamma else 10) * r * c * f, "bf16")
+            time_shares(label, times, b, by, "K6")
+            rows[label] = dict(ms=times["kernel"], first_ms=times["first design"],
+                               plain_ms=times["plain"], matmul_ms=times["matmuls"], bound_ms=b,
+                               bound_by=by, bound_share=b / times["kernel"])
+            del args, dy
     return rows, worst
 
 
@@ -1354,6 +1507,8 @@ class Path:
         self.profiled = {}
         # {(kernel name, "serve" | "train"): tensor-core launches of K1 and K2 (Swin)}
         self.tc_launches = {}
+        # {(kernel name, "serve" | "train"): GEMM-route launches of K5 and K6}
+        self.gemm_launches = {}
 
     def model(self, dtype, cfg=None):
         model = get_model(cfg or self.cfg, [f"class{i}" for i in range(10)], seed=0, dtype=dtype)
@@ -1440,6 +1595,11 @@ def report_profile(prof, reps, what, step_ms, fname):
     return events
 
 
+def device_ms(events, reps):
+    """Device ms of all kernels in a profile, per repetition."""
+    return sum(us for us, _ in events) / 1e3 / reps
+
+
 def kernel_ms(events, name, reps):
     """Device ms of one kernel of ours in a profile, by its names' prefix
     after the namespace (K1: window_attention*, K3: attention_*; a backward
@@ -1465,9 +1625,14 @@ def profile_forward(path, serving, x, step_ms):
         torch.cuda.synchronize()
     events = report_profile(prof, 3, f"per bucket-64 {path.label} forward", step_ms,
                             f"profile_bucket64_{path.label}.txt")
-    if path.attention and events:
-        ms = path.profiled[(path.attention, "serve")] = kernel_ms(events, path.attention, 3)
-        log(f"profile: {path.attention} kernels {ms:.3f} ms a bucket-64 {path.label} forward")
+    if not events:
+        fail(f"the profile of the {path.label} forward recorded no device time")
+    path.profiled[("device", "serve")] = device_ms(events, 3)
+    want = path.counts(torch.bfloat16, False)
+    for kernel in (path.attention, "ln_mlp"):
+        if kernel and want[kernel]:
+            ms = path.profiled[(kernel, "serve")] = kernel_ms(events, kernel, 3)
+            log(f"profile: {kernel} kernels {ms:.3f} ms a bucket-64 {path.label} forward")
 
 
 def check_path(path):
@@ -1486,10 +1651,14 @@ def check_path(path):
     forwards = 1 + 1 + 1 + 2  # 70 = a chunk of 64 and a bucket-8 chunk of 6
 
     set_plain(False)
-    tc0 = A.fused_attention_qkv.tc_launches
+    tc0, gemm0 = A.fused_attention_qkv.tc_launches, M.fused_ln_mlp.gemm_launches
     zero_counts()
     outs = serve_all(serving, requests)
     counts = read_counts()
+    gemm = path.gemm_launches[("ln_mlp", "serve")] = M.fused_ln_mlp.gemm_launches - gemm0
+    log(f"path {path.label}: K5's GEMM route launched {gemm} times")
+    if gemm != counts["ln_mlp"]:  # bf16 at every width of the zoo's transformers
+        fail(f"{path.label}: K5 did not take its GEMM route in every bf16 launch")
     want = {k: v * forwards for k, v in path.counts(torch.bfloat16, False).items()}
     log(f"path {path.label}: {forwards} forwards; launches {counts} (expect {want})")
     if (counts != want or not kernels_ran(want, False)
@@ -1539,11 +1708,8 @@ def check_path(path):
         bench.setdefault(label, []).append(r)
         log(f"benchmark({BUCKET}) {path.label} {label}: {json.dumps(r)}")
     set_plain(False)
-    try:  # a measurement only: the checks above decide the run
-        profile_forward(path, serving, torch.as_tensor(requests[2], device=DEV),
-                        bench["kernels"][-1]["compute_p50_ms"])
-    except Exception as e:  # noqa: BLE001
-        log(f"profile: not measured ({type(e).__name__}: {e})")
+    profile_forward(path, serving, torch.as_tensor(requests[2], device=DEV),
+                    bench["kernels"][-1]["compute_p50_ms"])
     return counts
 
 
@@ -1767,7 +1933,14 @@ def check_train(path):
     want = path.counts(torch.bfloat16, True)
     fns = (A.fused_attention_qkv, A.fused_attention_qkv_bwd)
     tc0 = [fn.tc_launches for fn in fns]
+    mlp_fns = (("ln_mlp", M.fused_ln_mlp), ("ln_mlp_bwd", M.fused_ln_mlp_bwd))
+    gemm0 = [fn.gemm_launches for _, fn in mlp_fns]
     losses, counts, finite, stats = five_steps(False)
+    for (name, fn), g0 in zip(mlp_fns, gemm0):  # bf16: K5/K6 on their GEMM route
+        n = path.gemm_launches[(name, "train")] = fn.gemm_launches - g0
+        log(f"train {path.label}: {name}'s GEMM route launched {n} times in 5 steps")
+        if n != sum(c[name] for c in counts):
+            fail(f"{path.label}: {name} did not take its GEMM route in every bf16 launch")
     if path.attention == "window_attention":  # bf16 Swin-T: K1 and K2 on the tensor cores
         for name, fn, t0 in zip(("window_attention", "window_attention_bwd"), fns, tc0):
             tc = path.tc_launches[(name, "train")] = fn.tc_launches - t0
@@ -1843,29 +2016,36 @@ def check_train(path):
              "max_memory_allocated_mb": torch.cuda.max_memory_allocated() / 2 ** 20}
         bench.setdefault(label, []).append(r)
         log(f"train step {path.label} (batch {BUCKET}) {label}: {json.dumps(r)}")
-    set_plain(False)
-    try:  # a measurement only: the checks above decide the run
-        from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile
 
-        for label, _, mdl in runs:
-            if label == "plain":
-                continue
-            state, step = fresh(False, mdl)
-            state, _ = step(state)
+    # one step of each run under the profiler (the plain step's device time is
+    # the yardstick of the kernels' step); the kernels' of the attention and
+    # MLP kernels by name
+    for label, plain_on, mdl in runs:
+        state, step = fresh(plain_on, mdl)
+        state, _ = step(state)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            step(state)
             torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                step(state)
-                torch.cuda.synchronize()
-            name = path.label if label == "kernels" else f"{path.label}_{label}"
-            events = report_profile(prof, 1, f"in one batch-64 {name} train step",
-                                    bench[label][-1]["step_ms"], f"profile_train_step_{name}.txt")
-            if label == "kernels" and path.attention and events:
-                for kernel in (path.attention, path.attention + "_bwd"):
-                    ms = path.profiled[(kernel, "train")] = kernel_ms(events, kernel, 1)
-                    log(f"profile: {kernel} kernels {ms:.3f} ms in one batch-64 {name} train "
-                        "step")
-    except Exception as e:  # noqa: BLE001
-        log(f"profile: not measured ({type(e).__name__}: {e})")
+        set_plain(False)
+        name = path.label if label == "kernels" else f"{path.label}_{label}"
+        events = report_profile(prof, 1, f"in one batch-64 {name} train step",
+                                bench[label][-1]["step_ms"], f"profile_train_step_{name}.txt")
+        if not events:
+            fail(f"the profile of the {name} train step recorded no device time")
+        path.profiled[("device", f"train_{label}")] = device_ms(events, 1)
+        if label != "kernels":
+            continue
+        for kernel in (path.attention, path.attention and path.attention + "_bwd", "ln_mlp",
+                       "ln_mlp_bwd"):
+            if kernel and want[kernel]:
+                ms = path.profiled[(kernel, "train")] = kernel_ms(events, kernel, 1)
+                log(f"profile: {kernel} kernels {ms:.3f} ms in one batch-64 {name} train step")
+    if "plain" in bench:
+        k, p = path.profiled[("device", "train_kernels")], path.profiled[("device", "train_plain")]
+        log(f"profile {path.label}: device ms a train step, kernels {k:.3f} against plain "
+            f"{p:.3f}")
     return launches
 
 
@@ -1895,13 +2075,34 @@ def no_launches(path, counts):
         fail(f"{path.label} launched port kernels it should not: {counts}")
 
 
+def port_kernel_names():
+    """The names of the port's own CUDA kernels, from the __global__
+    functions of nkbx_torch/ops/csrc."""
+    names = set()
+    for p in sorted(_build.CSRC.glob("*.cu*")):
+        names.update(re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(",
+                                p.read_text()))
+    return names
+
+
+# a profiler key of a port kernel: the kernels live in each source's unnamed
+# namespace ("void (anonymous namespace)::ln_mlp_gemm_kernel<...>(...)") or in
+# bottleneck.cuh's `chain`
+PORT_KERNEL = re.compile(r"^(void )?(\(anonymous namespace\)|chain)::("
+                         + "|".join(sorted(port_kernel_names())) + r")[<(]")
+
+
 def kernel_kinds(events, reps):
-    """Device ms a step by kind of kernel, from the kernels' names."""
-    kinds = dict.fromkeys(("cudnn convolution", "cublas gemm", "reductions", "elementwise",
-                           "optimizer foreach", "other"), 0.0)
+    """Device ms a step by kind of kernel, from the kernels' names: the
+    port's own first (their names hold "gemm" or "wgrad" too), then the
+    libraries' by the words of their names."""
+    kinds = dict.fromkeys(("port kernels", "cudnn convolution", "cublas gemm", "reductions",
+                           "elementwise", "optimizer foreach", "other"), 0.0)
     for us, e in events:
         k = e.key.lower()
-        if "multi_tensor" in k or "foreach" in k:
+        if PORT_KERNEL.search(e.key):
+            kind = "port kernels"
+        elif "multi_tensor" in k or "foreach" in k:
             kind = "optimizer foreach"
         elif any(w in k for w in ("conv", "cudnn", "fprop", "dgrad", "wgrad", "implicit")):
             kind = "cudnn convolution"
@@ -1923,17 +2124,13 @@ def profile_step(step, state, label, batch, step_ms):
     BatchNorm is the reductions and most of the elementwise kernels)."""
     from torch.profiler import ProfilerActivity, profile
 
-    try:  # a measurement only: the checks decide the run
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            step(state)
-            torch.cuda.synchronize()
-        events = report_profile(prof, 1, f"in one batch-{batch} {label} train step", step_ms,
-                                f"profile_train_step_{label}.txt")
-    except Exception as e:  # noqa: BLE001
-        log(f"profile: not measured ({type(e).__name__}: {e})")
-        return {}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(state)
+        torch.cuda.synchronize()
+    events = report_profile(prof, 1, f"in one batch-{batch} {label} train step", step_ms,
+                            f"profile_train_step_{label}.txt")
     if not events:
-        return {}
+        fail(f"the profile of the {label} train step recorded no device time")
     device = sum(us for us, _ in events) / 1e3
     kinds = kernel_kinds(events, 1)
     out = {"device_ms": device, "launches": sum(e.count for _, e in events),
@@ -2485,12 +2682,12 @@ def main():
             ("window_attention", "nkbx_torch/ops/csrc/window_attention.cu",
              "nkbx/ops/attention.py:302", attn_rows[:4], attn_err, served, fwd, DEPTHS),
             ("ln_mlp", "nkbx_torch/ops/csrc/ln_mlp.cu", "nkbx/ops/mlp.py:504",
-             mlp_rows[:4], mlp_err, served, fwd, DEPTHS),
+             [mlp_rows[f"s{i}"] for i in range(4)], mlp_err, served, fwd, DEPTHS),
             ("window_attention_bwd", "nkbx_torch/ops/csrc/window_attention_bwd.cu",
              "nkbx/ops/attention.py:313", attn_bwd_rows[:4], attn_bwd_err, trained, step,
              DEPTHS),
             ("ln_mlp_bwd", "nkbx_torch/ops/csrc/ln_mlp_bwd.cu", "nkbx/ops/mlp.py:520",
-             mlp_bwd_rows[:4], mlp_bwd_err, trained, step, DEPTHS),
+             [mlp_bwd_rows[f"s{i}"] for i in range(4)], mlp_bwd_err, trained, step, DEPTHS),
             ("attention", "nkbx_torch/ops/csrc/attention.cu", "nkbx/ops/attention.py:275",
              [sep_rows["N=197"]], sep_err, served, vfwd, (12,)),
             ("attention_bwd", "nkbx_torch/ops/csrc/attention_bwd.cu",
@@ -2539,14 +2736,26 @@ def main():
             "bound_by": "bytes", "bound_share": [r["bound_share"] for r in rows],
             "per": f"one launch at each of {row}'s shapes, bf16: "
                    + ", ".join(r["case"] for r in rows)})
-    # K5/K6 on the other models' paths: ConvNeXt-T's stages have Swin-T's R and C
-    # (3/3/9/3 launches; K6 timed without the layer-scale that ConvNeXt's recomputes
-    # y for), ViT-B's 12 launches at R = 12608
-    for k, rows in ((kernels[1], mlp_rows), (kernels[3], mlp_bwd_rows)):
-        for key in ("ms", "plain_ms", "bound_ms"):
+    # K5/K6: the first design's time (through its C entry) and the products alone
+    # through torch.matmul (not one call) beside the new design's, each stage's
+    # share of the bound; on the other models' paths ConvNeXt-T's stages with its
+    # layer-scale (3/3/9/3 launches) and ViT-B's 12 launches at R = 12608 (and
+    # bucket 8's 1576); the GEMM route's launches by path; K5's and K6's device
+    # ms in the bucket-64 forwards' and the train steps' profiles
+    for k, rows, what in ((kernels[1], mlp_rows, "serve"), (kernels[3], mlp_bwd_rows, "train")):
+        swin = [rows[f"s{i}"] for i in range(4)]
+        k["first_design_ms"] = sum(m * r["first_ms"] for m, r in zip(DEPTHS, swin))
+        k["matmul_ms"] = sum(m * r["matmul_ms"] for m, r in zip(DEPTHS, swin))
+        k["bound_share"] = {lab: r["bound_share"] for lab, r in rows.items()}
+        for key in ("ms", "first_ms", "plain_ms", "matmul_ms", "bound_ms"):
             k[key + "_by_path"] = {
-                "convnext_tiny": sum(m * r[key] for m, r in zip(CONVNEXT_DEPTHS, rows[:4])),
-                "vit_base": 12 * rows[4][key]}
+                "convnext_tiny": sum(m * rows[f"cnx-s{i}"][key]
+                                     for i, m in enumerate(CONVNEXT_DEPTHS)),
+                "vit_base": 12 * rows["vit-b64"][key], "vit_base_bucket8": 12 * rows["vit-b8"][key]}
+        k["launches_gemm"] = {f"{p.label}_{w}": n for p in PATHS
+                              for (name, w), n in p.gemm_launches.items() if name == k["name"]}
+        k["profile_ms"] = {f"{p.label}_{w}": ms for p in PATHS
+                           for (name, w), ms in p.profiled.items() if name == k["name"]}
     # K3 with the zero tensors beside the ViT's None; K3 and X2 shares of their bounds
     kernels[4].update({f"{key}_{how}": 12 * sep_rows["N=197"][f"{key}_{how}"]
                        for how in ("zeros", "learned")

@@ -3,38 +3,47 @@
 // MLP alone.
 //
 // Replaces two Pallas kernels: nkbx/ops/mlp.py:504 `_lnmlp_fwd_kernel`
-// (entry `fused_ln_mlp`, K5; C entry `nkbx_ln_mlp`) and nkbx/ops/mlp.py:250
-// `_fwd_kernel` (entry `fused_mlp`, K7; C entry `nkbx_mlp`). For each row of
-// x (R, C), K5 computes:
+// (entry `fused_ln_mlp`, K5; C entries `nkbx_ln_mlp_gemm` and `nkbx_ln_mlp`)
+// and nkbx/ops/mlp.py:250 `_fwd_kernel` (entry `fused_mlp`, K7; C entry
+// `nkbx_mlp`). For each row of x (R, C), K5 computes:
 //   h   = LayerNorm(x) in float (flax fast variance E[x^2] - mu^2, clamped
 //         at 0), rounded to the storage type T
 //   g   = gelu(h @ w0 + b0) with float accumulation and the exact (erf) GELU
 //         in float, rounded to T
 //   y   = g @ w1 + b1 with float accumulation, rounded to T
 //   out = sc + y * gamma, in T (mlp.py:515-517)
-// K7 is the same kernel with the template flag LN off: h is x itself (read
-// straight into the operand buffer), and out = y (mlp.py:250-262): no
-// LayerNorm, layer-scale or residual.
-// The (R, F) hidden activations never reach device memory: F is walked in
-// chunks of kChunk, and each chunk's g lives in shared memory only.
+// K7 is the same function without the LayerNorm, layer-scale or residual:
+// out = y (mlp.py:250-262).
 //
-// What bounds it on an H100: at Swin-T stage 1 (C=96, F=384) the function
-// moves x, sc and out (6*C bytes a row in bf16; K7 4*C) for 4*C*F
-// operations, about 256 operations per byte (K7 384), near or above the
-// bf16 ridge of ~295; at the wider stages (F = 4C) the operations per byte
-// grow with C and the tensor cores are the roof. So the products must run
-// on the tensor cores, and the design keeps device traffic to one pass: a
-// block holds its rows' LN output (or x), one GELU chunk and the float
-// accumulators in shared memory, and streams the weights from L2 (every
-// block reads the same w0 and w1).
+// What bounds it on an H100: the operations. The function moves x, sc and
+// out (6*C bytes a row in bf16) for 4*C*F operations, 256 operations a byte
+// at C = 96 and F = 4C, growing with C; the bf16 ridge is ~295. So the
+// products must run on the tensor cores at a high share of their rate.
 //
-// Two kernels, each in both members (LN on or off):
-// - ln_mlp_tc_kernel, bf16 with C % 32 == 0 and F % 64 == 0 (every Swin
-//   and ConvNeXt width): warp-level bf16 tensor-core products (WMMA
-//   16x16x16, float accumulators). 8 warps; a block owns TR = 16*NRT rows.
-//   A (h or g) is read from shared memory; the weights come through shared
-//   memory in 32-row slabs, two in flight (cp.async, double-buffered), so
-//   the products do not wait on L2. Not yet Hopper's wgmma/TMA.
+// K5's route in bf16 with C % 32 == 0 and F % 64 == 0 (every Swin, ConvNeXt
+// and ViT width), `nkbx_ln_mlp_gemm`: three kernels.
+// 1. ln_mlp_layernorm_kernel: h = round(LN(x)) (R, C), one warp a row.
+// 2. ln_mlp_gemm_kernel, h w0 on 128 x 128 tiles of eight 64 x 32 warp
+//    tiles (gemm_tc.cuh), epilogue + b0, exact GELU in float, round: g (R,
+//    F) in bf16, stored through shared memory.
+// 3. ln_mlp_gemm_kernel, g w1 on the same tiles, epilogue + b1, round,
+//    * round(gamma), round, + sc: out. Where its tiles would fill the card
+//    poorly (few rows, K = F long) K is split into slabs whose float
+//    partials ln_mlp_fc2_finish_kernel adds in order before that epilogue.
+// The hidden g goes through device memory once (R*F*2 bytes written and
+// read: 77 MB at ViT-B bucket 64, about 0.05 ms): nkbx rounds g to T at that
+// point, so no number changes. In exchange every weight byte feeds a
+// 128-row tile instead of 16 rows.
+//
+// The first design, a row-tile kernel in both members (LN on or off), stays
+// for f32, other widths and K7:
+// - ln_mlp_tc_kernel, bf16 with C % 32 == 0 and F % 64 == 0: warp-level
+//   bf16 tensor-core products (WMMA 16x16x16, float accumulators). 8 warps;
+//   a block owns TR = 16*NRT rows. A (h or g) is read from shared memory;
+//   the weights come through shared memory in 32-row slabs, two in flight
+//   (cp.async, double-buffered). The (R, F) hidden never reaches device
+//   memory: F is walked in chunks of kChunk, each chunk's g in shared
+//   memory. Every block streams all of w0 and w1 from L2.
 // - ln_mlp_fma_kernel, float (and bf16 at other widths): the same steps with
 //   float FMAs on the CUDA cores; 256 threads in a 16 x 16 grid, thread
 //   (ty, tx) computing rows ty + 16*r and columns tx + 16*q of each 64-wide
@@ -44,6 +53,7 @@
 #include <mma.h>
 
 #include "dtype.cuh"
+#include "gemm_tc.cuh"
 
 namespace {
 
@@ -408,6 +418,140 @@ ln_mlp_fma_kernel(const T* __restrict__ x, const float* __restrict__ ln_s,
   epilogue<T, kFmaThreads, LN>(ys, ldc, b1, gamma, sc, out, TR, row0, rows, c);
 }
 
+// --- the GEMM route (bf16, C % 32 == 0, F % 64 == 0) ---------------------------
+
+namespace gm = nkbx::gemm;
+
+// 128 x 128 tiles of 8 warps of 64 x 32, a 4-slab ring of 32-deep slabs: on
+// the H100 at least as fast at every Swin-T and ViT-B shape as 4 warps of 64
+// x 64, 128 x 64 tiles (g w1) or 64-deep slabs (PERF.md)
+using Fc1 = gm::Config<128, 2, 4, 4>;  // h w0 (N = F)
+using Fc2 = gm::Config<128, 2, 4, 4>;  // g w1 (N = C)
+constexpr int kLnRows = 8;             // rows a block of the LayerNorm kernel, one a warp
+
+// h = round(LN(x)) for rows blockIdx.x * kLnRows + warp, four values a
+// lane.
+__global__ void __launch_bounds__(32 * kLnRows)
+ln_mlp_layernorm_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_s,
+                        const float* __restrict__ ln_b, bf16* __restrict__ h, int rows, int c,
+                        float eps) {
+  const int r = blockIdx.x * kLnRows + threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (r >= rows) return;
+  const size_t o = static_cast<size_t>(r) * c;
+  const float2 st = gm::row_stats(x + o, c, eps);
+  for (int j = 4 * lane; j < c; j += 128) {
+    const float4 v = gm::load4(x + o + j);
+    gm::store4(h + o + j, (v.x - st.x) * st.y * ln_s[j] + ln_b[j],
+               (v.y - st.x) * st.y * ln_s[j + 1] + ln_b[j + 1],
+               (v.z - st.x) * st.y * ln_s[j + 2] + ln_b[j + 2],
+               (v.w - st.x) * st.y * ln_s[j + 3] + ln_b[j + 3]);
+  }
+}
+
+// Step 2's epilogue: g = round(gelu(acc + b0)), rows < R, through shared
+// memory.
+struct Fc1Epilogue {
+  const float* __restrict__ b0;
+  bf16* __restrict__ g;
+  int rows, f;
+
+  template <class J>
+  __device__ __forceinline__ void operator()(J& j, const gm::Tile& t, float* smem) const {
+    const float* bias = b0 + t.n0;
+    const int n_valid = f - t.n0;
+    gm::store_tile<typename J::P, Fc1::BN>(
+        [&](int, int col, int mt, int nt, int hi) {
+          if (col >= n_valid) return 0u;  // a ragged last tile: nothing stored there
+          return nkbx::pack_bf16(gm::gelu(j.acc[mt][nt][2 * hi] + bias[col]),
+                                 gm::gelu(j.acc[mt][nt][2 * hi + 1] + bias[col + 1]));
+        },
+        reinterpret_cast<bf16*>(smem), j.wm, j.wn, g + static_cast<size_t>(t.m0) * f + t.n0, f,
+        rows - t.m0, n_valid);
+  }
+};
+
+// out = sc + round(round(y + b1) * round(gamma)), each step rounded to bf16.
+__device__ __forceinline__ unsigned fc2_out(float y0, float y1, int col, const float* b1,
+                                            const float* gamma, const bf16* sc) {
+  const float2 s = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(sc));
+  const float t0 = nkbx::round_to<bf16>(nkbx::round_to<bf16>(y0 + b1[col]) *
+                                        nkbx::round_to<bf16>(gamma[col]));
+  const float t1 = nkbx::round_to<bf16>(nkbx::round_to<bf16>(y1 + b1[col + 1]) *
+                                        nkbx::round_to<bf16>(gamma[col + 1]));
+  return nkbx::pack_bf16(s.x + t0, s.y + t1);
+}
+
+// Step 3's epilogue, K unsplit: out from acc, rows < R.
+struct Fc2Epilogue {
+  const float* __restrict__ b1;
+  const float* __restrict__ gamma;
+  const bf16* __restrict__ sc;
+  bf16* __restrict__ out;
+  int rows, c;
+
+  template <class J>
+  __device__ __forceinline__ void operator()(J& j, const gm::Tile& t, float*) const {
+    gm::for_pairs<J::P::MT, J::P::NT>(t.m0 + j.wm, t.n0 + j.wn, [&](int r, int col, int mt, int nt,
+                                                                    int hi) {
+      if (r >= rows || col >= c) return;
+      const size_t o = static_cast<size_t>(r) * c + col;
+      *reinterpret_cast<unsigned*>(out + o) =
+          fc2_out(j.acc[mt][nt][2 * hi], j.acc[mt][nt][2 * hi + 1], col, b1, gamma, sc + o);
+    });
+  }
+};
+
+// Step 3's epilogue, K split into slabs: the float partial of slab
+// blockIdx.y into part (slabs, R, C).
+struct PartialEpilogue {
+  float* __restrict__ part;
+  int rows, c;
+
+  template <class J>
+  __device__ __forceinline__ void operator()(J& j, const gm::Tile& t, float*) const {
+    float* base = part + static_cast<size_t>(blockIdx.y) * rows * c;
+    gm::for_pairs<J::P::MT, J::P::NT>(t.m0 + j.wm, t.n0 + j.wn, [&](int r, int col, int mt, int nt,
+                                                                    int hi) {
+      if (r >= rows || col >= c) return;
+      *reinterpret_cast<float2*>(base + static_cast<size_t>(r) * c + col) =
+          make_float2(j.acc[mt][nt][2 * hi], j.acc[mt][nt][2 * hi + 1]);
+    });
+  }
+};
+
+template <class Cfg, bool A_KC, bool B_KC, class Epi>
+__global__ void __launch_bounds__(Cfg::kThreads)
+ln_mlp_gemm_kernel(gm::Operand a, gm::Operand b, int M, int N, int K, int slab_k, Epi epi) {
+  gm::run<Cfg, A_KC, B_KC>(a, b, M, N, K, slab_k, epi);
+}
+
+template <class Cfg, bool A_KC, bool B_KC, class Epi>
+cudaError_t launch_gemm(gm::Operand a, gm::Operand b, int M, int N, int K, int slab_k,
+                        const Epi& epi, cudaStream_t s) {
+  return gm::launch<Cfg, gm::Single<Cfg, A_KC, B_KC>>(ln_mlp_gemm_kernel<Cfg, A_KC, B_KC, Epi>, M,
+                                                      N, (K + slab_k - 1) / slab_k, s, a, b, M, N,
+                                                      K, slab_k, epi);
+}
+
+// Step 3 after a split of K: out from the sum of the slabs' partials, added
+// in slab order; one thread a pair of columns.
+__global__ void __launch_bounds__(256)
+ln_mlp_fc2_finish_kernel(const float* __restrict__ part, int slabs, const float* __restrict__ b1,
+                         const float* __restrict__ gamma, const bf16* __restrict__ sc,
+                         bf16* __restrict__ out, int rows, int c) {
+  const size_t n = static_cast<size_t>(rows) * c;
+  const size_t o = 2 * (static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x);
+  if (o >= n) return;
+  float2 y = *reinterpret_cast<const float2*>(part + o);
+  for (int s = 1; s < slabs; ++s) {
+    const float2 p = *reinterpret_cast<const float2*>(part + s * n + o);
+    y.x += p.x;
+    y.y += p.y;
+  }
+  *reinterpret_cast<unsigned*>(out + o) = fc2_out(y.x, y.y, static_cast<int>(o % c), b1, gamma,
+                                                  sc + o);
+}
+
 // --- launch -------------------------------------------------------------------
 
 struct Args {
@@ -467,10 +611,11 @@ int launch_any(const Args& a, int tile_rows, int is_bf16, int tensor_cores, void
 
 }  // namespace
 
-// K5. x, sc, out (R, C); w0 (C, F); w1 (F, C) in float (is_bf16 = 0) or
-// bf16; ln_s, ln_b, b1, gamma (C) and b0 (F) in float. tile_rows is 16, 32
-// or 64; tensor_cores = 1 takes the bf16 tensor-core kernel (C % 32 == 0,
-// F % 64 == 0). Returns the CUDA error code of the launch (0 on success).
+// K5's first design. x, sc, out (R, C); w0 (C, F); w1 (F, C) in float
+// (is_bf16 = 0) or bf16; ln_s, ln_b, b1, gamma (C) and b0 (F) in float.
+// tile_rows is 16, 32 or 64; tensor_cores = 1 takes the bf16 tensor-core
+// kernel (C % 32 == 0, F % 64 == 0). Returns the CUDA error code of the
+// launch (0 on success).
 extern "C" int nkbx_ln_mlp(const void* x, const void* ln_s, const void* ln_b, const void* w0,
                            const void* b0, const void* w1, const void* b1, const void* gamma,
                            const void* sc, void* out, int rows, int c, int f, int tile_rows,
@@ -486,4 +631,48 @@ extern "C" int nkbx_mlp(const void* x, const void* w0, const void* b0, const voi
                         int is_bf16, int tensor_cores, void* stream) {
   const Args a{x, nullptr, nullptr, w0, b0, w1, b1, nullptr, nullptr, out, rows, c, f, 0.f};
   return launch_any<false>(a, tile_rows, is_bf16, tensor_cores, stream);
+}
+
+// K5 on the GEMM route: x, sc, out (R, C); w0 (C, F); w1 (F, C) in bf16,
+// C % 32 == 0 and F % 64 == 0, every pointer 16-byte aligned; ln_s, ln_b,
+// b1, gamma (C) and b0 (F) in float; scratch h (R, C) and g (R, F) in bf16.
+// g w1 runs in slabs of K = F of slab_f rows (a multiple of 32); with more
+// than one, part (ceil(F / slab_f), R, C) in float holds their partials.
+// Returns the CUDA error code of the launches (0 on success).
+extern "C" int nkbx_ln_mlp_gemm(const void* x, const void* ln_s, const void* ln_b, const void* w0,
+                                const void* b0, const void* w1, const void* b1, const void* gamma,
+                                const void* sc, void* out, void* h, void* g, void* part, int rows,
+                                int c, int f, int slab_f, float eps, void* stream) {
+  if (c % 32 || f % 64 || slab_f <= 0 || slab_f % gm::kBK)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bf16* hb = static_cast<const bf16*>(h);
+  const bf16* gb = static_cast<const bf16*>(g);
+  const float* b1f = static_cast<const float*>(b1);
+  const float* gmf = static_cast<const float*>(gamma);
+  const bf16* scb = static_cast<const bf16*>(sc);
+  bf16* outb = static_cast<bf16*>(out);
+  ln_mlp_layernorm_kernel<<<(rows + kLnRows - 1) / kLnRows, 32 * kLnRows, 0, s>>>(
+      static_cast<const bf16*>(x), static_cast<const float*>(ln_s),
+      static_cast<const float*>(ln_b), static_cast<bf16*>(h), rows, c, eps);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // h w0: A = h contiguous in K = C; B = w0 (C, F) contiguous in N
+  err = launch_gemm<Fc1, true, false>(
+      {hb, c}, {static_cast<const bf16*>(w0), f}, rows, f, c, c,
+      Fc1Epilogue{static_cast<const float*>(b0), static_cast<bf16*>(g), rows, f}, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // g w1: A = g contiguous in K = F; B = w1 (F, C) contiguous in N
+  const gm::Operand ga{gb, f}, w1b{static_cast<const bf16*>(w1), c};
+  const int slabs = (f + slab_f - 1) / slab_f;
+  if (slabs == 1)
+    return static_cast<int>(launch_gemm<Fc2, true, false>(
+        ga, w1b, rows, c, f, f, Fc2Epilogue{b1f, gmf, scb, outb, rows, c}, s));
+  float* pf = static_cast<float*>(part);
+  err = launch_gemm<Fc2, true, false>(ga, w1b, rows, c, f, slab_f, PartialEpilogue{pf, rows, c}, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t pairs = static_cast<size_t>(rows) * c / 2;
+  ln_mlp_fc2_finish_kernel<<<static_cast<unsigned>((pairs + 255) / 256), 256, 0, s>>>(
+      pf, slabs, b1f, gmf, scb, outb, rows, c);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -3,8 +3,9 @@
 // backward of the MLP alone.
 //
 // Replaces two Pallas kernels: nkbx/ops/mlp.py:520 `_lnmlp_bwd_kernel` (the
-// VJP of `fused_ln_mlp`, K6; C entry `nkbx_ln_mlp_bwd`) and nkbx/ops/mlp.py:265
-// `_bwd_kernel` (the VJP of `fused_mlp`, K8; C entry `nkbx_mlp_bwd`).
+// VJP of `fused_ln_mlp`, K6; C entries `nkbx_ln_mlp_bwd_gemm` and
+// `nkbx_ln_mlp_bwd`) and nkbx/ops/mlp.py:265 `_bwd_kernel` (the VJP of
+// `fused_mlp`, K8; C entry `nkbx_mlp_bwd`).
 //
 // K6. For rows x (R, C), the cotangent dy and the forward's
 // parameters it returns dx and the f32 sums over rows of ds, db (LayerNorm),
@@ -16,13 +17,9 @@
 //   db0 = sum du; dh = round(du) w0^T; ds = sum dh * xhat; db = sum dh;
 //   dx = rstd * (dh*s - mean(dh*s) - xhat * mean(dh*s*xhat)).
 //
-// K8 is the same row kernel with the template flag LN off (mlp.py:265-305):
-// x and dy are read straight into the operand buffers that hold h and dy2
-// in K6, and are themselves the weight-gradient kernel's operands, so the
-// row kernel writes no h or dy2; u = x w0 + b0, g = round(gelu(u)),
-// dw1 = g^T dy, db1 = sum dy, du = (dy w1^T) * gelu'(u), dw0 = x^T round(du),
-// db0 = sum du, and dx = round(round(du) w0^T) is the last product, with no
-// LayerNorm backward after it.
+// K8 (mlp.py:265-305): u = x w0 + b0, g = round(gelu(u)), dw1 = g^T dy,
+// db1 = sum dy, du = (dy w1^T) * gelu'(u), dw0 = x^T round(du), db0 = sum
+// du, and dx = round(round(du) w0^T), with no LayerNorm backward after it.
 //
 // What bounds it on an H100: the operations. K6 does 12*R*C*F (two products
 // to recompute u and y, four backward products; K8 and K6 without a
@@ -32,18 +29,45 @@
 //
 // The TPU kernel keeps dw0 and dw1 resident in VMEM across a sequential grid
 // of row tiles; an SM cannot hold them (C*F*4 bytes: 147 KB at C=96, 9.4 MB
-// at C=768), and blocks run in no order. So the work is split:
+// at C=768), and blocks run in no order. So the work is split, and every sum
+// over rows is added in a fixed order (no atomics: a relaunch is
+// bit-identical).
+//
+// K6's route in bf16 with C % 32 == 0 and F % 64 == 0 (every Swin, ConvNeXt
+// and ViT width), `nkbx_ln_mlp_bwd_gemm`: products on gemm_tc.cuh's
+// tensor-core GEMM, 128-row block tiles, so that every weight byte feeds 128
+// rows.
+// 1. ln_mlp_bwd_rows_kernel: h, the row statistics and dy2, one warp a row;
+//    ln_mlp_bwd_db1_kernel: db1's partials over 64-row by 64-column tiles.
+// 2. ln_mlp_bwd_dual_kernel: u = h w0 and dgl = dy2 w1^T on one (128-row,
+//    64-column) tile into two accumulators; epilogue g and round(du) (bf16,
+//    through shared memory to device memory) and the row tile's db0 of the
+//    float du.
+// 3. ln_mlp_bwd_gemm_kernel: dh = round(du) w0^T in float (R, C), K = F
+//    split into slabs where the tiles would fill the card poorly; epilogue
+//    the (slab, row tile)'s partials of ds = sum dh * xhat and db = sum dh
+//    (linear in dh, so the slabs' partials add up).
+// 4. ln_mlp_bwd_lnb_kernel: dx from the sum of dh's slabs, one warp a row.
+// 5. ln_mlp_bwd_gemm_kernel twice, split over slabs of rows: dw1 = g^T dy2
+//    and dw0 = h^T round(du), in bf16 when the rows are one slab, else into
+//    float slab partials that ln_mlp_bwd_slab_sum_kernel adds in order.
+// 6. With a layer-scale only, ln_mlp_bwd_gemm_kernel: g w1, epilogue the row
+//    tile's dgamma = sum round(dy * round(g w1 + b1)); y is not stored.
+// Then ln_mlp_bwd_colsum_kernel adds each set of vector partials in order.
+// The hidden goes through device memory (g, round(du): 4*R*F*2 bytes
+// written and read) at the points where nkbx rounds it to bf16, so no
+// number changes.
+//
+// The first design, kept for f32, other widths and K8 (the same row kernel
+// with the template flag LN off, x and dy read straight into the operand
+// buffers that hold h and dy2 in K6):
 // 1. A row-tile kernel recomputes the forward of TR rows, walking F in
 //    chunks of 64 as the forward kernel does, and emits dx, per-tile partial
 //    sums of the C- and F-sized vector gradients, and, in the storage type,
 //    h, dy2, g and round(du) for the weight gradients.
 // 2. A weight-gradient kernel computes A^T B over slabs of rows (dw1 = g^T
 //    dy2, dw0 = h^T du) into float partials, one 64x64 tile per block.
-// 3. A column-sum kernel adds partials in a fixed order: every gradient is
-//    deterministic, with no atomics.
-// Materialising g and du costs 4*R*F*2 bytes of traffic that the TPU kernel
-// does not have; a later design keeps them on chip.
-//
+// 3. A column-sum kernel adds the partials in a fixed order.
 // Products: bf16 with C % 32 == 0 and F % 64 == 0 take warp-level tensor
 // cores (WMMA 16x16x16, float accumulators), weights staged through shared
 // memory in 32-deep slabs with cp.async double-buffering; float (and bf16 at
@@ -54,6 +78,7 @@
 #include <type_traits>
 
 #include "dtype.cuh"
+#include "gemm_tc.cuh"
 
 namespace {
 
@@ -634,7 +659,8 @@ wgrad_fma_kernel(const T* __restrict__ A, const T* __restrict__ B, float* __rest
 // partial sums per column, then added in order. blockIdx.y = b.
 template <typename OutT>
 __global__ void __launch_bounds__(kThreads)
-colsum_kernel(const float* __restrict__ in, OutT* __restrict__ out, int rows, long long cols) {
+ln_mlp_bwd_colsum_kernel(const float* __restrict__ in, OutT* __restrict__ out, int rows,
+                         long long cols) {
   __shared__ float red[8][33];
   const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
   const long long j = static_cast<long long>(blockIdx.x) * 32 + tx;
@@ -677,7 +703,7 @@ template <typename OutT>
 cudaError_t colsum(const float* in, void* out, int batch, int rows, long long cols,
                    cudaStream_t s) {
   const dim3 grid(static_cast<unsigned>((cols + 31) / 32), batch);
-  colsum_kernel<OutT><<<grid, kThreads, 0, s>>>(in, static_cast<OutT*>(out), rows, cols);
+  ln_mlp_bwd_colsum_kernel<OutT><<<grid, kThreads, 0, s>>>(in, static_cast<OutT*>(out), rows, cols);
   return cudaGetLastError();
 }
 
@@ -723,16 +749,377 @@ cudaError_t launch_all(const RowArgs& a, int tr, bool tc, void* dw0, void* dw1, 
   return weight_grad<T>(a0op, a.du, dw0, part_w, a.rows, a.c, a.f, slab_rows, tc, s);
 }
 
+// --- the GEMM route (bf16, C % 32 == 0, F % 64 == 0) ---------------------------
+
+namespace gm = nkbx::gemm;
+
+constexpr int kRowTile = 64;  // rows a block of the row kernels (steps 1 and 4)
+// du w0^T, g w1 and the weight gradients: 128 x 128 tiles of 4 warps of 64 x
+// 64; step 2: 128 x 64 tiles of 4 warps, each two 64 x 32 accumulators
+// (a 3-slab ring of both products' slabs). On the H100 about as fast as or
+// faster than 8 warps a block, 64-deep slabs or another ring depth at the
+// models' shapes (PERF.md).
+using Wide = gm::Config<128, 2, 2, 4>;
+using DualCfg = gm::Config<64, 2, 2, 3>;
+
+constexpr int kLnRows = 8;  // rows a block of the warp-a-row kernels (steps 1 and 4)
+
+// Step 1: h = round(LN(x)), dy2 = round(dy * round(gamma)) and the row
+// statistics (mean at stats[r], rstd at stats[R + r]), one warp a row, four
+// values a lane.
+__global__ void __launch_bounds__(32 * kLnRows)
+ln_mlp_bwd_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_s,
+                       const float* __restrict__ ln_b, const float* __restrict__ gamma,
+                       const bf16* __restrict__ dy, bf16* __restrict__ h, bf16* __restrict__ dy2,
+                       float* __restrict__ stats, int rows, int c, float eps) {
+  const int r = blockIdx.x * kLnRows + threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (r >= rows) return;
+  const size_t o = static_cast<size_t>(r) * c;
+  const float2 st = gm::row_stats(x + o, c, eps);
+  if (lane == 0) {
+    stats[r] = st.x;
+    stats[rows + r] = st.y;
+  }
+  for (int j = 4 * lane; j < c; j += 128) {
+    const float4 v = gm::load4(x + o + j), d = gm::load4(dy + o + j);
+    gm::store4(h + o + j, (v.x - st.x) * st.y * ln_s[j] + ln_b[j],
+               (v.y - st.x) * st.y * ln_s[j + 1] + ln_b[j + 1],
+               (v.z - st.x) * st.y * ln_s[j + 2] + ln_b[j + 2],
+               (v.w - st.x) * st.y * ln_s[j + 3] + ln_b[j + 3]);
+    gm::store4(dy2 + o + j, d.x * nkbx::round_to<bf16>(gamma[j]),
+               d.y * nkbx::round_to<bf16>(gamma[j + 1]), d.z * nkbx::round_to<bf16>(gamma[j + 2]),
+               d.w * nkbx::round_to<bf16>(gamma[j + 3]));
+  }
+}
+
+// db1's partials: block (tile, chunk) sums rows 64 tile .. 64 tile + 63 of
+// columns 64 chunk .. 64 chunk + 63 of dy2 into part[tile][col]; thread
+// (rg, j) of a 4 x 64 grid adds 16 rows of column j in order, then the four
+// groups are added in order.
+__global__ void __launch_bounds__(kThreads)
+ln_mlp_bwd_db1_kernel(const bf16* __restrict__ dy2, float* __restrict__ part, int rows, int c) {
+  __shared__ float red[kThreads];
+  const int j = threadIdx.x % 64, rg = threadIdx.x / 64;
+  const int col = blockIdx.y * 64 + j, r0 = blockIdx.x * kRowTile + rg * (kRowTile / 4);
+  const int r1 = min(r0 + kRowTile / 4, rows);
+  float s = 0.f;
+  if (col < c)
+    for (int r = r0; r < r1; ++r) s += nkbx::to_f(dy2[static_cast<size_t>(r) * c + col]);
+  red[threadIdx.x] = s;
+  __syncthreads();
+  if (rg == 0 && col < c)
+    part[static_cast<size_t>(blockIdx.x) * c + col] = red[j] + red[64 + j] + red[128 + j] +
+                                                      red[192 + j];
+}
+
+// Step 4: dx = rstd (dh s - mean(dh s) - xhat mean(dh s xhat)) for rows
+// blockIdx.x * kLnRows + warp, where dh is the sum of its `slabs` float
+// partials (stride R * C) added in order; four values a lane.
+__global__ void __launch_bounds__(32 * kLnRows)
+ln_mlp_bwd_lnb_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_s,
+                      const float* __restrict__ stats, const float* __restrict__ dh, int slabs,
+                      bf16* __restrict__ dx, int rows, int c) {
+  const int r = blockIdx.x * kLnRows + threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (r >= rows) return;
+  const size_t o = static_cast<size_t>(r) * c, plane = static_cast<size_t>(rows) * c;
+  auto dh4 = [&](int j) {
+    float4 v = *reinterpret_cast<const float4*>(dh + o + j);
+    for (int s = 1; s < slabs; ++s) {
+      const float4 p = *reinterpret_cast<const float4*>(dh + s * plane + o + j);
+      v.x += p.x;
+      v.y += p.y;
+      v.z += p.z;
+      v.w += p.w;
+    }
+    return make_float4(v.x * ln_s[j], v.y * ln_s[j + 1], v.z * ln_s[j + 2], v.w * ln_s[j + 3]);
+  };
+  const float mu = stats[r], rstd = stats[rows + r];
+  float m1 = 0.f, m2 = 0.f;
+  for (int j = 4 * lane; j < c; j += 128) {
+    const float4 d = dh4(j), v = gm::load4(x + o + j);
+    m1 += (d.x + d.y) + (d.z + d.w);
+    m2 += (d.x * ((v.x - mu) * rstd) + d.y * ((v.y - mu) * rstd)) +
+          (d.z * ((v.z - mu) * rstd) + d.w * ((v.w - mu) * rstd));
+  }
+  const float inv_c = 1.f / c;
+  m1 = nkbx::warp_sum(m1) * inv_c;
+  m2 = nkbx::warp_sum(m2) * inv_c;
+  for (int j = 4 * lane; j < c; j += 128) {
+    const float4 d = dh4(j), v = gm::load4(x + o + j);
+    gm::store4(dx + o + j, rstd * (d.x - m1 - (v.x - mu) * rstd * m2),
+               rstd * (d.y - m1 - (v.y - mu) * rstd * m2),
+               rstd * (d.z - m1 - (v.z - mu) * rstd * m2),
+               rstd * (d.w - m1 - (v.w - mu) * rstd * m2));
+  }
+}
+
+// Step 2's epilogue, on u = h w0 (acc) and dgl = dy2 w1^T (acc2): g =
+// round(gelu(u + b0)) and round(du), du = dgl * gelu'(u + b0) (one erf), to
+// device memory through two shared bf16 tiles; the row tile's db0 = sum of
+// the float du. Padded rows (gelu(b0) != 0 there) reach no store and no sum.
+struct DualEpilogue {
+  const float* __restrict__ b0;
+  bf16* __restrict__ gact;
+  bf16* __restrict__ du;
+  float* __restrict__ part_f;
+  int rows, f;
+
+  template <class J>
+  __device__ __forceinline__ void operator()(J& j, const gm::Tile& t, float* smem) const {
+    constexpr int BN = DualCfg::BN, LD = BN + gm::kPad;
+    bf16* gt = reinterpret_cast<bf16*>(smem);
+    bf16* dt = gt + gm::kBM * LD;
+    const float* bias = b0 + t.n0;
+    const int rows_valid = rows - t.m0;
+    float s[J::P::NT][2] = {};
+    gm::for_pairs<J::P::MT, J::P::NT>(j.wm, j.wn, [&](int r, int col, int mt, int nt, int hi) {
+      float gv[2], dv[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float gd;
+        gelu_and_grad(j.acc[mt][nt][2 * hi + e] + bias[col + e], &gv[e], &gd);
+        dv[e] = j.acc2[mt][nt][2 * hi + e] * gd;
+        if (r < rows_valid) s[nt][e] += dv[e];
+      }
+      *reinterpret_cast<unsigned*>(gt + r * LD + col) = nkbx::pack_bf16(gv[0], gv[1]);
+      *reinterpret_cast<unsigned*>(dt + r * LD + col) = nkbx::pack_bf16(dv[0], dv[1]);
+    });
+    __syncthreads();
+    const size_t o = static_cast<size_t>(t.m0) * f + t.n0;
+    gm::copy_tile<BN, DualCfg::kThreads>(gt, gact + o, f, rows_valid, f - t.n0);
+    gm::copy_tile<BN, DualCfg::kThreads>(dt, du + o, f, rows_valid, f - t.n0);
+    __syncthreads();
+    gm::block_column_sums<typename J::P, BN>(
+        s, smem, j.wm, j.wn, part_f + static_cast<size_t>(t.m0 / gm::kBM) * f + t.n0, f - t.n0);
+  }
+};
+
+// Step 6's epilogue (a layer-scale only), on g w1 (acc): the row tile's
+// dgamma = sum of round(dy * round(acc + b1)); y itself is not stored.
+struct GammaEpilogue {
+  const float* __restrict__ b1;
+  const bf16* __restrict__ dy;
+  float* __restrict__ part_g;
+  int rows, c;
+
+  template <class J>
+  __device__ __forceinline__ void operator()(J& j, const gm::Tile& t, float* red) const {
+    float s[J::P::NT][2] = {};
+    gm::for_pairs<J::P::MT, J::P::NT>(t.m0 + j.wm, t.n0 + j.wn, [&](int r, int col, int mt, int nt,
+                                                                    int hi) {
+      if (r >= rows || col >= c) return;
+      const float2 d = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(dy + static_cast<size_t>(r) * c + col));
+      const float dd[2] = {d.x, d.y};
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float y = nkbx::round_to<bf16>(j.acc[mt][nt][2 * hi + e] + b1[col + e]);
+        s[nt][e] += nkbx::round_to<bf16>(dd[e] * y);
+      }
+    });
+    gm::block_column_sums<typename J::P, Wide::BN>(
+        s, red, j.wm, j.wn, part_g + static_cast<size_t>(t.m0 / gm::kBM) * c + t.n0, c - t.n0);
+  }
+};
+
+// Step 3's epilogue, on slab blockIdx.y of dh = round(du) w0^T (acc): its
+// float partial into dh (slabs, R, C), and the (slab, row tile)'s partials
+// of ds = sum dh * xhat and db = sum dh into part_ds and part_db (row
+// blockIdx.y * tiles_m + tile of each): the sums are linear in dh, so the
+// slabs' partials add up to them. Padded rows reach no store and no sum.
+struct DhEpilogue {
+  float* __restrict__ dh;
+  const bf16* __restrict__ x;
+  const float* __restrict__ stats;
+  float* __restrict__ part_ds;
+  float* __restrict__ part_db;
+  int rows, c;
+
+  template <class J>
+  __device__ __forceinline__ void operator()(J& j, const gm::Tile& t, float* red) const {
+    float* base = dh + static_cast<size_t>(blockIdx.y) * rows * c;
+    float sx[J::P::NT][2] = {}, sd[J::P::NT][2] = {};
+    gm::for_pairs<J::P::MT, J::P::NT>(t.m0 + j.wm, t.n0 + j.wn, [&](int r, int col, int mt, int nt,
+                                                                    int hi) {
+      if (r >= rows || col >= c) return;
+      const size_t o = static_cast<size_t>(r) * c + col;
+      const float v0 = j.acc[mt][nt][2 * hi], v1 = j.acc[mt][nt][2 * hi + 1];
+      *reinterpret_cast<float2*>(base + o) = make_float2(v0, v1);
+      const float2 xv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(x + o));
+      const float mu = stats[r], rstd = stats[rows + r];
+      sx[nt][0] += v0 * ((xv.x - mu) * rstd);
+      sx[nt][1] += v1 * ((xv.y - mu) * rstd);
+      sd[nt][0] += v0;
+      sd[nt][1] += v1;
+    });
+    const size_t prow = static_cast<size_t>(blockIdx.y) * ((rows + gm::kBM - 1) / gm::kBM) +
+                        t.m0 / gm::kBM;
+    gm::block_column_sums<typename J::P, Wide::BN>(sx, red, j.wm, j.wn,
+                                                   part_ds + prow * c + t.n0, c - t.n0);
+    gm::block_column_sums<typename J::P, Wide::BN>(sd, red + J::P::kWarpsM * Wide::BN, j.wm, j.wn,
+                                                   part_db + prow * c + t.n0, c - t.n0);
+  }
+};
+
+// Rows of acc out (M, N) in T: the weight gradients' slab partials (out +
+// blockIdx.y * M * N, float), or a weight gradient itself when its rows are
+// one slab (bf16).
+template <class T>
+struct StoreEpilogue {
+  T* __restrict__ out;
+  int M, N;
+
+  template <class J>
+  __device__ __forceinline__ void operator()(J& j, const gm::Tile& t, float*) const {
+    T* base = out + static_cast<size_t>(blockIdx.y) * M * N;
+    gm::for_pairs<J::P::MT, J::P::NT>(t.m0 + j.wm, t.n0 + j.wn, [&](int r, int col, int mt, int nt,
+                                                                    int hi) {
+      if (r >= M || col >= N) return;
+      T* p = base + static_cast<size_t>(r) * N + col;
+      if constexpr (std::is_same<T, float>::value)
+        *reinterpret_cast<float2*>(p) =
+            make_float2(j.acc[mt][nt][2 * hi], j.acc[mt][nt][2 * hi + 1]);
+      else
+        *reinterpret_cast<unsigned*>(p) = nkbx::pack_bf16(j.acc[mt][nt][2 * hi],
+                                                          j.acc[mt][nt][2 * hi + 1]);
+    });
+  }
+};
+
+template <class Cfg, bool A_KC, bool B_KC, class Epi>
+__global__ void __launch_bounds__(Cfg::kThreads)
+ln_mlp_bwd_gemm_kernel(gm::Operand a, gm::Operand b, int M, int N, int K, int slab_k, Epi epi) {
+  gm::run<Cfg, A_KC, B_KC>(a, b, M, N, K, slab_k, epi);
+}
+
+template <class Cfg, bool A_KC, bool B_KC, class Epi>
+cudaError_t launch_gemm(gm::Operand a, gm::Operand b, int M, int N, int K, int slab_k,
+                        const Epi& epi, cudaStream_t s) {
+  return gm::launch<Cfg, gm::Single<Cfg, A_KC, B_KC>>(ln_mlp_bwd_gemm_kernel<Cfg, A_KC, B_KC, Epi>,
+                                                      M, N, (K + slab_k - 1) / slab_k, s, a, b, M,
+                                                      N, K, slab_k, epi);
+}
+
+using DualJob = gm::Dual<DualCfg, true, false, true, true>;
+
+// Step 2: u = h w0 and dgl = dy2 w1^T on one (128-row, 64-column) tile, both
+// of depth C: A = h and dy2 contiguous in K, B = w0 (C, F) contiguous in N
+// and w1^T (w1 is (F, C)) contiguous in K.
+__global__ void __launch_bounds__(DualCfg::kThreads)
+ln_mlp_bwd_dual_kernel(gm::Operand h, gm::Operand w0, gm::Operand dy2, gm::Operand w1t, int M,
+                       int N, int K, DualEpilogue epi) {
+  extern __shared__ __align__(256) unsigned char smem[];
+  const gm::Tile t = gm::tile_of<DualCfg::BN>(M, N, K, K);
+  DualJob job(h, w0, dy2, w1t, t, M, N);
+  gm::mainloop<DualCfg::STAGES>(job, nkbx::smem_addr(smem), t.k0, t.k1);
+  epi(job, t, reinterpret_cast<float*>(smem));
+}
+
+// out[i] = sum over slabs of part[slab][i] (n = M*N values, slab stride n),
+// added in slab order, in bf16; four values a thread.
+__global__ void __launch_bounds__(256)
+ln_mlp_bwd_slab_sum_kernel(const float* __restrict__ part, int slabs, bf16* __restrict__ out,
+                           long long n) {
+  const long long i = 4 * (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x);
+  if (i >= n) return;
+  float4 v = *reinterpret_cast<const float4*>(part + i);
+  for (int s = 1; s < slabs; ++s) {
+    const float4 p = *reinterpret_cast<const float4*>(part + s * n + i);
+    v.x += p.x;
+    v.y += p.y;
+    v.z += p.z;
+    v.w += p.w;
+  }
+  uint2 o;
+  o.x = nkbx::pack_bf16(v.x, v.y);
+  o.y = nkbx::pack_bf16(v.z, v.w);
+  *reinterpret_cast<uint2*>(out + i) = o;
+}
+
+struct GemmArgs {
+  const bf16 *x, *w0, *w1, *dy;
+  const float *ln_s, *ln_b, *b0, *b1, *gamma;
+  bf16 *dx, *dw0, *dw1, *h, *dy2, *gact, *du;
+  float *dvec_c, *db0, *dh, *stats, *part_c, *part_b1, *part_g, *part_f, *part_w;
+  int rows, c, f, slab_f, slab_rows, has_gamma;
+  float eps;
+};
+
+// A^T B over R rows (A: ld_a-strided rows of M values, B: of N) into out (M,
+// N) in bf16: one launch when the rows are one slab, else slab partials in
+// part_w and their sum.
+cudaError_t weight_grad_gemm(const bf16* A, const bf16* B, bf16* out, float* part_w, int rows,
+                             int M, int N, int slab_rows, cudaStream_t s) {
+  const int slabs = (rows + slab_rows - 1) / slab_rows;
+  if (slabs == 1)
+    return launch_gemm<Wide, false, false>({A, M}, {B, N}, M, N, rows, rows,
+                                           StoreEpilogue<bf16>{out, M, N}, s);
+  cudaError_t err = launch_gemm<Wide, false, false>({A, M}, {B, N}, M, N, rows, slab_rows,
+                                                    StoreEpilogue<float>{part_w, M, N}, s);
+  if (err != cudaSuccess) return err;
+  const long long n = static_cast<long long>(M) * N;
+  ln_mlp_bwd_slab_sum_kernel<<<static_cast<unsigned>((n / 4 + 255) / 256), 256, 0, s>>>(
+      part_w, slabs, out, n);
+  return cudaGetLastError();
+}
+
+// Steps 1-6 and the fixed-order sums of every vector and weight gradient.
+cudaError_t launch_gemm_route(const GemmArgs& a, cudaStream_t s) {
+  const int rows = a.rows, c = a.c, f = a.f;
+  const int tiles = (rows + kRowTile - 1) / kRowTile, tiles_m = (rows + gm::kBM - 1) / gm::kBM;
+  const int dh_slabs = (f + a.slab_f - 1) / a.slab_f;
+  const unsigned row_blocks = static_cast<unsigned>((rows + kLnRows - 1) / kLnRows);
+  ln_mlp_bwd_rows_kernel<<<row_blocks, 32 * kLnRows, 0, s>>>(a.x, a.ln_s, a.ln_b, a.gamma, a.dy,
+                                                            a.h, a.dy2, a.stats, rows, c, a.eps);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  ln_mlp_bwd_db1_kernel<<<dim3(tiles, (c + 63) / 64), kThreads, 0, s>>>(a.dy2, a.part_b1, rows, c);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  err = gm::launch<DualCfg, DualJob>(ln_mlp_bwd_dual_kernel, rows, f, 1, s, gm::Operand{a.h, c},
+                                     gm::Operand{a.w0, f}, gm::Operand{a.dy2, c},
+                                     gm::Operand{a.w1, c}, rows, f, c,
+                                     DualEpilogue{a.b0, a.gact, a.du, a.part_f, rows, f});
+  if (err != cudaSuccess) return err;
+  if (a.has_gamma) {  // g w1: A = g contiguous in K = F, B = w1 (F, C) contiguous in N
+    err = launch_gemm<Wide, true, false>({a.gact, f}, {a.w1, c}, rows, c, f, f,
+                                         GammaEpilogue{a.b1, a.dy, a.part_g, rows, c}, s);
+    if (err != cudaSuccess) return err;
+  }
+  // dh = round(du) w0^T in slabs of K = F, with the partials of ds and db:
+  // A = du contiguous in K, B = w0^T contiguous in K
+  const size_t ds_rows = static_cast<size_t>(dh_slabs) * tiles_m;
+  err = launch_gemm<Wide, true, true>(
+      {a.du, f}, {a.w0, f}, rows, c, f, a.slab_f,
+      DhEpilogue{a.dh, a.x, a.stats, a.part_c, a.part_c + ds_rows * c, rows, c}, s);
+  if (err != cudaSuccess) return err;
+  ln_mlp_bwd_lnb_kernel<<<row_blocks, 32 * kLnRows, 0, s>>>(a.x, a.ln_s, a.stats, a.dh, dh_slabs,
+                                                           a.dx, rows, c);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if ((err = colsum<float>(a.part_c, a.dvec_c, 2, static_cast<int>(ds_rows), c, s)) != cudaSuccess)
+    return err;
+  if ((err = colsum<float>(a.part_b1, a.dvec_c + 2 * c, 1, tiles, c, s)) != cudaSuccess)
+    return err;
+  if (a.has_gamma &&
+      (err = colsum<float>(a.part_g, a.dvec_c + 3 * c, 1, tiles_m, c, s)) != cudaSuccess)
+    return err;
+  if ((err = colsum<float>(a.part_f, a.db0, 1, tiles_m, f, s)) != cudaSuccess) return err;
+  // dw1 = g^T dy2 and dw0 = h^T round(du) over slabs of rows: A given
+  // transposed (contiguous in M), B contiguous in N
+  err = weight_grad_gemm(a.gact, a.dy2, a.dw1, a.part_w, rows, f, c, a.slab_rows, s);
+  if (err != cudaSuccess) return err;
+  return weight_grad_gemm(a.h, a.du, a.dw0, a.part_w, rows, c, f, a.slab_rows, s);
+}
+
 }  // namespace
 
-// x, dy, dx, h, dy2 (R, C); w0, dw0 (C, F); w1, dw1 (F, C); gact, du (R, F)
-// in float (is_bf16 = 0) or bf16; ln_s, ln_b, b1, gamma (C), b0 (F), dvec_c
-// (4, C: ds, db, db1, dgamma) and db0 (F) in float; scratch part_c (4, tiles,
-// C), part_f (tiles, F) and part_w (ceil(R / slab_rows), C*F) in float, where
-// tiles = ceil(R / tile_rows). tile_rows is 16, 32 or 64; tensor_cores = 1
-// takes the bf16 tensor-core kernels (C % 32 == 0, F % 64 == 0); has_gamma =
-// 0 skips y and dgamma. Returns the CUDA error code of the launches (0 on
-// success).
+// K6's first design. x, dy, dx, h, dy2 (R, C); w0, dw0 (C, F); w1, dw1
+// (F, C); gact, du (R, F) in float (is_bf16 = 0) or bf16; ln_s, ln_b, b1,
+// gamma (C), b0 (F), dvec_c (4, C: ds, db, db1, dgamma) and db0 (F) in
+// float; scratch part_c (4, tiles, C), part_f (tiles, F) and part_w
+// (ceil(R / slab_rows), C*F) in float, where tiles = ceil(R / tile_rows).
+// tile_rows is 16, 32 or 64; tensor_cores = 1 takes the bf16 tensor-core
+// kernels (C % 32 == 0, F % 64 == 0); has_gamma = 0 skips y and dgamma.
+// Returns the CUDA error code of the launches (0 on success).
 extern "C" int nkbx_ln_mlp_bwd(const void* x, const void* ln_s, const void* ln_b,
                                const void* w0, const void* b0, const void* w1, const void* b1,
                                const void* gamma, const void* dy, void* dx, void* dw0,
@@ -782,4 +1169,43 @@ extern "C" int nkbx_mlp_bwd(const void* x, const void* w0, const void* b0, const
                                         pw, slab_rows, s)
               : launch_all<float, false>(a, tile_rows, false, dw0, dw1, db1, db0, pw,
                                          slab_rows, s));
+}
+
+// K6 on the GEMM route. x, dy, dx (R, C); w0, dw0 (C, F); w1, dw1 (F, C) in
+// bf16 with C % 32 == 0 and F % 64 == 0, every pointer 16-byte aligned; ln_s,
+// ln_b, b1, gamma (C), b0 (F), dvec_c (4, C: ds, db, db1, dgamma) and db0 (F)
+// in float. du w0^T runs in slabs of K = F of slab_f rows, the weight
+// gradients in slabs of slab_rows rows (both multiples of 32). Scratch: h,
+// dy2 (R, C) and gact, du (R, F) in bf16; in float dh (S, R, C) (S =
+// ceil(F / slab_f): du w0^T's slab partials), stats (2, R), the partials
+// part_c (2, S * ceil(R / 128), C) of ds and db, part_b1 (ceil(R / 64), C),
+// part_g (ceil(R / 128), C) (has_gamma), part_f (ceil(R / 128), F) and part_w
+// (ceil(R / slab_rows), C*F; unused when slab_rows >= R). has_gamma = 0 skips
+// dgamma. Returns the CUDA error code of the launches (0 on success).
+extern "C" int nkbx_ln_mlp_bwd_gemm(const void* x, const void* ln_s, const void* ln_b,
+                                    const void* w0, const void* b0, const void* w1,
+                                    const void* b1, const void* gamma, const void* dy, void* dx,
+                                    void* dw0, void* dw1, void* dvec_c, void* db0, void* h,
+                                    void* dy2, void* gact, void* du, void* dh, void* stats,
+                                    void* part_c, void* part_b1, void* part_g, void* part_f,
+                                    void* part_w, int rows, int c, int f, int slab_f,
+                                    int slab_rows, float eps, int has_gamma, void* stream) {
+  if (c % 32 || f % 64 || slab_f <= 0 || slab_f % gm::kBK || slab_rows <= 0 ||
+      slab_rows % gm::kBK)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const GemmArgs a{static_cast<const bf16*>(x), static_cast<const bf16*>(w0),
+                   static_cast<const bf16*>(w1), static_cast<const bf16*>(dy),
+                   static_cast<const float*>(ln_s), static_cast<const float*>(ln_b),
+                   static_cast<const float*>(b0), static_cast<const float*>(b1),
+                   static_cast<const float*>(gamma),
+                   static_cast<bf16*>(dx), static_cast<bf16*>(dw0), static_cast<bf16*>(dw1),
+                   static_cast<bf16*>(h), static_cast<bf16*>(dy2), static_cast<bf16*>(gact),
+                   static_cast<bf16*>(du),
+                   static_cast<float*>(dvec_c), static_cast<float*>(db0),
+                   static_cast<float*>(dh), static_cast<float*>(stats),
+                   static_cast<float*>(part_c), static_cast<float*>(part_b1),
+                   static_cast<float*>(part_g), static_cast<float*>(part_f),
+                   static_cast<float*>(part_w),
+                   rows, c, f, slab_f, slab_rows, has_gamma, eps};
+  return static_cast<int>(launch_gemm_route(a, static_cast<cudaStream_t>(stream)));
 }

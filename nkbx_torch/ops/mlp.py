@@ -5,7 +5,12 @@ and backward. Counterpart of ``nkbx/ops/mlp.py``, both of its members:
   flax LayerNorm semantics (f32 statistics, fast variance):
   :func:`fused_ln_mlp`, the kernels K5 (``csrc/ln_mlp.cu``, replacing the
   Pallas ``_lnmlp_fwd_kernel``) and K6 (``csrc/ln_mlp_bwd.cu``, replacing
-  ``_lnmlp_bwd_kernel``);
+  ``_lnmlp_bwd_kernel``). In bf16 at the tensor-core widths
+  (:func:`tensor_cores`) both run as a few GEMMs on one hand-written
+  tensor-core mainloop (``csrc/gemm_tc.cuh``) with their own epilogues
+  (C entries ``nkbx_ln_mlp_gemm``, ``nkbx_ln_mlp_bwd_gemm``); f32 and other
+  widths run the first design, a row-tile kernel (``nkbx_ln_mlp``,
+  ``nkbx_ln_mlp_bwd``);
 - MLP-only, ``gelu(x @ w0 + b0) @ w1 + b1``: :func:`fused_mlp`, the kernels
   K7 and K8, the same sources' LN-free members (C entries ``nkbx_mlp`` and
   ``nkbx_mlp_bwd``, replacing the Pallas ``_fwd_kernel`` and
@@ -23,8 +28,10 @@ ones, then the plain version.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 import os
+import types
 
 import torch
 import torch.nn.functional as F
@@ -33,8 +40,10 @@ from nkbx_torch.ops import _build
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"nkbx_ln_mlp": [_P] * 10 + [_I, _I, _I, _I, ctypes.c_float, _I, _I, _P],
+               "nkbx_ln_mlp_gemm": [_P] * 13 + [_I] * 4 + [ctypes.c_float, _P],
                "nkbx_mlp": [_P] * 6 + [_I] * 6 + [_P]}
 _BWD_SIGNATURES = {"nkbx_ln_mlp_bwd": [_P] * 21 + [_I] * 5 + [ctypes.c_float] + [_I] * 3 + [_P],
+                   "nkbx_ln_mlp_bwd_gemm": [_P] * 25 + [_I] * 5 + [ctypes.c_float, _I, _P],
                    "nkbx_mlp_bwd": [_P] * 16 + [_I] * 7 + [_P]}
 _CHUNK = 64  # kChunk of ln_mlp.cu and ln_mlp_bwd.cu
 _TILE_ROWS = (64, 32, 16)  # row tiles the kernels are instantiated for
@@ -42,12 +51,163 @@ _MAX_SMEM = _build.MAX_SMEM
 _TWO_BLOCKS_SMEM = 113_000  # at most this per block keeps two blocks on an SM
 _WGRAD_TILE = 64  # output tile of the weight-gradient kernel (ln_mlp_bwd.cu)
 _WGRAD_BLOCKS = 528  # the weight-gradient kernel splits rows until about this many blocks
+# the GEMM route (csrc/gemm_tc.cuh, and the row kernels of ln_mlp.cu and ln_mlp_bwd.cu)
+GEMM_TILE_M = 128  # rows of a block tile (kBM)
+GEMM_SLAB_K = 32  # depth of a ring slab (kBK); a split of K is cut at its multiples
+GEMM_ROW_TILE = 64  # rows a block of the backward's row kernels (kRowTile)
+# block tile columns of each GEMM (Fc1, Fc2, DualCfg, Wide in the sources)
+_GEMM_N = {"h·w0": 128, "g·w1": 128, "dual": 64, "du·w0ᵀ": 128, "wgrad": 128}
+_LN_ROWS = 8  # rows a block of the forward's LayerNorm kernel (kLnRows)
+_BLOCKS_PER_SM = 2  # blocks of a GEMM resident on an SM at once
+_WAVE_SHARE = 0.75  # a split of K stops once its waves of blocks are this full
+_MIN_SLAB = {"g·w1": 512, "du·w0ᵀ": 512, "wgrad": 1024}  # least depth of a slab of K
 
 
 def tensor_cores(dtype, c: int, f: int) -> bool:
     """Whether the bf16 tensor-core kernels take this geometry (C a multiple
-    of 32, F of 64: every Swin width); else the float-FMA kernels run."""
+    of 32, F of 64: every Swin, ConvNeXt and ViT width): K5 and K6 then run
+    as GEMMs (``nkbx_ln_mlp_gemm``, ``nkbx_ln_mlp_bwd_gemm``) and K7/K8 on
+    their tensor-core row kernels; else the float-FMA kernels run."""
     return dtype == torch.bfloat16 and c % 32 == 0 and f % _CHUNK == 0
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def gemm_blocks(m: int, n: int, bn: int, slabs: int = 1) -> int:
+    """Blocks of one GEMM launch: 128 x ``bn`` tiles of the (m, n) output,
+    times the slabs of a split over K."""
+    return _cdiv(m, GEMM_TILE_M) * _cdiv(n, bn) * slabs
+
+
+def split_depth(tiles: int, depth: int, min_depth: int, sms: int = 132) -> int:
+    """The depth of each slab (a multiple of GEMM_SLAB_K) when a GEMM of
+    ``tiles`` output tiles splits its K = ``depth`` into slabs, each a
+    block's: the fewest slabs whose blocks fill their waves (``sms`` times
+    ``_BLOCKS_PER_SM`` resident blocks) to ``_WAVE_SHARE``, else the
+    fullest, none shallower than ``min_depth``. A GEMM with few tiles and a
+    long K (g·w1 at Swin-T stage 3 or ViT-B bucket 8, the weight gradients)
+    would otherwise leave SMs idle."""
+    slots = sms * _BLOCKS_PER_SM
+    best, best_share = 1, 0.0
+    for n in range(1, max(1, depth // min_depth) + 1):
+        blocks = tiles * n
+        share = blocks / (_cdiv(blocks, slots) * slots)
+        if share > best_share:
+            best, best_share = n, share
+        if share >= _WAVE_SHARE:
+            break
+    return _cdiv(_cdiv(depth, best), GEMM_SLAB_K) * GEMM_SLAB_K
+
+
+@functools.lru_cache(maxsize=256)
+def gemm_slabs(rows: int, c: int, f: int, sms: int = 132) -> types.MappingProxyType:
+    """The depth of a slab of K of each split GEMM: g·w1 and du·w0ᵀ (K = F,
+    over the (R, C) output) and the weight gradients (K = R, over (C, F)).
+    Cached, read-only."""
+    def slab(what, m, n, depth):
+        return split_depth(gemm_blocks(m, n, _GEMM_N[what]), depth, _MIN_SLAB[what], sms)
+
+    return types.MappingProxyType({"g·w1": slab("g·w1", rows, c, f),
+                                   "du·w0ᵀ": slab("du·w0ᵀ", rows, c, f),
+                                   "wgrad": slab("wgrad", c, f, rows)})
+
+
+def slab_ranges(depth: int, slab: int) -> list:
+    """[start, end) of each slab of a split K, in the order their partials
+    are added (block y of the launch takes slab y)."""
+    return [(k0, min(depth, k0 + slab)) for k0 in range(0, depth, slab)]
+
+
+def gemm_plan(rows: int, c: int, f: int, backward: bool = False, has_gamma: bool = False,
+              sms: int = 132):
+    """The route's launches in order, ``(kernel, what, blocks)``, as
+    ``nkbx_ln_mlp_gemm`` / ``nkbx_ln_mlp_bwd_gemm`` make them (a sum of
+    partials: ``colsum`` 32 columns a block, ``slab_sum`` 1024 values)."""
+    n, sl = _GEMM_N, gemm_slabs(rows, c, f, sms)
+    fc2 = len(slab_ranges(f, sl["g·w1"]))
+    if not backward:
+        plan = [("ln_mlp_layernorm_kernel", "h", _cdiv(rows, _LN_ROWS)),
+                ("ln_mlp_gemm_kernel", "h·w0", gemm_blocks(rows, f, n["h·w0"])),
+                ("ln_mlp_gemm_kernel", "g·w1", gemm_blocks(rows, c, n["g·w1"], fc2))]
+        if fc2 > 1:
+            plan.append(("ln_mlp_fc2_finish_kernel", "out", _cdiv(rows * c // 2, 256)))
+        return plan
+    tiles = _cdiv(rows, GEMM_ROW_TILE)
+    dh = len(slab_ranges(f, sl["du·w0ᵀ"]))
+    wg = len(slab_ranges(rows, sl["wgrad"]))
+    plan = [("ln_mlp_bwd_rows_kernel", "h, dy2", _cdiv(rows, _LN_ROWS)),
+            ("ln_mlp_bwd_db1_kernel", "db1", tiles * _cdiv(c, 64)),
+            ("ln_mlp_bwd_dual_kernel", "h·w0, dy2·w1ᵀ", gemm_blocks(rows, f, n["dual"]))]
+    if has_gamma:
+        plan.append(("ln_mlp_bwd_gemm_kernel", "g·w1 (dgamma)",
+                     gemm_blocks(rows, c, n["du·w0ᵀ"])))
+    plan += [("ln_mlp_bwd_gemm_kernel", "du·w0ᵀ (ds, db)",
+              gemm_blocks(rows, c, n["du·w0ᵀ"], dh)),
+             ("ln_mlp_bwd_lnb_kernel", "dx", _cdiv(rows, _LN_ROWS)),
+             ("ln_mlp_bwd_colsum_kernel", "ds, db", 2 * _cdiv(c, 32)),
+             ("ln_mlp_bwd_colsum_kernel", "db1", _cdiv(c, 32))]
+    if has_gamma:
+        plan.append(("ln_mlp_bwd_colsum_kernel", "dgamma", _cdiv(c, 32)))
+    plan.append(("ln_mlp_bwd_colsum_kernel", "db0", _cdiv(f, 32)))
+    for what, m, nn in (("gᵀ·dy2", f, c), ("hᵀ·du", c, f)):
+        plan.append(("ln_mlp_bwd_gemm_kernel", what, gemm_blocks(m, nn, n["wgrad"], wg)))
+        if wg > 1:
+            plan.append(("ln_mlp_bwd_slab_sum_kernel", "dw1" if m == f else "dw0",
+                         _cdiv(c * f // 4, 256)))
+    return plan
+
+
+@functools.lru_cache(maxsize=256)
+def gemm_scratch(rows: int, c: int, f: int, backward: bool = False, has_gamma: bool = False,
+                 sms: int = 132) -> types.MappingProxyType:
+    """``{name: (shape, dtype)}`` of the route's scratch, in the C entry's
+    order. Forward: h, the hidden g, and g·w1's slab partials when K is
+    split. Backward: h, dy2, g, round(du) in bf16; du·w0ᵀ's slab partials
+    (dh) and the row statistics in f32; the partials of the vector
+    gradients (ds and db per slab of dh and 128-row tile, db1 per 64-row
+    tile, dgamma and db0 per 128-row tile) and of the weight gradients (per
+    slab of rows, when there are several). Cached, read-only."""
+    bf, f32 = torch.bfloat16, torch.float32
+    sl = gemm_slabs(rows, c, f, sms)
+    fc2 = len(slab_ranges(f, sl["g·w1"]))
+    if not backward:
+        return types.MappingProxyType({"h": ((rows, c), bf), "g": ((rows, f), bf),
+                                       "part": ((fc2 if fc2 > 1 else 0, rows, c), f32)})
+    tiles, tiles_m = _cdiv(rows, GEMM_ROW_TILE), _cdiv(rows, GEMM_TILE_M)
+    dh = len(slab_ranges(f, sl["du·w0ᵀ"]))
+    wg = len(slab_ranges(rows, sl["wgrad"]))
+    return types.MappingProxyType({
+        "h": ((rows, c), bf), "dy2": ((rows, c), bf), "gact": ((rows, f), bf),
+        "du": ((rows, f), bf), "dh": ((dh, rows, c), f32), "stats": ((2, rows), f32),
+        "part_c": ((2, dh * tiles_m, c), f32), "part_b1": ((tiles, c), f32),
+        "part_g": ((tiles_m if has_gamma else 0, c), f32), "part_f": ((tiles_m, f), f32),
+        "part_w": ((wg if wg > 1 else 0, c * f), f32)})
+
+
+def check_gemm_operands(x, w0, w1):
+    """Refuse what the GEMM route does not take: TypeError unless x, w0 and
+    w1 are bf16, ValueError unless C % 32 == 0 and F % 64 == 0 with w0 (C,
+    F) and w1 (F, C)."""
+    c, f = x.shape[-1], w0.shape[-1]
+    for name, t in (("x", x), ("w0", w0), ("w1", w1)):
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"the LN-MLP GEMM route takes bfloat16, got {name} {t.dtype}")
+    if tuple(w0.shape) != (c, f) or tuple(w1.shape) != (f, c):
+        raise ValueError(f"w0 {tuple(w0.shape)} / w1 {tuple(w1.shape)} are not (C, F) / (F, C)")
+    if not tensor_cores(x.dtype, c, f):
+        raise ValueError(f"the LN-MLP GEMM route takes C % 32 == 0 and F % 64 == 0, got C={c}, "
+                         f"F={f}")
+
+
+def _scratch(plan: dict, dev) -> dict:
+    return {k: torch.empty(shape, dtype=dt, device=dev) for k, (shape, dt) in plan.items()}
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def smem_bytes(tile_rows: int, c: int, tc: bool) -> int:
@@ -168,8 +328,9 @@ def _check(x, w0, w1, dev_tensors, vecs):
 
 
 def _forward(x, ln_scale, ln_bias, w0, b0, w1, b1, shortcut, gamma, eps: float):
-    """The forward half on (R, C) rows: the kernel on a CUDA tensor, the plain
-    version on a CPU tensor."""
+    """The forward half on (R, C) rows: the kernels on a CUDA tensor (the
+    GEMM route where :func:`tensor_cores` holds, else the first design), the
+    plain version on a CPU tensor."""
     if not x.is_cuda:
         return reference_ln_mlp(x, ln_scale, ln_bias, w0, b0, w1, b1, shortcut, gamma, eps)
     dev = x.device
@@ -178,26 +339,56 @@ def _forward(x, ln_scale, ln_bias, w0, b0, w1, b1, shortcut, gamma, eps: float):
     c, f, tc, vecs = _check(x, w0, w1, [("shortcut", shortcut)],
                             [("ln_scale", ln_scale, c), ("ln_bias", ln_bias, c), ("b0", b0, f),
                              ("b1", b1, c), ("gamma", g, c)])
-    tr = pick_tile_rows(c, tc)
-    if tr is None:
+    gemm = tensor_cores(x.dtype, c, f)
+    if not gemm and pick_tile_rows(c, tc) is None:
         raise ValueError(f"LN-MLP kernel: no row tile fits shared memory at C={c}")
-    x2, sc2 = x.contiguous(), shortcut.contiguous()
-    w0, w1 = w0.contiguous(), w1.contiguous()
-    rows = x2.shape[0]
+    x2, sc2 = _build.aligned(x), _build.aligned(shortcut)
+    w0, w1 = _build.aligned(w0), _build.aligned(w1)
     out = torch.empty_like(x2)
-    if rows == 0:
+    if x2.shape[0] == 0:
         return out
+    if gemm:
+        _launch_fwd_gemm(x2, vecs, w0, w1, sc2, out, eps)
+        fused_ln_mlp.gemm_launches += 1
+    else:
+        _launch_fwd_rows(x2, vecs, w0, w1, sc2, out, tc, eps)
+    fused_ln_mlp.launches += 1
+    return out
+
+
+def _launch_fwd_gemm(x2, vecs, w0, w1, sc2, out, eps):
+    """K5 on the GEMM route (``nkbx_ln_mlp_gemm``): the LayerNorm rows, then
+    h·w0 and g·w1 with their epilogues."""
+    check_gemm_operands(x2, w0, w1)
+    dev, (rows, c), f = x2.device, x2.shape, w0.shape[1]
+    sms = _sms(dev)
+    t = _scratch(gemm_scratch(rows, c, f, sms=sms), dev)
+    lib = _build.load("ln_mlp", _SIGNATURES)
+    s, b, b0c, b1c, gc = vecs
+    with torch.cuda.device(dev):
+        err = lib.nkbx_ln_mlp_gemm(
+            x2.data_ptr(), s.data_ptr(), b.data_ptr(), w0.data_ptr(), b0c.data_ptr(),
+            w1.data_ptr(), b1c.data_ptr(), gc.data_ptr(), sc2.data_ptr(), out.data_ptr(),
+            *(v.data_ptr() for v in t.values()), rows, c, f,
+            gemm_slabs(rows, c, f, sms)["g·w1"], float(eps),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "ln_mlp gemm launch")
+
+
+def _launch_fwd_rows(x2, vecs, w0, w1, sc2, out, tc, eps):
+    """K5's first design (``nkbx_ln_mlp``): one row-tile kernel; ``tc``
+    takes its bf16 tensor-core member."""
+    dev, (rows, c), f = x2.device, x2.shape, w0.shape[1]
+    tr = pick_tile_rows(c, tc)
     lib = _build.load("ln_mlp", _SIGNATURES)
     s, b, b0c, b1c, gc = vecs
     with torch.cuda.device(dev):
         err = lib.nkbx_ln_mlp(
             x2.data_ptr(), s.data_ptr(), b.data_ptr(), w0.data_ptr(), b0c.data_ptr(),
             w1.data_ptr(), b1c.data_ptr(), gc.data_ptr(), sc2.data_ptr(), out.data_ptr(),
-            rows, c, f, tr, float(eps), int(x.dtype == torch.bfloat16), int(tc),
+            rows, c, f, tr, float(eps), int(x2.dtype == torch.bfloat16), int(tc),
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "ln_mlp launch")
-    fused_ln_mlp.launches += 1
-    return out
 
 
 class _LnMlp(torch.autograd.Function):
@@ -236,6 +427,7 @@ def fused_ln_mlp(x, ln_scale, ln_bias, w0, b0, w1, b1, shortcut, gamma=None,
 
 
 fused_ln_mlp.launches = 0  # forward kernel launches, counted by _forward
+fused_ln_mlp.gemm_launches = 0  # those on the GEMM route
 
 
 def _wgrad_split(rows: int, m: int, n: int) -> int:
@@ -250,7 +442,8 @@ def fused_ln_mlp_bwd(x, ln_scale, ln_bias, w0, b0, w1, b1, gamma, dy, eps: float
     """Backward of :func:`fused_ln_mlp` on (R, C) rows: ``(dx, ds, db, dw0,
     db0, dw1, db1, dgamma)``, dx in x's dtype, dw0/dw1 in the weights' dtype,
     the vectors in f32 (nkbx casts them so, mlp.py:642-647). On a CUDA tensor
-    this launches the kernels (a row-tile kernel, then fixed-order
+    this launches the kernels (the GEMM route where :func:`tensor_cores`
+    holds, else the first design: a row-tile kernel, then fixed-order
     reductions of the weight and vector gradients); on a CPU tensor it
     computes :func:`reference_ln_mlp_bwd`."""
     if not x.is_cuda:
@@ -262,10 +455,11 @@ def fused_ln_mlp_bwd(x, ln_scale, ln_bias, w0, b0, w1, b1, gamma, dy, eps: float
     c, f, tc, vecs = _check(x, w0, w1, [("dy", dy)],
                             [("ln_scale", ln_scale, c), ("ln_bias", ln_bias, c), ("b0", b0, f),
                              ("b1", b1, c), ("gamma", g, c)])
-    if pick_tile_rows(c, tc, bwd_smem_bytes) is None:
+    gemm = tensor_cores(x.dtype, c, f)
+    if not gemm and pick_tile_rows(c, tc, bwd_smem_bytes) is None:
         raise ValueError(f"LN-MLP backward kernel: no row tile fits shared memory at C={c}")
-    x2, dy2 = x.reshape(-1, c).contiguous(), dy.reshape(-1, c).contiguous()
-    w0, w1 = w0.contiguous(), w1.contiguous()
+    x2, dy2 = _build.aligned(x.reshape(-1, c)), _build.aligned(dy.reshape(-1, c))
+    w0, w1 = _build.aligned(w0), _build.aligned(w1)
     f32 = dict(dtype=torch.float32, device=dev)
     dx = torch.empty_like(x2)
     dw0, dw1 = torch.empty_like(w0), torch.empty_like(w1)
@@ -274,14 +468,41 @@ def fused_ln_mlp_bwd(x, ln_scale, ln_bias, w0, b0, w1, b1, gamma, dy, eps: float
     if x2.shape[0] == 0:
         for t in (dw0, dw1, dvec_c, db0):
             t.zero_()
+    elif gemm:
+        _launch_bwd_gemm(x2, vecs, w0, w1, dy2, dx, dw0, dw1, dvec_c, db0, has_gamma, eps)
+        fused_ln_mlp_bwd.gemm_launches += 1
+        fused_ln_mlp_bwd.launches += 1
     else:
         _launch_bwd(x2, vecs, w0, w1, dy2, dx, dw0, dw1, dvec_c, db0, c, f, tc, has_gamma, eps)
+        fused_ln_mlp_bwd.launches += 1
     dgamma = dvec_c[3] if has_gamma else None
     return dx, dvec_c[0], dvec_c[1], dw0, db0, dw1, dvec_c[2], dgamma
 
 
+def _launch_bwd_gemm(x2, vecs, w0, w1, dy2, dx, dw0, dw1, dvec_c, db0, has_gamma, eps):
+    """K6 on the GEMM route (``nkbx_ln_mlp_bwd_gemm``): allocate the scratch
+    of :func:`gemm_scratch` and launch the plan of :func:`gemm_plan`."""
+    check_gemm_operands(x2, w0, w1)
+    dev, (rows, c), f = x2.device, x2.shape, w0.shape[1]
+    sms = _sms(dev)
+    t = _scratch(gemm_scratch(rows, c, f, backward=True, has_gamma=has_gamma, sms=sms), dev)
+    slabs = gemm_slabs(rows, c, f, sms)
+    lib = _build.load("ln_mlp_bwd", _BWD_SIGNATURES)
+    s, b, b0c, b1c, gc = vecs
+    with torch.cuda.device(dev):
+        err = lib.nkbx_ln_mlp_bwd_gemm(
+            x2.data_ptr(), s.data_ptr(), b.data_ptr(), w0.data_ptr(), b0c.data_ptr(),
+            w1.data_ptr(), b1c.data_ptr(), gc.data_ptr(), dy2.data_ptr(), dx.data_ptr(),
+            dw0.data_ptr(), dw1.data_ptr(), dvec_c.data_ptr(), db0.data_ptr(),
+            *(v.data_ptr() for v in t.values()), rows, c, f, slabs["du·w0ᵀ"], slabs["wgrad"],
+            float(eps), int(has_gamma), torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "ln_mlp_bwd gemm launch")
+
+
 def _launch_bwd(x2, vecs, w0, w1, dy2, dx, dw0, dw1, dvec_c, db0, c, f, tc, has_gamma, eps):
-    """Allocate the backward's scratch and launch ln_mlp_bwd.cu's kernels."""
+    """K6's first design (``nkbx_ln_mlp_bwd``): allocate its scratch and
+    launch ln_mlp_bwd.cu's row-tile kernel and reductions; ``tc`` takes the
+    bf16 tensor-core members."""
     dev, dt = x2.device, x2.dtype
     rows = x2.shape[0]
     f32 = dict(dtype=torch.float32, device=dev)
@@ -307,10 +528,10 @@ def _launch_bwd(x2, vecs, w0, w1, dy2, dx, dw0, dw1, dvec_c, db0, c, f, tc, has_
             rows, c, f, tr, slab, float(eps), int(dt == torch.bfloat16), int(tc),
             int(has_gamma), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "ln_mlp_bwd launch")
-    fused_ln_mlp_bwd.launches += 1
 
 
 fused_ln_mlp_bwd.launches = 0  # kernel launches, counted by the wrapper
+fused_ln_mlp_bwd.gemm_launches = 0  # those on the GEMM route
 
 
 # --- MLP-only: gelu(x @ w0 + b0) @ w1 + b1 (K7, K8) ---------------------------------

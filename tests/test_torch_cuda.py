@@ -18,7 +18,11 @@ shows that the kernel, not its plain version, ran:
   with two masks whose boundary falls inside a run), two launches
   bit-identical;
 - K5 LN -> MLP and K6 its backward, with a ragged tile, a layer-scale,
-  Swin-T's widest width and a width off the tensor-core grid;
+  Swin-T's widest width and a width off the tensor-core grid; their GEMM
+  route (bf16 at C % 32 == 0, F % 64 == 0) at R = 1, 49, 127, 129 and 1000
+  and C = 96, 192, 384 and 768, with and without a layer-scale, by count,
+  two launches bit-identical; f32, C = 40 and K7/K8 off the route, by
+  count;
 - K7 the MLP alone and K8 its backward at the same shapes (ConvNeXt-T's
   widths 96, 192 and 768, ragged last tiles, and C = 40 off the
   tensor-core grid);
@@ -56,9 +60,10 @@ bf16; a last-bit difference flips one rounding of values of order 1). K2
 dqkv f32 1e-4, bf16 6e-2 (dS*scale rounds to bf16 too); dbias 1e-4 of its
 largest value. K5 f32 5e-4, bf16 1.25e-1 (outputs reach 8, where one bf16
 ulp is 3.1e-2). K6, relative to each gradient's largest value: f32 1e-3,
-bf16 3e-2. K3 as K1; at ragged N f32 1e-4, bf16 2 bf16 ulps of the largest
-output. K1's route tests: 2 bf16 ulps of the largest output (f32 1e-4).
-K2's route tests: dqkv
+bf16 3e-2. The GEMM route's tests: K5 bf16 4 bf16 ulps of the largest
+value, K6 bf16 2e-2 of each gradient's largest, f32 5e-4. K3 as K1; at
+ragged N f32 1e-4, bf16 2 bf16 ulps of the largest output. K1's route
+tests: 2 bf16 ulps of the largest output (f32 1e-4). K2's route tests: dqkv
 within 4 bf16 ulps of its largest value (f32 1e-4 of it), dbias 1e-4 of its
 largest. K4, relative to each gradient's largest value: f32
 1e-4, bf16 4 bf16 ulps (P, dS*scale and the outputs round to bf16; at
@@ -78,6 +83,7 @@ near 0 that noise is coarser than a bf16 ulp); the sums 1e-4 of their
 largest value. X2: f32 1e-5 of its largest value, bf16 as X1's y.
 """
 
+import math
 import pathlib
 import re
 import struct
@@ -253,6 +259,101 @@ def test_mlp_bwd_kernel_matches_plain_on_card(cuda_device, dtype, r, c, f):
     for gv, wv in zip(got, want):
         assert gv.dtype == wv.dtype and gv.shape == wv.shape
         assert ((gv.float() - wv.float()).abs().max() <= tol * wv.float().abs().max()).item()
+
+
+GEMM_ROWS = (1, 49, 127, 129, 1000)  # around the 128-row block tile, and a ragged many
+GEMM_WIDTHS = (96, 192, 384, 768)  # Swin-T's, ConvNeXt-T's and ViT-B's C (F = 4C)
+
+
+def _bf16_ulp(x):
+    """One bf16 ulp at magnitude x (8 significant bits)."""
+    return 2.0 ** (math.floor(math.log2(max(x, 2 ** -20))) - 7)
+
+
+def _max_rel(got, want):
+    """The largest difference of each gradient over its largest value."""
+    return max(((g.float() - w.float()).abs().max()
+                / w.float().abs().max().clamp_min(1e-30)).item()
+               for g, w in zip(got, want) if w is not None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gamma", [False, True])
+@pytest.mark.parametrize("c", GEMM_WIDTHS)
+@pytest.mark.parametrize("r", GEMM_ROWS)
+def test_ln_mlp_gemm_route_matches_plain_on_card(cuda_device, r, c, gamma):
+    args, sc, gm, _ = _mlp_inputs(r, c, 4 * c, gamma, cuda_device, torch.bfloat16, seed=8)
+    before = tmlp.fused_ln_mlp.launches, tmlp.fused_ln_mlp.gemm_launches
+    got = tmlp.fused_ln_mlp(*args, sc, gamma=gm, eps=1e-5)
+    again = tmlp.fused_ln_mlp(*args, sc, gamma=gm, eps=1e-5)
+    torch.cuda.synchronize()
+    assert (tmlp.fused_ln_mlp.launches, tmlp.fused_ln_mlp.gemm_launches) == (
+        before[0] + 2, before[1] + 2)
+    want = tmlp.reference_ln_mlp(*args, sc, gamma=gm, eps=1e-5)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= 4 * _bf16_ulp(want.float().abs().max().item())
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gamma", [False, True])
+@pytest.mark.parametrize("c", GEMM_WIDTHS)
+@pytest.mark.parametrize("r", GEMM_ROWS)
+def test_ln_mlp_bwd_gemm_route_matches_plain_on_card(cuda_device, r, c, gamma):
+    args, _, gm, dy = _mlp_inputs(r, c, 4 * c, gamma, cuda_device, torch.bfloat16, seed=9)
+    before = tmlp.fused_ln_mlp_bwd.launches, tmlp.fused_ln_mlp_bwd.gemm_launches
+    got = tmlp.fused_ln_mlp_bwd(*args, gm, dy, eps=1e-5)
+    again = tmlp.fused_ln_mlp_bwd(*args, gm, dy, eps=1e-5)
+    torch.cuda.synchronize()
+    assert (tmlp.fused_ln_mlp_bwd.launches, tmlp.fused_ln_mlp_bwd.gemm_launches) == (
+        before[0] + 2, before[1] + 2)
+    want = tmlp.reference_ln_mlp_bwd(*args, gm, dy, eps=1e-5)
+    assert (got[7] is None) is (want[7] is None) is (not gamma)
+    assert all(g.dtype == w.dtype and g.shape == w.shape for g, w in zip(got, want)
+               if w is not None)
+    assert _max_rel(got, want) <= 2e-2
+    assert all(g is None or torch.equal(g, h) for g, h in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,c", [(torch.float32, 96), (torch.float32, 768),
+                                     (torch.bfloat16, 40)])
+def test_ln_mlp_keeps_its_first_design_off_the_gemm_route(cuda_device, dtype, c):
+    """f32, and bf16 off the tensor-core grid, run the first design: one
+    launch each, none on the GEMM route."""
+    args, sc, gm, dy = _mlp_inputs(129, c, 4 * c, True, cuda_device, dtype, seed=10)
+    before = (tmlp.fused_ln_mlp.launches, tmlp.fused_ln_mlp.gemm_launches,
+              tmlp.fused_ln_mlp_bwd.launches, tmlp.fused_ln_mlp_bwd.gemm_launches)
+    got = tmlp.fused_ln_mlp(*args, sc, gamma=gm, eps=1e-5)
+    grads = tmlp.fused_ln_mlp_bwd(*args, gm, dy, eps=1e-5)
+    torch.cuda.synchronize()
+    assert (tmlp.fused_ln_mlp.launches, tmlp.fused_ln_mlp.gemm_launches,
+            tmlp.fused_ln_mlp_bwd.launches, tmlp.fused_ln_mlp_bwd.gemm_launches) == (
+        before[0] + 1, before[1], before[2] + 1, before[3])
+    want = tmlp.reference_ln_mlp(*args, sc, gamma=gm, eps=1e-5)
+    err = (got.float() - want.float()).abs().max().item()
+    f32 = dtype == torch.float32
+    assert err <= (5e-4 if f32 else 4 * _bf16_ulp(want.float().abs().max().item()))
+    assert _max_rel(grads, tmlp.reference_ln_mlp_bwd(*args, gm, dy, eps=1e-5)) <= (
+        5e-4 if f32 else 2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_mlp_only_kernels_stay_off_the_gemm_route(cuda_device, dtype):
+    """K7 and K8 (the MLP alone) launch their own kernels, in bf16 at a
+    tensor-core width too: K5's and K6's GEMM-route counts do not move."""
+    args, _, _, dy = _mlp_inputs(129, 96, 384, False, cuda_device, dtype, seed=11)
+    x, _, _, w0, b0, w1, b1 = args
+    before = (tmlp.fused_mlp.launches, tmlp.fused_mlp_bwd.launches,
+              tmlp.fused_ln_mlp.gemm_launches, tmlp.fused_ln_mlp_bwd.gemm_launches)
+    tmlp.fused_mlp(x, w0, b0, w1, b1)
+    tmlp.fused_mlp_bwd(x, w0, b0, w1, b1, dy)
+    torch.cuda.synchronize()
+    assert (tmlp.fused_mlp.launches, tmlp.fused_mlp_bwd.launches,
+            tmlp.fused_ln_mlp.gemm_launches, tmlp.fused_ln_mlp_bwd.gemm_launches) == (
+        before[0] + 1, before[1] + 1, before[2], before[3])
 
 
 def _sep_inputs(g, n, heads, m, bh, device, dtype):
@@ -906,7 +1007,7 @@ def test_card_tests_collect_without_jax_or_nkbx():
          + 2 * len(MB_CASES) + 2 + 1 + 2 * len(GC_CASES) + 1 + 2 * len(LAYOUT_CASES) + 1 + 1
          + 2 * len(SEP_RAGGED_N) * len(SEP_OPERANDS) + 2 * len(GC_WIDTH_CASES)
          + 2 * len(SEP_BWD_RAGGED_N) * len(SEP_BWD_OPERANDS) + 2 * len(TC_BWD_CASES) + 2
-         + 2 * len(TC_BWD_CASES) + 2)
+         + 2 * len(TC_BWD_CASES) + 2 + 2 * 2 * len(GEMM_ROWS) * len(GEMM_WIDTHS) + 3 + 2)
     word = "passed" if torch.cuda.is_available() else "skipped"
     assert re.search(rf"\b{n} {word}\b", proc.stdout), proc.stdout[-2000:]
 
