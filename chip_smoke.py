@@ -34,11 +34,15 @@
    SDPA's float mask and with None (the ViT's path) against SDPA
    unmasked, with each time's share of the bytes bound; the MLP alone
    (K7) at the four stage shapes of ConvNeXt-T at bucket 64 (the R and C of
-   K5's Swin-T cases), bucket 1's ragged 49 rows at C = 768, and an FMA
-   width. The fused bottleneck chain (K9) at ResNet-50's stage shapes at
-   batch 64 with ghost_bn = 2, in each dtype at the stages and bands that
-   nkbx's rule (stat_band) gives (bf16 stages 1-3, th = 8/7/2; f32 stages
-   1-2, th = 4/4), and a small single-band case (th = H): the output and the
+   K5's Swin-T cases) and ViT-B's (C = 768 at buckets 64 and 8), bucket 1's
+   ragged 49 rows at C = 768 and a width off the tensor-core grid: bf16 on
+   its GEMM route and f32 on its first design (the route checked by count),
+   4 bf16 ulps of the largest value (f32 5e-4), a second launch
+   bit-identical; timed as K5. The fused bottleneck chain (K9) at
+   ResNet-50's stage shapes at batch 64 with ghost_bn = 2, in each dtype at
+   the stages and bands that nkbx's rule (stat_band) gives (bf16 stages
+   1-3, th = 8/7/2; f32 stages 1-2, th = 4/4), and a small single-band case
+   (th = H): the output and the
    six per-tile statistics against the plain chain on the same bands. The
    ResNet-family probes: X1, the matmul with the BatchNorm-apply + relu
    epilogue and the output's statistics, at the probe's three shapes (bf16)
@@ -71,7 +75,8 @@
    tensor-core pair) against SDPA's unmasked backward, with the zeros and
    with a learned bias and mask (no dbias) against SDPA given their float
    mask, each first held against plain, with its share of the bound; K8 at
-   K7's shapes, K10 at K9's (all ten gradients). The library time of a
+   K7's shapes, held and timed as K6 (its five products alone through
+   torch.matmul); K10 at K9's (all ten gradients). The library time of a
    backward is the backward alone of scaled_dot_product_attention, with the
    SDPA backend that ran; no PyTorch call computes K5-K10.
 4. Drives the serving path of swin_tiny_patch4_window7_224, of
@@ -85,8 +90,9 @@
    with the same model run through the plain versions in bf16 and f32; then
    times benchmark(64) through the kernels and through the plain versions,
    the peak memory, and a profile of where the device time goes, with the
-   attention kernel's and K5's device time in it (Swin-T's bf16 K1 launches
-   all on its tensor-core design, every bf16 K5 launch on its GEMM route).
+   attention kernel's and K5's (or K7's) device time in it (Swin-T's bf16
+   K1 launches all on its tensor-core design, every bf16 K5 and K7 launch on
+   its GEMM route).
 5. Drives the training path of every model of phase 4 at full width and
    depth (bf16, 10 classes), and of resnet50 with ghost_bn = 2 and the fused
    chain (nkbx's ghost2_fused recipe; the chain runs in training only, so
@@ -115,9 +121,10 @@
    profile of one step through the kernels and one through the plain
    versions, with the attention and MLP kernels' device time in it (K1 and
    K2 for Swin-T, K2 with its dbias reduction, K3 and K4 for ViT-B, K5 and
-   K6 for the three transformers-and-ConvNeXt; Swin-T's bf16 K1 and K2
-   launches all on their tensor-core designs, every bf16 K5/K6 launch on
-   its GEMM route; a profile that records no device time fails the run).
+   K6 (K7 and K8 under the switch) for the three transformers-and-ConvNeXt;
+   Swin-T's bf16 K1 and K2 launches all on their tensor-core designs, every
+   bf16 K5-K8 launch on its GEMM route; a profile that records no device
+   time fails the run).
    Then resnet50 with exact
    BatchNorm, which runs no kernel of ours (its launch counts are read and
    must stay 0):
@@ -448,18 +455,23 @@ def mlp_first_design(args, gamma):
     return launch
 
 
-def mlp_matmuls(args):
-    """The forward's two products alone through torch.matmul on the same
-    operands (h = LN(x) rounded, the hidden rounded): a reference for the
-    GEMM mainloop, two cuBLAS calls, not one call of the same function."""
-    h = F.layer_norm(args[0].float(), args[0].shape[-1:], eps=1e-5).to(args[0].dtype)
-    g = torch.empty(h.shape[0], args[3].shape[1], dtype=h.dtype, device=DEV)
+def mlp_matmuls(a, w0, w1):
+    """The forward's two products alone through torch.matmul on operands of
+    the same shapes (a = h = LN(x) rounded for K5, x for K7; the hidden
+    rounded): a reference for the GEMM mainloop, two cuBLAS calls, not one
+    call of the same function."""
+    g = torch.empty(a.shape[0], w0.shape[1], dtype=a.dtype, device=DEV)
 
     def run():
-        torch.matmul(h, args[3], out=g)
-        return torch.matmul(g, args[5])
+        torch.matmul(a, w0, out=g)
+        return torch.matmul(g, w1)
 
     return run
+
+
+def layer_norm_rows(x):
+    """h = LN(x) rounded to x's dtype: K5's and K6's first product's A."""
+    return F.layer_norm(x.float(), x.shape[-1:], eps=1e-5).to(x.dtype)
 
 
 def mlp_bound(r, c):
@@ -516,7 +528,8 @@ def check_mlp():
                      "first design": cold_ms(mlp_first_design(args, gamma), MLP_ITERS),
                      "plain": cold_ms(lambda: M.reference_ln_mlp(*args, gamma=gamma, eps=1e-5),
                                       MLP_ITERS),
-                     "matmuls": cold_ms(mlp_matmuls(args), MLP_ITERS)}
+                     "matmuls": cold_ms(mlp_matmuls(layer_norm_rows(args[0]), args[3], args[5]),
+                                        MLP_ITERS)}
             b, by = mlp_bound(r, c)
             time_shares(label, times, b, by, "K5")
             rows[label] = dict(ms=times["kernel"], first_ms=times["first design"],
@@ -661,13 +674,12 @@ def mlp_bwd_first_design(args, gamma, dy):
     return launch
 
 
-def mlp_bwd_matmuls(args, gamma, dy):
+def mlp_bwd_matmuls(h, w0, w1, dy, gamma=None):
     """The backward's products alone through torch.matmul on bf16 operands
-    of the right shapes (u and dgl, dh, dw1 and dw0, and g w1 with a
-    layer-scale): a reference for the GEMM mainloop, five or six cuBLAS
-    calls, not one call of the same function."""
-    x, w0, w1 = args[0], args[3], args[5]
-    h = F.layer_norm(x.float(), x.shape[-1:], eps=1e-5).to(x.dtype)
+    of the right shapes (u and dgl, dh or dx, dw1 and dw0, and g w1 with a
+    layer-scale; h = LN(x) rounded for K6, x for K8): a reference for the
+    GEMM mainloop, five or six cuBLAS calls, not one call of the same
+    function."""
     g = torch.matmul(h, w0)
     du = torch.matmul(dy, w1.t())
 
@@ -732,7 +744,8 @@ def check_mlp_bwd():
                      "first design": cold_ms(mlp_bwd_first_design(args, gamma, dy), MLP_ITERS),
                      "plain": cold_ms(lambda: M.reference_ln_mlp_bwd(*args, gamma, dy, 1e-5),
                                       MLP_ITERS),
-                     "matmuls": cold_ms(mlp_bwd_matmuls(args, gamma, dy), MLP_ITERS)}
+                     "matmuls": cold_ms(mlp_bwd_matmuls(layer_norm_rows(args[0]), args[3],
+                                                        args[5], dy, gamma), MLP_ITERS)}
             f = 4 * c
             # x, dy in, dx out; w0, w1 in, dw0, dw1 out; the f32 vectors and theirs
             nbytes = 2 * (3 * r * c + 4 * c * f) + 4 * 2 * (4 * c + f)
@@ -747,11 +760,14 @@ def check_mlp_bwd():
 
 # --- phases 2-3: the MLP alone (K7, K8) -------------------------------------------
 
-# ConvNeXt-T at bucket/batch 64, stages 0-3 (R = 64 * 56^2 ... 64 * 7^2, C = 96
-# ... 768, F = 4C), bucket 1's stage 3 (49 rows, one ragged 16-row tile), and a
-# width off the tensor-core grid
-MLP_ONLY_CASES = ([(s, BUCKET * (56 >> s) ** 2, 96 << s) for s in range(4)]
-                  + [("b1-s3", 49, 768), ("fma-width", 1000, 40)])
+# The timed shapes, bf16: ConvNeXt-T at bucket/batch 64, stages 0-3 (R = 64 *
+# 56^2 ... 64 * 7^2, C = 96 ... 768, F = 4C), and ViT-B's MLP (C = 768) at
+# buckets 64 and 8 (B*197 rows, a ragged last tile): (label, R, C)
+MLP_ONLY_TIMED = ([(f"s{s}", BUCKET * (56 >> s) ** 2, 96 << s) for s in range(4)]
+                  + [("vit-b64", BUCKET * 197, 768), ("vit-b8", 8 * 197, 768)])
+# held only: bucket 1's stage 3 (49 rows, one ragged tile, F split into
+# slabs) and a width off the tensor-core grid (the first design in bf16 too)
+MLP_ONLY_HELD = [("b1-s3", 49, 768), ("fma-width", 1000, 40)]
 
 
 def mlp_only_case(r, c, dtype, gen):
@@ -761,79 +777,165 @@ def mlp_only_case(r, c, dtype, gen):
     return (args[0], args[3], args[4], args[5], args[6]), dy
 
 
+def mlp_only_first_design(args):
+    """K7's first design (the row-tile kernel, ln_mlp_tc_kernel<false, ..>)
+    on bf16 operands that the wrapper sends to the GEMM route, launched
+    through its C entry, as mlp_first_design; held against plain first (4
+    bf16 ulps of the largest value). Returns the launch."""
+    x, w0, b0, w1, b1 = args
+    out = torch.empty_like(x)
+    b0c, b1c = b0.float().contiguous(), b1.float().contiguous()
+
+    def launch():
+        M._launch_mlp_rows(x, w0, b0c, w1, b1c, out, True)
+
+    launch()
+    torch.cuda.synchronize()
+    ref = M.reference_mlp(*args)
+    err, lim = max_err(out, ref), 4 * bf16_ulp(float(ref.float().abs().max()))
+    if err > lim:
+        fail(f"K7's first design disagrees with plain: {err:.3e} (tol {lim:.3e})")
+    return launch
+
+
+def max_rel_err(got, want):
+    """Each gradient's largest difference over its largest value: {name: err}."""
+    names = ("dx", "dw0", "db0", "dw1", "db1")
+    return {n: max_err(g, w) / max(float(w.float().abs().max()), 1e-30)
+            for n, g, w in zip(names, got, want, strict=True)}
+
+
+def mlp_only_bwd_first_design(args, dy):
+    """K8's first design (the row-tile kernel ln_mlp_bwd_row_kernel<.., LN =
+    false>, wgrad_tc_kernel and the sums) through its C entry on bf16
+    operands that the wrapper sends to the GEMM route; held against plain
+    first (2e-2 of each gradient's largest value). Returns the launch."""
+    x, w0, b0, w1, b1 = args
+    c, f = x.shape[-1], w0.shape[1]
+    dx, dw0, dw1 = torch.empty_like(x), torch.empty_like(w0), torch.empty_like(w1)
+    db1, db0 = torch.empty(c, device=DEV), torch.empty(f, device=DEV)
+    b0c, b1c = b0.float().contiguous(), b1.float().contiguous()
+
+    def launch():
+        M._launch_mlp_bwd(x, w0, b0c, w1, b1c, dy, dx, dw0, dw1, db1, db0, True)
+
+    launch()
+    torch.cuda.synchronize()
+    bad = max(max_rel_err((dx, dw0, db0, dw1, db1), M.reference_mlp_bwd(*args, dy)).values())
+    if bad > 2e-2:
+        fail(f"K8's first design disagrees with plain: {bad:.3e} (tol 2e-2)")
+    return launch
+
+
+def mlp_only_bound(r, c, backward):
+    """K7's least time: x and out, the weights and the f32 biases moved once,
+    4 R C F operations (its two products); K8's: x, dy in and dx out, w0, w1
+    in and dw0, dw1 out, the biases and theirs, 10 R C F operations (the u
+    recompute, dgl, dx, dw1, dw0)."""
+    f = 4 * c
+    if backward:
+        return bound_ms(2 * (3 * r * c + 4 * c * f) + 4 * 2 * (c + f), 10 * r * c * f, "bf16")
+    return bound_ms(2 * (2 * r * c + 2 * c * f) + 4 * (c + f), 4 * r * c * f, "bf16")
+
+
 def check_mlp_only():
+    """K7 against its plain version at MLP_ONLY_TIMED and MLP_ONLY_HELD, bf16
+    and f32 (5e-4, as K5; bf16 4 ulps of the largest value: the plain version
+    rounds u to bf16 before the GELU and adds b1 to a rounded product), a
+    second launch bit-identical, and its route by count: bf16 at the
+    tensor-core widths on the GEMM route (fused_mlp.gemm_launches), f32 and
+    C = 40 on the first design. At MLP_ONLY_TIMED (bf16) the new design, the
+    first design (through its C entry), the plain version and the two
+    products alone through torch.matmul, timed with a cold L2, each with its
+    share of the bound."""
     gen = torch.Generator(device=DEV).manual_seed(7)
-    # f32 5e-4 as K5; bf16 4 ulps of the largest value: the plain version rounds u
-    # to bf16 before the GELU and adds b1 to a rounded product
     tol = {"f32": lambda ref: 5e-4, "bf16": lambda ref: 4 * bf16_ulp(ref)}
-    rows, worst = [], {"bf16": 0.0, "f32": 0.0}
-    for stage, r, c in MLP_ONLY_CASES:
+    rows, worst = {}, {"bf16": 0.0, "f32": 0.0}
+    for label, r, c in MLP_ONLY_TIMED + MLP_ONLY_HELD:
         for dtype in ("bf16", "f32"):
             args, _ = mlp_only_case(r, c, dtype, gen)
+            gemm = M.tensor_cores(DT[dtype], c, 4 * c)
+            g0 = M.fused_mlp.gemm_launches
             got = M.fused_mlp(*args)
+            again = M.fused_mlp(*args)
             torch.cuda.synchronize()
+            routed = M.fused_mlp.gemm_launches - g0 == (2 if gemm else 0)
             ref = M.reference_mlp(*args)
             err, lim = max_err(got, ref), tol[dtype](float(ref.float().abs().max()))
+            same = torch.equal(got, again)
             worst[dtype] = max(worst[dtype], err)
-            ok = err <= lim
-            f = 4 * c
-            tc = M.tensor_cores(DT[dtype], c, f)
-            log(f"K7 stage {stage} R={r} C={c} F={f} tile={M.pick_tile_rows(c, tc, M.mlp_smem_bytes)} "
-                f"tc={tc} {dtype}: max|err| {err:.3e} (tol {lim:.3e}) {'ok' if ok else 'FAIL'}")
+            ok = err <= lim and same and routed
+            log(f"K7 {label} R={r} C={c} F={4 * c} {dtype} "
+                f"({'GEMM route' if gemm else 'first design'}): max|err| {err:.3e} (tol "
+                f"{lim:.3e}), a second launch equal {same}, routed {routed} "
+                f"{'ok' if ok else 'FAIL'}")
             if not ok:
-                fail(f"MLP kernel disagrees with its plain version at stage {stage} {dtype}")
-            if dtype != "bf16" or not isinstance(stage, int):
+                fail(f"the MLP kernel disagrees with its plain version at {label} {dtype}")
+            if dtype != "bf16" or not gemm or (label, r, c) in MLP_ONLY_HELD:
                 continue
-            ms = cuda_ms(lambda: M.fused_mlp(*args))
-            plain = cuda_ms(lambda: M.reference_mlp(*args))
-            b, by = bound_ms(2 * (2 * r * c + 2 * c * f) + 4 * (c + f), 4 * r * c * f, "bf16")
-            log(f"   bf16 times: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-                f"bound {b:.4f} ms ({by})")
-            rows.append(dict(stage=stage, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by))
+            times = {"kernel": cold_ms(lambda: M.fused_mlp(*args), MLP_ITERS),
+                     "first design": cold_ms(mlp_only_first_design(args), MLP_ITERS),
+                     "plain": cold_ms(lambda: M.reference_mlp(*args), MLP_ITERS),
+                     "matmuls": cold_ms(mlp_matmuls(args[0], args[1], args[3]), MLP_ITERS)}
+            b, by = mlp_only_bound(r, c, False)
+            time_shares(label, times, b, by, "K7")
+            rows[label] = dict(ms=times["kernel"], first_ms=times["first design"],
+                               plain_ms=times["plain"], matmul_ms=times["matmuls"], bound_ms=b,
+                               bound_by=by, bound_share=b / times["kernel"])
+            del args, got, again, ref
     return rows, worst
 
 
 def check_mlp_only_bwd():
+    """K8 against its plain version at K7's shapes, bf16 and f32, each
+    gradient within 2e-2 (bf16; g, du and dx round to bf16, and a last-bit
+    difference in f32 flips a rounding) or 5e-4 (f32) of its largest value,
+    in plain's dtype and shape, a second launch bit-identical, and its route
+    by count (fused_mlp_bwd.gemm_launches). At MLP_ONLY_TIMED (bf16) the new
+    design, the first design, plain and the five products alone through
+    torch.matmul, timed with a cold L2 with their shares of the bound."""
     gen = torch.Generator(device=DEV).manual_seed(8)
-    # each gradient against max|plain|, as K6: f32 5e-4; bf16 2e-2 (g, du and dx
-    # round to bf16, and a last-bit difference in f32 flips a rounding)
     tol = {"f32": 5e-4, "bf16": 2e-2}
-    rows, worst = [], {"bf16": 0.0, "f32": 0.0}
-    names = ("dx", "dw0", "db0", "dw1", "db1")
-    for stage, r, c in MLP_ONLY_CASES:
+    rows, worst = {}, {"bf16": 0.0, "f32": 0.0}
+    for label, r, c in MLP_ONLY_TIMED + MLP_ONLY_HELD:
         for dtype in ("bf16", "f32"):
             args, dy = mlp_only_case(r, c, dtype, gen)
+            gemm = M.tensor_cores(DT[dtype], c, 4 * c)
+            g0 = M.fused_mlp_bwd.gemm_launches
             got = M.fused_mlp_bwd(*args, dy)
+            again = M.fused_mlp_bwd(*args, dy)
             torch.cuda.synchronize()
+            routed = M.fused_mlp_bwd.gemm_launches - g0 == (2 if gemm else 0)
             want = M.reference_mlp_bwd(*args, dy)
-            rel = {}
-            for name, gv, wv in zip(names, got, want):
+            for gv, wv in zip(got, want):
                 if gv.dtype != wv.dtype or gv.shape != wv.shape:
-                    fail(f"MLP backward: {name} is {gv.dtype} {tuple(gv.shape)}, plain "
+                    fail(f"MLP backward: {gv.dtype} {tuple(gv.shape)} where plain gives "
                          f"{wv.dtype} {tuple(wv.shape)}")
-                rel[name] = max_err(gv, wv) / max(float(wv.float().abs().max()), 1e-30)
                 worst[dtype] = max(worst[dtype], max_err(gv, wv))
+            rel = max_rel_err(got, want)
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
             bad = max(rel.values())
-            ok = bad <= tol[dtype]
-            f = 4 * c
-            tc = M.tensor_cores(DT[dtype], c, f)
-            log(f"K8 stage {stage} R={r} C={c} F={f} tile="
-                f"{M.pick_tile_rows(c, tc, M.mlp_bwd_smem_bytes)} tc={tc} {dtype}: max rel err "
-                f"{bad:.3e} ({max(rel, key=rel.get)}; tol {tol[dtype]:.1e}) "
-                f"{'ok' if ok else 'FAIL'}")
+            ok = bad <= tol[dtype] and same and routed
+            log(f"K8 {label} R={r} C={c} F={4 * c} {dtype} "
+                f"({'GEMM route' if gemm else 'first design'}): max rel err {bad:.3e} "
+                f"({max(rel, key=rel.get)}; tol {tol[dtype]:.1e}), a second launch equal "
+                f"{same}, routed {routed} {'ok' if ok else 'FAIL'}")
             if not ok:
-                fail(f"MLP backward disagrees with its plain version at stage {stage} {dtype}")
-            if dtype != "bf16" or not isinstance(stage, int):
+                fail(f"the MLP backward disagrees with its plain version at {label} {dtype}")
+            if dtype != "bf16" or not gemm or (label, r, c) in MLP_ONLY_HELD:
                 continue
-            ms = cuda_ms(lambda: M.fused_mlp_bwd(*args, dy), iters=5)
-            plain = cuda_ms(lambda: M.reference_mlp_bwd(*args, dy), iters=5)
-            # x, dy in, dx out; w0, w1 in, dw0, dw1 out; the biases and theirs in f32.
-            # The u recompute, dw1, dg, dw0 and dx: 2*R*C*F operations each
-            b, by = bound_ms(2 * (3 * r * c + 4 * c * f) + 4 * 2 * (c + f), 10 * r * c * f,
-                             "bf16")
-            log(f"   bf16 times: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-                f"bound {b:.4f} ms ({by})")
-            rows.append(dict(stage=stage, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by))
+            del got, again, want
+            times = {"kernel": cold_ms(lambda: M.fused_mlp_bwd(*args, dy), MLP_ITERS),
+                     "first design": cold_ms(mlp_only_bwd_first_design(args, dy), MLP_ITERS),
+                     "plain": cold_ms(lambda: M.reference_mlp_bwd(*args, dy), MLP_ITERS),
+                     "matmuls": cold_ms(mlp_bwd_matmuls(args[0], args[1], args[3], dy),
+                                        MLP_ITERS)}
+            b, by = mlp_only_bound(r, c, True)
+            time_shares(label, times, b, by, "K8")
+            rows[label] = dict(ms=times["kernel"], first_ms=times["first design"],
+                               plain_ms=times["plain"], matmul_ms=times["matmuls"], bound_ms=b,
+                               bound_by=by, bound_share=b / times["kernel"])
+            del args, dy
     return rows, worst
 
 
@@ -1431,6 +1533,12 @@ COUNTED = {"window_attention": (A, "fused_attention_qkv"), "ln_mlp": (M, "fused_
            "window_pad8": (L, "pad8")}
 
 
+# the kernels with a GEMM route (bf16 at the tensor-core widths), counted by
+# their gemm_launches: K5 and K7, K6 and K8
+GEMM_FWD = (("ln_mlp", M.fused_ln_mlp), ("mlp", M.fused_mlp))
+GEMM_BWD = (("ln_mlp_bwd", M.fused_ln_mlp_bwd), ("mlp_bwd", M.fused_mlp_bwd))
+
+
 def zero_counts():
     for mod, fn in COUNTED.values():
         getattr(mod, fn).launches = 0
@@ -1600,11 +1708,21 @@ def device_ms(events, reps):
     return sum(us for us, _ in events) / 1e3 / reps
 
 
-def kernel_ms(events, name, reps):
+# K7 and K8 launch the kernels of K5's and K6's sources (ln_mlp_*): on a path
+# that runs no K5/K6 their names are these
+SHARED_NAMES = {"mlp": "ln_mlp", "mlp_bwd": "ln_mlp_bwd"}
+
+
+def kernel_ms(events, name, reps, want):
     """Device ms of one kernel of ours in a profile, by its names' prefix
     after the namespace (K1: window_attention*, K3: attention_*; a backward
     name with its reduction, K2: window_attention_bwd*, K4: attention_bwd_*),
-    a forward's name not followed by ``_bwd``."""
+    a forward's name not followed by ``_bwd``; K7/K8 by SHARED_NAMES, on a
+    path whose launch counts ``want`` hold no K5/K6."""
+    if name in SHARED_NAMES:
+        if want[SHARED_NAMES[name]]:
+            fail(f"{name} and {SHARED_NAMES[name]} both ran: their kernels' names are one")
+        name = SHARED_NAMES[name]
     pat = rf"(^|[^\w]){name}" + ("" if name.endswith("_bwd") else "(?!_bwd)")
     return sum(us for us, e in events if re.search(pat, e.key)) / 1e3 / reps
 
@@ -1629,9 +1747,9 @@ def profile_forward(path, serving, x, step_ms):
         fail(f"the profile of the {path.label} forward recorded no device time")
     path.profiled[("device", "serve")] = device_ms(events, 3)
     want = path.counts(torch.bfloat16, False)
-    for kernel in (path.attention, "ln_mlp"):
+    for kernel in (path.attention, "ln_mlp", "mlp"):
         if kernel and want[kernel]:
-            ms = path.profiled[(kernel, "serve")] = kernel_ms(events, kernel, 3)
+            ms = path.profiled[(kernel, "serve")] = kernel_ms(events, kernel, 3, want)
             log(f"profile: {kernel} kernels {ms:.3f} ms a bucket-64 {path.label} forward")
 
 
@@ -1651,14 +1769,16 @@ def check_path(path):
     forwards = 1 + 1 + 1 + 2  # 70 = a chunk of 64 and a bucket-8 chunk of 6
 
     set_plain(False)
-    tc0, gemm0 = A.fused_attention_qkv.tc_launches, M.fused_ln_mlp.gemm_launches
+    tc0 = A.fused_attention_qkv.tc_launches
+    gemm0 = {name: fn.gemm_launches for name, fn in GEMM_FWD}
     zero_counts()
     outs = serve_all(serving, requests)
     counts = read_counts()
-    gemm = path.gemm_launches[("ln_mlp", "serve")] = M.fused_ln_mlp.gemm_launches - gemm0
-    log(f"path {path.label}: K5's GEMM route launched {gemm} times")
-    if gemm != counts["ln_mlp"]:  # bf16 at every width of the zoo's transformers
-        fail(f"{path.label}: K5 did not take its GEMM route in every bf16 launch")
+    for name, fn in GEMM_FWD:  # bf16 at every width of the zoo's transformers
+        gemm = path.gemm_launches[(name, "serve")] = fn.gemm_launches - gemm0[name]
+        log(f"path {path.label}: {name}'s GEMM route launched {gemm} times")
+        if gemm != counts[name]:
+            fail(f"{path.label}: {name} did not take its GEMM route in every bf16 launch")
     want = {k: v * forwards for k, v in path.counts(torch.bfloat16, False).items()}
     log(f"path {path.label}: {forwards} forwards; launches {counts} (expect {want})")
     if (counts != want or not kernels_ran(want, False)
@@ -1933,10 +2053,10 @@ def check_train(path):
     want = path.counts(torch.bfloat16, True)
     fns = (A.fused_attention_qkv, A.fused_attention_qkv_bwd)
     tc0 = [fn.tc_launches for fn in fns]
-    mlp_fns = (("ln_mlp", M.fused_ln_mlp), ("ln_mlp_bwd", M.fused_ln_mlp_bwd))
+    mlp_fns = GEMM_FWD + GEMM_BWD
     gemm0 = [fn.gemm_launches for _, fn in mlp_fns]
     losses, counts, finite, stats = five_steps(False)
-    for (name, fn), g0 in zip(mlp_fns, gemm0):  # bf16: K5/K6 on their GEMM route
+    for (name, fn), g0 in zip(mlp_fns, gemm0):  # bf16: K5-K8 on their GEMM route
         n = path.gemm_launches[(name, "train")] = fn.gemm_launches - g0
         log(f"train {path.label}: {name}'s GEMM route launched {n} times in 5 steps")
         if n != sum(c[name] for c in counts):
@@ -2038,9 +2158,9 @@ def check_train(path):
         if label != "kernels":
             continue
         for kernel in (path.attention, path.attention and path.attention + "_bwd", "ln_mlp",
-                       "ln_mlp_bwd"):
+                       "ln_mlp_bwd", "mlp", "mlp_bwd"):
             if kernel and want[kernel]:
-                ms = path.profiled[(kernel, "train")] = kernel_ms(events, kernel, 1)
+                ms = path.profiled[(kernel, "train")] = kernel_ms(events, kernel, 1, want)
                 log(f"profile: {kernel} kernels {ms:.3f} ms in one batch-64 {name} train step")
     if "plain" in bench:
         k, p = path.profiled[("device", "train_kernels")], path.profiled[("device", "train_plain")]
@@ -2668,8 +2788,10 @@ def main():
     vstep = ("one batch-64 vit_base_patch16_224 train step, bf16 (12 launches at N=197, bias and "
              "mask None; library: SDPA's unmasked backward; *_zeros, *_learned as for K3, no "
              "dbias), cold L2")
-    cfwd = "one bucket-64 convnext_tiny forward under NKBX_FUSED_LN_MLP=0, bf16 (3/3/9/3 launches)"
-    cstep = "one batch-64 convnext_tiny train step under NKBX_FUSED_LN_MLP=0, bf16"
+    cfwd = ("one bucket-64 convnext_tiny forward under NKBX_FUSED_LN_MLP=0, bf16 (3/3/9/3 "
+            "launches), cold L2")
+    cstep = ("one batch-64 convnext_tiny train step under NKBX_FUSED_LN_MLP=0, bf16 (3/3/9/3 "
+             "launches), cold L2")
     rfwd = "the forward of one batch-64 resnet50 ghost_bn=2 train step, bf16 (2/3/5 launches)"
     rstep = "the backward of one batch-64 resnet50 ghost_bn=2 train step, bf16 (2/3/5 launches)"
     chain_fwd = [chain_rows[f"stage {s}"] for s in (1, 2, 3)]
@@ -2693,10 +2815,12 @@ def main():
             ("attention_bwd", "nkbx_torch/ops/csrc/attention_bwd.cu",
              "nkbx/ops/attention.py:285", [sep_bwd_rows["N=197"]], sep_bwd_err, trained,
              vstep, (12,)),
-            ("mlp", "nkbx_torch/ops/csrc/ln_mlp.cu", "nkbx/ops/mlp.py:250", mlp_only_rows,
-             mlp_only_err, served, cfwd, CONVNEXT_DEPTHS),
+            ("mlp", "nkbx_torch/ops/csrc/ln_mlp.cu", "nkbx/ops/mlp.py:250",
+             [mlp_only_rows[f"s{i}"] for i in range(4)], mlp_only_err, served, cfwd,
+             CONVNEXT_DEPTHS),
             ("mlp_bwd", "nkbx_torch/ops/csrc/ln_mlp_bwd.cu", "nkbx/ops/mlp.py:265",
-             mlp_only_bwd_rows, mlp_only_bwd_err, trained, cstep, CONVNEXT_DEPTHS),
+             [mlp_only_bwd_rows[f"s{i}"] for i in range(4)], mlp_only_bwd_err, trained, cstep,
+             CONVNEXT_DEPTHS),
             ("bottleneck", "nkbx_torch/ops/csrc/bottleneck.cu", "nkbx/ops/bottleneck.py:177",
              chain_fwd, chain_err["fwd"], trained, rfwd, chain_mult),
             ("bottleneck_bwd", "nkbx_torch/ops/csrc/bottleneck_bwd.cu",
@@ -2752,6 +2876,22 @@ def main():
                 "convnext_tiny": sum(m * rows[f"cnx-s{i}"][key]
                                      for i, m in enumerate(CONVNEXT_DEPTHS)),
                 "vit_base": 12 * rows["vit-b64"][key], "vit_base_bucket8": 12 * rows["vit-b8"][key]}
+        k["launches_gemm"] = {f"{p.label}_{w}": n for p in PATHS
+                              for (name, w), n in p.gemm_launches.items() if name == k["name"]}
+        k["profile_ms"] = {f"{p.label}_{w}": ms for p in PATHS
+                           for (name, w), ms in p.profiled.items() if name == k["name"]}
+    # K7/K8 the same on ConvNeXt-T's stages (3/3/9/3 launches under
+    # NKBX_FUSED_LN_MLP=0), and ViT-B's MLP at R = 12608 and 1576 (12 launches a
+    # forward or step of a ViT-B with fused_mlp=True under the switch, a path
+    # this run does not drive)
+    for k, rows in ((kernels[6], mlp_only_rows), (kernels[7], mlp_only_bwd_rows)):
+        cnx = [rows[f"s{i}"] for i in range(4)]
+        k["first_design_ms"] = sum(m * r["first_ms"] for m, r in zip(CONVNEXT_DEPTHS, cnx))
+        k["matmul_ms"] = sum(m * r["matmul_ms"] for m, r in zip(CONVNEXT_DEPTHS, cnx))
+        k["bound_share"] = {lab: r["bound_share"] for lab, r in rows.items()}
+        for key in ("ms", "first_ms", "plain_ms", "matmul_ms", "bound_ms"):
+            k[key + "_by_path"] = {"vit_base": 12 * rows["vit-b64"][key],
+                                   "vit_base_bucket8": 12 * rows["vit-b8"][key]}
         k["launches_gemm"] = {f"{p.label}_{w}": n for p in PATHS
                               for (name, w), n in p.gemm_launches.items() if name == k["name"]}
         k["profile_ms"] = {f"{p.label}_{w}": ms for p in PATHS

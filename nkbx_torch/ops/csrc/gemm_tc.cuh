@@ -1,6 +1,6 @@
-// The bf16 tensor-core GEMM of the LN -> MLP kernels (ln_mlp.cu: K5's
-// route; ln_mlp_bwd.cu: K6's): C (M x N) = A (M x K) B (K x N), bf16
-// operands, float accumulation, an epilogue chosen at compile time.
+// The bf16 tensor-core GEMM of the MLP kernels (ln_mlp.cu: K5's and K7's
+// routes; ln_mlp_bwd.cu: K6's and K8's): C (M x N) = A (M x K) B (K x N),
+// bf16 operands, float accumulation, an epilogue chosen at compile time.
 //
 // What bounds it: at the MLP's shapes (K = C or F = 4C, M = rows) a block's
 // 128-row tile reuses every weight byte 128 times, so the products, not the

@@ -4,8 +4,8 @@
 //
 // Replaces two Pallas kernels: nkbx/ops/mlp.py:504 `_lnmlp_fwd_kernel`
 // (entry `fused_ln_mlp`, K5; C entries `nkbx_ln_mlp_gemm` and `nkbx_ln_mlp`)
-// and nkbx/ops/mlp.py:250 `_fwd_kernel` (entry `fused_mlp`, K7; C entry
-// `nkbx_mlp`). For each row of x (R, C), K5 computes:
+// and nkbx/ops/mlp.py:250 `_fwd_kernel` (entry `fused_mlp`, K7; C entries
+// `nkbx_mlp_gemm` and `nkbx_mlp`). For each row of x (R, C), K5 computes:
 //   h   = LayerNorm(x) in float (flax fast variance E[x^2] - mu^2, clamped
 //         at 0), rounded to the storage type T
 //   g   = gelu(h @ w0 + b0) with float accumulation and the exact (erf) GELU
@@ -35,8 +35,14 @@
 // point, so no number changes. In exchange every weight byte feeds a
 // 128-row tile instead of 16 rows.
 //
+// K7's route at the same widths, `nkbx_mlp_gemm`: steps 2 and 3 alone, with
+// x itself as step 2's A (no LayerNorm kernel, no h) and step 3's epilogue
+// out = round(acc + b1) (no layer-scale, no residual), K split as in K5.
+//
 // The first design, a row-tile kernel in both members (LN on or off), stays
-// for f32, other widths and K7:
+// for f32 and other widths; its tensor-core member, which no wrapper takes
+// any more, stays reachable through the C entries (tensor_cores = 1) as the
+// yardstick the GEMM route is timed against:
 // - ln_mlp_tc_kernel, bf16 with C % 32 == 0 and F % 64 == 0: warp-level
 //   bf16 tensor-core products (WMMA 16x16x16, float accumulators). 8 warps;
 //   a block owns TR = 16*NRT rows. A (h or g) is read from shared memory;
@@ -470,18 +476,26 @@ struct Fc1Epilogue {
   }
 };
 
-// out = sc + round(round(y + b1) * round(gamma)), each step rounded to bf16.
+// Columns col, col + 1 of element o of out, from y = g w1: with the
+// layer-scale and residual (K5) sc + round(round(y + b1) * round(gamma)),
+// each step rounded to bf16; without (K7, gamma and sc unread) round(y + b1).
+template <bool Residual>
 __device__ __forceinline__ unsigned fc2_out(float y0, float y1, int col, const float* b1,
-                                            const float* gamma, const bf16* sc) {
-  const float2 s = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(sc));
-  const float t0 = nkbx::round_to<bf16>(nkbx::round_to<bf16>(y0 + b1[col]) *
-                                        nkbx::round_to<bf16>(gamma[col]));
-  const float t1 = nkbx::round_to<bf16>(nkbx::round_to<bf16>(y1 + b1[col + 1]) *
-                                        nkbx::round_to<bf16>(gamma[col + 1]));
-  return nkbx::pack_bf16(s.x + t0, s.y + t1);
+                                            const float* gamma, const bf16* sc, size_t o) {
+  if constexpr (!Residual) {
+    return nkbx::pack_bf16(y0 + b1[col], y1 + b1[col + 1]);
+  } else {
+    const float2 s = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(sc + o));
+    const float t0 = nkbx::round_to<bf16>(nkbx::round_to<bf16>(y0 + b1[col]) *
+                                          nkbx::round_to<bf16>(gamma[col]));
+    const float t1 = nkbx::round_to<bf16>(nkbx::round_to<bf16>(y1 + b1[col + 1]) *
+                                          nkbx::round_to<bf16>(gamma[col + 1]));
+    return nkbx::pack_bf16(s.x + t0, s.y + t1);
+  }
 }
 
 // Step 3's epilogue, K unsplit: out from acc, rows < R.
+template <bool Residual>
 struct Fc2Epilogue {
   const float* __restrict__ b1;
   const float* __restrict__ gamma;
@@ -495,8 +509,8 @@ struct Fc2Epilogue {
                                                                     int hi) {
       if (r >= rows || col >= c) return;
       const size_t o = static_cast<size_t>(r) * c + col;
-      *reinterpret_cast<unsigned*>(out + o) =
-          fc2_out(j.acc[mt][nt][2 * hi], j.acc[mt][nt][2 * hi + 1], col, b1, gamma, sc + o);
+      *reinterpret_cast<unsigned*>(out + o) = fc2_out<Residual>(
+          j.acc[mt][nt][2 * hi], j.acc[mt][nt][2 * hi + 1], col, b1, gamma, sc, o);
     });
   }
 };
@@ -535,6 +549,7 @@ cudaError_t launch_gemm(gm::Operand a, gm::Operand b, int M, int N, int K, int s
 
 // Step 3 after a split of K: out from the sum of the slabs' partials, added
 // in slab order; one thread a pair of columns.
+template <bool Residual>
 __global__ void __launch_bounds__(256)
 ln_mlp_fc2_finish_kernel(const float* __restrict__ part, int slabs, const float* __restrict__ b1,
                          const float* __restrict__ gamma, const bf16* __restrict__ sc,
@@ -548,8 +563,35 @@ ln_mlp_fc2_finish_kernel(const float* __restrict__ part, int slabs, const float*
     y.x += p.x;
     y.y += p.y;
   }
-  *reinterpret_cast<unsigned*>(out + o) = fc2_out(y.x, y.y, static_cast<int>(o % c), b1, gamma,
-                                                  sc + o);
+  *reinterpret_cast<unsigned*>(out + o) =
+      fc2_out<Residual>(y.x, y.y, static_cast<int>(o % c), b1, gamma, sc, o);
+}
+
+// Steps 2 and 3 (K5 after its LayerNorm kernel; K7 whole): g = round(gelu(a
+// w0 + b0)) into the scratch g (R, F), then out from g w1, K = F in slabs of
+// slab_f (the float partials of each into part when there are several).
+template <bool Residual>
+cudaError_t launch_mlp_gemms(const bf16* a, const bf16* w0, const float* b0, const bf16* w1,
+                             const float* b1, const float* gamma, const bf16* sc, bf16* out,
+                             bf16* g, float* part, int rows, int c, int f, int slab_f,
+                             cudaStream_t s) {
+  // a w0: A contiguous in K = C; B = w0 (C, F) contiguous in N
+  cudaError_t err = launch_gemm<Fc1, true, false>({a, c}, {w0, f}, rows, f, c, c,
+                                                  Fc1Epilogue{b0, g, rows, f}, s);
+  if (err != cudaSuccess) return err;
+  // g w1: A = g contiguous in K = F; B = w1 (F, C) contiguous in N
+  const gm::Operand ga{g, f}, w1b{w1, c};
+  const int slabs = (f + slab_f - 1) / slab_f;
+  if (slabs == 1)
+    return launch_gemm<Fc2, true, false>(ga, w1b, rows, c, f, f,
+                                         Fc2Epilogue<Residual>{b1, gamma, sc, out, rows, c}, s);
+  err = launch_gemm<Fc2, true, false>(ga, w1b, rows, c, f, slab_f, PartialEpilogue{part, rows, c},
+                                      s);
+  if (err != cudaSuccess) return err;
+  const size_t pairs = static_cast<size_t>(rows) * c / 2;
+  ln_mlp_fc2_finish_kernel<Residual><<<static_cast<unsigned>((pairs + 255) / 256), 256, 0, s>>>(
+      part, slabs, b1, gamma, sc, out, rows, c);
+  return cudaGetLastError();
 }
 
 // --- launch -------------------------------------------------------------------
@@ -646,33 +688,29 @@ extern "C" int nkbx_ln_mlp_gemm(const void* x, const void* ln_s, const void* ln_
   if (c % 32 || f % 64 || slab_f <= 0 || slab_f % gm::kBK)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bf16* hb = static_cast<const bf16*>(h);
-  const bf16* gb = static_cast<const bf16*>(g);
-  const float* b1f = static_cast<const float*>(b1);
-  const float* gmf = static_cast<const float*>(gamma);
-  const bf16* scb = static_cast<const bf16*>(sc);
-  bf16* outb = static_cast<bf16*>(out);
   ln_mlp_layernorm_kernel<<<(rows + kLnRows - 1) / kLnRows, 32 * kLnRows, 0, s>>>(
       static_cast<const bf16*>(x), static_cast<const float*>(ln_s),
       static_cast<const float*>(ln_b), static_cast<bf16*>(h), rows, c, eps);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  // h w0: A = h contiguous in K = C; B = w0 (C, F) contiguous in N
-  err = launch_gemm<Fc1, true, false>(
-      {hb, c}, {static_cast<const bf16*>(w0), f}, rows, f, c, c,
-      Fc1Epilogue{static_cast<const float*>(b0), static_cast<bf16*>(g), rows, f}, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  // g w1: A = g contiguous in K = F; B = w1 (F, C) contiguous in N
-  const gm::Operand ga{gb, f}, w1b{static_cast<const bf16*>(w1), c};
-  const int slabs = (f + slab_f - 1) / slab_f;
-  if (slabs == 1)
-    return static_cast<int>(launch_gemm<Fc2, true, false>(
-        ga, w1b, rows, c, f, f, Fc2Epilogue{b1f, gmf, scb, outb, rows, c}, s));
-  float* pf = static_cast<float*>(part);
-  err = launch_gemm<Fc2, true, false>(ga, w1b, rows, c, f, slab_f, PartialEpilogue{pf, rows, c}, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t pairs = static_cast<size_t>(rows) * c / 2;
-  ln_mlp_fc2_finish_kernel<<<static_cast<unsigned>((pairs + 255) / 256), 256, 0, s>>>(
-      pf, slabs, b1f, gmf, scb, outb, rows, c);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_mlp_gemms<true>(
+      static_cast<const bf16*>(h), static_cast<const bf16*>(w0), static_cast<const float*>(b0),
+      static_cast<const bf16*>(w1), static_cast<const float*>(b1),
+      static_cast<const float*>(gamma), static_cast<const bf16*>(sc), static_cast<bf16*>(out),
+      static_cast<bf16*>(g), static_cast<float*>(part), rows, c, f, slab_f, s));
+}
+
+// K7 on the GEMM route: out = round(round(gelu(x w0 + b0)) w1 + b1), x and
+// out (R, C), the other arguments as for nkbx_ln_mlp_gemm (no h: x is the
+// first product's A). Returns the CUDA error code of the launches.
+extern "C" int nkbx_mlp_gemm(const void* x, const void* w0, const void* b0, const void* w1,
+                             const void* b1, void* out, void* g, void* part, int rows, int c,
+                             int f, int slab_f, void* stream) {
+  if (c % 32 || f % 64 || slab_f <= 0 || slab_f % gm::kBK)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_mlp_gemms<false>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(w0), static_cast<const float*>(b0),
+      static_cast<const bf16*>(w1), static_cast<const float*>(b1), nullptr, nullptr,
+      static_cast<bf16*>(out), static_cast<bf16*>(g), static_cast<float*>(part), rows, c, f,
+      slab_f, static_cast<cudaStream_t>(stream)));
 }

@@ -5,7 +5,7 @@
 // Replaces two Pallas kernels: nkbx/ops/mlp.py:520 `_lnmlp_bwd_kernel` (the
 // VJP of `fused_ln_mlp`, K6; C entries `nkbx_ln_mlp_bwd_gemm` and
 // `nkbx_ln_mlp_bwd`) and nkbx/ops/mlp.py:265 `_bwd_kernel` (the VJP of
-// `fused_mlp`, K8; C entry `nkbx_mlp_bwd`).
+// `fused_mlp`, K8; C entries `nkbx_mlp_bwd_gemm` and `nkbx_mlp_bwd`).
 //
 // K6. For rows x (R, C), the cotangent dy and the forward's
 // parameters it returns dx and the f32 sums over rows of ds, db (LayerNorm),
@@ -58,9 +58,19 @@
 // written and read) at the points where nkbx rounds it to bf16, so no
 // number changes.
 //
-// The first design, kept for f32, other widths and K8 (the same row kernel
-// with the template flag LN off, x and dy read straight into the operand
-// buffers that hold h and dy2 in K6):
+// K8's route at the same widths, `nkbx_mlp_bwd_gemm`: K6's without the row
+// kernels. x and dy are the dual GEMM's A operands where h and dy2 are in
+// K6; db1's partials come from dy; du w0^T's epilogue stores dx = round(acc)
+// itself (when K = F is split, ln_mlp_bwd_slab_sum_kernel adds the slabs'
+// float partials in order and rounds); no ds/db partials, no LayerNorm
+// backward; then the column sums of db1 and db0 and the two weight gradients
+// as in step 5.
+//
+// The first design, kept for f32 and other widths (K8 is the same row
+// kernel with the template flag LN off, x and dy read straight into the
+// operand buffers that hold h and dy2 in K6); its tensor-core members, which
+// no wrapper takes any more, stay reachable through the C entries
+// (tensor_cores = 1) as the yardstick the GEMM route is timed against:
 // 1. A row-tile kernel recomputes the forward of TR rows, walking F in
 //    chunks of 64 as the forward kernel does, and emits dx, per-tile partial
 //    sums of the C- and F-sized vector gradients, and, in the storage type,
@@ -853,10 +863,11 @@ ln_mlp_bwd_lnb_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_s
   }
 }
 
-// Step 2's epilogue, on u = h w0 (acc) and dgl = dy2 w1^T (acc2): g =
-// round(gelu(u + b0)) and round(du), du = dgl * gelu'(u + b0) (one erf), to
-// device memory through two shared bf16 tiles; the row tile's db0 = sum of
-// the float du. Padded rows (gelu(b0) != 0 there) reach no store and no sum.
+// Step 2's epilogue, on u = h w0 (acc) and dgl = dy2 w1^T (acc2) (K8: x w0
+// and dy w1^T): g = round(gelu(u + b0)) and round(du), du = dgl * gelu'(u +
+// b0) (one erf), to device memory through two shared bf16 tiles; the row
+// tile's db0 = sum of the float du. Padded rows (gelu(b0) != 0 there) reach
+// no store and no sum.
 struct DualEpilogue {
   const float* __restrict__ b0;
   bf16* __restrict__ gact;
@@ -1002,9 +1013,9 @@ cudaError_t launch_gemm(gm::Operand a, gm::Operand b, int M, int N, int K, int s
 
 using DualJob = gm::Dual<DualCfg, true, false, true, true>;
 
-// Step 2: u = h w0 and dgl = dy2 w1^T on one (128-row, 64-column) tile, both
-// of depth C: A = h and dy2 contiguous in K, B = w0 (C, F) contiguous in N
-// and w1^T (w1 is (F, C)) contiguous in K.
+// Step 2: u = h w0 and dgl = dy2 w1^T (K8: x w0 and dy w1^T) on one
+// (128-row, 64-column) tile, both of depth C: A = h and dy2 contiguous in K,
+// B = w0 (C, F) contiguous in N and w1^T (w1 is (F, C)) contiguous in K.
 __global__ void __launch_bounds__(DualCfg::kThreads)
 ln_mlp_bwd_dual_kernel(gm::Operand h, gm::Operand w0, gm::Operand dy2, gm::Operand w1t, int M,
                        int N, int K, DualEpilogue epi) {
@@ -1045,22 +1056,31 @@ struct GemmArgs {
   float eps;
 };
 
-// A^T B over R rows (A: ld_a-strided rows of M values, B: of N) into out (M,
-// N) in bf16: one launch when the rows are one slab, else slab partials in
-// part_w and their sum.
-cudaError_t weight_grad_gemm(const bf16* A, const bf16* B, bf16* out, float* part_w, int rows,
-                             int M, int N, int slab_rows, cudaStream_t s) {
-  const int slabs = (rows + slab_rows - 1) / slab_rows;
+// out (M, N) in bf16 = A B over K = depth in slabs of slab_k (A_KC: A
+// contiguous in K, else in M; B_KC: B contiguous in K, else in N): one launch
+// when K is one slab, else the slabs' float partials in part and their sum,
+// added in slab order.
+template <bool A_KC, bool B_KC>
+cudaError_t split_gemm(gm::Operand a, gm::Operand b, bf16* out, float* part, int M, int N,
+                       int depth, int slab_k, cudaStream_t s) {
+  const int slabs = (depth + slab_k - 1) / slab_k;
   if (slabs == 1)
-    return launch_gemm<Wide, false, false>({A, M}, {B, N}, M, N, rows, rows,
-                                           StoreEpilogue<bf16>{out, M, N}, s);
-  cudaError_t err = launch_gemm<Wide, false, false>({A, M}, {B, N}, M, N, rows, slab_rows,
-                                                    StoreEpilogue<float>{part_w, M, N}, s);
+    return launch_gemm<Wide, A_KC, B_KC>(a, b, M, N, depth, depth, StoreEpilogue<bf16>{out, M, N},
+                                         s);
+  cudaError_t err = launch_gemm<Wide, A_KC, B_KC>(a, b, M, N, depth, slab_k,
+                                                  StoreEpilogue<float>{part, M, N}, s);
   if (err != cudaSuccess) return err;
   const long long n = static_cast<long long>(M) * N;
   ln_mlp_bwd_slab_sum_kernel<<<static_cast<unsigned>((n / 4 + 255) / 256), 256, 0, s>>>(
-      part_w, slabs, out, n);
+      part, slabs, out, n);
   return cudaGetLastError();
+}
+
+// A^T B over R rows (A: rows of M values, B: of N) into out (M, N) in bf16,
+// the rows in slabs of slab_rows (partials in part_w when there are several).
+cudaError_t weight_grad_gemm(const bf16* A, const bf16* B, bf16* out, float* part_w, int rows,
+                             int M, int N, int slab_rows, cudaStream_t s) {
+  return split_gemm<false, false>({A, M}, {B, N}, out, part_w, M, N, rows, slab_rows, s);
 }
 
 // Steps 1-6 and the fixed-order sums of every vector and weight gradient.
@@ -1108,6 +1128,33 @@ cudaError_t launch_gemm_route(const GemmArgs& a, cudaStream_t s) {
   err = weight_grad_gemm(a.gact, a.dy2, a.dw1, a.part_w, rows, f, c, a.slab_rows, s);
   if (err != cudaSuccess) return err;
   return weight_grad_gemm(a.h, a.du, a.dw0, a.part_w, rows, c, f, a.slab_rows, s);
+}
+
+// K8's route: db1's partials of dy; the dual GEMM u = x w0 and dgl = dy w1^T
+// (epilogue g, round(du) and db0's partials); dx = round(round(du) w0^T), K =
+// F in slabs; the column sums of db1 and db0; dw1 = g^T dy and dw0 = x^T
+// round(du) over slabs of rows. Reads x, dy, w0, w1, b0 and writes dx, dw0,
+// dw1, dvec_c (= db1), db0 and the scratch gact, du, dh, part_b1, part_f,
+// part_w of `a`; its other members are not read.
+cudaError_t launch_mlp_bwd_gemm_route(const GemmArgs& a, cudaStream_t s) {
+  const int rows = a.rows, c = a.c, f = a.f;
+  const int tiles = (rows + kRowTile - 1) / kRowTile, tiles_m = (rows + gm::kBM - 1) / gm::kBM;
+  ln_mlp_bwd_db1_kernel<<<dim3(tiles, (c + 63) / 64), kThreads, 0, s>>>(a.dy, a.part_b1, rows, c);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = gm::launch<DualCfg, DualJob>(ln_mlp_bwd_dual_kernel, rows, f, 1, s, gm::Operand{a.x, c},
+                                     gm::Operand{a.w0, f}, gm::Operand{a.dy, c},
+                                     gm::Operand{a.w1, c}, rows, f, c,
+                                     DualEpilogue{a.b0, a.gact, a.du, a.part_f, rows, f});
+  if (err != cudaSuccess) return err;
+  // dx: A = du contiguous in K = F, B = w0^T contiguous in K
+  err = split_gemm<true, true>({a.du, f}, {a.w0, f}, a.dx, a.dh, rows, c, f, a.slab_f, s);
+  if (err != cudaSuccess) return err;
+  if ((err = colsum<float>(a.part_b1, a.dvec_c, 1, tiles, c, s)) != cudaSuccess) return err;
+  if ((err = colsum<float>(a.part_f, a.db0, 1, tiles_m, f, s)) != cudaSuccess) return err;
+  err = weight_grad_gemm(a.gact, a.dy, a.dw1, a.part_w, rows, f, c, a.slab_rows, s);
+  if (err != cudaSuccess) return err;
+  return weight_grad_gemm(a.x, a.du, a.dw0, a.part_w, rows, c, f, a.slab_rows, s);
 }
 
 }  // namespace
@@ -1208,4 +1255,45 @@ extern "C" int nkbx_ln_mlp_bwd_gemm(const void* x, const void* ln_s, const void*
                    static_cast<float*>(part_w),
                    rows, c, f, slab_f, slab_rows, has_gamma, eps};
   return static_cast<int>(launch_gemm_route(a, static_cast<cudaStream_t>(stream)));
+}
+
+// K8 on the GEMM route. x, dy, dx (R, C); w0, dw0 (C, F); w1, dw1 (F, C) in
+// bf16 with C % 32 == 0 and F % 64 == 0, every pointer 16-byte aligned; b0
+// (F), db1 (C) and db0 (F) in float. dx = round(du) w0^T runs in slabs of K =
+// F of slab_f rows, the weight gradients in slabs of slab_rows rows (both
+// multiples of 32). Scratch: gact, du (R, F) in bf16; in float dh (S, R, C)
+// (S = ceil(F / slab_f), unused when S = 1), part_b1 (ceil(R / 64), C),
+// part_f (ceil(R / 128), F) and part_w (ceil(R / slab_rows), C*F; unused when
+// slab_rows >= R). Returns the CUDA error code of the launches (0 on success).
+extern "C" int nkbx_mlp_bwd_gemm(const void* x, const void* w0, const void* b0, const void* w1,
+                                 const void* dy, void* dx, void* dw0, void* dw1, void* db1,
+                                 void* db0, void* gact, void* du, void* dh, void* part_b1,
+                                 void* part_f, void* part_w, int rows, int c, int f, int slab_f,
+                                 int slab_rows, void* stream) {
+  if (c % 32 || f % 64 || slab_f <= 0 || slab_f % gm::kBK || slab_rows <= 0 ||
+      slab_rows % gm::kBK)
+    return static_cast<int>(cudaErrorInvalidValue);
+  GemmArgs a{};
+  a.x = static_cast<const bf16*>(x);
+  a.w0 = static_cast<const bf16*>(w0);
+  a.w1 = static_cast<const bf16*>(w1);
+  a.dy = static_cast<const bf16*>(dy);
+  a.b0 = static_cast<const float*>(b0);
+  a.dx = static_cast<bf16*>(dx);
+  a.dw0 = static_cast<bf16*>(dw0);
+  a.dw1 = static_cast<bf16*>(dw1);
+  a.gact = static_cast<bf16*>(gact);
+  a.du = static_cast<bf16*>(du);
+  a.dvec_c = static_cast<float*>(db1);
+  a.db0 = static_cast<float*>(db0);
+  a.dh = static_cast<float*>(dh);
+  a.part_b1 = static_cast<float*>(part_b1);
+  a.part_f = static_cast<float*>(part_f);
+  a.part_w = static_cast<float*>(part_w);
+  a.rows = rows;
+  a.c = c;
+  a.f = f;
+  a.slab_f = slab_f;
+  a.slab_rows = slab_rows;
+  return static_cast<int>(launch_mlp_bwd_gemm_route(a, static_cast<cudaStream_t>(stream)));
 }

@@ -12,9 +12,11 @@ and backward. Counterpart of ``nkbx/ops/mlp.py``, both of its members:
   widths run the first design, a row-tile kernel (``nkbx_ln_mlp``,
   ``nkbx_ln_mlp_bwd``);
 - MLP-only, ``gelu(x @ w0 + b0) @ w1 + b1``: :func:`fused_mlp`, the kernels
-  K7 and K8, the same sources' LN-free members (C entries ``nkbx_mlp`` and
-  ``nkbx_mlp_bwd``, replacing the Pallas ``_fwd_kernel`` and
-  ``_bwd_kernel``).
+  K7 and K8, the same sources' LN-free members (replacing the Pallas
+  ``_fwd_kernel`` and ``_bwd_kernel``): in bf16 at the tensor-core widths
+  the same GEMMs without the LayerNorm, layer-scale and residual (C entries
+  ``nkbx_mlp_gemm``, ``nkbx_mlp_bwd_gemm``), else the first design
+  (``nkbx_mlp``, ``nkbx_mlp_bwd``).
 
 All of them accumulate in f32, evaluate the exact GELU in f32, and round to
 the compute dtype at the points of nkbx's kernels. Each entry is
@@ -41,10 +43,12 @@ from nkbx_torch.ops import _build
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"nkbx_ln_mlp": [_P] * 10 + [_I, _I, _I, _I, ctypes.c_float, _I, _I, _P],
                "nkbx_ln_mlp_gemm": [_P] * 13 + [_I] * 4 + [ctypes.c_float, _P],
-               "nkbx_mlp": [_P] * 6 + [_I] * 6 + [_P]}
+               "nkbx_mlp": [_P] * 6 + [_I] * 6 + [_P],
+               "nkbx_mlp_gemm": [_P] * 8 + [_I] * 4 + [_P]}
 _BWD_SIGNATURES = {"nkbx_ln_mlp_bwd": [_P] * 21 + [_I] * 5 + [ctypes.c_float] + [_I] * 3 + [_P],
                    "nkbx_ln_mlp_bwd_gemm": [_P] * 25 + [_I] * 5 + [ctypes.c_float, _I, _P],
-                   "nkbx_mlp_bwd": [_P] * 16 + [_I] * 7 + [_P]}
+                   "nkbx_mlp_bwd": [_P] * 16 + [_I] * 7 + [_P],
+                   "nkbx_mlp_bwd_gemm": [_P] * 16 + [_I] * 5 + [_P]}
 _CHUNK = 64  # kChunk of ln_mlp.cu and ln_mlp_bwd.cu
 _TILE_ROWS = (64, 32, 16)  # row tiles the kernels are instantiated for
 _MAX_SMEM = _build.MAX_SMEM
@@ -65,9 +69,9 @@ _MIN_SLAB = {"g·w1": 512, "du·w0ᵀ": 512, "wgrad": 1024}  # least depth of a 
 
 def tensor_cores(dtype, c: int, f: int) -> bool:
     """Whether the bf16 tensor-core kernels take this geometry (C a multiple
-    of 32, F of 64: every Swin, ConvNeXt and ViT width): K5 and K6 then run
-    as GEMMs (``nkbx_ln_mlp_gemm``, ``nkbx_ln_mlp_bwd_gemm``) and K7/K8 on
-    their tensor-core row kernels; else the float-FMA kernels run."""
+    of 32, F of 64: every Swin, ConvNeXt and ViT width): K5-K8 then run as
+    GEMMs (``nkbx_ln_mlp_gemm``, ``nkbx_ln_mlp_bwd_gemm``, ``nkbx_mlp_gemm``,
+    ``nkbx_mlp_bwd_gemm``); else the first design's float-FMA kernels run."""
     return dtype == torch.bfloat16 and c % 32 == 0 and f % _CHUNK == 0
 
 
@@ -121,69 +125,91 @@ def slab_ranges(depth: int, slab: int) -> list:
 
 
 def gemm_plan(rows: int, c: int, f: int, backward: bool = False, has_gamma: bool = False,
-              sms: int = 132):
+              ln: bool = True, sms: int = 132):
     """The route's launches in order, ``(kernel, what, blocks)``, as
-    ``nkbx_ln_mlp_gemm`` / ``nkbx_ln_mlp_bwd_gemm`` make them (a sum of
-    partials: ``colsum`` 32 columns a block, ``slab_sum`` 1024 values)."""
+    ``nkbx_ln_mlp_gemm`` / ``nkbx_ln_mlp_bwd_gemm`` make them, or with ``ln``
+    False as ``nkbx_mlp_gemm`` / ``nkbx_mlp_bwd_gemm`` (K7/K8: no LayerNorm
+    kernels, x and dy in the places of h and dy2, dx from du·w0ᵀ's epilogue;
+    ``has_gamma`` is not read). A sum of partials: ``colsum`` 32 columns a
+    block, ``slab_sum`` 1024 values, ``fc2_finish`` 512."""
     n, sl = _GEMM_N, gemm_slabs(rows, c, f, sms)
     fc2 = len(slab_ranges(f, sl["g·w1"]))
     if not backward:
-        plan = [("ln_mlp_layernorm_kernel", "h", _cdiv(rows, _LN_ROWS)),
-                ("ln_mlp_gemm_kernel", "h·w0", gemm_blocks(rows, f, n["h·w0"])),
-                ("ln_mlp_gemm_kernel", "g·w1", gemm_blocks(rows, c, n["g·w1"], fc2))]
+        plan = [("ln_mlp_layernorm_kernel", "h", _cdiv(rows, _LN_ROWS))] if ln else []
+        plan += [("ln_mlp_gemm_kernel", "h·w0" if ln else "x·w0", gemm_blocks(rows, f, n["h·w0"])),
+                 ("ln_mlp_gemm_kernel", "g·w1", gemm_blocks(rows, c, n["g·w1"], fc2))]
         if fc2 > 1:
             plan.append(("ln_mlp_fc2_finish_kernel", "out", _cdiv(rows * c // 2, 256)))
         return plan
     tiles = _cdiv(rows, GEMM_ROW_TILE)
     dh = len(slab_ranges(f, sl["du·w0ᵀ"]))
     wg = len(slab_ranges(rows, sl["wgrad"]))
-    plan = [("ln_mlp_bwd_rows_kernel", "h, dy2", _cdiv(rows, _LN_ROWS)),
-            ("ln_mlp_bwd_db1_kernel", "db1", tiles * _cdiv(c, 64)),
-            ("ln_mlp_bwd_dual_kernel", "h·w0, dy2·w1ᵀ", gemm_blocks(rows, f, n["dual"]))]
-    if has_gamma:
-        plan.append(("ln_mlp_bwd_gemm_kernel", "g·w1 (dgamma)",
-                     gemm_blocks(rows, c, n["du·w0ᵀ"])))
-    plan += [("ln_mlp_bwd_gemm_kernel", "du·w0ᵀ (ds, db)",
-              gemm_blocks(rows, c, n["du·w0ᵀ"], dh)),
-             ("ln_mlp_bwd_lnb_kernel", "dx", _cdiv(rows, _LN_ROWS)),
-             ("ln_mlp_bwd_colsum_kernel", "ds, db", 2 * _cdiv(c, 32)),
-             ("ln_mlp_bwd_colsum_kernel", "db1", _cdiv(c, 32))]
-    if has_gamma:
-        plan.append(("ln_mlp_bwd_colsum_kernel", "dgamma", _cdiv(c, 32)))
-    plan.append(("ln_mlp_bwd_colsum_kernel", "db0", _cdiv(f, 32)))
-    for what, m, nn in (("gᵀ·dy2", f, c), ("hᵀ·du", c, f)):
+    if not ln:
+        plan = [("ln_mlp_bwd_db1_kernel", "db1", tiles * _cdiv(c, 64)),
+                ("ln_mlp_bwd_dual_kernel", "x·w0, dy·w1ᵀ", gemm_blocks(rows, f, n["dual"])),
+                ("ln_mlp_bwd_gemm_kernel", "du·w0ᵀ (dx)", gemm_blocks(rows, c, n["du·w0ᵀ"], dh))]
+        if dh > 1:
+            plan.append(("ln_mlp_bwd_slab_sum_kernel", "dx", _cdiv(rows * c // 4, 256)))
+        plan += [("ln_mlp_bwd_colsum_kernel", "db1", _cdiv(c, 32)),
+                 ("ln_mlp_bwd_colsum_kernel", "db0", _cdiv(f, 32))]
+        wgrads = (("gᵀ·dy", "dw1", f, c), ("xᵀ·du", "dw0", c, f))
+    else:
+        plan = [("ln_mlp_bwd_rows_kernel", "h, dy2", _cdiv(rows, _LN_ROWS)),
+                ("ln_mlp_bwd_db1_kernel", "db1", tiles * _cdiv(c, 64)),
+                ("ln_mlp_bwd_dual_kernel", "h·w0, dy2·w1ᵀ", gemm_blocks(rows, f, n["dual"]))]
+        if has_gamma:
+            plan.append(("ln_mlp_bwd_gemm_kernel", "g·w1 (dgamma)",
+                         gemm_blocks(rows, c, n["du·w0ᵀ"])))
+        plan += [("ln_mlp_bwd_gemm_kernel", "du·w0ᵀ (ds, db)",
+                  gemm_blocks(rows, c, n["du·w0ᵀ"], dh)),
+                 ("ln_mlp_bwd_lnb_kernel", "dx", _cdiv(rows, _LN_ROWS)),
+                 ("ln_mlp_bwd_colsum_kernel", "ds, db", 2 * _cdiv(c, 32)),
+                 ("ln_mlp_bwd_colsum_kernel", "db1", _cdiv(c, 32))]
+        if has_gamma:
+            plan.append(("ln_mlp_bwd_colsum_kernel", "dgamma", _cdiv(c, 32)))
+        plan.append(("ln_mlp_bwd_colsum_kernel", "db0", _cdiv(f, 32)))
+        wgrads = (("gᵀ·dy2", "dw1", f, c), ("hᵀ·du", "dw0", c, f))
+    for what, grad, m, nn in wgrads:
         plan.append(("ln_mlp_bwd_gemm_kernel", what, gemm_blocks(m, nn, n["wgrad"], wg)))
         if wg > 1:
-            plan.append(("ln_mlp_bwd_slab_sum_kernel", "dw1" if m == f else "dw0",
-                         _cdiv(c * f // 4, 256)))
+            plan.append(("ln_mlp_bwd_slab_sum_kernel", grad, _cdiv(c * f // 4, 256)))
     return plan
 
 
 @functools.lru_cache(maxsize=256)
 def gemm_scratch(rows: int, c: int, f: int, backward: bool = False, has_gamma: bool = False,
-                 sms: int = 132) -> types.MappingProxyType:
+                 ln: bool = True, sms: int = 132) -> types.MappingProxyType:
     """``{name: (shape, dtype)}`` of the route's scratch, in the C entry's
-    order. Forward: h, the hidden g, and g·w1's slab partials when K is
-    split. Backward: h, dy2, g, round(du) in bf16; du·w0ᵀ's slab partials
-    (dh) and the row statistics in f32; the partials of the vector
-    gradients (ds and db per slab of dh and 128-row tile, db1 per 64-row
-    tile, dgamma and db0 per 128-row tile) and of the weight gradients (per
-    slab of rows, when there are several). Cached, read-only."""
+    order. Forward: h (not with ``ln`` False: K7 reads x), the hidden g, and
+    g·w1's slab partials when K is split. Backward: h, dy2, g, round(du) in
+    bf16; du·w0ᵀ's slab partials (dh) and the row statistics in f32; the
+    partials of the vector gradients (ds and db per slab of dh and 128-row
+    tile, db1 per 64-row tile, dgamma and db0 per 128-row tile) and of the
+    weight gradients (per slab of rows, when there are several). With ``ln``
+    False (K8): g, round(du), dh only when K is split, and the partials of
+    db1, db0 and the weight gradients. Cached, read-only."""
     bf, f32 = torch.bfloat16, torch.float32
     sl = gemm_slabs(rows, c, f, sms)
     fc2 = len(slab_ranges(f, sl["g·w1"]))
     if not backward:
-        return types.MappingProxyType({"h": ((rows, c), bf), "g": ((rows, f), bf),
+        h = {"h": ((rows, c), bf)} if ln else {}
+        return types.MappingProxyType({**h, "g": ((rows, f), bf),
                                        "part": ((fc2 if fc2 > 1 else 0, rows, c), f32)})
     tiles, tiles_m = _cdiv(rows, GEMM_ROW_TILE), _cdiv(rows, GEMM_TILE_M)
     dh = len(slab_ranges(f, sl["du·w0ᵀ"]))
     wg = len(slab_ranges(rows, sl["wgrad"]))
+    part_w = ((wg if wg > 1 else 0, c * f), f32)
+    if not ln:
+        return types.MappingProxyType({
+            "gact": ((rows, f), bf), "du": ((rows, f), bf),
+            "dh": ((dh if dh > 1 else 0, rows, c), f32), "part_b1": ((tiles, c), f32),
+            "part_f": ((tiles_m, f), f32), "part_w": part_w})
     return types.MappingProxyType({
         "h": ((rows, c), bf), "dy2": ((rows, c), bf), "gact": ((rows, f), bf),
         "du": ((rows, f), bf), "dh": ((dh, rows, c), f32), "stats": ((2, rows), f32),
         "part_c": ((2, dh * tiles_m, c), f32), "part_b1": ((tiles, c), f32),
         "part_g": ((tiles_m if has_gamma else 0, c), f32), "part_f": ((tiles_m, f), f32),
-        "part_w": ((wg if wg > 1 else 0, c * f), f32)})
+        "part_w": part_w})
 
 
 def check_gemm_operands(x, w0, w1):
@@ -193,11 +219,11 @@ def check_gemm_operands(x, w0, w1):
     c, f = x.shape[-1], w0.shape[-1]
     for name, t in (("x", x), ("w0", w0), ("w1", w1)):
         if t.dtype != torch.bfloat16:
-            raise TypeError(f"the LN-MLP GEMM route takes bfloat16, got {name} {t.dtype}")
+            raise TypeError(f"the MLP GEMM route takes bfloat16, got {name} {t.dtype}")
     if tuple(w0.shape) != (c, f) or tuple(w1.shape) != (f, c):
         raise ValueError(f"w0 {tuple(w0.shape)} / w1 {tuple(w1.shape)} are not (C, F) / (F, C)")
     if not tensor_cores(x.dtype, c, f):
-        raise ValueError(f"the LN-MLP GEMM route takes C % 32 == 0 and F % 64 == 0, got C={c}, "
+        raise ValueError(f"the MLP GEMM route takes C % 32 == 0 and F % 64 == 0, got C={c}, "
                          f"F={f}")
 
 
@@ -538,28 +564,55 @@ fused_ln_mlp_bwd.gemm_launches = 0  # those on the GEMM route
 
 
 def _mlp_forward(x, w0, b0, w1, b1):
-    """K7 on (R, C) rows of a CUDA tensor; the plain version on a CPU tensor."""
+    """K7 on (R, C) rows of a CUDA tensor (the GEMM route where
+    :func:`tensor_cores` holds, else the first design); the plain version on
+    a CPU tensor."""
     if not x.is_cuda:
         return reference_mlp(x, w0, b0, w1, b1)
     c, f = x.shape[-1], w0.shape[1]
     c, f, tc, (b0c, b1c) = _check(x, w0, w1, [], [("b0", b0, f), ("b1", b1, c)])
-    tr = pick_tile_rows(c, tc, mlp_smem_bytes)
-    if tr is None:
+    if not tc and pick_tile_rows(c, tc, mlp_smem_bytes) is None:
         raise ValueError(f"MLP kernel: no row tile fits shared memory at C={c}")
-    x2, w0, w1 = x.contiguous(), w0.contiguous(), w1.contiguous()
+    x2, w0, w1 = _build.aligned(x), _build.aligned(w0), _build.aligned(w1)
     out = torch.empty_like(x2)
     if x2.shape[0] == 0:
         return out
+    if tc:
+        _launch_mlp_gemm(x2, w0, b0c, w1, b1c, out)
+        fused_mlp.gemm_launches += 1
+    else:
+        _launch_mlp_rows(x2, w0, b0c, w1, b1c, out, tc)
+    fused_mlp.launches += 1
+    return out
+
+
+def _launch_mlp_gemm(x2, w0, b0c, w1, b1c, out):
+    """K7 on the GEMM route (``nkbx_mlp_gemm``): x·w0 and g·w1 with their
+    epilogues, the scratch of :func:`gemm_scratch` with ``ln=False``."""
+    check_gemm_operands(x2, w0, w1)
+    dev, (rows, c), f = x2.device, x2.shape, w0.shape[1]
+    sms = _sms(dev)
+    t = _scratch(gemm_scratch(rows, c, f, ln=False, sms=sms), dev)
     lib = _build.load("ln_mlp", _SIGNATURES)
-    dev = x.device
+    with torch.cuda.device(dev):
+        err = lib.nkbx_mlp_gemm(
+            x2.data_ptr(), w0.data_ptr(), b0c.data_ptr(), w1.data_ptr(), b1c.data_ptr(),
+            out.data_ptr(), *(v.data_ptr() for v in t.values()), rows, c, f,
+            gemm_slabs(rows, c, f, sms)["g·w1"], torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "mlp gemm launch")
+
+
+def _launch_mlp_rows(x2, w0, b0c, w1, b1c, out, tc):
+    """K7's first design (``nkbx_mlp``): one row-tile kernel; ``tc`` takes
+    its bf16 tensor-core member."""
+    dev, (rows, c), f = x2.device, x2.shape, w0.shape[1]
+    lib = _build.load("ln_mlp", _SIGNATURES)
     with torch.cuda.device(dev):
         err = lib.nkbx_mlp(
             x2.data_ptr(), w0.data_ptr(), b0c.data_ptr(), w1.data_ptr(), b1c.data_ptr(),
-            out.data_ptr(), x2.shape[0], c, f, tr, int(x.dtype == torch.bfloat16), int(tc),
-            torch.cuda.current_stream(dev).cuda_stream)
+            out.data_ptr(), rows, c, f, pick_tile_rows(c, tc, mlp_smem_bytes),
+            int(x2.dtype == torch.bfloat16), int(tc), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "mlp launch")
-    fused_mlp.launches += 1
-    return out
 
 
 class _Mlp(torch.autograd.Function):
@@ -587,53 +640,88 @@ def fused_mlp(x, w0, b0, w1, b1):
 
 
 fused_mlp.launches = 0  # K7 launches, counted by _mlp_forward
+fused_mlp.gemm_launches = 0  # those on the GEMM route
 
 
 def fused_mlp_bwd(x, w0, b0, w1, b1, dy):
     """Backward of :func:`fused_mlp` on (R, C) rows: ``(dx, dw0, db0, dw1,
     db1)``, dx in x's dtype, dw0/dw1 in the weights' dtype and db0/db1 in
     the biases' dtype (nkbx casts them so, mlp.py:383-384). On a CUDA tensor
-    this launches K8 (a row-tile kernel, then fixed-order reductions of the
+    this launches K8 (the GEMM route where :func:`tensor_cores` holds, else
+    the first design: a row-tile kernel, then fixed-order reductions of the
     weight and bias gradients); on a CPU tensor it computes
     :func:`reference_mlp_bwd`."""
     if not x.is_cuda:
         return reference_mlp_bwd(x, w0, b0, w1, b1, dy)
-    dev, dt = x.device, x.dtype
+    dev = x.device
     c, f = x.shape[-1], w0.shape[1]
     c, f, tc, (b0c, b1c) = _check(x, w0, w1, [("dy", dy)], [("b0", b0, f), ("b1", b1, c)])
-    tr = pick_tile_rows(c, tc, mlp_bwd_smem_bytes)
-    if tr is None:
+    if not tc and pick_tile_rows(c, tc, mlp_bwd_smem_bytes) is None:
         raise ValueError(f"MLP backward kernel: no row tile fits shared memory at C={c}")
-    x2, dy2 = x.reshape(-1, c).contiguous(), dy.reshape(-1, c).contiguous()
-    w0, w1 = w0.contiguous(), w1.contiguous()
-    rows = x2.shape[0]
+    x2, dy2 = _build.aligned(x.reshape(-1, c)), _build.aligned(dy.reshape(-1, c))
+    w0, w1 = _build.aligned(w0), _build.aligned(w1)
     f32 = dict(dtype=torch.float32, device=dev)
     dx, dw0, dw1 = torch.empty_like(x2), torch.empty_like(w0), torch.empty_like(w1)
     db1, db0 = torch.empty(c, **f32), torch.empty(f, **f32)
-    if rows == 0:
+    if x2.shape[0] == 0:
         for t in (dw0, dw1, db1, db0):
             t.zero_()
+    elif tc:
+        _launch_mlp_bwd_gemm(x2, w0, b0c, w1, dy2, dx, dw0, dw1, db1, db0)
+        fused_mlp_bwd.gemm_launches += 1
+        fused_mlp_bwd.launches += 1
     else:
-        tiles = -(-rows // tr)
-        # g = gelu(u) and round(du) (rows, F) in the compute dtype, for dw1 and dw0
-        gact, du = (torch.empty((rows, f), dtype=dt, device=dev) for _ in range(2))
-        part_c, part_f = torch.empty((tiles, c), **f32), torch.empty((tiles, f), **f32)
-        slab = _wgrad_split(rows, c, f)
-        part_w = torch.empty((-(-rows // slab), c * f), **f32)
-        lib = _build.load("ln_mlp_bwd", _BWD_SIGNATURES)
-        with torch.cuda.device(dev):
-            err = lib.nkbx_mlp_bwd(
-                x2.data_ptr(), w0.data_ptr(), b0c.data_ptr(), w1.data_ptr(), b1c.data_ptr(),
-                dy2.data_ptr(), dx.data_ptr(), dw0.data_ptr(), dw1.data_ptr(), db1.data_ptr(),
-                db0.data_ptr(), gact.data_ptr(), du.data_ptr(), part_c.data_ptr(),
-                part_f.data_ptr(), part_w.data_ptr(), rows, c, f, tr, slab,
-                int(dt == torch.bfloat16), int(tc), torch.cuda.current_stream(dev).cuda_stream)
-        _build.check(err, "mlp_bwd launch")
+        _launch_mlp_bwd(x2, w0, b0c, w1, b1c, dy2, dx, dw0, dw1, db1, db0, tc)
         fused_mlp_bwd.launches += 1
     return dx, dw0, db0.to(b0.dtype), dw1, db1.to(b1.dtype)
 
 
+def _launch_mlp_bwd_gemm(x2, w0, b0c, w1, dy2, dx, dw0, dw1, db1, db0):
+    """K8 on the GEMM route (``nkbx_mlp_bwd_gemm``): allocate the scratch of
+    :func:`gemm_scratch` and launch the plan of :func:`gemm_plan`, both with
+    ``ln=False``."""
+    check_gemm_operands(x2, w0, w1)
+    dev, (rows, c), f = x2.device, x2.shape, w0.shape[1]
+    sms = _sms(dev)
+    t = _scratch(gemm_scratch(rows, c, f, backward=True, ln=False, sms=sms), dev)
+    slabs = gemm_slabs(rows, c, f, sms)
+    lib = _build.load("ln_mlp_bwd", _BWD_SIGNATURES)
+    with torch.cuda.device(dev):
+        err = lib.nkbx_mlp_bwd_gemm(
+            x2.data_ptr(), w0.data_ptr(), b0c.data_ptr(), w1.data_ptr(), dy2.data_ptr(),
+            dx.data_ptr(), dw0.data_ptr(), dw1.data_ptr(), db1.data_ptr(), db0.data_ptr(),
+            *(v.data_ptr() for v in t.values()), rows, c, f, slabs["du·w0ᵀ"], slabs["wgrad"],
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "mlp_bwd gemm launch")
+
+
+def _launch_mlp_bwd(x2, w0, b0c, w1, b1c, dy2, dx, dw0, dw1, db1, db0, tc):
+    """K8's first design (``nkbx_mlp_bwd``): allocate its scratch and launch
+    ln_mlp_bwd.cu's row-tile kernel and reductions; ``tc`` takes the bf16
+    tensor-core members."""
+    dev, dt = x2.device, x2.dtype
+    (rows, c), f = x2.shape, w0.shape[1]
+    f32 = dict(dtype=torch.float32, device=dev)
+    tr = pick_tile_rows(c, tc, mlp_bwd_smem_bytes)
+    tiles = -(-rows // tr)
+    # g = gelu(u) and round(du) (rows, F) in the compute dtype, for dw1 and dw0
+    gact, du = (torch.empty((rows, f), dtype=dt, device=dev) for _ in range(2))
+    part_c, part_f = torch.empty((tiles, c), **f32), torch.empty((tiles, f), **f32)
+    slab = _wgrad_split(rows, c, f)
+    part_w = torch.empty((-(-rows // slab), c * f), **f32)
+    lib = _build.load("ln_mlp_bwd", _BWD_SIGNATURES)
+    with torch.cuda.device(dev):
+        err = lib.nkbx_mlp_bwd(
+            x2.data_ptr(), w0.data_ptr(), b0c.data_ptr(), w1.data_ptr(), b1c.data_ptr(),
+            dy2.data_ptr(), dx.data_ptr(), dw0.data_ptr(), dw1.data_ptr(), db1.data_ptr(),
+            db0.data_ptr(), gact.data_ptr(), du.data_ptr(), part_c.data_ptr(),
+            part_f.data_ptr(), part_w.data_ptr(), rows, c, f, tr, slab,
+            int(dt == torch.bfloat16), int(tc), torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "mlp_bwd launch")
+
+
 fused_mlp_bwd.launches = 0  # K8 launches, counted by the wrapper
+fused_mlp_bwd.gemm_launches = 0  # those on the GEMM route
 
 
 def reference_mlp(x, w0, b0, w1, b1):

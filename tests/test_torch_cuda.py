@@ -21,11 +21,12 @@ shows that the kernel, not its plain version, ran:
   Swin-T's widest width and a width off the tensor-core grid; their GEMM
   route (bf16 at C % 32 == 0, F % 64 == 0) at R = 1, 49, 127, 129 and 1000
   and C = 96, 192, 384 and 768, with and without a layer-scale, by count,
-  two launches bit-identical; f32, C = 40 and K7/K8 off the route, by
-  count;
+  two launches bit-identical; f32 and C = 40 off the route, by count;
 - K7 the MLP alone and K8 its backward at the same shapes (ConvNeXt-T's
   widths 96, 192 and 768, ragged last tiles, and C = 40 off the
-  tensor-core grid);
+  tensor-core grid); their GEMM route (bf16 at the same widths) at R = 1,
+  49, 129, 1576 and 4000 and C = 96 and 768, by count, two launches
+  bit-identical; f32 and C = 40 off it, by count;
 - K3 full-sequence attention on separate q, k, v and K4 its backward, at
   the ViT sequences N = 50, 145, 197 and 577 (D = 64), with a (1, N, N) and an
   (H, N, N) bias, masks of M = 2 and 3, and K4 with and without dbias; K3
@@ -70,7 +71,8 @@ largest. K4, relative to each gradient's largest value: f32
 ragged N 4 ulps of the largest of dq, dk, dv); dbias 1e-4 of its largest
 value. K7 f32 5e-4, bf16 6.25e-2 (the plain version
 rounds u to bf16 before the GELU and adds b1 to a rounded product; the
-outputs stay under 4, where one bf16 ulp is 1.6e-2). K8 as K6. K9's
+outputs stay under 4, where one bf16 ulp is 1.6e-2), on either route. K8 as
+K6, on either route. K9's
 output: f32 5e-4, bf16 4 bf16 ulps of its largest value (a1, a2, y3 and the
 residual sum round to bf16); K9's statistics and K10's gradients, relative
 to each one's largest value: f32 5e-4, bf16 2e-2 (elementwise holds at these
@@ -340,20 +342,68 @@ def test_ln_mlp_keeps_its_first_design_off_the_gemm_route(cuda_device, dtype, c)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_mlp_only_kernels_stay_off_the_gemm_route(cuda_device, dtype):
-    """K7 and K8 (the MLP alone) launch their own kernels, in bf16 at a
-    tensor-core width too: K5's and K6's GEMM-route counts do not move."""
-    args, _, _, dy = _mlp_inputs(129, 96, 384, False, cuda_device, dtype, seed=11)
+@pytest.mark.parametrize("dtype,c,gemm", [(torch.bfloat16, 96, True), (torch.bfloat16, 768, True),
+                                          (torch.float32, 96, False), (torch.bfloat16, 40, False)])
+def test_mlp_only_kernels_stay_off_the_gemm_route(cuda_device, dtype, c, gemm):
+    """K7 and K8 (the MLP alone) stay off their GEMM route only off the
+    tensor-core grid (f32, C = 40: the first design); bf16 at C = 96 and 768
+    takes it. One launch each, by count; K5's and K6's counts do not move."""
+    args, _, _, dy = _mlp_inputs(129, c, 4 * c, False, cuda_device, dtype, seed=11)
     x, _, _, w0, b0, w1, b1 = args
-    before = (tmlp.fused_mlp.launches, tmlp.fused_mlp_bwd.launches,
-              tmlp.fused_ln_mlp.gemm_launches, tmlp.fused_ln_mlp_bwd.gemm_launches)
-    tmlp.fused_mlp(x, w0, b0, w1, b1)
-    tmlp.fused_mlp_bwd(x, w0, b0, w1, b1, dy)
+    fns = (tmlp.fused_mlp, tmlp.fused_mlp_bwd, tmlp.fused_ln_mlp, tmlp.fused_ln_mlp_bwd)
+    before = [(fn.launches, fn.gemm_launches) for fn in fns]
+    got = tmlp.fused_mlp(x, w0, b0, w1, b1)
+    grads = tmlp.fused_mlp_bwd(x, w0, b0, w1, b1, dy)
     torch.cuda.synchronize()
-    assert (tmlp.fused_mlp.launches, tmlp.fused_mlp_bwd.launches,
-            tmlp.fused_ln_mlp.gemm_launches, tmlp.fused_ln_mlp_bwd.gemm_launches) == (
-        before[0] + 1, before[1] + 1, before[2], before[3])
+    assert [(fn.launches, fn.gemm_launches) for fn in fns] == [
+        (before[0][0] + 1, before[0][1] + gemm), (before[1][0] + 1, before[1][1] + gemm),
+        before[2], before[3]]
+    f32 = dtype == torch.float32
+    want = tmlp.reference_mlp(x, w0, b0, w1, b1)
+    assert (got.float() - want.float()).abs().max().item() <= (5e-4 if f32 else 6.25e-2)
+    assert _max_rel(grads, tmlp.reference_mlp_bwd(x, w0, b0, w1, b1, dy)) <= (
+        1e-3 if f32 else 3e-2)
+
+
+MLP_GEMM_ROWS = (1, 49, 129, 1576, 4000)  # ragged 128-row tiles, ViT-B's bucket 8 (F split
+# into slabs at C = 768), and rows split into slabs for the weight gradients
+MLP_GEMM_WIDTHS = (96, 768)  # ConvNeXt-T's first and last stage, ViT-B's
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", MLP_GEMM_WIDTHS)
+@pytest.mark.parametrize("r", MLP_GEMM_ROWS)
+def test_mlp_gemm_route_matches_plain_on_card(cuda_device, r, c):
+    args, _, _, _ = _mlp_inputs(r, c, 4 * c, False, cuda_device, torch.bfloat16, seed=12)
+    x, _, _, w0, b0, w1, b1 = args
+    before = tmlp.fused_mlp.launches, tmlp.fused_mlp.gemm_launches
+    got = tmlp.fused_mlp(x, w0, b0, w1, b1)
+    again = tmlp.fused_mlp(x, w0, b0, w1, b1)
+    torch.cuda.synchronize()
+    assert (tmlp.fused_mlp.launches, tmlp.fused_mlp.gemm_launches) == (before[0] + 2,
+                                                                        before[1] + 2)
+    want = tmlp.reference_mlp(x, w0, b0, w1, b1)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert (got.float() - want.float()).abs().max().item() <= 6.25e-2
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", MLP_GEMM_WIDTHS)
+@pytest.mark.parametrize("r", MLP_GEMM_ROWS)
+def test_mlp_bwd_gemm_route_matches_plain_on_card(cuda_device, r, c):
+    args, _, _, dy = _mlp_inputs(r, c, 4 * c, False, cuda_device, torch.bfloat16, seed=13)
+    x, _, _, w0, b0, w1, b1 = args
+    before = tmlp.fused_mlp_bwd.launches, tmlp.fused_mlp_bwd.gemm_launches
+    got = tmlp.fused_mlp_bwd(x, w0, b0, w1, b1, dy)
+    again = tmlp.fused_mlp_bwd(x, w0, b0, w1, b1, dy)
+    torch.cuda.synchronize()
+    assert (tmlp.fused_mlp_bwd.launches, tmlp.fused_mlp_bwd.gemm_launches) == (
+        before[0] + 2, before[1] + 2)
+    want = tmlp.reference_mlp_bwd(x, w0, b0, w1, b1, dy)
+    assert all(g.dtype == w.dtype and g.shape == w.shape for g, w in zip(got, want))
+    assert _max_rel(got, want) <= 3e-2
+    assert all(torch.equal(g, h) for g, h in zip(got, again))
 
 
 def _sep_inputs(g, n, heads, m, bh, device, dtype):
@@ -1007,7 +1057,8 @@ def test_card_tests_collect_without_jax_or_nkbx():
          + 2 * len(MB_CASES) + 2 + 1 + 2 * len(GC_CASES) + 1 + 2 * len(LAYOUT_CASES) + 1 + 1
          + 2 * len(SEP_RAGGED_N) * len(SEP_OPERANDS) + 2 * len(GC_WIDTH_CASES)
          + 2 * len(SEP_BWD_RAGGED_N) * len(SEP_BWD_OPERANDS) + 2 * len(TC_BWD_CASES) + 2
-         + 2 * len(TC_BWD_CASES) + 2 + 2 * 2 * len(GEMM_ROWS) * len(GEMM_WIDTHS) + 3 + 2)
+         + 2 * len(TC_BWD_CASES) + 2 + 2 * 2 * len(GEMM_ROWS) * len(GEMM_WIDTHS) + 3 + 4
+         + 2 * len(MLP_GEMM_ROWS) * len(MLP_GEMM_WIDTHS))
     word = "passed" if torch.cuda.is_available() else "skipped"
     assert re.search(rf"\b{n} {word}\b", proc.stdout), proc.stdout[-2000:]
 

@@ -14,6 +14,7 @@ output, whose values reach 8 here (one bf16 ulp there is 3.1e-2).
 """
 
 import contextlib
+import math
 import types
 
 import jax.numpy as jnp
@@ -108,7 +109,7 @@ def test_gate_tile_rows_from_shared_memory(c, tc, tile):
     (torch.bfloat16, 40, 160, False), (torch.bfloat16, 48, 192, False),
     (torch.bfloat16, 96, 96, False)])
 def test_tensor_core_kernel_takes_bf16_at_aligned_widths(dtype, c, f, want):
-    # also the predicate of K5's and K6's GEMM route
+    # also the predicate of the GEMM route of K5-K8
     assert tmlp.tensor_cores(dtype, c, f) is want
 
 
@@ -134,7 +135,7 @@ def test_mode_is_plain_where_no_tile_fits():
     assert tmlp.fused_mlp_mode(True, torch.zeros(2, 4096), 16384) is None
 
 
-# --- the GEMM route of K5 and K6 (bf16 at the tensor-core widths) -----------------
+# --- the GEMM route of K5-K8 (bf16 at the tensor-core widths) ---------------------
 
 
 class _FakeLib:
@@ -214,18 +215,45 @@ def test_backward_takes_the_gemm_route_only_where_it_applies(fake_card, r, c, dt
         assert cargs[31] == int(gamma)
 
 
-@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
-def test_mlp_only_kernels_keep_their_first_design(fake_card, dt):
-    """K7 and K8 (the MLP alone, under NKBX_FUSED_LN_MLP=0) never take the
-    GEMM route: their own C entries, tensor cores on in bf16."""
-    args, _, dy = _route_inputs(300, 96, dt, False)
+@pytest.mark.parametrize("r,c,dt,entries", [
+    (300, 96, torch.bfloat16, ("nkbx_mlp_gemm", "nkbx_mlp_bwd_gemm")),
+    (49, 768, torch.bfloat16, ("nkbx_mlp_gemm", "nkbx_mlp_bwd_gemm")),
+    (1576, 768, torch.bfloat16, ("nkbx_mlp_gemm", "nkbx_mlp_bwd_gemm")),
+    (300, 96, torch.float32, ("nkbx_mlp", "nkbx_mlp_bwd")),
+    (300, 40, torch.bfloat16, ("nkbx_mlp", "nkbx_mlp_bwd")),
+])
+def test_mlp_only_kernels_keep_their_first_design(fake_card, r, c, dt, entries):
+    """K7 and K8 (the MLP alone, under NKBX_FUSED_LN_MLP=0) keep their first
+    design only off the tensor-core grid (f32, C = 40: tensor cores off); bf16
+    at C = 96 and 768 takes their GEMM route with the slab depths of
+    ``gemm_slabs``. K5's and K6's counts do not move."""
+    args, _, dy = _route_inputs(r, c, dt, False)
     x, _, _, w0, b0, w1, b1, _ = args
-    gemm = tmlp.fused_ln_mlp.gemm_launches, tmlp.fused_ln_mlp_bwd.gemm_launches
+    f = 4 * c
+    ln = (tmlp.fused_ln_mlp.launches, tmlp.fused_ln_mlp.gemm_launches,
+          tmlp.fused_ln_mlp_bwd.launches, tmlp.fused_ln_mlp_bwd.gemm_launches)
+    before = (tmlp.fused_mlp.launches, tmlp.fused_mlp.gemm_launches,
+              tmlp.fused_mlp_bwd.launches, tmlp.fused_mlp_bwd.gemm_launches)
     tmlp.fused_mlp(x, w0, b0, w1, b1)
-    tmlp.fused_mlp_bwd(x, w0, b0, w1, b1, dy)
-    assert [n for n, _ in fake_card.calls] == ["nkbx_mlp", "nkbx_mlp_bwd"]
-    assert fake_card.calls[0][1][-2] == int(dt == torch.bfloat16)
-    assert (tmlp.fused_ln_mlp.gemm_launches, tmlp.fused_ln_mlp_bwd.gemm_launches) == gemm
+    out = tmlp.fused_mlp_bwd(x, w0, b0, w1, b1, dy)
+    assert tuple(n for n, _ in fake_card.calls) == entries
+    (fwd_name, fwd), (bwd_name, bwd) = fake_card.calls
+    assert len(fwd) == len(tmlp._SIGNATURES[fwd_name])
+    assert len(bwd) == len(tmlp._BWD_SIGNATURES[bwd_name])
+    gemm = entries[0] == "nkbx_mlp_gemm"
+    assert (tmlp.fused_mlp.launches, tmlp.fused_mlp.gemm_launches, tmlp.fused_mlp_bwd.launches,
+            tmlp.fused_mlp_bwd.gemm_launches) == (before[0] + 1, before[1] + gemm,
+                                                  before[2] + 1, before[3] + gemm)
+    assert (tmlp.fused_ln_mlp.launches, tmlp.fused_ln_mlp.gemm_launches,
+            tmlp.fused_ln_mlp_bwd.launches, tmlp.fused_ln_mlp_bwd.gemm_launches) == ln
+    assert [t.shape for t in out] == [(r, c), (c, f), (f,), (f, c), (c,)]
+    if gemm:  # rows, C, F, then the slab depths: g·w1; du·w0ᵀ and the weight gradients
+        sl = tmlp.gemm_slabs(r, c, f)
+        assert fwd[8:12] == (r, c, f, sl["g·w1"])
+        assert bwd[16:21] == (r, c, f, sl["du·w0ᵀ"], sl["wgrad"])
+    else:  # the first design: rows, C, F, the row tile, is_bf16, tensor cores off
+        assert fwd[6:9] == (r, c, f) and fwd[-2] == 0
+        assert bwd[16:19] == (r, c, f) and bwd[-2] == 0
 
 
 @pytest.mark.parametrize("depth,slab", [(3072, 1024), (3072, 512), (200704, 2688), (1576, 1600),
@@ -306,6 +334,50 @@ def test_gemm_scratch_sizes(r, c, gamma):
     assert all(bwd[k][1] == torch.bfloat16 for k in ("h", "dy2", "gact", "du"))
 
 
+@pytest.mark.parametrize("r,c,backward,want", [
+    (12608, 768, False, [("ln_mlp_gemm_kernel", 2376), ("ln_mlp_gemm_kernel", 594)]),
+    (3136, 768, False, [("ln_mlp_gemm_kernel", 600), ("ln_mlp_gemm_kernel", 450),
+                        ("ln_mlp_fc2_finish_kernel", 4704)]),
+    (1576, 768, True, [("ln_mlp_bwd_db1_kernel", 300), ("ln_mlp_bwd_dual_kernel", 624),
+                       ("ln_mlp_bwd_gemm_kernel", 234), ("ln_mlp_bwd_slab_sum_kernel", 1182),
+                       ("ln_mlp_bwd_colsum_kernel", 24), ("ln_mlp_bwd_colsum_kernel", 96),
+                       ("ln_mlp_bwd_gemm_kernel", 144), ("ln_mlp_bwd_gemm_kernel", 144)]),
+    (200704, 96, True, [("ln_mlp_bwd_db1_kernel", 6272), ("ln_mlp_bwd_dual_kernel", 9408),
+                        ("ln_mlp_bwd_gemm_kernel", 1568), ("ln_mlp_bwd_colsum_kernel", 3),
+                        ("ln_mlp_bwd_colsum_kernel", 12), ("ln_mlp_bwd_gemm_kernel", 198),
+                        ("ln_mlp_bwd_slab_sum_kernel", 36), ("ln_mlp_bwd_gemm_kernel", 198),
+                        ("ln_mlp_bwd_slab_sum_kernel", 36)]),
+])
+def test_gemm_plan_block_grids_without_layernorm(r, c, backward, want):
+    """K7's and K8's launches (ln=False): no LayerNorm kernels, no ds/db or
+    dgamma sums; dx from du·w0ᵀ (its slabs summed where K = F is split)."""
+    plan = tmlp.gemm_plan(r, c, 4 * c, backward=backward, ln=False)
+    assert [(k, blocks) for k, _, blocks in plan] == want
+    assert plan == tmlp.gemm_plan(r, c, 4 * c, backward=backward, has_gamma=True, ln=False)
+
+
+@pytest.mark.parametrize("r,c,dh,part_w", [(1, 96, 0, 0), (49, 768, 6, 0), (12608, 768, 0, 3),
+                                           (200704, 96, 0, 66)])
+def test_gemm_scratch_sizes_without_layernorm(r, c, dh, part_w):
+    """K7's scratch is g (and g·w1's partials), no h; K8's is g, round(du),
+    dh only where du·w0ᵀ splits K, and the partials of db1, db0 and the
+    weight gradients: smaller than K6's at every shape."""
+    f, bf, f32 = 4 * c, torch.bfloat16, torch.float32
+    fwd = tmlp.gemm_scratch(r, c, f, ln=False)
+    assert fwd == {"g": ((r, f), bf), "part": (tmlp.gemm_scratch(r, c, f)["part"][0], f32)}
+    bwd = tmlp.gemm_scratch(r, c, f, backward=True, ln=False)
+    assert bwd == {"gact": ((r, f), bf), "du": ((r, f), bf), "dh": ((dh, r, c), f32),
+                   "part_b1": ((-(-r // 64), c), f32), "part_f": ((-(-r // 128), f), f32),
+                   "part_w": ((part_w, c * f), f32)}
+
+    def size(plan):
+        return sum(math.prod(shape) * torch.empty(0, dtype=dt).element_size()
+                   for shape, dt in plan.values())
+
+    assert size(bwd) < size(tmlp.gemm_scratch(r, c, f, backward=True))
+    assert size(fwd) < size(tmlp.gemm_scratch(r, c, f))
+
+
 @pytest.mark.parametrize("c,dtype,want", [
     (96, torch.bfloat16, "ln"), (768, torch.bfloat16, "ln"), (1536, torch.bfloat16, None),
     (96, torch.float32, "ln"), (768, torch.float32, "ln"), (1536, torch.float32, None)])
@@ -314,6 +386,20 @@ def test_fused_mlp_mode_answers_are_unchanged(monkeypatch, c, dtype, want):
     of the first design (C = 1536 fits no backward tile)."""
     monkeypatch.delenv("NKBX_FUSED_MLP", raising=False)
     monkeypatch.delenv("NKBX_FUSED_LN_MLP", raising=False)
+    monkeypatch.setattr(torch.Tensor, "is_cuda", True)
+    assert tmlp.fused_mlp_mode(None, torch.zeros(2, c, dtype=dtype), 4 * c) == want
+
+
+@pytest.mark.parametrize("c,dtype,want", [
+    (96, torch.bfloat16, "mlp"), (768, torch.bfloat16, "mlp"), (1536, torch.bfloat16, None),
+    (2048, torch.bfloat16, None), (96, torch.float32, "mlp"), (768, torch.float32, "mlp"),
+    (1536, torch.float32, None)])
+def test_fused_mlp_mode_answers_under_the_switch_are_unchanged(monkeypatch, c, dtype, want):
+    """Under NKBX_FUSED_LN_MLP=0 the gate sends a width to K7/K8 where their
+    first design's tiles fit, as before their GEMM route: C = 1536 and 2048
+    fit no K7/K8 tile and go plain, as in nkbx."""
+    monkeypatch.delenv("NKBX_FUSED_MLP", raising=False)
+    monkeypatch.setenv("NKBX_FUSED_LN_MLP", "0")
     monkeypatch.setattr(torch.Tensor, "is_cuda", True)
     assert tmlp.fused_mlp_mode(None, torch.zeros(2, c, dtype=dtype), 4 * c) == want
 
