@@ -41,9 +41,15 @@
    bit-identical; timed as K5. The fused bottleneck chain (K9) at
    ResNet-50's stage shapes at batch 64 with ghost_bn = 2, in each dtype at
    the stages and bands that nkbx's rule (stat_band) gives (bf16 stages
-   1-3, th = 8/7/2; f32 stages 1-2, th = 4/4), and a small single-band case
-   (th = H): the output and the
-   six per-tile statistics against the plain chain on the same bands. The
+   1-3, th = 8/7/2; f32 stages 1-2, th = 4/4), a small single-band case
+   (th = H) and, in bf16, bands of 5 and 2 rows of a 10-row image and a
+   single band at C = 96: the output and the six per-tile statistics
+   against the plain chain on the same bands, bf16 on its tensor-core route
+   and f32 on its first design (the route checked by count), a second
+   launch bit-identical; at the bf16 stages the first design (through the
+   launch helpers) held against plain on the same operands too, then both
+   designs and plain timed with a cold L2, each with its share of the
+   bound (the route slower than the first design fails). The
    ResNet-family probes: X1, the matmul with the BatchNorm-apply + relu
    epilogue and the output's statistics, at the probe's three shapes (bf16)
    and its test shape (f32), its sums bit-identical across two launches,
@@ -78,7 +84,9 @@
    K7's shapes, held and timed as K6 (its five products alone through
    torch.matmul); K10 at K9's (all ten gradients). The library time of a
    backward is the backward alone of scaled_dot_product_attention, with the
-   SDPA backend that ran; no PyTorch call computes K5-K10.
+   SDPA backend that ran; no PyTorch call computes K5-K10. K10 as K9 (all
+   ten gradients by their relative L2, both designs, route by count, a
+   second launch bit-identical, cold L2).
 4. Drives the serving path of swin_tiny_patch4_window7_224, of
    vit_base_patch16_224 (fused_attention and fused_mlp on) and of
    convnext_tiny, twice (through K5 and, under NKBX_FUSED_LN_MLP=0, through
@@ -119,7 +127,13 @@
    of both paths (for ResNet also of the unfused ghost-BN resnet50 from the
    same weights, the model a user would run without the chain), and a
    profile of one step through the kernels and one through the plain
-   versions, with the attention and MLP kernels' device time in it (K1 and
+   versions (for ResNet its bf16 K9 and K10 launches all on their
+   tensor-core route, f32's on the first design; then check_resnet_step:
+   the step's device time, idle share, peak memory and K9's and K10's
+   device ms a step, K9's from a profiled train-mode forward, K10's the
+   step's chain kernels less K9's; ``python3 chip_smoke.py --resnet-step``
+   runs that phase alone, also from a copy of this file in another
+   checkout, to measure that checkout's kernels the same way), with the attention and MLP kernels' device time in it (K1 and
    K2 for Swin-T, K2 with its dbias reduction, K3 and K4 for ViT-B, K5 and
    K6 (K7 and K8 under the switch) for the three transformers-and-ConvNeXt;
    Swin-T's bf16 K1 and K2 launches all on their tensor-core designs, every
@@ -1243,20 +1257,41 @@ def chain_work(b, h, c, m, th, itemsize):
 
 
 CHAIN_TOL = {"bf16": (2e-2, 2e-2), "f32": (5e-4, 3e-3)}  # statistics, gradients
+# bf16 shapes off ResNet-50's (B, H = W, C, M, th): bands of 5 and 2 rows of a
+# 10-row image (tiles that 128-row block tiles straddle) and a single band at
+# C = 96, M = 64 (column tiles past C and M)
+CHAIN_RAGGED = [("ragged th=5", 4, 10, 64, 32, 5), ("ragged th=2", 4, 10, 64, 32, 2),
+                ("single-band C=96", 2, 10, 96, 64, 10)]
+CHAIN_ITERS = 10  # cold-L2 launches timed a case (K9, K10; plain 3)
 
 
-def compare_chain(label, args, dout, th):
-    """K9 and K10 against the plain chain on the same inputs and band, at
-    check_chain's tolerances. Logs the output's error, its flipped gates, and
-    each statistic's and gradient's error; returns (ok, output max|err|, the
-    gradients' largest max|err|, K9's and K10's outputs)."""
+def chain_launch(args, dout, th, tc=None):
+    """One K9 and one K10 launch, ``(out, stats, grads)``: through the wrappers
+    (the route their predicate picks, counted) when ``tc`` is None, else
+    through the launch helpers on the tensor-core route (True) or the first
+    design (False), not counted."""
+    kw = dict(g=GHOST, th=th)
+    if tc is None:
+        out, stats = BN.fused_chain_fwd(*args, **kw)
+        grads = BN.fused_chain_bwd(*args, dout, **kw)
+    else:
+        out, stats = BN._forward(*args, **kw, eps=1e-5, tc=tc)
+        grads = BN._backward(*args, dout, **kw, eps=1e-5, tc=tc)
+    torch.cuda.synchronize()
+    return out, stats, grads
+
+
+def compare_chain(label, args, dout, th, tc=None):
+    """K9 and K10 (chain_launch's route ``tc``) against the plain chain on the
+    same inputs and band, at check_chain's tolerances. Logs the output's
+    error, its flipped gates, and each statistic's and gradient's error;
+    returns (ok, output max|err|, the gradients' largest max|err|, each
+    gradient's relative L2, K9's and K10's outputs)."""
     dtype = DTYPE_NAME[args[0].dtype]
     b, h, _, c = args[0].shape
     m = args[1].shape[1]
     kw = dict(g=GHOST, th=th)
-    out, stats = BN.fused_chain_fwd(*args, **kw)
-    grads = BN.fused_chain_bwd(*args, dout, **kw)
-    torch.cuda.synchronize()
+    out, stats, grads = chain_launch(args, dout, th, tc)
     pout, pstats = BN.reference_chain(*args, **kw)
     pgrads = BN.reference_chain_bwd(*args, dout, **kw)
     err = max_err(out, pout)
@@ -1277,13 +1312,18 @@ def compare_chain(label, args, dout, th):
             grad_l2[name] = float(d.norm()) / max(float(w.norm()), 1e-30)
     grad_err = max(max_err(a, b_) for a, b_ in zip(grads, pgrads))
     ok = err <= lim and max(stat_err.values()) <= tol_stat and max(grad_l2.values()) <= tol_grad
-    log(f"K9/K10 {label} B={b} H=W={h} C={c} M={m} th={th} {dtype}: out max|err| {err:.3e} "
+    route = {None: "", True: " tensor-core route", False: " first design"}[tc]
+    log(f"K9/K10{route} {label} B={b} H=W={h} C={c} M={m} th={th} {dtype}: out max|err| {err:.3e} "
         f"(tol {lim:.3e}), {flips} output gates flipped; statistics max|err| / max|plain| "
         f"at most {max(stat_err.values()):.3e} ({max(stat_err, key=stat_err.get)}; tol "
         f"{tol_stat:.0e}); gradients |kernel - plain| / |plain| (L2) "
         f"{' '.join(f'{n} {v:.2e}' for n, v in grad_l2.items())} (tol {tol_grad:.0e}) "
         f"{'ok' if ok else 'FAIL'}")
-    return ok, err, grad_err, grad_l2
+    return ok, err, grad_err, grad_l2, (out, stats, grads)
+
+
+def chain_tc_counts():
+    return BN.fused_chain.tc_launches, BN.fused_chain_bwd.tc_launches
 
 
 def check_chain():
@@ -1296,34 +1336,67 @@ def check_chain():
     gate (z1, z2 or the output's) whose input lies within rounding noise of 0
     falls on different sides in the two programs (the output's flips are
     counted: at stage 1, a few in f32 and hundreds in bf16 among 51M), and
-    each flip moves the gradient elements behind it by their whole size."""
+    each flip moves the gradient elements behind it by their whole size.
+    Every case also: its route by the tensor-core counts (bf16 at C and M
+    multiples of 32 on the route, the rest on the first design), and a
+    second launch bit-identical. At the bf16 stages the first design, held
+    against plain on the same operands first, and both designs and plain
+    timed with a cold L2, with each one's share of the bound."""
     gen = torch.Generator(device=DEV).manual_seed(9)
     rows = {}
     worst = {"fwd": {"bf16": 0.0, "f32": 0.0}, "bwd": {"bf16": 0.0, "f32": 0.0},
              "bwd_l2": {"bf16": 0.0, "f32": 0.0}}
-    for label, b, h, c, m, dtype, th in chain_cases():
+    cases = chain_cases() + [(*r[:5], "bf16", r[5]) for r in CHAIN_RAGGED]
+    for label, b, h, c, m, dtype, th in cases:
         args, dout = chain_case(b, h, c, m, dtype, gen)
-        ok, err, grad_err, grad_l2 = compare_chain(label, args, dout, th)
-        if not ok:
-            fail(f"the bottleneck chain kernels disagree with the plain chain at {label} {dtype}")
+        tc = BN.takes_tc(DT[dtype], c, m)
+        n0 = chain_tc_counts()
+        ok, err, grad_err, grad_l2, first = compare_chain(label, args, dout, th)
+        routed = chain_tc_counts() == (n0[0] + tc, n0[1] + tc)
+        again = chain_launch(args, dout, th)
+        same = all(torch.equal(x, y) for x, y in zip((first[0], *first[1], *first[2]),
+                                                      (again[0], *again[1], *again[2])))
+        log(f"   {label} {dtype}: {'tensor-core route' if tc else 'first design'} by count "
+            f"{'ok' if routed else 'FAIL'}; a second launch bit-identical: {same}")
+        if not ok or not routed or not same:
+            fail(f"the bottleneck chain kernels disagree with the plain chain, take the wrong "
+                 f"route or differ across launches at {label} {dtype}")
         worst["fwd"][dtype] = max(worst["fwd"][dtype], err)
         worst["bwd"][dtype] = max(worst["bwd"][dtype], grad_err)
         worst["bwd_l2"][dtype] = max(worst["bwd_l2"][dtype], *grad_l2.values())
-        if dtype != "bf16" or label == "single-band":
+        del first, again
+        if dtype != "bf16" or not label.startswith("stage"):
             del args, dout
             continue
+        # the first design on the same operands, held before it is timed
+        ok1, err1, _, l2_1, _ = compare_chain(label, args, dout, th, tc=False)
+        if not ok1:
+            fail(f"the chain's first design disagrees with the plain chain at {label} bf16")
+        worst["fwd"]["bf16_first"] = max(worst["fwd"].get("bf16_first", 0.0), err1)
+        worst["bwd_l2"]["bf16_first"] = max(worst["bwd_l2"].get("bf16_first", 0.0),
+                                            *l2_1.values())
         kw = dict(g=GHOST, th=th)
         fb, fo, bb, bo = chain_work(b, h, c, m, th, 2)
-        t = dict(ms=cuda_ms(lambda: BN.fused_chain_fwd(*args, **kw), iters=5),
-                 plain_ms=cuda_ms(lambda: BN.reference_chain(*args, **kw), iters=3, warm=1),
-                 bwd_ms=cuda_ms(lambda: BN.fused_chain_bwd(*args, dout, **kw), iters=3, warm=1),
-                 bwd_plain_ms=cuda_ms(lambda: BN.reference_chain_bwd(*args, dout, **kw),
-                                      iters=3, warm=1))
+        t = dict(ms=cold_ms(lambda: BN._forward(*args, **kw, eps=1e-5, tc=True), CHAIN_ITERS),
+                 first_ms=cold_ms(lambda: BN._forward(*args, **kw, eps=1e-5, tc=False),
+                                  CHAIN_ITERS),
+                 plain_ms=cold_ms(lambda: BN.reference_chain(*args, **kw), 3),
+                 bwd_ms=cold_ms(lambda: BN._backward(*args, dout, **kw, eps=1e-5, tc=True),
+                                CHAIN_ITERS),
+                 bwd_first_ms=cold_ms(lambda: BN._backward(*args, dout, **kw, eps=1e-5,
+                                                           tc=False), CHAIN_ITERS),
+                 bwd_plain_ms=cold_ms(lambda: BN.reference_chain_bwd(*args, dout, **kw), 3))
         t["bound_ms"], t["bound_by"] = bound_ms(fb, fo, "bf16")
         t["bwd_bound_ms"], t["bwd_bound_by"] = bound_ms(bb, bo, "bf16")
-        log(f"   bf16 times a launch: K9 {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
-            f"{t['bound_ms']:.4f} ms ({t['bound_by']}); K10 {t['bwd_ms']:.4f} ms, plain "
+        t["bound_share"] = t["bound_ms"] / t["ms"]
+        t["bwd_bound_share"] = t["bwd_bound_ms"] / t["bwd_ms"]
+        log(f"   bf16 times a launch, cold L2: K9 {t['ms']:.4f} ms ({100 * t['bound_share']:.1f}% "
+            f"of the bound), first design {t['first_ms']:.4f}, plain {t['plain_ms']:.4f}, bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']}); K10 {t['bwd_ms']:.4f} ms "
+            f"({100 * t['bwd_bound_share']:.1f}%), first design {t['bwd_first_ms']:.4f}, plain "
             f"{t['bwd_plain_ms']:.4f} ms, bound {t['bwd_bound_ms']:.4f} ms ({t['bwd_bound_by']})")
+        if t["ms"] >= t["first_ms"] or t["bwd_ms"] >= t["bwd_first_ms"]:
+            fail(f"the chain's tensor-core route is not faster than its first design at {label}")
         rows[label] = t
         del args, dout
     log(f"K9/K10 worst: out max|err| bf16 {worst['fwd']['bf16']:.3e}, f32 "
@@ -1990,10 +2063,13 @@ def check_chain_blocks(path, model, init, criterion, pipe, images, labels, mask)
         fail(f"{path.label}: recorded {len(calls)} chain calls of one bf16 step, expected {want}")
     worst = 0.0
     for i, rec in enumerate(calls):
-        ok, _, _, grad_l2 = compare_chain(f"{path.label} block {i}", rec["args"], rec["dout"],
-                                          rec["th"])
+        n0 = chain_tc_counts()
+        ok, _, _, grad_l2, _ = compare_chain(f"{path.label} block {i}", rec["args"], rec["dout"],
+                                             rec["th"])
         if not ok:
             fail(f"{path.label}: K9/K10 disagree with the plain chain on block {i}'s inputs")
+        if chain_tc_counts() != (n0[0] + 1, n0[1] + 1):
+            fail(f"{path.label}: block {i}'s K9/K10 did not take the tensor-core route")
         worst = max(worst, *grad_l2.values())
     log(f"blocks {path.label} bf16: K9/K10 held against the plain chain on the {len(calls)} "
         f"chain blocks' inputs of one step; gradients' relative L2 at most {worst:.3e}")
@@ -2055,7 +2131,16 @@ def check_train(path):
     tc0 = [fn.tc_launches for fn in fns]
     mlp_fns = GEMM_FWD + GEMM_BWD
     gemm0 = [fn.gemm_launches for _, fn in mlp_fns]
+    chain0 = chain_tc_counts()
     losses, counts, finite, stats = five_steps(False)
+    if want["bottleneck"]:  # bf16 ResNet: every K9 and K10 launch on the tensor-core route
+        tc = tuple(a - b for a, b in zip(chain_tc_counts(), chain0))
+        n = tuple(sum(c[k] for c in counts) for k in ("bottleneck", "bottleneck_bwd"))
+        path.tc_launches[("bottleneck", "train")], path.tc_launches[("bottleneck_bwd", "train")] = tc
+        log(f"train {path.label}: K9/K10's tensor-core route launched {tc} times in 5 steps "
+            f"(of {n})")
+        if tc != n:
+            fail(f"{path.label}: K9/K10 did not take the tensor-core route in every bf16 launch")
     for (name, fn), g0 in zip(mlp_fns, gemm0):  # bf16: K5-K8 on their GEMM route
         n = path.gemm_launches[(name, "train")] = fn.gemm_launches - g0
         log(f"train {path.label}: {name}'s GEMM route launched {n} times in 5 steps")
@@ -2099,7 +2184,10 @@ def check_train(path):
                             "bf16, kernels against plain after 5 steps")
         m32 = path.model(torch.float32)
         want32 = path.counts(torch.float32, True)
+        chain32 = chain_tc_counts()
         k32, c32, finite32, s32 = five_steps(False, m32)
+        if chain_tc_counts() != chain32:
+            fail(f"{path.label}: an f32 K9/K10 launch took the tensor-core route")
         p32, _, _, ps32 = five_steps(True, m32)
         del m32
         rel32 = [abs(a - b) / abs(b) for a, b in zip(k32, p32)]
@@ -2169,6 +2257,92 @@ def check_train(path):
     return launches
 
 
+# --- phase 5: the resnet50 ghost2_fused step, K9/K10 in its profile ---------------
+
+# every kernel of the chain's sources: bottleneck.cuh's and bottleneck_tc.cuh's
+# (namespace chain) and the first design's entries' own (bottleneck.cu,
+# bottleneck_bwd.cu)
+CHAIN_KERNEL = re.compile(r"\bchain::|\(anonymous namespace\)::"
+                          r"(output_kernel|dy_kernel|bn_bwd_sums|bn_bwd_apply)\b")
+STEP_REPS = 5  # timed steps
+
+
+def check_resnet_step():
+    """The resnet50 ghost2_fused train step (bf16, batch 64, the check_train
+    recipe) through the kernels: 5 steps timed on the host's clock (step ms,
+    img/s, peak memory, launches and tensor-core launches a step), then one
+    step and one forward (train mode, no grad: K9's launches only) under the
+    profiler: the step's device time and idle share, and the chain's kernels
+    in each (their sources' names, CHAIN_KERNEL): K9 = the forward's, K10 =
+    the step's less the forward's. It reads only what every commit of the
+    port has (a counter it lacks reads None), so a copy of this script run
+    from another checkout (``python3 chip_smoke.py --resnet-step``) measures
+    that checkout's kernels the same way."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from nkbx_torch.train import TrainState, build_train_step, get_loss, get_optimizer
+    from nkbx_torch.transforms import Compose, HorizontalFlip, Normalize, VerticalFlip
+
+    path = RESNET
+    set_plain(False)
+    model = path.model(torch.bfloat16)
+    pipe = Compose([HorizontalFlip(), VerticalFlip(), Normalize()])
+    criterion = get_loss({"type": "CrossEntropyLoss"})
+    bundle = get_optimizer({"type": "nadam", "backbone_lr": 1e-5, "classifier_lr": 1e-4,
+                            "weight_decay": 0.05})
+    rng = np.random.default_rng(0)
+    images = torch.as_tensor(rng.integers(0, 256, (BUCKET, 224, 224, 3), dtype=np.uint8),
+                             device=DEV)
+    labels = torch.as_tensor(rng.integers(0, 10, BUCKET), device=DEV)
+    mask = torch.ones(BUCKET, dtype=torch.bool, device=DEV)
+    state = TrainState.create(model, seed=0)
+    step = build_train_step(model, criterion, bundle, augment_fn=pipe.device_apply)
+    state, _ = step(state, images, labels, mask, 1.0, 1.0)
+    torch.cuda.synchronize()
+
+    def tc():
+        return tuple(getattr(f, "tc_launches", None) for f in (BN.fused_chain, BN.fused_chain_bwd))
+
+    tc0 = tc()
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(STEP_REPS):
+        state, _ = step(state, images, labels, mask, 1.0, 1.0)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / STEP_REPS * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    counts = read_counts()
+    launches = {k: counts[k] / STEP_REPS for k in ("bottleneck", "bottleneck_bwd")}
+    tc_launches = [None if a is None else (a - b) / STEP_REPS for a, b in zip(tc(), tc0)]
+
+    def chain_ms(events, reps):
+        return sum(us for us, e in events if CHAIN_KERNEL.search(e.key)) / 1e3 / reps
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        state, _ = step(state, images, labels, mask, 1.0, 1.0)
+        torch.cuda.synchronize()
+    events = report_profile(prof, 1, f"in one batch-64 {path.label} train step", step_ms,
+                            f"profile_train_step_{path.label}_chain.txt")
+    if not events:
+        fail(f"the profile of the {path.label} train step recorded no device time")
+    module = model.module
+    module.train()
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CUDA]) as fprof:
+        module(pipe.device_apply(images, out_dtype=torch.bfloat16))
+        torch.cuda.synchronize()
+    k9 = chain_ms(device_events(fprof), 1)
+    device = device_ms(events, 1)
+    r = {"step_ms": step_ms, "images_per_sec": BUCKET / step_ms * 1e3,
+         "max_memory_allocated_mb": peak, "device_ms": device, "idle_share": 1 - device / step_ms,
+         "k9_ms": k9, "k10_ms": chain_ms(events, 1) - k9, "launches": launches,
+         "tc_launches": tc_launches}
+    log(f"resnet step {path.label}: {json.dumps(r)}")
+    if launches["bottleneck"] != 10 or launches["bottleneck_bwd"] != 10:
+        fail(f"{path.label}: {launches} K9/K10 launches a step, expected 10 each")
+    return r
+
+
 # --- phase 5: resnet50 with exact and masked BatchNorm -----------------------------
 
 EXACT_BATCH = 128  # bench.py's batch
@@ -2207,8 +2381,8 @@ def port_kernel_names():
 
 # a profiler key of a port kernel: the kernels live in each source's unnamed
 # namespace ("void (anonymous namespace)::ln_mlp_gemm_kernel<...>(...)") or in
-# bottleneck.cuh's `chain`
-PORT_KERNEL = re.compile(r"^(void )?(\(anonymous namespace\)|chain)::("
+# bottleneck.cuh's `chain` and bottleneck_tc.cuh's `chain::tc`
+PORT_KERNEL = re.compile(r"^(void )?(\(anonymous namespace\)|chain(::tc)?)::("
                          + "|".join(sorted(port_kernel_names())) + r")[<(]")
 
 
@@ -2772,6 +2946,7 @@ def main():
     for p in PATHS:
         with p.environment():
             trained[p.label] = check_train(p)
+    resnet_step = check_resnet_step()
     exact = check_resnet_exact()
     masked = check_resnet_masked()
     log(f"resnet50 exact BN (batch {EXACT_BATCH}) and masked BN (batch {BUCKET}): "
@@ -2795,7 +2970,8 @@ def main():
     rfwd = "the forward of one batch-64 resnet50 ghost_bn=2 train step, bf16 (2/3/5 launches)"
     rstep = "the backward of one batch-64 resnet50 ghost_bn=2 train step, bf16 (2/3/5 launches)"
     chain_fwd = [chain_rows[f"stage {s}"] for s in (1, 2, 3)]
-    chain_bwd = [{k: r["bwd_" + k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
+    chain_bwd = [{k: r["bwd_" + k] for k in ("ms", "first_ms", "plain_ms", "bound_ms", "bound_by",
+                                             "bound_share")}
                  for r in chain_fwd]
     chain_mult = tuple(k for k, *_ in RESNET_STAGES[:3])
     kernels = []
@@ -2936,6 +3112,15 @@ def main():
     # K10 is held by each gradient's relative L2 (check_chain): its worst, beside max|err|
     kernels[9]["max_rel_l2"], kernels[9]["max_rel_l2_f32"] = (chain_err["bwd_l2"]["bf16"],
                                                               chain_err["bwd_l2"]["f32"])
+    # K9/K10: the first design's cold ms (through the launch helpers) beside the
+    # tensor-core route's, each stage's share of the bound, the route's launches
+    # on the ResNet train path, and the device ms of each in the profiled step
+    for k, rows, key in ((kernels[8], chain_fwd, "k9_ms"), (kernels[9], chain_bwd, "k10_ms")):
+        k["first_design_ms"] = sum(m * r["first_ms"] for m, r in zip(chain_mult, rows))
+        k["bound_share"] = {f"stage {i}": r["bound_share"] for i, r in enumerate(rows, 1)}
+        k["launches_tc"] = RESNET.tc_launches[(k["name"], "train")]
+        k["profile_ms_per_step"] = resnet_step[key]
+    kernels[9]["resnet_step"] = resnet_step
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -2943,5 +3128,22 @@ def main():
                                            "count": torch.cuda.device_count()}}))
 
 
+def resnet_step_only():
+    """``--resnet-step``: the card's name and power limit, the chain's kernels
+    built, and check_resnet_step alone, its numbers as the last line."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60).stdout.strip()
+    log(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    os.makedirs(OUT_DIR, exist_ok=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.build(["bottleneck", "bottleneck_bwd"])
+    log(json.dumps({"resnet_step": check_resnet_step()}))
+
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == ["--resnet-step"]:
+        resnet_step_only()
+    else:
+        main()

@@ -35,6 +35,17 @@ statistics carry no gradient. ``NKBX_FUSED_CHAIN=0`` asks for the plain
 versions on the card too, with the same tiles (nkbx's ``interpret=``
 counterpart, for comparisons). A CUDA tensor whose shape the kernels do not
 take raises.
+
+Two designs of each kernel. In bf16 with C and M multiples of 32
+(:func:`takes_tc`: every chain block of the ResNets) K9 and K10 run as GEMMs
+on the tensor-core engine of ``csrc/gemm_tc.cuh`` (``csrc/bottleneck_tc.cuh``:
+the 3x3 convolution and its input gradient one GEMM each through a row map,
+the statistics and BN-backward sums from the GEMM epilogues, u3 recomputed
+rather than stored); ``fused_chain.tc_launches`` and
+``fused_chain_bwd.tc_launches`` count those launches. f32 and other widths
+run the first design (``csrc/bottleneck.cuh``), which stays reachable in
+bf16 through ``_forward(..., tc=False)`` and ``_backward(..., tc=False)``.
+A failed build or launch raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -48,11 +59,18 @@ import torch.nn.functional as F
 from nkbx_torch.ops import _build
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_FWD_SIGNATURES = {"nkbx_chain_fwd": [_P] * 22 + [_I] * 7 + [ctypes.c_float, _I, _P]}
-_BWD_SIGNATURES = {"nkbx_chain_bwd": [_P] * 40 + [_I] * 10 + [ctypes.c_float, _I, _P]}
+_FWD_SIGNATURES = {"nkbx_chain_fwd": [_P] * 22 + [_I] * 7 + [ctypes.c_float, _I, _P],
+                   "nkbx_chain_fwd_gemm": [_P] * 23 + [_I] * 7 + [ctypes.c_float, _P]}
+_BWD_SIGNATURES = {"nkbx_chain_bwd": [_P] * 40 + [_I] * 10 + [ctypes.c_float, _I, _P],
+                   "nkbx_chain_bwd_gemm": [_P] * 41 + [_I] * 10 + [ctypes.c_float, _P]}
 _VEC = 8  # widths must be multiples of 8: the kernels load 16-byte vectors of bf16
 _WGRAD_TILE = 64  # output tile of the weight-gradient kernel (bottleneck.cuh)
 _WGRAD_BLOCKS = 528  # the weight-gradient kernel splits rows until about this many blocks
+# the tensor-core route (bottleneck_tc.cuh): its widths, block tile and the
+# blocks its weight gradients aim for (3 blocks an SM of 132)
+TC_WIDTH = 32
+TC_TILE_M, TC_TILE_N = 128, 64
+_TC_WGRAD_BLOCKS = 396
 
 # --- nkbx's grouping rule -----------------------------------------------------------
 
@@ -274,6 +292,80 @@ def reference_chain_bwd(x, w1, w2, w3, s1, b1, s2, b2, s3, b3, dout, *, g, th, e
 # --- the kernels --------------------------------------------------------------------
 
 
+def takes_tc(dtype, c: int, m: int) -> bool:
+    """Whether K9 and K10 take the tensor-core route: bf16 with C and M
+    multiples of 32 (every chain block of the ResNets; each ring slab of the
+    3x3 products then lies inside one tap). Otherwise the first design runs."""
+    return dtype == torch.bfloat16 and c % TC_WIDTH == 0 and m % TC_WIDTH == 0
+
+
+def chain_runs(b: int, h: int, w: int, g: int, th: int, ext: bool = False) -> tuple:
+    """``(len, pieces, count)`` of the runs whose partial sums the route's
+    epilogues write (bottleneck_tc.cuh ``global_runs`` / ``ext_runs``): a run
+    is one sample's band of ``th * w`` rows in the global layout (``count =
+    b * h / th``), or one tile's ``g * (th + 2) * w`` ext rows; a 128-row
+    block tile of a product meets at most ``pieces`` = ceil(len / 128) + 1
+    of a run's pieces. Run q's piece p is block tile ``q * len // 128 + p``'s
+    part of it."""
+    length = g * (th + 2) * w if ext else th * w
+    count = (b // g) * (h // th) if ext else b * (h // th)
+    return length, -(-length // TC_TILE_M) + 1, count
+
+
+def _wgrad_slab(rows: int, mo: int, no: int) -> int:
+    """Rows of a slab (a multiple of 32) of a route's weight gradient, an
+    (mo, no) output over ``rows`` rows: slabs enough that the tiles times the
+    slabs come to about ``_TC_WGRAD_BLOCKS`` blocks, none under 256 rows."""
+    tiles = -(-mo // TC_TILE_M) * -(-no // TC_TILE_N)
+    slabs = max(1, min(-(-_TC_WGRAD_BLOCKS // tiles), -(-rows // 256)))
+    return -(-(-(-rows // slabs)) // 32) * 32
+
+
+def chain_slabs(b: int, h: int, w: int, c: int, m: int, g: int, th: int) -> tuple:
+    """Rows of a slab of the route's dw3 (as (C, M)), dw2 ((9 M, M)) and dw1
+    ((C, M) over the ext rows)."""
+    rows = b * h * w
+    ext = (b // g) * (h // th) * g * (th + 2) * w
+    return _wgrad_slab(rows, c, m), _wgrad_slab(rows, 9 * m, m), _wgrad_slab(ext, c, m)
+
+
+def chain_scratch(b: int, h: int, w: int, c: int, m: int, g: int, th: int,
+                  backward: bool = False) -> dict:
+    """The route's scratch in the order of its C entry's arguments: ``{name:
+    (elements, dtype)}``. The forward's u1, u2 (f32) and a1, a2 (bf16), the
+    runs' partial sums and the three BNs' per-tile rsqrt(var + eps); the
+    backward adds dy, du3, du2, du1 (bf16), the gated dz2 (f32), the per-tile
+    BN sums, the weight gradients' slab partials and the row-map tables
+    (int32); the gated dz1 (f32, ext rows) goes into du3's buffer, sized for
+    the larger of the two. No f32 u3, da2 or da1 (the first design keeps all
+    three)."""
+    rows = b * h * w
+    nt = (b // g) * (h // th)
+    ext = nt * g * (th + 2) * w
+    glen, gpieces, gcount = chain_runs(b, h, w, g, th)
+    elen, epieces, ecount = chain_runs(b, h, w, g, th, ext=True)
+    part = max(2 * gcount * gpieces * max(c, m), 2 * ecount * epieces * m)
+    f32, bf = torch.float32, torch.bfloat16
+    out = {"u1": (rows * m, f32), "a1": (ext * m, bf), "u2": (rows * m, f32),
+           "a2": (rows * m, bf)}
+    rstd = (nt * (2 * m + c), f32)
+    if not backward:
+        out.update({"part": (part, f32), "rstd": rstd})
+        return out
+    slabs = chain_slabs(b, h, w, c, m, g, th)
+    wpart = max(-(-rows // slabs[0]) * c * m, -(-rows // slabs[1]) * 9 * m * m,
+                -(-ext // slabs[2]) * c * m)
+    out.update({"dy": (rows * c, bf), "du3": (max(rows * c, 2 * ext * m), bf),
+                "dz2": (rows * m, f32), "du2": (rows * m, bf), "du1": (ext * m, bf),
+                "sums": (2 * nt * max(c, m), f32), "part": (part, f32), "wpart": (wpart, f32),
+                "maps": (rows + ext, torch.int32), "rstd": rstd})
+    return out
+
+
+def _scratch(sizes: dict, dev) -> dict:
+    return {k: torch.empty(n, dtype=dt, device=dev) for k, (n, dt) in sizes.items()}
+
+
 def _check(x, w1, w2, w3, vecs, g, th):
     """Validate the kernels' inputs; returns (B, H, W, C, M, f32 vectors)."""
     if x.dim() != 4:
@@ -322,22 +414,43 @@ def _ptrs(*ts):
 
 def fused_chain_fwd(x, w1, w2, w3, s1, b1, s2, b2, s3, b3, *, g, th, eps=1e-5):
     """K9 on CUDA tensors: ``(out, (m1, v1, m2, v2, m3, v3))`` as
-    :func:`reference_chain` computes them. Counts its launches on
-    ``fused_chain.launches``."""
+    :func:`reference_chain` computes them, on the tensor-core route where
+    :func:`takes_tc` holds, else the first design. Counts its launches on
+    ``fused_chain.launches`` and those on the route on
+    ``fused_chain.tc_launches``."""
+    tc = takes_tc(x.dtype, x.shape[-1], w1.shape[-1])
+    out = _forward(x, w1, w2, w3, s1, b1, s2, b2, s3, b3, g=g, th=th, eps=eps, tc=tc)
+    fused_chain.launches += 1
+    fused_chain.tc_launches += tc
+    return out
+
+
+def _forward(x, w1, w2, w3, s1, b1, s2, b2, s3, b3, *, g, th, eps, tc):
+    """One K9 launch: ``tc`` takes the tensor-core route (``nkbx_chain_fwd_gemm``;
+    it raises where :func:`takes_tc` does not hold), else the first design
+    (``nkbx_chain_fwd``, every dtype and width). Counts nothing."""
     b, h, w, c, m, vecs = _check(x, w1, w2, w3, (s1, b1, s2, b2, s3, b3), g, th)
-    x, w1, w2, w3 = (t.contiguous() for t in (x, w1, w2, w3))
+    if tc and not takes_tc(x.dtype, c, m):
+        raise ValueError(f"bottleneck chain route: needs bf16 with C and M multiples of "
+                         f"{TC_WIDTH}, got {x.dtype}, C={c}, M={m}")
+    x, w1, w2, w3 = (_build.aligned(t) for t in (x, w1, w2, w3))
     nt = (b // g) * (h // th)
     f32 = dict(dtype=torch.float32, device=x.device)
     out = torch.empty_like(x)
     stats = [torch.empty(nt, k, **f32) for k in (m, m, m, m, c, c)]
     lib = _build.load("bottleneck", _FWD_SIGNATURES)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
-        err = lib.nkbx_chain_fwd(
-            *_ptrs(x, w1, w2, w3, *vecs, out, *stats, *_workspace(x, m, g, th)),
-            b, h, w, c, m, g, th, float(eps), int(x.dtype == torch.bfloat16),
-            torch.cuda.current_stream(x.device).cuda_stream)
+        if tc:
+            work = _scratch(chain_scratch(b, h, w, c, m, g, th), x.device)
+            err = lib.nkbx_chain_fwd_gemm(*_ptrs(x, w1, w2, w3, *vecs, out, *stats,
+                                                 *work.values()),
+                                          b, h, w, c, m, g, th, float(eps), stream)
+        else:
+            err = lib.nkbx_chain_fwd(
+                *_ptrs(x, w1, w2, w3, *vecs, out, *stats, *_workspace(x, m, g, th)),
+                b, h, w, c, m, g, th, float(eps), int(x.dtype == torch.bfloat16), stream)
     _build.check(err, "bottleneck chain launch")
-    fused_chain.launches += 1
     return out, tuple(stats)
 
 
@@ -352,16 +465,31 @@ def _slab_rows(rows: int, k: int, n: int, taps: int) -> int:
 def fused_chain_bwd(x, w1, w2, w3, s1, b1, s2, b2, s3, b3, dout, *, g, th, eps=1e-5):
     """Backward of :func:`fused_chain`: ``(dx, dw1, dw2, dw3, ds1, db1, ds2, db2,
     ds3, db3)``, dx like x, the rest f32 sums over tiles. On CUDA tensors this
-    launches K10 (recompute, then the chain backward, as a sequence of kernels)
+    launches K10 (recompute, then the chain backward, as a sequence of kernels:
+    the tensor-core route where :func:`takes_tc` holds, else the first design)
     and folds the halo rows' du1 into dx; on CPU tensors it computes
     :func:`reference_chain_bwd`."""
     if not x.is_cuda:
         return reference_chain_bwd(x, w1, w2, w3, s1, b1, s2, b2, s3, b3, dout, g=g, th=th,
                                    eps=eps)
+    tc = takes_tc(x.dtype, x.shape[-1], w1.shape[-1])
+    grads = _backward(x, w1, w2, w3, s1, b1, s2, b2, s3, b3, dout, g=g, th=th, eps=eps, tc=tc)
+    fused_chain_bwd.launches += 1
+    fused_chain_bwd.tc_launches += tc
+    return grads
+
+
+def _backward(x, w1, w2, w3, s1, b1, s2, b2, s3, b3, dout, *, g, th, eps, tc):
+    """One K10 launch and the halo fold: ``tc`` takes the tensor-core route
+    (``nkbx_chain_bwd_gemm``; it raises where :func:`takes_tc` does not
+    hold), else the first design (``nkbx_chain_bwd``). Counts nothing."""
     b, h, w, c, m, vecs = _check(x, w1, w2, w3, (s1, b1, s2, b2, s3, b3), g, th)
+    if tc and not takes_tc(x.dtype, c, m):
+        raise ValueError(f"bottleneck chain route: needs bf16 with C and M multiples of "
+                         f"{TC_WIDTH}, got {x.dtype}, C={c}, M={m}")
     if tuple(dout.shape) != tuple(x.shape) or dout.dtype != x.dtype:
         raise ValueError(f"dout {tuple(dout.shape)} {dout.dtype} is not x's")
-    x, w1, w2, w3, dout = (t.contiguous() for t in (x, w1, w2, w3, dout))
+    x, w1, w2, w3, dout = (_build.aligned(t) for t in (x, w1, w2, w3, dout))
     dt, dev = x.dtype, x.device
     f32 = dict(dtype=torch.float32, device=dev)
     nt = (b // g) * (h // th)
@@ -370,35 +498,45 @@ def fused_chain_bwd(x, w1, w2, w3, s1, b1, s2, b2, s3, b3, dout, *, g, th, eps=1
     dw1, dw2, dw3 = (torch.empty(s, **f32) for s in ((c, m), (3, 3, m, m), (m, c)))
     dvec = [torch.empty(k, **f32) for k in (m, m, m, m, c, c)]  # ds1 db1 ds2 db2 ds3 db3
     stats = [torch.empty(nt, k, **f32) for k in (m, m, m, m, c, c)]
-    u1, a1, u2, a2, u3 = _workspace(x, m, g, th)
-    dy, du3 = torch.empty(rows, c, dtype=dt, device=dev), torch.empty(rows, c, dtype=dt,
-                                                                      device=dev)
-    da2, du2 = torch.empty(rows, m, **f32), torch.empty(rows, m, dtype=dt, device=dev)
-    da1, du1 = torch.empty(ext, m, **f32), torch.empty(ext, m, dtype=dt, device=dev)
-    sums = torch.empty(4, nt, max(c, m), **f32)
-    slabs = (_slab_rows(rows, m, c, 1), _slab_rows(rows, m, m, 9), _slab_rows(ext, c, m, 1))
-    part = torch.empty(max(-(-rows // slabs[0]) * m * c, -(-rows // slabs[1]) * 9 * m * m,
-                           -(-ext // slabs[2]) * c * m), **f32)
     lib = _build.load("bottleneck_bwd", _BWD_SIGNATURES)
-    with torch.cuda.device(dev):
-        err = lib.nkbx_chain_bwd(
-            *_ptrs(x, w1, w2, w3, *vecs, dout, dx, dw1, dw2, dw3, *dvec, *stats,
-                   u1, a1, u2, a2, u3, dy, du3, da2, du2, da1, du1, sums, part),
-            b, h, w, c, m, g, th, *slabs, float(eps), int(dt == torch.bfloat16),
-            torch.cuda.current_stream(dev).cuda_stream)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if tc:
+        work = _scratch(chain_scratch(b, h, w, c, m, g, th, backward=True), dev)
+        du1 = work["du1"]
+        with torch.cuda.device(dev):
+            err = lib.nkbx_chain_bwd_gemm(
+                *_ptrs(x, w1, w2, w3, *vecs, dout, dx, dw1, dw2, dw3, *dvec, *stats,
+                       *work.values()),
+                b, h, w, c, m, g, th, *chain_slabs(b, h, w, c, m, g, th), float(eps), stream)
+    else:
+        u1, a1, u2, a2, u3 = _workspace(x, m, g, th)
+        dy, du3 = (torch.empty(rows, c, dtype=dt, device=dev) for _ in range(2))
+        da2, du2 = torch.empty(rows, m, **f32), torch.empty(rows, m, dtype=dt, device=dev)
+        da1, du1 = torch.empty(ext, m, **f32), torch.empty(ext, m, dtype=dt, device=dev)
+        sums = torch.empty(4, nt, max(c, m), **f32)
+        slabs = (_slab_rows(rows, m, c, 1), _slab_rows(rows, m, m, 9), _slab_rows(ext, c, m, 1))
+        part = torch.empty(max(-(-rows // slabs[0]) * m * c, -(-rows // slabs[1]) * 9 * m * m,
+                               -(-ext // slabs[2]) * c * m), **f32)
+        with torch.cuda.device(dev):
+            err = lib.nkbx_chain_bwd(
+                *_ptrs(x, w1, w2, w3, *vecs, dout, dx, dw1, dw2, dw3, *dvec, *stats,
+                       u1, a1, u2, a2, u3, dy, du3, da2, du2, da1, du1, sums, part),
+                b, h, w, c, m, g, th, *slabs, float(eps), int(dt == torch.bfloat16), stream)
     _build.check(err, "bottleneck chain backward launch")
-    fused_chain_bwd.launches += 1
     du1 = du1.view(nt, g, th + 2, w, m)
     dx = _fold_halos(dx, du1[:, :, 0], du1[:, :, th + 1], w1, g, th)
     return (dx, dw1, dw2, dw3, *dvec)
 
 
 fused_chain_bwd.launches = 0  # K10 launches, counted by the wrapper
+fused_chain_bwd.tc_launches = 0  # those on the tensor-core route
 
 
 class _Chain(torch.autograd.Function):
     """K9 forward, K10 backward (or the plain versions). Saves the inputs and
-    recomputes the rest, as nkbx's custom VJP does."""
+    recomputes the rest, as nkbx's custom VJP does (K9's per-tile statistics
+    too: kept for the backward, ResNet-50's would raise a batch-64 step's
+    peak memory by about 18 MB)."""
 
     @staticmethod
     def forward(ctx, x, w1, w2, w3, s1, b1, s2, b2, s3, b3, g, th, eps, plain):
@@ -438,3 +576,4 @@ def fused_chain(x, w1, w2, w3, s1, b1, s2, b2, s3, b3, *, g, th, eps=1e-5):
 
 
 fused_chain.launches = 0  # K9 launches, counted by fused_chain_fwd
+fused_chain.tc_launches = 0  # those on the tensor-core route

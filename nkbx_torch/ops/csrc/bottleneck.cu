@@ -33,8 +33,16 @@
 // 16x the bytes of x and out at stage 1: the price of a simple first
 // kernel, to be won back by later designs that keep a tile on chip
 // (clusters, wgmma, TMA).
+//
+// The route in bf16 with C and M multiples of 32, `nkbx_chain_fwd_gemm`
+// (bottleneck_tc.cuh): the products as GEMMs on gemm_tc.cuh's tensor-core
+// engine (u2 one GEMM with K = 9 M through a row map), the statistics from
+// their epilogues, a1 and a2 by 16-byte vector passes, and a2 w3 twice (its
+// statistics, then the output in the epilogue) instead of u3 in f32. The
+// first design above stays for f32 and other widths, and reachable in bf16
+// through `nkbx_chain_fwd`.
 
-#include "bottleneck.cuh"
+#include "bottleneck_tc.cuh"
 
 namespace {
 
@@ -83,4 +91,38 @@ extern "C" int nkbx_chain_fwd(const void* x, const void* w1, const void* w2, con
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(is_bf16 ? run<bf16>(ch, out, G, eps, s)
                                   : run<float>(ch, out, G, eps, s));
+}
+
+// K9 on the tensor-core route: bf16 x, out (B, H, W, C); w1 (C, M), w2 (3,
+// 3, M, M), w3 (M, C) in bf16 with C and M multiples of 32, every pointer
+// 16-byte aligned; the BN vectors and the per-tile statistics as for
+// nkbx_chain_fwd. Scratch: u1, u2 (B*H*W, M) float, a1 (nt*g*(th+2)*W, M)
+// and a2 (B*H*W, M) bf16, part float (the runs' partial sums), rstd
+// (nt, 2 M + C) float (the three BNs' rsqrt(var + eps);
+// `chain_scratch` in nkbx_torch/ops/bottleneck.py sizes every buffer). Returns the CUDA
+// error code of the launches.
+extern "C" int nkbx_chain_fwd_gemm(const void* x, const void* w1, const void* w2, const void* w3,
+                                   const void* s1, const void* b1, const void* s2,
+                                   const void* b2, const void* s3, const void* b3, void* out,
+                                   void* m1, void* v1, void* m2, void* v2, void* m3, void* v3,
+                                   void* u1, void* a1, void* u2, void* a2, void* part,
+                                   void* rstd, int b, int h, int w, int c, int m, int g, int th,
+                                   float eps, void* stream) {
+  if (c % 32 || m % 32 || g <= 0 || b % g || th <= 0 || h % th)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Geo G = make_geo(b, h, w, c, m, g, th);
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  auto h16 = [](const void* p) { return static_cast<const bf16*>(p); };
+  const tc::Chain ch{h16(x), h16(w1), h16(w2), h16(w3),
+                     Bn{f(m1), f(v1), f(s1), f(b1)}, Bn{f(m2), f(v2), f(s2), f(b2)},
+                     Bn{f(m3), f(v3), f(s3), f(b3)}, static_cast<float*>(rstd),
+                     static_cast<float*>(u1), static_cast<bf16*>(a1), static_cast<float*>(u2),
+                     static_cast<bf16*>(a2), static_cast<float*>(part)};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = tc::forward_to_a2(ch, G, eps, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // out = relu(round(round(BN3(a2 w3)) + x)) in the epilogue of a2 w3
+  return static_cast<int>(tc::product<false>(
+      tc::ConvArgs{ch.a2, ch.w3, G.rows, G.c, G.m, 1, 0, G}, tc::FlatRows{},
+      tc::OutEpi{tc::norm(ch, G, 3), ch.x, static_cast<bf16*>(out), G}, s));
 }

@@ -26,8 +26,20 @@
 // stages 1-2, as for K9; the intermediates that go through device memory
 // (u1..u3, a1, a2, dy, du1..du3, da1, da2) are again the price of a simple
 // first design.
+//
+// The route in bf16 with C and M multiples of 32, `nkbx_chain_bwd_gemm`
+// (bottleneck_tc.cuh): the recompute as K9's route; a2 w3 twice more, its
+// epilogues giving dy with BN3's sums, then du3; da2 = du3 w3^T with the
+// gate, dz2 in float and BN2's sums in its epilogue; du2 by a vector pass;
+// da1 as one GEMM over the ext rows (K = 9 M, w2 flipped and transposed per
+// tap) with dz1 and BN1's sums in its epilogue; du1 by a vector pass; dx
+// with the residual in its epilogue; dw3, dw2 and dw1 as GEMMs over slabs of
+// rows (the row maps along K from a table), their partials added in order.
+// u3, da2 and da1 are never stored unrounded: dz2 and dz1 are the gated
+// products BN2's and BN1's backward need. The first design above stays for
+// f32 and other widths, and reachable in bf16 through `nkbx_chain_bwd`.
 
-#include "bottleneck.cuh"
+#include "bottleneck_tc.cuh"
 
 namespace {
 
@@ -220,4 +232,110 @@ extern "C" int nkbx_chain_bwd(const void* x, const void* w1, const void* w2, con
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(is_bf16 ? run<bf16>(ch, gr, G, eps, s)
                                   : run<float>(ch, gr, G, eps, s));
+}
+
+// K10 on the tensor-core route. Inputs and outputs as nkbx_chain_bwd's, in
+// bf16 with C and M multiples of 32, every pointer 16-byte aligned; du1
+// (nt*g*(th+2)*W, M) bf16 is again an output. Scratch: the per-tile
+// statistics m1..v3, u1, a1, u2, a2 as for nkbx_chain_fwd_gemm; dy (B*H*W, C) bf16; du3, the larger of (B*H*W, C)
+// bf16 and (nt*g*(th+2)*W, M) float (it later holds dz1); dz2 (B*H*W, M)
+// float; du2 (B*H*W, M) bf16; sums (2, nt, max(C, M)) float; part, the
+// runs' partial sums, float; wpart (the weight gradients' slab partials)
+// float; maps (B*H*W + nt*g*(th+2)*W) int; rstd (nt, 2 M + C) float. slab3,
+// slab2 and slab1 are the rows of a slab of dw3, dw2 and dw1 (multiples of
+// 32); `chain_scratch` in nkbx_torch/ops/bottleneck.py sizes every buffer.
+// Returns the CUDA error code of the launches.
+extern "C" int nkbx_chain_bwd_gemm(const void* x, const void* w1, const void* w2, const void* w3,
+                                   const void* s1, const void* b1, const void* s2,
+                                   const void* b2, const void* s3, const void* b3,
+                                   const void* dout, void* dx, void* dw1, void* dw2, void* dw3,
+                                   void* ds1, void* db1, void* ds2, void* db2, void* ds3,
+                                   void* db3, void* m1, void* v1, void* m2, void* v2, void* m3,
+                                   void* v3, void* u1, void* a1, void* u2, void* a2, void* dy,
+                                   void* du3, void* dz2, void* du2, void* du1,
+                                   void* sums, void* part, void* wpart, void* maps, void* rstd,
+                                   int b, int h, int w, int c, int m, int g, int th, int slab3,
+                                   int slab2, int slab1, float eps, void* stream) {
+  if (c % 32 || m % 32 || g <= 0 || b % g || th <= 0 || h % th || slab1 <= 0 || slab1 % 32 ||
+      slab2 <= 0 || slab2 % 32 || slab3 <= 0 || slab3 % 32)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Geo G = make_geo(b, h, w, c, m, g, th);
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  auto fw = [](void* p) { return static_cast<float*>(p); };
+  auto h16 = [](const void* p) { return static_cast<const bf16*>(p); };
+  auto hw = [](void* p) { return static_cast<bf16*>(p); };
+  const tc::Chain ch{h16(x), h16(w1), h16(w2), h16(w3),
+                     Bn{f(m1), f(v1), f(s1), f(b1)}, Bn{f(m2), f(v2), f(s2), f(b2)},
+                     Bn{f(m3), f(v3), f(s3), f(b3)}, fw(rstd),
+                     fw(u1), hw(a1), fw(u2), hw(a2), fw(part)};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int* g2e = static_cast<int*>(maps);
+  int* e2g = g2e + G.rows;
+  float* bsum = fw(sums);
+  // dz1 in du3's buffer: du3 is read for the last time by da2 = du3 w3^T, which
+  // runs before da1's epilogue writes dz1
+  void* dz1 = du3;
+  cudaError_t err;
+  auto ok = [&](cudaError_t e) { return (err = e) == cudaSuccess; };
+  auto launched = [&]() { return ok(cudaGetLastError()); };
+  // a BN backward's per-tile sums from its runs' pieces, then ds and db
+  auto bn_sums = [&](const tc::Runs& R, int ext, void* ds, void* db) {
+    tc::bn_finish<<<tc::finish_grid(R.n, G.nt), 128, 0, s>>>(R, G, ext, bsum);
+    if (!launched()) return false;
+    tc::tile_colsum<<<dim3((R.n + kSC - 1) / kSC, 1, 2), dim3(kSC, kSL), 0, s>>>(
+        bsum, fw(db), fw(ds), G.nt, R.n);
+    return launched();
+  };
+  const int total = G.rows + G.ext_rows;
+  tc::maps_kernel<<<(total + 255) / 256, 256, 0, s>>>(G, g2e, e2g);
+  if (!launched() || !ok(tc::forward_to_a2(ch, G, eps, s))) return static_cast<int>(err);
+  const tc::Runs Rc = tc::global_runs(G, fw(part), G.c), Rm = tc::global_runs(G, fw(part), G.m);
+  const tc::Runs Re = tc::ext_runs(G, fw(part), G.m);
+  const tc::ConvArgs u3{ch.a2, ch.w3, G.rows, G.c, G.m, 1, 0, G};
+  // BN3: dy and its sums, then du3 (a2 w3 again in each epilogue)
+  if (!ok(tc::product<false>(u3, tc::FlatRows{},
+                             tc::DyEpi{tc::norm(ch, G, 3), ch.x, h16(dout), hw(dy), Rc, G}, s)) ||
+      !bn_sums(Rc, 0, ds3, db3) ||
+      !ok(tc::product<false>(u3, tc::FlatRows{}, tc::Du3Epi{tc::norm(ch, G, 3), bsum, h16(dy), hw(du3), G},
+                             s)))
+    return static_cast<int>(err);
+  // dw3 = a2^T du3, as (du3^T a2)^T: the longer side on the 128-row tiles
+  if (!ok(tc::weight_grad<tc::kKFlat>(
+          tc::WgradArgs{h16(du3), h16(a2), fw(wpart), nullptr, G.rows, slab3, G.c, G.m, G.c, 1,
+                        G},
+          fw(dw3), 1, s)))
+    return static_cast<int>(err);
+  // BN2: dz2 = da2 = du3 w3^T where z2 > 0, and its sums; du2
+  if (!ok(tc::product<true>(tc::ConvArgs{h16(du3), ch.w3, G.rows, G.m, G.c, 1, 0, G},
+                            tc::FlatRows{}, tc::DzEpi<false>{tc::norm(ch, G, 2), ch.u2, nullptr, fw(dz2), Rm, G},
+                            s)) ||
+      !bn_sums(Rm, 0, ds2, db2))
+    return static_cast<int>(err);
+  tc::du_pass<false><<<grid_for(static_cast<size_t>(G.rows) * G.m / 8), 256, 0, s>>>(
+      fw(dz2), ch.u2, tc::norm(ch, G, 2), bsum, hw(du2), G, G.m);
+  if (!launched()) return static_cast<int>(err);
+  // dw2[tap] = a1(tap)^T du2: the taps' rows of dw2 (9 M, M) in one product
+  if (!ok(tc::weight_grad<tc::kKG2E>(
+          tc::WgradArgs{ch.a1, h16(du2), fw(wpart), g2e, G.rows, slab2, 9 * G.m, G.m, G.m, 9, G},
+          fw(dw2), 0, s)))
+    return static_cast<int>(err);
+  // BN1: dz1 = da1 where z1 > 0 over the ext rows (du2's taps in the tile's
+  // core, w2 flipped and transposed), and its sums over every ext row; du1
+  if (!ok(tc::product<true>(tc::ConvArgs{h16(du2), ch.w2, G.ext_rows, G.m, G.m, 9, 1, G},
+                            tc::E2GTileRows{},
+                            tc::DzEpi<true>{tc::norm(ch, G, 1), ch.u1, e2g, fw(dz1), Re, G}, s)) ||
+      !bn_sums(Re, 1, ds1, db1))
+    return static_cast<int>(err);
+  tc::du_pass<true><<<grid_for(static_cast<size_t>(G.ext_rows) * G.m / 8), 256, 0, s>>>(
+      fw(dz1), ch.u1, tc::norm(ch, G, 1), bsum, hw(du1), G, G.m);
+  if (!launched()) return static_cast<int>(err);
+  // dw1 = x_ext^T du1 over the ext rows
+  if (!ok(tc::weight_grad<tc::kKE2G>(
+          tc::WgradArgs{ch.x, h16(du1), fw(wpart), e2g, G.ext_rows, slab1, G.c, G.m, G.c, 1, G},
+          fw(dw1), 0, s)))
+    return static_cast<int>(err);
+  // dx core rows = round(round(du1_core w1^T) + dy): w1 (C, M) stored (N, K)
+  return static_cast<int>(tc::product<true>(
+      tc::ConvArgs{h16(du1), ch.w1, G.rows, G.c, G.m, 1, 0, G}, tc::G2ERows{},
+      tc::DxEpi{h16(dy), hw(dx), G.rows, G.c}, s));
 }
