@@ -51,9 +51,15 @@
    designs and plain timed with a cold L2, each with its share of the
    bound (the route slower than the first design fails). The
    ResNet-family probes: X1, the matmul with the BatchNorm-apply + relu
-   epilogue and the output's statistics, at the probe's three shapes (bf16)
-   and its test shape (f32), its sums bit-identical across two launches,
-   timed also against torch.matmul with the eager epilogue; X2, the 3x3
+   epilogue and the output's statistics, in bf16 on its route on wgmma +
+   TMA (the route checked by its count) at the probe's three shapes,
+   ResNet's 256->64 and 64->256 at 50,176 rows and a ragged N, its first
+   design (through its C entry) at the probe's shapes and in f32 at the
+   probe's test shape: y within one bf16 ulp (f32 2e-5), sums 1e-4, a second
+   launch bit-identical; timed with a cold L2 in turns, route, first design,
+   torch.matmul with the eager epilogue and plain, each design's share of
+   the bytes bound (over 100% fails; so does a route not faster than the
+   first design); X2, the 3x3
    grouped convolution, at resnext50_32x4d's four stages (bf16; f32 at
    stages 1-2) and the probe's check shapes, two launches bit-identical,
    timed with a cold L2 against cuDNN's grouped convolution and its bytes
@@ -61,8 +67,12 @@
    G-minor tensor, window gather and scatter, merge, split, pad8), at the
    probes' shapes in bf16 and each function's last shape in f32: equal bit
    for bit to their plain versions and to a second launch; timed with the
-   L2 flushed before every launch against their plain versions, the
-   library's one call and their bytes bound (a share over 100% fails).
+   L2 flushed before every launch, in turns with the library's one call
+   (library, kernel, plain, then kernel and library twice), against their
+   bytes bound (a share over 100% fails), the kernel's margin over the
+   library logged against the spread of the turns; ``python3 chip_smoke.py
+   --layout`` runs that phase alone, also from a copy of this file in
+   another checkout.
 3. The same for the backward kernels: K2 and K6 at the shapes of a batch-64
    Swin-T train step (and window 12 for K2; K6 at K5's shapes, its route by
    count, each gradient within 2e-2 of its largest (f32 5e-4), timed as K5
@@ -161,7 +171,7 @@
 7. The probe path: the command-line probes of X1-X7 (``python -m
    nkbx_torch.ops.matmul_bn``, ``python -m nkbx_torch.ops.grouped_conv
    --wide`` and ``python -m nkbx_torch.ops.layout``), their launch counts
-   set to 0 before and read after.
+   set to 0 before and read after, every X1 launch on its route.
 8. Prints the kernels' JSON line (all 17 kernels), the card's name and
    power limit, and last {"ok": true, "device": {...}}.
 
@@ -1429,49 +1439,90 @@ def ulp_err(got, want):
     return float(((got.float() - w).abs() / (ulp + 2.0 ** -16 * w.abs().max())).max())
 
 
+# the route's held cases beyond the probe's shapes: ResNet's 1x1 widths with
+# Cin != Cout at its stage-1 rows (batch 64), and a ragged N (not a multiple of
+# the route's 128-row tile)
+MB_HELD = [(50_176, 256, 64), (50_176, 64, 256), (100_003, 128, 128)]
+MB_ITERS = 10  # cold-L2 launches timed a shape (X1's route, its first design, the library)
+
+
+def hold_matmul_bn(label, fn, args, dtype, worst):
+    """One X1 design against its plain version: y within one bf16 ulp of each
+    value (ulp_err) or 2e-5 of its largest value in f32, the sums within 1e-4
+    of their largest, a second launch bit-identical; fails otherwise."""
+    n, cin, cout = args[0].shape[0], args[0].shape[1], args[1].shape[1]
+    y, s, q = fn(*args)
+    again = fn(*args)
+    torch.cuda.synchronize()
+    py, ps, pq = MB.reference_matmul_bn_relu_stats(*args)
+    err = max_err(y, py)
+    worst[dtype] = max(worst[dtype], err)
+    if dtype == "bf16":
+        y_ok, y_msg = ulp_err(y, py) <= 1, f"{ulp_err(y, py):.2f} ulps (tol 1)"
+    else:
+        lim = 2e-5 * float(py.abs().max())
+        y_ok, y_msg = err <= lim, f"{err:.3e} (tol {lim:.3e})"
+    sums = max(max_err(a, b) / float(b.abs().max()) for a, b in ((s, ps), (q, pq)))
+    same = all(torch.equal(a, b) for a, b in zip((y, s, q), again))
+    ok = y_ok and sums <= 1e-4 and same
+    log(f"X1 {label} N={n} Cin={cin} Cout={cout} {dtype}: y max|err| {y_msg}, sums max|err| / "
+        f"max|plain| {sums:.3e} (tol 1e-4), a second launch bit-identical: {same} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"matmul_bn ({label}) disagrees with its plain version at N={n} {cin}->{cout} "
+             f"{dtype}")
+    return py
+
+
 def check_matmul_bn():
-    """X1 against its plain version (f32 product, TF32 off) at the probe's
-    three shapes in bf16 and its test shape in f32: y within one bf16 ulp of
-    each value (the f32 products sum in another order, so a rounding may fall
-    to the other neighbour; ulp_err) and 2e-5 of its largest value in f32; the sums
-    within 1e-4 of their largest value; the sums of a second launch equal to
-    the first's bit for bit. Times (bf16) of the kernel, the plain version
-    and torch.matmul with the eager epilogue (mb_library)."""
+    """X1 against its plain version (f32 product, TF32 off): bf16 on the route
+    on wgmma + TMA at the probe's three shapes, ResNet's 256->64 and 64->256
+    at 50,176 rows and a ragged N (MB_HELD), the route taken by its count;
+    the first design (through its C entry) at the probe's shapes; f32 at the
+    probe's test shape (the first design). Held by hold_matmul_bn. Times at
+    the probe's shapes with a cold L2, in turns (route, first design,
+    library, plain, library, first design, route): the route, the first
+    design, the plain version and torch.matmul with the eager epilogue
+    (mb_library), each share of the bytes bound (over 100% fails: the timing
+    would be wrong)."""
     rows, worst = [], {"bf16": 0.0, "f32": 0.0}
-    cases = [(n, c, c, "bf16") for n, c in MB.SHAPES] + [(*MB_F32_CASE, "f32")]
+    cases = [(n, c, c, "bf16") for n, c in MB.SHAPES] + [(*c, "bf16") for c in MB_HELD]
+    cases += [(*MB_F32_CASE, "f32")]
+    fn = MB.fused_matmul_bn_relu_stats
     for i, (n, cin, cout, dtype) in enumerate(cases):
         args = MB.inputs(n, cin, cout, DT[dtype], DEV, seed=10 + i)
-        y, s, q = MB.fused_matmul_bn_relu_stats(*args)
-        again = MB.fused_matmul_bn_relu_stats(*args)
-        torch.cuda.synchronize()
-        py, ps, pq = MB.reference_matmul_bn_relu_stats(*args)
-        err = max_err(y, py)
-        worst[dtype] = max(worst[dtype], err)
-        if dtype == "bf16":
-            y_ok, y_msg = ulp_err(y, py) <= 1, f"{ulp_err(y, py):.2f} ulps (tol 1)"
-        else:
-            lim = 2e-5 * float(py.abs().max())
-            y_ok, y_msg = err <= lim, f"{err:.3e} (tol {lim:.3e})"
-        sums = max(max_err(a, b) / float(b.abs().max()) for a, b in ((s, ps), (q, pq)))
-        same = all(torch.equal(a, b) for a, b in zip((y, s, q), again))
-        ok = y_ok and sums <= 1e-4 and same
-        log(f"X1 N={n} Cin={cin} Cout={cout} {dtype}: y max|err| {y_msg}, sums max|err| / "
-            f"max|plain| {sums:.3e} (tol 1e-4), a second launch bit-identical: {same} "
-            f"{'ok' if ok else 'FAIL'}")
-        if not ok:
-            fail(f"matmul_bn disagrees with its plain version at N={n} C={cin} {dtype}")
-        if dtype != "bf16":
+        route = MB.takes_wgmma(n, cin, cout, DT[dtype])
+        before = fn.wgmma_launches
+        py = hold_matmul_bn("route" if route else "first design",
+                            lambda *a: fn(*a, tile_rows=1), args, dtype, worst)
+        if fn.wgmma_launches - before != (2 if route else 0) or route != (dtype == "bf16"):
+            fail(f"X1 at N={n} {cin}->{cout} {dtype}: the route was not taken as expected")
+        if (n, cin) not in MB.SHAPES or dtype != "bf16":
             continue
+        hold_matmul_bn("first design", MB.first_design, args, dtype, worst)
         lib_y = mb_library(*args)[0]
         b, by = bound_ms(*MB.work(n, cin, cout, 2), "bf16")
-        t = dict(ms=cuda_ms(lambda: MB.fused_matmul_bn_relu_stats(*args)),
-                 plain_ms=cuda_ms(lambda: MB.reference_matmul_bn_relu_stats(*args), iters=5),
-                 library_ms=cuda_ms(lambda: mb_library(*args)), bound_ms=b, bound_by=by)
-        log(f"   bf16 times: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, matmul + "
-            f"eager epilogue {t['library_ms']:.4f} ms (its y {ulp_err(lib_y, py):.2f} ulps from "
-            f"plain), bound {b:.4f} ms ({by})")
+        timed = {"ms": lambda: fn(*args), "first_ms": lambda: MB.first_design(*args),
+                 "library_ms": lambda: mb_library(*args),
+                 "plain_ms": lambda: MB.reference_matmul_bn_relu_stats(*args)}
+        got = defaultdict(list)
+        for key in ("ms", "first_ms", "library_ms", "plain_ms", "library_ms", "first_ms", "ms"):
+            got[key].append(cold_ms(timed[key], 3 if key == "plain_ms" else MB_ITERS))
+        t = {k: sum(v) / len(v) for k, v in got.items()}
+        t.update(shape=f"N={n} C={cin}", bound_ms=b, bound_by=by, bound_share=b / t["ms"],
+                 turns={k: v for k, v in got.items() if len(v) > 1})
+        log(f"   bf16 times (cold L2, in turns): route {t['ms']:.4f} ms "
+            f"({' / '.join(f'{v:.4f}' for v in got['ms'])}), first design {t['first_ms']:.4f} "
+            f"({' / '.join(f'{v:.4f}' for v in got['first_ms'])}), plain {t['plain_ms']:.4f}, "
+            f"matmul + eager epilogue {t['library_ms']:.4f} (its y {ulp_err(lib_y, py):.2f} ulps "
+            f"from plain), bound {b:.4f} ms ({by}), route at {100 * t['bound_share']:.1f}% of "
+            f"the bound, first design at {100 * b / t['first_ms']:.1f}%")
+        if t["bound_share"] > 1.0 or b / t["first_ms"] > 1.0:
+            fail(f"X1 N={n} C={cin}: a design times under its bytes bound; the timing is wrong")
+        if t["ms"] >= t["first_ms"]:
+            fail(f"X1 N={n} C={cin}: the route is not faster than the first design")
         rows.append(t)
-        del args, y, again, py, lib_y
+        del args, py, lib_y
     return rows, worst
 
 
@@ -1553,9 +1604,13 @@ def check_layout():
     second launch equal to the first. Times (bf16) with a cold L2, flushed
     before every launch (at X3/X4's stages 3-4 and at X7 input and output fit
     the H100's 50 MB L2, and back-to-back launches would read them from
-    there): the kernel, the plain version, the library's one call (clone,
-    permute().contiguous(), F.pad), the bytes bound and the kernel's share of
-    it. A share over 1 fails: the timing would be wrong, not the kernel."""
+    there), in turns: the library's one call (clone, permute().contiguous(),
+    F.pad), the kernel, the plain version, then the kernel and the library
+    call twice more; the bytes bound and the kernel's share of it. A share
+    over 1 fails: the timing would be wrong, not the kernel. Logged beside
+    each: the kernel's mean less the library's against the spread of the
+    turns (the larger range of the kernel's and the library's three
+    readings)."""
     rows, worst = defaultdict(list), {"bf16": 0.0, "f32": 0.0}
     cases = L.probe_cases()
     last = {fn: i for i, (_, _, fn, *_) in enumerate(cases)}
@@ -1576,14 +1631,23 @@ def check_layout():
             if dtype != "bf16":
                 continue
             b, by = bound_ms(L.work(shape, want.numel(), 2), 0, "bf16")
-            t = dict(case=name, ms=cold_ms(lambda: fn(x), LAYOUT_ITERS),
-                     plain_ms=cold_ms(lambda: plain(x), LAYOUT_ITERS),
-                     library_ms=cold_ms(lambda: library(x), LAYOUT_ITERS), bound_ms=b, bound_by=by)
-            t["bound_share"] = b / t["ms"]
-            log(f"   bf16 times (cold L2): kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
-                f"library {t['library_ms']:.4f} ms, bound {b:.4f} ms ({by}), kernel at "
-                f"{100 * t['bound_share']:.1f}% of the bound, library at "
-                f"{100 * b / t['library_ms']:.1f}%")
+            timed = {"ms": lambda: fn(x), "plain_ms": lambda: plain(x),
+                     "library_ms": lambda: library(x)}
+            got_ms = defaultdict(list)
+            for key in ("library_ms", "ms", "plain_ms", "ms", "library_ms", "ms", "library_ms"):
+                got_ms[key].append(cold_ms(timed[key], LAYOUT_ITERS))
+            t = {k: sum(v) / len(v) for k, v in got_ms.items()}
+            spread = max(max(v) - min(v) for v in got_ms.values() if len(v) > 1)
+            t.update(case=name, bound_ms=b, bound_by=by, bound_share=b / t["ms"],
+                     over_library_ms=t["ms"] - t["library_ms"], spread_ms=spread,
+                     turns={k: v for k, v in got_ms.items() if len(v) > 1})
+            log(f"   bf16 times (cold L2, in turns): kernel {t['ms']:.4f} ms "
+                f"({' / '.join(f'{v:.4f}' for v in got_ms['ms'])}), plain {t['plain_ms']:.4f} "
+                f"ms, library {t['library_ms']:.4f} ms "
+                f"({' / '.join(f'{v:.4f}' for v in got_ms['library_ms'])}), bound {b:.4f} ms "
+                f"({by}), kernel at {100 * t['bound_share']:.1f}% of the bound, library at "
+                f"{100 * b / t['library_ms']:.1f}%; kernel - library "
+                f"{t['over_library_ms']:+.4f} ms against a spread of {spread:.4f}")
             if t["bound_share"] > 1.0:
                 fail(f"{row} {name}: the kernel times under its bytes bound; the timing is wrong")
             rows[row].append(t)
@@ -2677,7 +2741,7 @@ class StepRecorder:
                 os.kill(os.getpid(), signal.SIGTERM)
             return state, metrics
 
-        recorded.masked_bn = step.masked_bn
+        recorded.masked_bn, recorded.has_batchnorm = step.masked_bn, step.has_batchnorm
         return recorded
 
 
@@ -2716,7 +2780,7 @@ def check_trainer():
     from nkbx_torch.train import (TrainState, backbone_state_factor, build_train_step, get_loss,
                                   get_optimizer, get_scheduler, preempt)
     from nkbx_torch.train import trainer as TR
-    from nkbx_torch.train.engine import _put_batch, train_epoch
+    from nkbx_torch.train.engine import _put_batch, has_batchnorm, train_epoch
     from nkbx_torch.utils import load_config
 
     shutil.rmtree(TRAINER_DIR, ignore_errors=True)
@@ -2790,7 +2854,7 @@ def check_trainer():
         state = TrainState.create(model, seed=cfg.seed)
         step = build_train_step(model, criterion, get_optimizer(cfg.optimizer),
                                 augment_fn=train_loader.pipeline.device_apply,
-                                masked_bn=TR._has_batchnorm(model.module))
+                                masked_bn=has_batchnorm(model.module))
         lr0 = get_scheduler(cfg.lr_policy)(0)
         fs0 = backbone_state_factor(cfg.backbone_state_policy, 0)
         t0 = time.perf_counter()
@@ -2886,26 +2950,28 @@ def drive_probes():
     bf16 ulps of cuDNN's largest output, X3-X7 equal to their plain versions
     and the library calls."""
     zero_counts()
+    wgmma0 = MB.fused_matmul_bn_relu_stats.wgmma_launches
     mb_rows = MB.main(iters=PROBE_ITERS)
     gc_rows = GC.main(wide=True, iters=PROBE_ITERS)
     layout_rows = L.main(iters=PROBE_ITERS)
     torch.cuda.synchronize()
     counts = read_counts()
+    wgmma = MB.fused_matmul_bn_relu_stats.wgmma_launches - wgmma0
     want = dict.fromkeys(COUNTED, 0)
     want["matmul_bn"] = len(MB.SHAPES) * (PROBE_ITERS + 2)
     want["grouped_conv"] = len(GC.STAGES) * (PROBE_ITERS + 2)
     for name, (mod, fn) in COUNTED.items():
         if mod is L:
             want[name] = sum(c[2] is getattr(L, fn) for c in L.probe_cases()) * (PROBE_ITERS + 2)
-    log(f"path probe: launches {counts} (expect {want})")
-    if counts != want:
+    log(f"path probe: launches {counts} (expect {want}); X1's on its route {wgmma}")
+    if counts != want or wgmma != want["matmul_bn"]:
         fail("the probes did not go through X1-X7 as expected")
     bad = [r for r in mb_rows if not (r["y_ulps"] <= 1 and r["sums_rel"] <= 1e-4)]
     bad += [r for r in gc_rows if not r["max_abs_d"] <= 4 * bf16_ulp(r["library_max"])]
     bad += [r for r in layout_rows if not r["equal"]]
     if bad:
         fail(f"a probe's kernel disagrees with its reference: {bad}")
-    return counts
+    return counts, wgmma
 
 
 def main():
@@ -2953,7 +3019,8 @@ def main():
         f"{json.dumps({'exact': exact, 'masked_vs_exact_batch64': masked})}")
     trainer_counts = check_trainer()
     served["trainer"] = trained["trainer"] = trainer_counts
-    probed = {"probe": drive_probes()}
+    probe_counts, probe_wgmma = drive_probes()
+    probed = {"probe": probe_counts}
 
     fwd, step = "one bucket-64 swin_tiny forward, bf16", "one batch-64 swin_tiny train step, bf16"
     vfwd = ("one bucket-64 vit_base_patch16_224 forward, bf16 (12 launches at N=197, bias and "
@@ -3004,7 +3071,8 @@ def main():
              chain_mult),
             ("matmul_bn", "nkbx_torch/ops/csrc/matmul_bn.cu",
              "experiments/pallas_fused_matmul_bn.py:30", mb_rows, mb_err, probed,
-             "one launch at each of the probe's three shapes, bf16", (1,) * len(mb_rows)),
+             "one launch at each of the probe's three shapes, bf16, on the route (wgmma + "
+             "TMA), cold L2", (1,) * len(mb_rows)),
             ("grouped_conv", "nkbx_torch/ops/csrc/grouped_conv.cu",
              "experiments/r3_grouped_conv_vpu.py:75", gc_rows, gc_err, probed,
              "one launch at each of resnext50_32x4d's four stages, bf16, cold L2",
@@ -3034,6 +3102,8 @@ def main():
             "max_abs_err": layout_err["bf16"], "max_abs_err_f32": layout_err["f32"],
             **{k: sum(r[k] for r in rows) for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
             "bound_by": "bytes", "bound_share": [r["bound_share"] for r in rows],
+            "over_library_ms": [r["over_library_ms"] for r in rows],
+            "spread_ms": [r["spread_ms"] for r in rows],
             "per": f"one launch at each of {row}'s shapes, bf16: "
                    + ", ".join(r["case"] for r in rows)})
     # K5/K6: the first design's time (through its C entry) and the products alone
@@ -3088,6 +3158,11 @@ def main():
     kernels[5]["sdpa_backend"] = sep_bwd_rows["N=197"]["backend"]
     kernels[5]["profile_ms_per_step"] = VIT.profiled.get(("attention_bwd", "train"))
     kernels[11]["bound_share"] = [r["bound_share"] for r in gc_rows]
+    # X1: the first design's cold ms (through its C entry) beside the route's, each
+    # shape's share of the bound, and the probe path's launches on the route
+    kernels[10]["first_design_ms"] = sum(r["first_ms"] for r in mb_rows)
+    kernels[10]["bound_share"] = {r["shape"]: r["bound_share"] for r in mb_rows}
+    kernels[10]["launches_wgmma"] = {"probe": probe_wgmma}
     # K2: cold-L2 shares of the bound, SDPA's backend, window 12, the tensor-core
     # launches of the Swin-T train path and its step's K2 device time (the reduction in)
     kernels[2]["bound_share"] = {r["stage"]: r["bound_share"] for r in attn_bwd_rows}
@@ -3142,8 +3217,24 @@ def resnet_step_only():
     log(json.dumps({"resnet_step": check_resnet_step()}))
 
 
+def layout_only():
+    """``--layout``: the card's name and power limit, layout.cu built, and
+    check_layout alone, its rows as the last line (from a copy of this file
+    in another checkout, that checkout's X3-X7 against the same library
+    calls)."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60).stdout.strip()
+    log(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    _build.build(["layout"])
+    rows, _ = check_layout()
+    log(json.dumps({"layout": rows}))
+
+
 if __name__ == "__main__":
     if sys.argv[1:] == ["--resnet-step"]:
         resnet_step_only()
+    elif sys.argv[1:] == ["--layout"]:
+        layout_only()
     else:
         main()

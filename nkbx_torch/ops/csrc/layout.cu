@@ -25,11 +25,27 @@
 // and X4 at swin_tiny's stage 1, batch 64, bf16: 115.6 MB each way, 0.069
 // ms). No arithmetic is done. So the design is only about memory
 // transactions:
-//   - copy and rows move the widest vector (16, 8, 4, 2 or 1 bytes) that
-//     the pointers and the row width allow. The copy keeps 4 loads in
-//     flight a thread; rows is a grid-stride loop in which a warp reads and
-//     writes whole consecutive rows (a 576-byte bf16 row of C3 = 288 is 36
-//     16-byte vectors).
+//   - copy: by its size. From 32 MiB up, with pointers and a byte count
+//     that are multiples of 16 (every tensor PyTorch allocates), a TMA
+//     bulk-copy ring: one block of one issuing thread an SM, 16 KB chunks
+//     (block b takes chunks b, b + grid, ...), each loaded by cp.async.bulk
+//     onto an mbarrier and stored by cp.async.bulk from the same stage of
+//     shared memory, the stores draining while the loads of the other
+//     stages are in flight. No thread moves a byte. The ring's depth
+//     follows the copy: half of a block's chunks, 8 to 13 stages (a deeper
+//     ring keeps more bytes in flight on a long copy, but its shared memory
+//     costs set-up time that a short one does not earn back). Below 32 MiB
+//     (Swin-T's stages 3-4 and X7's blocks: 28.9 and 14.5 MB), where that
+//     set-up is a visible share, and for a misaligned view or an odd byte
+//     count, a grid of 512-thread blocks moves the widest vector (16, 8, 4,
+//     2 or 1 bytes) that the pointers and the length allow, 2 loads in
+//     flight a thread (in scratch runs on the H100, 1-2 vectors a thread
+//     came closest to clone there; 4 or 8, and persistent grids, were
+//     slower).
+//   - rows moves the widest vector (16, 8, 4, 2 or 1 bytes) that the
+//     pointers and the row width allow, in a grid-stride loop in which a
+//     warp reads and writes whole consecutive rows (a 576-byte bf16 row of
+//     C3 = 288 is 36 16-byte vectors).
 //   - transpose: a tile in shared memory, read along G and written along
 //     N*C, so both sides are coalesced. A bf16 tile is 64 x 64 and each
 //     lane moves one 32-bit word (two bf16) on both sides, as a naive 2-byte
@@ -42,11 +58,17 @@
 
 #include <cstdint>
 
+#include "dtype.cuh"
+#include "sm90.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxBlocks = 132 * 8;  // 8 resident 256-thread blocks on each of 132 SMs
-constexpr int kUnroll = 4;
+constexpr int kCopyThreads = 512, kCopyUnroll = 2;  // the vector copy
+constexpr int kChunk = 16384;                      // bytes of one bulk copy
+constexpr int kMinStages = 8, kMaxStages = 13;     // the ring's depth (13 x 16 KB = 208 KB)
+constexpr long long kBulkMin = 32ll << 20;         // bytes from which a copy takes the ring
 
 int grid_for(long long work) {
   const long long b = (work + kThreads - 1) / kThreads;
@@ -63,26 +85,82 @@ int vec_bytes(uintptr_t a, uintptr_t b, long long c) {
 
 // ------------------------------------------------------------------ copy (X3, X7 A-D)
 
-// A block moves kThreads * kUnroll consecutive vectors, each thread kUnroll
-// of them kThreads apart: all its loads in flight before its stores.
+// The ring: thread 0 of block b copies chunks b, b + gridDim.x, ... (local
+// index i) through stage i % stages: the first `stages` loads at once, then
+// for each chunk its store, and the refill of the stage whose store went
+// out one chunk earlier once that store has read it.
+__global__ void copy_bulk_kernel(const unsigned char* __restrict__ x,
+                                 unsigned char* __restrict__ y, long long nbytes, int stages) {
+  extern __shared__ __align__(128) unsigned char ring[];
+  __shared__ uint64_t full[kMaxStages];
+  const long long chunks = (nbytes + kChunk - 1) / kChunk;
+  if (threadIdx.x != 0 || blockIdx.x >= chunks) return;
+  for (int s = 0; s < stages; ++s) sm90::mbar_init(&full[s], 1);
+  sm90::fence_barrier_init();
+  const long long mine = (chunks - blockIdx.x + gridDim.x - 1) / gridDim.x;
+  auto bytes = [&](long long i) {
+    const long long left = nbytes - (blockIdx.x + i * gridDim.x) * kChunk;
+    return static_cast<uint32_t>(left < kChunk ? left : kChunk);
+  };
+  auto load = [&](long long i) {
+    uint64_t* bar = &full[i % stages];
+    sm90::mbar_expect_tx(bar, bytes(i));
+    sm90::bulk_load(ring + (i % stages) * kChunk, x + (blockIdx.x + i * gridDim.x) * kChunk,
+                    bytes(i), bar);
+  };
+  for (long long i = 0; i < mine && i < stages; ++i) load(i);
+  for (long long i = 0; i < mine; ++i) {
+    sm90::mbar_wait(&full[i % stages], static_cast<uint32_t>(i / stages) & 1);
+    sm90::bulk_store(y + (blockIdx.x + i * gridDim.x) * kChunk, ring + (i % stages) * kChunk,
+                     bytes(i));
+    sm90::bulk_commit();
+    if (i >= 1 && i - 1 + stages < mine) {  // store i - 1 has read its stage: refill it
+      sm90::bulk_wait_read<1>();
+      load(i - 1 + stages);
+    }
+  }
+  sm90::bulk_wait();
+}
+
+cudaError_t launch_copy_bulk(const void* x, void* y, long long nbytes, cudaStream_t s) {
+  const long long chunks = (nbytes + kChunk - 1) / kChunk;
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess) e = nkbx::allow_smem(copy_bulk_kernel, kMaxStages * kChunk);
+  if (e != cudaSuccess) return e;
+  const long long blocks = chunks < sms ? chunks : sms;
+  const long long half = (chunks + 2 * blocks - 1) / (2 * blocks);
+  const int stages = static_cast<int>(half < kMinStages ? kMinStages
+                                                        : (half > kMaxStages ? kMaxStages : half));
+  copy_bulk_kernel<<<static_cast<unsigned>(blocks), 32, static_cast<size_t>(stages) * kChunk, s>>>(
+      static_cast<const unsigned char*>(x), static_cast<unsigned char*>(y), nbytes, stages);
+  return cudaGetLastError();
+}
+
+// The vector copy: a block moves kCopyThreads * kCopyUnroll consecutive
+// vectors, each thread kCopyUnroll of them kCopyThreads apart, all its loads
+// in flight before its stores.
 template <typename V>
-__global__ void copy_kernel(const V* __restrict__ x, V* __restrict__ y, long long n) {
-  const long long base = static_cast<long long>(blockIdx.x) * (kThreads * kUnroll) + threadIdx.x;
-  V v[kUnroll];
+__global__ void __launch_bounds__(kCopyThreads) copy_kernel(const V* __restrict__ x,
+                                                            V* __restrict__ y, long long n) {
+  const long long base =
+      static_cast<long long>(blockIdx.x) * (kCopyThreads * kCopyUnroll) + threadIdx.x;
+  V v[kCopyUnroll];
 #pragma unroll
-  for (int u = 0; u < kUnroll; ++u)
-    if (base + u * kThreads < n) v[u] = x[base + u * kThreads];
+  for (int u = 0; u < kCopyUnroll; ++u)
+    if (base + u * kCopyThreads < n) v[u] = x[base + u * kCopyThreads];
 #pragma unroll
-  for (int u = 0; u < kUnroll; ++u)
-    if (base + u * kThreads < n) y[base + u * kThreads] = v[u];
+  for (int u = 0; u < kCopyUnroll; ++u)
+    if (base + u * kCopyThreads < n) y[base + u * kCopyThreads] = v[u];
 }
 
 template <typename V>
 cudaError_t launch_copy(const void* x, void* y, long long nbytes, cudaStream_t s) {
   const long long n = nbytes / static_cast<long long>(sizeof(V));
-  const long long blocks = (n + kThreads * kUnroll - 1) / (kThreads * kUnroll);
+  const long long blocks = (n + kCopyThreads * kCopyUnroll - 1) / (kCopyThreads * kCopyUnroll);
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  copy_kernel<V><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+  copy_kernel<V><<<static_cast<unsigned>(blocks), kCopyThreads, 0, s>>>(
       static_cast<const V*>(x), static_cast<V*>(y), n);
   return cudaGetLastError();
 }
@@ -204,7 +282,9 @@ extern "C" int nkbx_layout_copy(const void* x, void* y, long long nbytes, void* 
   if (nbytes <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (vec_bytes(reinterpret_cast<uintptr_t>(x), reinterpret_cast<uintptr_t>(y), nbytes)) {
-    case 16: return static_cast<int>(launch_copy<uint4>(x, y, nbytes, s));
+    case 16:
+      return static_cast<int>(nbytes >= kBulkMin ? launch_copy_bulk(x, y, nbytes, s)
+                                                 : launch_copy<uint4>(x, y, nbytes, s));
     case 8: return static_cast<int>(launch_copy<uint2>(x, y, nbytes, s));
     case 4: return static_cast<int>(launch_copy<uint32_t>(x, y, nbytes, s));
     case 2: return static_cast<int>(launch_copy<uint16_t>(x, y, nbytes, s));

@@ -6,27 +6,52 @@
 //   inputs, with no second pass over y.
 //
 // Replaces experiments/pallas_fused_matmul_bn.py:30 `_kernel` (its
-// pallas_call at :69, entry `fused_matmul_bn_relu_stats` :53). C entry
-// `nkbx_matmul_bn`.
+// pallas_call at :69, entry `fused_matmul_bn_relu_stats` :53). C entries
+// `nkbx_matmul_bn_wgmma` (the route) and `nkbx_matmul_bn` (the first
+// design).
 //
 // What bounds it on an H100: at the probe's shapes (Cin = Cout = C = 128,
 // 256, 512 over 50k-800k rows, bf16) the bytes of x in and y out at
-// 3.35 TB/s, about twice the time of the 2*N*C*C operations on the tensor
-// cores; so the design reads x once per 128-wide column tile (the blocks of
-// one row tile run next to each other and share it through L2), writes y
-// once, and keeps the statistics out of device memory but for one f32 row
-// of partial sums per row tile.
+// 3.35 TB/s; at C = 512 the 2*N*C*C operations at 989 TFLOP/s take nearly
+// as long (0.027 ms against 0.031). So the design streams x from device
+// memory once, writes y once, keeps w and the statistics out of device
+// memory but for one f32 row of partial sums per block, and keeps the
+// tensor cores fed while it streams.
 //
 // The TPU kernel carries the sums from one grid step to the next; blocks
 // here run in no order, so each block writes its rows' column sums to a
-// (row tiles, Cout) scratch, and `column_sums` adds the tiles in a fixed
-// order: two runs agree bit for bit.
+// scratch row, and `column_sums` adds the rows in a fixed order: two runs
+// agree bit for bit.
 //
-// Two kernels:
+// The route, matmul_bn_wgmma_kernel<BN> (bf16, Cin and Cout multiples of
+// 64, Cin <= 512; sm90.cuh's pieces):
+// - A persistent grid: one block an SM, each owning one BN-wide column
+//   tile (BN = 128, or 64 where Cout is not a multiple of 128) and walking
+//   the 128-row tiles g, g + G, ... of its group g in order. The blocks of
+//   one row tile run side by side, so x comes from device memory once and
+//   from L2 for the other column tiles.
+// - w's (Cin, BN) slice is loaded once by TMA and stays in shared memory;
+//   only x streams, in (128 x 64) boxes through a ring of up to 8 stages
+//   (full/empty mbarriers) filled by one producer thread (its warpgroup at
+//   40 registers a thread).
+// - Two consumer warpgroups (232 registers) take 64 rows each: wgmma
+//   m64nBNk16, A (x) K-major and B (w) N-major from shared memory, f32
+//   accumulators in registers, one group of 4 products in flight while the
+//   next stage's wait runs.
+// - The epilogue works on the accumulator fragments: scale, bias and relu
+//   in registers, bf16 pairs into a swizzled staging tile, a TMA store that
+//   clips rows >= N and overlaps the next tile's products. The sums keep
+//   rows < N by selection (relu(bias) != 0 on a padded row): a thread's
+//   two rows, then an xor-shuffle reduce-scatter over the 8 lanes of a
+//   column ((l0+l4)+(l2+l6)) + ((l1+l5)+(l3+l7)), added to the lane's
+//   running sums tile after tile; at the end the 8 warps' running sums are
+//   added in order into the block's partial row.
+//
+// The first design, for f32 and bf16 at other widths:
 // - matmul_bn_tc_kernel, bf16: warp-level tensor cores (WMMA 16x16x16,
 //   f32 accumulators), a 128x128 output tile per block of 8 warps (each
 //   32x64), 32-deep slabs of x and w staged through shared memory by
-//   cp.async, two in flight. Not yet Hopper's wgmma/TMA.
+//   cp.async, two in flight.
 // - matmul_bn_fma_kernel, f32: float FMAs on the CUDA cores, a 64x64 tile
 //   per block of 256 threads, each 4x4 outputs.
 // Both stage the f32 product tile in shared memory and share one epilogue.
@@ -35,7 +60,11 @@
 
 #include <mma.h>
 
+#include <algorithm>
+#include <initializer_list>
+
 #include "dtype.cuh"
+#include "sm90.cuh"
 
 namespace {
 
@@ -221,6 +250,227 @@ __global__ void __launch_bounds__(kFmaThreads) matmul_bn_fma_kernel(Args p) {
                                          static_cast<float*>(p.y), p.part_s, p.part_q, tile);
 }
 
+// ------------------------------------------------------------------ the route
+
+constexpr int kWgBM = 128;                   // rows of a tile: two warpgroups of 64
+constexpr int kWgKC = 64;                    // x columns of one ring stage (128 bytes)
+constexpr int kWgStage = kWgBM * kWgKC * 2;  // bytes of one ring stage
+constexpr int kWgMaxStages = 8;
+constexpr int kWgThreads = 384;              // warpgroups 0-1 consume, warp 8 produces
+constexpr int kWgMaxCin = 512;
+constexpr size_t kMaxSmem = 232448;  // bytes of shared memory one H100 block may have
+
+struct WgArgs {
+  const float* scale;
+  const float* bias;
+  float* part_s;
+  float* part_q;
+  int n, cin, cout, col_tiles, row_tiles, groups, stages;
+};
+
+// Shared memory of the route: w's slice, the x ring, the y staging tile
+// (also the warps' sums at the end), scale and bias of the block's columns,
+// the barriers; the 1024-byte atoms need an aligned base.
+__host__ __device__ constexpr size_t wg_w_bytes(int cin, int bn) {
+  return static_cast<size_t>(cin) * bn * 2;
+}
+__host__ __device__ constexpr size_t wg_fixed_bytes(int cin, int bn) {
+  return wg_w_bytes(cin, bn) + static_cast<size_t>(kWgBM) * bn * 2 + 2 * bn * 4 +
+         (2 * kWgMaxStages + 1) * 8 + 1024;
+}
+
+// One step of the reduce-scatter of a warp's column sums: lanes whose bit
+// `BIT` is clear keep values [0, HALF), the others [HALF, 2 HALF), each
+// adding its partner's copy; the kept values move to [0, HALF).
+template <int HALF, int BIT, int N>
+__device__ __forceinline__ void scatter_half(float (&ps)[N], float (&pq)[N], int lane) {
+  const bool up = lane & BIT;
+#pragma unroll
+  for (int k = 0; k < HALF; ++k) {
+    const float ss = up ? ps[k] : ps[k + HALF], sq = up ? pq[k] : pq[k + HALF];
+    const float ks = up ? ps[k + HALF] : ps[k], kq = up ? pq[k + HALF] : pq[k];
+    ps[k] = ks + __shfl_xor_sync(0xffffffffu, ss, BIT);
+    pq[k] = kq + __shfl_xor_sync(0xffffffffu, sq, BIT);
+  }
+}
+
+template <int BN>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    matmul_bn_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
+                           const __grid_constant__ CUtensorMap tw,
+                           const __grid_constant__ CUtensorMap ty, WgArgs p) {
+  constexpr int kAcc = BN / 2;      // accumulators a thread (m64nBN)
+  constexpr int kCols = BN / 4;     // columns a thread holds, two rows each
+  constexpr int kKeep = kCols / 8;  // columns a lane keeps after the reduce-scatter
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  unsigned char* w_s = smem;
+  unsigned char* ring = w_s + wg_w_bytes(p.cin, BN);
+  unsigned char* y_s = ring + static_cast<size_t>(p.stages) * kWgStage;
+  float* sc_s = reinterpret_cast<float*>(y_s + kWgBM * BN * 2);
+  float* bi_s = sc_s + BN;
+  uint64_t* full = reinterpret_cast<uint64_t*>(bi_s + BN);
+  uint64_t* empty = full + kWgMaxStages;
+  uint64_t* w_full = empty + kWgMaxStages;
+
+  const int col_tile = blockIdx.x % p.col_tiles, group = blockIdx.x / p.col_tiles;
+  const int n0 = col_tile * BN, nk = p.cin / kWgKC;
+  const int wg = threadIdx.x / 128;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < p.stages; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], 8);  // lane 0 of each consumer warp
+    }
+    sm90::mbar_init(w_full, 1);
+    sm90::fence_barrier_init();
+  }
+  if (threadIdx.x < BN) {
+    sc_s[threadIdx.x] = p.scale[n0 + threadIdx.x];
+    bi_s[threadIdx.x] = p.bias[n0 + threadIdx.x];
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // ------------------------------------------------ producer
+    sm90::reg_dealloc<40>();
+    if (threadIdx.x == 256) {
+      sm90::prefetch_map(&tx);
+      sm90::prefetch_map(&tw);
+      sm90::mbar_expect_tx(w_full, static_cast<uint32_t>(wg_w_bytes(p.cin, BN)));
+      for (int nb = 0; nb < BN / 64; ++nb)  // 64-column atoms of N, each cin rows of 128 bytes
+        for (int k0 = 0; k0 < p.cin; k0 += 64)
+          sm90::tma_load_2d(w_s + (static_cast<size_t>(nb) * p.cin + k0) * 128, &tw,
+                            n0 + nb * 64, k0, w_full);
+      int it = 0;
+      for (int t = group; t < p.row_tiles; t += p.groups)
+        for (int kc = 0; kc < nk; ++kc, ++it) {
+          const int s = it % p.stages;
+          const uint32_t ph = (it / p.stages) & 1;
+          sm90::mbar_wait(&empty[s], ph ^ 1);
+          sm90::mbar_expect_tx(&full[s], kWgStage);
+          sm90::tma_load_2d(ring + static_cast<size_t>(s) * kWgStage, &tx, kc * kWgKC,
+                            t * kWgBM, &full[s]);
+        }
+    }
+  } else {  // ------------------------------------------------------ consumers
+    sm90::reg_alloc<232>();
+    const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+    const int rl = warp * 16 + lane / 4;  // the thread's first row in its warpgroup's 64
+    float acc[kAcc];
+    float run_s[kKeep], run_q[kKeep];
+#pragma unroll
+    for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
+#pragma unroll
+    for (int k = 0; k < kKeep; ++k) run_s[k] = run_q[k] = 0.f;
+    sm90::mbar_wait(w_full, 0);
+    const uint32_t w_lbo = static_cast<uint32_t>(p.cin) * 128;
+    int it = 0;
+    for (int t = group; t < p.row_tiles; t += p.groups) {
+      int prev = 0;
+      for (int kc = 0; kc < nk; ++kc, ++it) {
+        const int s = it % p.stages;
+        sm90::mbar_wait(&full[s], (it / p.stages) & 1);
+        const unsigned char* a_s = ring + static_cast<size_t>(s) * kWgStage + wg * 64 * 128;
+        sm90::fence_regs(acc);
+        sm90::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kWgKC / 16; ++kk) {
+          const uint64_t a = sm90::make_desc(a_s + kk * 32, 16, 1024);
+          const uint64_t b = sm90::make_desc(w_s + (kc * 4 + kk) * 2048, w_lbo, 1024);
+          if constexpr (BN == 128)
+            sm90::wgmma_m64n128k16(acc, a, b, kc | kk);
+          else
+            sm90::wgmma_m64n64k16(acc, a, b, kc | kk);
+        }
+        sm90::wgmma_commit();
+        sm90::fence_regs(acc);
+        if (kc > 0) {  // the previous stage's products are done: free it
+          sm90::wgmma_wait<1>();
+          __syncwarp();
+          if (lane == 0) sm90::mbar_arrive(&empty[prev]);
+        }
+        prev = s;
+      }
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(acc);
+      __syncwarp();
+      if (lane == 0) sm90::mbar_arrive(&empty[prev]);
+
+      // epilogue: the staging tile is free once the last store has read it
+      if (threadIdx.x % 128 == 0) sm90::bulk_wait_read();
+      sm90::named_sync(1 + wg, 128);
+      const int row0 = t * kWgBM + wg * 64 + rl;
+      const bool in0 = row0 < p.n, in1 = row0 + 8 < p.n;
+      float ps[kCols], pq[kCols];
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int cl = 8 * j + 2 * (lane % 4);
+        float v[4];
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            v[2 * h + e] = fmaxf(
+                __fadd_rn(__fmul_rn(acc[4 * j + 2 * h + e], sc_s[cl + e]), bi_s[cl + e]), 0.f);
+        // rows rl and rl + 8 of the 64-column box j / 8, chunk j % 8 swizzled by the row
+        unsigned char* box = y_s + (wg * (BN / 64) + j / 8) * 8192;
+        const int chunk = ((j % 8) ^ (rl % 8)) * 16 + (lane % 4) * 4;
+        *reinterpret_cast<__nv_bfloat162*>(box + rl * 128 + chunk) =
+            __floats2bfloat162_rn(v[0], v[1]);
+        *reinterpret_cast<__nv_bfloat162*>(box + (rl + 8) * 128 + chunk) =
+            __floats2bfloat162_rn(v[2], v[3]);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float a = in0 ? v[e] : 0.f, b = in1 ? v[2 + e] : 0.f;
+          ps[2 * j + e] = a + b;
+          pq[2 * j + e] = a * a + b * b;
+        }
+      }
+      sm90::fence_async_shared();
+      sm90::named_sync(1 + wg, 128);
+      if (threadIdx.x % 128 == 0 && t * kWgBM + wg * 64 < p.n) {
+#pragma unroll
+        for (int nb = 0; nb < BN / 64; ++nb)
+          sm90::tma_store_2d(&ty, y_s + (wg * (BN / 64) + nb) * 8192, n0 + nb * 64,
+                             t * kWgBM + wg * 64);
+        sm90::bulk_commit();
+      }
+      // reduce-scatter over the 8 lanes of a column (lane bits 4, 3, 2)
+      scatter_half<kCols / 2, 16>(ps, pq, lane);
+      scatter_half<kCols / 4, 8>(ps, pq, lane);
+      scatter_half<kCols / 8, 4>(ps, pq, lane);
+#pragma unroll
+      for (int k = 0; k < kKeep; ++k) {
+        run_s[k] += ps[k];
+        run_q[k] += pq[k];
+      }
+    }
+    // the block's partial row: the 8 warps' running sums added in order
+    if (threadIdx.x % 128 == 0) sm90::bulk_wait();
+    sm90::named_sync(3, 256);
+    float* red_s = reinterpret_cast<float*>(y_s);
+    float* red_q = red_s + 8 * BN;
+    const int w8 = wg * 4 + warp;
+#pragma unroll
+    for (int k = 0; k < kKeep; ++k) {
+      const int i = (lane / 4) * kKeep + k;  // index into the thread's kCols columns
+      const int cl = 8 * (i / 2) + 2 * (lane % 4) + (i % 2);
+      red_s[w8 * BN + cl] = run_s[k];
+      red_q[w8 * BN + cl] = run_q[k];
+    }
+    sm90::named_sync(3, 256);
+    if (threadIdx.x < BN) {
+      float s = red_s[threadIdx.x], q = red_q[threadIdx.x];
+      for (int w = 1; w < 8; ++w) {
+        s += red_s[w * BN + threadIdx.x];
+        q += red_q[w * BN + threadIdx.x];
+      }
+      p.part_s[static_cast<size_t>(group) * p.cout + n0 + threadIdx.x] = s;
+      p.part_q[static_cast<size_t>(group) * p.cout + n0 + threadIdx.x] = q;
+    }
+  }
+}
+
 // sum[c] and sumsq[c] over the row tiles' partials: block (32 columns x 32
 // lanes); lane l adds tiles l, l + 32, ... in order, then lane 0 adds the
 // lanes in order.
@@ -281,5 +531,56 @@ extern "C" int nkbx_matmul_bn(const void* x, const void* w, const void* scale, c
   column_sums<<<(cout + kRC - 1) / kRC, dim3(kRC, kRL), 0, s>>>(
       static_cast<const float*>(part_s), static_cast<const float*>(part_q),
       static_cast<float*>(sum), static_cast<float*>(sumsq), tiles, cout);
+  return static_cast<int>(cudaGetLastError());
+}
+
+
+// The route: x (n, cin) and w (cin, cout) bf16, row-major, 16-byte
+// aligned; scale, bias (cout) float; y (n, cout) bf16; sum, sumsq (cout)
+// float; scratch part_s, part_q (at least ceil(n / 128) rows of cout)
+// float. cin and cout are multiples of 64, cin <= 512. The grid is one
+// block an SM of the current device (their count alone fixes the order of
+// the sums). Returns the CUDA error code of the launches, or
+// cudaErrorInvalidValue for what the route does not take.
+extern "C" int nkbx_matmul_bn_wgmma(const void* x, const void* w, const void* scale,
+                                    const void* bias, void* y, void* sum, void* sumsq,
+                                    void* part_s, void* part_q, int n, int cin, int cout,
+                                    void* stream) {
+  if (n <= 0 || cin <= 0 || cout <= 0 || cin % 64 || cout % 64 || cin > kWgMaxCin)
+    return static_cast<int>(cudaErrorInvalidValue);
+  for (const void* ptr : {x, w, static_cast<const void*>(y)})
+    if (reinterpret_cast<uintptr_t>(ptr) % 16) return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int bn = cout % 128 == 0 ? 128 : 64;
+  const int col_tiles = cout / bn, row_tiles = (n + kWgBM - 1) / kWgBM;
+  const int groups = std::max(1, std::min(row_tiles, sms / col_tiles));
+  const size_t fixed = wg_fixed_bytes(cin, bn);
+  const int stages =
+      static_cast<int>(std::min<size_t>(kWgMaxStages, (kMaxSmem - fixed) / kWgStage));
+  if (fixed >= kMaxSmem || stages < 2) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = fixed + static_cast<size_t>(stages) * kWgStage;
+  CUtensorMap tx, tw, ty;
+  if (!sm90::encode_bf16_2d(&tx, x, n, cin, kWgBM) || !sm90::encode_bf16_2d(&tw, w, cin, cout, 64) ||
+      !sm90::encode_bf16_2d(&ty, y, n, cout, 64))
+    return static_cast<int>(cudaErrorInvalidValue);
+  WgArgs p{static_cast<const float*>(scale), static_cast<const float*>(bias),
+           static_cast<float*>(part_s), static_cast<float*>(part_q), n, cin, cout, col_tiles,
+           row_tiles, groups, stages};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bn == 128) {
+    e = nkbx::allow_smem(matmul_bn_wgmma_kernel<128>, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    matmul_bn_wgmma_kernel<128><<<col_tiles * groups, kWgThreads, smem, s>>>(tx, tw, ty, p);
+  } else {
+    e = nkbx::allow_smem(matmul_bn_wgmma_kernel<64>, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    matmul_bn_wgmma_kernel<64><<<col_tiles * groups, kWgThreads, smem, s>>>(tx, tw, ty, p);
+  }
+  column_sums<<<(cout + kRC - 1) / kRC, dim3(kRC, kRL), 0, s>>>(
+      static_cast<const float*>(part_s), static_cast<const float*>(part_q),
+      static_cast<float*>(sum), static_cast<float*>(sumsq), groups, cout);
   return static_cast<int>(cudaGetLastError());
 }

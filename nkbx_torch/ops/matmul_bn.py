@@ -9,8 +9,13 @@ dtype: the next BatchNorm's inputs without a second pass over y.
 
 :func:`fused_matmul_bn_relu_stats` launches ``csrc/matmul_bn.cu`` on CUDA
 tensors and computes :func:`reference_matmul_bn_relu_stats` on CPU tensors.
-The kernel's column sums run in a fixed order, so two runs agree bit for
-bit. ``python -m nkbx_torch.ops.matmul_bn [--check]`` runs the probe.
+Where :func:`takes_wgmma` holds (bf16, Cin and Cout multiples of 64, Cin at
+most 512: every probe shape and ResNet's 1x1 convolutions up to 512 input
+channels) it takes the route on ``wgmma`` and TMA (``nkbx_matmul_bn_wgmma``);
+f32 and other widths take the first design (``nkbx_matmul_bn``), which
+:func:`first_design` also reaches in bf16. The column sums run in a fixed
+order, so two runs on one card agree bit for bit. ``python -m
+nkbx_torch.ops.matmul_bn [--check]`` runs the probe.
 """
 
 from __future__ import annotations
@@ -21,13 +26,16 @@ import sys
 
 import torch
 
-from nkbx_torch.core.runtime import cuda_ms, resolve_device
+from nkbx_torch.core.runtime import cold_ms, resolve_device
 from nkbx_torch.ops import _build
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"nkbx_matmul_bn": [_P] * 9 + [_I] * 4 + [_P]}
+_SIGNATURES = {"nkbx_matmul_bn": [_P] * 9 + [_I] * 4 + [_P],
+               "nkbx_matmul_bn_wgmma": [_P] * 9 + [_I] * 3 + [_P]}
 _TILE_ROWS = {torch.bfloat16: 128, torch.float32: 64}  # rows of one block (matmul_bn.cu)
 _GRID = 16  # on the card Cin and Cout are multiples of this
+ROUTE_WIDTH = 64  # the route's Cin and Cout are multiples of this (one swizzled row of bf16)
+ROUTE_MAX_CIN = 512  # w's (Cin, 128) slice stays in shared memory
 
 # the probe's shapes (its docstring, experiments/pallas_fused_matmul_bn.py:11-13):
 # (N, C) with Cin = Cout = C, bf16: ResNet-50 activations at batch 64
@@ -66,6 +74,14 @@ def _check(x, w, scale, bias, tile_rows):
         raise ValueError(f"matmul_bn: scale and bias must hold Cout={cout} values")
 
 
+def takes_wgmma(n: int, cin: int, cout: int, dtype) -> bool:
+    """Whether X1 takes the route on ``wgmma`` and TMA: bf16, Cin and Cout
+    multiples of 64 and Cin at most 512 (w's slice stays in shared memory),
+    at least one row."""
+    return (dtype == torch.bfloat16 and n > 0 and cin % ROUTE_WIDTH == 0
+            and cout % ROUTE_WIDTH == 0 and 0 < cin <= ROUTE_MAX_CIN and cout > 0)
+
+
 def fused_matmul_bn_relu_stats(x, w, scale, bias, tile_rows: int = 1024):
     """``(y, sum, sumsq)``: y = relu((x @ w) * scale + bias) in x's dtype, and
     the per-channel f32 sum and sum of squares of the f32 y.
@@ -74,15 +90,26 @@ def fused_matmul_bn_relu_stats(x, w, scale, bias, tile_rows: int = 1024):
     (Cout,), cast to f32. N must be a multiple of ``tile_rows`` (the
     probe's contract; the kernel tiles rows its own way). On CUDA tensors
     this launches X1 (Cin and Cout multiples of 16) and counts it on
-    ``fused_matmul_bn_relu_stats.launches``; on CPU tensors it computes the
-    plain version."""
+    ``fused_matmul_bn_relu_stats.launches``, and those on the route
+    (:func:`takes_wgmma`) also on ``.wgmma_launches``; on CPU tensors it
+    computes the plain version."""
     _check(x, w, scale, bias, tile_rows)
     if not x.is_cuda:
         return reference_matmul_bn_relu_stats(x, w, scale, bias)
-    return _launch(x, w, scale, bias)
+    return _launch(x, w, scale, bias, takes_wgmma(x.shape[0], x.shape[1], w.shape[1], x.dtype))
 
 
-def _launch(x, w, scale, bias):
+def first_design(x, w, scale, bias):
+    """X1's first design (``nkbx_matmul_bn``: WMMA in bf16, FMAs in f32) on
+    CUDA tensors at any width it takes, off the route; counted on
+    ``fused_matmul_bn_relu_stats.launches``. For the card tests and timing."""
+    if not x.is_cuda:
+        raise ValueError("matmul_bn first_design launches the kernel: it takes CUDA tensors")
+    _check(x, w, scale, bias, 1)
+    return _launch(x, w, scale, bias, False)
+
+
+def _launch(x, w, scale, bias, wgmma):
     (n, cin), cout = x.shape, w.shape[1]
     dt, dev = x.dtype, x.device
     if dt not in _TILE_ROWS:
@@ -104,17 +131,22 @@ def _launch(x, w, scale, bias):
     s, q = torch.empty(cout, **f32), torch.empty(cout, **f32)
     part = torch.empty(2, tiles, cout, **f32)
     lib = _build.load("matmul_bn", _SIGNATURES)
+    ptrs = (x.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
+            s.data_ptr(), q.data_ptr(), part[0].data_ptr(), part[1].data_ptr())
+    stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        err = lib.nkbx_matmul_bn(x.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-                                 y.data_ptr(), s.data_ptr(), q.data_ptr(), part[0].data_ptr(),
-                                 part[1].data_ptr(), n, cin, cout, int(dt == torch.bfloat16),
-                                 torch.cuda.current_stream(dev).cuda_stream)
+        if wgmma:  # part holds ceil(n / 128) rows, at least the route's groups
+            err = lib.nkbx_matmul_bn_wgmma(*ptrs, n, cin, cout, stream)
+        else:
+            err = lib.nkbx_matmul_bn(*ptrs, n, cin, cout, int(dt == torch.bfloat16), stream)
     _build.check(err, "matmul_bn launch")
     fused_matmul_bn_relu_stats.launches += 1
+    fused_matmul_bn_relu_stats.wgmma_launches += int(wgmma)
     return y, s, q
 
 
 fused_matmul_bn_relu_stats.launches = 0  # X1 launches, counted by _launch
+fused_matmul_bn_relu_stats.wgmma_launches = 0  # those on the route
 
 
 # --- the probe, from the command line ------------------------------------------------
@@ -138,10 +170,11 @@ def inputs(n, cin, cout, dtype, device, seed=0):
 
 
 def main(iters=20, device=None):
-    """At each of the probe's shapes (bf16): the kernel's time a launch and its
-    distance from the plain version (y in bf16 ulps of its largest value,
-    the sums relative). Returns one dict per shape; launches the kernel
-    ``iters + 2`` times a shape."""
+    """At each of the probe's shapes (bf16, the route where
+    :func:`takes_wgmma` holds): the kernel's time a launch with a cold L2 and
+    its distance from the plain version (y in bf16 ulps of its largest
+    value, the sums relative). Returns one dict per shape; launches the
+    kernel ``iters + 2`` times a shape."""
     dev = resolve_device(device)
     rows = []
     print(f"{torch.cuda.get_device_name(dev)}: matmul + BN-apply + relu + statistics, bf16")
@@ -153,7 +186,7 @@ def main(iters=20, device=None):
         ulp = 2.0 ** (torch.floor(torch.log2(py.float().abs().max())) - 7)
         y_ulps = float((y.float() - py.float()).abs().max() / ulp)
         sums_rel = max(float((a - b).abs().max() / b.abs().max()) for a, b in ((s, ps), (q, pq)))
-        ms = cuda_ms(lambda: fused_matmul_bn_relu_stats(*args), iters)
+        ms = cold_ms(lambda: fused_matmul_bn_relu_stats(*args), iters)
         print(f"{n:8d} {c:5d} {ms:10.4f} {y_ulps:7.2f} {sums_rel:9.2e}")
         rows.append(dict(n=n, c=c, ms=ms, y_ulps=y_ulps, sums_rel=sums_rel))
     return rows

@@ -94,7 +94,16 @@ def build_train_step(model, criterion, bundle: OptimizerBundle, augment_fn=None,
             return state, _iter_metrics(_detach(preds), label, mask, _detach(loss_out))
 
     step.masked_bn = masked_bn
+    step.has_batchnorm = has_batchnorm(module)
     return step
+
+
+def has_batchnorm(module) -> bool:
+    """Whether the module holds a BatchNorm (whose batch statistics a padded
+    batch would reach)."""
+    from nkbx_torch.models.common import TorchBatchNorm
+
+    return any(isinstance(m, TorchBatchNorm) for m in module.modules())
 
 
 def build_eval_step(model, criterion, augment_fn=None):
@@ -296,7 +305,9 @@ def train_epoch(state, train_loader, train_step, epoch: int, lr_factor: float,
                                     freeze_scale)
         logger.log_iter(metrics)
         tp.step(int(batch["mask"].sum()))
-        if not batch["mask"].all() and not getattr(train_step, "masked_bn", False):
+        # nkbx warns here for any unmasked step; only a BatchNorm sees the padding
+        if (not batch["mask"].all() and not getattr(train_step, "masked_bn", False)
+                and getattr(train_step, "has_batchnorm", True)):
             _warn_unmasked_partial()
         if steps == 0:
             logger.log_images_if_needed(batch["image"])

@@ -23,7 +23,7 @@ from nkbx_torch.train import preempt
 from nkbx_torch.train.checkpoint import (load_cursor, restore_train_state, save_checkpoint,
                                          save_weights)
 from nkbx_torch.train.engine import (EpochCollector, build_eval_step, build_train_step,
-                                     train_epoch, val_epoch)
+                                     has_batchnorm, train_epoch, val_epoch)
 from nkbx_torch.train.optim import backbone_state_factor, get_optimizer, get_scheduler
 from nkbx_torch.train.state import TrainState
 
@@ -49,12 +49,6 @@ def check_options(cfg):
         if value and value != default:
             raise NotImplementedError(f"config option {key}={value!r} is not ported to "
                                       f"nkbx_torch yet (ROADMAP.md, {item})")
-
-
-def _has_batchnorm(module):
-    from nkbx_torch.models.common import TorchBatchNorm
-
-    return any(isinstance(m, TorchBatchNorm) for m in module.modules())
 
 
 def train(model, train_loader, val_loader, criterion, comet_experiment, local_experiment, cfg,
@@ -94,7 +88,7 @@ def train(model, train_loader, val_loader, criterion, comet_experiment, local_ex
         model, criterion, bundle, augment_fn=augment_train,
         freeze_semantics=cfg.get("freeze_semantics", "decay"),
         # a padded last batch must not reach the BatchNorm statistics
-        masked_bn=(not train_loader.drop_last) and _has_batchnorm(model.module))
+        masked_bn=(not train_loader.drop_last) and has_batchnorm(model.module))
     eval_step = build_eval_step(model, criterion, augment_fn=augment_val)
 
     freeze_scale = 1.0

@@ -43,7 +43,10 @@ shows that the kernel, not its plain version, ran:
   design bit for bit, and the first design still reachable in bf16;
 - X1 the matmul with the BatchNorm-apply + relu epilogue and the output's
   statistics, at small shapes (ragged row and column tiles) and one probe
-  shape, its sums bit for bit the same in two runs; X2 the 3x3 grouped
+  shape, its sums bit for bit the same in two runs; its bf16 route on wgmma
+  + TMA at ragged N and Cin != Cout (64- and 128-wide column tiles, Cin up to
+  512), taken by count, a relaunch bit-identical; the first design reachable
+  in bf16 through its C entry; the route's entry refusing other widths; X2 the 3x3 grouped
   convolution at the probe's check shapes, ragged widths, gw = 1 and 32 and
   resnext50's stage 2, and at every group width 1-32 with H and W of 7, 13
   and 57 and C from 32 to 1024, two launches bit-identical; both wrappers
@@ -51,7 +54,10 @@ shows that the kernel, not its plain version, ran:
 - X3-X7, the Swin layout probes (copy, transpose, window gather and
   scatter, merge, split and pad8), at small, ragged, odd and unaligned
   shapes and one probe shape each, equal bit for bit to their plain
-  versions, each a fresh tensor; a wrong dtype is refused;
+  versions, each a fresh tensor; the copy equal to clone at every vector
+  width it takes (the bulk ring from 32 MiB with a one-vector last chunk
+  and more chunks than its stages, odd counts and offset views, small and
+  large); a wrong dtype is refused;
 - one epoch of the config-driven trainer (``nkbx_torch.train.train``) on a
   tiny Swin through K1, K2, K5 and K6 over an ImageFolder of BMP files,
   with finite metrics, a checkpoint and the launch counts of its steps;
@@ -927,6 +933,74 @@ def test_matmul_bn_kernel_refuses_what_it_cannot_take(cuda_device):
         tmb.fused_matmul_bn_relu_stats(x[:48], w, scale, bias, tile_rows=64)
 
 
+MB_ROUTE_CASES = [
+    # (N, Cin, Cout): one partial tile; ragged N with Cin != Cout both ways (a
+    # 64-wide and a 128-wide column tile); Cin at the route's limit; three
+    # column tiles; ResNet's 256 -> 64 at a ragged stage-1 row count
+    (100, 64, 64),
+    (1000, 256, 64),
+    (1000, 64, 256),
+    (777, 512, 512),
+    (4096, 128, 384),
+    (50_177, 256, 64),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,cin,cout", MB_ROUTE_CASES)
+def test_matmul_bn_route_matches_plain_on_card(cuda_device, n, cin, cout):
+    """X1's route on wgmma + TMA (bf16, Cin and Cout multiples of 64): taken
+    by count, y within one bf16 ulp of each value, the sums 1e-4 of their
+    largest, a relaunch bit-identical."""
+    args = tmb.inputs(n, cin, cout, torch.bfloat16, cuda_device, seed=n % 89)
+    assert tmb.takes_wgmma(n, cin, cout, torch.bfloat16)
+    fn = tmb.fused_matmul_bn_relu_stats
+    before = (fn.launches, fn.wgmma_launches)
+    first = fn(*args, tile_rows=1)
+    again = fn(*args, tile_rows=1)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.wgmma_launches) == (before[0] + 2, before[1] + 2)
+    py, ps, pq = tmb.reference_matmul_bn_relu_stats(*args)
+    y, s, q = first
+    assert y.dtype == torch.bfloat16 and y.shape == (n, cout)
+    assert _ulp_err(y, py) <= 1
+    for got, want in ((s, ps), (q, pq)):
+        assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_matmul_bn_first_design_stays_reachable_in_bf16(cuda_device):
+    """The first design (WMMA) through its own C entry at a width the route
+    takes: off the route by count, held as the route is."""
+    args = tmb.inputs(1000, 256, 64, torch.bfloat16, cuda_device)
+    fn = tmb.fused_matmul_bn_relu_stats
+    before = (fn.launches, fn.wgmma_launches)
+    y, s, q = tmb.first_design(*args)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.wgmma_launches) == (before[0] + 1, before[1])
+    py, ps, pq = tmb.reference_matmul_bn_relu_stats(*args)
+    assert _ulp_err(y, py) <= 1
+    for got, want in ((s, ps), (q, pq)):
+        assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_matmul_bn_route_refuses_what_it_cannot_take(cuda_device):
+    """The route's C entry raises on widths it does not take (no quiet fall
+    back to the first design), and f32 stays off it."""
+    for cin, cout in ((48, 64), (64, 80), (576, 64)):
+        args = tmb.inputs(128, cin, cout, torch.bfloat16, cuda_device)
+        assert not tmb.takes_wgmma(128, cin, cout, torch.bfloat16)
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            tmb._launch(*args, True)
+    fn = tmb.fused_matmul_bn_relu_stats
+    before = fn.wgmma_launches
+    fn(*tmb.inputs(128, 64, 64, torch.float32, cuda_device), tile_rows=128)
+    assert fn.wgmma_launches == before
+
+
 GC_CASES = [
     # (B, H, W, C, gw): the probe's check shapes, ragged widths, gw 1 and 32, stage 2
     (2, 8, 8, 32, 4),
@@ -1040,6 +1114,30 @@ def test_layout_kernels_match_plain_on_card(cuda_device, dtype, name, shape):
         assert torch.equal(got, LAYOUT_PLAIN[name](t)) and got.data_ptr() != t.data_ptr()
 
 
+# (elements, offset in elements) of a copy: the bulk ring from 32 MiB (a last
+# chunk of one 16-byte vector; more chunks than its stages hold); the vector
+# loop at 16 bytes below it, and at 8, 4 and 2 bytes for offset views and odd
+# counts, small and large
+COPY_CASES = [(16_777_224, 0), (20_000_000, 0), (8, 0), (8200, 0), (8, 4), (8, 2), (8, 1),
+              (1001, 0), (8200, 3), (40_001, 6), (10_000_001, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("numel,offset", COPY_CASES)
+def test_copy_kernel_equals_clone_at_every_vector_width(cuda_device, numel, offset):
+    """X3's copy (the bulk-copy ring from 32 MiB at 16-byte alignment, the
+    vector loop otherwise) equals clone bit for bit, in bf16 and f32, as a
+    fresh tensor."""
+    for dtype in (torch.bfloat16, torch.float32):
+        base = torch.randn(numel + offset, device=cuda_device).to(dtype)
+        x = base[offset:]
+        before = tlayout.stream.launches
+        got = tlayout.stream(x)
+        torch.cuda.synchronize()
+        assert tlayout.stream.launches == before + 1
+        assert torch.equal(got, x.clone()) and got.data_ptr() != x.data_ptr()
+
+
 @pytest.mark.cuda
 def test_layout_kernels_refuse_what_they_cannot_take(cuda_device):
     with pytest.raises(TypeError, match="float32 or bfloat16"):
@@ -1123,7 +1221,8 @@ def test_card_tests_collect_without_jax_or_nkbx():
          + 2 * len(SEP_RAGGED_N) * len(SEP_OPERANDS) + 2 * len(GC_WIDTH_CASES)
          + 2 * len(SEP_BWD_RAGGED_N) * len(SEP_BWD_OPERANDS) + 2 * len(TC_BWD_CASES) + 2
          + 2 * len(TC_BWD_CASES) + 2 + 2 * 2 * len(GEMM_ROWS) * len(GEMM_WIDTHS) + 3 + 4
-         + 2 * len(MLP_GEMM_ROWS) * len(MLP_GEMM_WIDTHS) + 2 + 1)
+         + 2 * len(MLP_GEMM_ROWS) * len(MLP_GEMM_WIDTHS) + 2 + 1
+         + len(MB_ROUTE_CASES) + 2 + len(COPY_CASES))
     word = "passed" if torch.cuda.is_available() else "skipped"
     assert re.search(rf"\b{n} {word}\b", proc.stdout), proc.stdout[-2000:]
 
