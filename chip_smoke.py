@@ -172,7 +172,29 @@
    nkbx_torch.ops.matmul_bn``, ``python -m nkbx_torch.ops.grouped_conv
    --wide`` and ``python -m nkbx_torch.ops.layout``), their launch counts
    set to 0 before and read after, every X1 launch on its route.
-8. Prints the kernels' JSON line (all 17 kernels), the card's name and
+8. The shipped-config path (SHIPPED, check_shipped), the user's workflow
+   on the repo's own configs, which runs no kernel of ours (the counts stay
+   0): (a) ``python -m nkbx_torch.train`` on configs/singletask_config.py
+   with only the data paths, run directory, n_epochs (2) and num_workers
+   changed (resnet14t at 128 px, pretrained without a file: the warning
+   must appear; weighted sampling; flips, brightness/contrast, HSV, coarse
+   dropout and Normalize on the card; nadam, cosine, the freeze policy;
+   batch 64) over a seeded annotated CSV of 200 + 70 BMP images under
+   build/shipped_smoke/; (b) ``python -m nkbx_torch.eval`` on the run's
+   weights/best.pt: balanced accuracy and loss within 1e-6 relative of
+   metrics.csv's best epoch; (c) ``python -m nkbx_torch.inference`` on a
+   flat folder of the val images: a row per image, labels in classes.json
+   and equal to argmax of build_predict_fn; (d) the singletask device stage
+   on a batch of 64 at 128 px with fixed draws against the CPU (1e-3 on the
+   0-255 scale, 1e-5 after Normalize) and its ms a batch; (e)
+   configs/multitask_config.py (efficientnet_b0, 224 px) and
+   configs/yolo_crops_config.py (mobilenetv3_large_100, 128 px, FocalLoss)
+   at batch 64: bf16 logits within 5% of the largest f32 logit, 5
+   build_train_step steps on their pipelines with finite losses, a
+   bucket-64 ServingModule forward, step and serving img/s and peak memory;
+   mobilenetv3_small_100 and efficientnetv2_s one forward each, bf16
+   against f32; the yolo_crops train CLI refused for export_serving (A11).
+9. Prints the kernels' JSON line (all 17 kernels), the card's name and
    power limit, and last {"ok": true, "device": {...}}.
 
 Exits non-zero, before printing any result, without a CUDA device, outside
@@ -2935,6 +2957,370 @@ def check_trainer():
     return counts
 
 
+# --- phase 8: the shipped configs (SHIPPED) -----------------------------------------
+
+SHIPPED_DIR = os.path.join("build", "shipped_smoke")  # data, configs and runs
+SHIPPED_SPLITS = (("train", 200), ("val", 70))  # BMP images, 96-200 px a side
+SHIPPED_CLASSES = ["first_class", "second_class"]  # configs/singletask_config.py's
+SHIPPED_WORKERS = 6  # the card's machine has 8 cores
+STAGE_ITERS = 20  # timed device-stage batches
+
+
+def write_annotated_csv(data, seed=0):
+    """A seeded annotated CSV (path, fold, label) of BMP files under
+    ``data/images``: 2 classes of different mean colour, two thirds of each
+    fold in the first (so that the weighted sampler has work to do)."""
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.join(data, "images"), exist_ok=True)
+    rows = ["path,fold,label"]
+    for fold, n in SHIPPED_SPLITS:
+        for i in range(n):
+            c = int(i % 3 == 2)
+            h, w = (int(v) for v in rng.integers(96, 201, 2))
+            tint = np.array([40, -20, -40]) * (1 if c else -1)
+            img = np.clip(rng.integers(0, 256, (h, w, 3)) + tint, 0, 255).astype(np.uint8)
+            name = f"{fold}_{i}.bmp"
+            write_bmp(os.path.join(data, "images", name), img)
+            rows.append(f"{name},{fold},{SHIPPED_CLASSES[c]}")
+    with open(os.path.join(data, "annotations.csv"), "w") as f:
+        f.write("\n".join(rows) + "\n")
+
+
+def shipped_config(name, edits, path):
+    """configs/<name>.py with each (old, new, count) edit made exactly
+    ``count`` times, written to ``path``."""
+    with open(os.path.join("configs", f"{name}.py")) as f:
+        text = f.read()
+    for old, new, count in edits:
+        if text.count(old) != count:
+            fail(f"configs/{name}.py: {old!r} appears {text.count(old)} times, not {count}")
+        text = text.replace(old, new)
+    with open(path, "w") as f:
+        f.write(text)
+    return path
+
+
+def run_cli(module, cfg_path, log_name, env=None):
+    """``python -m <module> -cfg <cfg_path>`` in a subprocess; its output
+    goes to OUT_DIR/<log_name>; returns (process, seconds)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", module, "-cfg", cfg_path], capture_output=True,
+                          text=True, timeout=900, env=env)
+    secs = time.perf_counter() - t0
+    with open(os.path.join(OUT_DIR, log_name), "w") as f:
+        f.write(proc.stdout + proc.stderr)
+    return proc, secs
+
+
+# the eval and inference configs' serving bundle (A11) becomes the model rebuilt
+# from its name and the run's weights
+REBUILT = ('model = {\n    "scripted": True,\n'
+           '    "checkpoint": f"{train_run_path}/weights/best.nkbx",\n}',
+           'model = {"task": task, "model": "resnet14t",\n'
+           '         "checkpoint": f"{train_run_path}/weights/best.pt"}', 1)
+
+
+def check_shipped_cli():
+    """SHIPPED (a)-(c), the user's workflow on the shipped configs, each CLI
+    in a subprocess:
+    (a) ``python -m nkbx_torch.train`` on configs/singletask_config.py with
+        only the data paths, the run directory, n_epochs (2) and num_workers
+        changed (resnet14t at 128 px, pretrained, weighted sampling, flips +
+        brightness/contrast + HSV + coarse dropout + Normalize, nadam,
+        cosine, the freeze policy, batch 64) over a seeded annotated CSV of
+        200 + 70 BMP images; NKBX_PRETRAINED_DIR unset, so the pretrained
+        warning must appear; exit 0, its files, finite metrics;
+    (b) ``python -m nkbx_torch.eval`` (configs/eval_config.py, the model
+        rebuilt from resnet14t and the run's weights/best.pt): balanced
+        accuracy and loss within 1e-6 relative of metrics.csv's row of the
+        best epoch;
+    (c) ``python -m nkbx_torch.inference`` (configs/inference_config.py, the
+        same model) on a flat folder of the val images: a row per image, the
+        labels in classes.json and equal to argmax of build_predict_fn over
+        the same images in this process.
+    Returns the numbers it logged."""
+    from nkbx_torch.data import get_inference_dataset
+    from nkbx_torch.train import build_predict_fn
+    from nkbx_torch.utils import load_config
+
+    shutil.rmtree(SHIPPED_DIR, ignore_errors=True)
+    data = os.path.abspath(os.path.join(SHIPPED_DIR, "data"))
+    run = os.path.abspath(os.path.join(SHIPPED_DIR, "run"))
+    write_annotated_csv(data)
+    workers = ('"num_workers": 8', f'"num_workers": {SHIPPED_WORKERS}')
+    paths = [('annotations_path = "data/annotations.csv"',
+              f'annotations_path = "{data}/annotations.csv"', 1),
+             ('image_base_dir = "data/images"', f'image_base_dir = "{data}/images"', 1)]
+    train_cfg = shipped_config("singletask_config", paths + [
+        ('"path": f"data/runs/{experiment_name}"', f'"path": "{run}"', 1),
+        ("n_epochs = 5", "n_epochs = 2", 1), (*workers, 2)],
+        os.path.join(SHIPPED_DIR, "singletask.py"))
+    env = {k: v for k, v in os.environ.items() if k != "NKBX_PRETRAINED_DIR"}
+    out = {}
+
+    # (a) train
+    proc, out["train_cli_s"] = run_cli("nkbx_torch.train", train_cfg, "shipped_train.log", env)
+    rows = read_metrics_csv(os.path.join(run, "metrics.csv")) if proc.returncode == 0 else []
+    have = [n for n in ("classes.json", "metrics.csv", "weights/best.pt", "weights/last.pt",
+                        "weights/last") if os.path.exists(os.path.join(run, n))]
+    warned = "no converted checkpoint for 'resnet14t'" in proc.stderr
+    log(f"shipped (a): python -m nkbx_torch.train on configs/singletask_config.py exit "
+        f"{proc.returncode} in {out['train_cli_s']:.1f} s; {have}; metrics.csv rows {len(rows)}; "
+        f"the pretrained warning {'appeared' if warned else 'MISSING'}")
+    if proc.returncode != 0 or len(have) != 5 or len(rows) != 2 or not warned:
+        fail(f"the shipped train run failed (log in {OUT_DIR}/shipped_train.log): "
+             f"{proc.stderr[-2000:]}")
+    shutil.copy(os.path.join(run, "metrics.csv"), os.path.join(OUT_DIR, "shipped_metrics.csv"))
+    keys = ("train loss", "Val loss", "Val balanced accuracy", "train images/sec/chip")
+    for r in rows:
+        log(f"   epoch {r['Epoch']}: " + ", ".join(f"{k} {float(r[k]):.6f}" for k in keys))
+        if not all(np.isfinite(float(r[k])) for k in keys):
+            fail("the shipped run's metrics are not finite")
+    out["train_img_s"] = [float(r["train images/sec/chip"]) for r in rows]
+    best, best_acc = None, 0.0
+    for r in rows:  # the trainer's rule: the first epoch that beats the best so far
+        if float(r["Val balanced accuracy"]) > best_acc:
+            best, best_acc = r, float(r["Val balanced accuracy"])
+
+    # (b) eval
+    save = os.path.abspath(os.path.join(SHIPPED_DIR, "eval"))
+    eval_cfg = shipped_config("eval_config", paths + [
+        ('train_run_path = "data/runs/train_singletask_run_1"', f'train_run_path = "{run}"', 1),
+        ('save_path = "data/runs/val_singletask_run_1"', f'save_path = "{save}"', 1),
+        workers + (1,), REBUILT], os.path.join(SHIPPED_DIR, "eval.py"))
+    proc, out["eval_cli_s"] = run_cli("nkbx_torch.eval", eval_cfg, "shipped_eval.log")
+    if proc.returncode != 0:
+        fail(f"the eval CLI failed (log in {OUT_DIR}/shipped_eval.log): {proc.stderr[-2000:]}")
+    with open(os.path.join(save, "metrics.json")) as f:
+        metrics = json.load(f)
+    d_acc = abs(metrics["epoch_acc"] - float(best["Val balanced accuracy"])) / max(best_acc, 1e-12)
+    d_loss = (abs(float(np.mean(metrics["loss"])) - float(best["Val loss"]))
+              / abs(float(best["Val loss"])))
+    out.update(eval_acc=metrics["epoch_acc"], eval_loss=float(np.mean(metrics["loss"])),
+               eval_rel_diff_acc=d_acc, eval_rel_diff_loss=d_loss)
+    log(f"shipped (b): python -m nkbx_torch.eval exit 0 in {out['eval_cli_s']:.1f} s on "
+        f"weights/best.pt (epoch {best['Epoch']}): balanced accuracy {metrics['epoch_acc']:.8f} "
+        f"(metrics.csv {float(best['Val balanced accuracy']):.8f}, rel diff {d_acc:.3e}), loss "
+        f"{out['eval_loss']:.8f} (metrics.csv {float(best['Val loss']):.8f}, rel diff "
+        f"{d_loss:.3e}); tol 1e-6")
+    if d_acc > 1e-6 or d_loss > 1e-6:
+        fail("the eval CLI does not reproduce the trainer's validation of the best epoch")
+
+    # (c) inference
+    folder = os.path.abspath(os.path.join(SHIPPED_DIR, "unknown"))
+    os.makedirs(folder)
+    for name in sorted(os.listdir(os.path.join(data, "images"))):
+        if name.startswith("val_"):
+            shutil.copy(os.path.join(data, "images", name), folder)
+    save = os.path.abspath(os.path.join(SHIPPED_DIR, "infer"))
+    infer_cfg = shipped_config("inference_config", [
+        ('save_path = "data/runs/infer_singletask_run_1"', f'save_path = "{save}"', 1),
+        ('train_run_path = "data/runs/train_singletask_run_1"', f'train_run_path = "{run}"', 1),
+        ('"folder_path": "data/unknown_images"', f'"folder_path": "{folder}"', 1),
+        workers + (1,), REBUILT], os.path.join(SHIPPED_DIR, "inference.py"))
+    proc, out["inference_cli_s"] = run_cli("nkbx_torch.inference", infer_cfg,
+                                           "shipped_inference.log")
+    if proc.returncode != 0:
+        fail(f"the inference CLI failed (log in {OUT_DIR}/shipped_inference.log): "
+             f"{proc.stderr[-2000:]}")
+    with open(os.path.join(save, "inference_annotations.csv")) as f:
+        head, *lines = [line.rstrip("\n").split(",") for line in f]
+    with open(os.path.join(run, "classes.json")) as f:
+        classes = json.load(f)
+    cfg = load_config(infer_cfg)
+    model = get_model(cfg.model, classes, input_size=(cfg.img_size, cfg.img_size),
+                      dtype=torch.bfloat16)
+    loader = get_inference_dataset(cfg.inference_data, cfg.inference_pipeline)
+    predict = build_predict_fn(model, augment_fn=loader.pipeline.device_apply)
+    want = {}
+    for batch in loader.epoch(0):
+        pred = predict(torch.from_numpy(batch["image"]).to(DEV)).argmax(-1).cpu().numpy()
+        want.update({p: classes[int(i)] for p, i, v in zip(batch["path"], pred, batch["mask"])
+                     if v})
+    got = {p: label for label, p in lines}
+    n_val = SHIPPED_SPLITS[1][1]
+    ok = (head == ["label", "path"] and len(lines) == n_val and got == want
+          and all(label in classes for label in got.values()))
+    counts = {c: list(got.values()).count(c) for c in classes}
+    out["inference_rows"], out["inference_labels"] = len(lines), counts
+    log(f"shipped (c): python -m nkbx_torch.inference exit 0 in {out['inference_cli_s']:.1f} s: "
+        f"{len(lines)} rows for {n_val} images, columns {head}, labels {counts}; equal to "
+        f"argmax of build_predict_fn over the same images: {got == want}")
+    if not ok:
+        fail("the inference CLI's annotations do not match the model's predictions")
+    return out
+
+
+def check_device_stage():
+    """SHIPPED (d): configs/singletask_config.py's device stage on a CUDA
+    uint8 batch of 64 at 128 px with fixed draws (from a CPU generator),
+    against the CPU with the same draws: the random ops alone within 1e-3 on
+    the 0-255 scale, the whole stage (Normalize included) within 1e-5; then
+    the stage's ms a batch in bf16 with its own draws from a CUDA generator
+    (CUDA events), and a profile of one batch: device busy ms and launches
+    (a measurement only)."""
+    from nkbx_torch.transforms.device import build_device_fn
+    from nkbx_torch.utils import load_config
+
+    pipe = load_config(os.path.join("configs", "singletask_config.py")).train_pipeline
+    stage = pipe.device_stage()
+    ops = build_device_fn([t for t in pipe.device_transforms if type(t).__name__ != "Normalize"])
+    x = torch.from_numpy(np.random.default_rng(0).integers(0, 256, (BUCKET, 128, 128, 3),
+                                                           dtype=np.uint8))
+    draws = stage.draw(tuple(x.shape), torch.Generator().manual_seed(3))
+    on_card = [{k: v.to(DEV) for k, v in d.items()} for d in draws]
+    xd = x.to(DEV)
+    raw = max_err(ops(xd, draws=on_card).cpu(), ops(x, draws=draws))
+    full = max_err(stage(xd, draws=on_card).cpu(), stage(x, draws=draws))
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    ms = cuda_ms(lambda: stage(xd, torch.bfloat16, generator=gen), iters=STAGE_ITERS)
+    out = {"max_abs_err_0_255": raw, "max_abs_err_normalized": full, "ms_per_batch": ms,
+           "gates": [int(d["gate"].sum()) for d in draws]}
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        stage(xd, torch.bfloat16, generator=gen)
+        torch.cuda.synchronize()
+    events = report_profile(prof, 1, f"in one device-stage batch of {BUCKET} at 128 px", ms,
+                            "profile_device_stage.txt")
+    out["device_busy_ms"] = sum(us for us, _ in events) / 1e3 if events else None
+    out["launches"] = sum(e.count for _, e in events)
+    log(f"shipped (d): the singletask device stage, batch {BUCKET} at 128 px, card against CPU "
+        f"with the same draws: before Normalize max|d| {raw:.3e} (tol 1e-3), after {full:.3e} "
+        f"(tol 1e-5); {ms:.4f} ms a batch in bf16 with its own draws; gates {out['gates']}")
+    if not raw <= 1e-3 or not full <= 1e-5:
+        fail("the device stage on the card disagrees with the CPU")
+    return out
+
+
+SHIPPED_STEPS = 5
+
+
+def shipped_model_check(name, cfg, classes, size):
+    """SHIPPED (e) for one shipped config at its image size, batch 64: bf16
+    against f32 logits (5% of the largest f32 logit), 5 steps of
+    build_train_step with the config's pipeline, optimizer, lr policy,
+    freeze policy and criterion (2 at epoch 0, 3 at the policy's first
+    unfreeze), finite losses, step img/s and peak memory, a profile of one
+    step (device time, idle share, time by kind of kernel); a bucket-64
+    ServingModule forward and its img/s."""
+    from nkbx_torch.export import ServingModule
+    from nkbx_torch.train import (TrainState, backbone_state_factor, build_train_step, get_loss,
+                                  get_optimizer, get_scheduler)
+
+    rng = np.random.default_rng(1)
+    x = torch.as_tensor(rng.integers(0, 256, (BUCKET, size, size, 3), dtype=np.uint8),
+                        device=DEV)
+    if isinstance(classes, dict):
+        label = {t: torch.as_tensor(rng.integers(0, len(c), BUCKET), device=DEV)
+                 for t, c in sorted(classes.items())}
+    else:
+        label = torch.as_tensor(rng.integers(0, len(classes), BUCKET), device=DEV)
+    mask = torch.ones(BUCKET, dtype=torch.bool, device=DEV)
+    logits = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        model = get_model(cfg.model, classes, input_size=(size, size), seed=0, dtype=dtype)
+        with torch.no_grad():
+            out = model(cfg.val_pipeline.device_apply(x, out_dtype=dtype))
+        logits[dtype] = out if isinstance(out, dict) else {"": out}
+    rel = max(max_err(logits[torch.bfloat16][t], logits[torch.float32][t])
+              / logits[torch.float32][t].abs().max().item() for t in logits[torch.float32])
+    policy = cfg.backbone_state_policy
+    unfreeze = min(e for e, s in policy.items() if s == "unfreeze")
+    epochs = [0] * 2 + [unfreeze] * (SHIPPED_STEPS - 2)
+    schedule = get_scheduler(cfg.lr_policy)
+    state = TrainState.create(model, seed=0)
+    step = build_train_step(model, get_loss(cfg.criterion), get_optimizer(cfg.optimizer),
+                            augment_fn=cfg.train_pipeline.device_apply)
+    state, _ = step(state, x, label, mask, schedule(0), backbone_state_factor(policy, 0))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    t0 = time.perf_counter()
+    for e in epochs:
+        state, metrics = step(state, x, label, mask, schedule(e), backbone_state_factor(policy, e))
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / SHIPPED_STEPS * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    losses = [float(v) for v in losses]
+    lr, scale = schedule(unfreeze), backbone_state_factor(policy, unfreeze)
+    profiled = profile_step(lambda st: step(st, x, label, mask, lr, scale), state,
+                            f"shipped_{name}", BUCKET, step_ms)
+    serving = ServingModule(model, buckets=(1, 8, BUCKET))
+    served = serving.forward(x)
+    served = served if isinstance(served, dict) else {"": served}
+    shapes_ok = all(v.shape == (BUCKET, len(classes[t] if t else classes))
+                    and torch.isfinite(v).all() for t, v in served.items())
+    bench = serving.benchmark(BUCKET, iters=20)
+    r = {"model": cfg.model["model"], "img_size": size, "losses": losses,
+         "bf16_vs_f32": rel, "step_ms": step_ms, "step_img_s": BUCKET / step_ms * 1e3,
+         "peak_mb": peak, "serve_pipelined_img_s": bench["pipelined_images_per_sec"],
+         "serve_p50_ms": bench["p50_ms"], "profile": profiled}
+    log(f"shipped (e) {name}: {json.dumps(r)}")
+    if rel > 5e-2 or not all(np.isfinite(losses)) or not shapes_ok:
+        fail(f"shipped {name}: bf16 logits off f32, a loss not finite or a bad serving output")
+    return r
+
+
+def check_shipped_models():
+    """SHIPPED (e): configs/multitask_config.py (efficientnet_b0, 224 px, two
+    targets, cross-entropy) and configs/yolo_crops_config.py
+    (mobilenetv3_large_100, 128 px, FocalLoss) through
+    shipped_model_check; mobilenetv3_small_100 and efficientnetv2_s one
+    bf16 forward each against f32 (5% of the largest f32 logit); and the
+    yolo_crops train CLI, refused for its export_serving (A11)."""
+    from nkbx_torch.utils import load_config
+
+    out = {}
+    multi = load_config(os.path.join("configs", "multitask_config.py"))
+    out["multitask"] = shipped_model_check("multitask_config", multi, multi.classes,
+                                           multi.img_size)
+    yolo = load_config(os.path.join("configs", "yolo_crops_config.py"))
+    out["yolo_crops"] = shipped_model_check("yolo_crops_config", yolo,
+                                            ["cat", "dog", "<GENERATED>_background"],
+                                            yolo.img_size)
+    x = torch.as_tensor(np.random.default_rng(2).integers(0, 256, (8, 224, 224, 3),
+                                                          dtype=np.uint8), device=DEV)
+    for name in ("mobilenetv3_small_100", "efficientnetv2_s"):
+        got = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            model = get_model({"model": name}, SHIPPED_CLASSES, seed=0, dtype=dtype)
+            with torch.no_grad():
+                got[dtype] = model(multi.val_pipeline.device_apply(x, out_dtype=dtype))
+        rel = max_err(got[torch.bfloat16], got[torch.float32]) / got[torch.float32].abs().max()
+        out[name] = float(rel)
+        log(f"shipped (e) {name}: one forward of 8 at 224 px, bf16 against f32 "
+            f"{float(rel):.3e} (tol 5e-2)")
+        if not rel <= 5e-2:
+            fail(f"{name}: bf16 logits off f32")
+    proc, _ = run_cli("nkbx_torch.train", os.path.join("configs", "yolo_crops_config.py"),
+                      "shipped_yolo_crops.log")
+    refused = (proc.returncode != 0 and "export_serving" in proc.stderr and "A11" in proc.stderr)
+    log(f"shipped (e): python -m nkbx_torch.train on configs/yolo_crops_config.py exit "
+        f"{proc.returncode}, refused for export_serving naming A11: {refused}")
+    if not refused:
+        fail("the trainer did not refuse yolo_crops_config.py's export_serving")
+    return out
+
+
+def check_shipped():
+    """SHIPPED, the shipped configs' path: (a)-(c) check_shipped_cli, (d)
+    check_device_stage, (e) check_shipped_models. No kernel of ours runs on
+    it: the counts, zeroed before and read after the in-process phases,
+    stay 0 (the CLIs' subprocesses have counts of their own)."""
+    zero_counts()
+    out = check_shipped_cli()
+    out["device_stage"] = check_device_stage()
+    out.update(check_shipped_models())
+    torch.cuda.synchronize()
+    counts = read_counts()
+    if any(counts.values()):
+        fail(f"the shipped path launched port kernels it should not: {counts}")
+    log(f"shipped: {json.dumps(out)}")
+    return counts
+
+
 # --- the probe path: the command-line probes of X1 and X2 ---------------------------
 
 PROBE_ITERS = 3  # timed launches a shape in each probe
@@ -3021,6 +3407,7 @@ def main():
     served["trainer"] = trained["trainer"] = trainer_counts
     probe_counts, probe_wgmma = drive_probes()
     probed = {"probe": probe_counts}
+    check_shipped()
 
     fwd, step = "one bucket-64 swin_tiny forward, bf16", "one batch-64 swin_tiny train step, bf16"
     vfwd = ("one bucket-64 vit_base_patch16_224 forward, bf16 (12 launches at N=197, bias and "

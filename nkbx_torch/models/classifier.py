@@ -16,6 +16,7 @@ import torch
 from torch import nn
 
 from nkbx_torch.core.runtime import resolve_device
+from nkbx_torch.models.pretrained import load_checkpoint
 from nkbx_torch.models.registry import create_backbone
 
 # same strategy names as nkbx's INIT_STRATEGIES (reference model.py:45-57);
@@ -113,20 +114,22 @@ def get_model(cfg_model: dict, classes: Union[list, dict], input_size=(224, 224)
               seed: int = 0, dtype=torch.bfloat16, device=None) -> ClassificationModel:
     """Build a classifier from a config dict (nkbx's keys: task, model,
     backbone_dropout, classifier_dropout, classifier_initialization,
-    backbone_opts, checkpoint). Weights come from a ``torch.Generator``
-    seeded with ``seed``, or from ``checkpoint``, a port ``state_dict`` file.
+    backbone_opts, pretrained, checkpoint). Weights come from a
+    ``torch.Generator`` seeded with ``seed``; then, as in nkbx, with
+    ``pretrained`` the backbone's converted file (nkbx's rule, see
+    :mod:`nkbx_torch.models.pretrained`), and ``checkpoint``: a nkbx
+    ``.msgpack``, a port ``state_dict`` file or a port checkpoint directory.
     ``device`` defaults to ``cuda`` and raises without a card."""
     if cfg_model.get("scripted", False):
-        raise NotImplementedError("serving bundles are not ported to nkbx_torch yet "
-                                  "(ROADMAP.md); build the model and wrap it in "
-                                  "nkbx_torch.export.ServingModule")
+        raise NotImplementedError("serving bundles (model.scripted) are not ported to "
+                                  "nkbx_torch yet (ROADMAP.md A11); build the model and wrap it "
+                                  "in nkbx_torch.export.ServingModule")
     dev = resolve_device(device)
+    gen = torch.Generator().manual_seed(seed)
     backbone = create_backbone(
         cfg_model["model"], pretrained=cfg_model.get("pretrained", False),
         drop_rate=cfg_model.get("backbone_dropout", 0.0) or 0.0, dtype=dtype,
-        img_size=input_size, **(cfg_model.get("backbone_opts") or {}))
-    gen = torch.Generator().manual_seed(seed)
-    backbone.reset_parameters(gen)
+        img_size=input_size, generator=gen, **(cfg_model.get("backbone_opts") or {}))
     task = cfg_model.get("task", "single")
     common = dict(classifier_dropout=cfg_model.get("classifier_dropout", 0.0) or 0.0,
                   classifier_initialization=cfg_model.get("classifier_initialization",
@@ -140,7 +143,7 @@ def get_model(cfg_model: dict, classes: Union[list, dict], input_size=(224, 224)
         raise ValueError(f"Unknown task {task!r}")
     ckpt = cfg_model.get("checkpoint")
     if ckpt:
-        module.load_state_dict(torch.load(ckpt, map_location="cpu", weights_only=True))
+        load_checkpoint(module, ckpt)
     module.to(dev).eval()
     return ClassificationModel(module, classes, task, backbone.num_features, input_size,
                                dtype, dev)

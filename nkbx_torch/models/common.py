@@ -187,14 +187,16 @@ class TorchBatchNorm(nn.Module):
 
 
 class ConvBN(nn.Module):
-    """Conv (no bias) + :class:`TorchBatchNorm` + optional relu on NHWC x
-    (nkbx/models/common.py:144-191), with torch-style symmetric k//2 padding
-    and groups. The convolution computes in ``dtype`` on the channels-last
-    NCHW view ``x.permute(0, 3, 1, 2)``. ``mask`` reaches the BatchNorm in
-    training only."""
+    """Conv (no bias) + :class:`TorchBatchNorm` + an optional activation on
+    NHWC x (nkbx/models/common.py:144-191), with torch-style symmetric k//2
+    padding and groups (``groups=features_in`` is the depthwise conv of the
+    mobile families). ``act``: True for relu, False for none, or a function
+    (:func:`hard_swish`, ``F.silu``). The convolution computes in ``dtype`` on
+    the channels-last NCHW view ``x.permute(0, 3, 1, 2)``. ``mask`` reaches
+    the BatchNorm in training only."""
 
     def __init__(self, features_in: int, features: int, kernel_size: int = 3,
-                 strides: int = 1, groups: int = 1, act: bool = True, dtype=torch.float32,
+                 strides: int = 1, groups: int = 1, act=True, dtype=torch.float32,
                  ghost_bn: int = 0):
         super().__init__()
         self.dtype, self.act = dtype, act
@@ -207,4 +209,53 @@ class ConvBN(nn.Module):
         y = F.conv2d(x.to(self.dtype).permute(0, 3, 1, 2), c.weight.to(self.dtype),
                      stride=c.stride, padding=c.padding, groups=c.groups)
         y = self.BatchNorm_0(y.permute(0, 2, 3, 1), mask=mask if self.training else None)
-        return torch.relu(y) if self.act else y
+        if self.act is True:
+            return torch.relu(y)
+        return self.act(y) if self.act else y
+
+
+def make_divisible(v, divisor=8):
+    """Channel rounding shared by the mobile families (timm convention;
+    nkbx common.py:194-199)."""
+    new_v = max(divisor, int(v + divisor / 2) // divisor * divisor)
+    if new_v < 0.9 * v:
+        new_v += divisor
+    return new_v
+
+
+def hard_sigmoid(x):
+    return F.relu6(x + 3.0) / 6.0
+
+
+def hard_swish(x):
+    return x * hard_sigmoid(x)
+
+
+class SqueezeExcite(nn.Module):
+    """nkbx's SqueezeExcite (common.py:214-231): the global pool in f32, cast
+    to x's dtype, a 1x1 ``Conv_0`` to ``reduced`` channels, ``act`` (relu for
+    MobileNetV3, swish for EfficientNet), a 1x1 ``Conv_1`` back, and x times
+    ``gate`` of it; the convolutions with biases, in ``dtype``."""
+
+    def __init__(self, channels: int, reduced: int, gate=hard_sigmoid, act=torch.relu,
+                 dtype=torch.float32):
+        super().__init__()
+        self.gate, self.act, self.dtype = gate, act, dtype
+        self.Conv_0 = nn.Conv2d(channels, reduced, 1)
+        self.Conv_1 = nn.Conv2d(reduced, channels, 1)
+
+    def _fc(self, s, conv):
+        dt = self.dtype
+        return F.linear(s.to(dt), conv.weight.reshape(conv.weight.shape[:2]).to(dt),
+                        conv.bias.to(dt))
+
+    def forward(self, x):
+        s = x.float().mean((1, 2), keepdim=True).to(x.dtype)
+        s = self._fc(self.act(self._fc(s, self.Conv_0)), self.Conv_1)
+        return x * self.gate(s)
+
+
+def global_avg_pool(x):
+    """Mean over H and W of NHWC x, summed in f32 and cast back to x's dtype
+    (``jnp.mean`` on bf16)."""
+    return x.float().mean((1, 2)).to(x.dtype)

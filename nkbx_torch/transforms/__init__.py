@@ -1,7 +1,8 @@
 """The port's transform pipeline: nkbx's spec names (``import nkbx.transforms
 as T`` in a config builds these), a host stage of geometry per sample and a
-device stage of flips and Normalize per batch. nkbx's other device ops are
-declared and raise at :class:`Compose` (ROADMAP.md, A9)."""
+device stage per batch: the flips, RandomBrightnessContrast,
+HueSaturationValue, CoarseDropout and Normalize. nkbx's other device ops
+are declared and raise at :class:`Compose` (ROADMAP.md, A9)."""
 
 from nkbx_torch.transforms.adapter import Transforms
 from nkbx_torch.transforms.spec import (CenterCrop, CoarseDropout, Compose, HorizontalFlip,

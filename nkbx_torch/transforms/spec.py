@@ -8,7 +8,8 @@ A pipeline splits into two stages, as in nkbx:
   sample in the loader's threads (:mod:`nkbx_torch.transforms.host`), so
   that every batch has one static (H, W);
 - the device stage, one batched function of the uint8 batch on its device:
-  the random flips and Normalize (:mod:`nkbx_torch.transforms.device`).
+  the random flips, RandomBrightnessContrast, HueSaturationValue,
+  CoarseDropout and Normalize (:mod:`nkbx_torch.transforms.device`).
 
 Every other device op of nkbx is declared here with its parameters, so a
 config that names one loads; :class:`Compose` then raises, naming the
@@ -25,6 +26,16 @@ import numpy as np
 HOST = "host"
 DEVICE = "device"
 MARKER = "marker"
+
+
+def _as_range(limit, symmetric=True) -> Tuple[float, float]:
+    """Albumentations-style limit: scalar x -> (-x, x); a pair is sorted
+    (nkbx spec.py:23-29)."""
+    if isinstance(limit, (tuple, list)):
+        lo, hi = float(limit[0]), float(limit[1])
+        return (min(lo, hi), max(lo, hi))
+    x = float(limit)
+    return (-x, x) if symmetric else (0.0, x)
 
 
 @dataclasses.dataclass
@@ -129,32 +140,44 @@ class Normalize(Transform):
     stage = DEVICE
 
 
-PORTED_DEVICE_OPS = (HorizontalFlip, VerticalFlip, Normalize)
-
-
-# --- device stage: nkbx's other ops, declared with their parameters, not ported (A9) ---
-
-
 @dataclasses.dataclass
 class RandomBrightnessContrast(Transform):
+    """img <- clip(img * alpha + beta * 255), alpha ~ U(1 + c_lo, 1 + c_hi),
+    beta ~ U(b_lo, b_hi); with ``brightness_by_max`` False, beta scales the
+    image's mean instead of 255."""
+
     brightness_limit: Union[float, Tuple[float, float]] = 0.2
     contrast_limit: Union[float, Tuple[float, float]] = 0.2
     brightness_by_max: bool = True
     p: float = 0.5
     stage = DEVICE
 
+    def ranges(self):
+        return _as_range(self.brightness_limit), _as_range(self.contrast_limit)
+
 
 @dataclasses.dataclass
 class HueSaturationValue(Transform):
+    """Random shifts in cv2-uint8 HSV space (H in [0, 180), S and V in [0, 255])."""
+
     hue_shift_limit: Union[float, Tuple[float, float]] = 20
     sat_shift_limit: Union[float, Tuple[float, float]] = 30
     val_shift_limit: Union[float, Tuple[float, float]] = 20
     p: float = 0.5
     stage = DEVICE
 
+    def ranges(self):
+        return (_as_range(self.hue_shift_limit), _as_range(self.sat_shift_limit),
+                _as_range(self.val_shift_limit))
+
 
 @dataclasses.dataclass
 class CoarseDropout(Transform):
+    """Cut out between ``min_holes`` and ``max_holes`` random rectangles,
+    filled with ``fill_value`` (pixel units, a scalar or one per channel).
+    Hole sizes under 1.0 given as floats are fractions of the image's H/W,
+    as in albumentations."""
+
     max_holes: int = 8
     min_holes: Optional[int] = None
     max_height: Union[int, float] = 8
@@ -164,6 +187,25 @@ class CoarseDropout(Transform):
     fill_value: Union[int, float, Sequence[float]] = 0
     p: float = 0.5
     stage = DEVICE
+
+    def resolved(self, img_h: int, img_w: int):
+        """(min_holes, max_holes, min_h, max_h, min_w, max_w) in pixels."""
+        min_holes = self.max_holes if self.min_holes is None else self.min_holes
+        min_h = self.max_height if self.min_height is None else self.min_height
+        min_w = self.max_width if self.min_width is None else self.min_width
+
+        def _px(v, dim):
+            return float(v) * dim if isinstance(v, float) and v <= 1.0 else float(v)
+
+        return (int(min_holes), int(self.max_holes), _px(min_h, img_h),
+                _px(self.max_height, img_h), _px(min_w, img_w), _px(self.max_width, img_w))
+
+
+PORTED_DEVICE_OPS = (HorizontalFlip, VerticalFlip, RandomBrightnessContrast, HueSaturationValue,
+                     CoarseDropout, Normalize)
+
+
+# --- device stage: nkbx's other ops, declared with their parameters, not ported (A9) ---
 
 
 @dataclasses.dataclass
@@ -272,8 +314,8 @@ class Compose:
             if not isinstance(t, PORTED_DEVICE_OPS):
                 raise NotImplementedError(
                     f"{type(t).__name__} is not ported to nkbx_torch yet; the port's "
-                    "device stage is HorizontalFlip, VerticalFlip and Normalize "
-                    "(ROADMAP.md, A9)")
+                    "device stage is HorizontalFlip, VerticalFlip, RandomBrightnessContrast, "
+                    "HueSaturationValue, CoarseDropout and Normalize (ROADMAP.md, A9)")
         seen_norm = False
         for t in self.device_transforms:
             if isinstance(t, Normalize):
@@ -295,16 +337,21 @@ class Compose:
 
         return H.infer_output_size(self.host_transforms, in_h, in_w)
 
-    def device_apply(self, batch, out_dtype=None, generator=None, gates=None):
+    def device_apply(self, batch, out_dtype=None, generator=None, draws=None):
         """The device stage of a uint8 NHWC batch on its device: the random
-        flips when a ``generator`` (training) or the flips' ``gates`` are
-        given, then Normalize; float32 by default, or ``out_dtype`` (the
-        model's compute dtype) straight out."""
+        ops when a ``generator`` (training) or their ``draws`` are given (see
+        :class:`nkbx_torch.transforms.device.DeviceStage`), then Normalize;
+        float32 by default, or ``out_dtype`` (the model's compute dtype)
+        straight out."""
         import torch
 
+        return self.device_stage()(batch, torch.float32 if out_dtype is None else out_dtype,
+                                   generator=generator, draws=draws)
+
+    def device_stage(self):
+        """The device stage as a :class:`~nkbx_torch.transforms.device.DeviceStage`."""
         from nkbx_torch.transforms.device import build_device_fn
 
         if self._device_fn is None:
             self._device_fn = build_device_fn(self.device_transforms)
-        return self._device_fn(batch, torch.float32 if out_dtype is None else out_dtype,
-                               generator=generator, gates=gates)
+        return self._device_fn

@@ -58,6 +58,9 @@ shows that the kernel, not its plain version, ran:
   width it takes (the bulk ring from 32 MiB with a one-vector last chunk
   and more chunks than its stages, odd counts and offset views, small and
   large); a wrong dtype is refused;
+- the singletask config's device stage (flips, brightness/contrast, HSV,
+  coarse dropout, Normalize) on a CUDA batch against the CPU with the same
+  draws (1e-3 on the 0-255 scale), and its own draws from a CUDA generator;
 - one epoch of the config-driven trainer (``nkbx_torch.train.train``) on a
   tiny Swin through K1, K2, K5 and K6 over an ImageFolder of BMP files,
   with finite metrics, a checkpoint and the launch counts of its steps;
@@ -1203,6 +1206,32 @@ def test_trainer_epoch_through_the_kernels(cuda_device, tmp_path):
     assert (exp.path / "weights" / "last").is_dir() and (exp.path / "weights" / "last.pt").exists()
 
 
+@pytest.mark.cuda
+def test_device_ops_on_card_match_the_cpu(cuda_device):
+    """configs/singletask_config.py's device stage (flips, brightness/contrast,
+    HSV, coarse dropout, Normalize) on a CUDA batch of 16 at 128 px against
+    the CPU with the same draws: 1e-3 on the 0-255 scale, i.e. 1e-3 / (255 *
+    std) after Normalize; then the stage's own draws from a CUDA generator
+    run on the card and repeat from a seed."""
+    from nkbx_torch.utils import load_config
+
+    pipe = load_config(ROOT / "configs" / "singletask_config.py").train_pipeline
+    stage = pipe.device_stage()
+    x = torch.from_numpy(np.random.default_rng(0).integers(0, 256, (16, 128, 128, 3),
+                                                           dtype=np.uint8))
+    draws = stage.draw(tuple(x.shape), torch.Generator().manual_seed(3))
+    want = stage(x, draws=draws)
+    got = stage(x.to(cuda_device), draws=[{k: v.to(cuda_device) for k, v in d.items()}
+                                          for d in draws])
+    assert got.device.type == "cuda"
+    std = 255.0 * min(pipe.device_transforms[-1].std)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-3 / std)
+    gen = torch.Generator(device=cuda_device)
+    a = stage(x.to(cuda_device), torch.bfloat16, generator=gen.manual_seed(1))
+    b = stage(x.to(cuda_device), torch.bfloat16, generator=gen.manual_seed(1))
+    assert a.dtype == torch.bfloat16 and torch.equal(a, b) and torch.isfinite(a.float()).all()
+
+
 def test_card_tests_collect_without_jax_or_nkbx():
     """The card's machine has no JAX: this file must collect (and its card
     tests skip here) with jax, flax and nkbx unimportable and no conftest."""
@@ -1222,7 +1251,7 @@ def test_card_tests_collect_without_jax_or_nkbx():
          + 2 * len(SEP_BWD_RAGGED_N) * len(SEP_BWD_OPERANDS) + 2 * len(TC_BWD_CASES) + 2
          + 2 * len(TC_BWD_CASES) + 2 + 2 * 2 * len(GEMM_ROWS) * len(GEMM_WIDTHS) + 3 + 4
          + 2 * len(MLP_GEMM_ROWS) * len(MLP_GEMM_WIDTHS) + 2 + 1
-         + len(MB_ROUTE_CASES) + 2 + len(COPY_CASES))
+         + len(MB_ROUTE_CASES) + 2 + len(COPY_CASES) + 1)
     word = "passed" if torch.cuda.is_available() else "skipped"
     assert re.search(rf"\b{n} {word}\b", proc.stdout), proc.stdout[-2000:]
 

@@ -208,7 +208,7 @@ def test_flips_fed_nkbx_gates_match_nkbx():
     assert 0 < sum(g.sum() for g in gates) < 12  # some flip, some do not
     pipe = Compose([HorizontalFlip(p=0.5), VerticalFlip(p=0.5), Normalize()])
     got = pipe.device_apply(torch.from_numpy(images),
-                            gates=[torch.from_numpy(g.copy()) for g in gates])
+                            draws=[{"gate": torch.from_numpy(g.copy())} for g in gates])
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2.4e-7, atol=0)
 
 
