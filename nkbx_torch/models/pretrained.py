@@ -8,6 +8,10 @@
   the ``__msgpack_chunked_array__`` dicts flax writes for arrays over 1 GiB.
   It needs no ``msgpack`` package. numpy has no bfloat16, so a bfloat16 leaf
   comes back widened to float32, exactly.
+- :func:`write_msgpack`: its writer, the bytes ``flax.serialization.to_bytes``
+  writes for a tree of maps and numpy arrays (map order kept, arrays over
+  1 GiB as flax's chunk dicts), streamed to the file with no copy of a
+  contiguous array and one of a strided view.
 - The pretrained rule (nkbx ``registry.py:129-138, 170-177``): with
   ``pretrained=True`` a backbone takes ``$NKBX_PRETRAINED_DIR/<name>.msgpack``
   (:func:`default_filename`) when it exists: its ``params`` and
@@ -19,9 +23,9 @@
   ``checkpoint.py:175-207``): a nkbx ``.msgpack`` weights file, the port's
   own ``.pt`` state dict or checkpoint directory; an orbax directory raises.
 
-A file whose tree or leaf shapes do not fit the model raises: nkbx adapts a
-ViT ``pos_embed`` saved at another grid, which the port does not yet
-(ROADMAP.md A7).
+A ViT ``pos_embed`` saved at another token grid is resampled on every load,
+as nkbx does (:func:`nkbx_torch.models.convert.adapt_variables_tree`); any
+other tree or leaf shape that does not fit the model raises.
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from nkbx_torch.models.convert import from_jax_variables
+from nkbx_torch.models.convert import adapt_variables_tree, from_jax_variables
 
 # --- the msgpack reader ------------------------------------------------------------
 
@@ -153,6 +157,86 @@ def read_msgpack(path) -> dict:
         raise ValueError(f"{path}: not a readable flax msgpack file ({e})") from e
 
 
+# --- the msgpack writer -------------------------------------------------------------
+
+MAX_CHUNK_SIZE = 2 ** 30  # flax's: a leaf of more bytes is written as a chunk dict
+
+
+def _head(n: int, small: int, small_max: int, wide: tuple) -> bytes:
+    """A msgpack length header: the one-byte form ``small | n`` up to
+    ``small_max``, else the first of ``wide`` ((code, struct format), ...)
+    whose length field holds n."""
+    if n <= small_max:
+        return bytes([small | n])
+    for code, fmt in wide:
+        if n < 1 << (8 * struct.calcsize(fmt)):
+            return bytes([code]) + struct.pack(fmt, n)
+    raise ValueError(f"msgpack object of length {n} is too long")
+
+
+def _uint(v: int) -> bytes:
+    """A msgpack non-negative integer (array dims, a chunk dict's shape)."""
+    return _head(v, 0, 127, ((0xCC, ">B"), (0xCD, ">H"), (0xCE, ">I"), (0xCF, ">Q")))
+
+
+def _str(v: str) -> bytes:
+    b = v.encode("utf-8")
+    return _head(len(b), 0xA0, 31, ((0xD9, ">B"), (0xDA, ">H"), (0xDB, ">I"))) + b
+
+
+def _ndarray_head(arr: np.ndarray) -> tuple:
+    """(the ext header, the payload's head) of an ndarray leaf: flax packs
+    (shape, dtype name, row-major bytes) as one msgpack object."""
+    shape = _head(arr.ndim, 0x90, 15, ((0xDC, ">H"), (0xDD, ">I")))
+    shape += b"".join(_uint(int(d)) for d in arr.shape)
+    body = (b"\x93" + shape + _str(arr.dtype.name)
+            + _head(arr.nbytes, 0, -1, ((0xC4, ">B"), (0xC5, ">H"), (0xC6, ">I"))))
+    return body, len(body) + arr.nbytes
+
+
+def _ext_head(code: int, n: int) -> bytes:
+    if n in (1, 2, 4, 8, 16):
+        return bytes([0xD4 + n.bit_length() - 1, code])
+    return _head(n, 0, -1, ((0xC7, ">B"), (0xC8, ">H"), (0xC9, ">I"))) + bytes([code])
+
+
+def _write(f, obj):
+    if isinstance(obj, dict):
+        f.write(_head(len(obj), 0x80, 15, ((0xDE, ">H"), (0xDF, ">I"))))
+        for key, value in obj.items():
+            f.write(_str(str(key)))
+            _write(f, value)
+    elif isinstance(obj, np.ndarray) and obj.nbytes > MAX_CHUNK_SIZE:
+        flat = obj.reshape(-1)
+        size = max(1, MAX_CHUNK_SIZE // obj.dtype.itemsize)
+        _write(f, {"__msgpack_chunked_array__": True,
+                   "shape": {str(i): d for i, d in enumerate(obj.shape)},
+                   "chunks": {str(i): flat[j:j + size]
+                              for i, j in enumerate(range(0, flat.size, size))}})
+    elif isinstance(obj, np.ndarray):
+        arr = obj if obj.flags.c_contiguous else np.ascontiguousarray(obj)  # a view: one copy
+        if arr.dtype.hasobject or arr.dtype.isalignedstruct:
+            raise ValueError("object and structured dtypes have no msgpack form")
+        body, n = _ndarray_head(arr)
+        f.write(_ext_head(_EXT_NDARRAY, n))
+        f.write(body)
+        f.write(memoryview(arr.reshape(-1)).cast("B"))
+    elif isinstance(obj, bool):  # a chunk dict's flag
+        f.write(b"\xc3" if obj else b"\xc2")
+    elif isinstance(obj, int):  # a chunk dict's shape
+        f.write(_uint(obj))
+    else:
+        raise TypeError(f"a weights tree holds maps and numpy arrays, not {type(obj).__name__}")
+
+
+def write_msgpack(tree: dict, path):
+    """Write a tree of maps and numpy arrays as flax's msgpack format
+    (``flax.serialization.to_bytes``), which nkbx and :func:`read_msgpack`
+    read."""
+    with open(path, "wb") as f:
+        _write(f, tree)
+
+
 # --- loading a flax tree into a module ----------------------------------------------
 
 
@@ -160,8 +244,9 @@ def load_flax_tree(module: torch.nn.Module, tree: dict, what: str, stats_require
     """Copy a nkbx ``{'params': ..., 'batch_stats': ...}`` tree into
     ``module`` through :func:`from_jax_variables`. Every parameter must be
     there, and every running statistic unless ``stats_required`` is False
-    and the tree holds none; nothing may be left over. A leaf whose shape
-    differs raises, naming ROADMAP A7."""
+    and the tree holds none; nothing may be left over. A ``pos_embed`` at
+    another token grid is resampled; any other leaf whose shape differs
+    raises."""
     stats = tree.get("batch_stats") or {}
     sd = from_jax_variables({"params": tree.get("params") or {}, "batch_stats": stats})
     ref = module.state_dict()
@@ -172,14 +257,18 @@ def load_flax_tree(module: torch.nn.Module, tree: dict, what: str, stats_require
                          f"{' ...' if len(missing) > 5 else ''}, leftover {leftover[:5]}"
                          f"{' ...' if len(leftover) > 5 else ''}); was it saved from a different "
                          "architecture?")
-    bad = [k for k in sd if tuple(sd[k].shape) != tuple(ref[k].shape)]
-    if bad:
-        raise ValueError(
-            f"{what}: shape mismatch at " + ", ".join(
-                f"{k} (file {tuple(sd[k].shape)}, model {tuple(ref[k].shape)})" for k in bad[:5])
-            + ". nkbx resamples a ViT pos_embed saved at another grid on load; nkbx_torch does "
-            "not yet (ROADMAP.md A7)")
-    module.load_state_dict(sd, strict=False)
+    module.load_state_dict(_adapted(sd, {k: ref[k] for k in sd}, what), strict=False)
+
+
+def _adapted(sd: dict, ref: dict, what: str) -> dict:
+    """``sd`` fitted onto ``ref``'s shapes by
+    :func:`~nkbx_torch.models.convert.adapt_variables_tree` (a ``pos_embed``
+    at another token grid resampled), its errors naming ``what``."""
+    try:
+        return adapt_variables_tree(sd, ref)
+    except ValueError as e:
+        raise ValueError(f"{what}: {e}") from None
+
 
 
 # --- the pretrained rule ------------------------------------------------------------
@@ -203,8 +292,8 @@ def warn_no_pretrained(name: str):
     warnings.warn(
         f"pretrained=True but no converted checkpoint for {name!r} under "
         f"$NKBX_PRETRAINED_DIR — initializing randomly. Convert torch "
-        f"weights with `python -m nkbx.models.convert --model {name!r} "
-        f"--weights <torch file>` (nkbx's converter). nkbx_torch downloads nothing: "
+        f"weights with `python -m nkbx_torch.models.convert --model {name!r} "
+        f"--weights <torch file>` (nkbx_torch's converter). nkbx_torch downloads nothing: "
         f"nkbx's transparent timm/unicom fetch is not ported.")
 
 
@@ -237,4 +326,4 @@ def load_checkpoint(module: torch.nn.Module, path):
         return
     else:
         sd = torch.load(path, map_location="cpu", weights_only=True)
-    module.load_state_dict(sd)
+    module.load_state_dict(_adapted(sd, module.state_dict(), f"checkpoint {path}"))

@@ -1,16 +1,16 @@
-"""Backbone registry of the port (counterpart of ``nkbx/models/registry.py``).
-
-The port holds the Swin, ViT/DeiT, ConvNeXt, ResNet, MobileNetV3 and
-EfficientNet (B0-B7, V2 S/M/L) families so far; every other nkbx name raises,
-and ROADMAP.md says when it comes. ``pretrained=True`` is nkbx's rule
+"""Backbone registry of the port (counterpart of ``nkbx/models/registry.py``):
+every name of nkbx's, the unicom ViTs by their ``unicom.load`` names
+("unicom ViT-B/32"). ``pretrained=True`` is nkbx's rule
 (:mod:`nkbx_torch.models.pretrained`).
 """
 
 from __future__ import annotations
 
+import difflib
+
 import torch
 
-from nkbx_torch.models import convnext, efficientnet, mobilenetv3, resnet, swin, vit
+from nkbx_torch.models import convnext, densenet, efficientnet, mobilenetv3, resnet, swin, vit
 from nkbx_torch.models.pretrained import (load_pretrained_into, pretrained_params_path,
                                           warn_no_pretrained)
 
@@ -33,11 +33,18 @@ _REGISTRY = {
     **{name: getattr(resnet, name) for name in resnet.NAMES},
     **{name: getattr(mobilenetv3, name) for name in mobilenetv3.NAMES},
     **{name: getattr(efficientnet, name) for name in efficientnet.NAMES},
+    **{name: getattr(densenet, name) for name in densenet.NAMES},
+}
+
+_UNICOM = {
+    "ViT-B/32": vit.unicom_vit_b32,
+    "ViT-B/16": vit.unicom_vit_b16,
+    "ViT-L/14": vit.unicom_vit_l14,
 }
 
 
 def list_backbones():
-    return sorted(_REGISTRY)
+    return sorted(_REGISTRY) + [f"unicom {k}" for k in sorted(_UNICOM)]
 
 
 def create_backbone(name: str, pretrained: bool = False, drop_rate: float = 0.0,
@@ -46,22 +53,29 @@ def create_backbone(name: str, pretrained: bool = False, drop_rate: float = 0.0,
     the embedding size. ``**opts`` are the family's fields (Swin and ViT:
     ``fused_attention``, ``fused_mlp``; ConvNeXt: ``fused_mlp``; ResNet:
     ``ghost_bn``, ``fused_bottleneck``, ``s2d_stem``; MobileNetV3 and
-    EfficientNet: ``ghost_bn``). With a ``generator`` the weights are drawn
+    EfficientNet: ``ghost_bn``; ViT: ``pool``, ``projection_dim``; DenseNet:
+    ``buffer_concat``). With a ``generator`` the weights are drawn
     from it by flax's initialisers. With ``pretrained``, nkbx's rule: the
     converted file under ``$NKBX_PRETRAINED_DIR`` fills the backbone, or,
     without one, a warning with nkbx's message and the weights stay random;
     nothing is downloaded."""
     if name.lower().startswith("unicom"):
+        parts = name.split(maxsplit=1)
+        variant = parts[1] if len(parts) > 1 else ""
+        if variant not in _UNICOM:
+            raise NotImplementedError(f"Unknown unicom variant {variant!r}; have {sorted(_UNICOM)}")
+        ctor = _UNICOM[variant]
+    elif name in _REGISTRY:
+        ctor = _REGISTRY[name]
+    else:
+        names = list_backbones()
+        close = difflib.get_close_matches(name, names, n=3, cutoff=0.4)
+        hint = f" Did you mean {' / '.join(repr(c) for c in close)}?" if close else ""
         raise NotImplementedError(
-            f"backbone {name!r}: the unicom ViTs (UnicomViT: no class token, the flattened-token "
-            "feature head with its BatchNorm1d pair) are not ported to nkbx_torch yet "
-            "(ROADMAP.md A7)")
-    if name not in _REGISTRY:
-        raise NotImplementedError(
-            f"backbone {name!r} is not ported to nkbx_torch yet (ported: the Swin, ViT/DeiT, "
-            f"ConvNeXt, ResNet, MobileNetV3 and EfficientNet families, {list_backbones()}); "
-            "ROADMAP.md lists the order of the port")
-    module = _REGISTRY[name](drop_rate=drop_rate, dtype=dtype, img_size=tuple(img_size), **opts)
+            f"Unknown backbone {name!r}.{hint} nkbx_torch supports nkbx's explicit "
+            f"{len(names)}-name set (the reference accepts any timm name); see MIGRATING.md "
+            f"'Supported backbones' or nkbx_torch.models.list_backbones(). Full list: {names}")
+    module = ctor(drop_rate=drop_rate, dtype=dtype, img_size=tuple(img_size), **opts)
     if generator is not None:
         module.reset_parameters(generator)
     if pretrained:

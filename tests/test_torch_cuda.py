@@ -32,7 +32,11 @@ shows that the kernel, not its plain version, ran:
   (H, N, N) bias, masks of M = 2 and 3, and K4 with and without dbias; K3
   also at N = 1, 17, 63, 64, 65, 197 and 577 and K4 at N = 1, 17, 63, 64,
   65 and 197 with None for an absent bias or mask (K4's tensor-core pair in
-  bf16), two launches bit-identical;
+  bf16), two launches bit-identical; both at the unicom ViTs' N = 196, 49
+  and 256 (16 heads) with None, each relaunch bit-identical;
+- K5 and K6 at unicom's LayerNorm eps 1e-5 on rows where eps moves the
+  output (the GEMM route at C = 768 and ViT-L/14's 1024, the first design in
+  f32), against the plain version at 1e-5 and away from it at 1e-6;
 - K9 the fused bottleneck chain and K10 its backward, banded (th = 4, 7, 2,
   widths 8 and 14) and single-band (th = H), against the plain chain: the
   output, the six per-tile statistics and the ten gradients; a width the
@@ -545,6 +549,82 @@ def test_sep_attention_bwd_kernel_at_ragged_n(cuda_device, dtype, operands, n):
         assert torch.equal(got[3], again[3])
     else:
         assert got[3] is None
+
+
+# the unicom ViTs' sequences (no class token): ViT-B/16 N = 196 and B/32 N = 49 with
+# 12 heads, L/14 N = 256 with 16 heads; (G, N, heads), bias and mask None
+UNICOM_SEQ = [(4, 196, 12), (4, 49, 12), (2, 256, 16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g,n,heads", UNICOM_SEQ)
+def test_sep_attention_at_unicom_sequences(cuda_device, dtype, g, n, heads):
+    """K3 and K4 with None for the bias and the mask at the unicom ViTs'
+    sequences: K3 within 2 bf16 ulps of the largest output (f32 1e-4), K4's
+    dq, dk, dv within 4 bf16 ulps of the largest gradient (f32 1e-4 of it),
+    each relaunch bit-identical, two launches each by count."""
+    q, k, v, _, _, go = _sep_inputs(g, n, heads, 1, 1, cuda_device, dtype)
+    before = tattn.fused_attention.launches, tattn.fused_attention_bwd.launches
+    got = tattn.fused_attention(q, k, v, None, None, 0.125, heads)
+    again = tattn.fused_attention(q, k, v, None, None, 0.125, heads)
+    grads = tattn.fused_attention_bwd(q, k, v, None, None, go, 0.125, heads)
+    grads_again = tattn.fused_attention_bwd(q, k, v, None, None, go, 0.125, heads)
+    torch.cuda.synchronize()
+    assert (tattn.fused_attention.launches, tattn.fused_attention_bwd.launches) == (
+        before[0] + 2, before[1] + 2)
+    want = tattn.reference_attention(q, k, v, None, None, 0.125, heads)
+    big = want.float().abs().max().item()
+    tol = 1e-4 if dtype == torch.float32 else 2 * 2.0 ** (np.floor(np.log2(big)) - 7)
+    assert got.dtype == dtype and (got.float() - want.float()).abs().max().item() <= tol
+    assert torch.equal(got, again)
+    want_g = tattn.reference_attention_sep_bwd(q, k, v, None, None, go, 0.125, heads)
+    big = max(w.float().abs().max().item() for w in want_g[:3])
+    tol = 1e-4 * big if dtype == torch.float32 else 4 * 2.0 ** (np.floor(np.log2(big)) - 7)
+    assert grads[3] is None
+    for gv, av, wv in zip(grads[:3], grads_again[:3], want_g[:3]):
+        assert gv.dtype == dtype and (gv.float() - wv.float()).abs().max().item() <= tol
+        assert torch.equal(gv, av)
+
+
+# K5/K6 where LayerNorm's eps moves the output: rows of variance ~1e-6, so eps
+# 1e-5 (unicom's) and 1e-6 (the ViT's) normalise them differently; (dtype, C, rows)
+EPS_CASES = [(torch.bfloat16, 768, 1568), (torch.float32, 768, 129), (torch.bfloat16, 1024, 2048)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,c,r", EPS_CASES)
+def test_ln_mlp_takes_unicom_eps(cuda_device, dtype, c, r):
+    """K5 and K6 at eps 1e-5 on rows whose variance is near eps (bf16: the
+    GEMM route, at C = 768 and at unicom ViT-L/14's C = 1024 over its 2048
+    rows of a batch of 8; f32: the first design): against the plain version
+    at eps 1e-5 as tests above hold them, each relaunch bit-identical, while
+    the plain version at eps 1e-6 is 10x farther off than the tolerance."""
+    args, sc, _, dy = _mlp_inputs(r, c, 4 * c, False, cuda_device, dtype, seed=12)
+    args[0] = (args[0].float() * 1e-3).to(dtype)
+    gemm = dtype == torch.bfloat16
+    fns = (tmlp.fused_ln_mlp, tmlp.fused_ln_mlp_bwd)
+    before = [(fn.launches, fn.gemm_launches) for fn in fns]
+    got = tmlp.fused_ln_mlp(*args, sc, eps=1e-5)
+    again = tmlp.fused_ln_mlp(*args, sc, eps=1e-5)
+    grads = tmlp.fused_ln_mlp_bwd(*args, None, dy, eps=1e-5)
+    grads_again = tmlp.fused_ln_mlp_bwd(*args, None, dy, eps=1e-5)
+    torch.cuda.synchronize()
+    assert [(fn.launches, fn.gemm_launches) for fn in fns] == [
+        (b[0] + 2, b[1] + 2 * gemm) for b in before]
+    want = tmlp.reference_ln_mlp(*args, sc, eps=1e-5)
+    other = tmlp.reference_ln_mlp(*args, sc, eps=1e-6)
+    f32 = dtype == torch.float32
+    tol = 5e-4 if f32 else 4 * _bf16_ulp(want.float().abs().max().item())
+    assert (got.float() - want.float()).abs().max().item() <= tol
+    assert (other.float() - want.float()).abs().max().item() > 10 * tol
+    assert torch.equal(got, again)
+    want_g = tmlp.reference_ln_mlp_bwd(*args, None, dy, eps=1e-5)
+    other_g = tmlp.reference_ln_mlp_bwd(*args, None, dy, eps=1e-6)
+    tol_g = 5e-4 if f32 else 2e-2
+    assert _max_rel(grads, want_g) <= tol_g
+    assert _max_rel(other_g, want_g) > 10 * tol_g
+    assert all(g is None or torch.equal(g, h) for g, h in zip(grads, grads_again))
 
 
 TC_BWD_CASES = [
@@ -1251,7 +1331,8 @@ def test_card_tests_collect_without_jax_or_nkbx():
          + 2 * len(SEP_BWD_RAGGED_N) * len(SEP_BWD_OPERANDS) + 2 * len(TC_BWD_CASES) + 2
          + 2 * len(TC_BWD_CASES) + 2 + 2 * 2 * len(GEMM_ROWS) * len(GEMM_WIDTHS) + 3 + 4
          + 2 * len(MLP_GEMM_ROWS) * len(MLP_GEMM_WIDTHS) + 2 + 1
-         + len(MB_ROUTE_CASES) + 2 + len(COPY_CASES) + 1)
+         + len(MB_ROUTE_CASES) + 2 + len(COPY_CASES) + 1
+         + 2 * len(UNICOM_SEQ) + len(EPS_CASES))
     word = "passed" if torch.cuda.is_available() else "skipped"
     assert re.search(rf"\b{n} {word}\b", proc.stdout), proc.stdout[-2000:]
 

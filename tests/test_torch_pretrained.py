@@ -12,7 +12,8 @@
   logits equal, f32, 1e-5, with nkbx's head copied over) and keeps its own
   fresh head; with no file it warns, says that it downloads nothing, and
   keeps the random weights; a file that does not fit raises, a shape
-  mismatch naming ROADMAP A7.
+  mismatch with nkbx's words; a ViT file at another token grid loads, its
+  ``pos_embed`` resampled as nkbx resamples it.
 - ``checkpoint``: a nkbx ``.msgpack`` (``save_model_msgpack``) gives nkbx's
   logits (1e-5); the port's checkpoint directory loads; an orbax directory
   raises.
@@ -170,7 +171,7 @@ def test_pretrained_file_that_does_not_fit_raises(tmp_path, monkeypatch):
     tree["params"]["ConvBN_0"]["Conv_0"]["kernel"] = np.zeros(kernel.shape[:-1] + (8,),
                                                               np.float32)
     save_params_msgpack(tree, tmp_path / default_filename("resnet_tiny_test"))
-    with pytest.raises(ValueError, match="shape mismatch .*A7"):
+    with pytest.raises(ValueError, match="shape mismatch at ConvBN_0.Conv_0.weight"):
         get_model(cfg, CLASSES, input_size=(SIZE, SIZE), dtype=torch.float32, device="cpu")
     del tree["batch_stats"]["ConvBN_0"]
     tree["params"]["ConvBN_0"]["Conv_0"]["kernel"] = kernel
@@ -214,3 +215,38 @@ def test_port_checkpoint_directory_loads_and_orbax_raises(tmp_path):
     with pytest.raises(NotImplementedError, match="orbax"):
         get_model({**CFG, "checkpoint": str(tmp_path / "orbax")}, CLASSES,
                   input_size=(SIZE, SIZE), dtype=torch.float32, device="cpu")
+
+
+VIT_CFG = {"task": "single", "model": "vit_tiny_patch16_224"}
+
+
+def test_vit_file_at_another_grid_loads(tmp_path):
+    """A ViT saved at 64 px (17 tokens) loaded at 32 px (5 tokens): a nkbx
+    ``.msgpack`` checkpoint gives nkbx's logits (f32, 1e-5, nkbx resampling
+    the same file), and the port's own ``.pt`` state dict loads with its
+    ``pos_embed`` resampled as nkbx's ``resample_pos_embed`` does."""
+    from nkbx.models.convert import resample_pos_embed
+    from nkbx_torch.train.checkpoint import save_weights
+
+    donor = jget_model(VIT_CFG, CLASSES, input_size=(64, 64), seed=7, dtype=jnp.float32)
+    rng = np.random.default_rng(2)
+    variables = jax.tree_util.tree_map(
+        lambda p: (np.asarray(p) + rng.normal(0, 0.05, p.shape)).astype(np.float32),
+        jax.device_get(donor.variables))
+    save_model_msgpack(tmp_path / "vit.msgpack", variables)
+    cfg = {**VIT_CFG, "checkpoint": str(tmp_path / "vit.msgpack")}
+    x = np.random.default_rng(3).normal(size=(2, SIZE, SIZE, 3)).astype(np.float32)
+    want = np.asarray(jget_model(cfg, CLASSES, input_size=(SIZE, SIZE),
+                                 dtype=jnp.float32)(jnp.asarray(x)))
+    model = get_model(cfg, CLASSES, input_size=(SIZE, SIZE), dtype=torch.float32, device="cpu")
+    assert tuple(model.module.backbone.pos_embed.shape) == (1, 5, 192)
+    np.testing.assert_allclose(model(torch.from_numpy(x)).numpy(), want, atol=1e-5, rtol=0)
+    wide = get_model(VIT_CFG, CLASSES, input_size=(64, 64), seed=4, dtype=torch.float32,
+                     device="cpu")
+    save_weights(tmp_path / "vit.pt", wide.module)
+    got = get_model({**VIT_CFG, "checkpoint": str(tmp_path / "vit.pt")}, CLASSES,
+                    input_size=(SIZE, SIZE), dtype=torch.float32, device="cpu")
+    np.testing.assert_array_equal(
+        got.module.backbone.pos_embed.detach().numpy(),
+        resample_pos_embed(wide.module.backbone.pos_embed.detach().numpy(), 5))
+    assert torch.equal(got.module.head.weight, wide.module.head.weight)

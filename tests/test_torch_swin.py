@@ -173,8 +173,11 @@ def test_get_model_full_width_on_cpu_is_finite():
 
 
 def test_unported_backbone_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model({"model": "densenet121"}, list("ab"), device="cpu")
+    """Every nkbx name is ported; a name outside nkbx's set raises with its
+    closest names and the full list, as nkbx's registry does."""
+    with pytest.raises(NotImplementedError,
+                       match="Unknown backbone 'densenet122'. Did you mean .*Full list"):
+        get_model({"model": "densenet122"}, list("ab"), device="cpu")
 
 
 @pytest.mark.slow

@@ -413,15 +413,17 @@ def test_mid_mlp_dropout_turns_the_fused_mlp_off(monkeypatch):
 
 
 def test_registry_names_and_unicom():
-    from nkbx_torch.models import list_backbones
+    from nkbx_torch.models import create_backbone, list_backbones
 
     names = list_backbones()
     assert sum(n.startswith(("vit_", "deit_")) for n in names) == 16
     model = get_model({"model": "vit_small_patch32_384"}, list("ab"), input_size=(384, 384),
                       device="cpu", dtype=torch.float32)
     assert model.module.backbone.pos_embed.shape == (1, 145, 384) and model.emb_size == 384
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A7"):
-        get_model({"model": "unicom ViT-B/32"}, list("ab"), device="cpu")
+    with torch.device("meta"):
+        unicom = create_backbone("unicom ViT-B/32", dtype=torch.float32)
+    assert unicom.num_features == 512 and unicom.pos_embed.shape == (1, 49, 768)
+    assert not hasattr(unicom, "cls_token")
 
 
 # --- the train step against nkbx's -------------------------------------------------
