@@ -212,7 +212,25 @@
    ``pretrained`` and fused_attention: its pos_embed resampled 197 -> 577
    equal to the same resample on the CPU; a bucket-64 forward through K3 at
    N = 577 (12 launches) against the plain versions, and its img/s.
-11. Prints the kernels' JSON line (all 17 kernels), the card's name and
+11. configs/modern_recipe_config.py in the port (MODERN, check_modern):
+   (a) its device stage, RandAugment (num_ops 2, magnitude 9, 4 affine
+   grids) + Normalize, and TrivialAugmentWide, on a CUDA batch of 128 at 224
+   px against the CPU with the same draws, round by round, and their ms a
+   batch; (b) its bare step (resnet50, batch 128, bf16, exact BN, CutMix,
+   label smoothing, sgd lr 0.5, EMA 0.9998) as one call of 20 steps: finite
+   losses, stacked metrics, the EMA shadow; img/s of the call against 20
+   single calls, idle shares, peak memory, the device stage, mixup and EMA
+   alone; in f32 3 steps in one call against 3 single calls; (c) ``python
+   -m nkbx_torch.train`` on the config with only its data roots, run
+   directory, n_epochs (2) and num_workers changed, over a seeded ImageFolder
+   of BMP files (a call of 20 steps and one of 5 an epoch), with the
+   pretrained and ``mixup_alpha`` warnings; (d) ``python -m nkbx_torch.eval``
+   on its best.pt, equal to metrics.csv's best epoch, best.pt the EMA
+   shadow; none of (a)-(d) runs a kernel of ours (the counts stay 0); (e)
+   swin_tiny at batch 64 with grad_accum_steps=2, EMA, mixup and
+   log_gradients: K1, K2, K5 and K6 launch twice a step (counted), 3 steps
+   agree with the plain versions, the gradient norms carry nkbx's keys.
+12. Prints the kernels' JSON line (all 17 kernels), the card's name and
    power limit, and last {"ok": true, "device": {...}}.
 
 Exits non-zero, before printing any result, without a CUDA device, outside
@@ -2103,22 +2121,37 @@ def check_grads(path, model, init, criterion, pipe, images, labels, mask):
         if d > 2 * dq + 1e-3 * floor:
             fail(f"{path.label} f32 grads of {n} through the kernels are farther from plain than "
                  "plain's own rounding")
-    gk, gp = g[torch.bfloat16, False], g[torch.bfloat16, True]
+    check_bf16_grads(f"grads {path.label}", g[torch.bfloat16, False], g[torch.bfloat16, True],
+                     g32)
+
+
+def check_bf16_grads(what, gk, gp, g32):
+    """PERF.md §2's bf16 rule on dicts of tensors by name: the bf16 values
+    through the kernels (``gk``) and through plain (``gp``) against the f32
+    plain values (``g32``), each distance taken against the larger of the
+    tensor's largest f32 value and 1e-4 of the largest of all; through the
+    kernels each tensor must lie within twice plain's distance plus 1e-3.
+    Fails the phase on a miss."""
+    floor = 1e-4 * max(float(t.abs().max()) for t in g32.values())
+
+    def rel(got, want):
+        return float((got.float() - want).abs().max()) / max(float(want.abs().max()), floor)
+
     rows = [(rel(gk[n], g32[n]), rel(gp[n], g32[n]), rel(gk[n], gp[n]), n) for n in g32]
     bad = [r for r in rows if not r[0] <= 2 * r[1] + 1e-3]
     ratio = max(rows, key=lambda r: r[0] / max(r[1], 1e-30))
-    log(f"grads {path.label} bf16: per tensor, distance from the f32 grads through the kernels "
-        f"/ through plain at most {ratio[0] / max(ratio[1], 1e-30):.3f} ({ratio[3]}: "
-        f"{ratio[0]:.3e} / {ratio[1]:.3e}; tol 2 x plain + 1e-3); largest distance from f32 "
-        f"(/ its max) kernels {max(r[0] for r in rows):.3e}, plain "
-        f"{max(r[1] for r in rows):.3e}; {len(bad)} tensors off")
+    log(f"{what} bf16: per tensor, distance from the f32 values through the kernels / through "
+        f"plain at most {ratio[0] / max(ratio[1], 1e-30):.3f} ({ratio[3]}: {ratio[0]:.3e} / "
+        f"{ratio[1]:.3e}; tol 2 x plain + 1e-3); largest distance from f32 (/ its max) kernels "
+        f"{max(r[0] for r in rows):.3e}, plain {max(r[1] for r in rows):.3e}; {len(bad)} of "
+        f"{len(rows)} off")
     rows.sort(key=lambda r: -r[2])
     for r in rows[:4]:
         log(f"  {r[3]}: kernels - plain {r[2]:.3e}, kernels - f32 {r[0]:.3e}, "
             f"plain - f32 {r[1]:.3e}")
     if bad:
-        fail(f"{path.label} bf16 grads through the kernels are farther from f32 than plain "
-             f"bf16: {bad[:5]}")
+        fail(f"{what}: bf16 values through the kernels are farther from f32 than plain bf16: "
+             f"{bad[:5]}")
 
 
 def check_running_stats(path, got, want, tol, what):
@@ -3612,6 +3645,518 @@ def check_resample():
     return r, counts
 
 
+# --- phase 11: the modern recipe (MODERN) ------------------------------------------------
+
+MODERN_DIR = os.path.join("build", "modern_smoke")  # data, configs and runs
+MODERN_CONFIG = os.path.join("configs", "modern_recipe_config.py")
+MODERN_BATCH = 128  # the recipe's batch
+MODERN_K = 20  # the recipe's steps_per_dispatch
+# 25 full batches (a call of 20 and a shorter one of 5) and a padded val batch
+MODERN_SPLITS = (("train", 25 * MODERN_BATCH), ("val", 2 * MODERN_BATCH + 17))
+MODERN_WORKERS = 6  # the card's machine has 8 cores
+A4_STEPS = 3
+
+
+def check_modern_stage(cfg):
+    """MODERN (a): the recipe's device stage (RandAugment num_ops = 2,
+    magnitude 9, 4 affine grids, then Normalize) on a CUDA uint8 batch of
+    128 at 224 px with fixed draws (from a CPU generator) against the CPU
+    with the same draws, and TrivialAugmentWide (4 grids) the same way: each
+    round from the same input (the CPU's output of the round before) within
+    1e-3 on the 0-255 scale, the samples on identity, a warp, posterize,
+    solarize or equalize equal, leaving out the pixels whose source
+    coordinate lies within 1e-4 of a .5 tie (counted); the card's whole
+    stage equal to its own rounds, gate and Normalize, and its share of
+    values off the CPU's whole stage logged (a tie in round 1 moves round 2's
+    global ops: not held); a second run on the card bit-identical; then the
+    stage's ms a batch in bf16 with its own draws from a CUDA generator (CUDA
+    events) and a profile of one batch (device ms, launches)."""
+    from nkbx_torch.transforms import device as D
+    from nkbx_torch.transforms import spec as S
+
+    pipe = cfg.train_pipeline
+    (ra,) = [t for t in pipe.device_transforms if isinstance(t, S.RandAugment)]
+    norm = pipe.device_transforms[-1]
+    std = 255.0 * min(norm.std)
+    x = torch.from_numpy(np.random.default_rng(0).integers(0, 256, (MODERN_BATCH, 224, 224, 3),
+                                                           dtype=np.uint8))
+    xd = x.to(DEV)
+    out = {}
+    for name, t in (("randaugment", ra), ("trivialaugment",
+                                          S.TrivialAugmentWide(num_affine_grids=ra.num_affine_grids))):
+        stage = pipe.device_stage() if t is ra else S.Compose([t, norm]).device_stage()
+        (d,) = stage.draw(tuple(x.shape), torch.Generator().manual_seed(3))
+        dc = {k: v.to(DEV) for k, v in d.items()}
+        xr, errs, ties, equal = x.float(), [], 0, True
+        for r in range(d["op"].shape[0]):
+            point, grids = D.policy_magnitudes(t, d, r, 224, 224)
+            point_c, grids_c = D.policy_magnitudes(t, dc, r, 224, 224)
+            want = D.policy_round(xr, d["op"][r], d["grid"][r], point, grids)
+            got = D.policy_round(xr.to(DEV), dc["op"][r], dc["grid"][r], point_c,
+                                 grids_c).cpu()
+            tie = D.policy_ties(t, d, r, 224, 224)
+            keep = ~tie[..., None]
+            ties += int(tie.sum())
+            errs.append(max_err(got * keep, want * keep))
+            exact = torch.isin(d["op"][r], torch.tensor(D.EXACT_OPS))
+            equal &= torch.equal((got * keep)[exact], (want * keep)[exact])
+            xr = want
+        got = stage(xd, draws=[dc])
+        m, sd = (torch.as_tensor(v, device=DEV) for v in (stage.mean, stage.std))
+        composed = torch.equal(got, (D._apply_policy(t, xd.float(), dc) - m) / sd)
+        far = (got.cpu() - stage(x, draws=[d])).abs() > 1e-3 / std
+        whole = float(far.float().mean())
+        again = torch.equal(got, stage(xd, draws=[dc]))
+        gen = torch.Generator(device=DEV).manual_seed(0)
+        ms = cuda_ms(lambda: stage(xd, torch.bfloat16, generator=gen), iters=STAGE_ITERS)
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            stage(xd, torch.bfloat16, generator=gen)
+            torch.cuda.synchronize()
+        events = report_profile(prof, 1, f"in one {name} device-stage batch of {MODERN_BATCH} "
+                                f"at 224 px", ms, f"profile_modern_stage_{name}.txt")
+        out[name] = {"max_abs_err_0_255_by_round": errs, "tie_pixels": ties,
+                     "exact_ops_equal": equal, "stage_is_the_rounds": composed,
+                     "whole_share_over_tol": whole, "rerun_identical": again,
+                     "ms_per_batch": ms,
+                     "device_busy_ms": device_ms(events, 1) if events else None,
+                     "launches": sum(e.count for _, e in events),
+                     "ops_drawn": torch.bincount(d["op"].flatten(), minlength=14).tolist()}
+        log(f"modern (a) {name}: card against CPU with the same draws, by round max|d| "
+            f"{[f'{e:.3e}' for e in errs]} (tol 1e-3), exact ops equal {equal}, {ties} tie "
+            f"pixels left out; the card's stage equal to its rounds, gate and Normalize "
+            f"{composed}; whole stage against the CPU's: a share {whole:.2e} of values beyond "
+            f"{1e-3 / std:.2e} (what a tie moves in a later round; not held); rerun identical "
+            f"{again}; {ms:.4f} ms a batch in bf16 with its own draws")
+        if max(errs) > 1e-3 or not equal or not again or not composed:
+            fail(f"modern (a): the {name} device stage on the card disagrees with the CPU")
+    return out
+
+
+def modern_train_step(cfg, model, scan):
+    """The recipe's train step for ``model`` as the trainer builds it:
+    criterion, optimizer, device stage, mixup, EMA; ``scan`` steps a call."""
+    import warnings
+
+    from nkbx_torch.train import build_train_step, get_loss, get_optimizer
+
+    with warnings.catch_warnings():  # the mixup_alpha warning is held in MODERN (c)
+        warnings.simplefilter("ignore")
+        return build_train_step(model, get_loss(cfg.criterion, device=DEV),
+                                get_optimizer(cfg.optimizer),
+                                augment_fn=cfg.train_pipeline.device_apply, scan_steps=scan,
+                                ema_decay=cfg.model_ema_decay, mixup=cfg.mixup)
+
+
+def modern_step_parts(cfg, dtype, scan, seed=0):
+    """The recipe's model (random weights from seed 0, 10 classes; with
+    ``pretrained`` and no converted file it warns and keeps them), its state
+    with the EMA shadow, and its step: (model, state, step)."""
+    import warnings
+
+    from nkbx_torch.train import TrainState
+
+    with warnings.catch_warnings():  # the pretrained warning is held in MODERN (c)
+        warnings.simplefilter("ignore")
+        model = get_model(cfg.model, [f"class{i}" for i in range(N_CLASSES)], seed=0,
+                          dtype=dtype)
+    return model, TrainState.create(model, seed=seed, ema=True), modern_train_step(cfg, model,
+                                                                                   scan)
+
+
+def check_modern_step(cfg):
+    """MODERN (b), the bare step of the recipe: resnet50 at 224 px, batch
+    128, bf16 over f32 masters, exact BatchNorm, RandAugment + Normalize on
+    the card, CutMix (the config's ``mixup_alpha`` is ignored, as nkbx
+    ignores it) at prob 0.5, cross-entropy with label smoothing 0.1, sgd at
+    lr 0.5, EMA 0.9998, ``scan_steps=20``. One call on 20 stacked seeded
+    batches: finite losses, metrics of shape (20, ...), an EMA shadow that
+    moved and differs from the weights; then, warm, one timed 20-step call
+    (host clock, synchronised) against 20 single calls, img/s each, the peak
+    memory of the 20-step call, a profile of one single step (device ms by
+    kind of kernel, idle share) and of one 20-step call (its idle share),
+    and the device stage, the mixup and the EMA update alone on CUDA events.
+    In f32 (TF32 off, cuDNN deterministic for this check): 3 steps in one
+    call against 3 single calls from the same weights and generator seed:
+    losses within 1e-6 relative and every tensor of the state dict within
+    1e-6 of its largest value (bit-identical expected and reported)."""
+    from nkbx_torch.train.mixup import Mixup
+
+    rng = np.random.default_rng(0)
+    images = torch.as_tensor(rng.integers(0, 256, (MODERN_K, MODERN_BATCH, 224, 224, 3),
+                                          dtype=np.uint8), device=DEV)
+    labels = torch.as_tensor(rng.integers(0, N_CLASSES, (MODERN_K, MODERN_BATCH)), device=DEV)
+    masks = torch.ones((MODERN_K, MODERN_BATCH), dtype=torch.bool, device=DEV)
+    model, state, step = modern_step_parts(cfg, torch.bfloat16, MODERN_K)
+    init = {k: v.clone() for k, v in model.module.state_dict().items()}
+    state, m = step(state, images, labels, masks, 1.0, 1.0)
+    losses = m["loss"].float().cpu().numpy()
+    shadow, live = state.ema_module.state_dict(), model.module.state_dict()
+    moved = sum(not torch.equal(shadow[k], init[k]) for k in shadow)
+    apart = sum(not torch.equal(shadow[k], live[k]) for k in shadow)
+    shapes = {k: tuple(m[k].shape) for k in ("loss", "confidences", "predictions", "mask")}
+    log(f"modern (b): one call of {MODERN_K} steps, batch {MODERN_BATCH}, bf16: losses "
+        f"{[round(float(v), 4) for v in losses]}; metric shapes {shapes}; the EMA shadow moved "
+        f"in {moved} and differs from the weights in {apart} of {len(shadow)} tensors")
+    if (not np.isfinite(losses).all() or shapes["loss"] != (MODERN_K,)
+            or shapes["confidences"] != (MODERN_K, MODERN_BATCH, N_CLASSES) or not moved
+            or not apart):
+        fail("modern (b): the 20-step call's losses, metrics or EMA are wrong")
+    out = {"losses": losses.tolist()}
+    # warm: a timed 20-step call against 20 single calls of the same state
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, m = step(state, images, labels, masks, 1.0, 1.0)
+    torch.cuda.synchronize()
+    ms20 = (time.perf_counter() - t0) * 1e3
+    out["peak_mb"] = torch.cuda.max_memory_allocated() / 2 ** 20
+    single = modern_train_step(cfg, model, 1)
+    state, _ = single(state, images[0], labels[0], masks[0], 1.0, 1.0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for k in range(MODERN_K):
+        state, m1 = single(state, images[k], labels[k], masks[k], 1.0, 1.0)
+    torch.cuda.synchronize()
+    ms1 = (time.perf_counter() - t0) * 1e3
+    out.update(call20_ms=ms20, singles20_ms=ms1,
+               img_s_call20=MODERN_K * MODERN_BATCH / ms20 * 1e3,
+               img_s_singles=MODERN_K * MODERN_BATCH / ms1 * 1e3)
+    out["profile_step"] = profile_step(
+        lambda st: single(st, images[0], labels[0], masks[0], 1.0, 1.0), state, "resnet50_modern",
+        MODERN_BATCH, ms1 / MODERN_K)
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(state, images, labels, masks, 1.0, 1.0)
+        torch.cuda.synchronize()
+    events = report_profile(prof, MODERN_K, f"a step of one {MODERN_K}-step call", ms20 / MODERN_K,
+                            "profile_modern_call20.txt")
+    out["idle_share_call20"] = (1 - device_ms(events, MODERN_K) / (ms20 / MODERN_K)
+                                if events else None)
+    x = cfg.train_pipeline.device_apply(images[0], torch.bfloat16)
+    mix = Mixup({k: v for k, v in cfg.mixup.items() if k != "mixup_alpha"})
+    gen = torch.Generator(device=DEV).manual_seed(1)
+    out["device_stage_ms"] = cuda_ms(lambda: cfg.train_pipeline.device_apply(
+        images[0], torch.bfloat16, generator=gen), iters=STAGE_ITERS)
+    out["mixup_ms"] = cuda_ms(lambda: mix(x, masks[0], generator=gen), iters=STAGE_ITERS)
+    out["ema_ms"] = cuda_ms(lambda: state.update_ema(cfg.model_ema_decay), iters=STAGE_ITERS)
+    log(f"modern (b): one {MODERN_K}-step call {ms20:.1f} ms ({out['img_s_call20']:.1f} img/s) "
+        f"against {MODERN_K} single calls {ms1:.1f} ms ({out['img_s_singles']:.1f} img/s); idle "
+        f"share {out['idle_share_call20']} (one call) and {out['profile_step']['idle_share']:.3f} "
+        f"(a single step); peak {out['peak_mb']:.1f} MB; the device stage "
+        f"{out['device_stage_ms']:.3f} ms, the mixup {out['mixup_ms']:.3f} ms, the EMA "
+        f"{out['ema_ms']:.3f} ms a step (CUDA events)")
+    del model, state, step, single, images
+    torch.cuda.empty_cache()
+
+    # f32: 3 steps in one call against 3 single calls with the same draws
+    torch.backends.cudnn.deterministic, bench = True, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = False
+    try:
+        small = torch.as_tensor(rng.integers(0, 256, (3, MODERN_BATCH, 224, 224, 3),
+                                             dtype=np.uint8), device=DEV)
+        runs = []
+        for scan in (3, 1):
+            model, state, step = modern_step_parts(cfg, torch.float32, scan, seed=5)
+            if scan == 3:
+                state, m = step(state, small, labels[:3], masks[:3], 1.0, 1.0)
+                loss = m["loss"]
+            else:
+                loss = []
+                for k in range(3):
+                    state, m = step(state, small[k], labels[k], masks[k], 1.0, 1.0)
+                    loss.append(m["loss"])
+                loss = torch.stack(loss)
+            runs.append((loss.cpu(), {k: v.clone() for k, v in model.module.state_dict().items()},
+                         {k: v.clone() for k, v in state.ema_module.state_dict().items()}))
+            del model, state, step
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = False, bench
+    (l3, sd3, ema3), (l1, sd1, ema1) = runs
+    loss_rel = float(((l3 - l1).abs() / l1.abs()).max())
+    worst = max(float((sd3[k].float() - sd1[k].float()).abs().max())
+                / max(float(sd1[k].float().abs().max()), 1e-30)
+                for k in sd3 if sd3[k].is_floating_point())
+    identical = (torch.equal(l3, l1) and all(torch.equal(sd3[k], sd1[k]) for k in sd3)
+                 and all(torch.equal(ema3[k], ema1[k]) for k in ema3))
+    out.update(f32_loss_rel=loss_rel, f32_state_rel=worst, f32_identical=identical)
+    log(f"modern (b): f32, 3 steps in one call against 3 single calls: losses "
+        f"{l3.tolist()} / {l1.tolist()}, max rel {loss_rel:.3e} (tol 1e-6); state max |d| over "
+        f"each tensor's largest {worst:.3e} (tol 1e-6); bit-identical {identical}")
+    if not loss_rel <= 1e-6 or not worst <= 1e-6 or not np.isfinite(l3.numpy()).all():
+        fail("modern (b): the f32 3-step call disagrees with 3 single calls")
+    return out
+
+
+def write_modern_folder(root, seed=0):
+    """A seeded ImageFolder of uint8 BMP files, 48-112 px a side, 10 classes
+    of different mean colour (the host stage resizes them to 224)."""
+    rng = np.random.default_rng(seed)
+    for split, n in MODERN_SPLITS:
+        for i in range(n):
+            c = i % N_CLASSES
+            d = os.path.join(root, split, f"class{c}")
+            os.makedirs(d, exist_ok=True)
+            h, w = (int(v) for v in rng.integers(48, 113, 2))
+            tint = np.array([(c * 37) % 96, (c * 59) % 96, (c * 83) % 96]) - 48
+            img = np.clip(rng.integers(0, 256, (h, w, 3)) + tint, 0, 255).astype(np.uint8)
+            write_bmp(os.path.join(d, f"{i}.bmp"), img)
+
+
+def check_modern_cli():
+    """MODERN (c)-(d), each CLI in a subprocess:
+    (c) ``python -m nkbx_torch.train`` on configs/modern_recipe_config.py with
+        only the data roots, the run directory, n_epochs (2) and num_workers
+        changed (``shipped_config``), over a seeded ImageFolder of
+        25 x 128 + 273 BMP files: each epoch one call of 20 steps and one of
+        5; ``pretrained`` without a converted file and the config's
+        ``mixup_alpha`` must each warn; exit 0, its files, finite metrics;
+        the recipe's own lr (0.5) is kept;
+    (d) ``python -m nkbx_torch.eval`` on the run's weights/best.pt
+        (configs/eval_config.py with the run's paths, the model rebuilt from
+        resnet50, and the recipe's val data, pipeline and criterion):
+        balanced accuracy and loss within 1e-6 relative of metrics.csv's best
+        epoch; best.pt equal to the EMA shadow in weights/best/train_state.pt
+        and not to its raw weights."""
+    shutil.rmtree(MODERN_DIR, ignore_errors=True)
+    data = os.path.abspath(os.path.join(MODERN_DIR, "data"))
+    run = os.path.abspath(os.path.join(MODERN_DIR, "run"))
+    write_modern_folder(data)
+    cfg_path = shipped_config("modern_recipe_config", [
+        ('"root": "data/train"', f'"root": "{data}/train"', 1),
+        ('"root": "data/val"', f'"root": "{data}/val"', 1),
+        ('"path": f"data/runs/{experiment_name}"', f'"path": "{run}"', 1),
+        ("n_epochs = 90", "n_epochs = 2", 1),
+        ('"num_workers": 16', f'"num_workers": {MODERN_WORKERS}', 2)],
+        os.path.join(MODERN_DIR, "modern.py"))
+    env = {k: v for k, v in os.environ.items() if k != "NKBX_PRETRAINED_DIR"}
+    out = {}
+    proc, out["train_cli_s"] = run_cli("nkbx_torch.train", cfg_path, "modern_train.log", env)
+    rows = read_metrics_csv(os.path.join(run, "metrics.csv")) if proc.returncode == 0 else []
+    have = [n for n in ("classes.json", "metrics.csv", "weights/best.pt", "weights/last.pt",
+                        "weights/best", "weights/last") if os.path.exists(os.path.join(run, n))]
+    warned = {"pretrained": "no converted checkpoint for 'resnet50'" in proc.stderr,
+              "mixup_alpha": "'mixup_alpha' is ignored" in proc.stderr}
+    log(f"modern (c): python -m nkbx_torch.train on configs/modern_recipe_config.py exit "
+        f"{proc.returncode} in {out['train_cli_s']:.1f} s; {have}; metrics.csv rows {len(rows)}; "
+        f"warnings {warned}")
+    if proc.returncode != 0 or len(have) != 6 or len(rows) != 2 or not all(warned.values()):
+        fail(f"the modern recipe's train run failed (log in {OUT_DIR}/modern_train.log): "
+             f"{proc.stderr[-2000:]}")
+    shutil.copy(os.path.join(run, "metrics.csv"), os.path.join(OUT_DIR, "modern_metrics.csv"))
+    keys = ("train loss", "Val loss", "Val balanced accuracy", "train images/sec/chip")
+    for r in rows:
+        log(f"   epoch {r['Epoch']}: " + ", ".join(f"{k} {float(r[k]):.6f}" for k in keys))
+        if not all(np.isfinite(float(r[k])) for k in keys):
+            fail("the modern recipe's metrics are not finite")
+    out["train_img_s"] = [float(r["train images/sec/chip"]) for r in rows]
+    out["train_loss"] = [float(r["train loss"]) for r in rows]
+    best, best_acc = rows[0], -1.0
+    for r in rows:  # the trainer's rule: the first epoch that beats the best so far
+        if float(r["Val balanced accuracy"]) > best_acc:
+            best, best_acc = r, float(r["Val balanced accuracy"])
+    saved = torch.load(os.path.join(run, "weights", "best", "train_state.pt"),
+                       map_location="cpu", weights_only=True)
+    best_pt = torch.load(os.path.join(run, "weights", "best.pt"), map_location="cpu",
+                         weights_only=True)
+    is_ema = all(torch.equal(best_pt[k], saved["ema"][k]) for k in saved["ema"])
+    is_raw = all(torch.equal(best_pt[k], saved["module"][k]) for k in saved["module"])
+    out["best_pt_is_ema"], out["best_pt_is_raw"] = is_ema, is_raw
+    with open(os.path.join("configs", "eval_config.py")) as f:
+        header = next(line for line in f if line.startswith("import"))
+    save = os.path.abspath(os.path.join(MODERN_DIR, "eval"))
+    eval_cfg = shipped_config("eval_config", [
+        ('train_run_path = "data/runs/train_singletask_run_1"', f'train_run_path = "{run}"', 1),
+        ('save_path = "data/runs/val_singletask_run_1"', f'save_path = "{save}"', 1)],
+        os.path.join(MODERN_DIR, "eval.py"))
+    with open(eval_cfg, "a") as f:  # the recipe's val data, pipeline, model and criterion
+        f.write(textwrap.dedent(f"""
+            {header.strip()}
+            val_data = {{"type": "ImageFolder", "root": "{data}/val", "shuffle": False,
+                        "batch_size": {MODERN_BATCH}, "num_workers": {MODERN_WORKERS},
+                        "drop_last": False}}
+            img_size = 224
+            val_pipeline = T.Compose([
+                T.LongestMaxSize(img_size),
+                T.PadIfNeeded(img_size, img_size, border_mode=0, value=0),
+                T.Normalize(mean=(0.485, 0.456, 0.406), std=(0.229, 0.224, 0.225)),
+                T.ToTensorV2(),
+            ])
+            model = {{"task": task, "model": "resnet50",
+                     "checkpoint": f"{{train_run_path}}/weights/best.pt"}}
+            criterion = {{"task": task, "type": "CrossEntropyLoss", "label_smoothing": 0.1}}
+        """))
+    proc, out["eval_cli_s"] = run_cli("nkbx_torch.eval", eval_cfg, "modern_eval.log")
+    if proc.returncode != 0:
+        fail(f"the modern eval CLI failed (log in {OUT_DIR}/modern_eval.log): "
+             f"{proc.stderr[-2000:]}")
+    with open(os.path.join(save, "metrics.json")) as f:
+        metrics = json.load(f)
+    d_acc = abs(metrics["epoch_acc"] - best_acc) / max(best_acc, 1e-12)
+    d_loss = (abs(float(np.mean(metrics["loss"])) - float(best["Val loss"]))
+              / abs(float(best["Val loss"])))
+    out.update(eval_acc=metrics["epoch_acc"], eval_loss=float(np.mean(metrics["loss"])),
+               eval_rel_diff_acc=d_acc, eval_rel_diff_loss=d_loss)
+    log(f"modern (d): python -m nkbx_torch.eval exit 0 in {out['eval_cli_s']:.1f} s on "
+        f"weights/best.pt (epoch {best['Epoch']}): balanced accuracy {metrics['epoch_acc']:.8f} "
+        f"(metrics.csv {best_acc:.8f}, rel diff {d_acc:.3e}), loss {out['eval_loss']:.8f} "
+        f"(metrics.csv {float(best['Val loss']):.8f}, rel diff {d_loss:.3e}); tol 1e-6; best.pt "
+        f"is the EMA shadow {is_ema}, the raw weights {is_raw}")
+    if d_acc > 1e-6 or d_loss > 1e-6 or not is_ema or is_raw:
+        fail("modern (d): the eval CLI does not reproduce the best epoch, or best.pt is not "
+             "the EMA shadow")
+    return out
+
+
+# a fixed sample of nkbx's flax paths of swin_tiny's 173 parameters (nkbx's
+# SingletaskClassifier over its Swin), the keys its gradient norms are logged under
+SWIN_T_FLAX_PATHS = ("backbone/patch_embed/kernel", "backbone/patch_norm/scale",
+                     "backbone/stage0_block0/attn/qkv/kernel",
+                     "backbone/stage0_block0/attn/relative_position_bias_table",
+                     "backbone/stage0_block0/fc1/kernel", "backbone/stage0_block0/norm2/bias",
+                     "backbone/downsample2/reduction/kernel",
+                     "backbone/stage3_block1/attn/proj/bias", "backbone/norm/scale",
+                     "head/kernel", "head/bias")
+SWIN_T_N_PARAMS = 173
+
+
+def check_modern_kernels():
+    """MODERN (e), the A4 options on a path with kernels: swin_tiny at
+    batch 64 (the last 6 rows padded), bf16, flips + Normalize, nadam at
+    check_train's fine-tuning lrs, cross-entropy, with grad_accum_steps=2,
+    EMA 0.9998, mixup {"alpha": 0.2, "cutmix_alpha": 1.0} and
+    log_gradients. 3 steps through the kernels (counts set to 0 just before,
+    read after the first step and after the third: K1, K2, K5 and K6 launch
+    twice a step what one plain step launches, each microbatch once), the
+    same 3 steps from the same weights and generator seed through the plain
+    versions in bf16, and the first step through plain in f32 (TF32 off).
+    Held under PERF.md §2's rules: the 6 microbatch losses within 0.5% of
+    plain bf16's; the first step's accumulated gradients (``.grad``, the two
+    microbatches' mass-weighted mean, the kernels' backward at batch 32)
+    under bf16's rule (check_bf16_grads: each tensor within twice plain
+    bf16's distance from plain f32, plus 1e-3). The first step's logged norms
+    equal the norms of those gradients (f32, 1e-5 relative); a norm is one
+    scalar, one sample of rounding noise, so it is not held to plain's
+    distance itself. The norms finite, one per parameter (173) under nkbx's
+    flax paths, SWIN_T_FLAX_PATHS among them. Returns the kernels' counts of
+    the 3 steps and the numbers."""
+    from nkbx_torch.models import convert
+    from nkbx_torch.train import TrainState, build_train_step, get_loss, get_optimizer
+    from nkbx_torch.transforms import Compose, HorizontalFlip, Normalize
+
+    rng = np.random.default_rng(0)
+    images = torch.as_tensor(rng.integers(0, 256, (A4_STEPS, BUCKET, 224, 224, 3),
+                                          dtype=np.uint8), device=DEV)
+    labels = torch.as_tensor(rng.integers(0, N_CLASSES, (A4_STEPS, BUCKET)), device=DEV)
+    mask = torch.ones(BUCKET, dtype=torch.bool, device=DEV)
+    mask[-6:] = False
+    pipe = Compose([HorizontalFlip(), Normalize()])
+    bundle = get_optimizer({"type": "nadam", "backbone_lr": 1e-5, "classifier_lr": 1e-4,
+                            "weight_decay": 0.05})
+    one = SWIN.counts(torch.bfloat16, True)
+    init = None
+
+    def run(dtype, plain, steps):
+        """``steps`` steps from the same weights and generator seed: the
+        losses, the counts after the first step and after the last, the first
+        step's accumulated gradients and its norms, the last step's norms."""
+        nonlocal init
+        set_plain(plain)
+        model = SWIN.model(dtype)
+        if init is None:
+            init = {k: v.clone() for k, v in model.module.state_dict().items()}
+        model.module.load_state_dict(init)
+        state = TrainState.create(model, seed=0, ema=True)
+        step = build_train_step(model, get_loss({"type": "CrossEntropyLoss"}), bundle,
+                                augment_fn=pipe.device_apply, grad_accum_steps=2,
+                                ema_decay=0.9998, mixup={"alpha": 0.2, "cutmix_alpha": 1.0},
+                                log_gradients=True)
+        torch.cuda.synchronize()
+        zero_counts()
+        out = {"losses": []}
+        for i in range(steps):
+            state, m = step(state, images[i], labels[i], mask, 1.0, 1.0)
+            out["losses"].append(m["loss"].float())
+            if i == 0:
+                torch.cuda.synchronize()
+                out["first"] = read_counts()
+                out["grads"] = {convert.flax_param_path(n, t): t.grad.clone()
+                                for n, t in model.module.named_parameters()}
+                out["norms1"] = {k: v.clone() for k, v in m["grad_norms"].items()}
+        torch.cuda.synchronize()
+        out["counts"] = read_counts()
+        out["norms"] = {k: float(v) for k, v in m["grad_norms"].items()}
+        out["losses"] = torch.stack(out["losses"]).cpu()
+        set_plain(False)
+        return out
+
+    k = run(torch.bfloat16, False, A4_STEPS)
+    p = run(torch.bfloat16, True, A4_STEPS)
+    p32 = run(torch.float32, True, 1)
+    rel = float(((k["losses"] - p["losses"]).abs() / p["losses"].abs()).max())
+    twice = {n: 2 * v for n, v in one.items()}
+    norms = k["norms"]
+    keys_ok = len(norms) == SWIN_T_N_PARAMS and set(SWIN_T_FLAX_PATHS) <= set(norms)
+    finite = all(np.isfinite(list(norms.values())))
+    zero = dict.fromkeys(one, 0)
+    log(f"modern (e): swin_tiny, batch {BUCKET}, bf16, grad_accum_steps=2, EMA, mixup, "
+        f"log_gradients: microbatch losses {k['losses'].tolist()} (plain "
+        f"{p['losses'].tolist()}), max rel {rel:.3e} (tol 5e-3); launches in step 1 "
+        f"{k['first']} (want twice one plain step's: {twice}), in {A4_STEPS} steps "
+        f"{k['counts']}; plain's {p['counts']}, plain f32's {p32['counts']}; {len(norms)} "
+        f"gradient norms, finite {finite}, keys nkbx's {keys_ok}; step {A4_STEPS}'s total "
+        f"{sum(norms.values()):.6e} (plain {sum(p['norms'].values()):.6e})")
+    if k["first"] != twice or k["counts"] != {n: A4_STEPS * v for n, v in twice.items()}:
+        fail("modern (e): K1, K2, K5 and K6 did not launch twice a step under accumulation")
+    if p["counts"] != zero or p32["counts"] != zero:
+        fail(f"modern (e): the plain path launched kernels: {p['counts']}, {p32['counts']}")
+    if rel > 5e-3 or k["losses"].shape != (A4_STEPS, 2) or not keys_ok or not finite:
+        fail("modern (e): the A4 step's losses disagree with the plain path, or its gradient "
+             "norms are not finite under nkbx's keys")
+    check_bf16_grads("modern (e) step 1's accumulated gradients", k["grads"], p["grads"],
+                     p32["grads"])
+    # nadam's weight decay is decoupled and freeze_scale is 1: each logged norm
+    # is the norm of the accumulated gradient held above
+    if set(k["norms1"]) != set(k["grads"]):
+        fail("modern (e): the logged gradient norms and the parameters differ in their keys")
+    norm_err = max(abs(float(k["norms1"][n] - g.norm())) / max(float(g.norm()), 1e-30)
+                   for n, g in k["grads"].items())
+    log(f"modern (e): step 1's logged norms against the norms of its accumulated gradients, "
+        f"max rel {norm_err:.3e} (tol 1e-5)")
+    if norm_err > 1e-5:
+        fail("modern (e): the logged gradient norms are not the accumulated gradients' norms")
+    return k["counts"], {"loss_rel": rel, "losses": k["losses"].tolist(),
+                         "plain_losses": p["losses"].tolist(),
+                         "grad_norms_total": sum(norms.values()),
+                         "plain_grad_norms_total": sum(p["norms"].values())}
+
+
+def check_modern():
+    """MODERN, configs/modern_recipe_config.py in the port: (a)
+    check_modern_stage, (b) check_modern_step, (c)-(d) check_modern_cli,
+    which run no kernel of ours (resnet50 with exact BatchNorm: the counts,
+    set to 0 before and read after the in-process phases, stay 0), then (e)
+    check_modern_kernels, the A4 options through K1, K2, K5 and K6. Returns
+    (the numbers, (e)'s counts)."""
+    from nkbx_torch.utils import load_config
+
+    cfg = load_config(MODERN_CONFIG)
+    zero_counts()
+    out = {"device_stage": check_modern_stage(cfg)}
+    out["step"] = check_modern_step(cfg)
+    out["cli"] = check_modern_cli()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    if any(counts.values()):
+        fail(f"modern (a)-(d) launched port kernels they should not: {counts}")
+    counts, out["a4_swin"] = check_modern_kernels()
+    log(f"modern: {json.dumps(out)}")
+    return out, counts
+
+
 # --- the probe path: the command-line probes of X1 and X2 ---------------------------
 
 PROBE_ITERS = 3  # timed launches a shape in each probe
@@ -3702,6 +4247,8 @@ def main():
     zoo, served["zoo"] = check_zoo()
     resample, served["resample"] = check_resample()
     log(f"zoo and resample: {json.dumps({'zoo': zoo, 'resample': resample})}")
+    _, modern_counts = check_modern()
+    served["modern"] = trained["modern"] = modern_counts
 
     fwd, step = "one bucket-64 swin_tiny forward, bf16", "one batch-64 swin_tiny train step, bf16"
     vfwd = ("one bucket-64 vit_base_patch16_224 forward, bf16 (12 launches at N=197, bias and "
@@ -3916,9 +4463,28 @@ def layout_only():
     log(json.dumps({"layout": rows}))
 
 
+def modern_only():
+    """``--modern``: the card's name and power limit, Swin-T's kernels built
+    (K1, K2, K5, K6), and MODERN alone, its numbers as the last line."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60).stdout.strip()
+    log(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    os.makedirs(OUT_DIR, exist_ok=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    _build.build(["window_attention", "window_attention_bwd", "ln_mlp", "ln_mlp_bwd"])
+    log(f"build: {time.perf_counter() - t0:.1f} s")
+    out, counts = check_modern()
+    log(json.dumps({"modern": out, "counts": counts}))
+
+
 if __name__ == "__main__":
     if sys.argv[1:] == ["--resnet-step"]:
         resnet_step_only()
+    elif sys.argv[1:] == ["--modern"]:
+        modern_only()
     elif sys.argv[1:] == ["--layout"]:
         layout_only()
     else:

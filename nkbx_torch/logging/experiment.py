@@ -59,12 +59,14 @@ class LocalExperiment:
             arr = np.clip(arr, 0, 255).astype(np.uint8)
         write_png(self.path / f"{name}_{step}.png", arr)
 
-    def log_metric(self, name, value, epoch=0, step=None, prefix=None):
+    def _set(self, name, value, epoch, prefix):
         if prefix is not None:
             name = f"{prefix}/{name}"
         if isinstance(value, Sequence) and not isinstance(value, str):
             value = np.mean(value)
         self.rows.setdefault(epoch, {})[name] = value
+
+    def _write(self):
         columns = sorted({c for row in self.rows.values() for c in row})
         with open(self.path / "metrics.csv", "w", newline="") as f:
             out = csv.writer(f, delimiter="\t", lineterminator="\n")
@@ -72,9 +74,14 @@ class LocalExperiment:
             for e in sorted(self.rows):
                 out.writerow([e, *(_cell(self.rows[e].get(c)) for c in columns)])
 
+    def log_metric(self, name, value, epoch=0, step=None, prefix=None):
+        self._set(name, value, epoch, prefix)
+        self._write()
+
     def log_metrics(self, metrics_dict, epoch=0, step=None, prefix=None):
         for name, value in metrics_dict.items():
-            self.log_metric(name, value, epoch=epoch, prefix=prefix)
+            self._set(name, value, epoch, prefix)
+        self._write()
 
 
 def get_local_experiment(cfg_exp):
@@ -153,9 +160,17 @@ def log_metrics(experiment, target_names, classes, epoch, metrics, fold="train")
                           step=epoch)
 
 
+def log_grads(experiment, epoch, metrics_grad_log):
+    """Each ``Gradients/...`` series of an epoch as its nan-mean (nkbx
+    ``log_grads``, which logs them to Comet)."""
+    experiment.log_metrics({k: float(np.nanmean(v)) for k, v in metrics_grad_log.items()},
+                           epoch=epoch, step=epoch)
+
+
 class TrainLogger:
     """Epoch-level logging: ``classes.json`` at start, the start-up image
-    grids, and the local metrics of every epoch."""
+    grids, and the local metrics of every epoch, with the gradient norms'
+    ``Gradients/*`` when ``cfg.log_gradients`` is set."""
 
     def __init__(self, cfg, comet_experiment, local_experiment, classes):
         if cfg.task not in ("single", "multi"):
@@ -180,3 +195,5 @@ class TrainLogger:
                     train_results["metrics"], "train")
         log_metrics(self.local_experiment, self.target_names, self.classes, epoch,
                     val_results["metrics"], "Val")
+        if getattr(self.cfg, "log_gradients", False) and "metrics_grad_log" in train_results:
+            log_grads(self.local_experiment, epoch, train_results["metrics_grad_log"])

@@ -78,6 +78,18 @@ def _leaf(path: tuple, value: np.ndarray):
 _STATS = {"mean": "running_mean", "var": "running_var"}
 
 
+def flax_param_path(name: str, param) -> str:
+    """The flax path of the port parameter ``name``, joined with ``/`` as
+    nkbx names its gradient norms (``backbone/stage0_block0/attn/qkv/kernel``
+    for ``backbone.stage0_block0.attn.qkv.weight``): :func:`from_jax_variables`
+    read backwards. A ``weight`` of rank 1 was a norm's ``scale``, of a
+    higher rank a ``kernel``."""
+    *prefix, leaf = name.split(".")
+    if leaf == "weight":
+        leaf = "scale" if param.dim() == 1 else "kernel"
+    return "/".join(prefix + [leaf])
+
+
 def _stat_leaf(path: tuple, value: np.ndarray):
     if path[-1] not in _STATS:
         raise KeyError(f"flax batch_stats leaf {path[-1]!r} has no counterpart in the port")

@@ -6,11 +6,15 @@ Layout under ``<run>/weights/``:
 - ``best/`` and ``last/``: ``train_state.pt`` (``torch.save``) with the
   module's state dict (BatchNorm running statistics included), the
   optimizer's step counts, moments and NAdam products, the generator's
-  state, the step, and the meta ``epoch`` and ``best_val_acc``;
+  state, the step, the meta ``epoch`` and ``best_val_acc``, and under
+  ``ema`` the EMA shadow's state dict where the run keeps one;
 - ``last.cursor.json``: the mid-epoch preemption cursor, nkbx's keys
   (``epoch``, ``batch``, ``step``, ``batch_size``, ``process_count``);
 - ``best.pt`` and ``last.pt``: the module's state dict alone, where nkbx
-  writes msgpacks; ``get_model``'s ``checkpoint`` key loads them.
+  writes msgpacks (the EMA shadow's where the run keeps one, as nkbx's
+  msgpacks hold ``ema_params``); ``get_model``'s ``checkpoint`` key loads
+  them. A ``best/`` directory loads the raw weights, as nkbx's
+  ``load_model_variables`` does.
 
 A save writes into ``<path>.tmp`` and swaps it into place, so the previous
 checkpoint survives a preemption during the save.
@@ -28,7 +32,7 @@ STATE_FILE = "train_state.pt"
 
 
 def _payload(state, epoch: int, best_val_acc: float):
-    return {
+    payload = {
         "module": state.module.state_dict(),
         "opt_state": {label: {"count": st.count, "mu": st.mu, "nu": st.nu,
                               "mu_product": st.mu_product}
@@ -37,6 +41,9 @@ def _payload(state, epoch: int, best_val_acc: float):
         "step": int(state.step),
         "meta": {"epoch": int(epoch), "best_val_acc": float(best_val_acc)},
     }
+    if state.ema_module is not None:
+        payload["ema"] = state.ema_module.state_dict()
+    return payload
 
 
 def save_checkpoint(path, state, epoch: int, best_val_acc: float = 0.0,
@@ -82,9 +89,16 @@ def load_cursor(path) -> dict | None:
 def restore_train_state(path, state):
     """Load the checkpoint ``path`` into ``state`` (a :class:`TrainState` of
     the same model and optimizer groups) in place; returns (state, epoch,
-    best_val_acc)."""
+    best_val_acc).
+
+    The EMA shadow follows ``state`` as it was made (nkbx
+    checkpoint.py:109-128): a state with a shadow takes the checkpoint's,
+    or, from a checkpoint saved without EMA, starts it at the restored
+    weights; a state without one ignores a saved shadow."""
     payload = torch.load(Path(path) / STATE_FILE, map_location="cpu", weights_only=True)
     state.module.load_state_dict(payload["module"])
+    if state.ema_module is not None:
+        state.ema_module.load_state_dict(payload.get("ema", payload["module"]))
     for label, saved in payload["opt_state"].items():
         st = state.opt_state[label]
         if len(saved["mu"]) != len(st.mu):
@@ -100,5 +114,6 @@ def restore_train_state(path, state):
 
 
 def save_weights(path, module):
-    """The module's state dict alone (``best.pt``, ``last.pt``)."""
+    """The module's state dict alone (``best.pt``, ``last.pt``): the trained
+    module, or the EMA shadow where the run keeps one."""
     torch.save(module.state_dict(), path)

@@ -2,12 +2,13 @@
 ``nkbx/train/engine.py``).
 
 One train step is nkbx's ``build_train_step`` program, run eagerly: the
-uint8 batch through the device augment (flips, Normalize to the compute
-dtype), the forward in the compute dtype over f32 master parameters, the
-masked loss, the backward (through the kernels' autograd Functions on the
-card), and the two-group optimizer update scaled by ``lr_factor`` and
-``freeze_scale``. Metrics stay on the device: nothing in a step waits for
-the host.
+uint8 batch through the device augment (Normalize to the compute dtype
+last), mixup/CutMix, the forward in the compute dtype over f32 master
+parameters, the masked loss, the backward (through the kernels' autograd
+Functions on the card), optionally over microbatches, the two-group
+optimizer update scaled by ``lr_factor`` and ``freeze_scale``, and the EMA
+of the weights. Metrics stay on the device: nothing in a step waits for the
+host.
 
 The epoch half (nkbx ``engine.py:374-810``): :class:`EpochCollector`
 gathers each step's metrics (exact per-sample, or bounded counts on the
@@ -43,20 +44,34 @@ def _iter_metrics(preds, label, mask, loss_out):
     return {**one(preds, label, loss_out), "mask": mask}
 
 
+def _tree_map(fn, *trees):
+    """``fn`` over the tensors of one or more nests of dicts of the same
+    keys (a label or a metrics dict)."""
+    if isinstance(trees[0], dict):
+        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
 def _detach(tree):
-    if isinstance(tree, dict):
-        return {k: _detach(v) for k, v in tree.items()}
-    return tree.detach()
+    return _tree_map(lambda t: t.detach(), tree)
 
 
-_UNPORTED = {"grad_accum_steps": 1, "scan_steps": 1, "ema_decay": 0.0, "mixup": None,
-             "log_gradients": False}
+def _stack(trees):
+    """A list of metrics dicts as one dict of tensors stacked on a new first
+    dimension (nkbx's ``lax.scan`` outputs)."""
+    return _tree_map(lambda *xs: torch.stack(xs), *trees)
+
+
+def _scalar(loss_out):
+    return loss_out["loss"] if isinstance(loss_out, dict) else loss_out
 
 
 def build_train_step(model, criterion, bundle: OptimizerBundle, augment_fn=None,
-                     freeze_semantics: str = "decay", masked_bn: bool = False, **options):
+                     log_gradients: bool = False, masked_bn: bool = False, scan_steps: int = 1,
+                     grad_accum_steps: int = 1, ema_decay: float = 0.0, mixup: dict = None,
+                     freeze_semantics: str = "decay"):
     """Returns ``step(state, image_u8, label, mask, lr_factor, freeze_scale)
-    -> (state, metrics)``, nkbx's train step (engine.py:83).
+    -> (state, metrics)``, nkbx's train step (engine.py:83-295).
 
     ``augment_fn(image_u8, out_dtype=..., generator=...)`` is the device
     stage (``Compose.device_apply``): it receives the model's compute dtype
@@ -65,36 +80,164 @@ def build_train_step(model, criterion, bundle: OptimizerBundle, augment_fn=None,
     weights padded batch rows out of the BatchNorm statistics: the model
     gets ``mask.reshape(-1, 1, 1, 1)`` in training (nkbx engine.py:150-159).
     The step advances ``state`` in place (BatchNorm running statistics
-    included) and leaves each parameter's raw gradient in ``.grad``. nkbx's
-    other options (``grad_accum_steps``, ``scan_steps``, ``ema_decay``,
-    ``mixup``, ``log_gradients``) are not ported: any value but the default
-    raises."""
-    for name, value in options.items():
-        if name not in _UNPORTED:
-            raise TypeError(f"build_train_step got an unexpected option {name!r}")
-        if value != _UNPORTED[name]:
-            raise NotImplementedError(f"build_train_step option {name}={value!r} is not ported "
-                                      "to nkbx_torch yet (ROADMAP.md)")
+    included) and leaves each parameter's gradient in ``.grad``.
+
+    nkbx's options:
+
+    - ``mixup`` (a config dict, :mod:`nkbx_torch.train.mixup`): the batch is
+      mixed after the device stage, from the state's generator, and the loss
+      is ``lam * loss(label) + (1 - lam) * loss(label[partner])``, per entry
+      of a multi-task loss dict. ``step.mixup`` is the op (its ``draw`` can
+      be replaced to feed given draws).
+    - ``grad_accum_steps`` = A: the batch splits into A microbatches run one
+      after the other (the BatchNorm running statistics advance microbatch by
+      microbatch); each microbatch's gradient is weighted by its mass
+      (``criterion.batch_mass``, the valid rows otherwise) and their sum
+      divided by the total mass (clamped at 1e-12); one update. Mixup draws
+      once for the whole batch. Metrics come back stacked (A, ...).
+    - ``scan_steps`` = K: the step takes (K, B, ...) image, label and mask
+      and runs K steps in one call, metrics stacked (K, ...), as nkbx's
+      ``multi_step``; here a loop of K steps.
+    - ``ema_decay`` > 0 with a state made with ``ema=True``: after the update
+      the shadow moves as ``e <- e * d + p * (1 - d)`` over the parameters
+      and the BatchNorm running statistics.
+    - ``log_gradients``: ``metrics["grad_norms"]`` holds the f32 L2 norm of
+      each parameter's gradient after the coupled weight decay and the
+      freeze mask (the accumulated gradient under A > 1), keyed by nkbx's
+      flax path (``backbone/.../kernel``).
+
+    Nothing in a step waits on a host value. nkbx's errors are raised where
+    nkbx raises them: ``scan_steps`` with accumulation; A not dividing the
+    batch; accumulation with a multi-task criterion that normalises by mass;
+    mixup with accumulation and a criterion of non-uniform mass."""
+    from nkbx_torch.models.convert import flax_param_path
+    from nkbx_torch.train.mixup import Mixup
+
+    scan_steps, accum = int(scan_steps), int(grad_accum_steps)
+    if scan_steps > 1 and accum > 1:
+        raise ValueError("steps_per_dispatch and grad_accum_steps are mutually "
+                         "exclusive (unvalidated metric-stacking interaction)")
     if freeze_semantics not in ("decay", "torch"):
         raise ValueError(f"freeze_semantics must be 'decay' or 'torch', got {freeze_semantics!r}")
+    inner_mass = getattr(getattr(criterion, "criterion", None), "_mass_fn", None)
+    if accum > 1 and inner_mass is not None:
+        raise ValueError(
+            "multi-task grad_accum_steps with a mass-normalized criterion "
+            "(class-weighted CE / focal): per-target normalizers differ per "
+            "microbatch and a single per-microbatch weight cannot reproduce "
+            "the full-batch gradient (single-task stays exact via "
+            "criterion.batch_mass) — use an unweighted loss or no accumulation")
+    mix = None
+    if mixup is not None:
+        mix = Mixup(mixup)
+        nonuniform_mass = getattr(criterion, "_mass_fn", None) is not None or inner_mass is not None
+        if accum > 1 and nonuniform_mass:
+            raise ValueError(
+                "mixup + grad_accum_steps with a mass-normalized criterion "
+                "(class-weighted CE / focal): the primary and partner label "
+                "masses differ per microbatch, so a single per-microbatch "
+                "weight cannot reproduce the full-batch gradient — drop one "
+                "of the three (unweighted loss, no accumulation, or no mixup)")
     module, dtype = model.module, model.dtype
+    grad_keys = ({p: flax_param_path(n, p) for n, p in module.named_parameters()}
+                 if log_gradients else None)
 
-    def step(state, image, label, mask, lr_factor, freeze_scale):
+    def forward_loss(x, label, mask, label_b, lam):
+        preds = module(x, mask=mask.reshape(-1, 1, 1, 1)) if masked_bn else module(x)
+        loss_out = criterion(preds, label, mask=mask)
+        if label_b is not None:
+            loss_b = criterion(preds, label_b, mask=mask)
+            loss_out = _tree_map(lambda a, b: lam * a + (1.0 - lam) * b, loss_out, loss_b)
+        return preds, loss_out
+
+    def accumulate(x, label, mask, label_b, lam):
+        """The A microbatches' mass-weighted gradients into ``.grad``; their
+        metrics stacked (nkbx engine.py:188-236)."""
+        b = x.shape[0]
+        if b % accum:
+            raise ValueError(f"grad_accum_steps={accum} must divide batch {b}")
+
+        def split(v):
+            return v.reshape((accum, b // accum) + tuple(v.shape[1:]))
+
+        xs, ls, ms = split(x), _tree_map(split, label), split(mask)
+        lbs = _tree_map(split, label_b) if label_b is not None else None
+        params = list(module.parameters())
+        gsum, nsum, per = None, 0.0, []
+        for i in range(accum):
+            l_i = _tree_map(lambda v: v[i], ls)
+            lb_i = _tree_map(lambda v: v[i], lbs) if lbs is not None else None
+            module.zero_grad(set_to_none=True)
+            preds, loss_out = forward_loss(xs[i], l_i, ms[i], lb_i, lam)
+            _scalar(loss_out).backward()
+            with torch.no_grad():
+                n = (criterion.batch_mass(l_i, ms[i]) if hasattr(criterion, "batch_mass")
+                     else ms[i].float().sum())
+                # this microbatch's .grad tensors are scaled in place: the next
+                # zero_grad(set_to_none=True) leaves them to gsum
+                g = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
+                torch._foreach_mul_(g, n)
+                if gsum is None:
+                    gsum = g
+                else:
+                    torch._foreach_add_(gsum, g)
+                nsum = nsum + n
+                per.append(_iter_metrics(_detach(preds), l_i, ms[i], _detach(loss_out)))
+        with torch.no_grad():
+            torch._foreach_div_(gsum, torch.clamp(nsum, min=1e-12))
+            for p, g in zip(params, gsum):
+                p.grad = g
+        return _stack(per)
+
+    def one_step(state, image, label, mask, lr_factor, freeze_scale):
         module.train()
         x = (augment_fn(image, out_dtype=dtype, generator=state.generator)
              if augment_fn is not None else image)
+        label_b = lam = None
+        if mix is not None:
+            # a padded row's partner is itself, which leaves the row unmixed
+            x, lam, partner = mix(x, mask, generator=state.generator)
+            label_b = _tree_map(lambda v: v[partner], label)
         module.zero_grad(set_to_none=True)
-        preds = module(x, mask=mask.reshape(-1, 1, 1, 1)) if masked_bn else module(x)
-        loss_out = criterion(preds, label, mask=mask)
-        (loss_out["loss"] if isinstance(loss_out, dict) else loss_out).backward()
-        apply_updates(bundle, state.opt_state, state.groups, lr_factor, freeze_scale,
-                      freeze_semantics)
-        state.step += 1
+        metrics = None
+        if accum > 1:
+            metrics = accumulate(x, label, mask, label_b, lam)
+        else:
+            preds, loss_out = forward_loss(x, label, mask, label_b, lam)
+            _scalar(loss_out).backward()
+        grads = apply_updates(bundle, state.opt_state, state.groups, lr_factor, freeze_scale,
+                              freeze_semantics)
         with torch.no_grad():
-            return state, _iter_metrics(_detach(preds), label, mask, _detach(loss_out))
+            if ema_decay > 0 and state.ema_module is not None:
+                state.update_ema(ema_decay)
+            state.step += 1
+            if metrics is None:
+                metrics = _iter_metrics(_detach(preds), label, mask, _detach(loss_out))
+            if log_gradients:
+                norms = {}
+                for label_, params in state.groups.items():
+                    if label_ in grads:
+                        gs = [g.float() for g in grads[label_]]
+                        norms.update(zip((grad_keys[p] for p in params), torch._foreach_norm(gs)))
+                metrics["grad_norms"] = dict(sorted(norms.items()))
+        return state, metrics
+
+    if scan_steps > 1:
+        def step(state, images, labels, masks, lr_factor, freeze_scale):
+            """K steps, one per leading row of the stacked batch."""
+            out = []
+            for k in range(images.shape[0]):
+                state, m = one_step(state, images[k], _tree_map(lambda v: v[k], labels),
+                                    masks[k], lr_factor, freeze_scale)
+                out.append(m)
+            return state, _stack(out)
+    else:
+        step = one_step
 
     step.masked_bn = masked_bn
     step.has_batchnorm = has_batchnorm(module)
+    step.scan_steps = scan_steps
+    step.mixup = mix
     return step
 
 
@@ -159,7 +302,12 @@ class EpochCollector:
 
     ``mode="bounded"`` folds every step into O(C^2 + C·N_BINS) counts on the
     card (:func:`nkbx_torch.metrics.bounded_update`): balanced accuracy exact,
-    ROC-AUC within ~1/N_BINS. Config key ``metrics_accumulation``."""
+    ROC-AUC within ~1/N_BINS. Config key ``metrics_accumulation``.
+
+    Both take a step's metrics as (B, ...) or stacked (K, B, ...) (scan
+    steps, accumulation). Gradient norms (``log_gradients``) come back in
+    ``metrics_grad_log``: ``Gradients/<path>`` per parameter and
+    ``Gradients/Total``, the sum of a step's norms, one value per step."""
 
     def __init__(self, task: str = "single", mode: str = "exact"):
         if mode not in ("exact", "bounded"):
@@ -172,12 +320,16 @@ class EpochCollector:
         self._batches = []
         self._bounded = {}
         self._losses = defaultdict(list)
+        self._grad_norms = []
         self.epoch_images_example = None
 
     def log_iter(self, metrics):
         if self.mode == "exact":
             self._batches.append(metrics)
-        elif self.task == "multi":
+            return
+        if "grad_norms" in metrics:
+            self._grad_norms.append(metrics["grad_norms"])
+        if self.task == "multi":
             for t, tm in metrics.items():
                 if isinstance(tm, dict) and "confidences" in tm:
                     self._fold_one(t, tm, metrics["mask"])
@@ -199,6 +351,19 @@ class EpochCollector:
         if self.epoch_images_example is None:
             self.epoch_images_example = np.asarray(images)
 
+    @staticmethod
+    def _aggregate_grads(grad_logs):
+        """nkbx's ``_aggregate_grads`` (engine.py:471-481) over host arrays."""
+        grad_log = defaultdict(list)
+        for g in grad_logs:
+            totals = None
+            for k, v in g.items():
+                vals = np.ravel(np.asarray(v)).tolist()  # a scalar, or (K,) stacked
+                grad_log[f"Gradients/{k}"].extend(vals)
+                totals = vals if totals is None else [a + b for a, b in zip(totals, vals)]
+            grad_log["Gradients/Total"].extend(totals or [])
+        return dict(grad_log)
+
     def _bounded_results(self):
         from nkbx_torch.metrics import bounded_targetwise_metrics
 
@@ -217,6 +382,8 @@ class EpochCollector:
             state = self._bounded[None]
             results["bounded_metrics"] = bounded_targetwise_metrics(state)
             results["confusion_counts"] = state["counts"].cpu().numpy()
+        if self._grad_norms:
+            results["metrics_grad_log"] = self._aggregate_grads(_to_host(self._grad_norms))
         return results
 
     def get_epoch_results(self):
@@ -229,7 +396,7 @@ class EpochCollector:
             for m in batches:
                 valid = m["mask"]
                 for t, tm in m.items():
-                    if t in ("mask", "loss"):
+                    if t in ("mask", "loss", "grad_norms"):
                         continue
                     running_loss[t].extend(np.ravel(tm["loss"]).tolist())
                     confidences[t].extend(tm["confidences"][valid].tolist())
@@ -244,9 +411,13 @@ class EpochCollector:
                 confidences.extend(m["confidences"][valid].tolist())
                 predictions.extend(m["predictions"][valid].tolist())
                 ground_truth.extend(m["ground_truth"][valid].tolist())
-        return {"running_loss": running_loss, "confidences": confidences,
-                "predictions": predictions, "ground_truth": ground_truth,
-                "images": self.epoch_images_example}
+        results = {"running_loss": running_loss, "confidences": confidences,
+                   "predictions": predictions, "ground_truth": ground_truth,
+                   "images": self.epoch_images_example}
+        grad_logs = [m["grad_norms"] for m in batches if "grad_norms" in m]
+        if grad_logs:
+            results["metrics_grad_log"] = self._aggregate_grads(grad_logs)
+        return results
 
 
 # --- epoch loops ----------------------------------------------------------------------
@@ -273,19 +444,33 @@ def _progress(it, desc, total, on):
     return tqdm(it, leave=False, desc=desc, total=total)
 
 
+def _stack_batches(batches):
+    """K loader batches' image, label and mask stacked as (K, B, ...) arrays
+    for a call of a ``scan_steps`` step."""
+    def stack(*xs):
+        if isinstance(xs[0], dict):
+            return {k: stack(*(x[k] for x in xs)) for k in xs[0]}
+        return np.stack([np.asarray(x) for x in xs])
+
+    return {k: stack(*(b[k] for b in batches)) for k in ("image", "label", "mask")}
+
+
 def train_epoch(state, train_loader, train_step, epoch: int, lr_factor: float,
                 freeze_scale: float, epoch_logger=None, progress: bool = True, cfg=None,
                 start_batch: int = 0, device=None):
     """One training epoch of ``train_step`` (:func:`build_train_step`) over
     ``train_loader.epoch(epoch)``; returns (state, epoch_results).
 
-    ``start_batch > 0`` continues a preempted epoch from its cursor. A
-    SIGTERM (:mod:`nkbx_torch.train.preempt`) breaks the loop before the
-    next batch; ``epoch_results`` then has ``preempted`` True, and
+    A step built with ``scan_steps`` = K takes K loader batches a call,
+    stacked, and the epoch's last, shorter chunk in a smaller call (nkbx
+    engine.py:686-770). ``start_batch > 0`` continues a preempted epoch from
+    its cursor. A SIGTERM (:mod:`nkbx_torch.train.preempt`) breaks the loop
+    before the next batch; ``epoch_results`` then has ``preempted`` True, and
     ``consumed_batches`` counts the epoch's batches stepped so far
-    (``start_batch`` included), the cursor the trainer saves. Metrics of a
-    resumed epoch cover the remaining batches. ``device`` defaults to the
-    module's."""
+    (``start_batch`` included), the cursor the trainer saves: batches still
+    buffered for an unfinished chunk were not stepped and do not count, so a
+    resumed run reads them again. Metrics of a resumed epoch cover the
+    remaining batches. ``device`` defaults to the module's."""
     from nkbx_torch.train import preempt
 
     device = next(state.module.parameters()).device if device is None else device
@@ -293,27 +478,41 @@ def train_epoch(state, train_loader, train_step, epoch: int, lr_factor: float,
     logger = epoch_logger if epoch_logger is not None else EpochCollector(task)
     logger.init_iter_logs()
     tp = Throughput()
+    spd = getattr(train_step, "scan_steps", 1)
     it = train_loader.epoch(epoch, start_batch) if start_batch else train_loader.epoch(epoch)
     it = _progress(it, "Training", len(train_loader) - start_batch, progress)
-    steps, metrics, preempted = 0, None, False
+    steps, calls, metrics, preempted, buf = 0, 0, None, False, []
+
+    def dispatch(batches):
+        nonlocal state, metrics, steps, calls
+        dev = _put_batch(_stack_batches(batches) if spd > 1 else batches[0], device)
+        state, metrics = train_step(state, dev["image"], dev["label"], dev["mask"], lr_factor,
+                                    freeze_scale)
+        logger.log_iter(metrics)
+        tp.step(int(sum(b["mask"].sum() for b in batches)))
+        # nkbx warns here for any unmasked step; only a BatchNorm sees the padding
+        if (not all(b["mask"].all() for b in batches) and not getattr(train_step, "masked_bn",
+                                                                       False)
+                and getattr(train_step, "has_batchnorm", True)):
+            _warn_unmasked_partial()
+        if calls == 0:
+            logger.log_images_if_needed(batches[0]["image"])
+        steps += len(batches)
+        calls += 1
+
     for batch in it:
         if preempt.requested():
             preempted = True
             break
-        dev = _put_batch(batch, device)
-        state, metrics = train_step(state, dev["image"], dev["label"], dev["mask"], lr_factor,
-                                    freeze_scale)
-        logger.log_iter(metrics)
-        tp.step(int(batch["mask"].sum()))
-        # nkbx warns here for any unmasked step; only a BatchNorm sees the padding
-        if (not batch["mask"].all() and not getattr(train_step, "masked_bn", False)
-                and getattr(train_step, "has_batchnorm", True)):
-            _warn_unmasked_partial()
-        if steps == 0:
-            logger.log_images_if_needed(batch["image"])
-        steps += 1
-        if progress and hasattr(it, "set_postfix_str") and steps % 10 == 1:
+        buf.append(batch)
+        if len(buf) < spd:
+            continue
+        dispatch(buf)
+        buf = []
+        if progress and spd == 1 and hasattr(it, "set_postfix_str") and calls % 10 == 1:
             it.set_postfix_str(f"Loss: {float(_loss_of(metrics)):.4f}")
+    if buf and not preempted:
+        dispatch(buf)
     if metrics is not None:
         float(_loss_of(metrics))  # wait for the last step, so the throughput is honest
     results = logger.get_epoch_results()

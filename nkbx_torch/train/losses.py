@@ -66,11 +66,21 @@ def focal_loss(logits, labels, alpha=None, gamma: float = DEFAULT_FOCAL_GAMMA,
 class SingletaskCriterion:
     """Callable (logits, labels, mask) -> scalar loss."""
 
-    def __init__(self, fn):
+    def __init__(self, fn, mass_fn=None):
         self.fn = fn
+        self._mass_fn = mass_fn
 
     def __call__(self, pred, true, mask=None):
         return self.fn(pred, true, mask=mask)
+
+    def batch_mass(self, labels, mask=None):
+        """The normaliser of this criterion's mean over a batch, the weight a
+        microbatch's gradient carries under gradient accumulation (nkbx
+        losses.py:87-97): the class weights of the valid rows for weighted
+        CE, the valid unignored rows for focal, the valid rows otherwise."""
+        if self._mass_fn is not None:
+            return self._mass_fn(labels, mask)
+        return _valid_count(labels, mask)
 
 
 class MultitaskCriterion:
@@ -89,6 +99,19 @@ class MultitaskCriterion:
             total = total + out[name]
         out["loss"] = total
         return out
+
+    def batch_mass(self, true: dict, mask=None):
+        """The valid rows: one scalar cannot stand for per-target
+        normalisers, so multi-task accumulation is exact only where each
+        target's equals the valid count (nkbx losses.py:116-125)."""
+        labels = next(iter(true.values())) if isinstance(true, dict) else true
+        return _valid_count(labels, mask)
+
+
+def _valid_count(labels, mask):
+    if mask is None:
+        return torch.tensor(float(labels.shape[0]), device=labels.device)
+    return mask.float().sum()
 
 
 def get_loss(cfg_loss: dict, device=None):
@@ -109,12 +132,22 @@ def get_loss(cfg_loss: dict, device=None):
         def fn(logits, labels, mask=None):
             return cross_entropy(logits, labels, weight=weight, mask=mask,
                                  label_smoothing=smoothing)
+
+        mass_fn = None
+        if weight is not None:
+            def mass_fn(labels, mask):
+                w = weight[labels.long()]
+                return (w if mask is None else w * mask.to(w.dtype)).sum()
     elif kind == "FocalLoss":
         alpha, gamma = vec("alpha"), cfg_loss.get("gamma", DEFAULT_FOCAL_GAMMA)
 
         def fn(logits, labels, mask=None):
             return focal_loss(logits, labels, alpha=alpha, gamma=gamma, mask=mask)
+
+        def mass_fn(labels, mask):
+            valid = labels != -100  # focal_loss's default ignore_index
+            return (valid if mask is None else valid & mask.bool()).float().sum()
     else:
         raise NotImplementedError(f"Unknown loss type in config: {kind}")
-    base = SingletaskCriterion(fn)
+    base = SingletaskCriterion(fn, mass_fn=mass_fn)
     return MultitaskCriterion(base) if cfg_loss.get("task", "single") == "multi" else base

@@ -156,22 +156,26 @@ def apply_updates(bundle: OptimizerBundle, opt_state: Dict[str, GroupState],
     """One optimizer step over ``groups`` ({label: [params]}) from their
     ``.grad`` (None counts as zeros; the grads are not modified): coupled wd,
     the freeze mask, the direction, then ``p -= lr_group * lr_factor *
-    freeze * direction``."""
+    freeze * direction``. Returns {label: [gradients]} after the coupled wd
+    and the freeze mask, the gradients nkbx logs (``log_gradients``)."""
+    out = {}
     for label, params in groups.items():
         if not params:
             continue
         fs = float(freeze_scale) if label == "backbone" else 1.0
-        if freeze_semantics == "torch" and fs == 0.0:
-            continue  # torch skips frozen params: stale moments and step count
         g = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
         if bundle.coupled_wds[label]:
             g = torch._foreach_add(g, params, alpha=bundle.coupled_wds[label])
         if fs != 1.0:
             g = torch._foreach_mul(g, fs)
+        out[label] = g
+        if freeze_semantics == "torch" and fs == 0.0:
+            continue  # torch skips frozen params: stale moments and step count
         u = _DIRECTIONS[bundle.kind](g, opt_state[label], params, bundle.decoupled_wds[label])
         step = bundle.lrs[label] * float(lr_factor) * fs
         if step:
             torch._foreach_add_(params, u, alpha=-step)
+    return out
 
 
 # --- epoch LR schedules (stepped once per epoch) -------------------------------

@@ -9,8 +9,12 @@ accuracy and the last one, full train state each, beside weights-only
 ``last`` with a batch cursor and stops; ``resume_from`` continues from a
 checkpoint, from the cursor's batch where it matches the checkpoint.
 
-nkbx's other trainer options raise, naming the ROADMAP item that ports
-them.
+nkbx's train-step options come from the config as nkbx takes them
+(trainer.py:121-141): ``mixup``, ``steps_per_dispatch`` (K steps a call),
+``grad_accum_steps``, ``log_gradients`` and ``model_ema_decay``. With EMA,
+validation, the choice of the best epoch and ``best.pt``/``last.pt`` use the
+EMA shadow. nkbx's other trainer options raise, naming the ROADMAP item that
+ports them.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ import warnings
 
 from nkbx_torch.logging import TrainLogger
 from nkbx_torch.metrics import compute_metrics
+from nkbx_torch.models.classifier import ClassificationModel
 from nkbx_torch.train import preempt
 from nkbx_torch.train.checkpoint import (load_cursor, restore_train_state, save_checkpoint,
                                          save_weights)
@@ -29,11 +34,6 @@ from nkbx_torch.train.state import TrainState
 
 # config keys of nkbx's trainer that the port does not run yet: (default, ROADMAP item)
 UNPORTED = {
-    "model_ema_decay": (0.0, "A4"),
-    "mixup": (None, "A4"),
-    "steps_per_dispatch": (1, "A4"),
-    "grad_accum_steps": (1, "A4"),
-    "log_gradients": (False, "A4"),
     "mesh": (None, "A10"),
     "fsdp": (False, "A10"),
     "distributed": (False, "A10"),
@@ -63,7 +63,8 @@ def train(model, train_loader, val_loader, criterion, comet_experiment, local_ex
 
     bundle = get_optimizer(cfg.optimizer)
     schedule = get_scheduler(cfg.lr_policy)
-    state = TrainState.create(model, seed=cfg.get("seed", 0))
+    ema_decay = float(cfg.get("model_ema_decay", 0.0) or 0.0)
+    state = TrainState.create(model, seed=cfg.get("seed", 0), ema=ema_decay > 0)
 
     start_epoch, best_val_acc, resume_batch = 0, 0.0, 0
     if resume_from is not None:
@@ -86,10 +87,20 @@ def train(model, train_loader, val_loader, criterion, comet_experiment, local_ex
     augment_val = val_loader.pipeline.device_apply if val_loader.pipeline else None
     train_step = build_train_step(
         model, criterion, bundle, augment_fn=augment_train,
-        freeze_semantics=cfg.get("freeze_semantics", "decay"),
+        log_gradients=bool(cfg.get("log_gradients", False)),
         # a padded last batch must not reach the BatchNorm statistics
-        masked_bn=(not train_loader.drop_last) and has_batchnorm(model.module))
-    eval_step = build_eval_step(model, criterion, augment_fn=augment_val)
+        masked_bn=(not train_loader.drop_last) and has_batchnorm(model.module),
+        scan_steps=int(cfg.get("steps_per_dispatch", 1) or 1),
+        grad_accum_steps=int(cfg.get("grad_accum_steps", 1) or 1),
+        ema_decay=ema_decay, mixup=cfg.get("mixup", None),
+        freeze_semantics=cfg.get("freeze_semantics", "decay"))
+    # with EMA, validation and the saved weights are the shadow's
+    eval_model = (ClassificationModel(state.ema_module, model.classes, model.task,
+                                      model.emb_size, model.input_size, model.dtype,
+                                      model.device)
+                  if state.ema_module is not None else model)
+    eval_step = build_eval_step(eval_model, criterion, augment_fn=augment_val)
+    weights = state.ema_module if state.ema_module is not None else state.module
 
     freeze_scale = 1.0
     task = cfg.task
@@ -105,7 +116,7 @@ def train(model, train_loader, val_loader, criterion, comet_experiment, local_ex
             save_checkpoint(model_path / "last", state, epoch - 1, best_val_acc, cursor={
                 "epoch": epoch, "batch": int(train_results["consumed_batches"]),
                 "step": state.step, "batch_size": train_loader.batch_size, "process_count": 1})
-            save_weights(model_path / "last.pt", state.module)
+            save_weights(model_path / "last.pt", weights)
             print(f"[nkbx_torch] preemption signal received during epoch {epoch}: full train "
                   f"state saved; resume with --resume {model_path / 'last'}")
             break
@@ -121,9 +132,9 @@ def train(model, train_loader, val_loader, criterion, comet_experiment, local_ex
         if epoch_val_acc is not None and epoch_val_acc > best_val_acc:
             best_val_acc = epoch_val_acc
             save_checkpoint(model_path / "best", state, epoch, best_val_acc)
-            save_weights(model_path / "best.pt", state.module)
+            save_weights(model_path / "best.pt", weights)
         save_checkpoint(model_path / "last", state, epoch, best_val_acc)
-        save_weights(model_path / "last.pt", state.module)
+        save_weights(model_path / "last.pt", weights)
         if preempt.agreed():
             print(f"[nkbx_torch] preemption signal received: stopping after epoch {epoch}; "
                   f"resume with --resume {model_path / 'last'}")

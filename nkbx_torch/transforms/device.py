@@ -1,7 +1,15 @@
 """Device stage of the transform pipeline (counterpart of
 ``nkbx/transforms/device.py`` ``build_device_fn``): the random flips,
-RandomBrightnessContrast, HueSaturationValue and CoarseDropout, then
-Normalize, as plain elementwise PyTorch ops on the batch's device.
+RandomBrightnessContrast, HueSaturationValue, CoarseDropout, RandAugment
+and TrivialAugmentWide, then Normalize, as plain PyTorch ops on the batch's
+device.
+
+RandAugment and TrivialAugmentWide run torchvision's 14-op table as nkbx
+runs it in batch mode: every op on the whole batch, then each sample's op
+selected, so nothing waits on the host; the affine ops (shears, translates,
+rotation, nearest-neighbour sampling) go through ``num_affine_grids`` grids
+that the batch shares, each sample taking one; equalize is PIL's integer
+LUT, bit for bit.
 
 The chain keeps nkbx's order (device.py:694-733): the flips select on the
 raw uint8 batch until the first photometric op, which casts to float32; each
@@ -74,6 +82,10 @@ def _uniform(shape, lo, hi, generator, device):
     return torch.rand(shape, generator=generator, device=device) * (hi - lo) + lo
 
 
+def _signs(shape, generator, device):
+    return torch.where(torch.rand(shape, generator=generator, device=device) < 0.5, 1.0, -1.0)
+
+
 def draw(t: S.Transform, shape, generator: torch.Generator, device) -> dict:
     """One random op's draws for a batch of ``shape`` (B, H, W, C), from
     ``generator`` on ``device``, in this order: ``gate`` (B uniforms under
@@ -82,7 +94,12 @@ def draw(t: S.Transform, shape, generator: torch.Generator, device) -> dict:
     dropout ``n_holes`` (an integer in [min_holes, max_holes]), the hole
     heights ``hh`` and widths ``ww`` (floors of U(min, max)), then the top
     rows ``y1`` and left columns ``x1`` (floors of U(0, 1)·max(H − hh, 1),
-    and of W), each (B, max_holes)."""
+    and of W), each (B, max_holes); RandAugment and TrivialAugmentWide one
+    row a round (R = ``num_ops``, or 1) of ``op`` (B, the 14-op table),
+    ``grid`` (B, the affine grid a sample takes), ``sign`` (B, ±1), and of
+    each of the K affine grids ``grid_op`` (1-5) and ``grid_sign``;
+    TrivialAugmentWide also the magnitude bins ``mag`` (B) and ``grid_mag``
+    (K)."""
     b, ih, iw = shape[0], shape[1], shape[2]
     out = {"gate": torch.rand(b, generator=generator, device=device) < t.p}
     if isinstance(t, S.RandomBrightnessContrast):
@@ -103,6 +120,18 @@ def draw(t: S.Transform, shape, generator: torch.Generator, device) -> dict:
                                 * torch.clamp(ih - out["hh"], min=1.0))
         out["x1"] = torch.floor(torch.rand(n, generator=generator, device=device)
                                 * torch.clamp(iw - out["ww"], min=1.0))
+    elif isinstance(t, (S.RandAugment, S.TrivialAugmentWide)):
+        r, k = getattr(t, "num_ops", 1), t.num_affine_grids
+        out["op"] = torch.randint(0, N_POLICY_OPS, (r, b), generator=generator, device=device)
+        out["grid"] = torch.randint(0, k, (r, b), generator=generator, device=device)
+        out["sign"] = _signs((r, b), generator, device)
+        out["grid_op"] = torch.randint(SHEAR_X, ROTATE + 1, (r, k), generator=generator,
+                                       device=device)
+        out["grid_sign"] = _signs((r, k), generator, device)
+        if isinstance(t, S.TrivialAugmentWide):
+            bins = t.num_magnitude_bins
+            out["mag"] = torch.randint(0, bins, (r, b), generator=generator, device=device)
+            out["grid_mag"] = torch.randint(0, bins, (r, k), generator=generator, device=device)
     return out
 
 
@@ -150,12 +179,246 @@ def _apply_flip(t, x, d):
     return torch.where(_col(d["gate"]), x.flip(_FLIP_DIMS[type(t)]), x)
 
 
+# --- RandAugment and TrivialAugmentWide (nkbx device.py:382-646) -------------------------
+
+# op ids, in torchvision's RandAugment._augmentation_space order
+(IDENTITY, SHEAR_X, SHEAR_Y, TRANSLATE_X, TRANSLATE_Y, ROTATE, BRIGHTNESS, COLOR, CONTRAST,
+ SHARPNESS, POSTERIZE, SOLARIZE, AUTOCONTRAST, EQUALIZE) = range(14)
+N_POLICY_OPS = 14
+
+
+def _gray(x):
+    return (0.299 * x[..., 0] + 0.587 * x[..., 1] + 0.114 * x[..., 2])[..., None]
+
+
+def _blend(base, img, factor):
+    """torchvision's ``_blend``: base + factor·(img − base), clipped."""
+    return torch.clamp(base + factor * (img - base), 0.0, 255.0)
+
+
+def posterize(x, bits):
+    step = torch.pow(2.0, 8.0 - _col(bits))
+    return torch.floor(torch.floor(x) / step) * step
+
+
+def solarize(x, thr):
+    return torch.where(x >= _col(thr), 255.0 - x, x)
+
+
+def autocontrast(x):
+    mn = x.amin(dim=(1, 2), keepdim=True)
+    mx = x.amax(dim=(1, 2), keepdim=True)
+    scale = 255.0 / torch.where(mx > mn, mx - mn, 1.0)
+    return torch.where(mx > mn, (x - mn) * scale, x)
+
+
+def equalize(x):
+    """PIL's ``ImageOps.equalize`` per sample and channel: an int64
+    histogram of the rounded pixels, the step ``(N − count of the last
+    non-empty bin) // 255``, the LUT ``(step // 2 + exclusive cumsum) //
+    step`` clipped to [0, 255], the identity where the step is 0 or one
+    bin is non-empty (nkbx device.py:407-443, whose nibble einsums reach
+    the same integers)."""
+    b, h, w, c = x.shape
+    q = torch.clamp(torch.round(x), 0, 255).long()
+    flat = q.permute(0, 3, 1, 2).reshape(b * c, h * w)
+    hist = torch.zeros(b * c, 256, dtype=torch.int64, device=x.device)
+    hist.scatter_add_(1, flat, torch.ones_like(flat))
+    nonzero = hist > 0
+    last_nz = 255 - torch.argmax(nonzero.flip(1).to(torch.int32), dim=1)
+    last_count = hist.gather(1, last_nz[:, None])[:, 0]
+    step = (h * w - last_count) // 255
+    csum = torch.cumsum(hist, dim=1) - hist
+    lut = torch.clamp((step[:, None] // 2 + csum) // torch.clamp(step, min=1)[:, None], 0, 255)
+    identity = (step <= 0) | (nonzero.sum(dim=1) <= 1)
+    lut = torch.where(identity[:, None], torch.arange(256, device=x.device), lut)
+    out = lut.gather(1, flat).to(x.dtype)
+    return out.reshape(b, c, h, w).permute(0, 2, 3, 1)
+
+
+_SHARP = ((1.0, 1.0, 1.0), (1.0, 5.0, 1.0), (1.0, 1.0, 1.0))
+
+
+def sharpness(x, factor):
+    """torchvision's ``adjust_sharpness``: blend with the rounded 3x3
+    [1,1,1; 1,5,1; 1,1,1]/13 blur, whose border ring keeps the original
+    pixels. The blur is nine shifted products, so no convolution algorithm
+    (TF32 on the card) rounds it; an integer sum over 13 is never within
+    rounding of a .5 tie, so the rounded blur is exact."""
+    _, h, w, _ = x.shape
+    sm = x.clone()
+    if h > 2 and w > 2:
+        acc = None
+        for dy in range(3):
+            for dx in range(3):
+                term = (_SHARP[dy][dx] / 13.0) * x[:, dy:dy + h - 2, dx:dx + w - 2]
+                acc = term if acc is None else acc + term
+        sm[:, 1:-1, 1:-1] = torch.clamp(torch.round(acc), 0.0, 255.0)
+    return _blend(sm, x, factor)
+
+
+def affine_sources(grids: dict, h: int, w: int, device):
+    """The (K, H, W) source rows and columns of the K affine grids
+    (``aop`` 1-5, ``shear``, ``trans_x``, ``trans_y``, ``rot_deg``, each
+    (K,)): the inverse map of shear x/y anchored at the top-left, an integer
+    translate, or a rotation about the centre (nkbx device.py:556-576)."""
+    cy, cx = (h - 1) / 2.0, (w - 1) / 2.0
+    ys = torch.arange(h, dtype=torch.float32, device=device)[None, :, None]
+    xs = torch.arange(w, dtype=torch.float32, device=device)[None, None, :]
+    aop = grids["aop"][:, None, None]
+    sh = grids["shear"][:, None, None]
+    rad = grids["rot_deg"][:, None, None] * (np.pi / 180.0)
+    cos, sin = torch.cos(rad), torch.sin(rad)
+    is_shx, is_shy, is_rot = aop == SHEAR_X, aop == SHEAR_Y, aop == ROTATE
+    zero = torch.zeros_like(sh)
+    m00 = torch.where(is_rot, cos, 1.0)
+    m01 = torch.where(is_shx, -sh, torch.where(is_rot, -sin, zero))
+    m10 = torch.where(is_shy, -sh, torch.where(is_rot, sin, zero))
+    m11 = torch.where(is_rot, cos, 1.0)
+    tx = torch.where(aop == TRANSLATE_X, grids["trans_x"][:, None, None], zero)
+    ty = torch.where(aop == TRANSLATE_Y, grids["trans_y"][:, None, None], zero)
+    tl = is_shx | is_shy
+    ox = torch.where(tl, zero, torch.full_like(sh, cx))
+    oy = torch.where(tl, zero, torch.full_like(sh, cy))
+    dx = xs - ox - tx
+    dy = ys - oy - ty
+    return m10 * dx + m11 * dy + oy, m00 * dx + m01 * dy + ox
+
+
+def nearest_warp(x, src_y, src_x):
+    """``x`` (B, H, W, C) sampled at the nearest pixel of the shared (H, W)
+    source grid, 0 outside (nkbx ``_shared_nearest_gather``)."""
+    b, h, w, c = x.shape
+    yi, xi = torch.round(src_y).long(), torch.round(src_x).long()
+    valid = ((yi >= 0) & (yi < h) & (xi >= 0) & (xi < w))[None, :, :, None]
+    idx = (torch.clamp(yi, 0, h - 1) * w + torch.clamp(xi, 0, w - 1)).reshape(-1)
+    v = x.reshape(b, h * w, c)[:, idx].reshape(b, h, w, c)
+    return torch.where(valid, v, 0.0)
+
+
+def policy_round(x, op, grid, point, grids):
+    """One round of the 14-op table on the f32 batch ``x`` (nkbx
+    ``_policy_round``): every op on the whole batch, then each sample's
+    selected. ``op``, ``grid`` (B,): each sample's op and affine grid;
+    ``point``: per-sample ``color_v``, ``post_bits``, ``solar_thr`` (B,);
+    ``grids``: the K grids (see :func:`affine_sources`)."""
+    _, h, w, _ = x.shape
+    src_y, src_x = affine_sources(grids, h, w, x.device)
+    is_affine = (op >= SHEAR_X) & (op <= ROTATE)
+    y = x
+    for k in range(src_y.shape[0]):
+        y = torch.where(_col(is_affine & (grid == k)), nearest_warp(x, src_y[k], src_x[k]), y)
+    f = _col(1.0 + point["color_v"])
+
+    def sel(op_id, val):
+        return torch.where(_col(op == op_id), val, y)
+
+    y = sel(BRIGHTNESS, _blend(torch.zeros_like(x), x, f))
+    y = sel(COLOR, _blend(_gray(x), x, f))
+    mean_gray = torch.round(_gray(x)).mean(dim=(1, 2, 3), keepdim=True)
+    y = sel(CONTRAST, _blend(mean_gray, x, f))
+    y = sel(SHARPNESS, sharpness(x, f))
+    y = sel(POSTERIZE, posterize(x, point["post_bits"]))
+    y = sel(SOLARIZE, solarize(x, point["solar_thr"]))
+    y = sel(AUTOCONTRAST, autocontrast(x))
+    y = sel(EQUALIZE, equalize(x))
+    return torch.clamp(y, 0.0, 255.0)
+
+
+def randaugment_magnitudes(t: S.RandAugment, d: dict, r: int, h: int, w: int):
+    """Round ``r``'s per-sample and per-grid magnitudes of RandAugment at its
+    fixed magnitude (nkbx device.py:466-494, 595-612), in nkbx's f32
+    arithmetic; posterize keeps ``8 − round(m / ((bins − 1) / 4))`` bits
+    (Python's round, half to even)."""
+    frac = t.magnitude / max(t.num_magnitude_bins - 1, 1)
+    sign = d["sign"][r]
+    point = {"color_v": sign * (0.9 * frac),
+             "post_bits": torch.full_like(sign, 8.0 - round(
+                 t.magnitude / ((t.num_magnitude_bins - 1) / 4))),
+             "solar_thr": torch.full_like(sign, 255.0 * (1.0 - frac))}
+    gs = d["grid_sign"][r]
+    fr = torch.full_like(gs, frac)
+    grids = {"aop": d["grid_op"][r], "shear": 0.3 * fr * gs,
+             "trans_x": torch.floor(150.0 / 331.0 * w * fr) * gs,
+             "trans_y": torch.floor(150.0 / 331.0 * h * fr) * gs,
+             "rot_deg": 30.0 * fr * gs}
+    return point, grids
+
+
+def _div(a, b: float):
+    """``a / b`` rounded as a true division on any device: CUDA divides by a
+    host scalar through its reciprocal, an ulp off nkbx's (and the CPU's)
+    quotient, which can move a solarize threshold across a pixel value."""
+    return a / torch.tensor(float(b), device=a.device)
+
+
+def trivialaugment_magnitudes(t: S.TrivialAugmentWide, d: dict, r: int):
+    """TrivialAugmentWide's magnitudes from the bins drawn per sample and
+    per grid, at the wide ranges (shear 0.99, translate 32 px, rotate 135°,
+    colour 0.99, posterize ``8 − round(m / ((bins − 1) / 6))`` bits; nkbx
+    device.py:497-526)."""
+    bins = t.num_magnitude_bins
+    m = d["mag"][r].float()
+    fr = _div(m, max(bins - 1, 1))
+    sign = d["sign"][r]
+    point = {"color_v": 0.99 * fr * sign,
+             "post_bits": 8.0 - torch.round(_div(m, (bins - 1) / 6)),
+             "solar_thr": 255.0 * (1.0 - fr)}
+    gm = d["grid_mag"][r].float()
+    gfr = _div(gm, max(bins - 1, 1))
+    gs = d["grid_sign"][r]
+    grids = {"aop": d["grid_op"][r], "shear": 0.99 * gfr * gs,
+             "trans_x": torch.floor(32.0 * gfr) * gs, "trans_y": torch.floor(32.0 * gfr) * gs,
+             "rot_deg": 135.0 * gfr * gs}
+    return point, grids
+
+
+def policy_magnitudes(t, d: dict, r: int, h: int, w: int):
+    """Round ``r``'s ``(point, grids)`` magnitudes of either policy ``t``."""
+    if isinstance(t, S.RandAugment):
+        return randaugment_magnitudes(t, d, r, h, w)
+    return trivialaugment_magnitudes(t, d, r)
+
+
+# the ops whose output on uint8-valued input is exact on any device (the others
+# blend, blur or rescale in f32 and agree to rounding)
+EXACT_OPS = (IDENTITY, SHEAR_X, SHEAR_Y, TRANSLATE_X, TRANSLATE_Y, ROTATE, POSTERIZE, SOLARIZE,
+             EQUALIZE)
+
+
+def policy_ties(t, d: dict, r: int, h: int, w: int, tol: float = 1e-4):
+    """(B, H, W): the pixels of round ``r`` of a sample on an affine op whose
+    source row or column (computed on the CPU) lies within ``tol`` of a .5
+    tie, where another device's or framework's arithmetic may take the other
+    nearest neighbour."""
+    cpu = {k: v.cpu() for k, v in d.items()}
+    _, grids = policy_magnitudes(t, cpu, r, h, w)
+    src_y, src_x = affine_sources(grids, h, w, torch.device("cpu"))
+    near = [torch.abs(torch.remainder(s, 1.0) - 0.5) < tol for s in (src_y, src_x)]
+    op = cpu["op"][r]
+    affine = (op >= SHEAR_X) & (op <= ROTATE)
+    return (near[0] | near[1])[cpu["grid"][r]] & affine[:, None, None]
+
+
+def _apply_policy(t, x, d):
+    """RandAugment's ``num_ops`` rounds, or TrivialAugmentWide's one, each
+    from its own row of draws, then the per-sample gate."""
+    _, h, w, _ = x.shape
+    y = x
+    for r in range(d["op"].shape[0]):
+        point, grids = policy_magnitudes(t, d, r, h, w)
+        y = policy_round(y, d["op"][r], d["grid"][r], point, grids)
+    return torch.where(_col(d["gate"]), y, x)
+
+
 _APPLIERS = {
     S.HorizontalFlip: _apply_flip,
     S.VerticalFlip: _apply_flip,
     S.RandomBrightnessContrast: _apply_brightness_contrast,
     S.HueSaturationValue: _apply_hsv,
     S.CoarseDropout: _apply_coarse_dropout,
+    S.RandAugment: _apply_policy,
+    S.TrivialAugmentWide: _apply_policy,
 }
 
 

@@ -9,11 +9,13 @@ A pipeline splits into two stages, as in nkbx:
   that every batch has one static (H, W);
 - the device stage, one batched function of the uint8 batch on its device:
   the random flips, RandomBrightnessContrast, HueSaturationValue,
-  CoarseDropout and Normalize (:mod:`nkbx_torch.transforms.device`).
+  CoarseDropout, RandAugment, TrivialAugmentWide and Normalize
+  (:mod:`nkbx_torch.transforms.device`).
 
-Every other device op of nkbx is declared here with its parameters, so a
-config that names one loads; :class:`Compose` then raises, naming the
-ROADMAP item that ports it (A9).
+nkbx's other device ops (Rotate, ShiftScaleRotate, MotionBlur,
+RandomShadow/Fog/Rain) are declared here with their parameters, so a config
+that names one loads; :class:`Compose` then raises, naming the ROADMAP item
+that ports them (A9).
 """
 
 from __future__ import annotations
@@ -201,11 +203,8 @@ class CoarseDropout(Transform):
                 _px(self.max_height, img_h), _px(min_w, img_w), _px(self.max_width, img_w))
 
 
-PORTED_DEVICE_OPS = (HorizontalFlip, VerticalFlip, RandomBrightnessContrast, HueSaturationValue,
-                     CoarseDropout, Normalize)
-
-
-# --- device stage: nkbx's other ops, declared with their parameters, not ported (A9) ---
+# --- device stage: nkbx's other ops, declared with their parameters; RandAugment and
+# TrivialAugmentWide run, the rest are not ported (A9) --------------------------------
 
 
 @dataclasses.dataclass
@@ -230,6 +229,10 @@ class ShiftScaleRotate(Transform):
 
 @dataclasses.dataclass
 class RandAugment(Transform):
+    """torchvision's RandAugment: ``num_ops`` rounds of one op a sample from
+    the 14-op table at ``magnitude`` (of ``num_magnitude_bins``), the affine
+    ops through ``num_affine_grids`` grids the batch shares (nkbx's knob)."""
+
     num_ops: int = 2
     magnitude: int = 9
     num_magnitude_bins: int = 31
@@ -240,6 +243,9 @@ class RandAugment(Transform):
 
 @dataclasses.dataclass
 class TrivialAugmentWide(Transform):
+    """torchvision's TrivialAugmentWide: one op a sample at a magnitude bin
+    drawn per sample (per grid for the affine ops), the wide ranges."""
+
     num_magnitude_bins: int = 31
     num_affine_grids: int = 4
     p: float = 1.0
@@ -287,6 +293,10 @@ class RandomRain(Transform):
     stage = DEVICE
 
 
+PORTED_DEVICE_OPS = (HorizontalFlip, VerticalFlip, RandomBrightnessContrast, HueSaturationValue,
+                     CoarseDropout, RandAugment, TrivialAugmentWide, Normalize)
+
+
 @dataclasses.dataclass
 class ToTensorV2(Transform):
     """Layout marker for API compatibility; the port keeps NHWC."""
@@ -313,9 +323,9 @@ class Compose:
                     "transform; geometry must come before random photometric ops.")
             if not isinstance(t, PORTED_DEVICE_OPS):
                 raise NotImplementedError(
-                    f"{type(t).__name__} is not ported to nkbx_torch yet; the port's "
-                    "device stage is HorizontalFlip, VerticalFlip, RandomBrightnessContrast, "
-                    "HueSaturationValue, CoarseDropout and Normalize (ROADMAP.md, A9)")
+                    f"{type(t).__name__} is not ported to nkbx_torch yet; of nkbx's device "
+                    "ops the port lacks Rotate, ShiftScaleRotate, MotionBlur and "
+                    "RandomShadow/Fog/Rain (ROADMAP.md, A9)")
         seen_norm = False
         for t in self.device_transforms:
             if isinstance(t, Normalize):

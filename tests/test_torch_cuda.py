@@ -65,6 +65,10 @@ shows that the kernel, not its plain version, ran:
 - the singletask config's device stage (flips, brightness/contrast, HSV,
   coarse dropout, Normalize) on a CUDA batch against the CPU with the same
   draws (1e-3 on the 0-255 scale), and its own draws from a CUDA generator;
+- RandAugment and TrivialAugmentWide at ragged sizes, round by round, and
+  mixup/CutMix in f32 and bf16, on a CUDA batch against the CPU with the
+  same draws, each second run bit-identical; the EMA update on the card
+  equal to the CPU's;
 - one epoch of the config-driven trainer (``nkbx_torch.train.train``) on a
   tiny Swin through K1, K2, K5 and K6 over an ImageFolder of BMP files,
   with finite metrics, a checkpoint and the launch counts of its steps;
@@ -1312,6 +1316,112 @@ def test_device_ops_on_card_match_the_cpu(cuda_device):
     assert a.dtype == torch.bfloat16 and torch.equal(a, b) and torch.isfinite(a.float()).all()
 
 
+POLICY_SHAPES = [(5, 37, 53), (16, 128, 96), (3, 224, 224)]
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["RandAugment", "TrivialAugmentWide"])
+@pytest.mark.parametrize("shape", POLICY_SHAPES)
+def test_policy_ops_on_card_match_the_cpu(cuda_device, policy, shape):
+    """RandAugment (num_ops = 2, magnitude 9, 4 grids) and
+    TrivialAugmentWide on a CUDA uint8 batch at ragged sizes, against the
+    CPU with the same draws: each round from the same input, within 1e-3 on
+    the 0-255 scale, the samples on identity, a warp, posterize, solarize or
+    equalize equal, but for the pixels whose source coordinate lies within
+    1e-4 of a .5 tie; the whole stage (Normalize included) within 1e-3 /
+    (255 * std) where no round has such a pixel; a second run on the card
+    bit-identical; the stage's own draws from a CUDA generator."""
+    from nkbx_torch.transforms import device as tdevice
+    from nkbx_torch.transforms import spec as tspec
+
+    b, h, w = shape
+    t = (tspec.RandAugment(num_ops=2, magnitude=9, num_affine_grids=4, p=0.8)
+         if policy == "RandAugment" else tspec.TrivialAugmentWide(num_affine_grids=4, p=0.8))
+    pipe = tspec.Compose([t, tspec.Normalize()])
+    stage = pipe.device_stage()
+    x = torch.from_numpy(np.random.default_rng(b).integers(0, 256, (b, h, w, 3),
+                                                           dtype=np.uint8))
+    (d,) = stage.draw(tuple(x.shape), torch.Generator().manual_seed(h))
+    dc = {k: v.to(cuda_device) for k, v in d.items()}
+    xr = x.float()
+    for r in range(d["op"].shape[0]):
+        point, grids = tdevice.policy_magnitudes(t, d, r, h, w)
+        point_c, grids_c = tdevice.policy_magnitudes(t, dc, r, h, w)
+        want = tdevice.policy_round(xr, d["op"][r], d["grid"][r], point, grids)
+        got = tdevice.policy_round(xr.to(cuda_device), dc["op"][r], dc["grid"][r], point_c,
+                                   grids_c).cpu()
+        ties = tdevice.policy_ties(t, d, r, h, w)
+        keep = ~ties[..., None]
+        torch.testing.assert_close(got * keep, want * keep, rtol=0, atol=1e-3)
+        exact = torch.isin(d["op"][r], torch.tensor(tdevice.EXACT_OPS))
+        assert torch.equal((got * keep)[exact], (want * keep)[exact])
+        xr = want
+    want = stage(x, draws=[d])
+    got = stage(x.to(cuda_device), draws=[dc])
+    std = 255.0 * min(pipe.device_transforms[-1].std)
+    if not any(tdevice.policy_ties(t, d, r, h, w).any() for r in range(d["op"].shape[0])):
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-3 / std)
+    assert torch.equal(got, stage(x.to(cuda_device), draws=[dc]))
+    gen = torch.Generator(device=cuda_device)
+    a = stage(x.to(cuda_device), torch.bfloat16, generator=gen.manual_seed(1))
+    assert torch.equal(a, stage(x.to(cuda_device), torch.bfloat16, generator=gen.manual_seed(1)))
+    assert a.dtype == torch.bfloat16 and torch.isfinite(a.float()).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mixup_on_card_matches_the_cpu(cuda_device, dtype):
+    """Mixup and CutMix on a CUDA batch (ragged 7 x 37 x 53, a padded row)
+    against the CPU with the same draws: equal (elementwise f32 products and
+    sums, then the cast; CutMix's lam a true division on either device), lam
+    equal, a second run bit-identical; the draws from a CUDA generator in
+    range."""
+    from nkbx_torch.train.mixup import Mixup
+
+    x = torch.from_numpy(np.random.default_rng(2).normal(size=(7, 37, 53, 3)) * 60 + 120).to(
+        dtype)
+    mask = torch.ones(7, dtype=torch.bool)
+    mask[-1] = False
+    for cfg in ({"alpha": 0.4}, {"cutmix_alpha": 1.0}):
+        mix = Mixup(cfg)
+        gen = torch.Generator().manual_seed(len(cfg))
+        for _ in range(3):
+            d = mix.draw(tuple(x.shape), gen)
+            want, lam_w, p_w = mix.apply(x, mask, d)
+            dc = {k: v.to(cuda_device) for k, v in d.items()}
+            got, lam_g, p_g = mix.apply(x.to(cuda_device), mask.to(cuda_device), dc)
+            assert got.dtype == dtype and torch.equal(p_g.cpu(), p_w)
+            assert torch.equal(got.cpu(), want) and torch.equal(lam_g.cpu(), lam_w)
+            assert torch.equal(got, mix.apply(x.to(cuda_device), mask.to(cuda_device), dc)[0])
+        dc = mix.draw(tuple(x.shape), torch.Generator(device=cuda_device).manual_seed(0))
+        assert all(v.device.type == torch.device(cuda_device).type for v in dc.values())
+        assert 0 <= float(dc["lam0"]) <= 1 and 0 <= int(dc["cy"]) < 37
+
+
+@pytest.mark.cuda
+def test_ema_update_on_card_matches_the_cpu(cuda_device):
+    """TrainState.update_ema (parameters and BatchNorm running statistics)
+    on the card against the CPU: equal (a product, a product, a sum)."""
+    from nkbx_torch.models import get_model
+    from nkbx_torch.train import TrainState
+
+    states = []
+    for dev in ("cpu", cuda_device):
+        model = get_model({"model": "resnet_tiny_test"}, ["a", "b"], input_size=(32, 32),
+                          dtype=torch.float32, device=dev)
+        state = TrainState.create(model, ema=True)
+        gen = torch.Generator().manual_seed(0)
+        with torch.no_grad():
+            for t in state.ema_pairs()[1]:
+                t.add_(torch.randn(t.shape, generator=gen).to(t.device))
+        for _ in range(3):
+            state.update_ema(0.9998)
+        states.append(state)
+    cpu, card = (s.ema_module.state_dict() for s in states)
+    assert all(torch.equal(card[k].cpu(), cpu[k]) for k in cpu)
+    moved = [k for k in cpu if k.endswith(("running_mean", "weight"))]
+    assert moved and all(not torch.equal(cpu[k], states[0].module.state_dict()[k])
+                         for k in moved)
+
+
 def test_card_tests_collect_without_jax_or_nkbx():
     """The card's machine has no JAX: this file must collect (and its card
     tests skip here) with jax, flax and nkbx unimportable and no conftest."""
@@ -1332,7 +1442,8 @@ def test_card_tests_collect_without_jax_or_nkbx():
          + 2 * len(TC_BWD_CASES) + 2 + 2 * 2 * len(GEMM_ROWS) * len(GEMM_WIDTHS) + 3 + 4
          + 2 * len(MLP_GEMM_ROWS) * len(MLP_GEMM_WIDTHS) + 2 + 1
          + len(MB_ROUTE_CASES) + 2 + len(COPY_CASES) + 1
-         + 2 * len(UNICOM_SEQ) + len(EPS_CASES))
+         + 2 * len(UNICOM_SEQ) + len(EPS_CASES)
+         + 2 * len(POLICY_SHAPES) + 2 + 1)
     word = "passed" if torch.cuda.is_available() else "skipped"
     assert re.search(rf"\b{n} {word}\b", proc.stdout), proc.stdout[-2000:]
 

@@ -406,8 +406,8 @@ def test_bounded_metrics_match_nkbx(seed, n, c, absent):
 # --- configs and logging -------------------------------------------------------------
 
 CONFIGS = sorted((ROOT / "configs").glob("*.py"))
-UNPORTED_OPS = {"Rotate", "ShiftScaleRotate", "RandAugment", "TrivialAugmentWide", "MotionBlur",
-                "RandomShadow", "RandomFog", "RandomRain"}
+UNPORTED_OPS = {"Rotate", "ShiftScaleRotate", "MotionBlur", "RandomShadow", "RandomFog",
+                "RandomRain"}
 
 
 @pytest.mark.parametrize("path", CONFIGS, ids=[p.stem for p in CONFIGS])

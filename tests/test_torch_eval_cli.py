@@ -184,7 +184,7 @@ def test_cli_options_that_raise(workspace, monkeypatch):
 @pytest.mark.parametrize("name,loads", [("singletask_config", True), ("multitask_config", True),
                                         ("yolo_crops_config", True),
                                         ("heavy_augs_config", False),
-                                        ("modern_recipe_config", False)])
+                                        ("modern_recipe_config", True)])
 def test_shipped_configs_in_the_port(name, loads):
     path = ROOT / "configs" / f"{name}.py"
     if not loads:
@@ -193,7 +193,11 @@ def test_shipped_configs_in_the_port(name, loads):
         return
     cfg = load_config(path)
     ops = {type(t).__name__ for t in cfg.train_pipeline.device_transforms}
-    assert ops >= {"HorizontalFlip", "RandomBrightnessContrast", "Normalize"}
+    if name == "modern_recipe_config":
+        assert ops == {"RandAugment", "Normalize"}
+        check_options(cfg)  # mixup, EMA, steps_per_dispatch: all run in the port
+    else:
+        assert ops >= {"HorizontalFlip", "RandomBrightnessContrast", "Normalize"}
     assert cfg.model["pretrained"] is True
     if name == "yolo_crops_config":
         with pytest.raises(NotImplementedError, match="export_serving.*A11"):

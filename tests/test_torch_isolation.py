@@ -136,3 +136,4 @@ def test_config_loader_leaves_sys_modules_as_it_found_it(pre):
     assert same and (left if pre else not left)
     assert loaded and all(m == ["nkbx_torch.transforms.spec"] for m in loaded)
     assert len(loaded) + n_refused == len(paths)
+    assert n_refused == 1  # heavy_augs_config.py (MotionBlur, ...); modern_recipe_config loads

@@ -504,8 +504,11 @@ def test_masked_bn_option_is_ported_and_the_others_still_raise():
                       device="cpu", dtype=torch.float32)
     loss, bundle = get_loss({"type": "CrossEntropyLoss"}), get_optimizer(SGD)
     build_train_step(model, loss, bundle, masked_bn=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_train_step(model, loss, bundle, grad_accum_steps=2)
+    # nkbx's other step options are ported too (tests/test_torch_train_options.py);
+    # an option nkbx does not have is refused
+    assert callable(build_train_step(model, loss, bundle, grad_accum_steps=2))
+    with pytest.raises(TypeError):
+        build_train_step(model, loss, bundle, ghost_accum=2)
 
 
 # --- full width --------------------------------------------------------------------

@@ -363,11 +363,42 @@ def test_eval_step_metrics_and_no_grad():
                                           ("ema_decay", 0.999), ("mixup", {"alpha": 0.2}),
                                           ("log_gradients", True)])
 def test_unported_train_options_raise(option, value):
+    """Each of nkbx's five step options, once refused, builds and runs one
+    CPU step of the tiny Swin (``scan_steps`` on 4 stacked batches, EMA on a
+    state made with ``ema=True``); their locksteps against nkbx are in
+    tests/test_torch_train_options.py."""
     model = _port_model(None)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_train_step(model, None, get_optimizer({"type": "sgd"}), **{option: value})
+    state = TrainState.create(model, ema=option == "ema_decay")
+    step = build_train_step(model, get_loss({"type": "CrossEntropyLoss"}),
+                            get_optimizer({"type": "sgd", "lr": 1e-2}),
+                            augment_fn=Compose([Normalize()]).device_apply, **{option: value})
+    images, labels, mask = _batches()
+    args = [torch.from_numpy(a) for a in (images[0], labels[0], mask)]
+    if option == "scan_steps":
+        args = [torch.stack([a] * value) for a in args]
+    before = {k: v.clone() for k, v in model.module.state_dict().items()}
+    state, metrics = step(state, *args, 1.0, 1.0)
+    lead = {"grad_accum_steps": (2,), "scan_steps": (4,)}.get(option, ())
+    assert metrics["loss"].shape == lead and torch.isfinite(metrics["loss"]).all()
+    assert state.step == (value if option == "scan_steps" else 1)
+    assert any(not torch.equal(before[k], v) for k, v in model.module.state_dict().items())
+    if option == "log_gradients":
+        assert "head/kernel" in metrics["grad_norms"]
+    if option == "ema_decay":
+        shadow = state.ema_module.state_dict()
+        assert all(not torch.equal(shadow[k], before[k]) for k, _ in
+                   model.module.named_parameters())
 
 
 def test_ema_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TrainState.create(_port_model(None), ema=True)
+    """``TrainState.create(ema=True)``, once refused, keeps the EMA shadow: a
+    second module whose weights start equal to the model's (nkbx
+    state.py:52-53), without gradients, and no shadow without ``ema``."""
+    model = _port_model(None)
+    state = TrainState.create(model, ema=True)
+    assert state.ema_module is not None and state.ema_module is not model.module
+    live, shadow = model.module.state_dict(), state.ema_module.state_dict()
+    assert live.keys() == shadow.keys() and all(torch.equal(live[k], shadow[k]) for k in live)
+    assert all(not p.requires_grad for p in state.ema_module.parameters())
+    assert all(a.data_ptr() != b.data_ptr() for a, b in zip(*state.ema_pairs()))
+    assert TrainState.create(model).ema_module is None

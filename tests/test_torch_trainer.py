@@ -17,7 +17,8 @@ on the CPU.
   resumed from ``weights/last``, ends with the weights and running
   statistics of an uninterrupted run within 1e-6.
 - Every trainer option the port does not run raises, naming its ROADMAP
-  item; Comet raises.
+  item; Comet raises. The five train-step keys (EMA, mixup, steps per
+  dispatch, accumulation, gradient norms) each train one epoch.
 - The CLI, ``python -m nkbx_torch.train -cfg ... --device cpu``, on a
   config that says ``import nkbx.transforms as T``, over BMP files: exit
   without error, ``classes.json``, a 2-row ``metrics.csv``, ``best/``,
@@ -233,6 +234,40 @@ def test_unported_trainer_options_raise(key):
     with pytest.raises(NotImplementedError, match=UNPORTED[key][1]):
         check_options(Config({"task": "single", key: value}))
     check_options(Config({"task": "single", key: UNPORTED[key][0]}))
+
+
+A4_KEYS = {"model_ema_decay": 0.9, "mixup": {"alpha": 0.2, "cutmix_alpha": 1.0},
+           "steps_per_dispatch": 2, "grad_accum_steps": 2, "log_gradients": True}
+
+
+@pytest.mark.parametrize("key", sorted(A4_KEYS))
+def test_a4_trainer_options_run(key, tmp_path):
+    """Each of the five train-step keys, once refused, passes
+    ``check_options`` and trains one CPU epoch of ``resnet_tiny_test`` (batches
+    of 4, drop_last so that accumulation halves divide them)."""
+    assert key not in UNPORTED
+    root = _write_folder(tmp_path, ".png", n_train=4, n_val=2, seed=3)
+    cfg = Config({**_cfg(root, tmp_path / "run", T, flips=True, n_epochs=1,
+                         model={"task": "single", "model": "resnet_tiny_test"}),
+                  key: A4_KEYS[key]})
+    cfg.train_data = {**cfg.train_data, "batch_size": 4, "drop_last": True}
+    check_options(cfg)
+    train_loader = get_dataset(cfg.train_data, cfg.train_pipeline)
+    val_loader = get_dataset({**cfg.val_data, "classes": train_loader.dataset.classes},
+                             cfg.val_pipeline)
+    model = get_model(cfg.model, train_loader.dataset.classes, input_size=(SIZE, SIZE),
+                      dtype=torch.float32, device="cpu")
+    exp = get_local_experiment(cfg.experiment["local"])
+    state = train(model, train_loader, val_loader, get_loss(cfg.criterion), None, exp, cfg)
+    assert state.step == len(train_loader) == 3
+    assert (state.ema_module is not None) == (key == "model_ema_decay")
+    rows = _read_csv(exp.path / "metrics.csv")
+    assert len(rows["Epoch"]) == 1 and np.isfinite(rows["train loss"]).all()
+    grads = [c for c in rows if c.startswith("Gradients/")]
+    assert bool(grads) == (key == "log_gradients")
+    if grads:  # each parameter's epoch nan-mean under nkbx's path, and their sum's
+        assert "Gradients/Total" in grads and "Gradients/head/kernel" in grads
+        assert all(np.isfinite(rows[c]).all() for c in grads)
 
 
 def test_cli_trains_from_a_config_file(tmp_path, monkeypatch):
