@@ -4157,6 +4157,232 @@ def check_modern():
     return out, counts
 
 
+# --- HEAVY: configs/heavy_augs_config.py in the port -------------------------------
+
+HEAVY_DIR = os.path.join("build", "heavy_smoke")  # data, config and run
+HEAVY_CONFIG = os.path.join("configs", "heavy_augs_config.py")
+HEAVY_SIZE = 224  # the config's img_size
+# 10 full batches of 64 a train epoch and a padded val batch
+HEAVY_SPLITS = (("train", 10 * BUCKET), ("val", 2 * BUCKET + 9))
+HEAVY_WORKERS = 6  # the card's machine has 8 cores
+HEAVY_OP_ITERS = 10  # timed launches of each op alone
+# a warp's source coordinate (up to ~300 px at 224) may differ across devices by a
+# few f32 ulps of it and of its sine and cosine; the output moves at most 255 a
+# pixel of source shift, so a warp's output is held to 1e-3 + 255 times this
+WARP_COORD_TOL = 5e-4
+
+
+def heavy_classes(cfg):
+    """Two or three classes for each of the config's six targets."""
+    return {t: [f"{t}_{k}" for k in range(2 + i % 2)] for i, t in enumerate(cfg.target_names)}
+
+
+def check_heavy_stage(cfg):
+    """HEAVY (a): configs/heavy_augs_config.py's device stage (MotionBlur,
+    brightness/contrast, HSV, RandomShadow, RandomFog, RandomRain, coarse
+    dropout, Normalize), and Rotate and ShiftScaleRotate (p = 1) in both
+    border modes (a constant of 114), on a CUDA uint8 batch of 64 at 224 px
+    with fixed draws (from a CPU generator) against the CPU with the same
+    draws: op by op, each from the same input (the CPU's output of the op
+    before), within 1e-3 on the 0-255 scale, MotionBlur's kernels equal in
+    support, all leaving out the ties (``op_ties``: counted); the whole stage
+    within 1e-3 / (255·std) after Normalize without the ties of any op;
+    a warp's source coordinates within WARP_COORD_TOL px of the CPU's, its
+    bilinear sampling at the CPU's coordinates within 1e-3, and its output
+    within 1e-3 + 255·WARP_COORD_TOL (a bilinear sample moves at most 255 a
+    pixel of source shift); then the stage's ms a batch in bf16 with its own
+    draws from a CUDA generator (CUDA events), each op's ms and peak memory
+    over its input alone, the stage's peak and a profile of one batch
+    (device ms, launches)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from nkbx_torch.transforms import device as D
+    from nkbx_torch.transforms import spec as S
+
+    pipe = cfg.train_pipeline
+    norm = pipe.device_transforms[-1]
+    std = 255.0 * min(norm.std)
+    size = (BUCKET, HEAVY_SIZE, HEAVY_SIZE)
+    x = torch.from_numpy(np.random.default_rng(0).integers(0, 256, (*size, 3), dtype=np.uint8))
+    xd = x.to(DEV)
+    stages = [("heavy", pipe.device_stage())] + [
+        (name, S.Compose([t, norm]).device_stage()) for name, t in (
+            ("rotate_reflect101", S.Rotate(p=1.0)),
+            ("rotate_constant", S.Rotate(border_mode="constant", value=114.0, p=1.0)),
+            ("shift_scale_rotate_reflect101", S.ShiftScaleRotate(p=1.0)),
+            ("shift_scale_rotate_constant", S.ShiftScaleRotate(border_mode="constant",
+                                                               value=114.0, p=1.0)))]
+    warps = (S.Rotate, S.ShiftScaleRotate)
+    out, bad = {}, []
+    for name, stage in stages:
+        draws = stage.draw(tuple(x.shape), torch.Generator().manual_seed(3))
+        on_card = [{k: v.to(DEV) for k, v in d.items()} for d in draws]
+        xr, errs, op_ms, op_peak = x.float(), {}, {}, {}
+        ties, kernels_equal, tie_count, warp = torch.zeros(size, dtype=torch.bool), True, {}, {}
+        tol = 1e-3
+        for t, d, dc in zip(stage.ops, draws, on_card):
+            op = type(t).__name__
+            apply = D._APPLIERS[type(t)]
+            want = apply(t, xr, d)
+            xc = xr.to(DEV)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            got = apply(t, xc, dc)
+            torch.cuda.synchronize()
+            op_peak[op] = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+            got = got.cpu()
+            tie = D.op_ties(t, d, HEAVY_SIZE, HEAVY_SIZE)
+            keep = ~tie[..., None]
+            errs[op], tie_count[op] = max_err(got * keep, want * keep), int(tie.sum())
+            ties |= tie
+            if isinstance(t, S.MotionBlur):
+                taps = ~D.motion_ties(t, d)
+                kernels_equal = torch.equal((D.motion_kernels(t, dc).cpu() > 0)[taps],
+                                            (D.motion_kernels(t, d) > 0)[taps])
+                tie_count["MotionBlur_taps"] = int((~taps).sum())
+            if isinstance(t, warps):
+                src = D.warp_sources(t, d, HEAVY_SIZE, HEAVY_SIZE)
+                src_c = D.warp_sources(t, dc, HEAVY_SIZE, HEAVY_SIZE)
+                mode = D.BORDER_MODES[t.border_mode]
+                warp = {"coord_err_px": max(max_err(a.cpu(), b) for a, b in zip(src_c, src)),
+                        "sampling_err": max_err(D.bilinear_warp(
+                            xc, *(v.to(DEV) for v in src), mode, t.value).cpu(),
+                            D.bilinear_warp(xr, *src, mode, t.value))}
+                tol = 1e-3 + 255.0 * WARP_COORD_TOL
+                if warp["coord_err_px"] > WARP_COORD_TOL or warp["sampling_err"] > 1e-3:
+                    bad.append(f"{name} coordinates or sampling")
+            op_ms[op] = cuda_ms(lambda: apply(t, xc, dc), iters=HEAVY_OP_ITERS)
+            xr = want
+        keep = ~ties[..., None]
+        whole = max_err(stage(xd, draws=on_card).cpu() * keep, stage(x, draws=draws) * keep)
+        gen = torch.Generator(device=DEV).manual_seed(0)
+        ms = cuda_ms(lambda: stage(xd, torch.bfloat16, generator=gen), iters=STAGE_ITERS)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        stage(xd, torch.bfloat16, generator=gen)
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            stage(xd, torch.bfloat16, generator=gen)
+            torch.cuda.synchronize()
+        events = report_profile(prof, 1, f"in one {name} device-stage batch of {BUCKET} at "
+                                f"{HEAVY_SIZE} px", ms, f"profile_heavy_stage_{name}.txt")
+        out[name] = {"max_abs_err_0_255_by_op": errs, "tol_0_255": tol, "ties": tie_count,
+                     "kernels_equal": kernels_equal, "max_abs_err_normalized": whole,
+                     "warp": warp, "ms_per_batch": ms, "op_ms": op_ms,
+                     "op_peak_mb_over_input": op_peak, "peak_mb_over_input": peak,
+                     "peak_in_f32_batches": peak * 2 ** 20 / (x.numel() * 4),
+                     "device_busy_ms": device_ms(events, 1) if events else None,
+                     "launches": sum(e.count for _, e in events),
+                     "gates": [int(d["gate"].sum()) for d in draws]}
+        log(f"heavy (a) {name}: card against CPU with the same draws, by op max|d| "
+            f"{ {k: f'{v:.3e}' for k, v in errs.items()} } (tol {tol:.4g}), ties left out "
+            f"{tie_count}, MotionBlur supports equal {kernels_equal}, warp {warp}; the whole "
+            f"stage {whole:.3e} (tol {tol / std:.2e}); {ms:.4f} ms a batch in bf16 with its "
+            f"own draws, by op {json.dumps(op_ms)}; peak {peak:.1f} MB over the input, by op "
+            f"{json.dumps(op_peak)}")
+        if max(errs.values()) > tol or whole > tol / std or not kernels_equal:
+            bad.append(name)
+    if bad:
+        fail(f"heavy (a): the device stage on the card disagrees with the CPU: {bad}")
+    return out
+
+
+def write_heavy_csv(data, classes, seed=0):
+    """A seeded annotated CSV (path, fold, one column a target) of BMP files
+    under ``data/images``, 96-200 px a side, each target's class drawn per
+    image."""
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.join(data, "images"), exist_ok=True)
+    names = sorted(classes)
+    rows = ["path,fold," + ",".join(names)]
+    for fold, n in HEAVY_SPLITS:
+        for i in range(n):
+            h, w = (int(v) for v in rng.integers(96, 201, 2))
+            name = f"{fold}_{i}.bmp"
+            write_bmp(os.path.join(data, "images", name),
+                      rng.integers(0, 256, (h, w, 3)).astype(np.uint8))
+            labels = [classes[t][int(rng.integers(0, len(classes[t])))] for t in names]
+            rows.append(f"{name},{fold}," + ",".join(labels))
+    with open(os.path.join(data, "annotations.csv"), "w") as f:
+        f.write("\n".join(rows) + "\n")
+
+
+def check_heavy_cli(cfg):
+    """HEAVY (b): ``python -m nkbx_torch.train`` in a subprocess on
+    configs/heavy_augs_config.py with only its data paths, run directory
+    and num_workers changed (mobilenetv3_large_100 at 224 px, batch 64,
+    bf16, six FocalLoss heads, nadam, multistep, the freeze policy,
+    log_gradients, the whole heavy device stage on the card, its own 2
+    epochs) over a seeded annotated CSV of 640 + 137 BMP images;
+    NKBX_PRETRAINED_DIR unset, so the pretrained warning must appear; exit
+    0, its files, finite metrics and Gradients/* columns."""
+    shutil.rmtree(HEAVY_DIR, ignore_errors=True)
+    data = os.path.abspath(os.path.join(HEAVY_DIR, "data"))
+    run = os.path.abspath(os.path.join(HEAVY_DIR, "run"))
+    write_heavy_csv(data, heavy_classes(cfg))
+    cfg_path = shipped_config("heavy_augs_config", [
+        ('annotations_path = "data/annotations.csv"',
+         f'annotations_path = "{data}/annotations.csv"', 1),
+        ('image_base_dir = "data/images"', f'image_base_dir = "{data}/images"', 1),
+        ('"path": f"data/runs/{experiment_name}"', f'"path": "{run}"', 1),
+        ('"num_workers": 8', f'"num_workers": {HEAVY_WORKERS}', 1)],
+        os.path.join(HEAVY_DIR, "heavy.py"))
+    env = {k: v for k, v in os.environ.items() if k != "NKBX_PRETRAINED_DIR"}
+    out = {}
+    proc, out["train_cli_s"] = run_cli("nkbx_torch.train", cfg_path, "heavy_train.log", env)
+    rows = read_metrics_csv(os.path.join(run, "metrics.csv")) if proc.returncode == 0 else []
+    have = [n for n in ("classes.json", "metrics.csv", "weights/best.pt", "weights/last.pt")
+            if os.path.exists(os.path.join(run, n))]
+    warned = "no converted checkpoint for 'mobilenetv3_large_100'" in proc.stderr
+    grads = [k for k in (rows[0] if rows else {}) if k.startswith("Gradients/")]
+    log(f"heavy (b): python -m nkbx_torch.train on configs/heavy_augs_config.py exit "
+        f"{proc.returncode} in {out['train_cli_s']:.1f} s; {have}; metrics.csv rows {len(rows)}; "
+        f"{len(grads)} Gradients/* columns; pretrained warning {warned}")
+    if (proc.returncode != 0 or len(have) != 4 or len(rows) != 2 or not warned
+            or "Gradients/Total" not in grads):
+        fail(f"the heavy_augs train run failed (log in {OUT_DIR}/heavy_train.log): "
+             f"{proc.stderr[-2000:]}")
+    shutil.copy(os.path.join(run, "metrics.csv"), os.path.join(OUT_DIR, "heavy_metrics.csv"))
+    keys = ("train loss", "Val loss", "Val balanced accuracy", "train images/sec/chip",
+            "Gradients/Total")
+    for r in rows:
+        log(f"   epoch {r['Epoch']}: " + ", ".join(f"{k} {float(r[k]):.6f}" for k in keys))
+        if not all(np.isfinite(float(r[k])) for k in keys + tuple(grads)):
+            fail("the heavy_augs run's metrics are not finite")
+    out["train_img_s"] = [float(r["train images/sec/chip"]) for r in rows]
+    out["train_loss"] = [float(r["train loss"]) for r in rows]
+    out["gradient_columns"] = len(grads)
+    return out
+
+
+def check_heavy():
+    """HEAVY, configs/heavy_augs_config.py in the port: (a)
+    check_heavy_stage, (b) its train step at 224 px, batch 64
+    (shipped_model_check: step ms, a profile's device ms and idle share,
+    serving), (c) check_heavy_cli. No kernel of ours runs on it: the
+    counts, set to 0 before and read after the in-process phases, stay 0
+    (the CLI's subprocess has counts of its own). Returns the counts."""
+    from nkbx_torch.utils import load_config
+
+    cfg = load_config(HEAVY_CONFIG)
+    zero_counts()
+    out = {"device_stage": check_heavy_stage(cfg)}
+    out["step"] = shipped_model_check("heavy_augs_config", cfg, heavy_classes(cfg), cfg.img_size)
+    out["cli"] = check_heavy_cli(cfg)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    if any(counts.values()):
+        fail(f"heavy launched port kernels it should not: {counts}")
+    busy = out["device_stage"]["heavy"]["device_busy_ms"]
+    out["stage_share_of_step_device_ms"] = (busy / out["step"]["profile"]["device_ms"]
+                                            if busy else None)
+    log(f"heavy: {json.dumps(out)}")
+    return counts
+
+
 # --- the probe path: the command-line probes of X1 and X2 ---------------------------
 
 PROBE_ITERS = 3  # timed launches a shape in each probe
@@ -4249,6 +4475,7 @@ def main():
     log(f"zoo and resample: {json.dumps({'zoo': zoo, 'resample': resample})}")
     _, modern_counts = check_modern()
     served["modern"] = trained["modern"] = modern_counts
+    served["heavy"] = trained["heavy"] = check_heavy()
 
     fwd, step = "one bucket-64 swin_tiny forward, bf16", "one batch-64 swin_tiny train step, bf16"
     vfwd = ("one bucket-64 vit_base_patch16_224 forward, bf16 (12 launches at N=197, bias and "
@@ -4480,11 +4707,27 @@ def modern_only():
     log(json.dumps({"modern": out, "counts": counts}))
 
 
+def heavy_only():
+    """``--heavy``: the card's name and power limit and HEAVY alone (it runs
+    no kernel of ours, so nothing is built), its launch counts as the last
+    line."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60).stdout.strip()
+    log(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    os.makedirs(OUT_DIR, exist_ok=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log(json.dumps({"heavy_counts": check_heavy()}))
+
+
 if __name__ == "__main__":
     if sys.argv[1:] == ["--resnet-step"]:
         resnet_step_only()
     elif sys.argv[1:] == ["--modern"]:
         modern_only()
+    elif sys.argv[1:] == ["--heavy"]:
+        heavy_only()
     elif sys.argv[1:] == ["--layout"]:
         layout_only()
     else:

@@ -1,9 +1,9 @@
 """The port's transform pipeline: nkbx's spec names (``import nkbx.transforms
 as T`` in a config builds these), a host stage of geometry per sample and a
-device stage per batch: the flips, RandomBrightnessContrast,
-HueSaturationValue, CoarseDropout, RandAugment, TrivialAugmentWide and
-Normalize. nkbx's other device ops are declared and raise at
-:class:`Compose` (ROADMAP.md, A9)."""
+device stage per batch: every device op of nkbx (the flips,
+RandomBrightnessContrast, HueSaturationValue, CoarseDropout, Rotate,
+ShiftScaleRotate, RandAugment, TrivialAugmentWide, MotionBlur, RandomShadow,
+RandomFog, RandomRain) and Normalize."""
 
 from nkbx_torch.transforms.adapter import Transforms
 from nkbx_torch.transforms.spec import (CenterCrop, CoarseDropout, Compose, HorizontalFlip,

@@ -1,8 +1,9 @@
 """Device stage of the transform pipeline (counterpart of
 ``nkbx/transforms/device.py`` ``build_device_fn``): the random flips,
-RandomBrightnessContrast, HueSaturationValue, CoarseDropout, RandAugment
-and TrivialAugmentWide, then Normalize, as plain PyTorch ops on the batch's
-device.
+RandomBrightnessContrast, HueSaturationValue, CoarseDropout, Rotate,
+ShiftScaleRotate, RandAugment, TrivialAugmentWide, MotionBlur,
+RandomShadow, RandomFog and RandomRain, then Normalize, as plain PyTorch ops
+on the batch's device: every device op of nkbx.
 
 RandAugment and TrivialAugmentWide run torchvision's 14-op table as nkbx
 runs it in batch mode: every op on the whole batch, then each sample's op
@@ -11,9 +12,20 @@ rotation, nearest-neighbour sampling) go through ``num_affine_grids`` grids
 that the batch shares, each sample taking one; equalize is PIL's integer
 LUT, bit for bit.
 
+Rotate and ShiftScaleRotate warp each sample by its own affine map,
+bilinearly, by ``jax.scipy.ndimage.map_coordinates``' rules (reflect-101 or
+a constant border). MotionBlur rasterises a line kernel a sample and
+accumulates kmax² shifted slices; RandomShadow darkens rotated rectangles;
+RandomRain smears thresholded noise along a slant: nkbx's own
+approximations of albumentations, kept as they are. The thresholds on sine
+and cosine (the line raster, the shadow's edges) can fall the other way on
+another device within an ulp of their bounds: :func:`motion_ties` and
+:func:`shadow_ties` list those taps and pixels.
+
 The chain keeps nkbx's order (device.py:694-733): the flips select on the
-raw uint8 batch until the first photometric op, which casts to float32; each
-photometric op clips to [0, 255] at its boundary; Normalize writes the
+raw uint8 batch until the first photometric op, which casts to float32; an
+op clips to [0, 255] where nkbx's does (fog, shadow and the warps stay in
+range without it); Normalize writes the
 compute dtype once. HSV follows the cv2-uint8 convention (H in [0, 180), S
 and V in [0, 255]). Padded (masked) rows are augmented like any other row;
 the loss and the statistics weight them out.
@@ -25,6 +37,7 @@ from typing import Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from nkbx_torch.transforms import spec as S
 
@@ -94,12 +107,21 @@ def draw(t: S.Transform, shape, generator: torch.Generator, device) -> dict:
     dropout ``n_holes`` (an integer in [min_holes, max_holes]), the hole
     heights ``hh`` and widths ``ww`` (floors of U(min, max)), then the top
     rows ``y1`` and left columns ``x1`` (floors of U(0, 1)·max(H − hh, 1),
-    and of W), each (B, max_holes); RandAugment and TrivialAugmentWide one
-    row a round (R = ``num_ops``, or 1) of ``op`` (B, the 14-op table),
-    ``grid`` (B, the affine grid a sample takes), ``sign`` (B, ±1), and of
-    each of the K affine grids ``grid_op`` (1-5) and ``grid_sign``;
-    TrivialAugmentWide also the magnitude bins ``mag`` (B) and ``grid_mag``
-    (K)."""
+    and of W), each (B, max_holes); Rotate ``angle`` (B, degrees);
+    ShiftScaleRotate ``shift`` (B, 2: x then y, fractions of W and H),
+    ``scale`` (B, 1 + U(sc_lo, sc_hi)) and ``angle``; MotionBlur ``length``
+    (B, one of ``ksizes()``), ``theta`` (B, U(0, π)) and ``off`` (B, 2,
+    U(−1, 1), read only under ``allow_shifted``); RandomShadow
+    ``n_shadows`` (B, an integer in [lower, upper]), then with n =
+    max(1, upper) ``centre`` (B, n, 2, U(0, 1) in the ROI), ``ab`` (B, n, 2,
+    U(0.1, 0.35) of W and H) and ``theta`` (B, n, U(0, π)); RandomFog ``f``
+    (B); RandomRain ``seeds`` (B, H, W, uniforms under 0.002) and ``slant``
+    (B, an integer in [slant_lower, slant_upper]); RandAugment and
+    TrivialAugmentWide one row a round (R = ``num_ops``, or 1) of ``op`` (B,
+    the 14-op table), ``grid`` (B, the affine grid a sample takes), ``sign``
+    (B, ±1), and of each of the K affine grids ``grid_op`` (1-5) and
+    ``grid_sign``; TrivialAugmentWide also the magnitude bins ``mag`` (B) and
+    ``grid_mag`` (K)."""
     b, ih, iw = shape[0], shape[1], shape[2]
     out = {"gate": torch.rand(b, generator=generator, device=device) < t.p}
     if isinstance(t, S.RandomBrightnessContrast):
@@ -120,6 +142,32 @@ def draw(t: S.Transform, shape, generator: torch.Generator, device) -> dict:
                                 * torch.clamp(ih - out["hh"], min=1.0))
         out["x1"] = torch.floor(torch.rand(n, generator=generator, device=device)
                                 * torch.clamp(iw - out["ww"], min=1.0))
+    elif isinstance(t, S.Rotate):
+        out["angle"] = _uniform(b, *t.range(), generator, device)
+    elif isinstance(t, S.ShiftScaleRotate):
+        (sh_lo, sh_hi), (sc_lo, sc_hi), (r_lo, r_hi) = t.ranges()
+        out["shift"] = _uniform((b, 2), sh_lo, sh_hi, generator, device)
+        out["scale"] = 1.0 + _uniform(b, sc_lo, sc_hi, generator, device)
+        out["angle"] = _uniform(b, r_lo, r_hi, generator, device)
+    elif isinstance(t, S.MotionBlur):
+        ksizes = t.ksizes()
+        pick = torch.randint(0, len(ksizes), (b,), generator=generator, device=device)
+        out["length"] = torch.tensor(ksizes, device=device)[pick]
+        out["theta"] = _uniform(b, 0.0, np.pi, generator, device)
+        out["off"] = _uniform((b, 2), -1.0, 1.0, generator, device)
+    elif isinstance(t, S.RandomShadow):
+        n = (b, max(1, t.num_shadows_upper))
+        out["n_shadows"] = torch.randint(t.num_shadows_lower, t.num_shadows_upper + 1, (b,),
+                                         generator=generator, device=device)
+        out["centre"] = torch.rand((*n, 2), generator=generator, device=device)
+        out["ab"] = _uniform((*n, 2), 0.1, 0.35, generator, device)
+        out["theta"] = _uniform(n, 0.0, np.pi, generator, device)
+    elif isinstance(t, S.RandomFog):
+        out["f"] = _uniform(b, t.fog_coef_lower, t.fog_coef_upper, generator, device)
+    elif isinstance(t, S.RandomRain):
+        out["seeds"] = torch.rand((b, ih, iw), generator=generator, device=device) < RAIN_DENSITY
+        out["slant"] = torch.randint(t.slant_lower, t.slant_upper + 1, (b,), generator=generator,
+                                     device=device)
     elif isinstance(t, (S.RandAugment, S.TrivialAugmentWide)):
         r, k = getattr(t, "num_ops", 1), t.num_affine_grids
         out["op"] = torch.randint(0, N_POLICY_OPS, (r, b), generator=generator, device=device)
@@ -411,14 +459,256 @@ def _apply_policy(t, x, d):
     return torch.where(_col(d["gate"]), y, x)
 
 
+# --- MotionBlur, RandomShadow, RandomFog, RandomRain (nkbx device.py:149-260) -------------
+
+RAIN_DENSITY = 0.002  # the share of pixels that seed a rain streak (nkbx device.py:244)
+
+
+def _motion_raster(t: S.MotionBlur, d: dict):
+    """(dist, proj, half) of the per-sample line kernels: each tap's distance
+    from the line through the (shifted) centre at ``theta``, its distance
+    along the line, each (B, kmax, kmax), and the half-length (B, 1, 1)."""
+    kmax = max(t.ksizes())
+    dev = d["theta"].device
+    c = torch.arange(kmax, dtype=torch.float32, device=dev) - (kmax - 1) / 2.0
+    yy, xx = c[:, None], c[None, :]
+    dy, dx = torch.sin(d["theta"]), torch.cos(d["theta"])
+    half = _div(d["length"].float() - 1.0, 2.0)
+    if t.allow_shifted:
+        # the line may sit off the centre inside the drawn k x k box: each
+        # axis's offset at most half·(1 − |direction|)
+        oy = d["off"][:, 0] * (half * (1.0 - torch.abs(dy)))
+        ox = d["off"][:, 1] * (half * (1.0 - torch.abs(dx)))
+    else:
+        oy = ox = torch.zeros_like(half)
+    yc = yy[None] - oy[:, None, None]
+    xc = xx[None] - ox[:, None, None]
+    dy, dx = dy[:, None, None], dx[:, None, None]
+    dist = torch.abs(yc * dx - xc * dy)
+    proj = torch.abs(yc * dy + xc * dx)
+    return dist, proj, half[:, None, None]
+
+
+def motion_kernels(t: S.MotionBlur, d: dict):
+    """The (B, kmax, kmax) line kernels: the taps with dist <= 0.5 and proj
+    <= half + 0.25, each kernel divided by max(its tap count, 1)."""
+    dist, proj, half = _motion_raster(t, d)
+    kern = ((dist <= 0.5) & (proj <= half + 0.25)).float()
+    return kern / torch.clamp(kern.sum(dim=(1, 2), keepdim=True), min=1.0)
+
+
+def motion_ties(t: S.MotionBlur, d: dict, tol: float = 1e-4):
+    """(B, kmax, kmax): the taps whose dist or proj lies within ``tol`` of its
+    bound, which another device's sin and cos may put on the other side."""
+    dist, proj, half = _motion_raster(t, d)
+    return (torch.abs(dist - 0.5) < tol) | (torch.abs(proj - (half + 0.25)) < tol)
+
+
+def _apply_motion_blur(t: S.MotionBlur, x, d):
+    """The per-sample kernels applied as kmax² shifted slices of the batch
+    padded by reflection (reflect-101, as ``jnp.pad(mode="reflect")``),
+    accumulated from zeros in nkbx's i-major, j-minor order, then clipped."""
+    kern = motion_kernels(t, d)
+    kmax = kern.shape[1]
+    _, h, w, _ = x.shape
+    p = kmax // 2
+    xp = F.pad(x.permute(0, 3, 1, 2), (p, p, p, p), mode="reflect").permute(0, 2, 3, 1)
+    y = torch.zeros_like(x)
+    for i in range(kmax):
+        for j in range(kmax):
+            y.addcmul_(_col(kern[:, i, j]), xp[:, i:i + h, j:j + w])
+    return torch.where(_col(d["gate"]), y.clamp_(0.0, 255.0), x)
+
+
+def _shadow_uv(t: S.RandomShadow, d: dict, h: int, w: int):
+    """Each shadow's pixel coordinates (u, v), rotated by its ``theta`` about
+    its centre in the ROI, its half-extents (a, b) and whether it is one of
+    the sample's ``n_shadows``: (B, n, H, W), (B, n, H, W), (B, n, 1, 1) twice,
+    (B, n, 1, 1)."""
+    x1r, y1r, x2r, y2r = t.shadow_roi
+    c, ab, theta = d["centre"], d["ab"], d["theta"]
+    dev = theta.device
+    cx = ((x1r + c[..., 0] * (x2r - x1r)) * w)[:, :, None, None]
+    cy = ((y1r + c[..., 1] * (y2r - y1r)) * h)[:, :, None, None]
+    a = (ab[..., 0] * w)[:, :, None, None]
+    b = (ab[..., 1] * h)[:, :, None, None]
+    rows = torch.arange(h, dtype=torch.float32, device=dev).view(1, 1, h, 1)
+    cols = torch.arange(w, dtype=torch.float32, device=dev).view(1, 1, 1, w)
+    dy, dx = rows - cy, cols - cx
+    ct, st = torch.cos(theta)[:, :, None, None], torch.sin(theta)[:, :, None, None]
+    u = dx * ct + dy * st
+    v = -dx * st + dy * ct
+    active = torch.arange(theta.shape[1], device=dev)[None, :] < d["n_shadows"][:, None]
+    return u, v, a, b, active[:, :, None, None]
+
+
+def shadow_mask(t: S.RandomShadow, d: dict, h: int, w: int):
+    """(B, H, W): the union over the active shadows of |u| < a and |v| < b."""
+    u, v, a, b, active = _shadow_uv(t, d, h, w)
+    return ((torch.abs(u) < a) & (torch.abs(v) < b) & active).any(dim=1)
+
+
+def shadow_ties(t: S.RandomShadow, d: dict, h: int, w: int, tol: float = 2e-4):
+    """(B, H, W): the pixels where an active shadow's |u| or |v| lies within
+    ``tol`` of its bound, which another device's sin and cos may put on the
+    other side."""
+    u, v, a, b, active = _shadow_uv(t, d, h, w)
+    near = (torch.abs(torch.abs(u) - a) < tol) | (torch.abs(torch.abs(v) - b) < tol)
+    return (near & active).any(dim=1)
+
+
+def op_ties(t, d: dict, h: int, w: int):
+    """(B, H, W): the pixels of one op's output that another device may
+    compute otherwise for a tie on sin/cos: every pixel of a gated
+    MotionBlur sample with a tie tap (its kernel's normalisation moves) and
+    a gated shadow's tie pixels; none for the other ops (the policies' .5
+    ties are a round's: :func:`policy_ties`)."""
+    b = d["gate"].shape[0]
+    if isinstance(t, S.MotionBlur):
+        return (motion_ties(t, d).any(dim=(1, 2)) & d["gate"])[:, None, None].expand(b, h, w)
+    if isinstance(t, S.RandomShadow):
+        return shadow_ties(t, d, h, w) & d["gate"][:, None, None]
+    return torch.zeros(b, h, w, dtype=torch.bool, device=d["gate"].device)
+
+
+def _apply_shadow(t: S.RandomShadow, x, d):
+    _, h, w, _ = x.shape
+    mask = (shadow_mask(t, d, h, w) & d["gate"][:, None, None]).float()[..., None]
+    return x * (1.0 - mask * t.shadow_intensity)
+
+
+def _apply_fog(t: S.RandomFog, x, d):
+    f = _col(d["f"])
+    return torch.where(_col(d["gate"]), x * (1.0 - f) + 255.0 * f, x)
+
+
+def rain_streaks(t: S.RandomRain, d: dict):
+    """(B, H, W) bool: the seeds smeared over ``steps`` = max(1, min(
+    drop_length, H)) rows; step i rolls them i rows down and each sample's
+    ⌊slant·i / max(steps − 1, 1)⌋ columns across (floor division, so a
+    negative slant leans left), and the steps are merged by a running max."""
+    seeds = d["seeds"]
+    b, h, w = seeds.shape
+    steps = max(1, min(t.drop_length, h))
+    cols = torch.arange(w, device=seeds.device)
+    streaks = torch.zeros_like(seeds)
+    for i in range(steps):
+        dx = torch.div(d["slant"] * i, max(steps - 1, 1), rounding_mode="floor")
+        idx = torch.remainder(cols[None, :] - dx[:, None], w)  # a per-sample roll by dx
+        shifted = torch.gather(torch.roll(seeds, i, dims=1), 2, idx[:, None, :].expand(b, h, w))
+        streaks |= shifted
+    return streaks
+
+
+def _apply_rain(t: S.RandomRain, x, d):
+    color = torch.as_tensor(np.asarray(t.drop_color, np.float32), device=x.device)
+    y = x * t.brightness_coefficient
+    y = torch.where(rain_streaks(t, d)[..., None], color, y)
+    return torch.where(_col(d["gate"]), y.clamp_(0.0, 255.0), x)
+
+
+# --- Rotate and ShiftScaleRotate: per-sample bilinear warps (nkbx device.py:272-373) -------
+
+BORDER_MODES = {"reflect101": "mirror", "constant": "constant"}  # map_coordinates' names
+
+
+def _mirror(i, n: int):
+    """``map_coordinates``' mirror fold |(i + s) mod 2s − s|, s = n − 1: a
+    border reflects without repeating its edge pixel (reflect-101)."""
+    if n == 1:
+        return torch.zeros_like(i)
+    s = n - 1
+    return torch.abs(torch.remainder(i + s, 2 * s) - s)
+
+
+def _fold(i, n: int, mode: str):
+    """(in-range index, whether the tap lies inside) of integer taps ``i``
+    along an axis of ``n`` by ``mode``'s rule; None for every tap inside."""
+    if mode == "mirror":
+        return _mirror(i, n), None
+    if mode == "constant":
+        return torch.clamp(i, 0, n - 1), (i >= 0) & (i < n)
+    raise ValueError(f"border mode {mode!r}: not one of 'mirror', 'constant'")
+
+
+def bilinear_warp(x, src_y, src_x, mode: str, cval: float):
+    """``x`` (B, H, W, C) sampled bilinearly at per-sample source rows and
+    columns (B, H, W), by ``jax.scipy.ndimage.map_coordinates``' order-1
+    rules: weights 1 − frac and frac from ``floor``; ``"mirror"`` folds an
+    index by :func:`_mirror`, ``"constant"`` takes ``cval`` for a tap outside
+    the image; the four products wy·wx·tap summed in the order (y0, x0),
+    (y0, x1), (y1, x0), (y1, x1). Each tap is gathered by int32 row indices
+    from a (B·H·W, C) view of the batch, one tap at a time, so the warp holds
+    a few batches of temporaries."""
+    b, h, w, c = x.shape
+    flat = x.reshape(b * h * w, c)
+    y0, x0 = torch.floor(src_y), torch.floor(src_x)
+    fy, fx = src_y - y0, src_x - x0
+    y0, x0 = y0.int(), x0.int()
+    base = (torch.arange(b, dtype=torch.int32, device=x.device) * (h * w))[:, None, None]
+    rows = [(i.mul_(w).add_(base), v) for i, v in (_fold(y0 + k, h, mode) for k in (0, 1))]
+    cols = [_fold(x0 + k, w, mode) for k in (0, 1)]
+    del y0, x0
+    out = None
+    for dy, (yi, yv) in enumerate(rows):
+        wy = 1 - fy if dy == 0 else fy
+        for dx, (xi, xv) in enumerate(cols):
+            tap = torch.index_select(flat, 0, (yi + xi).reshape(-1))
+            if yv is not None:
+                tap.masked_fill_(~(yv & xv).reshape(-1, 1), cval)
+            tap.mul_((wy * (1 - fx if dx == 0 else fx)).reshape(-1, 1))
+            out = tap if out is None else out.add_(tap)
+    return out.reshape(b, h, w, c)
+
+
+def affine_map(angle_deg, scale, tx, ty, h: int, w: int):
+    """nkbx's ``_affine_sample`` grid: (src_y, src_x), each (B, H, W), the
+    inverse of a rotation by ``angle_deg`` (positive counter-clockwise,
+    cv2's ``getRotationMatrix2D``), a scale and a shift (tx, ty) about the
+    centre ((W − 1)/2, (H − 1)/2), each (B,)."""
+    b = angle_deg.shape[0]
+    cy, cx = (h - 1) / 2.0, (w - 1) / 2.0
+    ys = torch.arange(h, dtype=torch.float32, device=angle_deg.device)[None, :, None]
+    xs = torch.arange(w, dtype=torch.float32, device=angle_deg.device)[None, None, :]
+    rad = angle_deg * (np.pi / 180.0)
+    cos, sin = torch.cos(rad).reshape(b, 1, 1), torch.sin(rad).reshape(b, 1, 1)
+    s = scale.reshape(b, 1, 1)
+    dx = xs - cx - tx.reshape(b, 1, 1)
+    dy = ys - cy - ty.reshape(b, 1, 1)
+    return (sin * dx + cos * dy) / s + cy, (cos * dx - sin * dy) / s + cx
+
+
+def warp_sources(t, d: dict, h: int, w: int):
+    """(src_y, src_x) of Rotate's draws (scale 1, no shift) or
+    ShiftScaleRotate's (a shift of (W, H) times its draw)."""
+    angle = d["angle"]
+    if isinstance(t, S.Rotate):
+        one, zero = torch.ones_like(angle), torch.zeros_like(angle)
+        return affine_map(angle, one, zero, zero, h, w)
+    return affine_map(angle, d["scale"], d["shift"][:, 0] * w, d["shift"][:, 1] * h, h, w)
+
+
+def _apply_warp(t, x, d):
+    _, h, w, _ = x.shape
+    y = bilinear_warp(x, *warp_sources(t, d, h, w), BORDER_MODES[t.border_mode],
+                      float(t.value))
+    return torch.where(_col(d["gate"]), y, x)
+
+
 _APPLIERS = {
     S.HorizontalFlip: _apply_flip,
     S.VerticalFlip: _apply_flip,
     S.RandomBrightnessContrast: _apply_brightness_contrast,
     S.HueSaturationValue: _apply_hsv,
     S.CoarseDropout: _apply_coarse_dropout,
+    S.Rotate: _apply_warp,
+    S.ShiftScaleRotate: _apply_warp,
     S.RandAugment: _apply_policy,
     S.TrivialAugmentWide: _apply_policy,
+    S.MotionBlur: _apply_motion_blur,
+    S.RandomShadow: _apply_shadow,
+    S.RandomFog: _apply_fog,
+    S.RandomRain: _apply_rain,
 }
 
 
@@ -443,9 +733,7 @@ class DeviceStage:
             elif type(t) in _APPLIERS:
                 self.ops.append(t)
             elif t.stage != S.MARKER:
-                raise NotImplementedError(
-                    f"Device transform {type(t).__name__} is not ported to nkbx_torch yet "
-                    "(ROADMAP.md, A9)")
+                raise NotImplementedError(f"Device transform {type(t).__name__} not implemented")
         if norm is not None:
             self.mean = np.asarray(norm.mean, dtype=np.float32) * norm.max_pixel_value
             self.std = np.asarray(norm.std, dtype=np.float32) * norm.max_pixel_value

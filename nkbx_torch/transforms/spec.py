@@ -9,13 +9,14 @@ A pipeline splits into two stages, as in nkbx:
   that every batch has one static (H, W);
 - the device stage, one batched function of the uint8 batch on its device:
   the random flips, RandomBrightnessContrast, HueSaturationValue,
-  CoarseDropout, RandAugment, TrivialAugmentWide and Normalize
+  CoarseDropout, Rotate, ShiftScaleRotate, RandAugment, TrivialAugmentWide,
+  MotionBlur, RandomShadow, RandomFog, RandomRain and Normalize
   (:mod:`nkbx_torch.transforms.device`).
 
-nkbx's other device ops (Rotate, ShiftScaleRotate, MotionBlur,
-RandomShadow/Fog/Rain) are declared here with their parameters, so a config
-that names one loads; :class:`Compose` then raises, naming the ROADMAP item
-that ports them (A9).
+Every device op of nkbx runs in the port. nkbx's own approximations of
+albumentations are kept as they are, and so are the fields it leaves inert
+(RandomFog's ``alpha_coef``; RandomRain's ``drop_width``, ``blur_value``
+and ``rain_type``).
 """
 
 from __future__ import annotations
@@ -203,21 +204,28 @@ class CoarseDropout(Transform):
                 _px(self.max_height, img_h), _px(min_w, img_w), _px(self.max_width, img_w))
 
 
-# --- device stage: nkbx's other ops, declared with their parameters; RandAugment and
-# TrivialAugmentWide run, the rest are not ported (A9) --------------------------------
-
-
 @dataclasses.dataclass
 class Rotate(Transform):
+    """Random rotation by U(lo, hi) degrees about the image centre
+    ((w − 1)/2, (h − 1)/2), bilinear; border ``"reflect101"`` (cv2's
+    default) or ``"constant"`` filled with ``value`` (nkbx spec.py:200-213)."""
+
     limit: Union[float, Tuple[float, float]] = 90
     border_mode: str = "reflect101"
     value: float = 0.0
     p: float = 0.5
     stage = DEVICE
 
+    def range(self):
+        return _as_range(self.limit)
+
 
 @dataclasses.dataclass
 class ShiftScaleRotate(Transform):
+    """Random affine about the centre: a shift of U(shift range)·(W, H), a
+    scale of 1 + U(scale range), a rotation of U(rotate range) degrees,
+    bilinear, with Rotate's border modes (nkbx spec.py:217-232)."""
+
     shift_limit: Union[float, Tuple[float, float]] = 0.0625
     scale_limit: Union[float, Tuple[float, float]] = 0.1
     rotate_limit: Union[float, Tuple[float, float]] = 45
@@ -225,6 +233,10 @@ class ShiftScaleRotate(Transform):
     value: float = 0.0
     p: float = 0.5
     stage = DEVICE
+
+    def ranges(self):
+        return (_as_range(self.shift_limit), _as_range(self.scale_limit),
+                _as_range(self.rotate_limit))
 
 
 @dataclasses.dataclass
@@ -254,14 +266,35 @@ class TrivialAugmentWide(Transform):
 
 @dataclasses.dataclass
 class MotionBlur(Transform):
+    """A straight-line blur through the kernel centre at a random angle, of
+    an odd length from :meth:`ksizes` (nkbx spec.py:286-309: nkbx's raster
+    of a centred line, not cv2.line's). ``allow_shifted`` lets the line sit
+    off the centre inside the drawn k x k box, as albumentations does."""
+
     blur_limit: Union[int, Tuple[int, int]] = 7
     allow_shifted: bool = True
     p: float = 0.5
     stage = DEVICE
 
+    def __post_init__(self):
+        if not self.ksizes():
+            raise ValueError(
+                f"MotionBlur(blur_limit={self.blur_limit!r}) contains no odd kernel size >= 3")
+
+    def ksizes(self):
+        """The odd kernel sizes >= 3 up to ``blur_limit`` (or in its pair)."""
+        lim = self.blur_limit
+        lo, hi = (3, lim) if isinstance(lim, int) else lim
+        return [k for k in range(lo, hi + 1) if k % 2 == 1 and k >= 3]
+
 
 @dataclasses.dataclass
 class RandomShadow(Transform):
+    """Darken ``num_shadows_lower``..``num_shadows_upper`` random regions
+    centred in ``shadow_roi`` by ``shadow_intensity``. As in nkbx
+    (spec.py:313), the regions are rotated rectangles, not albumentations'
+    polygons."""
+
     shadow_roi: Tuple[float, float, float, float] = (0.0, 0.5, 1.0, 1.0)
     num_shadows_lower: int = 1
     num_shadows_upper: int = 2
@@ -272,6 +305,9 @@ class RandomShadow(Transform):
 
 @dataclasses.dataclass
 class RandomFog(Transform):
+    """Blend toward white haze: img·(1 − f) + 255·f, f ~ U(lower, upper).
+    ``alpha_coef`` is accepted and unused, as in nkbx (spec.py:326)."""
+
     fog_coef_lower: float = 0.3
     fog_coef_upper: float = 1.0
     alpha_coef: float = 0.08
@@ -281,6 +317,12 @@ class RandomFog(Transform):
 
 @dataclasses.dataclass
 class RandomRain(Transform):
+    """Slanted streaks of ``drop_color`` and a darkening by
+    ``brightness_coefficient``. As in nkbx (spec.py:337), the streaks are
+    thresholded noise smeared ``drop_length`` rows along the slant;
+    ``drop_width``, ``blur_value`` and ``rain_type`` are accepted and
+    unused."""
+
     slant_lower: int = -10
     slant_upper: int = 10
     drop_length: int = 20
@@ -294,7 +336,8 @@ class RandomRain(Transform):
 
 
 PORTED_DEVICE_OPS = (HorizontalFlip, VerticalFlip, RandomBrightnessContrast, HueSaturationValue,
-                     CoarseDropout, RandAugment, TrivialAugmentWide, Normalize)
+                     CoarseDropout, Rotate, ShiftScaleRotate, RandAugment, TrivialAugmentWide,
+                     MotionBlur, RandomShadow, RandomFog, RandomRain, Normalize)
 
 
 @dataclasses.dataclass
@@ -322,10 +365,8 @@ class Compose:
                     f"Host-stage transform {type(t).__name__} appears after a device-stage "
                     "transform; geometry must come before random photometric ops.")
             if not isinstance(t, PORTED_DEVICE_OPS):
-                raise NotImplementedError(
-                    f"{type(t).__name__} is not ported to nkbx_torch yet; of nkbx's device "
-                    "ops the port lacks Rotate, ShiftScaleRotate, MotionBlur and "
-                    "RandomShadow/Fog/Rain (ROADMAP.md, A9)")
+                raise NotImplementedError(f"{type(t).__name__} is not a device op of nkbx "
+                                          "(ROADMAP.md lists what the port runs)")
         seen_norm = False
         for t in self.device_transforms:
             if isinstance(t, Normalize):

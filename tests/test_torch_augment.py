@@ -243,5 +243,6 @@ def test_draws_must_match_the_random_ops():
                                      tspec.Normalize()])
     with pytest.raises(ValueError, match="1 draws for 2 random ops"):
         stage(torch.zeros(2, 4, 4, 3, dtype=torch.uint8), draws=[{"gate": torch.ones(2)}])
-    with pytest.raises(NotImplementedError, match="A9"):
-        tspec.Compose([tspec.MotionBlur(), tspec.Normalize()])
+    with pytest.raises(NotImplementedError, match="Blur is not a device op of nkbx"):
+        tspec.Compose([type("Blur", (tspec.Transform,), {"stage": tspec.DEVICE})(),
+                       tspec.Normalize()])

@@ -1366,6 +1366,56 @@ def test_policy_ops_on_card_match_the_cpu(cuda_device, policy, shape):
     assert a.dtype == torch.bfloat16 and torch.isfinite(a.float()).all()
 
 
+HEAVY_SHAPES = [(5, 37, 53), (16, 128, 96)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", HEAVY_SHAPES)
+def test_heavy_ops_on_card_match_the_cpu(cuda_device, shape):
+    """MotionBlur (3-9, shifted), RandomShadow (up to 3), RandomFog,
+    RandomRain (a negative slant) and Rotate and ShiftScaleRotate in both
+    border modes (p = 0.8) on a CUDA uint8 batch at ragged sizes, against
+    the CPU with the same draws, each op from the same input: within 1e-3
+    on the 0-255 scale, leaving out a MotionBlur sample with a tie tap and a
+    shadow's tie pixels; a warp's source coordinates within 5e-4 px, its
+    sampling at the CPU's coordinates within 1e-3 and its output within 1e-3
+    + 255 x 5e-4; a second run bit-identical."""
+    from nkbx_torch.transforms import device as tdevice
+    from nkbx_torch.transforms import spec as tspec
+
+    b, h, w = shape
+    ops = [tspec.MotionBlur(blur_limit=(3, 9), p=0.8),
+           tspec.RandomShadow(num_shadows_upper=3, p=0.8), tspec.RandomFog(p=0.8),
+           tspec.RandomRain(slant_lower=-12, slant_upper=-2, p=0.8),
+           tspec.Rotate(p=0.8), tspec.Rotate(border_mode="constant", value=77.0, p=0.8),
+           tspec.ShiftScaleRotate(p=0.8),
+           tspec.ShiftScaleRotate(border_mode="constant", value=200.0, p=0.8)]
+    stage = tspec.Compose([*ops, tspec.Normalize()]).device_stage()
+    x = torch.from_numpy(np.random.default_rng(b).integers(0, 256, (b, h, w, 3),
+                                                           dtype=np.uint8)).float()
+    draws = stage.draw((b, h, w, 3), torch.Generator().manual_seed(h))
+    for t, d in zip(stage.ops, draws):
+        dc = {k: v.to(cuda_device) for k, v in d.items()}
+        apply = tdevice._APPLIERS[type(t)]
+        want = apply(t, x, d)
+        got = apply(t, x.to(cuda_device), dc)
+        assert torch.equal(got, apply(t, x.to(cuda_device), dc))
+        keep = ~tdevice.op_ties(t, d, h, w)
+        tol = 1e-3
+        if isinstance(t, (tspec.Rotate, tspec.ShiftScaleRotate)):
+            src = tdevice.warp_sources(t, d, h, w)
+            for a, c in zip(tdevice.warp_sources(t, dc, h, w), src):
+                torch.testing.assert_close(a.cpu(), c, rtol=0, atol=5e-4)
+            mode = tdevice.BORDER_MODES[t.border_mode]
+            shared = tdevice.bilinear_warp(x.to(cuda_device), *(v.to(cuda_device) for v in src),
+                                           mode, t.value)
+            torch.testing.assert_close(shared.cpu(), tdevice.bilinear_warp(x, *src, mode, t.value),
+                                       rtol=0, atol=1e-3)
+            tol = 1e-3 + 255 * 5e-4
+        keep = keep[..., None]
+        torch.testing.assert_close(got.cpu() * keep, want * keep, rtol=0, atol=tol)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_mixup_on_card_matches_the_cpu(cuda_device, dtype):
@@ -1443,7 +1493,7 @@ def test_card_tests_collect_without_jax_or_nkbx():
          + 2 * len(MLP_GEMM_ROWS) * len(MLP_GEMM_WIDTHS) + 2 + 1
          + len(MB_ROUTE_CASES) + 2 + len(COPY_CASES) + 1
          + 2 * len(UNICOM_SEQ) + len(EPS_CASES)
-         + 2 * len(POLICY_SHAPES) + 2 + 1)
+         + 2 * len(POLICY_SHAPES) + len(HEAVY_SHAPES) + 2 + 1)
     word = "passed" if torch.cuda.is_available() else "skipped"
     assert re.search(rf"\b{n} {word}\b", proc.stdout), proc.stdout[-2000:]
 

@@ -18,8 +18,8 @@
 - Metrics: balanced accuracy equal to sklearn's and ROC-AUC within 1e-12
   across binary, multiclass and missing-class cases; the bounded path on
   torch tensors equal to nkbx's ``bounded_*``.
-- Config loading: every shipped config loads or raises the A9 message for
-  the device op it names, ``sys.modules`` keeps its ``nkbx`` entries.
+- Config loading: every shipped config loads (every device op of nkbx is
+  ported), ``sys.modules`` keeps its ``nkbx`` entries.
 - Logging: the PNG writer against cv2's decoder; Comet raises.
 """
 
@@ -118,8 +118,10 @@ def test_numpy_resize_equals_the_native_decoder(tmp_path):
 
 
 def test_unported_device_ops_raise_a9_and_host_after_device_raises():
-    with pytest.raises(NotImplementedError, match="A9"):
-        T.Compose([T.LongestMaxSize(32), T.MotionBlur(), T.Normalize()])
+    pipe = T.Compose([T.LongestMaxSize(32), T.MotionBlur(), T.Normalize()])
+    assert [type(t).__name__ for t in pipe.device_transforms] == ["MotionBlur", "Normalize"]
+    with pytest.raises(NotImplementedError, match="not a device op of nkbx"):
+        T.Compose([T.LongestMaxSize(32), type("Blur", (T.Transform,), {"stage": "device"})()])
     with pytest.raises(ValueError, match="geometry must come before"):
         T.Compose([T.HorizontalFlip(), T.Resize(8, 8)])
     assert set(T.__all__) >= set(JT.__all__)
@@ -406,23 +408,16 @@ def test_bounded_metrics_match_nkbx(seed, n, c, absent):
 # --- configs and logging -------------------------------------------------------------
 
 CONFIGS = sorted((ROOT / "configs").glob("*.py"))
-UNPORTED_OPS = {"Rotate", "ShiftScaleRotate", "MotionBlur", "RandomShadow", "RandomFog",
-                "RandomRain"}
 
 
 @pytest.mark.parametrize("path", CONFIGS, ids=[p.stem for p in CONFIGS])
 def test_shipped_configs_load_or_name_a9(path):
     before = {k: v for k, v in sys.modules.items() if k == "nkbx" or k.startswith("nkbx.")}
-    uses_unported = any(f"T.{op}(" in path.read_text() for op in UNPORTED_OPS)
-    if uses_unported:
-        with pytest.raises(NotImplementedError, match="A9"):
-            load_config(path)
-    else:
-        cfg = load_config(path)
-        pipes = [getattr(cfg, k) for k in ("train_pipeline", "val_pipeline",
-                                          "inference_pipeline") if k in cfg]
-        assert pipes and all(isinstance(p, T.Compose) for p in pipes)
-        assert all(p.output_size() is not None for p in pipes)
+    cfg = load_config(path)  # every device op of nkbx is ported: no config names A9
+    pipes = [getattr(cfg, k) for k in ("train_pipeline", "val_pipeline",
+                                      "inference_pipeline") if k in cfg]
+    assert pipes and all(isinstance(p, T.Compose) for p in pipes)
+    assert all(p.output_size() is not None for p in pipes)
     after = {k: v for k, v in sys.modules.items() if k == "nkbx" or k.startswith("nkbx.")}
     assert after.keys() == before.keys() and all(after[k] is before[k] for k in before)
     assert sys.modules["nkbx.transforms"] is JT

@@ -9,8 +9,8 @@
   against ``eval.evaluate``: every metric within 1e-5; ``python -m
   nkbx_torch.inference --device cpu`` against ``inference.inference``:
   identical CSV rows (labels and paths).
-- The shipped configs: singletask, multitask and yolo_crops load;
-  heavy_augs and modern_recipe still raise naming A9; yolo_crops'
+- The shipped configs: singletask, multitask, yolo_crops, heavy_augs
+  and modern_recipe load; yolo_crops'
   ``export_serving`` is refused by the trainer naming A11; the eval and
   inference configs' ``scripted: True`` raises naming A11, a ``mesh``
   naming A10; without a card the CLIs raise.
@@ -183,7 +183,7 @@ def test_cli_options_that_raise(workspace, monkeypatch):
 
 @pytest.mark.parametrize("name,loads", [("singletask_config", True), ("multitask_config", True),
                                         ("yolo_crops_config", True),
-                                        ("heavy_augs_config", False),
+                                        ("heavy_augs_config", True),
                                         ("modern_recipe_config", True)])
 def test_shipped_configs_in_the_port(name, loads):
     path = ROOT / "configs" / f"{name}.py"
@@ -196,6 +196,10 @@ def test_shipped_configs_in_the_port(name, loads):
     if name == "modern_recipe_config":
         assert ops == {"RandAugment", "Normalize"}
         check_options(cfg)  # mixup, EMA, steps_per_dispatch: all run in the port
+    elif name == "heavy_augs_config":
+        assert ops == {"MotionBlur", "RandomBrightnessContrast", "HueSaturationValue",
+                       "RandomShadow", "RandomFog", "RandomRain", "CoarseDropout", "Normalize"}
+        assert cfg.log_gradients is True and cfg.criterion["type"] == "FocalLoss"
     else:
         assert ops >= {"HorizontalFlip", "RandomBrightnessContrast", "Normalize"}
     assert cfg.model["pretrained"] is True

@@ -126,7 +126,8 @@ print(json.dumps([before == after, sorted(after), loaded, len(refused)]))
 @pytest.mark.parametrize("pre", ["", "import nkbx.transforms, nkbx.utils"])
 def test_config_loader_leaves_sys_modules_as_it_found_it(pre):
     """Every shipped config runs in the port (``import nkbx.transforms as T``
-    builds the port's transforms) or raises naming A9; afterwards no nkbx
+    builds the port's transforms; a refusal would have to name A9, and none
+    is left); afterwards no nkbx
     module is left where none was, and a process that imported the real
     nkbx keeps exactly its entries."""
     paths = sorted(str(p) for p in (ROOT / "configs").glob("*.py"))
@@ -136,4 +137,4 @@ def test_config_loader_leaves_sys_modules_as_it_found_it(pre):
     assert same and (left if pre else not left)
     assert loaded and all(m == ["nkbx_torch.transforms.spec"] for m in loaded)
     assert len(loaded) + n_refused == len(paths)
-    assert n_refused == 1  # heavy_augs_config.py (MotionBlur, ...); modern_recipe_config loads
+    assert n_refused == 0  # heavy_augs_config.py loads too: every device op of nkbx is ported
