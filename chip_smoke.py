@@ -195,7 +195,7 @@
    build_train_step steps on their pipelines with finite losses, a
    bucket-64 ServingModule forward, step and serving img/s and peak memory;
    mobilenetv3_small_100 and efficientnetv2_s one forward each, bf16
-   against f32; the yolo_crops train CLI refused for export_serving (A11).
+   against f32 (the yolo_crops train CLI runs in EXPORT).
 9. The rest of the zoo (ZOO, check_zoo): densenet121 at 224 px, batch 64:
    bf16 against f32, 1 + 5 train steps with finite and falling losses, step
    img/s, peak memory and a profile, a bucket-64 ServingModule forward and
@@ -230,7 +230,34 @@
    swin_tiny at batch 64 with grad_accum_steps=2, EMA, mixup and
    log_gradients: K1, K2, K5 and K6 launch twice a step (counted), 3 steps
    agree with the plain versions, the gradient norms carry nkbx's keys.
-12. Prints the kernels' JSON line (all 17 kernels), the card's name and
+12. Export (EXPORT, check_export; ``python3 chip_smoke.py --export`` runs
+   it alone after SHIPPED (a)-(c)), bf16, seed 0, 10 classes, full width:
+   (1) swin_tiny's best.pt through ``python -m nkbx_torch.export`` in
+   subprocesses, a portable bundle (dynamic batch, max 64) and a fused one
+   (``--fused-attention``, static batch 64), each reloaded in a
+   ServingModule and serving requests of 1, 5, 64 and 70 images of one
+   normalised batch: the fused bundle launches K1 and K5 12 times a forward
+   (counted) and agrees with the eager model through the kernels within 2
+   bf16 ulps of the largest logit, the portable one launches none and
+   agrees with the eager plain model as closely, both within 5% of the
+   plain f32 model's largest logit; (2) vit_base_patch16_224 with the fused
+   flags (K3 and K5, 12 each) and (3) convnext_tiny under
+   NKBX_FUSED_LN_MLP=0 (K7, 18), fused bundles exported in this process,
+   the same checks; (4) benchmark(64) of swin's fused bundle, its portable
+   bundle and the eager model-backed ServingModule in turns, and ``python
+   -m nkbx_torch.export.serving --sweep`` on the portable bundle; (5) the
+   shipped configs as shipped: SHIPPED (a)'s run exported with ``python -m
+   nkbx_torch.export -cfg`` its config, configs/eval_config.py and
+   configs/inference_config.py with ``scripted: True`` through the eval and
+   inference CLIs against SHIPPED (b)-(c)'s rebuilt model (1e-3 relative;
+   labels but for top-two ties within 2 bf16 ulps),
+   configs/yolo_crops_config.py through the train CLI (2 epochs over a
+   seeded YOLO-layout set; export_serving leaves best.nkbx and last.nkbx),
+   and ``python -m nkbx_torch.det_cls_val`` on its best.nkbx with a
+   detections CSV; (6) swin_tiny's ``--to torchscript`` file reloaded with
+   torch.jit.load against the eager plain model (2 bf16 ulps). The phase's
+   seconds; the CLIs' logs go to OUT_DIR as export_*.log.
+13. Prints the kernels' JSON line (all 17 kernels), the card's name and
    power limit, and last {"ok": true, "device": {...}}.
 
 Exits non-zero, before printing any result, without a CUDA device, outside
@@ -3061,6 +3088,7 @@ SHIPPED_SPLITS = (("train", 200), ("val", 70))  # BMP images, 96-200 px a side
 SHIPPED_CLASSES = ["first_class", "second_class"]  # configs/singletask_config.py's
 SHIPPED_WORKERS = 6  # the card's machine has 8 cores
 STAGE_ITERS = 20  # timed device-stage batches
+SHIPPED_RUN = {}  # SHIPPED (a)-(c)'s run directory, configs' edits and results, for EXPORT
 
 
 def write_annotated_csv(data, seed=0):
@@ -3245,6 +3273,7 @@ def check_shipped_cli():
         f"argmax of build_predict_fn over the same images: {got == want}")
     if not ok:
         fail("the inference CLI's annotations do not match the model's predictions")
+    SHIPPED_RUN.update(run=run, paths=paths, workers=workers, folder=folder, out=out, labels=got)
     return out
 
 
@@ -3366,8 +3395,8 @@ def check_shipped_models():
     targets, cross-entropy) and configs/yolo_crops_config.py
     (mobilenetv3_large_100, 128 px, FocalLoss) through
     shipped_model_check; mobilenetv3_small_100 and efficientnetv2_s one
-    bf16 forward each against f32 (5% of the largest f32 logit); and the
-    yolo_crops train CLI, refused for its export_serving (A11)."""
+    bf16 forward each against f32 (5% of the largest f32 logit). The
+    yolo_crops train CLI runs in EXPORT (check_export_shipped)."""
     from nkbx_torch.utils import load_config
 
     out = {}
@@ -3392,13 +3421,6 @@ def check_shipped_models():
             f"{float(rel):.3e} (tol 5e-2)")
         if not rel <= 5e-2:
             fail(f"{name}: bf16 logits off f32")
-    proc, _ = run_cli("nkbx_torch.train", os.path.join("configs", "yolo_crops_config.py"),
-                      "shipped_yolo_crops.log")
-    refused = (proc.returncode != 0 and "export_serving" in proc.stderr and "A11" in proc.stderr)
-    log(f"shipped (e): python -m nkbx_torch.train on configs/yolo_crops_config.py exit "
-        f"{proc.returncode}, refused for export_serving naming A11: {refused}")
-    if not refused:
-        fail("the trainer did not refuse yolo_crops_config.py's export_serving")
     return out
 
 
@@ -4383,6 +4405,475 @@ def check_heavy():
     return counts
 
 
+# --- EXPORT: serving bundles, TorchScript and the shipped configs as shipped ---------
+
+EXPORT_DIR = os.path.join("build", "export_smoke")  # data, configs, weights, bundles, runs
+EXPORT_REQUESTS = (1, 5, BUCKET, 70)  # images a request; 70 = a chunk of 64 and one of 6
+EXPORT_FORWARDS = 5  # forwards of a bucket-64 bundle for those requests
+EXPORT_BENCH_ITERS = 20  # iterations of each ServingModule.benchmark(64) tier
+EXPORT_SWEEP_ITERS = 10  # iterations of each tier of the serving CLI's sweep
+YOLO_CLASSES = ("cat", "dog")
+YOLO_SPLITS = (("train", 48), ("val", 24))  # BMP images, 2 boxes each
+
+
+def start_cli(args, log_name, env=None):
+    """``python <args>`` started in a subprocess whose output goes to
+    OUT_DIR/<log_name>; returns a handle for finish_cli."""
+    out = open(os.path.join(OUT_DIR, log_name), "w")
+    proc = subprocess.Popen([sys.executable, *args], stdout=out, stderr=subprocess.STDOUT,
+                            text=True, env=env)
+    return proc, out
+
+
+def finish_cli(started, what, timeout=900):
+    """Wait for a subprocess of start_cli; fails the run on a non-zero exit;
+    returns its output and, for the export CLI, the seconds its export took
+    by its own log."""
+    proc, out = started
+    try:
+        proc.wait(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+        out.close()
+    with open(out.name) as f:
+        text = f.read()
+    if proc.returncode != 0:
+        fail(f"{what} exited {proc.returncode} (log in {out.name}): {text[-2000:]}")
+    m = re.search(r"export success, saved as \S+ \(([0-9.]+) s\)", text)
+    return text, float(m.group(1)) if m else None
+
+
+def export_config(path, data, run, model_cfg, size):
+    """A config for the export CLI: the classes from a seeded ImageFolder of
+    ten classes (one BMP each), the model, bf16 compute."""
+    rng = np.random.default_rng(0)
+    for c in range(N_CLASSES):
+        os.makedirs(os.path.join(data, f"class{c}"), exist_ok=True)
+        write_bmp(os.path.join(data, f"class{c}", "0.bmp"),
+                  rng.integers(0, 256, (size, size, 3), dtype=np.uint8))
+    with open(os.path.join("configs", "singletask_config.py")) as f:
+        header = next(line for line in f if line.startswith("import"))  # the shipped import
+    with open(path, "w") as f:
+        f.write(header + textwrap.dedent(f"""
+            task = "single"
+            enable_mixed_precision = True
+            experiment = {{"comet": None, "local": {{"path": "{run}"}}}}
+            train_data = {{"type": "ImageFolder", "root": "{data}", "batch_size": 8,
+                          "num_workers": 1}}
+            train_pipeline = T.Compose([T.Resize({size}, {size}), T.Normalize()])
+            model = {model_cfg!r}
+        """))
+    return path
+
+
+def same_padding(serving, fn):
+    """``serving`` with its program replaced by ``fn``: the same buckets,
+    padding, chunking and dtype, so that an eager model is held against a
+    bundle on the same padded batches."""
+    import copy
+
+    other = copy.copy(serving)
+    other._predict = torch.inference_mode()(fn)
+    return other
+
+
+def hold_bundle(label, serving, x, want_counts, refs):
+    """Serve requests of EXPORT_REQUESTS images (the first n rows of the
+    normalised batch ``x``) from a bundle: the launch counts (zeroed just
+    before, read just after) equal ``want_counts``; finite logits of the
+    right shape; each of ``refs`` = {name: (ServingModule with the same
+    padding, tolerance as a share of the largest reference logit, or None
+    for 2 bf16 ulps of it)} agrees on every request. Returns (the errors,
+    the counts)."""
+    zero_counts()
+    outs = [serving(x[:n]) for n in EXPORT_REQUESTS]
+    torch.cuda.synchronize()
+    counts = read_counts()
+    log(f"export {label}: {EXPORT_FORWARDS} forwards; launches "
+        f"{ {k: v for k, v in counts.items() if v} } (expect "
+        f"{ {k: v for k, v in want_counts.items() if v} })")
+    if counts != want_counts:
+        fail(f"the {label} bundle did not launch the kernels as expected")
+    for n, o in zip(EXPORT_REQUESTS, outs):
+        if tuple(o.shape) != (n, N_CLASSES) or not torch.isfinite(o).all():
+            fail(f"{label} logits of request {n}: shape {tuple(o.shape)}, not finite")
+    errs = {}
+    for name, (ref, tol) in refs.items():
+        set_plain(name != "kernels")
+        want = [ref(x[:n]) for n in EXPORT_REQUESTS]
+        set_plain(False)
+        top = max(float(w.float().abs().max()) for w in want)
+        limit = 2 * bf16_ulp(top) if tol is None else tol * top
+        err = max(max_err(o, w) for o, w in zip(outs, want))
+        errs[name] = {"max_abs_err": err, "tol": limit, "largest": top}
+        log(f"export {label} against the eager {name} model: max|d| {err:.4e} (tol {limit:.4e}, "
+            f"largest logit {top:.4f})")
+        if not err <= limit:
+            fail(f"the {label} bundle disagrees with the eager {name} model")
+    return errs, counts
+
+
+def hold_bundles(path, model, x, total, fused=None, portable=None):
+    """Load a path's bundles (``fused`` and ``portable``: their files) in
+    ServingModules and hold them (hold_bundle): the fused one against the
+    eager model through the kernels, the portable one against the eager
+    plain model, both against the plain f32 model (5%). Adds the fused
+    bundle's launches to ``total``. Returns (the numbers, the servers)."""
+    from nkbx_torch.export import ServingModule
+
+    res, servers = {}, {}
+    ref32 = path.model(torch.float32)
+    for kind, bundle in (("fused", fused), ("portable", portable)):
+        if bundle is None:
+            continue
+        t0 = time.perf_counter()
+        serving = servers[kind] = ServingModule(bundle, warm_up_on_load=False)
+        load_s = time.perf_counter() - t0
+        if serving.buckets != ([BUCKET] if kind == "fused" else [1, 2, 4, 8, 16, 32, BUCKET]):
+            fail(f"{path.label} {kind} bundle buckets {serving.buckets}")
+        want = ({k: v * EXPORT_FORWARDS for k, v in path.counts(torch.bfloat16, False).items()}
+                if kind == "fused" else dict.fromkeys(COUNTED, 0))
+        refs = {"kernels" if kind == "fused" else "plain": (same_padding(serving, model.module),
+                                                            None),
+                "plain f32": (same_padding(serving, ref32.module), 5e-2)}
+        errs, counts = hold_bundle(f"{path.label} {kind}", serving, x, want, refs)
+        for k, v in counts.items():
+            total[k] += v
+        res[kind] = {"load_s": load_s, "errors": errs,
+                     "launches": {k: v for k, v in want.items() if v}}
+    return res, servers
+
+
+def check_export_models(started, out):
+    """EXPORT (1)-(3) and (6): ViT-B (fused flags) and ConvNeXt-T (under
+    NKBX_FUSED_LN_MLP=0) exported in this process, Swin-T's three files
+    from the CLIs in ``started``, bf16, seed 0, 10 classes, held. Adds to
+    ``out``; returns (Swin-T's servers and model, the fused bundles'
+    launch counts)."""
+    from nkbx_torch.export import export_model
+    from nkbx_torch.transforms import Compose, Normalize
+
+    root = os.path.abspath(EXPORT_DIR)
+    total = dict.fromkeys(COUNTED, 0)
+    rng = np.random.default_rng(0)
+    images = torch.as_tensor(rng.integers(0, 256, (70, 224, 224, 3), dtype=np.uint8), device=DEV)
+    x = Compose([Normalize()]).device_apply(images)  # the normalised f32 batch
+
+    # (2) ViT-B with the fused flags and (3) ConvNeXt-T under the switch
+    for path in (VIT, CONVNEXT_MLP):
+        with path.environment():
+            model = path.model(torch.bfloat16)
+            t0 = time.perf_counter()
+            bundle, _ = export_model(model, (BUCKET, 224, 224, 3),
+                                     os.path.join(root, f"{path.label}_fused.nkbx"),
+                                     dynamic="none", fused_attention=True)
+            export_s = time.perf_counter() - t0
+            res, _ = hold_bundles(path, model, x, total, fused=bundle)
+            out[path.label] = {"export_s": export_s, **res}
+            log(f"export {path.label}: {json.dumps(out[path.label])}")
+            del model
+
+    # (1) Swin-T's two bundles from the CLI
+    swin = SWIN.model(torch.bfloat16)
+    for kind in ("portable", "fused"):
+        _, out[f"swin_tiny_{kind}_export_s"] = finish_cli(started[kind],
+                                                          f"python -m nkbx_torch.export ({kind})")
+    res, servers = hold_bundles(SWIN, swin, x, total,
+                                fused=os.path.join(root, "fused", "best.nkbx"),
+                                portable=os.path.join(root, "portable", "best.nkbx"))
+    out["swin_tiny"] = res
+    log(f"export swin_tiny: {json.dumps(res)}")
+
+    # (6) the TorchScript file, against the eager plain model
+    _, secs = finish_cli(started["torchscript"], "python -m nkbx_torch.export (torchscript)")
+    traced = torch.jit.load(os.path.join(root, "ts", "best.pt"), map_location=DEV)
+    set_plain(True)
+    with torch.inference_mode():
+        got = traced(x[:8].permute(0, 3, 1, 2).contiguous())
+        want = swin.module(x[:8])
+    set_plain(False)
+    tol = 2 * bf16_ulp(float(want.abs().max()))
+    err = max_err(got, want)
+    out["torchscript"] = {"export_s": secs, "max_abs_err": err, "tol": tol}
+    log(f"export swin_tiny torchscript: torch.jit.load, NCHW batch of 8 against the eager plain "
+        f"model: max|d| {err:.4e} (tol {tol:.4e})")
+    if not err <= tol:
+        fail("the TorchScript file disagrees with the eager plain model")
+    return (servers, swin), total
+
+
+def check_export_server(servers, swin, out):
+    """EXPORT (4), with nothing else on the card: benchmark(64) of Swin-T's
+    fused bundle, its portable bundle and the eager model-backed
+    ServingModule in turns (twice), then ``python -m
+    nkbx_torch.export.serving --sweep`` on the portable bundle. Numbers,
+    not a claim."""
+    from nkbx_torch.export import ServingModule
+
+    eager = ServingModule(swin, buckets=(1, 8, BUCKET), warm_up_on_load=False)
+    bench = {}
+    for _ in range(2):
+        for name, serving in (("fused", servers["fused"]), ("portable", servers["portable"]),
+                              ("eager", eager)):
+            r = serving.benchmark(BUCKET, iters=EXPORT_BENCH_ITERS)
+            bench.setdefault(name, []).append(r)
+            log(f"export benchmark({BUCKET}) swin_tiny {name}: p50 {r['p50_ms']:.3f} ms, p99 "
+                f"{r['p99_ms']:.3f} ms, {r['images_per_sec']:.1f} img/s (compute p50 "
+                f"{r['compute_p50_ms']:.3f} ms, pipelined {r['pipelined_images_per_sec']:.1f} "
+                "img/s)")
+    out["benchmark"] = bench
+    t0 = time.perf_counter()
+    text, _ = finish_cli(start_cli(
+        ["-m", "nkbx_torch.export.serving", os.path.join(EXPORT_DIR, "portable", "best.nkbx"),
+         "--sweep", "--iters", str(EXPORT_SWEEP_ITERS)], "export_serving_sweep.log"),
+        "python -m nkbx_torch.export.serving --sweep")
+    rows = [json.loads(line) for line in text.splitlines() if line.startswith("{")]
+    if [r["batch_size"] for r in rows] != [1, 2, 4, 8, 16, 32, BUCKET]:
+        fail(f"the serving sweep's rows: {[r['batch_size'] for r in rows]}")
+    out["sweep"], out["sweep_s"] = rows, time.perf_counter() - t0
+    for r in rows:
+        log(f"export sweep swin_tiny portable: batch {r['batch_size']}: p50 {r['p50_ms']:.3f} ms, "
+            f"compute p50 {r['compute_p50_ms']:.3f} ms, pipelined "
+            f"{r['pipelined_images_per_sec']:.1f} img/s")
+
+
+def write_yolo_set(root, seed=0):
+    """A seeded ultralytics-layout set (BMP images, 2 boxes each of the two
+    classes, labels in xywhn) and its data YAML; returns the YAML's path."""
+    rng = np.random.default_rng(seed)
+    for split, n in YOLO_SPLITS:
+        os.makedirs(os.path.join(root, split, "images"))
+        os.makedirs(os.path.join(root, split, "labels"))
+        for i in range(n):
+            h, w = (int(v) for v in rng.integers(160, 241, 2))
+            img = rng.integers(0, 256, (h, w, 3)).astype(np.uint8)
+            lines = []
+            for k in range(2):
+                c = (i + k) % 2
+                bw, bh = rng.uniform(0.2, 0.35, 2)
+                xc, yc = 0.25 + 0.5 * k, rng.uniform(0.3, 0.7)
+                x0, y0 = int((xc - bw / 2) * w), int((yc - bh / 2) * h)
+                img[y0:y0 + int(bh * h), x0:x0 + int(bw * w)] = (200, 60, 60) if c else (60, 60, 200)
+                lines.append(f"{c} {xc:.6f} {yc:.6f} {bw:.6f} {bh:.6f}")
+            write_bmp(os.path.join(root, split, "images", f"{i}.bmp"), img)
+            with open(os.path.join(root, split, "labels", f"{i}.txt"), "w") as f:
+                f.write("\n".join(lines) + "\n")
+    path = os.path.join(root, "data.yaml")
+    with open(path, "w") as f:
+        f.write(f"path: {root}\ntrain: [train/images]\nval: [val/images]\nnc: 2\nnames:\n"
+                + "".join(f"  {i}: {c}\n" for i, c in enumerate(YOLO_CLASSES)))
+    return path
+
+
+def write_detections(root, seed=0):
+    """A detections CSV over the val images: each GT box jittered (conf U[0.3,
+    1], its label flipped one time in five) and one false positive an image
+    (conf U[0.1, 0.6])."""
+    rng = np.random.default_rng(seed)
+    rows = ["image_path,xmin,ymin,xmax,ymax,conf,detection_label"]
+    images = os.path.join(root, "val", "images")
+    for name in sorted(os.listdir(images)):
+        with open(os.path.join(root, "val", "labels", name.replace(".bmp", ".txt"))) as f:
+            for line in f:
+                c, xc, yc, bw, bh = map(float, line.split())
+                j = rng.normal(0, 0.02, 4)
+                box = np.clip([xc - bw / 2 + j[0], yc - bh / 2 + j[1], xc + bw / 2 + j[2],
+                               yc + bh / 2 + j[3]], 0, 1)
+                label = int(c) if rng.random() > 0.2 else 1 - int(c)
+                rows.append(f"{os.path.join(images, name)},{box[0]:.6f},{box[1]:.6f},"
+                            f"{box[2]:.6f},{box[3]:.6f},{rng.uniform(0.3, 1):.4f},{label}")
+        x0, y0 = rng.uniform(0, 0.7, 2)
+        rows.append(f"{os.path.join(images, name)},{x0:.6f},{y0:.6f},{x0 + 0.2:.6f},"
+                    f"{y0 + 0.2:.6f},{rng.uniform(0.1, 0.6):.4f},{int(rng.integers(0, 2))}")
+    path = os.path.join(root, "detections.csv")
+    with open(path, "w") as f:
+        f.write("\n".join(rows) + "\n")
+    return path
+
+
+def start_export_shipped():
+    """EXPORT (5)'s first two subprocesses: configs/yolo_crops_config.py
+    through ``python -m nkbx_torch.train`` (its data path, run directory,
+    n_epochs (2) and workers edited; mobilenetv3_large_100, pretrained
+    without a file, FocalLoss, export_serving) over a seeded YOLO-layout
+    set, and SHIPPED (a)'s run of configs/singletask_config.py through
+    ``python -m nkbx_torch.export --to serving`` into its weights/best.nkbx
+    (128 px, batch 64)."""
+    run, workers = SHIPPED_RUN["run"], SHIPPED_RUN["workers"]
+    root = os.path.abspath(os.path.join(EXPORT_DIR, "shipped"))
+    yolo_data = os.path.join(root, "yolo")
+    yaml_path = write_yolo_set(yolo_data)
+    yolo_run = os.path.join(root, "yolo_run")
+    yolo_cfg = shipped_config("yolo_crops_config", [
+        ('yolo_yaml = "data/yolo_dataset.yaml"', f'yolo_yaml = "{yaml_path}"', 1),
+        ('"path": f"data/runs/{experiment_name}"', f'"path": "{yolo_run}"', 1),
+        ("n_epochs = 30", "n_epochs = 2", 1), (*workers, 2)], os.path.join(root, "yolo.py"))
+    env = {k: v for k, v in os.environ.items() if k != "NKBX_PRETRAINED_DIR"}
+    return {"root": root, "yolo_data": yolo_data, "yaml": yaml_path, "yolo_run": yolo_run,
+            "t0": time.perf_counter(),
+            "yolo": start_cli(["-m", "nkbx_torch.train", "-cfg", yolo_cfg],
+                              "export_yolo_train.log", env),
+            "export": start_cli(["-m", "nkbx_torch.export", "-cfg",
+                                 os.path.join(SHIPPED_DIR, "singletask.py"), "--to", "serving",
+                                 "-w", os.path.join(run, "weights", "best.pt"), "--input-shape",
+                                 str(BUCKET), "128", "128", "3", "--save_path",
+                                 os.path.join(run, "weights")], "export_singletask.log")}
+
+
+def check_export_shipped(started):
+    """EXPORT (5), the three configs that waited on export, as shipped: on
+    SHIPPED (a)'s best.nkbx, configs/eval_config.py and
+    configs/inference_config.py with only their paths and workers edited
+    (``scripted: True`` kept) through the eval and inference CLIs at once:
+    eval's balanced accuracy and loss within 1e-3 relative of SHIPPED (b)'s
+    rebuilt model, inference's labels equal to SHIPPED (c)'s but where the
+    rebuilt model's top two logits lie within 2 bf16 ulps (counted); the
+    yolo_crops run must leave best.nkbx and last.nkbx; then ``python -m
+    nkbx_torch.det_cls_val`` with a detections CSV and that best.nkbx: its
+    CSVs and finite APs."""
+    from nkbx_torch.data import get_inference_dataset
+    from nkbx_torch.train import build_predict_fn
+    from nkbx_torch.utils import load_config
+
+    run, paths, workers = SHIPPED_RUN["run"], SHIPPED_RUN["paths"], SHIPPED_RUN["workers"]
+    root = started["root"]
+    out = {}
+    _, secs = finish_cli(started["export"],
+                         "python -m nkbx_torch.export on configs/singletask_config.py's run")
+    out["singletask_export_s"] = secs
+    edits = paths + [('train_run_path = "data/runs/train_singletask_run_1"',
+                      f'train_run_path = "{run}"', 1)]
+    eval_save, infer_save = os.path.join(root, "eval"), os.path.join(root, "infer")
+    eval_cfg = shipped_config("eval_config", edits + [
+        ('save_path = "data/runs/val_singletask_run_1"', f'save_path = "{eval_save}"', 1),
+        workers + (1,)], os.path.join(root, "eval.py"))
+    infer_cfg = shipped_config("inference_config", [
+        ('save_path = "data/runs/infer_singletask_run_1"', f'save_path = "{infer_save}"', 1),
+        ('train_run_path = "data/runs/train_singletask_run_1"', f'train_run_path = "{run}"', 1),
+        ('"folder_path": "data/unknown_images"', f'"folder_path": "{SHIPPED_RUN["folder"]}"', 1),
+        workers + (1,)], os.path.join(root, "inference.py"))
+    for cfg_path in (eval_cfg, infer_cfg):
+        if not load_config(cfg_path).model.get("scripted"):
+            fail(f"the edited {cfg_path} lost scripted: True")
+    t0 = time.perf_counter()
+    clis = {name: start_cli(["-m", f"nkbx_torch.{name}", "-cfg", cfg], f"export_{name}.log")
+            for name, cfg in (("eval", eval_cfg), ("inference", infer_cfg))}
+    for name, handle in clis.items():
+        finish_cli(handle, f"the {name} CLI on best.nkbx")
+    out["eval_inference_s"] = time.perf_counter() - t0
+
+    with open(os.path.join(eval_save, "metrics.json")) as f:
+        metrics = json.load(f)
+    rebuilt = SHIPPED_RUN["out"]
+    d_acc = abs(metrics["epoch_acc"] - rebuilt["eval_acc"]) / max(rebuilt["eval_acc"], 1e-12)
+    loss = float(np.mean(metrics["loss"]))
+    d_loss = abs(loss - rebuilt["eval_loss"]) / abs(rebuilt["eval_loss"])
+    out["eval"] = {"acc": metrics["epoch_acc"], "loss": loss, "rel_diff_acc": d_acc,
+                   "rel_diff_loss": d_loss}
+    log(f"export shipped: python -m nkbx_torch.eval on configs/eval_config.py (scripted: True, "
+        f"best.nkbx): balanced accuracy {metrics['epoch_acc']:.8f} against the rebuilt model's "
+        f"{rebuilt['eval_acc']:.8f} (rel {d_acc:.3e}), loss {loss:.8f} against "
+        f"{rebuilt['eval_loss']:.8f} (rel {d_loss:.3e}); tol 1e-3")
+    if d_acc > 1e-3 or d_loss > 1e-3:
+        fail("the eval CLI on the bundle disagrees with the rebuilt model")
+
+    with open(os.path.join(infer_save, "inference_annotations.csv")) as f:
+        head, *lines = [line.rstrip("\n").split(",") for line in f]
+    got = {p: label for label, p in lines}
+    cfg = load_config(infer_cfg)
+    model = get_model({"task": "single", "model": "resnet14t",
+                       "checkpoint": os.path.join(run, "weights", "best.pt")},
+                      SHIPPED_CLASSES, input_size=(cfg.img_size, cfg.img_size),
+                      dtype=torch.bfloat16)
+    loader = get_inference_dataset(cfg.inference_data, cfg.inference_pipeline)
+    predict = build_predict_fn(model, augment_fn=loader.pipeline.device_apply)
+    near = {}
+    for batch in loader.epoch(0):
+        top2 = predict(torch.from_numpy(batch["image"]).to(DEV)).float().topk(2, dim=-1)
+        for p, (a, b), v in zip(batch["path"], top2.values.cpu().numpy(), batch["mask"]):
+            if v:
+                near[p] = a - b <= 2 * bf16_ulp(abs(a))
+    want = SHIPPED_RUN["labels"]
+    differ = [p for p in want if got.get(p) != want[p]]
+    ties = sum(near[p] for p in want)
+    out["inference"] = {"rows": len(lines), "differ": len(differ), "near_ties": int(ties)}
+    log(f"export shipped: python -m nkbx_torch.inference on configs/inference_config.py "
+        f"(scripted: True): {len(lines)} rows, {len(differ)} labels differ from SHIPPED (c)'s, "
+        f"{int(ties)} rows with the top two logits within 2 bf16 ulps")
+    if (head != ["label", "path"] or len(lines) != len(want) or set(got) != set(want)
+            or any(not near[p] for p in differ)):
+        fail("the inference CLI on the bundle disagrees with the rebuilt model")
+
+    finish_cli(started["yolo"], "python -m nkbx_torch.train on configs/yolo_crops_config.py")
+    out["yolo_train_s"] = time.perf_counter() - started["t0"]
+    weights = os.path.join(started["yolo_run"], "weights")
+    have = [n for n in ("best.nkbx", "last.nkbx", "best.pt", "last.pt")
+            if os.path.exists(os.path.join(weights, n))]
+    log(f"export shipped: python -m nkbx_torch.train on configs/yolo_crops_config.py "
+        f"(export_serving) exit 0 by {out['yolo_train_s']:.1f} s; {have}")
+    if len(have) != 4:
+        fail("the yolo_crops run did not leave best.nkbx and last.nkbx")
+
+    det_out = os.path.join(root, "det_cls_val")
+    t0 = time.perf_counter()
+    text, _ = finish_cli(start_cli(
+        ["-m", "nkbx_torch.det_cls_val", "--config", started["yaml"], "--detections",
+         write_detections(started["yolo_data"]), "--weights_classifier",
+         os.path.join(weights, "best.nkbx"), "--img_size", "128", "-pad", "--output_folder",
+         det_out], "export_det_cls_val.log"), "python -m nkbx_torch.det_cls_val")
+    aps = [float(v) for v in re.findall(r"(?:detection|classification) ([0-9.]+|nan|-?inf)(?=,|$)",
+                                        text, re.M)]
+    files = [n for n in ("predictions.csv", "gt.csv", "metrics.csv")
+             if os.path.exists(os.path.join(det_out, n))]
+    out["det_cls_val"] = {"s": time.perf_counter() - t0, "aps": aps, "files": files}
+    log(f"export shipped: python -m nkbx_torch.det_cls_val on best.nkbx: {files}; APs {aps}")
+    if len(files) != 3 or not aps or not np.all(np.isfinite(aps)):
+        fail("det_cls_val did not write its CSVs or finite APs")
+    return out
+
+
+def check_export():
+    """EXPORT: the shipped configs' subprocesses and Swin-T's three export
+    CLIs start at once (from a best.pt of Swin-T written here); then
+    check_export_models, check_export_shipped (which runs no kernel of ours
+    in this process) and, once no subprocess is left, check_export_server.
+    Returns (the numbers, the fused bundles' launch counts)."""
+    t0 = time.perf_counter()
+    shutil.rmtree(EXPORT_DIR, ignore_errors=True)
+    root = os.path.abspath(EXPORT_DIR)
+    os.makedirs(root)
+    set_plain(False)
+    torch.save(SWIN.model(torch.bfloat16).module.state_dict(), os.path.join(root, "best.pt"))
+    cfg = export_config(os.path.join(root, "swin.py"), os.path.join(root, "classes"),
+                        os.path.join(root, "run"), SWIN_CFG, 224)
+    common = ["-m", "nkbx_torch.export", "-cfg", cfg, "-w", os.path.join(root, "best.pt")]
+    shape = ["--input-shape", str(BUCKET), "224", "224", "3"]
+    shipped = start_export_shipped()
+    started = {
+        "portable": start_cli(common + shape + ["--to", "serving", "--save_path",
+                                                os.path.join(root, "portable")],
+                              "export_portable.log"),
+        "fused": start_cli(common + shape + ["--to", "serving", "--dynamic", "none",
+                                             "--fused-attention", "--save_path",
+                                             os.path.join(root, "fused")], "export_fused.log"),
+        "torchscript": start_cli(common + ["--to", "torchscript", "--input-shape", "8", "224",
+                                           "224", "3", "--save_path", os.path.join(root, "ts")],
+                                 "export_torchscript.log")}
+    out = {}
+    (servers, swin), counts = check_export_models(started, out)
+    zero_counts()
+    out["shipped"] = check_export_shipped(shipped)
+    torch.cuda.synchronize()
+    if any(read_counts().values()):
+        fail(f"the shipped export path launched port kernels it should not: {read_counts()}")
+    check_export_server(servers, swin, out)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"export: {json.dumps(out)}")
+    log(f"export: the phase took {out['seconds']:.1f} s")
+    return out, counts
+
+
 # --- the probe path: the command-line probes of X1 and X2 ---------------------------
 
 PROBE_ITERS = 3  # timed launches a shape in each probe
@@ -4476,6 +4967,7 @@ def main():
     _, modern_counts = check_modern()
     served["modern"] = trained["modern"] = modern_counts
     served["heavy"] = trained["heavy"] = check_heavy()
+    _, served["export"] = check_export()
 
     fwd, step = "one bucket-64 swin_tiny forward, bf16", "one batch-64 swin_tiny train step, bf16"
     vfwd = ("one bucket-64 vit_base_patch16_224 forward, bf16 (12 launches at N=197, bias and "
@@ -4707,6 +5199,26 @@ def modern_only():
     log(json.dumps({"modern": out, "counts": counts}))
 
 
+def export_only():
+    """``--export``: the card's name and power limit, the forward kernels of
+    the exported models built (K1, K3, K5, K7), SHIPPED (a)-(c) for the run
+    that EXPORT (5) exports, and EXPORT alone, its numbers as the last
+    line."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60).stdout.strip()
+    log(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    os.makedirs(OUT_DIR, exist_ok=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    _build.build(["window_attention", "attention", "ln_mlp"])
+    log(f"build: {time.perf_counter() - t0:.1f} s")
+    check_shipped_cli()
+    out, counts = check_export()
+    log(json.dumps({"export": out, "counts": counts}))
+
+
 def heavy_only():
     """``--heavy``: the card's name and power limit and HEAVY alone (it runs
     no kernel of ours, so nothing is built), its launch counts as the last
@@ -4728,6 +5240,8 @@ if __name__ == "__main__":
         modern_only()
     elif sys.argv[1:] == ["--heavy"]:
         heavy_only()
+    elif sys.argv[1:] == ["--export"]:
+        export_only()
     elif sys.argv[1:] == ["--layout"]:
         layout_only()
     else:

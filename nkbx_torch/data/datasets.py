@@ -276,7 +276,7 @@ class AnnotatedYOLODataset:
                  min_box_size=5, generate_backgrounds=False,
                  background_generating_prob=None, background_crop_sizes=(0.1, 0.3),
                  seed=0, **kwargs):
-        import yaml
+        from nkbx_torch.utils.flat_yaml import load_yaml
 
         if fold not in ("train", "val", "test"):
             raise ValueError(f"Got fold equals {fold}")
@@ -284,8 +284,7 @@ class AnnotatedYOLODataset:
         self.min_box_size = min_box_size
         if not os.path.exists(annotations_file):
             raise FileNotFoundError(f"Annotations file {annotations_file} does not exist.")
-        with open(annotations_file, "r") as f:
-            self.yaml_data = yaml.safe_load(f)
+        self.yaml_data = load_yaml(annotations_file)  # PyYAML, else the flat reader
 
         names = self.yaml_data["names"]
         self.idx_to_class = ({i: lb for i, lb in enumerate(names)} if isinstance(names, list)

@@ -2,13 +2,15 @@
 
     python -m nkbx_torch.eval -cfg CONFIG [--device cpu]
 
-Evaluates the model of the config's ``model`` (built from its name, with
-its ``checkpoint``: a port ``best.pt``, a port checkpoint directory or a
-nkbx ``.msgpack``) on ``val_data`` / ``val_pipeline`` and writes
-``save_path/metrics.json`` with nkbx's keys. It runs on the CUDA card
-unless the config's ``device`` or ``--device`` names the CPU. An exported
-serving bundle (``model.scripted``) raises (ROADMAP.md A11), and so does a
-``mesh`` (A10).
+Evaluates the model of the config's ``model`` on ``val_data`` /
+``val_pipeline`` and writes ``save_path/metrics.json`` with nkbx's keys.
+The model is built from its name with its ``checkpoint`` (a port
+``best.pt``, a port checkpoint directory or a nkbx ``.msgpack``), or, with
+``scripted: True``, is the ``.nkbx`` serving bundle named by
+``checkpoint`` (:class:`~nkbx_torch.export.ExportedModel`: the pipeline's
+normalised batch in the bundle's dtype, padded to its buckets). It runs on
+the CUDA card unless the config's ``device`` or ``--device`` names the CPU.
+A ``mesh`` raises (ROADMAP.md A10).
 """
 
 from __future__ import annotations
@@ -25,10 +27,6 @@ def check_options(cfg):
     if cfg.get("mesh"):
         raise NotImplementedError(f"config option mesh={cfg.get('mesh')!r} is not ported to "
                                   "nkbx_torch yet (ROADMAP.md, A10)")
-    if (cfg.get("model") or {}).get("scripted", False):
-        raise NotImplementedError("serving bundles (model.scripted) are not ported to "
-                                  "nkbx_torch yet (ROADMAP.md A11); rebuild the model from its "
-                                  "name and a checkpoint")
 
 
 def evaluate(model, val_loader, criterion, cfg):

@@ -7,9 +7,11 @@ with the config's model and writes ``save_path/inference_annotations.csv``:
 a column per target (``target_column``, or ``target_names`` for ``task ==
 "multi"``) holding class names from ``classes`` (a list, a per-target dict
 or a ``classes.json`` path), then ``path``. Padded rows of the last batch
-are dropped by the batch mask. It runs on the CUDA card unless the
-config's ``device`` or ``--device`` names the CPU; ``model.scripted`` and
-``mesh`` raise as in :mod:`nkbx_torch.eval`.
+are dropped by the batch mask. The model is built as in
+:mod:`nkbx_torch.eval`: from its name and ``checkpoint``, or with
+``scripted: True`` the ``.nkbx`` bundle of ``checkpoint``. It runs on the
+CUDA card unless the config's ``device`` or ``--device`` names the CPU; a
+``mesh`` raises as in :mod:`nkbx_torch.eval`.
 """
 
 from __future__ import annotations

@@ -119,11 +119,14 @@ def get_model(cfg_model: dict, classes: Union[list, dict], input_size=(224, 224)
     ``pretrained`` the backbone's converted file (nkbx's rule, see
     :mod:`nkbx_torch.models.pretrained`), and ``checkpoint``: a nkbx
     ``.msgpack``, a port ``state_dict`` file or a port checkpoint directory.
+    ``scripted: True`` (nkbx's surface, reference model.py:163-164) returns
+    an :class:`~nkbx_torch.export.ExportedModel` of the ``checkpoint``, a
+    ``.nkbx`` bundle (its classes, task and dtype are the bundle's).
     ``device`` defaults to ``cuda`` and raises without a card."""
     if cfg_model.get("scripted", False):
-        raise NotImplementedError("serving bundles (model.scripted) are not ported to "
-                                  "nkbx_torch yet (ROADMAP.md A11); build the model and wrap it "
-                                  "in nkbx_torch.export.ServingModule")
+        from nkbx_torch.export.serving import ExportedModel
+
+        return ExportedModel(cfg_model["checkpoint"], device=device)
     dev = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
     backbone = create_backbone(

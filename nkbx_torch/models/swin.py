@@ -125,6 +125,8 @@ class SwinBlock(nn.Module):
             n = window * window
             m = (_shift_attn_mask(h, w, window, shift) if shift
                  else np.zeros((1, n, n), np.float32))
+            if torch.compiler.is_exporting():  # a constant of the program, not cached
+                return torch.as_tensor(m, device=device)
             self._masks[key] = torch.as_tensor(m, device=device)
         return self._masks[key]
 

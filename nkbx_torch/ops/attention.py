@@ -24,6 +24,12 @@ Layout contract, the same as nkbx's:
                           q/k/v) None
   out     : (G, N, H*D)
 
+While a model is traced for export, the public entries call the forward as
+the registered op ``nkbx_torch::window_attention`` or
+``nkbx_torch::attention`` (see :func:`window_attention_op`), which a
+``torch.export`` program keeps as a node of its own; :func:`disable_fused`
+sends every gate to the plain versions instead.
+
 Numerics: scores and softmax in f32, probabilities rounded to the compute
 dtype before P*V, P*V accumulated in f32 (as the Pallas kernels do). The
 backward recomputes P in f32 (nothing but the inputs, bias and mask is
@@ -33,8 +39,10 @@ saved) and rounds at the points of nkbx's ``_core_bwd`` (see
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
+from typing import Optional
 
 import torch
 
@@ -57,17 +65,42 @@ HEAD_DIM = 64  # the only head width attention.cu and attention_bwd.cu take (eve
 
 
 _AUTO_MIN_GROUPS = 1  # nkbx's default NKBX_FUSED_MIN_G: the gate stays open at every G
+_FORCE_DISABLED = False
+
+
+@contextlib.contextmanager
+def disable_fused():
+    """While active, every fused-kernel gate (:func:`resolve_fused` and
+    ``nkbx_torch.ops.mlp.fused_mlp_mode``) chooses the plain version, even
+    against a module flag of True or an ``NKBX_FUSED_*`` override (nkbx's
+    ``disable_fused``). The export paths trace under it: a kernel is a ctypes
+    call on a tensor's address, which neither ``torch.export`` nor
+    ``torch.jit.trace`` can see."""
+    global _FORCE_DISABLED
+    prev = _FORCE_DISABLED
+    _FORCE_DISABLED = True
+    try:
+        yield
+    finally:
+        _FORCE_DISABLED = prev
+
+
+def fused_force_disabled() -> bool:
+    """Whether :func:`disable_fused` is active."""
+    return _FORCE_DISABLED
 
 
 def resolve_fused(flag, x: torch.Tensor, auto: bool = True, groups=None) -> bool:
     """Resolve a model's fused-attention flag, with nkbx's precedence
-    (``nkbx/ops/attention.py`` ``resolve_fused``): the
-    ``NKBX_FUSED_ATTENTION=0|1`` env override, then the flag (True/False),
+    (``nkbx/ops/attention.py`` ``resolve_fused``): :func:`disable_fused`, then
+    the ``NKBX_FUSED_ATTENTION=0|1`` env override, then the flag (True/False),
     then auto (None): the family's default, ``auto`` (Swin: True, ViT:
     False), where True means the kernel wherever the tensor is on a CUDA
     device. In auto mode ``groups`` (the call site's G = batch·windows)
     gates the kernel per call site: G below ``NKBX_FUSED_MIN_G`` (default
     1) takes the plain version."""
+    if _FORCE_DISABLED:
+        return False
     env = os.environ.get("NKBX_FUSED_ATTENTION", "")
     if env:
         return env not in ("0", "false", "False")
@@ -234,8 +267,26 @@ def fused_attention_qkv(qkv, bias, mask, scale: float, heads: int):
     """softmax(q kᵀ·scale + bias + mask) v from packed qkv; see the module
     docstring for the layout. Differentiable in qkv and bias. On CUDA
     tensors the forward and the backward launch the kernels; on CPU tensors
-    they compute the plain versions."""
+    they compute the plain versions. Under ``torch.export`` the forward is
+    the op ``nkbx_torch::window_attention``."""
+    if torch.compiler.is_exporting():
+        return window_attention_op(qkv, bias, mask, float(scale), int(heads))
     return _WindowAttention.apply(qkv, bias, mask, scale, heads)
+
+
+@torch.library.custom_op("nkbx_torch::window_attention", mutates_args=())
+def window_attention_op(qkv: torch.Tensor, bias: torch.Tensor, mask: torch.Tensor, scale: float,
+                        heads: int) -> torch.Tensor:
+    """K1's forward as a registered op (forward only), the node an exported
+    program keeps: on a CUDA tensor the kernel, counted as every launch is,
+    on a CPU tensor the plain version."""
+    return _forward(qkv, bias, mask, scale, heads)
+
+
+@window_attention_op.register_fake
+def _(qkv, bias, mask, scale, heads):
+    g, n, hd3 = qkv.shape
+    return qkv.new_empty((g, n, hd3 // 3))
 
 
 fused_attention_qkv.launches = 0  # forward kernel launches (either design), counted by _forward
@@ -419,8 +470,24 @@ def fused_attention(q, k, v, bias, mask, scale: float, heads: int):
     neither kernel then reads. Differentiable in q, k, v and bias;
     the mask gets no gradient. On CUDA tensors the forward and the backward
     launch the kernels (heads of width 64 only; anything else raises); on CPU
-    tensors they compute the plain versions."""
+    tensors they compute the plain versions. Under ``torch.export`` the
+    forward is the op ``nkbx_torch::attention``."""
+    if torch.compiler.is_exporting():
+        return attention_op(q, k, v, bias, mask, float(scale), int(heads))
     return _Attention.apply(q, k, v, bias, mask, scale, heads)
+
+
+@torch.library.custom_op("nkbx_torch::attention", mutates_args=())
+def attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: Optional[torch.Tensor],
+                 mask: Optional[torch.Tensor], scale: float, heads: int) -> torch.Tensor:
+    """K3's forward as a registered op (forward only): on a CUDA tensor the
+    kernel, counted, on a CPU tensor the plain version."""
+    return _sep_forward(q, k, v, bias, mask, scale, heads)
+
+
+@attention_op.register_fake
+def _(q, k, v, bias, mask, scale, heads):
+    return q.new_empty(q.shape)
 
 
 fused_attention.launches = 0  # forward kernel launches, counted by _sep_forward

@@ -24,7 +24,9 @@ differentiable through one ``torch.autograd.Function``: on CUDA tensors both
 halves are the kernels, on CPU tensors both are the plain versions.
 :func:`fused_mlp_mode` picks between them as nkbx does: the LN-fused kernels
 unless ``NKBX_FUSED_LN_MLP=0`` or their tiles do not fit, then the MLP-only
-ones, then the plain version.
+ones, then the plain version; under :func:`~nkbx_torch.ops.attention.disable_fused`
+the plain version always. While a model is traced for export, the forwards
+are the registered ops ``nkbx_torch::ln_mlp`` and ``nkbx_torch::mlp``.
 """
 
 from __future__ import annotations
@@ -35,10 +37,13 @@ import math
 import os
 import types
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 
 from nkbx_torch.ops import _build
+from nkbx_torch.ops.attention import fused_force_disabled
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"nkbx_ln_mlp": [_P] * 10 + [_I, _I, _I, _I, ctypes.c_float, _I, _I, _P],
@@ -302,13 +307,15 @@ def fused_mlp_mode(flag, x: torch.Tensor, f: int, auto: bool = True):
     """Resolve a block's MLP lowering for x (..., C) and hidden width F:
     ``"ln"`` (K5/K6, :func:`fused_ln_mlp`), ``"mlp"`` (K7/K8 after a plain
     LayerNorm, :func:`fused_mlp`) or None (the plain version). Precedence as
-    in nkbx (mlp.py:216-234): the ``NKBX_FUSED_MLP=0|1`` env override, then
-    the flag, then auto (None): the family's default, ``auto`` (Swin and
+    in nkbx (mlp.py:167-171, 216-234): ``disable_fused()``, then the
+    ``NKBX_FUSED_MLP=0|1`` env override, then the flag, then auto (None): the family's default, ``auto`` (Swin and
     ConvNeXt: True, ViT: False), where True means the kernels wherever the
     tensor is on a CUDA device. Then ``"ln"`` where K5's and K6's tiles both
     fit shared memory and ``NKBX_FUSED_LN_MLP`` is not 0, else ``"mlp"``
     where K7's and K8's tiles both fit theirs, else None (nkbx's
     ``fused_mlp_viable`` also sizes forward and backward)."""
+    if fused_force_disabled():
+        return None
     env = os.environ.get("NKBX_FUSED_MLP", "")
     if env:
         on = env not in ("0", "false", "False")
@@ -445,11 +452,31 @@ def fused_ln_mlp(x, ln_scale, ln_bias, w0, b0, w1, b1, shortcut, gamma=None,
     argument. On CUDA tensors the forward and the backward launch the
     kernels; on CPU tensors they compute the plain versions. For a
     self-residual block pass the same tensor as x and shortcut: autograd
-    sums the two cotangents, as JAX does."""
+    sums the two cotangents, as JAX does. Under ``torch.export`` the forward
+    is the op ``nkbx_torch::ln_mlp``."""
     c = x.shape[-1]
-    y = _LnMlp.apply(x.reshape(-1, c), ln_scale, ln_bias, w0, b0, w1, b1,
-                     shortcut.reshape(-1, c), gamma, eps)
+    if torch.compiler.is_exporting():
+        y = ln_mlp_op(x.reshape(-1, c), ln_scale, ln_bias, w0, b0, w1, b1,
+                      shortcut.reshape(-1, c), gamma, float(eps))
+    else:
+        y = _LnMlp.apply(x.reshape(-1, c), ln_scale, ln_bias, w0, b0, w1, b1,
+                         shortcut.reshape(-1, c), gamma, eps)
     return y.reshape(x.shape)
+
+
+@torch.library.custom_op("nkbx_torch::ln_mlp", mutates_args=())
+def ln_mlp_op(x: torch.Tensor, ln_scale: torch.Tensor, ln_bias: torch.Tensor, w0: torch.Tensor,
+              b0: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, shortcut: torch.Tensor,
+              gamma: Optional[torch.Tensor], eps: float) -> torch.Tensor:
+    """K5's forward on (R, C) rows as a registered op (forward only), the
+    node an exported program keeps: on a CUDA tensor the kernel, counted, on
+    a CPU tensor the plain version."""
+    return _forward(x, ln_scale, ln_bias, w0, b0, w1, b1, shortcut, gamma, eps)
+
+
+@ln_mlp_op.register_fake
+def _(x, ln_scale, ln_bias, w0, b0, w1, b1, shortcut, gamma, eps):
+    return x.new_empty(x.shape)
 
 
 fused_ln_mlp.launches = 0  # forward kernel launches, counted by _forward
@@ -634,9 +661,25 @@ def fused_mlp(x, w0, b0, w1, b1):
     (C, F) and w1 (F, C) in the compute dtype, b0 and b1 f32; leading dims
     are flattened to rows. Differentiable in every argument. On CUDA tensors
     the forward and the backward launch K7 and K8; on CPU tensors they
-    compute the plain versions."""
+    compute the plain versions. Under ``torch.export`` the forward is the
+    op ``nkbx_torch::mlp``."""
     c = x.shape[-1]
+    if torch.compiler.is_exporting():
+        return mlp_op(x.reshape(-1, c), w0, b0, w1, b1).reshape(x.shape)
     return _Mlp.apply(x.reshape(-1, c), w0, b0, w1, b1).reshape(x.shape)
+
+
+@torch.library.custom_op("nkbx_torch::mlp", mutates_args=())
+def mlp_op(x: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor, w1: torch.Tensor,
+           b1: torch.Tensor) -> torch.Tensor:
+    """K7's forward on (R, C) rows as a registered op (forward only): on a
+    CUDA tensor the kernel, counted, on a CPU tensor the plain version."""
+    return _mlp_forward(x, w0, b0, w1, b1)
+
+
+@mlp_op.register_fake
+def _(x, w0, b0, w1, b1):
+    return x.new_empty(x.shape)
 
 
 fused_mlp.launches = 0  # K7 launches, counted by _mlp_forward

@@ -69,7 +69,7 @@ def _scalar(loss_out):
 def build_train_step(model, criterion, bundle: OptimizerBundle, augment_fn=None,
                      log_gradients: bool = False, masked_bn: bool = False, scan_steps: int = 1,
                      grad_accum_steps: int = 1, ema_decay: float = 0.0, mixup: dict = None,
-                     freeze_semantics: str = "decay"):
+                     freeze_semantics: str = "decay", debug_nans: bool = False):
     """Returns ``step(state, image_u8, label, mask, lr_factor, freeze_scale)
     -> (state, metrics)``, nkbx's train step (engine.py:83-295).
 
@@ -105,8 +105,13 @@ def build_train_step(model, criterion, bundle: OptimizerBundle, augment_fn=None,
       each parameter's gradient after the coupled weight decay and the
       freeze mask (the accumulated gradient under A > 1), keyed by nkbx's
       flax path (``backbone/.../kernel``).
+    - ``debug_nans`` (nkbx's ``jax_debug_nans``): after the backward, one
+      fused finiteness check over the loss and every gradient, read by the
+      host, raises FloatingPointError naming the step (``state.step``, 0 for
+      the first) before the update; with ``scan_steps`` each of the K steps
+      is checked. Off, the step is unchanged.
 
-    Nothing in a step waits on a host value. nkbx's errors are raised where
+    Without ``debug_nans`` nothing in a step waits on a host value. nkbx's errors are raised where
     nkbx raises them: ``scan_steps`` with accumulation; A not dividing the
     batch; accumulation with a multi-task criterion that normalises by mass;
     mixup with accumulation and a criterion of non-uniform mass."""
@@ -205,6 +210,9 @@ def build_train_step(model, criterion, bundle: OptimizerBundle, augment_fn=None,
         else:
             preds, loss_out = forward_loss(x, label, mask, label_b, lam)
             _scalar(loss_out).backward()
+        if debug_nans:
+            check_finite(state.step, metrics["loss"] if metrics is not None
+                         else _scalar(loss_out), module.parameters())
         grads = apply_updates(bundle, state.opt_state, state.groups, lr_factor, freeze_scale,
                               freeze_semantics)
         with torch.no_grad():
@@ -239,6 +247,26 @@ def build_train_step(model, criterion, bundle: OptimizerBundle, augment_fn=None,
     step.scan_steps = scan_steps
     step.mixup = mix
     return step
+
+
+def check_finite(step: int, loss, params):
+    """Raise FloatingPointError unless ``loss`` and every gradient of
+    ``params`` are finite: one fused non-finite check a (device, dtype)
+    group of tensors (``torch._amp_foreach_non_finite_check_and_unscale_``
+    with a scale of 1, the loss in the gradients' group), then one read on
+    the host."""
+    groups = {}
+    for t in [p.grad for p in params if p.grad is not None] + [loss.detach().float().reshape(-1)]:
+        groups.setdefault((t.device, t.dtype), []).append(t)
+    found = None
+    for (dev, _), ts in groups.items():
+        inf = torch.zeros(1, device=dev)
+        # the loss and the gradients are multiplied by 1 in place: unchanged
+        torch._amp_foreach_non_finite_check_and_unscale_(ts, inf, torch.ones(1, device=dev))
+        found = inf if found is None else found + inf.to(found.device)
+    if found is not None and float(found) > 0:
+        raise FloatingPointError(f"debug_nans: the loss or a gradient is not finite at train "
+                                 f"step {step}")
 
 
 def has_batchnorm(module) -> bool:

@@ -13,8 +13,12 @@ nkbx's train-step options come from the config as nkbx takes them
 (trainer.py:121-141): ``mixup``, ``steps_per_dispatch`` (K steps a call),
 ``grad_accum_steps``, ``log_gradients`` and ``model_ema_decay``. With EMA,
 validation, the choice of the best epoch and ``best.pt``/``last.pt`` use the
-EMA shadow. nkbx's other trainer options raise, naming the ROADMAP item that
-ports them.
+EMA shadow. ``debug_nans`` raises FloatingPointError at the first step
+whose loss or gradients are not finite (nkbx's ``jax_debug_nans``, which
+``train.py`` turns on for this key). ``export_serving`` writes
+``weights/best.nkbx`` and ``weights/last.nkbx`` at the end
+(:func:`export_serving`). nkbx's other trainer options raise, naming the
+ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -37,7 +41,6 @@ UNPORTED = {
     "mesh": (None, "A10"),
     "fsdp": (False, "A10"),
     "distributed": (False, "A10"),
-    "export_serving": (False, "A11"),
     "bf16_master_weights": (False, "A12"),
 }
 
@@ -93,7 +96,8 @@ def train(model, train_loader, val_loader, criterion, comet_experiment, local_ex
         scan_steps=int(cfg.get("steps_per_dispatch", 1) or 1),
         grad_accum_steps=int(cfg.get("grad_accum_steps", 1) or 1),
         ema_decay=ema_decay, mixup=cfg.get("mixup", None),
-        freeze_semantics=cfg.get("freeze_semantics", "decay"))
+        freeze_semantics=cfg.get("freeze_semantics", "decay"),
+        debug_nans=bool(cfg.get("debug_nans", False)))
     # with EMA, validation and the saved weights are the shadow's
     eval_model = (ClassificationModel(state.ema_module, model.classes, model.task,
                                       model.emb_size, model.input_size, model.dtype,
@@ -139,4 +143,43 @@ def train(model, train_loader, val_loader, criterion, comet_experiment, local_ex
             print(f"[nkbx_torch] preemption signal received: stopping after epoch {epoch}; "
                   f"resume with --resume {model_path / 'last'}")
             break
+    if cfg.get("export_serving", False):
+        export_serving(weights, model, val_loader, model_path)
     return state
+
+
+def export_serving(weights, model, val_loader, model_path):
+    """nkbx's ``export_serving`` (trainer.py:251-280): ``best.nkbx`` and
+    ``last.nkbx`` under ``model_path``, at the val pipeline's static size
+    and batch size, with a dynamic batch.
+
+    Which weights: exactly those of ``best.pt`` and ``last.pt``, the EMA
+    shadow when ``model_ema_decay > 0``, the weights that validation chose.
+    (nkbx's ``best.nkbx`` restores the raw ``params`` of ``best/`` even with
+    EMA on, while its ``best.msgpack`` holds the shadow; the port does not
+    keep that asymmetry here.) ``weights`` is the module ``last.pt`` was
+    saved from; without a ``best.pt`` a warning skips ``best.nkbx``."""
+    import copy
+
+    import torch
+
+    from nkbx_torch.export.bundle import export_model
+
+    size = val_loader._out_hw
+    if size is None:
+        raise ValueError("export_serving requires a val pipeline with a static output size "
+                         "(the exported program has static H, W)")
+    shape = (val_loader.batch_size, *size, 3)
+
+    def bundle(module, path):
+        export_model(ClassificationModel(module, model.classes, model.task, model.emb_size,
+                                         model.input_size, model.dtype, model.device),
+                     shape, path)
+
+    if (model_path / "best.pt").is_file():
+        best = copy.deepcopy(weights)
+        best.load_state_dict(torch.load(model_path / "best.pt", map_location=model.device))
+        bundle(best, model_path / "best.nkbx")
+    else:
+        warnings.warn("export_serving: no best.pt in this run dir; skipping best.nkbx")
+    bundle(weights, model_path / "last.nkbx")

@@ -72,6 +72,12 @@ shows that the kernel, not its plain version, ran:
 - one epoch of the config-driven trainer (``nkbx_torch.train.train``) on a
   tiny Swin through K1, K2, K5 and K6 over an ImageFolder of BMP files,
   with finite metrics, a checkpoint and the launch counts of its steps;
+- each forward kernel's registered op (``nkbx_torch::window_attention``,
+  ``::attention``, ``::ln_mlp``, ``::mlp``) bit-identical to its launcher
+  at a ragged bf16 shape, counted; a tiny bf16 Swin, ViT and ConvNeXt
+  exported with ``fused_attention=True`` on the card, reloaded and served
+  through the kernels (counted, 2 bf16 ulps of the eager model's largest
+  logit); a portable bundle that launches none of them;
 - a tiny Swin's, a tiny ViT's, a tiny ConvNeXt's and a tiny fused ResNet's
   loss backward through the kernels (the ConvNeXt through K5/K6, and through
   K7/K8 under ``NKBX_FUSED_LN_MLP=0``) gives every parameter a finite,
@@ -1472,6 +1478,141 @@ def test_ema_update_on_card_matches_the_cpu(cuda_device):
                          for k in moved)
 
 
+OP_CASES = ["window_attention", "attention", "ln_mlp", "mlp"]
+
+
+def _op_call(name, device):
+    """(the registered op's call, the launcher's call, the wrapper whose
+    count both advance) at a ragged bf16 shape."""
+    rng = np.random.RandomState(5)
+
+    def t(*shape, dtype=torch.bfloat16, scale=1.0):
+        return torch.from_numpy((rng.randn(*shape) * scale).astype(np.float32)).to(device, dtype)
+
+    if name == "window_attention":  # G = 6 windows of N = 17, 2 heads of 32, M = 2 masks
+        qkv, bias = t(6, 17, 192), t(2, 17, 17, dtype=torch.float32, scale=0.1)
+        mask = torch.from_numpy(np.where(rng.rand(2, 17, 17) < 0.2, -100.0, 0.0)
+                                .astype(np.float32)).to(device)
+        args = (qkv, bias, mask, 32 ** -0.5, 2)
+        return (lambda: tattn.window_attention_op(*args), lambda: tattn._forward(*args),
+                tattn.fused_attention_qkv)
+    if name == "attention":  # N = 65, 2 heads of 64, bias and mask None
+        args = (t(3, 65, 128), t(3, 65, 128), t(3, 65, 128), None, None, 0.125, 2)
+        return (lambda: tattn.attention_op(*args), lambda: tattn._sep_forward(*args),
+                tattn.fused_attention)
+    c, f, r = 96, 384, 129 if name == "ln_mlp" else 49
+    w0, w1 = t(c, f, scale=c ** -0.5), t(f, c, scale=f ** -0.5)
+    b0, b1 = t(f, dtype=torch.float32, scale=0.1), t(c, dtype=torch.float32, scale=0.1)
+    if name == "ln_mlp":
+        args = (t(r, c), 1 + t(c, dtype=torch.float32, scale=0.1),
+                t(c, dtype=torch.float32, scale=0.1), w0, b0, w1, b1, t(r, c),
+                1 + t(c, dtype=torch.float32, scale=0.1), 1e-6)
+        return (lambda: tmlp.ln_mlp_op(*args), lambda: tmlp._forward(*args), tmlp.fused_ln_mlp)
+    args = (t(r, c), w0, b0, w1, b1)
+    return lambda: tmlp.mlp_op(*args), lambda: tmlp._mlp_forward(*args), tmlp.fused_mlp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", OP_CASES)
+def test_registered_op_is_its_launcher_on_card(cuda_device, name):
+    """Each forward kernel's torch.library op (what a --fused-attention
+    bundle holds) on CUDA tensors: bit-identical to its launcher, and
+    counted as one launch of the kernel."""
+    op, launcher, counted = _op_call(name, cuda_device)
+    want = launcher()
+    before = counted.launches
+    got = op()
+    torch.cuda.synchronize()
+    assert counted.launches == before + 1
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert torch.equal(got, want)
+
+
+def _tiny_net(name, device):
+    """A tiny classifier with the fused flags on, its input size and the
+    launches of one forward ({wrapper: count})."""
+    from nkbx_torch.models.classifier import ClassificationModel, SingletaskClassifier
+    from nkbx_torch.models.convnext import ConvNeXt
+    from nkbx_torch.models.swin import SwinTransformer
+    from nkbx_torch.models.vit import ViT
+
+    torch.manual_seed(0)
+    if name == "swin":
+        backbone, size = SwinTransformer(embed_dim=64, depths=(2, 2), n_heads=(2, 4), window=2,
+                                         img_size=(32, 32), fused_attention=True,
+                                         fused_mlp=True, dtype=torch.bfloat16), 32
+        counts = {tattn.fused_attention_qkv: 4, tmlp.fused_ln_mlp: 4}
+    elif name == "vit":
+        backbone, size = ViT(patch_size=16, dim=128, depth=2, n_heads=2, img_size=(64, 64),
+                             fused_attention=True, fused_mlp=True, dtype=torch.bfloat16), 64
+        counts = {tattn.fused_attention: 2, tmlp.fused_ln_mlp: 2}
+    else:  # under NKBX_FUSED_LN_MLP=0
+        backbone, size = ConvNeXt(depths=(1, 1), dims=(32, 64), fused_mlp=True,
+                                  dtype=torch.bfloat16), 64
+        counts = {tmlp.fused_mlp: 2}
+    module = SingletaskClassifier(backbone, 3).to(device).eval()
+    return (ClassificationModel(module, ["a", "b", "c"], "single", backbone.num_features,
+                                (size, size), torch.bfloat16, device), size, counts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["swin", "vit", "convnext"])
+def test_fused_bundle_serves_through_the_kernels_on_card(cuda_device, name, tmp_path,
+                                                         monkeypatch):
+    """A tiny Swin, ViT and ConvNeXt (K7 under NKBX_FUSED_LN_MLP=0), bf16,
+    exported on the card with fused_attention=True (static batch 4),
+    reloaded and served: each forward kernel launched once a block a
+    forward, the logits within 2 bf16 ulps of the largest of the eager
+    model's through the same kernels."""
+    from nkbx_torch.export import ServingModule, export_model
+
+    monkeypatch.delenv("NKBX_FUSED_MLP", raising=False)
+    monkeypatch.delenv("NKBX_FUSED_ATTENTION", raising=False)
+    monkeypatch.setenv("NKBX_FUSED_LN_MLP", "0" if name == "convnext" else "")
+    model, size, counts = _tiny_net(name, cuda_device)
+    path, meta = export_model(model, (4, size, size, 3), tmp_path / "fused.nkbx",
+                              dynamic="none", fused_attention=True)
+    assert meta["fused_attention"] is True
+    serving = ServingModule(path, warm_up_on_load=False, device=cuda_device)
+    assert serving.buckets == [4] and serving.device.type == "cuda"
+    x = torch.from_numpy(np.random.default_rng(1).normal(size=(6, size, size, 3))
+                         .astype(np.float32)).to(cuda_device)
+    before = {fn: fn.launches for fn in counts}
+    got = serving(x)  # a chunk of 4 and one of 2 padded to 4: two forwards
+    torch.cuda.synchronize()
+    assert {fn: fn.launches - before[fn] for fn in counts} == {fn: 2 * n for fn, n in
+                                                               counts.items()}
+    with torch.no_grad():
+        want = model.module(x)
+    top = float(want.abs().max())
+    ulp = 2.0 ** (math.floor(math.log2(top)) - 7)
+    assert got.shape == (6, 3) and float((got - want).abs().max()) <= 2 * ulp
+
+
+@pytest.mark.cuda
+def test_portable_bundle_launches_none_of_the_kernels_on_card(cuda_device, tmp_path,
+                                                              monkeypatch):
+    """The default export (dynamic batch, under disable_fused) of the same
+    tiny Swin serves on the card through plain operations only."""
+    from nkbx_torch.export import ServingModule, export_model
+
+    monkeypatch.delenv("NKBX_FUSED_ATTENTION", raising=False)
+    monkeypatch.delenv("NKBX_FUSED_MLP", raising=False)
+    model, size, _ = _tiny_net("swin", cuda_device)
+    path, _ = export_model(model, (8, size, size, 3), tmp_path / "portable.nkbx")
+    serving = ServingModule(path, warm_up_on_load=False, device=cuda_device)
+    kernels = (tattn.fused_attention_qkv, tattn.fused_attention, tmlp.fused_ln_mlp,
+               tmlp.fused_mlp)
+    before = [fn.launches for fn in kernels]
+    x = torch.from_numpy(np.random.default_rng(2).normal(size=(5, size, size, 3))
+                         .astype(np.float32)).to(cuda_device)
+    got = serving(x)
+    torch.cuda.synchronize()
+    assert [fn.launches for fn in kernels] == before
+    assert not any(str(n.target).startswith("nkbx_torch.") for n in serving.program.graph.nodes)
+    assert got.shape == (5, 3) and torch.isfinite(got).all()
+
+
 def test_card_tests_collect_without_jax_or_nkbx():
     """The card's machine has no JAX: this file must collect (and its card
     tests skip here) with jax, flax and nkbx unimportable and no conftest."""
@@ -1493,7 +1634,8 @@ def test_card_tests_collect_without_jax_or_nkbx():
          + 2 * len(MLP_GEMM_ROWS) * len(MLP_GEMM_WIDTHS) + 2 + 1
          + len(MB_ROUTE_CASES) + 2 + len(COPY_CASES) + 1
          + 2 * len(UNICOM_SEQ) + len(EPS_CASES)
-         + 2 * len(POLICY_SHAPES) + len(HEAVY_SHAPES) + 2 + 1)
+         + 2 * len(POLICY_SHAPES) + len(HEAVY_SHAPES) + 2 + 1
+         + len(OP_CASES) + 3 + 1)
     word = "passed" if torch.cuda.is_available() else "skipped"
     assert re.search(rf"\b{n} {word}\b", proc.stdout), proc.stdout[-2000:]
 

@@ -10,10 +10,11 @@
   nkbx_torch.inference --device cpu`` against ``inference.inference``:
   identical CSV rows (labels and paths).
 - The shipped configs: singletask, multitask, yolo_crops, heavy_augs
-  and modern_recipe load; yolo_crops'
-  ``export_serving`` is refused by the trainer naming A11; the eval and
-  inference configs' ``scripted: True`` raises naming A11, a ``mesh``
-  naming A10; without a card the CLIs raise.
+  and modern_recipe load, and the trainer takes each, yolo_crops'
+  ``export_serving`` included; the eval and inference configs' ``scripted:
+  True`` passes the CLIs' option check (tests/test_torch_export.py runs
+  them on a bundle), a ``mesh`` raises naming A10; without a card the CLIs
+  raise.
 """
 
 import csv
@@ -173,8 +174,7 @@ def test_cli_options_that_raise(workspace, monkeypatch):
     for name in ("eval_config", "inference_config"):
         shipped = load_config(ROOT / "configs" / f"{name}.py")
         assert shipped.model["scripted"] is True
-        with pytest.raises(NotImplementedError, match="A11"):
-            teval.check_options(shipped)
+        teval.check_options(shipped)  # a serving bundle: ExportedModel
     if not torch.cuda.is_available():
         for cli in (teval, tinference):
             with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -204,7 +204,5 @@ def test_shipped_configs_in_the_port(name, loads):
         assert ops >= {"HorizontalFlip", "RandomBrightnessContrast", "Normalize"}
     assert cfg.model["pretrained"] is True
     if name == "yolo_crops_config":
-        with pytest.raises(NotImplementedError, match="export_serving.*A11"):
-            check_options(cfg)
-    else:
-        check_options(cfg)
+        assert cfg.export_serving is True  # the trainer writes best.nkbx and last.nkbx
+    check_options(cfg)
