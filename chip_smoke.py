@@ -257,7 +257,28 @@
    detections CSV; (6) swin_tiny's ``--to torchscript`` file reloaded with
    torch.jit.load against the eager plain model (2 bf16 ulps). The phase's
    seconds; the CLIs' logs go to OUT_DIR as export_*.log.
-13. Prints the kernels' JSON line (all 17 kernels), the card's name and
+13. nkbx's max-throughput opt-ins and the one-card tools (OPTINS,
+   check_optins; ``python3 chip_smoke.py --optins`` runs it alone): (a)
+   ``remat_stages=(0, 1, 2, 3)`` on convnext_tiny (K5/K6) and on the
+   resnet50 ghost2_fused step (K9/K10), bf16, batch 64: one step each with
+   and without remat under deterministic algorithms, gradients, weights
+   and running statistics bit-equal, K5 (or K9) launched twice a step under
+   remat and each recomputed launch bit-identical to its forward launch;
+   step ms and peak memory of both; (b) ``input_norm`` on resnet50 exact BN
+   at batch 128 (bench.py's program) against the unfolded model with
+   Normalize, eval-mode logits within 5% of the largest in bf16 and 1e-3 in
+   f32, both bf16 steps timed; (c) ``bf16_master_weights``: 5 steps with
+   bf16 masters beside 5 with f32 masters, each loss within 10% of the f32
+   run's and falling, step ms and peak memory;
+   (d) the tools in subprocesses: ``--to-torch`` on the trainer path's
+   swin_tiny best.pt, converted back and loaded, logits bit-equal (K1, K5;
+   the forwards under ``profile_trace``, whose trace's K1/K5 ms equal
+   ``key_averages``', and ``python -m nkbx_torch.core.profiling`` on it),
+   ``save_augs`` N = 16 over the trainer path's images against the device
+   stage on the same draws, ``migrate --check`` on a reference-format
+   config. The Swin-T train step's profile (phase 5) is also aggregated
+   from its chrome trace: K1, K2, K5 and K6 with key_averages' ms.
+14. Prints the kernels' JSON line (all 17 kernels), the card's name and
    power limit, and last {"ok": true, "device": {...}}.
 
 Exits non-zero, before printing any result, without a CUDA device, outside
@@ -307,6 +328,7 @@ try:
     from nkbx_torch.ops import _build
     from nkbx_torch.ops import attention as A
     from nkbx_torch.ops import bottleneck as BN
+    from nkbx_torch.core.profiling import aggregate_trace, device_events, kernel_kinds, kernel_ms
     from nkbx_torch.core.runtime import cold_ms
     from nkbx_torch.ops import grouped_conv as GC
     from nkbx_torch.ops import layout as L
@@ -1899,16 +1921,6 @@ def serve_all(serving, requests):
     return outs
 
 
-def device_events(prof):
-    """Kernel events only (a CPU op's device time repeats its kernels')."""
-    def dev_us(e):
-        return getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
-
-    events = [(dev_us(e), e) for e in prof.key_averages()
-              if dev_us(e) > 0 and str(getattr(e, "device_type", "")).endswith("CUDA")]
-    return sorted(events, key=lambda t: -t[0])
-
-
 def report_profile(prof, reps, what, step_ms, fname):
     """Logs the device time, the idle share against ``step_ms`` and the
     largest kernels, and writes every kernel's line to ``fname``; returns
@@ -1932,25 +1944,6 @@ def report_profile(prof, reps, what, step_ms, fname):
 def device_ms(events, reps):
     """Device ms of all kernels in a profile, per repetition."""
     return sum(us for us, _ in events) / 1e3 / reps
-
-
-# K7 and K8 launch the kernels of K5's and K6's sources (ln_mlp_*): on a path
-# that runs no K5/K6 their names are these
-SHARED_NAMES = {"mlp": "ln_mlp", "mlp_bwd": "ln_mlp_bwd"}
-
-
-def kernel_ms(events, name, reps, want):
-    """Device ms of one kernel of ours in a profile, by its names' prefix
-    after the namespace (K1: window_attention*, K3: attention_*; a backward
-    name with its reduction, K2: window_attention_bwd*, K4: attention_bwd_*),
-    a forward's name not followed by ``_bwd``; K7/K8 by SHARED_NAMES, on a
-    path whose launch counts ``want`` hold no K5/K6."""
-    if name in SHARED_NAMES:
-        if want[SHARED_NAMES[name]]:
-            fail(f"{name} and {SHARED_NAMES[name]} both ran: their kernels' names are one")
-        name = SHARED_NAMES[name]
-    pat = rf"(^|[^\w]){name}" + ("" if name.endswith("_bwd") else "(?!_bwd)")
-    return sum(us for us, e in events if re.search(pat, e.key)) / 1e3 / reps
 
 
 def profile_forward(path, serving, x, step_ms):
@@ -2455,11 +2448,24 @@ def check_train(path):
         path.profiled[("device", f"train_{label}")] = device_ms(events, 1)
         if label != "kernels":
             continue
+        agg = None
+        if path is SWIN:  # the same profile through its chrome trace (A15's aggregation)
+            trace = os.path.join(OUT_DIR, f"trace_train_step_{name}.json.gz")
+            prof.export_chrome_trace(trace)
+            agg = aggregate_trace(trace)
+            log(f"profile: {name} trace {os.path.basename(trace)}: "
+                + ", ".join(f"{k} {v:.3f} ms" for k, v in agg["by_category"].items()))
         for kernel in (path.attention, path.attention and path.attention + "_bwd", "ln_mlp",
                        "ln_mlp_bwd", "mlp", "mlp_bwd"):
             if kernel and want[kernel]:
                 ms = path.profiled[(kernel, "train")] = kernel_ms(events, kernel, 1, want)
                 log(f"profile: {kernel} kernels {ms:.3f} ms in one batch-64 {name} train step")
+                if agg is not None:
+                    tms = path.profiled[(kernel, "train_trace")] = kernel_ms(agg["by_name"], kernel,
+                                                                             1, want)
+                    log(f"profile: {kernel} kernels {tms:.3f} ms in the trace's aggregation")
+                    if not tms or abs(tms - ms) > 1e-3 * ms + 1e-3:
+                        fail(f"{name}: the trace's {kernel} ms {tms} is not key_averages' {ms}")
     if "plain" in bench:
         k, p = path.profiled[("device", "train_kernels")], path.profiled[("device", "train_plain")]
         log(f"profile {path.label}: device ms a train step, kernels {k:.3f} against plain "
@@ -2577,49 +2583,6 @@ def no_launches(path, counts):
     """These paths run no kernel of ours: every count must stay 0."""
     if any(counts.values()):
         fail(f"{path.label} launched port kernels it should not: {counts}")
-
-
-def port_kernel_names():
-    """The names of the port's own CUDA kernels, from the __global__
-    functions of nkbx_torch/ops/csrc."""
-    names = set()
-    for p in sorted(_build.CSRC.glob("*.cu*")):
-        names.update(re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(",
-                                p.read_text()))
-    return names
-
-
-# a profiler key of a port kernel: the kernels live in each source's unnamed
-# namespace ("void (anonymous namespace)::ln_mlp_gemm_kernel<...>(...)") or in
-# bottleneck.cuh's `chain` and bottleneck_tc.cuh's `chain::tc`
-PORT_KERNEL = re.compile(r"^(void )?(\(anonymous namespace\)|chain(::tc)?)::("
-                         + "|".join(sorted(port_kernel_names())) + r")[<(]")
-
-
-def kernel_kinds(events, reps):
-    """Device ms a step by kind of kernel, from the kernels' names: the
-    port's own first (their names hold "gemm" or "wgrad" too), then the
-    libraries' by the words of their names."""
-    kinds = dict.fromkeys(("port kernels", "cudnn convolution", "cublas gemm", "reductions",
-                           "elementwise", "optimizer foreach", "other"), 0.0)
-    for us, e in events:
-        k = e.key.lower()
-        if PORT_KERNEL.search(e.key):
-            kind = "port kernels"
-        elif "multi_tensor" in k or "foreach" in k:
-            kind = "optimizer foreach"
-        elif any(w in k for w in ("conv", "cudnn", "fprop", "dgrad", "wgrad", "implicit")):
-            kind = "cudnn convolution"
-        elif "gemm" in k or "nvjet" in k:  # nvjet: cuBLASLt's Hopper GEMMs
-            kind = "cublas gemm"
-        elif "reduce" in k:
-            kind = "reductions"
-        elif "elementwise" in k or "vectorized" in k:
-            kind = "elementwise"
-        else:
-            kind = "other"
-        kinds[kind] += us / 1e3 / reps
-    return kinds
 
 
 def profile_step(step, state, label, batch, step_ms):
@@ -4874,6 +4837,410 @@ def check_export():
     return out, counts
 
 
+# --- OPTINS: nkbx's max-throughput opt-ins and the one-card tools ------------------------
+
+OPTINS_DIR = os.path.join("build", "optins_smoke")  # configs, PNGs, converted files
+OPTINS_STEPS = 5  # timed steps of each variant, after one warm-up step
+OPTINS_MEAN = [0.485 * 255, 0.456 * 255, 0.406 * 255]  # Normalize's, in pixel units
+OPTINS_STD = [0.229 * 255, 0.224 * 255, 0.225 * 255]
+# bf16 masters: each of the first 5 steps' losses within 4% of the f32 masters' run's, and
+# falling. On an NVIDIA H100 80GB HBM3 at 700 W the two runs stood at most 1.53% apart with
+# the step rounded twice and 1.77% with it rounded once (PERF.md); 4% is a little over twice
+# that, so an update that does not train, or one that drops far more of its steps below half
+# a bf16 ulp, fails
+MASTER_BAND = 0.04
+
+
+@contextlib.contextmanager
+def deterministic():
+    """cuDNN and PyTorch held to deterministic algorithms (warnings where an
+    op has none): two runs of the same step then agree bit for bit."""
+    saved = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+             torch.are_deterministic_algorithms_enabled())
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved[:2]
+        torch.use_deterministic_algorithms(saved[2])
+
+
+@contextlib.contextmanager
+def spy(module, name, out):
+    """``module.<name>`` records each call's outputs (detached clones) in ``out``."""
+    real = getattr(module, name)
+
+    def wrapped(*a, **k):
+        y = real(*a, **k)
+        ys = y if isinstance(y, tuple) else (y,)
+        out.append([t.detach().clone() if torch.is_tensor(t) else
+                    [s.detach().clone() for s in t] for t in ys])  # before any stop of a replay
+        return y
+
+    setattr(module, name, wrapped)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+def same_outputs(a, b):
+    return len(a) == len(b) and all(
+        torch.equal(x, y) if torch.is_tensor(x) else all(torch.equal(s, t) for s, t in zip(x, y))
+        for p, q in zip(a, b) for x, y in zip(p, q))
+
+
+def optins_batch(n, seed=0):
+    rng = np.random.default_rng(seed)
+    images = torch.as_tensor(rng.integers(0, 256, (n, 224, 224, 3), dtype=np.uint8), device=DEV)
+    labels = torch.as_tensor(rng.integers(0, 10, n), device=DEV)
+    return images, labels, torch.ones(n, dtype=torch.bool, device=DEV)
+
+
+def timed_steps(step, state, batch):
+    """One warm-up step, then OPTINS_STEPS timed (host clock, synchronised):
+    step ms, peak memory (MB) and each kernel's launches a step; then one
+    step under torch.profiler: its device ms (None where the profile holds
+    no device time) and the idle share against the timed step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    state, _ = step(state, *batch, 1.0, 1.0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    losses = []
+    for _ in range(OPTINS_STEPS):
+        state, m = step(state, *batch, 1.0, 1.0)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / OPTINS_STEPS * 1e3
+    counts = {k: v / OPTINS_STEPS for k, v in read_counts().items() if v}
+    out = {"step_ms": step_ms,
+           "max_memory_allocated_mb": torch.cuda.max_memory_allocated() / 2 ** 20,
+           "launches_per_step": counts, "timed_losses": [float(v) for v in losses]}
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step(state, *batch, 1.0, 1.0)
+        torch.cuda.synchronize()
+    events = device_events(prof)
+    out["device_ms"] = device_ms(events, 1) if events else None
+    out["idle_share"] = 1 - out["device_ms"] / step_ms if events else None
+    return out
+
+
+def check_remat(path, module, fn, kernel):
+    """``remat_stages=(0, 1, 2, 3)`` on ``path``'s train step (bf16, batch
+    64, check_train's recipe) against the same step without it, from the
+    same weights: one step each under deterministic algorithms, whose
+    gradients, updated weights and BatchNorm running statistics must be
+    bit-equal, the forward kernel (K5 or K9, its launcher spied at
+    ``module.fn``) launched twice as often under remat (the replay runs the
+    autograd Function's forward: its saved inputs are packed when it
+    returns) and each replayed launch bit-identical to its forward launch;
+    then each variant's step ms and peak memory. ``kernel``: the kernel's
+    name among the launch counts."""
+    from nkbx_torch.train import TrainState, build_train_step, get_loss, get_optimizer
+    from nkbx_torch.transforms import Compose, HorizontalFlip, Normalize, VerticalFlip
+
+    set_plain(False)
+    pipe = Compose([HorizontalFlip(), VerticalFlip(), Normalize()])
+    criterion = get_loss({"type": "CrossEntropyLoss"})
+    bundle = get_optimizer({"type": "nadam", "backbone_lr": 1e-5, "classifier_lr": 1e-4,
+                            "weight_decay": 0.05})
+    batch = optins_batch(BUCKET)
+    base = path.model(torch.bfloat16)
+    init = {k: v.clone() for k, v in base.module.state_dict().items()}
+    del base
+    remat_cfg = dict(path.cfg, backbone_opts={**(path.cfg.get("backbone_opts") or {}),
+                                              "remat_stages": (0, 1, 2, 3)})
+    runs, out = {}, {}
+    for label, cfg in (("plain", path.cfg), ("remat", remat_cfg)):
+        model = path.model(torch.bfloat16, cfg)
+        model.module.load_state_dict(init)
+        step = build_train_step(model, criterion, bundle, augment_fn=pipe.device_apply)
+        calls = []
+        with deterministic(), spy(module, fn, calls):
+            zero_counts()
+            state = TrainState.create(model, seed=0)
+            state, m = step(state, *batch, 1.0, 1.0)
+            torch.cuda.synchronize()
+        counts = read_counts()
+        runs[label] = {"loss": float(m["loss"]), "counts": counts, "calls": calls,
+                       "grads": {n: p.grad.clone() for n, p in model.module.named_parameters()},
+                       "state": {k: v.clone() for k, v in model.module.state_dict().items()}}
+        out[label] = timed_steps(step, TrainState.create(model, seed=0), batch)
+        del model, step, state
+        torch.cuda.empty_cache()
+    p, r = runs["plain"], runs["remat"]
+    n = len(p["calls"])
+    grads_equal = all(torch.equal(r["grads"][k], v) for k, v in p["grads"].items())
+    state_equal = all(torch.equal(r["state"][k], v) for k, v in p["state"].items())
+    relaunch_equal = (len(r["calls"]) == 2 * n and same_outputs(r["calls"][:n], p["calls"])
+                      and same_outputs(r["calls"][n:][::-1], p["calls"]))
+    want = path.counts(torch.bfloat16, True)
+    want_remat = dict(want, **{kernel: 2 * want[kernel]})
+    res = {"loss": {k: v["loss"] for k, v in runs.items()}, "grads_bit_equal": grads_equal,
+           "weights_and_running_stats_bit_equal": state_equal,
+           "recomputed_launches_bit_identical": relaunch_equal,
+           "launches_first_step": {k: {c: v for c, v in runs[k]["counts"].items() if v}
+                                   for k in runs}, **out}
+    log(f"optins remat {path.label}: {json.dumps(res)}")
+    got = {k: {c: runs[k]["counts"][c] for c in want} for k in runs}
+    if got["plain"] != want or got["remat"] != want_remat:
+        fail(f"remat {path.label}: launches {got}, want {want} and {want_remat}")
+    if not (grads_equal and state_equal and relaunch_equal) or p["loss"] != r["loss"]:
+        fail(f"remat {path.label} changed numbers: {res}")
+    return res, {k: sum(runs[x]["counts"][k] for x in runs) for k in COUNTED}
+
+
+def check_input_norm():
+    """resnet50 exact BN at batch 128 (bench.py's program): the model with
+    ``input_norm`` (Normalize folded into the s2d stem) on the raw batch
+    against the unfolded model on the Normalize'd batch, the same weights,
+    eval-mode logits: in bf16 within 5% of the largest (PERF.md section 2's
+    bf16 rule), in f32 within 1e-3 of it. (In train mode, BatchNorm over a
+    random-init net turns bf16 rounding into 12% of the largest logit for
+    either model against f32, on the CPU as well.) Then each bf16 train step
+    (flips only for the folded model, flips + Normalize for the other)
+    timed."""
+    from nkbx_torch.transforms import Compose, HorizontalFlip, Normalize
+
+    classes = [f"c{i}" for i in range(1000)]
+    rng = np.random.default_rng(0)
+    images = torch.as_tensor(rng.integers(0, 255, (EXACT_BATCH, 224, 224, 3), dtype=np.uint8),
+                             device=DEV)
+    labels = torch.as_tensor(rng.integers(0, 1000, EXACT_BATCH), device=DEV)
+    mask = torch.ones(EXACT_BATCH, dtype=torch.bool, device=DEV)
+    folded_cfg = {"model": "resnet50",
+                  "backbone_opts": {"input_norm": (OPTINS_MEAN, OPTINS_STD)}}
+    out, models = {}, {}
+    for dt, tol in ((torch.float32, 1e-3), (torch.bfloat16, 0.05)):
+        plain = get_model(RESNET_EXACT.cfg, classes, seed=0, dtype=dt)
+        folded = get_model(folded_cfg, classes, seed=0, dtype=dt)
+        folded.module.load_state_dict(plain.module.state_dict())
+        normalized = Compose([Normalize()]).device_apply(images, out_dtype=dt)
+        with torch.no_grad():
+            want = plain.module.eval()(normalized).float()
+            got = folded.module.eval()(images.to(dt)).float()
+        err, scale = float((got - want).abs().max()), float(want.abs().max())
+        out[DTYPE_NAME[dt]] = {"logits_max_abs_err": err, "logits_max": scale}
+        if not err <= tol * scale:
+            fail(f"input_norm {DTYPE_NAME[dt]}: logits {err} off the unfolded model's "
+                 f"(limit {tol * scale})")
+        models = {"normalize": plain, "input_norm": folded}
+    for label, pipe in (("normalize", Compose([HorizontalFlip(p=0.5), Normalize()])),
+                        ("input_norm", Compose([HorizontalFlip(p=0.5)]))):
+        state, step = sgd_step(models[label], False, pipe.device_apply)
+        out[label] = timed_steps(step, state, (images, labels, mask))
+    log(f"optins input_norm (resnet50, batch {EXACT_BATCH}): {json.dumps(out)}")
+    return out
+
+
+def check_master_weights():
+    """bf16_master_weights on resnet50 exact BN at batch 128 (bench.py's
+    program, sgd at lr 0.1, flips + Normalize): 5 steps with bf16 master
+    parameters beside 5 with f32 masters from the same weights: each step's
+    loss within MASTER_BAND of the f32 run's and falling, parameters and
+    moments bf16,
+    running statistics f32; step ms and peak memory of each."""
+    from nkbx_torch.train import TrainState
+    from nkbx_torch.transforms import Compose, HorizontalFlip, Normalize
+
+    classes = [f"c{i}" for i in range(1000)]
+    rng = np.random.default_rng(0)
+    batch = (torch.as_tensor(rng.integers(0, 255, (EXACT_BATCH, 224, 224, 3), dtype=np.uint8),
+                             device=DEV),
+             torch.as_tensor(rng.integers(0, 1000, EXACT_BATCH), device=DEV),
+             torch.ones(EXACT_BATCH, dtype=torch.bool, device=DEV))
+    pipe = Compose([HorizontalFlip(p=0.5), Normalize()])
+    out = {}
+    for label, master in (("f32", None), ("bf16", torch.bfloat16)):
+        model = get_model(RESNET_EXACT.cfg, classes, seed=0, dtype=torch.bfloat16)
+        _, step = sgd_step(model, False, pipe.device_apply)
+        state = TrainState.create(model, seed=0, master_dtype=master)
+        losses = []
+        for _ in range(5):
+            state, m = step(state, *batch, 1.0, 1.0)
+            losses.append(float(m["loss"]))
+        dtypes = sorted({str(p.dtype) for p in model.module.parameters()}
+                        | {str(t.dtype) for st in state.opt_state.values() for t in st.mu})
+        stats = sorted({str(b.dtype) for b in model.module.buffers()})
+        out[label] = {"losses": losses, "param_and_moment_dtypes": dtypes, "stat_dtypes": stats,
+                      **timed_steps(step, state, batch)}
+        del model, step, state
+        torch.cuda.empty_cache()
+    rel = [abs(a - b) / abs(b) for a, b in zip(out["bf16"]["losses"], out["f32"]["losses"])]
+    out["loss_rel_diff"] = rel
+    log(f"optins bf16_master_weights (resnet50, batch {EXACT_BATCH}): {json.dumps(out)}")
+    bf = out["bf16"]["losses"]
+    if (max(rel) > MASTER_BAND or not np.isfinite(bf).all() or not bf[-1] < bf[0]
+            or out["bf16"]["param_and_moment_dtypes"] != ["torch.bfloat16"]
+            or out["bf16"]["stat_dtypes"] != ["torch.float32"]):
+        fail(f"bf16_master_weights: {out}")
+    return out
+
+
+OPTINS_REFERENCE = '''\
+import albumentations as A
+import cv2
+from albumentations.pytorch import ToTensorV2
+
+device = "cuda:0"
+enable_gradient_scaler = True
+task = "single"
+train_data = {{"type": "ImageFolder", "root": "{data}/train", "batch_size": 64}}
+val_data = {{"type": "ImageFolder", "root": "{data}/val", "batch_size": 64}}
+train_pipeline = A.Compose([
+    A.LongestMaxSize(224, always_apply=True),
+    A.PadIfNeeded(224, 224, border_mode=cv2.BORDER_CONSTANT, value=0),
+    A.HorizontalFlip(p=0.5), A.RandomBrightnessContrast(p=0.5),
+    A.Normalize(), ToTensorV2()])
+val_pipeline = A.Compose([
+    A.LongestMaxSize(224, always_apply=True),
+    A.PadIfNeeded(224, 224, border_mode=cv2.BORDER_CONSTANT, value=0),
+    A.Normalize(), ToTensorV2()])
+model = {{"task": task, "model": "swin_tiny_patch4_window7_224", "pretrained": False}}
+optimizer = {{"type": "nadam", "lr": 1e-4}}
+criterion = {{"task": task, "type": "CrossEntropyLoss"}}
+'''
+
+
+def check_tools(best_pt, data):
+    """The one-card tools through their CLIs, subprocesses on the card (the
+    first three at once):
+    (a) ``--to-torch`` on swin_tiny's ``best.pt``: the torch file converted
+        forward again and loaded gives logits bit-equal to ``best.pt``'s
+        (bf16, a batch of 64 through K1 and K5), the forwards recorded by
+        ``profile_trace``;
+    (b) ``python -m nkbx_torch.core.profiling`` on that trace, and its
+        aggregation's K1 and K5 ms against ``key_averages``' of the same
+        profiler;
+    (c) ``save_augs`` N = 16 over ``data`` with the trainer's train pipeline
+        (flips, Normalize): each PNG equals the device stage's output on the
+        same draws (a generator seeded 0), un-normalised here;
+    (d) ``migrate --check`` on a reference-format config written here.
+    Returns (results, launch counts of (a)'s forwards)."""
+    from nkbx_torch.core.runtime import profile_trace
+    from nkbx_torch.data import get_dataset, imread_rgb
+    from nkbx_torch.models.convert import (convert_reference_checkpoint, from_jax_variables,
+                                           load_torch_checkpoint)
+    from nkbx_torch.save_augs import unnormalize_params
+    from nkbx_torch.transforms import Compose, Normalize
+    from nkbx_torch.utils import load_config
+
+    out = {}
+    name = "swin_tiny_patch4_window7_224"
+    pth = os.path.join(OPTINS_DIR, "swin_tiny.pth")
+    cfg_path = os.path.join(OPTINS_DIR, "save_augs_config.py")
+    with open(cfg_path, "w") as f:
+        f.write(trainer_config(data, os.path.join(OPTINS_DIR, "unused_run")))
+    pngs = os.path.join(OPTINS_DIR, "augs")
+    shutil.rmtree(pngs, ignore_errors=True)
+    old = os.path.join(OPTINS_DIR, "reference_config.py")
+    with open(old, "w") as f:
+        f.write(OPTINS_REFERENCE.format(data=data))
+    new = os.path.join(OPTINS_DIR, "reference_config_nkbx.py")
+    t0 = time.perf_counter()  # the three CLIs at once; nothing is timed meanwhile
+    started = {
+        "to_torch": start_cli(["-m", "nkbx_torch.models.convert", "--to-torch", "--model", name,
+                               "--weights", best_pt, "--out", pth], "optins_to_torch.log"),
+        "save_augs": start_cli(["-m", "nkbx_torch.save_augs", "-cfg", cfg_path, "-n", "16",
+                                "-o", pngs], "optins_save_augs.log"),
+        "migrate": start_cli(["-m", "nkbx_torch.utils.migrate", old, "-o", new, "--check"],
+                             "optins_migrate.log")}
+    logs = {k: finish_cli(v, f"optins {k}", timeout=300)[0] for k, v in started.items()}
+    out["clis_s"] = time.perf_counter() - t0
+    classes = [f"class{i}" for i in range(N_CLASSES)]
+    trained = get_model({"model": name}, classes, seed=0, dtype=torch.bfloat16)
+    trained.module.load_state_dict(torch.load(best_pt, map_location="cpu", weights_only=True))
+    back = get_model({"model": name}, classes, seed=1, dtype=torch.bfloat16)
+    tree = convert_reference_checkpoint(name, load_torch_checkpoint(pth))
+    back.module.load_state_dict(from_jax_variables(tree, reference=back.module))
+    x = Compose([Normalize()]).device_apply(optins_batch(BUCKET, seed=3)[0],
+                                            out_dtype=torch.bfloat16)
+    traces = os.path.join(OPTINS_DIR, "trace")
+    shutil.rmtree(traces, ignore_errors=True)
+    zero_counts()
+    with torch.no_grad(), profile_trace(traces) as prof:
+        a, b = trained.module.eval()(x), back.module.eval()(x)
+    counts = read_counts()
+    out["to_torch_logits_bit_equal"] = bool(torch.equal(a, b))
+    out["to_torch_launches"] = {k: v for k, v in counts.items() if v}
+    if not out["to_torch_logits_bit_equal"] or not counts["window_attention"]:
+        fail(f"--to-torch round trip: {out}")
+
+    agg = aggregate_trace(traces)
+    events = device_events(prof)
+    want = dict.fromkeys(COUNTED, 0)
+    want.update(ln_mlp=counts["ln_mlp"], window_attention=counts["window_attention"])
+    for kernel in ("window_attention", "ln_mlp"):
+        ms, tms = kernel_ms(events, kernel, 2, want), kernel_ms(agg["by_name"], kernel, 2, want)
+        out[f"{kernel}_ms_per_forward"] = {"key_averages": ms, "trace": tms}
+        if not tms or abs(tms - ms) > 1e-3 * ms + 1e-3:
+            fail(f"profile_trace: the trace's {kernel} ms {tms} is not key_averages' {ms}")
+    text, _ = finish_cli(start_cli(["-m", "nkbx_torch.core.profiling", traces, "--top", "5"],
+                                   "optins_profiling.log"), "the profiling CLI", timeout=300)
+    out["profiling_cli"] = text.splitlines()[:1]
+    if "port kernels" not in text:
+        fail(f"python -m nkbx_torch.core.profiling: no port kernel in {text[-2000:]}")
+
+    if "Saved 16 augmented samples" not in logs["save_augs"]:
+        fail(f"save_augs: {logs['save_augs'][-2000:]}")
+    cfg = load_config(cfg_path)
+    loader = get_dataset(cfg.train_data, cfg.train_pipeline)
+    mean, std, maxv = unnormalize_params(loader.pipeline)
+    batch = next(iter(loader.epoch(0)))
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    aug = loader.pipeline.device_apply(torch.as_tensor(batch["image"], device=DEV),
+                                       generator=gen).cpu().numpy()
+    want_png = np.clip((aug * std + mean) * maxv, 0, 255).astype(np.uint8)[:16]
+    got = [imread_rgb(os.path.join(pngs, f"aug_{i}.png")) for i in range(16)]
+    out["save_augs_equal"] = all(np.array_equal(g, w) for g, w in zip(got, want_png))
+    if not out["save_augs_equal"]:
+        fail("save_augs: the PNGs differ from the device stage on the same draws")
+
+    out["migrate_check_ok"] = "check ok" in logs["migrate"]
+    with open(new) as f:
+        if not out["migrate_check_ok"] or "import nkbx.transforms as T" not in f.read():
+            fail(f"migrate --check: {logs['migrate'][-2000:]}")
+    log(f"optins tools: {json.dumps(out)}")
+    return out, counts
+
+
+def check_optins(best_pt=None, data=None):
+    """OPTINS (``--optins`` alone): remat on convnext_tiny (K5/K6) and on the
+    resnet50 ghost2_fused step (K9/K10), input_norm, bf16 master weights and
+    the tools. Without the trainer path's ``best.pt`` and ImageFolder it
+    makes them: a swin_tiny ``best.pt`` of seeded random weights and the
+    same seeded ImageFolder. Returns (results, the phase's launch counts)."""
+    os.makedirs(OPTINS_DIR, exist_ok=True)
+    if best_pt is None:
+        best_pt = os.path.join(OPTINS_DIR, "best.pt")
+        model = get_model({"model": "swin_tiny_patch4_window7_224"},
+                          [f"class{i}" for i in range(N_CLASSES)], seed=0)
+        torch.save(model.module.state_dict(), best_pt)
+        data = os.path.join(OPTINS_DIR, "data")
+        shutil.rmtree(data, ignore_errors=True)
+        write_image_folder(data)
+    t0 = time.perf_counter()
+    total = dict.fromkeys(COUNTED, 0)
+    out = {}
+    for label, path, module, fn, kernel in (
+            ("convnext", CONVNEXT, M, "_forward", "ln_mlp"),
+            ("resnet", RESNET, BN, "fused_chain_fwd", "bottleneck")):
+        with path.environment():
+            out[f"remat_{label}"], counts = check_remat(path, module, fn, kernel)
+        total = {k: total[k] + counts[k] for k in total}
+    out["input_norm"] = check_input_norm()
+    out["bf16_master_weights"] = check_master_weights()
+    out["tools"], counts = check_tools(best_pt, data)
+    total = {k: total[k] + counts[k] for k in total}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"optins: {out['seconds']:.1f} s")
+    return out, total
+
+
 # --- the probe path: the command-line probes of X1 and X2 ---------------------------
 
 PROBE_ITERS = 3  # timed launches a shape in each probe
@@ -4968,6 +5335,10 @@ def main():
     served["modern"] = trained["modern"] = modern_counts
     served["heavy"] = trained["heavy"] = check_heavy()
     _, served["export"] = check_export()
+    optins, served["optins"] = check_optins(
+        os.path.join(TRAINER_DIR, "run_cli", "weights", "best.pt"),
+        os.path.join(TRAINER_DIR, "data"))
+    trained["optins"] = served["optins"]
 
     fwd, step = "one bucket-64 swin_tiny forward, bf16", "one batch-64 swin_tiny train step, bf16"
     vfwd = ("one bucket-64 vit_base_patch16_224 forward, bf16 (12 launches at N=197, bias and "
@@ -5147,6 +5518,10 @@ def main():
         k["launches_tc"] = RESNET.tc_launches[(k["name"], "train")]
         k["profile_ms_per_step"] = resnet_step[key]
     kernels[9]["resnet_step"] = resnet_step
+    # K5/K6 and K9/K10 under remat_stages=(0, 1, 2, 3): launches a step (OPTINS)
+    for k, what in ((kernels[1], "remat_convnext"), (kernels[3], "remat_convnext"),
+                    (kernels[8], "remat_resnet"), (kernels[9], "remat_resnet")):
+        k["launches_per_step_remat"] = optins[what]["remat"]["launches_per_step"].get(k["name"])
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -5233,8 +5608,29 @@ def heavy_only():
     log(json.dumps({"heavy_counts": check_heavy()}))
 
 
+def optins_only():
+    """``--optins``: the card's name and power limit, the kernels of the
+    phase built (K1, K2, K5, K6, K9, K10) and OPTINS alone, its numbers as the
+    last line."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60).stdout.strip()
+    log(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    os.makedirs(OUT_DIR, exist_ok=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    _build.build(["window_attention", "window_attention_bwd", "ln_mlp", "ln_mlp_bwd",
+                  "bottleneck", "bottleneck_bwd"])
+    log(f"build: {time.perf_counter() - t0:.1f} s")
+    out, counts = check_optins()
+    log(json.dumps({"optins": out, "counts": counts}))
+
+
 if __name__ == "__main__":
-    if sys.argv[1:] == ["--resnet-step"]:
+    if sys.argv[1:] == ["--optins"]:
+        optins_only()
+    elif sys.argv[1:] == ["--resnet-step"]:
         resnet_step_only()
     elif sys.argv[1:] == ["--modern"]:
         modern_only()

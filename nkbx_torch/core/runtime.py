@@ -1,4 +1,5 @@
-"""Device resolution for the port's entry points.
+"""Device resolution for the port's entry points, timers, and the profiler
+trace.
 
 The port runs on the CUDA card by default. The CPU is taken only when the
 caller asks for it (``device="cpu"``, as the tests do); a missing card is an
@@ -7,7 +8,9 @@ error, never a silent fall back to the CPU.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import os
 import time
 
 import torch
@@ -89,3 +92,25 @@ class Throughput:
         return {"steps_per_sec": self._steps / dt, "images_per_sec": self._images / dt,
                 "images_per_sec_per_chip": self._images / dt / max(self.n_chips, 1),
                 "elapsed_sec": dt}
+
+
+@contextlib.contextmanager
+def profile_trace(log_dir, device=None):
+    """``with profile_trace("/tmp/tb"): ...`` records the block with
+    ``torch.profiler`` and writes its chrome trace to
+    ``log_dir/trace_<pid>_<ns>.json.gz``, which
+    :func:`nkbx_torch.core.profiling.aggregate_trace` turns into time by
+    kernel and by kind (nkbx's ``profile_trace(log_dir, perfetto=True)``).
+    On the card (the default) it records CPU and CUDA activity; with
+    ``device="cpu"`` CPU activity only. Yields the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = resolve_device(device)
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    prof.export_chrome_trace(os.path.join(log_dir,
+                                          f"trace_{os.getpid()}_{time.time_ns()}.json.gz"))

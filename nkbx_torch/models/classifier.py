@@ -13,6 +13,7 @@ from __future__ import annotations
 from typing import Dict, List, Union
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from nkbx_torch.core.runtime import resolve_device
@@ -31,8 +32,17 @@ INIT_STRATEGIES = {
 }
 
 
+class Head(nn.Linear):
+    """A classifier head: ``nn.Linear`` computing in f32 whatever its
+    parameters' dtype (nkbx's ``nn.Dense(dtype=float32)``; bf16 under
+    ``bf16_master_weights``)."""
+
+    def forward(self, x):
+        return F.linear(x.float(), self.weight.float(), self.bias.float())
+
+
 def _head(emb_size: int, n: int, init: str, generator: torch.Generator) -> nn.Linear:
-    head = nn.Linear(emb_size, n)
+    head = Head(emb_size, n)
     INIT_STRATEGIES[init](head.weight.data, generator)
     head.bias.data.zero_()
     return head

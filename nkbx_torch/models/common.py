@@ -9,11 +9,14 @@ follow flax's defaults (lecun-normal Dense/Conv kernels, zero biases).
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from nkbx_torch.ops.mlp import fused_ln_mlp, fused_mlp, fused_mlp_mode, reference_ln_mlp
 
@@ -86,6 +89,32 @@ def mlp_tail(x, shortcut, norm: LayerNorm, fc1: Dense, fc2: Dense, *, flag, auto
     return reference_ln_mlp(*args, gamma=gamma, eps=norm.eps)
 
 
+_replay = threading.local()  # .depth > 0 on the thread where remat replays a forward
+
+
+@contextlib.contextmanager
+def _recompute():
+    _replay.depth = getattr(_replay, "depth", 0) + 1
+    try:
+        yield
+    finally:
+        _replay.depth -= 1
+
+
+def remat(module: nn.Module, *args):
+    """``module(*args)`` whose activations are recomputed in the backward
+    (nkbx's ``nn.remat`` over a stage's blocks): ``torch.utils.checkpoint``
+    with ``use_reentrant=False``, so that parameter names and numbers do not
+    change. The replay updates no BatchNorm running statistics
+    (:meth:`TorchBatchNorm.update_running` skips while it runs): the forward
+    updated them once, as flax's remat keeps one update. Without gradients
+    the module just runs."""
+    if not torch.is_grad_enabled():
+        return module(*args)
+    return checkpoint(module, *args, use_reentrant=False,
+                      context_fn=lambda: (contextlib.nullcontext(), _recompute()))
+
+
 def init_dense_(module: nn.Linear, generator: torch.Generator):
     lecun_normal_(module.weight.data, module.weight.shape[1], generator)
     if module.bias is not None:
@@ -138,7 +167,10 @@ class TorchBatchNorm(nn.Module):
 
     @torch.no_grad()
     def update_running(self, mean, unbiased_var):
-        """EMA of the running statistics toward ``mean`` and ``unbiased_var``."""
+        """EMA of the running statistics toward ``mean`` and ``unbiased_var``;
+        nothing while :func:`remat` replays a forward."""
+        if getattr(_replay, "depth", 0):
+            return
         m = self.momentum
         self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
         self.running_var.copy_(m * self.running_var + (1.0 - m) * unbiased_var)

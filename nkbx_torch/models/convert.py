@@ -36,10 +36,14 @@ writes. Nothing is downloaded. The CLI::
 
     python -m nkbx_torch.models.convert --model NAME --weights FILE [--out PATH]
         [--reference-checkpoint]
+    python -m nkbx_torch.models.convert --to-torch --model NAME --weights W --out OUT.pth
+        [--ema]
 
 writes ``$NKBX_PRETRAINED_DIR/<name>.msgpack`` (what ``pretrained=True``
 loads) or ``--out`` (with ``--reference-checkpoint``, a whole reference
-classifier for the config's ``checkpoint`` key).
+classifier for the config's ``checkpoint`` key). ``--to-torch`` goes the
+other way (:mod:`nkbx_torch.models.reverse`, through
+:func:`to_jax_variables` for the port's own files).
 """
 
 from __future__ import annotations
@@ -127,6 +131,46 @@ def from_jax_variables(variables: dict, reference=None) -> dict:
             raise ValueError("shape mismatch: " + ", ".join(
                 f"{k} port {tuple(ref[k].shape)} vs flax {tuple(out[k].shape)}" for k in bad))
     return out
+
+
+_ATTENTION = ("query", "key", "value", "out")
+_STAT_OF = {v: k for k, v in _STATS.items()}
+
+
+def to_jax_variables(state, n_heads: int | None = None) -> dict:
+    """A port ``state_dict`` (or module) -> nkbx's ``{'params', 'batch_stats'}``
+    tree of float32 numpy arrays: :func:`from_jax_variables` read backwards,
+    the paths as :func:`flax_param_path` names them, ``running_mean``/``running_var``
+    to ``batch_stats`` ``mean``/``var``. An attention ``query``/``key``/
+    ``value``/``out`` leaf takes its (H, D) split from ``n_heads``, which a
+    module gives itself (its attention's ``n_heads``)."""
+    if isinstance(state, torch.nn.Module):
+        if n_heads is None:
+            n_heads = next((m.n_heads for m in state.modules() if hasattr(m, "n_heads")), None)
+        state = state.state_dict()
+    params, stats = {}, {}
+    for name, t in state.items():
+        *prefix, leaf = name.split(".")
+        value = torch.as_tensor(t).detach().float().cpu().numpy()
+        if leaf in _STAT_OF:
+            _set(stats, tuple(prefix) + (_STAT_OF[leaf],), value)
+            continue
+        if leaf == "weight":
+            leaf = "scale" if value.ndim == 1 else "kernel"
+        path = tuple(prefix) + (leaf,)
+        if prefix and prefix[-1] in _ATTENTION and path[-1] in ("kernel", "bias"):
+            if n_heads is None:
+                raise ValueError(f"{name}: an attention leaf needs n_heads")
+            if path[-1] == "bias":
+                value = value if prefix[-1] == "out" else value.reshape(n_heads, -1)
+            elif prefix[-1] == "out":  # weight (C, H*D) -> (H, D, C)
+                value = value.T.reshape(n_heads, -1, value.shape[0])
+            else:  # weight (H*D, C) -> (C, H, D)
+                value = value.T.reshape(value.shape[1], n_heads, -1)
+        elif path[-1] == "kernel":
+            value = value.T if value.ndim == 2 else value.transpose(2, 3, 1, 0)
+        _set(params, path, np.ascontiguousarray(value))
+    return {"params": params, "batch_stats": stats}
 
 
 # --- pos_embed at another token grid ---------------------------------------------
@@ -732,23 +776,52 @@ def main(argv=None):
     ap = argparse.ArgumentParser(
         description="Convert a timm-layout torch backbone file to nkbx's msgpack (what "
                     "model.pretrained=True loads from $NKBX_PRETRAINED_DIR), or a whole "
-                    "reference classifier for the config's model.checkpoint key. Nothing is "
-                    "downloaded.")
+                    "reference classifier for the config's model.checkpoint key; or, with "
+                    "--to-torch, trained weights back to the torch layouts (a timm backbone "
+                    "state_dict, or the reference classifier checkpoint when the weights "
+                    "hold a backbone+head tree). Nothing is downloaded.")
     ap.add_argument("--model", required=True,
                     help="backbone name, e.g. resnet50 or 'unicom ViT-B/32'")
-    ap.add_argument("--weights", help="torch checkpoint file (.pth/.pt/.bin)")
+    ap.add_argument("--weights", help="torch checkpoint file (.pth/.pt/.bin); with "
+                                      "--to-torch: the port's weights/best.pt (or last.pt), "
+                                      "a weights/best|last directory, or an nkbx .msgpack")
     ap.add_argument("--out", help="output .msgpack path (default: "
-                                  "$NKBX_PRETRAINED_DIR/<name>.msgpack)")
+                                  "$NKBX_PRETRAINED_DIR/<name>.msgpack); with --to-torch: "
+                                  "the output .pth path (required)")
     ap.add_argument("--reference-checkpoint", action="store_true",
                     help="the weights file is a whole reference-trained classifier "
                          "(emb_model.* + classifier.*): convert backbone and head; load the "
                          "output through the config's model.checkpoint key")
     ap.add_argument("--to-torch", action="store_true",
-                    help="nkbx weights -> torch state_dict: not in nkbx_torch yet")
+                    help="reverse direction: trained weights -> torch state_dict (.pth). A "
+                         "classifier tree (backbone + head) becomes a reference-layout "
+                         "checkpoint (emb_model.* + classifier.*); a bare backbone tree a "
+                         "timm-layout backbone state_dict. Load with strict=False (the keys "
+                         "torch keeps for itself are printed)")
+    ap.add_argument("--ema", action="store_true",
+                    help="with --to-torch: export the EMA shadow of a weights/best|last "
+                         "directory (or an nkbx msgpack's ema_params) instead of the raw "
+                         "weights")
     args = ap.parse_args(argv)
     if args.to_torch:
-        raise SystemExit("--to-torch (nkbx weights back to the torch layouts) is not ported "
-                         "to nkbx_torch yet (ROADMAP.md A7)")
+        from nkbx_torch.models.reverse import (load_weights, reverse_reference_checkpoint,
+                                               reverse_torch_state_dict)
+
+        if not args.weights or not args.out:
+            raise SystemExit("--to-torch requires --weights (a weights/best|last directory, "
+                             "best.pt or .msgpack) and --out (.pth path)")
+        spec = _VIT_SPECS.get(args.model) or _UNICOM_SPECS.get(args.model)
+        variables = load_weights(args.weights, ema=args.ema, n_heads=spec[2] if spec else None)
+        if "backbone" in variables["params"]:
+            sd, skipped = reverse_reference_checkpoint(args.model, variables)
+        else:
+            sd, skipped = reverse_torch_state_dict(args.model, variables)
+        torch.save({k: torch.from_numpy(np.array(v, copy=True)) for k, v in sd.items()},
+                   args.out)
+        print(f"wrote {args.out} ({len(sd)} tensors; load with strict=False)")
+        if skipped:
+            print(f"not emitted (torch keeps its own): {', '.join(skipped)}")
+        return args.out
     if not args.weights:
         raise SystemExit("--weights is required: nkbx_torch downloads nothing (nkbx's "
                          "timm/unicom fetch is not ported); give the torch file you have")

@@ -13,6 +13,11 @@ nkbx's is on its accelerator. Every LayerNorm has flax's ε = 1e-6. Tensors
 stay NHWC; a convolution sees ``x.permute(0, 3, 1, 2)``, a channels-last
 NCHW view. The backbone ends with the spatial mean (reduced in f32, as
 ``jnp.mean`` does for bf16), ``head_norm`` and an f32 embedding.
+
+``remat_stages`` runs the blocks of those stages under
+:func:`~nkbx_torch.models.common.remat`: their activations are recomputed
+in the backward (K5 runs again there); the names and the numbers stay those
+of the run without it.
 """
 
 from __future__ import annotations
@@ -23,7 +28,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from nkbx_torch.models.common import Dense, LayerNorm, init_dense_, lecun_normal_, mlp_tail
+from nkbx_torch.models.common import (Dense, LayerNorm, init_dense_, lecun_normal_, mlp_tail,
+                                      remat)
 
 _EPS = 1e-6  # flax nn.LayerNorm's default, nkbx's everywhere in ConvNeXt
 
@@ -67,14 +73,12 @@ class ConvNeXt(nn.Module):
     def __init__(self, depths=(3, 3, 9, 3), dims=(96, 192, 384, 768), drop_rate: float = 0.0,
                  dtype=torch.float32, remat_stages=(), fused_mlp=None, img_size=(224, 224)):
         super().__init__()
-        if tuple(remat_stages):
-            raise NotImplementedError("ConvNeXt remat_stages is not ported to nkbx_torch yet "
-                                      "(ROADMAP.md A12); it changes no numbers")
         self.dtype = dtype
         self.num_features = dims[-1]  # no parameter depends on img_size, the registry's argument
         self.Conv_0 = nn.Conv2d(3, dims[0], 4, stride=4)
         self.LayerNorm_0 = LayerNorm(dims[0], _EPS, dtype)
         self._order = []  # the modules after the stem, in the order they run
+        self._remat = set()  # the blocks of remat_stages
         block = 0
         for stage, (depth, dim) in enumerate(zip(depths, dims)):
             if stage > 0:
@@ -85,6 +89,8 @@ class ConvNeXt(nn.Module):
                 self.add_module(f"ConvNeXtBlock_{block}",
                                 ConvNeXtBlock(dim, dtype=dtype, fused_mlp=fused_mlp))
                 self._order.append(f"ConvNeXtBlock_{block}")
+                if stage in remat_stages:
+                    self._remat.add(f"ConvNeXtBlock_{block}")
                 block += 1
         self.head_norm = LayerNorm(dims[-1], _EPS, dtype)
         # as in nkbx, the embedding dropout exists only with a rate above 0
@@ -115,7 +121,10 @@ class ConvNeXt(nn.Module):
         x = self.LayerNorm_0(_conv_same(x, self.Conv_0, dt))
         for name in self._order:
             mod = getattr(self, name)
-            x = _conv_same(x, mod, dt) if isinstance(mod, nn.Conv2d) else mod(x)
+            if isinstance(mod, nn.Conv2d):
+                x = _conv_same(x, mod, dt)
+            else:
+                x = remat(mod, x) if name in self._remat else mod(x)
         x = x.float().mean(dim=(1, 2)).to(dt)
         return self.dropout(self.head_norm(x)).float()
 

@@ -15,6 +15,13 @@ Bottleneck block in training through the fused chain
 tile-local statistics, wherever nkbx's rule
 :func:`~nkbx_torch.ops.bottleneck.stat_band` gives a band; every other block,
 and every block in eval mode, takes the plain ghost-BN path, as in nkbx.
+
+nkbx's max-throughput opt-ins: ``remat_stages`` runs the blocks of those
+stages under :func:`~nkbx_torch.models.common.remat` (recomputed in the
+backward, K9 included; the same names and numbers, running statistics
+updated once), and ``input_norm=(mean, std)`` folds Normalize into the s2d
+stem (:class:`_MaskedS2DConv`), so that the model takes the raw [0, 255]
+batch.
 """
 
 from __future__ import annotations
@@ -26,7 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from nkbx_torch.models.common import ConvBN, TorchBatchNorm, init_conv_, lecun_normal_
+from nkbx_torch.models.common import ConvBN, TorchBatchNorm, init_conv_, lecun_normal_, remat
 from nkbx_torch.ops.bottleneck import fused_chain, stat_band
 
 
@@ -70,15 +77,32 @@ class _MaskedS2DConv(nn.Module):
     """4x4/s1 conv over the space-to-depth input with padding ((2, 1), (2, 1))
     and the dead taps zeroed in the forward (so their gradient is 0): exactly
     the 7x7/s2 pad-3 stem conv. ``weight`` (features, 4c, 4, 4) is the OIHW
-    form of nkbx's (4, 4, 4c, features) kernel."""
+    form of nkbx's (4, 4, 4c, features) kernel.
 
-    def __init__(self, features_in: int, features: int, dtype=torch.float32):
+    ``input_norm=(mean, std)`` (pixel units, [0, 255]) folds Normalize into
+    the conv, as nkbx's ``_MaskedS2DConv`` does (resnet.py:55-113): the
+    kernel is scaled by 1/std per input channel in f32 and then cast, and the
+    mean comes off through a bias map, so the layer computes
+    conv((x - mean) / std) on the raw batch, borders included. The map is the
+    conv of a 12x12 constant mean image, its rows and columns 0-3 and 8-11
+    kept and row/column 5 repeated between them: every output position sees
+    the taps of one of those."""
+
+    def __init__(self, features_in: int, features: int, dtype=torch.float32, input_norm=None):
         super().__init__()
         self.dtype = dtype
         self.weight = nn.Parameter(torch.empty(features, features_in, 4, 4))
         mask = _s2d_tap_mask(features_in // 4).transpose(3, 2, 0, 1)
         self.register_buffer("tap_mask", torch.from_numpy(np.ascontiguousarray(mask)),
                              persistent=False)
+        self.folded = input_norm is not None
+        if self.folded:
+            mean, std = (np.asarray(v, np.float32) for v in input_norm)
+            reps = features_in // 3  # the s2d channel order is (row, col, c)
+            self.register_buffer("norm_inv", torch.from_numpy(np.tile(1.0 / std, reps)),
+                                 persistent=False)
+            self.register_buffer("norm_mean", torch.from_numpy(np.tile(mean, reps)),
+                                 persistent=False)
         self.reset_parameters()
 
     def reset_parameters(self, generator: torch.Generator | None = None):
@@ -86,18 +110,34 @@ class _MaskedS2DConv(nn.Module):
         w = self.weight
         lecun_normal_(w.data, w.shape[1] * w.shape[2] * w.shape[3], generator)
 
+    @staticmethod
+    def _conv(x, k):
+        return _nhwc(F.conv2d(F.pad(_nchw(x), (2, 1, 2, 1)), k))
+
     def forward(self, x):
-        k = (self.weight * self.tap_mask).to(self.dtype)
-        return _nhwc(F.conv2d(F.pad(_nchw(x.to(self.dtype)), (2, 1, 2, 1)), k))
+        k32 = self.weight * self.tap_mask
+        if not self.folded:
+            return self._conv(x.to(self.dtype), k32.to(self.dtype))
+        k = (k32 * self.norm_inv[None, :, None, None]).to(self.dtype)
+        s = 12
+        probe = self._conv(self.norm_mean.expand(1, s, s, -1).to(self.dtype), k)
+
+        def tile(t, dim, n):
+            mid = t.narrow(dim, 5, 1).expand(*[n - 8 if d == dim else -1 for d in range(4)])
+            return torch.cat([t.narrow(dim, 0, 4), mid, t.narrow(dim, s - 4, 4)], dim)
+
+        bias_map = tile(tile(probe, 1, x.shape[1]), 2, x.shape[2])
+        return self._conv(x.to(self.dtype), k) - bias_map
 
 
 class S2DStemConvBN(nn.Module):
     """The space-to-depth stem: ``Conv_0`` (masked 4x4) + ``BatchNorm_0`` +
     relu, the tree paths of a ConvBN."""
 
-    def __init__(self, features_in: int, features: int, dtype=torch.float32, ghost_bn: int = 0):
+    def __init__(self, features_in: int, features: int, dtype=torch.float32, ghost_bn: int = 0,
+                 input_norm=None):
         super().__init__()
-        self.Conv_0 = _MaskedS2DConv(features_in, features, dtype)
+        self.Conv_0 = _MaskedS2DConv(features_in, features, dtype, input_norm)
         self.BatchNorm_0 = TorchBatchNorm(features, dtype=dtype, ghost_bn=ghost_bn)
 
     def forward(self, x, mask=None):
@@ -232,12 +272,8 @@ class ResNet(nn.Module):
                  input_norm=None, remat_stages=(), ghost_bn: int = 0,
                  fused_bottleneck: bool = False, avg_down: bool = False, img_size=(224, 224)):
         super().__init__()
-        if input_norm is not None:
-            raise NotImplementedError("ResNet input_norm (the Normalize folded into the s2d "
-                                      "stem) is not ported to nkbx_torch yet (ROADMAP.md A12)")
-        if tuple(remat_stages):
-            raise NotImplementedError("ResNet remat_stages is not ported to nkbx_torch yet "
-                                      "(ROADMAP.md A12); it changes no numbers")
+        if input_norm is not None and (stem != "default" or not s2d_stem):
+            raise ValueError("input_norm folding requires the s2d stem")
         if fused_bottleneck and not ghost_bn:
             raise ValueError("fused_bottleneck requires ghost_bn (per-tile BN stats are the "
                              "kernel's tiling contract)")
@@ -255,11 +291,11 @@ class ResNet(nn.Module):
             self._stem = ["ConvBN_0", "ConvBN_1", "ConvBN_2"]
             ch = 2 * stem_width
         else:
-            self.ConvBN_0 = (S2DStemConvBN(12, stem_width, dtype, g) if s2d_stem
+            self.ConvBN_0 = (S2DStemConvBN(12, stem_width, dtype, g, input_norm) if s2d_stem
                              else ConvBN(3, stem_width, 7, 2, dtype=dtype, ghost_bn=g))
             self._stem = ["ConvBN_0"]
             ch = stem_width
-        self._blocks = []
+        self._blocks, self._remat = [], set()
         for stage, n_blocks in enumerate(stage_sizes):
             features = 64 * 2 ** stage
             for block in range(n_blocks):
@@ -272,6 +308,8 @@ class ResNet(nn.Module):
                 name = f"{block_cls.__name__}_{len(self._blocks)}"
                 self.add_module(name, mod)
                 self._blocks.append(name)
+                if stage in remat_stages:
+                    self._remat.add(name)
                 ch = features * block_cls.expansion
         # as in nkbx, the embedding dropout exists only with a rate above 0
         self.dropout = nn.Dropout(drop_rate) if drop_rate > 0 else nn.Identity()
@@ -301,7 +339,8 @@ class ResNet(nn.Module):
             x = getattr(self, name)(x, mask)
         x = _nhwc(F.max_pool2d(_nchw(x), 3, 2, 1))
         for name in self._blocks:
-            x = getattr(self, name)(x, mask)
+            block = getattr(self, name)
+            x = remat(block, x, mask) if name in self._remat else block(x, mask)
         x = x.float().mean((1, 2)).to(self.dtype)
         return self.dropout(x).float()
 

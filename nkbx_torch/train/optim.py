@@ -21,6 +21,15 @@ defaults, nkbx's torch-exact NAdam), held to nkbx by a lockstep test:
   ``momentum`` is ignored there and here (a fault of the reference that
   the port keeps, ROADMAP.md section C).
 
+bf16 master parameters (``TrainState.create(master_dtype=torch.bfloat16)``,
+nkbx's ``bf16_master_weights``) keep bf16 moments, and the direction rounds
+to bf16 where optax's does: the moments as ``(1 - b) * g + b * m`` (three
+roundings), the bias corrections and wd first rounded to bf16 (JAX's
+weak-typed Python scalars), the coupled wd as ``g + wd * p`` (two
+roundings). The step ``p - lr * lr_factor * freeze * u`` is computed in f32
+and rounded once, as nkbx's trainer does with its f32 ``lr_factor`` and
+``freeze_scale`` arrays. f32 parameters keep the fused foreach forms.
+
 Freeze semantics (``freeze_scale`` 0 freezes the backbone): ``"decay"``
 feeds the frozen group zero gradients, so its Adam moments decay;
 ``"torch"`` skips the frozen group entirely, so its moments and step count
@@ -84,10 +93,28 @@ def init_opt_state(groups: Dict[str, list]) -> Dict[str, GroupState]:
             for label, params in groups.items()}
 
 
+def _c(x: float, like: list) -> float:
+    """The scalar ``x`` as the tensors of ``like`` see it: rounded to their
+    dtype, as JAX rounds a weak-typed Python scalar (f32 tensors round it
+    themselves)."""
+    dt = like[0].dtype
+    return x if dt == torch.float32 else float(torch.tensor(x, dtype=dt))
+
+
+def _lowp(ts: list) -> bool:
+    return bool(ts) and ts[0].dtype != torch.float32
+
+
 def _moments(st: GroupState, g):
     """Adam's moment updates (optax ``update_moment``): mu <- b1 mu +
     (1-b1) g, nu <- b2 nu + (1-b2) g²; returns the new step count."""
     st.count += 1
+    if _lowp(st.mu):
+        for m, gm, b in ((st.mu, g, _B1), (st.nu, torch._foreach_mul(g, g), _B2)):
+            new = torch._foreach_mul(gm, _c(1.0 - b, m))
+            torch._foreach_mul_(m, _c(b, m))
+            torch._foreach_add_(m, new)
+        return st.count
     torch._foreach_mul_(st.mu, _B1)
     torch._foreach_add_(st.mu, g, alpha=1.0 - _B1)
     torch._foreach_mul_(st.nu, _B2)
@@ -97,8 +124,8 @@ def _moments(st: GroupState, g):
 
 def _adam_ratio(st: GroupState, t: int):
     """mu_hat / (sqrt(nu_hat) + eps), bias-corrected at step t."""
-    num = torch._foreach_div(st.mu, 1.0 - _B1 ** t)
-    den = torch._foreach_sqrt(torch._foreach_div(st.nu, 1.0 - _B2 ** t))
+    num = torch._foreach_div(st.mu, _c(1.0 - _B1 ** t, st.mu))
+    den = torch._foreach_sqrt(torch._foreach_div(st.nu, _c(1.0 - _B2 ** t, st.nu)))
     torch._foreach_add_(den, _EPS)
     torch._foreach_div_(num, den)
     return num
@@ -116,7 +143,7 @@ def _radam(g, st, params, wd):
     b2t = _B2 ** t
     ro = ro_inf - 2.0 * t * b2t / (1.0 - b2t)
     if ro < 5.0:
-        return torch._foreach_div(st.mu, 1.0 - _B1 ** t)
+        return torch._foreach_div(st.mu, _c(1.0 - _B1 ** t, st.mu))
     r = math.sqrt((ro - 4.0) * (ro - 2.0) * ro_inf / ((ro_inf - 4.0) * (ro_inf - 2.0) * ro))
     out = _adam_ratio(st, t)
     torch._foreach_mul_(out, r)
@@ -164,8 +191,11 @@ def apply_updates(bundle: OptimizerBundle, opt_state: Dict[str, GroupState],
             continue
         fs = float(freeze_scale) if label == "backbone" else 1.0
         g = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
-        if bundle.coupled_wds[label]:
-            g = torch._foreach_add(g, params, alpha=bundle.coupled_wds[label])
+        wd = bundle.coupled_wds[label]
+        if wd and _lowp(params):
+            g = torch._foreach_add(g, torch._foreach_mul(params, _c(wd, params)))
+        elif wd:
+            g = torch._foreach_add(g, params, alpha=wd)
         if fs != 1.0:
             g = torch._foreach_mul(g, fs)
         out[label] = g
@@ -173,7 +203,12 @@ def apply_updates(bundle: OptimizerBundle, opt_state: Dict[str, GroupState],
             continue  # torch skips frozen params: stale moments and step count
         u = _DIRECTIONS[bundle.kind](g, opt_state[label], params, bundle.decoupled_wds[label])
         step = bundle.lrs[label] * float(lr_factor) * fs
-        if step:
+        if step and _lowp(params) and params[0].device.type == "cpu":
+            # the CPU rounds ``alpha`` to bf16 first; the card's foreach add,
+            # like this form, takes p + alpha * u in f32 and rounds once
+            for p, x in zip(params, u):
+                p.copy_(p.float().add_(x, alpha=-step))
+        elif step:
             torch._foreach_add_(params, u, alpha=-step)
     return out
 

@@ -2,6 +2,11 @@
 step count and the device generator of the random device ops (counterpart
 of ``nkbx/train/state.py``).
 
+``master_dtype=torch.bfloat16`` (nkbx's ``bf16_master_weights``) casts the
+module's floating parameters to bf16 in place: the optimizer moments and
+the EMA shadow follow them; the BatchNorm running statistics stay f32. The
+update then rounds as optax does in bf16 (:mod:`nkbx_torch.train.optim`).
+
 PyTorch runs eagerly and updates in place, so the state is one mutable
 object that the train step advances; nothing is donated or copied.
 
@@ -22,7 +27,7 @@ import torch
 from torch import nn
 
 from nkbx_torch.models.classifier import param_labels
-from nkbx_torch.train.optim import GROUPS, GroupState, init_opt_state
+from nkbx_torch.train.optim import GROUPS, GroupState, _c, init_opt_state
 
 
 @dataclasses.dataclass
@@ -34,15 +39,20 @@ class TrainState:
     step: int = 0
     ema_module: Optional[nn.Module] = None  # the EMA shadow, or None
     _ema_pairs: Optional[tuple] = dataclasses.field(default=None, repr=False)
+    _ema_by_dtype: Optional[list] = dataclasses.field(default=None, repr=False)
 
     @classmethod
-    def create(cls, model, seed: int = 0, ema: bool = False):
+    def create(cls, model, seed: int = 0, ema: bool = False, master_dtype=None):
         """State for ``model`` (a ClassificationModel or a module): the
         parameter groups by ``param_labels``, zero moments (every optimizer
         kind keeps the same state), a generator on the parameters' device
         seeded with ``seed``, and with ``ema`` the EMA shadow at the
-        module's weights."""
+        module's weights. ``master_dtype`` casts the parameters first."""
         module = getattr(model, "module", model)
+        if master_dtype is not None:
+            for p in module.parameters():
+                if p.is_floating_point():
+                    p.data = p.data.to(master_dtype)
         labels = param_labels(module)
         groups = {g: [p for n, p in module.named_parameters() if labels[n] == g] for g in GROUPS}
         device = next(module.parameters()).device
@@ -56,9 +66,14 @@ class TrainState:
     def update_ema(self, decay: float):
         """``e <- e * decay + p * (1 - decay)`` over :meth:`ema_pairs`, two
         products and a sum as nkbx rounds them (engine.py:255-265)."""
-        shadow, live = self.ema_pairs()
-        torch._foreach_mul_(shadow, decay)
-        torch._foreach_add_(shadow, torch._foreach_mul(live, 1.0 - decay))
+        if self._ema_by_dtype is None:  # bf16 masters: bf16 parameters, f32 statistics
+            shadow, live = self.ema_pairs()
+            self._ema_by_dtype = [([e for e in shadow if e.dtype == dt],
+                                   [t for t, e in zip(live, shadow) if e.dtype == dt])
+                                  for dt in dict.fromkeys(e.dtype for e in shadow)]
+        for s, p in self._ema_by_dtype:  # the scalars rounded to the dtype, as JAX does
+            torch._foreach_mul_(s, _c(decay, s))
+            torch._foreach_add_(s, torch._foreach_mul(p, _c(1.0 - decay, s)))
 
     def ema_pairs(self):
         """(shadow tensors, live tensors): the parameters, then the running

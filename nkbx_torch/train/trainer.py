@@ -11,7 +11,9 @@ checkpoint, from the cursor's batch where it matches the checkpoint.
 
 nkbx's train-step options come from the config as nkbx takes them
 (trainer.py:121-141): ``mixup``, ``steps_per_dispatch`` (K steps a call),
-``grad_accum_steps``, ``log_gradients`` and ``model_ema_decay``. With EMA,
+``grad_accum_steps``, ``log_gradients``, ``model_ema_decay`` and
+``bf16_master_weights`` (bf16 master parameters, moments and EMA shadow,
+the checkpoints saving and restoring them as bf16). With EMA,
 validation, the choice of the best epoch and ``best.pt``/``last.pt`` use the
 EMA shadow. ``debug_nans`` raises FloatingPointError at the first step
 whose loss or gradients are not finite (nkbx's ``jax_debug_nans``, which
@@ -24,6 +26,8 @@ ROADMAP item that ports them.
 from __future__ import annotations
 
 import warnings
+
+import torch
 
 from nkbx_torch.logging import TrainLogger
 from nkbx_torch.metrics import compute_metrics
@@ -41,7 +45,6 @@ UNPORTED = {
     "mesh": (None, "A10"),
     "fsdp": (False, "A10"),
     "distributed": (False, "A10"),
-    "bf16_master_weights": (False, "A12"),
 }
 
 
@@ -67,7 +70,11 @@ def train(model, train_loader, val_loader, criterion, comet_experiment, local_ex
     bundle = get_optimizer(cfg.optimizer)
     schedule = get_scheduler(cfg.lr_policy)
     ema_decay = float(cfg.get("model_ema_decay", 0.0) or 0.0)
-    state = TrainState.create(model, seed=cfg.get("seed", 0), ema=ema_decay > 0)
+    # bf16_master_weights (nkbx's max-throughput opt-in): bf16 master
+    # parameters, moments and EMA shadow; the running statistics stay f32
+    master_dtype = torch.bfloat16 if cfg.get("bf16_master_weights", False) else None
+    state = TrainState.create(model, seed=cfg.get("seed", 0), ema=ema_decay > 0,
+                              master_dtype=master_dtype)
 
     start_epoch, best_val_acc, resume_batch = 0, 0.0, 0
     if resume_from is not None:
@@ -160,8 +167,6 @@ def export_serving(weights, model, val_loader, model_path):
     keep that asymmetry here.) ``weights`` is the module ``last.pt`` was
     saved from; without a ``best.pt`` a warning skips ``best.nkbx``."""
     import copy
-
-    import torch
 
     from nkbx_torch.export.bundle import export_model
 

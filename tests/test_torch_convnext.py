@@ -295,8 +295,9 @@ def test_registry_names_and_init():
                                                            dtype=np.uint8))
     out = model(build_device_fn([Normalize()])(x))
     assert out.shape == (1, 10) and torch.isfinite(out).all()
-    with pytest.raises(NotImplementedError, match="A12"):
-        ConvNeXt(remat_stages=(2,), **TINY)
+    remat = ConvNeXt(remat_stages=(1,), **TINY)  # the same names: checkpoints load across
+    assert list(remat.state_dict()) == list(ConvNeXt(**TINY).state_dict())
+    assert remat._remat == {"ConvNeXtBlock_1"}
 
 
 def test_same_padding_at_odd_sizes_matches_nkbx():

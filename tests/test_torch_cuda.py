@@ -78,6 +78,10 @@ shows that the kernel, not its plain version, ran:
   exported with ``fused_attention=True`` on the card, reloaded and served
   through the kernels (counted, 2 bf16 ulps of the eager model's largest
   logit); a portable bundle that launches none of them;
+- ``remat_stages`` on a tiny bf16 ConvNeXt (K5/K6) and a tiny fused ghost-BN
+  ResNet (K9/K10) at ragged batches, bit-equal to the run without it
+  (logits, gradients, running statistics; K5 or K9 launched twice); ResNet's
+  ``input_norm`` on the card against the CPU;
 - a tiny Swin's, a tiny ViT's, a tiny ConvNeXt's and a tiny fused ResNet's
   loss backward through the kernels (the ConvNeXt through K5/K6, and through
   K7/K8 under ``NKBX_FUSED_LN_MLP=0``) gives every parameter a finite,
@@ -1613,6 +1617,125 @@ def test_portable_bundle_launches_none_of_the_kernels_on_card(cuda_device, tmp_p
     assert got.shape == (5, 3) and torch.isfinite(got).all()
 
 
+REMAT_CASES = [("convnext", 3), ("convnext", 5), ("resnet", 6), ("resnet", 10)]
+
+
+def _remat_model(family, remat, device):
+    """A tiny bf16 model whose every stage runs under remat or none: a
+    ConvNeXt through K5/K6 (C = 32 and 64, on the GEMM route) or a ghost-BN
+    ResNet whose stride-1 Bottleneck takes the fused chain (K9/K10, C = 256,
+    M = 64)."""
+    from nkbx_torch.models import convnext, resnet
+    from nkbx_torch.models.classifier import SingletaskClassifier
+
+    stages = (0, 1) if remat else ()
+    torch.manual_seed(0)
+    if family == "convnext":
+        backbone = convnext.ConvNeXt(depths=(1, 1), dims=(32, 64), dtype=torch.bfloat16,
+                                     fused_mlp=True, remat_stages=stages)
+    else:
+        backbone = resnet.ResNet(stage_sizes=(2, 1), block_cls=resnet.Bottleneck,
+                                 stem_width=16, ghost_bn=2, fused_bottleneck=True,
+                                 dtype=torch.bfloat16, remat_stages=stages)
+    model = SingletaskClassifier(backbone, 3)
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():  # weights of a scale that moves every block
+        for n, p in model.named_parameters():
+            if n.endswith("layer_scale"):
+                p.copy_(0.1 + 0.9 * torch.rand(p.shape, generator=gen))
+    return model.to(device).train()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family,batch", REMAT_CASES)
+def test_remat_is_bit_equal_on_card(cuda_device, family, batch):
+    """remat_stages on the card, bf16, at ragged batches: logits, gradients
+    and running statistics bit-equal to the run without it, under
+    deterministic algorithms; K5 (or K9) launched twice, its backward once."""
+    fwd, bwd = ((tmlp.fused_ln_mlp, tmlp.fused_ln_mlp_bwd) if family == "convnext"
+                else (tbn.fused_chain, tbn.fused_chain_bwd))
+    size = 64 if family == "convnext" else 32
+    x = torch.from_numpy(np.random.RandomState(batch).randn(batch, size, size, 3)
+                         .astype(np.float32)).to(cuda_device)
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    runs = []
+    try:
+        for remat in (False, True):
+            model = _remat_model(family, remat, cuda_device)
+            before = fwd.launches, bwd.launches
+            out = model(x)
+            out.float().square().sum().backward()
+            torch.cuda.synchronize()
+            runs.append((out.detach(), {n: p.grad for n, p in model.named_parameters()},
+                         {n: b for n, b in model.named_buffers()},
+                         (fwd.launches - before[0], bwd.launches - before[1])))
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+    (o0, g0, b0, n0), (o1, g1, b1, n1) = runs
+    assert n0[0] > 0 and n1 == (2 * n0[0], n0[1]) and n0[1] == n0[0]
+    assert torch.equal(o0, o1)
+    assert all(torch.equal(g0[k], g1[k]) for k in g0)
+    assert all(torch.equal(b0[k], b1[k]) for k in b0)
+
+
+@pytest.mark.cuda
+def test_input_norm_on_card_matches_the_cpu(cuda_device):
+    """ResNet's input_norm (Normalize folded into the s2d stem) on the card
+    against the CPU, f32 with TF32 off: logits within 1e-4 of the largest,
+    on a raw 0-255 batch at 48 px."""
+    from nkbx_torch.models import resnet
+    from nkbx_torch.models.classifier import SingletaskClassifier
+
+    norm = ((123.675, 116.28, 103.53), (58.395, 57.12, 57.375))
+    torch.manual_seed(0)
+    model = SingletaskClassifier(resnet.ResNet(stage_sizes=(1, 1), block_cls=resnet.BasicBlock,
+                                               stem_width=16, input_norm=norm), 3).eval()
+    x = torch.from_numpy(np.random.RandomState(0).randint(0, 256, (3, 48, 48, 3))
+                         .astype(np.float32))
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            want = model(x)
+            got = model.to(cuda_device)(x.to(cuda_device)).cpu()
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+@pytest.mark.cuda
+def test_bf16_master_update_on_card_matches_the_cpu(cuda_device):
+    """One adam step of bf16 master parameters (coupled wd, lr factor 0.75)
+    on the card against the CPU: the bf16 moments bit-equal; the card's
+    foreach add takes p + alpha * u in f32 and rounds once, as the CPU's
+    explicit f32 form does, so a parameter differs only where a fused and
+    an unfused multiply-add round apart: at most 0.1% of them, by one ulp."""
+    from nkbx_torch.train.optim import apply_updates, get_optimizer, init_opt_state
+
+    bundle = get_optimizer({"type": "adam", "lr": 1e-2, "weight_decay": 1e-3})
+    rng = np.random.RandomState(0)
+    base = [(rng.randn(*shape) * 0.2).astype(np.float32) for shape in ((64, 96), (96,), (3, 64))]
+    grads = [rng.randn(*a.shape).astype(np.float32) for a in base]
+    runs = []
+    for device in ("cpu", cuda_device):
+        params = [torch.from_numpy(a).to(device, torch.bfloat16) for a in base]
+        for p, g in zip(params, grads):
+            p.grad = torch.from_numpy(g).to(device, torch.bfloat16)
+        groups = {"backbone": params[:2], "classifier": params[2:]}
+        state = init_opt_state(groups)
+        apply_updates(bundle, state, groups, 0.75, 1.0)
+        runs.append(([p.cpu() for p in params],
+                     [t.cpu() for st in state.values() for t in st.mu + st.nu]))
+    (p_cpu, m_cpu), (p_card, m_card) = runs
+    assert all(a.dtype == torch.bfloat16 and torch.equal(a, b) for a, b in zip(m_cpu, m_card))
+    for a, b in zip(p_cpu, p_card):
+        off = a != b
+        ulp = torch.from_numpy(np.spacing(np.abs(a.float().numpy())).astype(np.float32)) * 2 ** 16
+        assert off.float().mean() <= 1e-3
+        assert ((a.float() - b.float()).abs() <= ulp).all()
+
+
 def test_card_tests_collect_without_jax_or_nkbx():
     """The card's machine has no JAX: this file must collect (and its card
     tests skip here) with jax, flax and nkbx unimportable and no conftest."""
@@ -1635,7 +1758,7 @@ def test_card_tests_collect_without_jax_or_nkbx():
          + len(MB_ROUTE_CASES) + 2 + len(COPY_CASES) + 1
          + 2 * len(UNICOM_SEQ) + len(EPS_CASES)
          + 2 * len(POLICY_SHAPES) + len(HEAVY_SHAPES) + 2 + 1
-         + len(OP_CASES) + 3 + 1)
+         + len(OP_CASES) + 3 + 1 + len(REMAT_CASES) + 1 + 1)
     word = "passed" if torch.cuda.is_available() else "skipped"
     assert re.search(rf"\b{n} {word}\b", proc.stdout), proc.stdout[-2000:]
 

@@ -138,3 +138,39 @@ def test_config_loader_leaves_sys_modules_as_it_found_it(pre):
     assert loaded and all(m == ["nkbx_torch.transforms.spec"] for m in loaded)
     assert len(loaded) + n_refused == len(paths)
     assert n_refused == 0  # heavy_augs_config.py loads too: every device op of nkbx is ported
+
+
+# the command lines of the single-card tools: none reaches nkbx, and the one
+# that runs on a device takes the card unless given --device cpu
+TOOL_CLIS = ("nkbx_torch.models.convert", "nkbx_torch.utils.migrate", "nkbx_torch.save_augs",
+             "nkbx_torch.core.profiling")
+
+_CLI_PROBE = """
+import importlib, json, sys
+for name in {modules!r}:
+    mod = importlib.import_module(name)
+    try:
+        mod.main(["--help"])
+    except SystemExit:
+        pass
+print(json.dumps(sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "nkbx"))))
+"""
+
+
+def test_tool_clis_import_no_jax_flax_or_nkbx():
+    proc = _run(_CLI_PROBE.format(modules=TOOL_CLIS))
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_save_augs_needs_a_card_unless_given_the_cpu(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    proc = subprocess.run([sys.executable, "-m", "nkbx_torch.save_augs", "-cfg",
+                           str(tmp_path / "config.py")], cwd=ROOT, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode != 0 and "device='cpu'" in proc.stderr
+    proc = subprocess.run([sys.executable, "-m", "nkbx_torch.save_augs", "-cfg",
+                           str(tmp_path / "config.py"), "--device", "cpu"], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0 and "Config file not found" in proc.stderr

@@ -333,10 +333,11 @@ def test_registry_names_and_construction_rules():
     assert bb.Bottleneck_0.ConvBN_1.Conv_0.weight.std().item() == pytest.approx(
         (9 * 64) ** -0.5, rel=0.1)
     assert bb.ConvBN_0.BatchNorm_0.running_var.eq(1).all()
-    with pytest.raises(NotImplementedError, match="A12"):
-        tresnet.resnet50(input_norm=((0, 0, 0), (1, 1, 1)))
-    with pytest.raises(NotImplementedError, match="A12"):
-        tresnet.resnet50(remat_stages=(1,))
+    with pytest.raises(ValueError, match="requires the s2d stem"):
+        tresnet.resnet50(input_norm=((0, 0, 0), (1, 1, 1)), s2d_stem=False)
+    remat = tresnet.resnet50(remat_stages=(1,))  # the same names: checkpoints load across
+    assert list(remat.state_dict()) == list(bb.state_dict())
+    assert remat._remat == {f"Bottleneck_{i}" for i in range(3, 7)}
     with pytest.raises(ValueError, match="requires ghost_bn"):
         tresnet.resnet50(fused_bottleneck=True)
     with pytest.raises(ValueError, match="Bottleneck blocks only"):

@@ -286,7 +286,7 @@ def test_cli_writes_nkbx_bytes(tmp_path):
 def test_cli_refusals(tmp_path, monkeypatch, capsys):
     monkeypatch.delenv("NKBX_PRETRAINED_DIR", raising=False)
     for argv, match in ((["--model", "resnet50"], "downloads nothing"),
-                        (["--model", "resnet50", "--to-torch"], "ROADMAP.md A7"),
+                        (["--model", "resnet50", "--to-torch"], "--to-torch requires --weights"),
                         (["--model", "resnet50", "--weights", "x.pth",
                           "--reference-checkpoint"], "requires --out")):
         if "--reference-checkpoint" in argv:
