@@ -4373,8 +4373,8 @@ def check_heavy():
 EXPORT_DIR = os.path.join("build", "export_smoke")  # data, configs, weights, bundles, runs
 EXPORT_REQUESTS = (1, 5, BUCKET, 70)  # images a request; 70 = a chunk of 64 and one of 6
 EXPORT_FORWARDS = 5  # forwards of a bucket-64 bundle for those requests
-EXPORT_BENCH_ITERS = 20  # iterations of each ServingModule.benchmark(64) tier
-EXPORT_SWEEP_ITERS = 10  # iterations of each tier of the serving CLI's sweep
+EXPORT_BENCH_ITERS = 10  # iterations of each ServingModule.benchmark(64) tier
+EXPORT_SWEEP_ITERS = 3  # iterations of each tier of the serving CLI's sweep
 YOLO_CLASSES = ("cat", "dog")
 YOLO_SPLITS = (("train", 48), ("val", 24))  # BMP images, 2 boxes each
 
@@ -5280,6 +5280,389 @@ def drive_probes():
     return counts, wgmma
 
 
+# --- DIST: data parallelism over ranks (A10) ---------------------------------------
+
+DIST_DIR = os.path.join("build", "dist_smoke")  # rank 0's states, configs and runs
+DIST_SGD = {"type": "sgd", "backbone_lr": 1e-3, "classifier_lr": 1e-2}
+RESNET50_GHOST2 = {"model": "resnet50", "backbone_opts": {"ghost_bn": GHOST,
+                                                          "fused_bottleneck": True}}
+# (label, model config, global batch, mixup, kernels every rank launches, dtype, sgd steps)
+DIST_CASES = (
+    ("resnet50_exact", {"model": "resnet50"}, EXACT_BATCH, None, (), "bf16", 3),
+    ("resnet50_ghost2_fused", RESNET50_GHOST2, EXACT_BATCH, None,
+     ("bottleneck", "bottleneck_bwd"), "bf16", 3),
+    ("swin_tiny_cutmix", SWIN_CFG, BUCKET, {"cutmix_alpha": 1.0},
+     ("window_attention", "window_attention_bwd", "ln_mlp", "ln_mlp_bwd"), "bf16", 3),
+    ("resnet50_exact_f32", {"model": "resnet50"}, 32, None, (), "f32", 1),
+)
+DIST_LOSS_TOL = 5e-3  # PERF.md §2: losses within 0.5%
+# floors of the rules against the yardstick (world 1 on a 1-ulp-perturbed input):
+# the update's relative L2 and each running statistic's largest difference
+DIST_FLOOR = {"bf16": (1e-2, 1e-3), "f32": (1e-3, 1e-4)}
+DIST_CLI_TOL = 1e-3  # f32 trainer CLI: metrics.csv values, relative
+DIST_NCCL_TURNS = 4  # turns of (5 steps with the group of one rank, 5 steps without)
+
+
+def dist_run(cfg, batch, mixup, mesh, dtype, steps, perturb=False):
+    """``steps`` sgd steps of a model at full width from seed 0 on seeded
+    uint8 batches of ``batch`` rows (flips + Normalize on the card), in
+    ``dtype`` ("bf16"; "f32" with TF32 off): the global batch without
+    ``mesh``, this rank's rows under it; ``perturb`` multiplies the
+    normalised input by 1 + ulp·N(0, 1) (one ulp of the dtype: the
+    yardstick of what rounding alone moves). Returns (losses, each step's
+    launches, the host state dicts before and after, the port kernels'
+    launches in a profile of the last step)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from nkbx_torch.core.profiling import categorize_kernel
+    from nkbx_torch.train import TrainState, build_train_step, get_loss, get_optimizer
+    from nkbx_torch.transforms import spec as T
+
+    model = get_model(cfg, [f"class{i}" for i in range(N_CLASSES)], input_size=(224, 224),
+                      seed=0, dtype=DT[dtype], device=DEV)
+    init = {k: v.detach().float().cpu() for k, v in model.module.state_dict().items()}
+    state = TrainState.create(model, seed=0)
+    stage = T.Compose([T.HorizontalFlip(), T.Normalize()]).device_apply
+    augment = stage
+    if perturb:
+        gen = torch.Generator(device=DEV).manual_seed(11)
+        ulp = 2.0 ** (-8 if dtype == "bf16" else -23)
+
+        def augment(image, out_dtype=None, generator=None):
+            x = stage(image, out_dtype=torch.float32, generator=generator)
+            noise = torch.randn(x.shape, generator=gen, device=DEV)
+            return (x * (1 + ulp * noise)).to(out_dtype)
+
+    step = build_train_step(model, get_loss({"type": "CrossEntropyLoss"}),
+                            get_optimizer(DIST_SGD), augment_fn=augment, mixup=mixup, mesh=mesh)
+    rng = np.random.default_rng(7)
+    images = rng.integers(0, 256, (steps, batch, 224, 224, 3), dtype=np.uint8)
+    labels = rng.integers(0, N_CLASSES, (steps, batch))
+    rows = mesh.rows(batch // mesh.data) if mesh is not None else slice(None)
+    losses, launches = [], []
+    for i in range(steps):
+        x = torch.from_numpy(np.ascontiguousarray(images[i][rows])).to(DEV)
+        y = torch.from_numpy(np.ascontiguousarray(labels[i][rows])).to(DEV)
+        m = torch.ones(x.shape[0], dtype=torch.bool, device=DEV)
+        zero_counts()
+        ctx = (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+               if i == steps - 1 else contextlib.nullcontext())
+        with ctx as prof:
+            state, metrics = step(state, x, y, m, 1.0, 1.0)
+            torch.cuda.synchronize()
+        launches.append({k: v for k, v in read_counts().items() if v})
+        losses.append(float(metrics["loss"]))
+    profiled = sum(e.count for _, e in device_events(prof)
+                   if categorize_kernel(e.key) == "port kernels")
+    final = {k: v.detach().float().cpu() for k, v in model.module.state_dict().items()}
+    del model, state, step
+    torch.cuda.empty_cache()
+    return losses, launches, init, final, profiled
+
+
+def dist_rank(out, mode):
+    """A rank of DIST (``--dist-rank OUT gloo|nccl``, torchrun's variables in
+    the environment): each case's steps on this rank's rows, rank 0's final
+    state saved for the caller; writes OUT/rank<r>.json."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    from nkbx_torch.core.runtime import initialize
+    from nkbx_torch.parallel import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    info = initialize(distributed=True, device=None if mode == "nccl" else "cuda:0")
+    mesh = make_mesh()
+    res = {"rank": mesh.rank, "backend": info["backend"], "device": str(info["device"]),
+           "cases": {}}
+    for label, cfg, batch, mixup, _, dtype, steps in DIST_CASES:
+        losses, launches, _, final, profiled = dist_run(cfg, batch, mixup, mesh, dtype, steps)
+        if mesh.rank == 0:
+            torch.save(final, os.path.join(out, f"{label}.pt"))
+        digest = hashlib.sha256(b"".join(final[k].numpy().tobytes() for k in sorted(final)))
+        res["cases"][label] = {"losses": losses, "launches": launches, "profiled": profiled,
+                               "digest": digest.hexdigest()}
+    with open(os.path.join(out, f"rank{mesh.rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def dist_env(rank, world, port):
+    return dict(os.environ, RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def start_ranks(out, mode, n=2):
+    os.makedirs(out, exist_ok=True)
+    port = free_port()
+    return [start_cli([os.path.abspath(__file__), "--dist-rank", out, mode],
+                      f"dist_rank{r}_{mode}.log", env=dist_env(r, n, port)) for r in range(n)]
+
+
+def dist_distance(got, want, init):
+    """(the update's relative L2 distance: |got − want| / |want − init| over
+    every parameter; the largest difference of a running statistic over its
+    tensor's largest value)."""
+    params = [k for k in want if "running" not in k and "num_batches" not in k]
+    num = sum(float(((got[k] - want[k]) ** 2).sum()) for k in params)
+    den = sum(float(((want[k] - init[k]) ** 2).sum()) for k in params)
+    stats = max((float((got[k] - want[k]).abs().max() / want[k].abs().max().clamp_min(1e-30))
+                 for k in want if "running" in k), default=0.0)
+    return (num / max(den, 1e-30)) ** 0.5, stats
+
+
+def hold_dist(mode, ranks, out, ref):
+    """The ranks of ``mode`` against the world of 1 (``ref``: each case's
+    run and its run on a 1-ulp-perturbed input, the yardstick): every rank
+    launched what the world of 1 launched each step, its case's kernels
+    included, and its profile of the last step holds them; the same
+    parameters on every rank; each loss within 0.5% (or twice the
+    yardstick's, where that is larger); the update (final − initial
+    weights) and each running statistic within twice the yardstick's
+    distance plus DIST_FLOOR (PERF.md §2's rule for ReLU nets, whose gates
+    near 0 fall either way under rounding). Returns the rows to report and
+    each rank's launches of every kernel over all its steps."""
+    for r, started in enumerate(ranks):
+        finish_cli(started, f"DIST {mode} rank {r}", timeout=600)
+    runs = []
+    for r in range(len(ranks)):
+        with open(os.path.join(out, f"rank{r}.json")) as f:
+            runs.append(json.load(f))
+    rows = {}
+    for label, _, batch, _, kernels, dtype, _ in DIST_CASES:
+        (want_losses, want_launches, init, want, _), (y_losses, _, _, y, _) = ref[label]
+        got = torch.load(os.path.join(out, f"{label}.pt"))
+        cases = [run["cases"][label] for run in runs]
+        if len({c["digest"] for c in cases}) != 1:
+            fail(f"DIST {mode} {label}: the ranks' parameters differ")
+        for r, c in enumerate(cases):
+            for i, counts in enumerate(c["launches"]):
+                missing = [k for k in kernels if not counts.get(k)]
+                if missing or counts != want_launches[i]:
+                    fail(f"DIST {mode} {label}: rank {r} launched {counts} in step {i}, the "
+                         f"world of 1 {want_launches[i]} (none of {missing})")
+            if kernels and not c["profiled"]:
+                fail(f"DIST {mode} {label}: rank {r}'s profile holds no kernel of ours")
+        loss = [abs(a - b) / abs(b) for a, b in zip(cases[0]["losses"], want_losses)]
+        y_loss = [abs(a - b) / abs(b) for a, b in zip(y_losses, want_losses)]
+        update, stats = dist_distance(got, want, init)
+        y_update, y_stats = dist_distance(y, want, init)
+        f_update, f_stats = DIST_FLOOR[dtype]
+        rows[label] = {"dtype": dtype, "loss_rel_err": loss, "yardstick_loss_rel_err": y_loss,
+                       "update_rel_l2": update, "yardstick_update_rel_l2": y_update,
+                       "stats_err": stats, "yardstick_stats_err": y_stats,
+                       "losses_world2": cases[0]["losses"], "losses_world1": want_losses,
+                       "launches_per_step": {f"rank{r}": c["launches"][-1]
+                                             for r, c in enumerate(cases)},
+                       "profiled_port_kernels": {f"rank{r}": c["profiled"]
+                                                 for r, c in enumerate(cases)}}
+        log(f"DIST {mode} {label} (global batch {batch}): {json.dumps(rows[label])}")
+        if (any(a > max(DIST_LOSS_TOL, 2 * b) for a, b in zip(loss, y_loss))
+                or update > 2 * y_update + f_update or stats > 2 * y_stats + f_stats):
+            fail(f"DIST {mode} {label}: world 2 against world 1 off the rule: losses {loss} "
+                 f"(yardstick {y_loss}), update {update:.3g} ({y_update:.3g}), running "
+                 f"statistics {stats:.3g} ({y_stats:.3g})")
+    totals = []
+    for run in runs:
+        log(f"DIST {mode} rank {run['rank']}: backend {run['backend']}, device {run['device']}")
+        total = dict.fromkeys(COUNTED, 0)
+        for c in run["cases"].values():
+            for counts in c["launches"]:
+                for k, v in counts.items():
+                    total[k] += v
+        totals.append(total)
+    return rows, totals
+
+
+def dist_trainer_config(data, run, distributed):
+    """check_trainer's config in f32 with sgd for 1 epoch; ``distributed``
+    for the ranks under torchrun."""
+    text = trainer_config(data, run)
+    for old, new in (("enable_mixed_precision = True", "enable_mixed_precision = False"),
+                     ("n_epochs = 2", "n_epochs = 1"),
+                     ('"n_epochs": 2', '"n_epochs": 1')):
+        text = text.replace(old, new)
+    text = re.sub(r"optimizer = \{[^}]*\}", "optimizer = " + json.dumps(DIST_SGD), text)
+    return text + f"distributed = {distributed}\n"
+
+
+def dist_nccl(out):
+    """``--dist-nccl OUT``: a world of one rank over NCCL (torchrun's
+    variables in the environment): the resnet50 ghost2_fused step at batch
+    64 with the group (its collectives run) and the same step without it, in
+    turns, and one profiled step of each; writes OUT/nccl.json."""
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from nkbx_torch.core.runtime import initialize
+    from nkbx_torch.parallel import make_mesh
+    from nkbx_torch.train import TrainState, build_train_step, get_loss, get_optimizer
+    from nkbx_torch.transforms import spec as T
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    info = initialize(distributed=True)
+    mesh = make_mesh()
+    cfg = RESNET50_GHOST2
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.integers(0, 256, (BUCKET, 224, 224, 3), dtype=np.uint8)).to(DEV)
+    y = torch.from_numpy(rng.integers(0, N_CLASSES, BUCKET)).to(DEV)
+    m = torch.ones(BUCKET, dtype=torch.bool, device=DEV)
+    steps = {}
+    for name, mh in (("group", mesh), ("no_group", None)):
+        model = get_model(cfg, [f"class{i}" for i in range(N_CLASSES)], input_size=(224, 224),
+                          seed=0, dtype=torch.bfloat16, device=DEV)
+        state = TrainState.create(model, seed=0)
+        step = build_train_step(model, get_loss({"type": "CrossEntropyLoss"}),
+                                get_optimizer(DIST_SGD),
+                                augment_fn=T.Compose([T.Normalize()]).device_apply, mesh=mh)
+        steps[name] = [step, state]
+    times = {name: [] for name in steps}
+    counts = {}
+    for turn in range(DIST_NCCL_TURNS + 1):  # the first turn warms up
+        for name, st in steps.items():
+            zero_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                st[1], metrics = st[0](st[1], x, y, m, 1.0, 1.0)
+            float(metrics["loss"])
+            if turn:
+                times[name].append((time.perf_counter() - t0) / 5 * 1e3)
+            counts[name] = {k: v // 5 for k, v in read_counts().items() if v}
+    profiled = {}
+    for name, st in steps.items():  # where the group's time goes: device ms, NCCL's launches
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            st[1], metrics = st[0](st[1], x, y, m, 1.0, 1.0)
+            torch.cuda.synchronize()
+        events = device_events(prof)
+        profiled[name] = {"device_ms": sum(us for us, _ in events) / 1e3,
+                          "launches": sum(e.count for _, e in events),
+                          "nccl_launches": sum(e.count for _, e in events
+                                               if "nccl" in e.key.lower()),
+                          "nccl_ms": sum(us for us, e in events if "nccl" in e.key.lower()) / 1e3}
+    with open(os.path.join(out, "nccl.json"), "w") as f:
+        json.dump({"backend": info["backend"], "device": str(info["device"]),
+                   "step_ms": times, "launches_per_step": counts, "profiled_step": profiled}, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def check_dist():
+    """DIST (A10; also ``--dist`` alone): data parallelism over ranks, the
+    ranks subprocesses, every rank's failure the run's.
+
+    (a) Two ranks on the one card over gloo (``device="cuda:0"``; NCCL
+        refuses two ranks on one device), started first, against the world
+        of 1 here, each case also run here on a 1-ulp-perturbed input (the
+        yardstick): 3 bf16 sgd steps of resnet50 exact BN and resnet50
+        ghost2_fused at a global batch of 128 (64 a rank) and swin_tiny at
+        64 with CutMix (the partners on the other rank), and one f32 step
+        (TF32 off) of resnet50 exact BN at 32, where the yardstick is tight.
+        Each rank launches its case's kernels every step (K9/K10,
+        K1/K2/K5/K6) as the world of 1 does, and its profile of the last
+        step holds them; hold_dist's rules.
+    (b) The trainer CLI under ``torch.distributed.run --nproc_per_node 2``
+        on the card (``--device cuda:0``, gloo), f32, sgd, 1 epoch of
+        check_trainer's folder, against the CLI in one process: every
+        metrics.csv value but the throughput within 1e-3 relative.
+    (c) NCCL: a world of one rank runs the ghost2_fused step with its
+        group's collectives and without a group, in turns (the step ms of
+        each: what the reduction costs in a world of one); where the machine
+        has 2 cards, two ranks over NCCL held as in (a).
+
+    Two ranks sharing one card measure nothing of scaling."""
+    t0 = time.perf_counter()
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    os.makedirs(DIST_DIR)
+    data = os.path.join(TRAINER_DIR, "data")
+    if not os.path.isdir(data):
+        write_image_folder(data)
+    clis = {}
+    for n in (1, 2):
+        cfg_path = os.path.join(DIST_DIR, f"trainer_world{n}.py")
+        with open(cfg_path, "w") as f:
+            f.write(dist_trainer_config(data, os.path.join(DIST_DIR, f"run_world{n}"), n > 1))
+        args = (["-m", "torch.distributed.run", "--standalone", "--nproc_per_node=2",
+                 "-m", "nkbx_torch.train", "-cfg", cfg_path, "--device", "cuda:0"] if n > 1
+                else ["-m", "nkbx_torch.train", "-cfg", cfg_path])
+        clis[n] = start_cli(args, f"dist_trainer_world{n}.log")
+    ranks = start_ranks(os.path.join(DIST_DIR, "gloo"), "gloo")  # beside the world of 1
+    ref = {label: (dist_run(cfg, batch, mixup, None, dtype, steps),
+                   dist_run(cfg, batch, mixup, None, dtype, steps, perturb=True))
+           for label, cfg, batch, mixup, _, dtype, steps in DIST_CASES}
+    out = {}
+    out["gloo"], totals = hold_dist("gloo", ranks, os.path.join(DIST_DIR, "gloo"), ref)
+    logs = {n: finish_cli(clis[n], f"DIST trainer CLI, world {n}")[0] for n in (1, 2)}
+    if "backend gloo" not in logs[2] or "rank 1 of 2" not in logs[2]:
+        fail("DIST (b): the trainer's ranks did not report their gloo group")
+    rows = [read_metrics_csv(os.path.join(DIST_DIR, f"run_world{n}", "metrics.csv"))
+            for n in (1, 2)]
+    worst = 0.0
+    for a, b in zip(*rows, strict=True):
+        for key, v in a.items():
+            if key in ("Epoch", "train images/sec/chip") or not v:
+                continue
+            worst = max(worst, abs(float(b[key]) - float(v)) / max(abs(float(v)), 1e-30))
+    out["trainer_cli_metrics_rel_err"] = worst
+    log(f"DIST (b) trainer CLI, 2 ranks against 1, f32: metrics.csv within {worst:.3g}")
+    if worst > DIST_CLI_TOL:
+        fail(f"DIST (b): metrics.csv of 2 ranks differs from 1 rank's by {worst:.3g}")
+    nccl_dir = os.path.join(DIST_DIR, "nccl")
+    os.makedirs(nccl_dir)
+    finish_cli(start_cli([os.path.abspath(__file__), "--dist-nccl", nccl_dir], "dist_nccl.log",
+                         env=dist_env(0, 1, free_port())), "DIST (c) NCCL world of 1")
+    with open(os.path.join(nccl_dir, "nccl.json")) as f:
+        nccl = json.load(f)
+    for name in ("group", "no_group"):
+        if not (nccl["launches_per_step"][name].get("bottleneck")
+                and nccl["launches_per_step"][name].get("bottleneck_bwd")):
+            fail(f"DIST (c): the {name} step launched no K9/K10")
+    nccl["median_ms"] = {k: float(np.median(v)) for k, v in nccl["step_ms"].items()}
+    nccl["overhead_ms"] = nccl["median_ms"]["group"] - nccl["median_ms"]["no_group"]
+    out["nccl_world1"] = nccl
+    log(f"DIST (c) NCCL world of 1, resnet50 ghost2_fused at batch {BUCKET}: {json.dumps(nccl)}")
+    if torch.cuda.device_count() >= 2:
+        out["nccl"], _ = hold_dist("nccl", start_ranks(os.path.join(DIST_DIR, "nccl2"), "nccl"),
+                                   os.path.join(DIST_DIR, "nccl2"), ref)
+    else:
+        log("DIST (c): one card, so no two-rank NCCL world")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"DIST: {out['seconds']:.1f} s")
+    shutil.rmtree(DIST_DIR, ignore_errors=True)  # ~300 MB of states
+    return out, {f"dist_rank{r}": t for r, t in enumerate(totals)}
+
+
+def dist_only():
+    """``--dist``: the card's name and power limit, the kernels of the
+    phase built (K1, K2, K5, K6, K9, K10) and DIST alone, its numbers as the
+    last line."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60).stdout.strip()
+    log(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    os.makedirs(OUT_DIR, exist_ok=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    _build.build(["window_attention", "window_attention_bwd", "ln_mlp", "ln_mlp_bwd",
+                  "bottleneck", "bottleneck_bwd"])
+    log(f"build: {time.perf_counter() - t0:.1f} s")
+    out, counts = check_dist()
+    log(json.dumps({"dist": out, "counts": counts}))
+
+
 def main():
     os.makedirs(OUT_DIR, exist_ok=True)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5298,47 +5681,59 @@ def main():
             if "registers" in line or "spill" in line or "error" in line.lower():
                 log(f"  {name}: {line.strip()}")
 
-    attn_rows, attn_err = check_attention()
-    mlp_rows, mlp_err = check_mlp()
-    attn_bwd_rows, attn_bwd_err = check_attention_bwd()
-    mlp_bwd_rows, mlp_bwd_err = check_mlp_bwd()
-    sep_rows, sep_err = check_sep_attention()
-    sep_bwd_rows, sep_bwd_err = check_sep_attention_bwd()
-    mlp_only_rows, mlp_only_err = check_mlp_only()
-    mlp_only_bwd_rows, mlp_only_bwd_err = check_mlp_only_bwd()
-    chain_rows, chain_err = check_chain()
-    mb_rows, mb_err = check_matmul_bn()
-    gc_rows, gc_err = check_grouped_conv()
-    layout_rows, layout_err = check_layout()
+    phase_s = {}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = round(time.perf_counter() - t, 1)
+        return out
+
+    attn_rows, attn_err = timed("attention", check_attention)
+    mlp_rows, mlp_err = timed("mlp", check_mlp)
+    attn_bwd_rows, attn_bwd_err = timed("attention_bwd", check_attention_bwd)
+    mlp_bwd_rows, mlp_bwd_err = timed("mlp_bwd", check_mlp_bwd)
+    sep_rows, sep_err = timed("sep_attention", check_sep_attention)
+    sep_bwd_rows, sep_bwd_err = timed("sep_attention_bwd", check_sep_attention_bwd)
+    mlp_only_rows, mlp_only_err = timed("mlp_only", check_mlp_only)
+    mlp_only_bwd_rows, mlp_only_bwd_err = timed("mlp_only_bwd", check_mlp_only_bwd)
+    chain_rows, chain_err = timed("chain", check_chain)
+    mb_rows, mb_err = timed("matmul_bn", check_matmul_bn)
+    gc_rows, gc_err = timed("grouped_conv", check_grouped_conv)
+    layout_rows, layout_err = timed("layout", check_layout)
     served, trained = {}, {}
     for p in PATHS:
         if p.serves:
             with p.environment():
-                served[p.label] = check_path(p)
+                served[p.label] = timed(f"serve_{p.label}", check_path, p)
     for p in PATHS:
         with p.environment():
-            trained[p.label] = check_train(p)
-    resnet_step = check_resnet_step()
-    exact = check_resnet_exact()
-    masked = check_resnet_masked()
+            trained[p.label] = timed(f"train_{p.label}", check_train, p)
+    resnet_step = timed("resnet_step", check_resnet_step)
+    exact = timed("resnet_exact", check_resnet_exact)
+    masked = timed("resnet_masked", check_resnet_masked)
     log(f"resnet50 exact BN (batch {EXACT_BATCH}) and masked BN (batch {BUCKET}): "
         f"{json.dumps({'exact': exact, 'masked_vs_exact_batch64': masked})}")
-    trainer_counts = check_trainer()
+    trainer_counts = timed("trainer", check_trainer)
     served["trainer"] = trained["trainer"] = trainer_counts
-    probe_counts, probe_wgmma = drive_probes()
+    probe_counts, probe_wgmma = timed("probes", drive_probes)
     probed = {"probe": probe_counts}
-    check_shipped()
-    zoo, served["zoo"] = check_zoo()
-    resample, served["resample"] = check_resample()
+    timed("shipped", check_shipped)
+    zoo, served["zoo"] = timed("zoo", check_zoo)
+    resample, served["resample"] = timed("resample", check_resample)
     log(f"zoo and resample: {json.dumps({'zoo': zoo, 'resample': resample})}")
-    _, modern_counts = check_modern()
+    _, modern_counts = timed("modern", check_modern)
     served["modern"] = trained["modern"] = modern_counts
-    served["heavy"] = trained["heavy"] = check_heavy()
-    _, served["export"] = check_export()
-    optins, served["optins"] = check_optins(
+    served["heavy"] = trained["heavy"] = timed("heavy", check_heavy)
+    _, served["export"] = timed("export", check_export)
+    optins, served["optins"] = timed("optins", check_optins,
         os.path.join(TRAINER_DIR, "run_cli", "weights", "best.pt"),
         os.path.join(TRAINER_DIR, "data"))
     trained["optins"] = served["optins"]
+    dist_out, dist_counts = timed("dist", check_dist)
+    log(f"phase seconds: {json.dumps(phase_s)}")
+    served.update(dist_counts)
+    trained.update(dist_counts)
 
     fwd, step = "one bucket-64 swin_tiny forward, bf16", "one batch-64 swin_tiny train step, bf16"
     vfwd = ("one bucket-64 vit_base_patch16_224 forward, bf16 (12 launches at N=197, bias and "
@@ -5522,6 +5917,14 @@ def main():
     for k, what in ((kernels[1], "remat_convnext"), (kernels[3], "remat_convnext"),
                     (kernels[8], "remat_resnet"), (kernels[9], "remat_resnet")):
         k["launches_per_step_remat"] = optins[what]["remat"]["launches_per_step"].get(k["name"])
+    # K1/K2/K5/K6 (swin_tiny) and K9/K10 (resnet50 ghost2_fused) on every rank of DIST (a):
+    # launches a step, each rank's own count
+    for k, label in ((kernels[0], "swin_tiny_cutmix"), (kernels[1], "swin_tiny_cutmix"),
+                     (kernels[2], "swin_tiny_cutmix"), (kernels[3], "swin_tiny_cutmix"),
+                     (kernels[8], "resnet50_ghost2_fused"), (kernels[9], "resnet50_ghost2_fused")):
+        k["launches_per_step_by_rank"] = {
+            f"{label}_{r}": c.get(k["name"], 0)
+            for r, c in dist_out["gloo"][label]["launches_per_step"].items()}
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -5628,7 +6031,13 @@ def optins_only():
 
 
 if __name__ == "__main__":
-    if sys.argv[1:] == ["--optins"]:
+    if sys.argv[1:2] == ["--dist-rank"]:
+        dist_rank(sys.argv[2], sys.argv[3])
+    elif sys.argv[1:2] == ["--dist-nccl"]:
+        dist_nccl(sys.argv[2])
+    elif sys.argv[1:] == ["--dist"]:
+        dist_only()
+    elif sys.argv[1:] == ["--optins"]:
         optins_only()
     elif sys.argv[1:] == ["--resnet-step"]:
         resnet_step_only()

@@ -1,5 +1,5 @@
-"""Device resolution for the port's entry points, timers, and the profiler
-trace.
+"""Device resolution for the port's entry points, the distributed runtime
+(:func:`initialize`), timers, and the profiler trace.
 
 The port runs on the CUDA card by default. The CPU is taken only when the
 caller asks for it (``device="cpu"``, as the tests do); a missing card is an
@@ -25,6 +25,61 @@ def resolve_device(device=None) -> torch.device:
             "nkbx_torch runs on a CUDA card by default and none is available; "
             "pass device='cpu' to run the plain PyTorch versions on the CPU")
     return dev
+
+
+def initialize(distributed: bool = False, device=None) -> dict:
+    """The port's runtime set-up (nkbx's ``initialize``); with
+    ``distributed=True``, this process's rank of a ``torch.distributed``
+    process group made from torchrun's environment (``RANK``,
+    ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``).
+
+    ``device`` None (or ``"cuda"``): each rank takes its own card,
+    ``cuda:LOCAL_RANK`` (raising where the node has no such card), and the
+    group runs over NCCL. An explicit device (``"cpu"``, or ``"cuda:0"`` for
+    ranks that share one card, which NCCL refuses) runs the group over
+    gloo. The backend and device are logged.
+
+    Returns nkbx's keys: ``backend`` (the process group's, or the device
+    type on one process), ``devices`` (ranks), ``local_devices`` (ranks of
+    this node), ``process_index`` and ``process_count`` (the node, nkbx's
+    process: see :mod:`nkbx_torch.parallel.mesh`), and ``rank`` and
+    ``device``."""
+    import logging
+
+    import torch.distributed as dist
+
+    if not distributed:
+        dev = resolve_device(device)
+        return {"backend": dev.type, "devices": 1, "local_devices": 1, "process_index": 0,
+                "process_count": 1, "rank": 0, "device": dev}
+    missing = [k for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
+               if k not in os.environ]
+    if missing:
+        raise RuntimeError(f"initialize(distributed=True) reads torchrun's environment and "
+                           f"{', '.join(missing)} is not set: launch with python -m "
+                           "torch.distributed.run --nproc_per_node=N ...")
+    local_rank = int(os.environ["LOCAL_RANK"])
+    if device is None or str(device) == "cuda":
+        if not torch.cuda.is_available():
+            resolve_device("cuda")  # raises: no card
+        if local_rank >= torch.cuda.device_count():
+            raise RuntimeError(f"LOCAL_RANK {local_rank} has no card of its own: "
+                               f"{torch.cuda.device_count()} visible; start at most that many "
+                               "ranks a node, or pass device= to share one")
+        dev, backend = torch.device("cuda", local_rank), "nccl"
+    else:
+        dev, backend = resolve_device(device), "gloo"
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    if not dist.is_initialized():
+        dist.init_process_group(backend, init_method="env://")
+    world, rank = dist.get_world_size(), dist.get_rank()
+    local_world = int(os.environ.get("LOCAL_WORLD_SIZE", world))
+    logging.getLogger(__name__).info("rank %d of %d: backend %s, device %s", rank, world,
+                                     backend, dev)
+    return {"backend": backend, "devices": world, "local_devices": local_world,
+            "process_index": rank // local_world, "process_count": world // local_world,
+            "rank": rank, "device": dev}
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -86,6 +141,15 @@ class Throughput:
 
     def reset(self):
         self._t0, self._steps, self._images = time.perf_counter(), 0, 0
+
+    @property
+    def images(self) -> int:
+        return self._images
+
+    def add_images(self, n: int):
+        """Images fed in the same time elsewhere: a data-parallel epoch's
+        other ranks, whose cards ``n_chips`` counts."""
+        self._images += n
 
     def snapshot(self) -> dict:
         dt = max(time.perf_counter() - self._t0, 1e-9)

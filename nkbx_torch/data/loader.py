@@ -8,9 +8,13 @@ assembles the next batch while the card computes.
   ``np.random.default_rng((seed, epoch, index))``, so an epoch is a pure
   function of (seed, epoch) and ``epoch(e, start_batch=k)`` resumes it
   exactly.
-- Several processes (``torch.distributed``) read strided slices of one
-  permutation an epoch, padded with -1 sentinels that decode nothing and are
-  masked out.
+- Several processes read strided slices of one permutation an epoch,
+  padded with -1 sentinels that decode nothing and are masked out: nkbx's
+  processes, which under ``torch.distributed`` are torchrun's nodes
+  (``process_index``/``process_count``, :mod:`nkbx_torch.parallel.mesh`).
+  Each of a node's ``local_world`` ranks then takes rows ``[l·b, (l+1)·b)``
+  of every node batch (b = ``batch_size / local_world``) and decodes only
+  those; every rank runs the same number of steps.
 - Where the host stage is [LongestMaxSize(s), PadIfNeeded(s, s, value=0)] or
   [Resize(h, w)] and the native decoder builds (:mod:`nkbx_torch.native`),
   it decodes whole batches; a file it cannot read (BMP, WEBP) and every
@@ -54,6 +58,8 @@ class DataLoader:
         process_count: int = 1,
         prefetch: int = 2,
         image_size: Optional[tuple] = None,
+        local_rank: int = 0,
+        local_world: int = 1,
     ):
         if isinstance(pipeline, Transforms):
             pipeline = pipeline.transforms
@@ -65,6 +71,11 @@ class DataLoader:
         self.prefetch = prefetch
         self.process_index = process_index
         self.process_count = process_count
+        self.local_rank, self.local_world = int(local_rank), int(local_world)
+        if self.batch_size % self.local_world:
+            raise ValueError(f"batch_size {self.batch_size} does not split over the node's "
+                             f"{self.local_world} ranks (each rank takes an equal share)")
+        self.local_batch_size = self.batch_size // self.local_world
         self._epoch = 0
 
         if sampler is not None:
@@ -154,8 +165,8 @@ class DataLoader:
 
     # -- batch assembly --------------------------------------------------------------
 
-    def _assemble(self, indices: np.ndarray, epoch: int):
-        bs = self.batch_size
+    def _assemble(self, indices: np.ndarray, epoch: int, bs: Optional[int] = None):
+        bs = self.batch_size if bs is None else bs
         indices = np.asarray(indices)
         indices = indices[indices >= 0]  # -1 sentinels are only ever a suffix
         n_valid = len(indices)
@@ -171,7 +182,7 @@ class DataLoader:
             images[slot] = img
             labels_slot[slot] = label
 
-        if self._native is not None:
+        if self._native is not None and n_valid:
             nat = self._native
             batch_paths = [nat["paths"][int(i)] for i in indices]
             crops = nat["crops"][indices] if nat["crops"] is not None else None
@@ -187,10 +198,12 @@ class DataLoader:
         mask = np.zeros(bs, dtype=bool)
         mask[:n_valid] = True
         if n_valid == 0:  # an all-sentinel chunk: a fully masked batch
+            from nkbx_torch.data.datasets import InferDataset
+
             if hasattr(self.dataset, "target_names"):
                 labels_slot[0] = {t: 0 for t in self.dataset.target_names}
             else:
-                labels_slot[0] = 0
+                labels_slot[0] = "" if isinstance(self.dataset, InferDataset) else 0
         first = labels_slot[0]
         if isinstance(first, dict):
             labels = {t: np.asarray([labels_slot[i][t] if i < n_valid else 0 for i in range(bs)],
@@ -201,14 +214,16 @@ class DataLoader:
             labels = np.asarray([labels_slot[i] if i < n_valid else 0 for i in range(bs)],
                                 dtype=np.int64)
         if not isinstance(images, np.ndarray):
-            images = np.stack([im for im in images if im is not None])
+            images = (np.stack([im for im in images if im is not None]) if n_valid
+                      else np.zeros((0,), np.uint8))
         key = "path" if isinstance(first, str) else "label"
         return {"image": images, key: labels, "mask": mask}
 
     def epoch(self, epoch: int, start_batch: int = 0):
         """One epoch's batches, assembled ahead in a background thread.
         ``start_batch > 0`` skips the epoch's first batches without decoding
-        them (the preemption cursor)."""
+        them (the preemption cursor). A rank of ``local_world`` > 1 yields its
+        ``local_batch_size`` rows of each node batch."""
         indices = self._local_indices(epoch)
         bs = self.batch_size
         n_full = len(indices) // bs
@@ -219,6 +234,9 @@ class DataLoader:
         chunks = chunks[start_batch:]
         if not chunks:
             return
+        lb = self.local_batch_size
+        if self.local_world > 1:  # this rank's rows of each node batch
+            chunks = [ch[self.local_rank * lb:(self.local_rank + 1) * lb] for ch in chunks]
 
         q: queue.Queue = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
@@ -228,7 +246,7 @@ class DataLoader:
                 for ch in chunks:
                     if stop.is_set():
                         return
-                    q.put(self._assemble(ch, epoch))
+                    q.put(self._assemble(ch, epoch, lb))
             except Exception as e:  # raised again by the consumer
                 q.put(e)
             finally:
@@ -258,22 +276,23 @@ class DataLoader:
         return self.epoch(e)
 
 
-def _process_geometry():
-    """(index, count) of this process: torch.distributed's rank and world
-    size where it is initialised, else (0, 1)."""
-    import torch.distributed as dist
+def _process_geometry(mesh=None) -> dict:
+    """The loader's share of ``mesh``: nkbx's process index and count (the
+    node's rank and the node count) and the rank's place in its node; one
+    process without a mesh."""
+    if mesh is None:
+        return {"process_index": 0, "process_count": 1, "local_rank": 0, "local_world": 1}
+    return {"process_index": mesh.node_rank, "process_count": mesh.node_count,
+            "local_rank": mesh.local_rank, "local_world": mesh.local_world}
 
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_rank(), dist.get_world_size()
-    return 0, 1
 
-
-def get_dataset(data: dict, pipeline) -> DataLoader:
+def get_dataset(data: dict, pipeline, mesh=None) -> DataLoader:
     """The dataset of a config's ``train_data``/``val_data`` and its loader:
     ``type`` (GroupsDataset, AnnotatedMultitaskDataset,
     AnnotatedSingletaskDataset, AnnotatedYOLODataset, else ImageFolder),
     ``batch_size``, ``shuffle``, ``num_workers``, ``drop_last``,
-    ``weighted_sampling``, ``seed``."""
+    ``weighted_sampling``, ``seed``. Under a ``mesh``
+    (:mod:`nkbx_torch.parallel`) the loader reads this rank's share."""
     from nkbx_torch.data import datasets as D
 
     kind = data.get("type", "ImageFolder")
@@ -287,18 +306,20 @@ def get_dataset(data: dict, pipeline) -> DataLoader:
     sampler = None
     if data.get("weighted_sampling", False):
         sampler = ImbalancedDatasetSampler(dataset, seed=data.get("seed", 0))
-    pi, pc = _process_geometry()
     return DataLoader(dataset, pipeline=pipeline, batch_size=data.get("batch_size", 32),
                       shuffle=data.get("shuffle", False), sampler=sampler,
                       num_workers=data.get("num_workers", 8),
                       drop_last=data.get("drop_last", False), seed=data.get("seed", 0),
-                      process_index=pi, process_count=pc)
+                      **_process_geometry(mesh))
 
 
-def get_inference_dataset(data: dict, pipeline) -> DataLoader:
-    """The folder-scan inference loader of a config's ``inference_data``."""
+def get_inference_dataset(data: dict, pipeline, mesh=None) -> DataLoader:
+    """The folder-scan inference loader of a config's ``inference_data``;
+    under a ``mesh`` every batch splits over all of its ranks (nkbx's
+    inference loader reads the whole folder in every process)."""
     from nkbx_torch.data.datasets import InferDataset
 
     return DataLoader(InferDataset(folder_path=data["folder_path"]), pipeline=pipeline,
                       batch_size=data.get("batch_size", 32),
-                      num_workers=data.get("num_workers", 8))
+                      num_workers=data.get("num_workers", 8),
+                      local_rank=mesh.rank if mesh else 0, local_world=mesh.data if mesh else 1)

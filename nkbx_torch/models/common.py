@@ -19,6 +19,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from nkbx_torch.ops.mlp import fused_ln_mlp, fused_mlp, fused_mlp_mode, reference_ln_mlp
+from nkbx_torch.parallel import collectives
 
 
 class LayerNorm(nn.Module):
@@ -147,6 +148,15 @@ class TorchBatchNorm(nn.Module):
       (unbiased with n = g·spatial); g must divide the batch and a mask
       raises, as in nkbx.
 
+    Under a data-parallel train step (:mod:`nkbx_torch.parallel`) the batch
+    is the global one, as under nkbx's mesh: exact and masked statistics sum
+    the f32 (Σx, Σx², count) over every rank, differentiably, so the
+    backward sums too; ghost groups stay on their rank (g must divide the
+    rank's rows), and the running statistics take the mean over every
+    rank's groups (summed after the backward, in one all-reduce for the
+    whole step). The running statistics advance identically on every rank.
+    Eval mode uses no collective.
+
     Parameters ``weight`` (flax ``scale``) and ``bias`` and buffers
     ``running_mean``/``running_var`` (flax ``batch_stats`` ``mean``/``var``)
     are f32."""
@@ -175,6 +185,42 @@ class TorchBatchNorm(nn.Module):
         self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
         self.running_var.copy_(m * self.running_var + (1.0 - m) * unbiased_var)
 
+    @torch.no_grad()
+    def update_running_groups(self, gmean, unbiased_gvar):
+        """:meth:`update_running` toward the mean over the (groups, C)
+        statistics of every rank's ghost groups or chain tiles, in a
+        data-parallel step: the sums wait for the step's one
+        :func:`collectives.flush` (the forward does not read the running
+        statistics), which applies the updates in order."""
+        if getattr(_replay, "depth", 0):
+            return
+        c = gmean.shape[-1]
+        tot = torch.cat([gmean.sum(0), unbiased_gvar.sum(0),
+                         torch.full((1,), float(gmean.shape[0]), device=gmean.device)])
+        collectives.defer_sum(tot, lambda s: self.update_running(s[:c] / s[-1],
+                                                                  s[c:2 * c] / s[-1]))
+
+    def _global_moments(self, xf, mask):
+        """(mean, var, n/(n-1)) over the rows of every rank, weighted by
+        ``mask`` where given: the f32 sums (Σx, Σx², count) of this rank's
+        rows, summed over the ranks by :func:`collectives.sum_across_ranks`."""
+        axes = tuple(range(xf.dim() - 1))
+        c = xf.shape[-1]
+        if mask is None:
+            s1, s2 = xf.sum(axes), (xf * xf).sum(axes)
+            count = torch.full((c,), float(math.prod(xf.shape[:-1])), device=xf.device)
+        else:
+            where = torch.broadcast_to(mask.to(torch.bool), xf.shape)
+            s1 = torch.where(where, xf, 0.0).sum(axes)
+            s2 = torch.where(where, xf * xf, 0.0).sum(axes)
+            count = where.sum(axes, dtype=torch.float32)
+        tot = collectives.sum_across_ranks(torch.cat([s1, s2, count]))
+        s1, s2, count = tot[:c], tot[c:2 * c], tot[2 * c:]
+        mean = s1 / count
+        var = torch.clamp(s2 / count - mean * mean, min=0)
+        n = count.detach()
+        return mean, var, n / torch.clamp(n - 1.0, min=1.0)
+
     def forward(self, x, mask=None):
         dtype = self.dtype or x.dtype
         xf = x.float()
@@ -186,18 +232,30 @@ class TorchBatchNorm(nn.Module):
                                  "use drop_last=True with the max-throughput recipe")
             b, g = x.shape[0], self.ghost_bn
             if b % g:
+                mesh = collectives.active()
+                if mesh is not None:
+                    raise ValueError(f"ghost BN under a {mesh.data}-rank data axis needs the "
+                                     f"batch B={b * mesh.data} divisible by "
+                                     f"ndev*ghost_bn={mesh.data * g}")
                 raise ValueError(f"ghost_bn={g} must divide the batch ({b})")
             xg = xf.reshape((b // g, g) + tuple(x.shape[1:]))
             axes = tuple(range(1, xg.dim() - 1))  # (g, spatial) per group
             gmean = xg.mean(axes)
             gvar = torch.clamp((xg * xg).mean(axes) - gmean * gmean, min=0)
             n = float(g * math.prod(x.shape[1:-1]))
-            self.update_running(gmean.detach().mean(0),
-                                (gvar.detach() * (n / max(n - 1.0, 1.0))).mean(0))
+            if collectives.active() is None:
+                self.update_running(gmean.detach().mean(0),
+                                    (gvar.detach() * (n / max(n - 1.0, 1.0))).mean(0))
+            else:
+                self.update_running_groups(gmean.detach(),
+                                           gvar.detach() * (n / max(n - 1.0, 1.0)))
             inv = torch.rsqrt(gvar + self.eps) * self.weight
             bshape = (b // g,) + (1,) * (xg.dim() - 2) + (x.shape[-1],)
             y = (xg - gmean.reshape(bshape)) * inv.reshape(bshape) + self.bias
             return y.reshape(x.shape).to(dtype)
+        elif collectives.active() is not None:
+            mean, var, unbias = self._global_moments(xf, mask)
+            self.update_running(mean.detach(), var.detach() * unbias)
         else:
             axes = tuple(range(x.dim() - 1))
             if mask is None:

@@ -35,6 +35,7 @@ from torch import nn
 
 from nkbx_torch.models.common import ConvBN, TorchBatchNorm, init_conv_, lecun_normal_, remat
 from nkbx_torch.ops.bottleneck import fused_chain, stat_band
+from nkbx_torch.parallel import collectives
 
 
 def _nchw(x):
@@ -261,7 +262,10 @@ class Bottleneck(nn.Module):
         n = g * th * x.shape[2]
         unb = n / max(n - 1.0, 1.0)
         for bn, mu, var in zip(bns, stats[0::2], stats[1::2]):
-            bn.update_running(mu.mean(0), var.mean(0) * unb)
+            if collectives.active() is None:
+                bn.update_running(mu.mean(0), var.mean(0) * unb)
+            else:  # the mean over every rank's tiles
+                bn.update_running_groups(mu, var * unb)
         return out
 
 

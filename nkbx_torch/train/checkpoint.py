@@ -17,7 +17,9 @@ Layout under ``<run>/weights/``:
   ``load_model_variables`` does.
 
 A save writes into ``<path>.tmp`` and swaps it into place, so the previous
-checkpoint survives a preemption during the save.
+checkpoint survives a preemption during the save. With several ranks (their
+states are equal) rank 0 alone writes, between two barriers: no rank goes
+on before the swap is done, nor reads a checkpoint that is being written.
 """
 
 from __future__ import annotations
@@ -27,6 +29,8 @@ import shutil
 from pathlib import Path
 
 import torch
+
+from nkbx_torch.parallel import collectives
 
 STATE_FILE = "train_state.pt"
 
@@ -53,7 +57,15 @@ def save_checkpoint(path, state, epoch: int, best_val_acc: float = 0.0,
     ``cursor`` (the mid-epoch preemption cursor) is written as the sidecar
     ``<path>.cursor.json``; ``None`` (every end-of-epoch save) removes a
     stale one. The cursor pins the state's ``step``, so one that does not
-    match its checkpoint is ignored on resume."""
+    match its checkpoint is ignored on resume. Every rank calls it; rank 0
+    writes."""
+    collectives.barrier()
+    if collectives.rank() == 0:
+        _write_checkpoint(path, state, epoch, best_val_acc, cursor)
+    collectives.barrier()
+
+
+def _write_checkpoint(path, state, epoch, best_val_acc, cursor):
     path = Path(path).resolve()
     tmp = path.with_name(path.name + ".tmp")
     if tmp.exists():
@@ -115,5 +127,6 @@ def restore_train_state(path, state):
 
 def save_weights(path, module):
     """The module's state dict alone (``best.pt``, ``last.pt``): the trained
-    module, or the EMA shadow where the run keeps one."""
-    torch.save(module.state_dict(), path)
+    module, or the EMA shadow where the run keeps one. Rank 0 writes."""
+    if collectives.rank() == 0:
+        torch.save(module.state_dict(), path)

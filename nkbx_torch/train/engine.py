@@ -14,6 +14,17 @@ The epoch half (nkbx ``engine.py:374-810``): :class:`EpochCollector`
 gathers each step's metrics (exact per-sample, or bounded counts on the
 card), :func:`train_epoch` runs an epoch of steps from a loader, from a
 preemption cursor on, and :func:`val_epoch` one of evaluation.
+
+Under a data-parallel ``mesh`` (:mod:`nkbx_torch.parallel`; one process a
+GPU, each with its rows of the global batch) the step keeps nkbx's
+global-batch semantics with explicit collectives: BatchNorm's statistics,
+the device stage's draws and mixup's partners cover the global batch; each
+normaliser of the loss is the global one, so each rank's loss is its rows'
+share of the global loss; after the backward one sum of the gradients over
+the ranks (:func:`~nkbx_torch.parallel.collectives.all_reduce_grads`); the
+metrics' losses are the global ones on every rank, and the collectors
+gather the per-sample metrics in nkbx's global row order. Every rank then
+takes the same update.
 """
 
 from __future__ import annotations
@@ -25,6 +36,7 @@ import numpy as np
 import torch
 
 from nkbx_torch.core.runtime import Throughput
+from nkbx_torch.parallel import collectives
 from nkbx_torch.train.optim import OptimizerBundle, apply_updates
 
 
@@ -66,10 +78,67 @@ def _scalar(loss_out):
     return loss_out["loss"] if isinstance(loss_out, dict) else loss_out
 
 
+def _masses(criterion, label, mask):
+    """The normaliser of each term of the loss, (T,): the criterion's
+    ``batch_mass``, per target for a multi-task loss (targets sorted)."""
+    if isinstance(label, dict):
+        inner = getattr(criterion, "criterion", None)
+        fn = getattr(inner, "batch_mass", None)
+        return torch.stack([(fn(label[t], mask) if fn is not None else mask.float().sum())
+                            for t in sorted(label)]).float()
+    fn = getattr(criterion, "batch_mass", None)
+    return (fn(label, mask) if fn is not None else mask.float().sum()).reshape(1).float()
+
+
+def _terms(loss_out, fn):
+    """``loss_out`` with each term (the loss, or each target's, in sorted
+    order) replaced by ``fn(i, term)``; a multi-task ``"loss"`` summed again
+    in the criterion's order."""
+    if not isinstance(loss_out, dict):
+        return fn(0, loss_out)
+    out, total = {}, 0.0
+    for i, t in enumerate(sorted(k for k in loss_out if k != "loss")):
+        out[t] = fn(i, loss_out[t])
+        total = total + out[t]
+    out["loss"] = total
+    return out
+
+
+def _rescale(loss_out, scale):
+    """Each term of ``loss_out`` times its ``scale`` (T,)."""
+    return _terms(loss_out, lambda i, term: term * scale[i])
+
+
+def _global_scales(local):
+    """local masses (..., T) -> this rank's share of each global mass: the
+    factor that turns a rank's loss, normalised by its own mass, into its
+    rows' share of the global batch's loss."""
+    return local / torch.clamp(collectives.all_reduce_(local.clone()), min=1e-12)
+
+
+def _loss_paths(metrics):
+    return [(t,) for t in metrics if isinstance(metrics[t], dict) and "loss" in metrics[t]] \
+        + [()]
+
+
+def _sum_losses_(metrics):
+    """The metrics' losses (each rank's share) summed over the ranks in
+    place: the global batch's losses on every rank."""
+    paths = _loss_paths(metrics)
+    vals = [metrics[p[0]]["loss"] if p else metrics["loss"] for p in paths]
+    flat = collectives.all_reduce_(torch.cat([v.reshape(-1).float() for v in vals]))
+    for p, v, part in zip(paths, vals, flat.split([v.numel() for v in vals])):
+        part = part.reshape(v.shape).to(v.dtype)
+        if p:
+            metrics[p[0]]["loss"] = part
+        else:
+            metrics["loss"] = part
+
+
 def build_train_step(model, criterion, bundle: OptimizerBundle, augment_fn=None,
                      log_gradients: bool = False, masked_bn: bool = False, scan_steps: int = 1,
                      grad_accum_steps: int = 1, ema_decay: float = 0.0, mixup: dict = None,
-                     freeze_semantics: str = "decay", debug_nans: bool = False):
+                     freeze_semantics: str = "decay", debug_nans: bool = False, mesh=None):
     """Returns ``step(state, image_u8, label, mask, lr_factor, freeze_scale)
     -> (state, metrics)``, nkbx's train step (engine.py:83-295).
 
@@ -111,6 +180,17 @@ def build_train_step(model, criterion, bundle: OptimizerBundle, augment_fn=None,
       the first) before the update; with ``scan_steps`` each of the K steps
       is checked. Off, the step is unchanged.
 
+    ``mesh`` (a :class:`~nkbx_torch.parallel.Mesh`, in a process group of
+    any size; without a group the step is the one-process step): the step
+    is one rank's part of nkbx's step over the global batch (the
+    module's docstring); the gradients in ``.grad`` are the global ones,
+    the same on every rank, and so are the update, the running statistics,
+    the EMA shadow, ``grad_norms`` and the metrics' losses. With
+    ``grad_accum_steps`` the rows are first exchanged so that each rank
+    holds its share of every global microbatch (nkbx's microbatch i is rows
+    [i·B/A, (i+1)·B/A) of the global batch). ``debug_nans`` reads the summed
+    gradients, so every rank raises together.
+
     Without ``debug_nans`` nothing in a step waits on a host value. nkbx's errors are raised where
     nkbx raises them: ``scan_steps`` with accumulation; A not dividing the
     batch; accumulation with a multi-task criterion that normalises by mass;
@@ -146,14 +226,45 @@ def build_train_step(model, criterion, bundle: OptimizerBundle, augment_fn=None,
     module, dtype = model.module, model.dtype
     grad_keys = ({p: flax_param_path(n, p) for n, p in module.named_parameters()}
                  if log_gradients else None)
+    dp = mesh is not None and collectives.grouped()
 
-    def forward_loss(x, label, mask, label_b, lam):
+    def forward_loss(x, label, mask, label_b, lam, scales=None):
+        """``scales`` (2, T), data-parallel: each term's share of its global
+        normaliser, for the labels and the partners' labels."""
         preds = module(x, mask=mask.reshape(-1, 1, 1, 1)) if masked_bn else module(x)
         loss_out = criterion(preds, label, mask=mask)
+        if scales is not None:
+            loss_out = _rescale(loss_out, scales[0])
         if label_b is not None:
             loss_b = criterion(preds, label_b, mask=mask)
+            if scales is not None:
+                loss_b = _rescale(loss_b, scales[1])
             loss_out = _tree_map(lambda a, b: lam * a + (1.0 - lam) * b, loss_out, loss_b)
         return preds, loss_out
+
+    def step_scales(label, mask, label_b):
+        """(2, T) shares of the global normalisers of a (micro)batch."""
+        lb = label if label_b is None else label_b
+        return _global_scales(torch.stack([_masses(criterion, label, mask),
+                                           _masses(criterion, lb, mask)]))
+
+    def relayout(x, label, mask, label_b):
+        """Data-parallel accumulation: the rows exchanged so that this rank
+        holds, for each microbatch i, rows i·B/A + r·b/A + [0, b/A) of the
+        global batch (B = N·b), its share of nkbx's microbatch i."""
+        b, n = x.shape[0], mesh.data
+        if b % accum:
+            raise ValueError(f"grad_accum_steps={accum} must divide each rank's batch of {b} "
+                             f"rows ({n} ranks: each takes an equal share of every microbatch)")
+        per, big = b // accum, n * b // accum
+        idx = torch.cat([torch.arange(i * big + mesh.rank * per, i * big + (mesh.rank + 1) * per)
+                         for i in range(accum)]).to(x.device)
+
+        def move(v):
+            return collectives.all_gather_rows(v)[idx]
+
+        return (move(x), _tree_map(move, label), move(mask),
+                _tree_map(move, label_b) if label_b is not None else None)
 
     def accumulate(x, label, mask, label_b, lam):
         """The A microbatches' mass-weighted gradients into ``.grad``; their
@@ -168,16 +279,33 @@ def build_train_step(model, criterion, bundle: OptimizerBundle, augment_fn=None,
         xs, ls, ms = split(x), _tree_map(split, label), split(mask)
         lbs = _tree_map(split, label_b) if label_b is not None else None
         params = list(module.parameters())
+        scales = weights = None
+        if dp:  # every microbatch's global normalisers and weight, in one all-reduce
+            local = torch.stack([torch.stack([
+                _masses(criterion, _tree_map(lambda v: v[i], ls), ms[i]),
+                _masses(criterion, _tree_map(lambda v: v[i], lbs if lbs is not None else ls),
+                        ms[i])]) for i in range(accum)])
+            w = torch.stack([(criterion.batch_mass(_tree_map(lambda v: v[i], ls), ms[i])
+                              if hasattr(criterion, "batch_mass") else ms[i].float().sum())
+                             for i in range(accum)]).float()
+            both = torch.cat([local.reshape(-1), w])
+            glob = collectives.all_reduce_(both.clone())
+            scales = local / torch.clamp(glob[:local.numel()].reshape(local.shape), min=1e-12)
+            weights = glob[local.numel():]
         gsum, nsum, per = None, 0.0, []
         for i in range(accum):
             l_i = _tree_map(lambda v: v[i], ls)
             lb_i = _tree_map(lambda v: v[i], lbs) if lbs is not None else None
             module.zero_grad(set_to_none=True)
-            preds, loss_out = forward_loss(xs[i], l_i, ms[i], lb_i, lam)
+            preds, loss_out = forward_loss(xs[i], l_i, ms[i], lb_i, lam,
+                                           scales[i] if dp else None)
             _scalar(loss_out).backward()
             with torch.no_grad():
-                n = (criterion.batch_mass(l_i, ms[i]) if hasattr(criterion, "batch_mass")
-                     else ms[i].float().sum())
+                if dp:
+                    n = weights[i]
+                else:
+                    n = (criterion.batch_mass(l_i, ms[i]) if hasattr(criterion, "batch_mass")
+                         else ms[i].float().sum())
                 # this microbatch's .grad tensors are scaled in place: the next
                 # zero_grad(set_to_none=True) leaves them to gsum
                 g = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
@@ -195,32 +323,53 @@ def build_train_step(model, criterion, bundle: OptimizerBundle, augment_fn=None,
         return _stack(per)
 
     def one_step(state, image, label, mask, lr_factor, freeze_scale):
+        with collectives.data_parallel(mesh):
+            return rank_step(state, image, label, mask, lr_factor, freeze_scale)
+
+    def rank_step(state, image, label, mask, lr_factor, freeze_scale):
         module.train()
         x = (augment_fn(image, out_dtype=dtype, generator=state.generator)
              if augment_fn is not None else image)
         label_b = lam = None
         if mix is not None:
             # a padded row's partner is itself, which leaves the row unmixed
-            x, lam, partner = mix(x, mask, generator=state.generator)
-            label_b = _tree_map(lambda v: v[partner], label)
+            if dp:  # the partners of this rank's rows: rank N-1-r's rows, reversed
+                b, src = x.shape[0], mesh.data - 1 - mesh.rank
+
+                def peer(v):
+                    return collectives.all_gather_rows(v)[src * b:(src + 1) * b]
+
+                x, lam, partner = mix(x, mask, generator=state.generator,
+                                      peer=(peer(x), peer(mask)))
+                label_b = _tree_map(lambda v: torch.cat([v, peer(v)])[partner], label)
+            else:
+                x, lam, partner = mix(x, mask, generator=state.generator)
+                label_b = _tree_map(lambda v: v[partner], label)
+        if dp and accum > 1:
+            x, label, mask, label_b = relayout(x, label, mask, label_b)
         module.zero_grad(set_to_none=True)
         metrics = None
         if accum > 1:
             metrics = accumulate(x, label, mask, label_b, lam)
         else:
-            preds, loss_out = forward_loss(x, label, mask, label_b, lam)
+            scales = step_scales(label, mask, label_b) if dp else None
+            preds, loss_out = forward_loss(x, label, mask, label_b, lam, scales)
             _scalar(loss_out).backward()
+            with torch.no_grad():
+                metrics = _iter_metrics(_detach(preds), label, mask, _detach(loss_out))
+        if dp:
+            with torch.no_grad():
+                collectives.flush()  # the ghost groups' running statistics
+                collectives.all_reduce_grads(module.parameters())
+                _sum_losses_(metrics)
         if debug_nans:
-            check_finite(state.step, metrics["loss"] if metrics is not None
-                         else _scalar(loss_out), module.parameters())
+            check_finite(state.step, metrics["loss"], module.parameters())
         grads = apply_updates(bundle, state.opt_state, state.groups, lr_factor, freeze_scale,
                               freeze_semantics)
         with torch.no_grad():
             if ema_decay > 0 and state.ema_module is not None:
                 state.update_ema(ema_decay)
             state.step += 1
-            if metrics is None:
-                metrics = _iter_metrics(_detach(preds), label, mask, _detach(loss_out))
             if log_gradients:
                 norms = {}
                 for label_, params in state.groups.items():
@@ -246,6 +395,7 @@ def build_train_step(model, criterion, bundle: OptimizerBundle, augment_fn=None,
     step.has_batchnorm = has_batchnorm(module)
     step.scan_steps = scan_steps
     step.mixup = mix
+    step.mesh = mesh
     return step
 
 
@@ -277,18 +427,29 @@ def has_batchnorm(module) -> bool:
     return any(isinstance(m, TorchBatchNorm) for m in module.modules())
 
 
-def build_eval_step(model, criterion, augment_fn=None):
+def build_eval_step(model, criterion, augment_fn=None, mesh=None):
     """Returns ``eval_step(state, image_u8, label, mask) -> metrics``: the
     device stage without random ops, the model in eval mode, the loss, and
-    no gradients."""
+    no gradients. Under a ``mesh`` (in a process group) the loss is the
+    global batch's (one all-reduce of each term's mass-weighted loss and
+    mass), the same on every rank."""
     module, dtype = model.module, model.dtype
+    dp = mesh is not None and collectives.grouped()
 
     @torch.inference_mode()
     def eval_step(state, image, label, mask):
         module.eval()
         x = augment_fn(image, out_dtype=dtype) if augment_fn is not None else image
         preds = module(x)
-        return _iter_metrics(preds, label, mask, criterion(preds, label, mask=mask))
+        loss_out = criterion(preds, label, mask=mask)
+        if dp:
+            m = _masses(criterion, label, mask)
+            terms = ([loss_out[t] for t in sorted(k for k in loss_out if k != "loss")]
+                     if isinstance(loss_out, dict) else [loss_out])
+            tot = collectives.all_reduce_(torch.cat([torch.stack(terms).float() * m, m]))
+            glob = tot[:len(terms)] / torch.clamp(tot[len(terms):], min=1e-12)
+            loss_out = _terms(loss_out, lambda i, term: glob[i])
+        return _iter_metrics(preds, label, mask, loss_out)
 
     return eval_step
 
@@ -335,13 +496,20 @@ class EpochCollector:
     Both take a step's metrics as (B, ...) or stacked (K, B, ...) (scan
     steps, accumulation). Gradient norms (``log_gradients``) come back in
     ``metrics_grad_log``: ``Gradients/<path>`` per parameter and
-    ``Gradients/Total``, the sum of a step's norms, one value per step."""
+    ``Gradients/Total``, the sum of a step's norms, one value per step.
 
-    def __init__(self, task: str = "single", mode: str = "exact"):
+    Under a ``mesh`` in a process group (each rank's steps hold its rows)
+    the exact mode all-gathers the per-sample tensors at the epoch's end in
+    nkbx's global row order, and the bounded mode sums the folded counts
+    over the ranks: every rank computes the same metrics. Every rank must
+    log the same number of steps (the loader pads every rank to it)."""
+
+    def __init__(self, task: str = "single", mode: str = "exact", mesh=None):
         if mode not in ("exact", "bounded"):
             raise ValueError(f"Unknown metrics accumulation mode {mode!r}")
         self.task = task
         self.mode = mode
+        self.mesh = mesh if mesh is not None and collectives.grouped() else None
         self.init_iter_logs()
 
     def init_iter_logs(self):
@@ -392,8 +560,50 @@ class EpochCollector:
             grad_log["Gradients/Total"].extend(totals or [])
         return dict(grad_log)
 
+    @staticmethod
+    def _per_sample_paths(m):
+        """The paths of a step's per-sample tensors (not its losses or
+        gradient norms)."""
+        keys = ("confidences", "predictions", "ground_truth")
+        paths = [(t, k) for t, v in m.items() if isinstance(v, dict) and "confidences" in v
+                 for k in keys]
+        return paths + [(k,) for k in keys if k in m] + [("mask",)]
+
+    def _gather_global(self, batches):
+        """Every rank's per-sample tensors of each step, in the global batch's
+        row order: this rank's rows hold rows ``rank·b + [0, b)`` of their
+        axis (the mask's last), so a gather puts the ranks just before it.
+        Tensors of one (path, shape, dtype) go in one all-gather."""
+        def get(m, p):
+            return m[p[0]][p[1]] if len(p) == 2 else m[p[0]]
+
+        out = [{k: dict(v) if isinstance(v, dict) else v for k, v in m.items()}
+               for m in batches]
+        groups = defaultdict(list)
+        for i, m in enumerate(batches):
+            for p in self._per_sample_paths(m):
+                t = get(m, p)
+                groups[(p, tuple(t.shape), t.dtype)].append(i)
+        n = self.mesh.data
+        for (p, shape, _), idxs in groups.items():
+            g = collectives.all_gather_rows(torch.stack([get(batches[i], p) for i in idxs])[None])
+            axis = batches[idxs[0]]["mask"].dim() - 1
+            for j, i in enumerate(idxs):
+                v = g[:, j].movedim(0, axis)
+                v = v.reshape(shape[:axis] + (n * shape[axis],) + shape[axis + 1:])
+                if len(p) == 2:
+                    out[i][p[0]][p[1]] = v
+                else:
+                    out[i][p[0]] = v
+        return out
+
     def _bounded_results(self):
         from nkbx_torch.metrics import bounded_targetwise_metrics
+
+        if self.mesh is not None:  # the counts of every rank's rows
+            for st in self._bounded.values():
+                for k in ("counts", "pos_hist", "neg_hist"):
+                    collectives.all_reduce_(st[k])
 
         def flat_losses(v):
             return [float(f) for x in _to_host(v) for f in np.ravel(x)]
@@ -417,6 +627,8 @@ class EpochCollector:
     def get_epoch_results(self):
         if self.mode == "bounded":
             return self._bounded_results()
+        if self.mesh is not None:
+            self._batches = self._gather_global(self._batches)
         batches = _to_host(self._batches)
         if self.task == "multi":
             running_loss, confidences = defaultdict(list), defaultdict(list)
@@ -498,14 +710,23 @@ def train_epoch(state, train_loader, train_step, epoch: int, lr_factor: float,
     (``start_batch`` included), the cursor the trainer saves: batches still
     buffered for an unfinished chunk were not stepped and do not count, so a
     resumed run reads them again. Metrics of a resumed epoch cover the
-    remaining batches. ``device`` defaults to the module's."""
+    remaining batches. ``device`` defaults to the module's.
+
+    Under the step's data-parallel ``mesh`` (more than one rank) the ranks
+    agree on preemption every ``cfg.preempt_sync_every`` batches (default 8;
+    0: at the epoch's end only) with :func:`preempt.agreed`, so a SIGTERM to
+    any rank stops every rank at the same batch, and the throughput counts
+    the images of every rank over the ranks' cards."""
     from nkbx_torch.train import preempt
 
     device = next(state.module.parameters()).device if device is None else device
     task = getattr(cfg, "task", "single") if cfg is not None else "single"
-    logger = epoch_logger if epoch_logger is not None else EpochCollector(task)
+    mesh = getattr(train_step, "mesh", None)
+    multi = mesh is not None and mesh.data > 1
+    logger = epoch_logger if epoch_logger is not None else EpochCollector(task, mesh=mesh)
     logger.init_iter_logs()
-    tp = Throughput()
+    tp = Throughput(n_chips=mesh.data if multi else 1)
+    sync_every = int(getattr(cfg, "preempt_sync_every", 8) or 0) if cfg is not None else 8
     spd = getattr(train_step, "scan_steps", 1)
     it = train_loader.epoch(epoch, start_batch) if start_batch else train_loader.epoch(epoch)
     it = _progress(it, "Training", len(train_loader) - start_batch, progress)
@@ -528,8 +749,9 @@ def train_epoch(state, train_loader, train_step, epoch: int, lr_factor: float,
         steps += len(batches)
         calls += 1
 
-    for batch in it:
-        if preempt.requested():
+    for bi, batch in enumerate(it):
+        if (sync_every and bi % sync_every == 0 and preempt.agreed()) if multi \
+                else preempt.requested():
             preempted = True
             break
         buf.append(batch)
@@ -544,6 +766,8 @@ def train_epoch(state, train_loader, train_step, epoch: int, lr_factor: float,
     if metrics is not None:
         float(_loss_of(metrics))  # wait for the last step, so the throughput is honest
     results = logger.get_epoch_results()
+    if multi:  # the images of every rank
+        tp.add_images(collectives.sum_count(tp.images) - tp.images)
     results["throughput"] = tp.snapshot()
     results["preempted"] = preempted
     results["consumed_batches"] = start_batch + steps
@@ -566,7 +790,8 @@ def _warn_unmasked_partial():
 def val_epoch(state, val_loader, eval_step, epoch: int = 0, epoch_logger=None,
               progress: bool = True, task: str = "single", device=None):
     """One evaluation epoch of ``eval_step`` (:func:`build_eval_step`);
-    returns the epoch's results."""
+    returns the epoch's results. Under a mesh, give an ``epoch_logger``
+    made with it, so that the results cover every rank's rows."""
     device = next(state.module.parameters()).device if device is None else device
     logger = epoch_logger if epoch_logger is not None else EpochCollector(task)
     logger.init_iter_logs()

@@ -5,7 +5,10 @@ timm's batch mode, as nkbx runs it: one draw a step. With chance ``prob``
 the batch is mixed, by CutMix (chance ``switch_prob`` where both alphas are
 on) or by mixup, at one lam from Beta(alpha, alpha); each row mixes with the
 row of the reversed batch, or with itself where that row is padded (masked
-out), which leaves a padded partner's row unmixed. CutMix pastes a box of
+out), which leaves a padded partner's row unmixed. Under a data-parallel
+step the batch is the global one: the draws are one for all ranks (the
+generators stay in step), and a row's partner usually lives on another rank
+(``peer``). CutMix pastes a box of
 about (1 - lam) of the image, centred at a uniform pixel and clipped to the
 image, and lam becomes one minus the box's true area. The loss is then
 ``lam * loss(labels) + (1 - lam) * loss(labels[partner])``.
@@ -74,18 +77,31 @@ class Mixup:
         return {"apply": apply, "use_cutmix": use_cutmix, "lam0": lam0.float(), "cy": cy,
                 "cx": cx}
 
-    def apply(self, x, mask, draws: dict):
+    def apply(self, x, mask, draws: dict, peer=None):
         """(mixed, lam, partner) of the NHWC batch ``x`` under ``draws``:
         ``mixed`` in ``x``'s dtype (mixup blends in f32), ``lam`` an f32
         scalar (1 where the step does not mix), ``partner`` the row each row
-        mixed with."""
+        mixed with.
+
+        ``peer`` = (x, mask) of another rank's rows, under a data-parallel
+        step: the global batch's reversal pairs this rank's rows with the
+        reversed rows of rank N−1−r, which ``peer`` holds (a padded peer row
+        leaves its partner unmixed). ``partner`` then indexes the rows of
+        ``x`` followed by those of ``peer``."""
         b, h, w = x.shape[0], x.shape[1], x.shape[2]
         dev = x.device
         d = {k: v.to(dev) for k, v in draws.items()}
         rev = torch.arange(b - 1, -1, -1, device=dev)
-        partner = rev if mask is None else torch.where(mask[rev].bool(), rev,
-                                                       torch.arange(b, device=dev))
-        flipped = x[partner]
+        if peer is None:
+            partner = rev if mask is None else torch.where(mask[rev].bool(), rev,
+                                                           torch.arange(b, device=dev))
+            flipped = x[partner]
+        else:
+            px, pmask = peer
+            take = (torch.ones(b, dtype=torch.bool, device=dev) if pmask is None
+                    else pmask[rev].bool())
+            partner = torch.where(take, b + rev, torch.arange(b, device=dev))
+            flipped = torch.where(take[:, None, None, None], px[rev], x)
         lam0 = d["lam0"].float()
         mixed_m = (lam0 * x.float() + (1.0 - lam0) * flipped.float()).to(x.dtype)
         # cutmix: nkbx's integer box (truncated sides, halves floored, clipped)
@@ -107,7 +123,7 @@ class Mixup:
         lam = torch.where(d["apply"], lam, torch.ones_like(lam))
         return mixed, lam, partner
 
-    def __call__(self, x, mask=None, generator=None, draws=None):
+    def __call__(self, x, mask=None, generator=None, draws=None, peer=None):
         if draws is None:
             draws = self.draw(tuple(x.shape), generator, x.device)
-        return self.apply(x, mask, draws)
+        return self.apply(x, mask, draws, peer)

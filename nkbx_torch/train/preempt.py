@@ -3,9 +3,13 @@ sets a flag; the epoch loop breaks at the next step boundary, the trainer
 saves the full train state with a batch cursor (``last.cursor.json``), and
 ``--resume`` continues the interrupted epoch where the signal hit.
 
-:func:`agreed` is the decision all processes take together; on one process
-it is :func:`requested`. Agreeing across processes is multi-GPU work
-(ROADMAP.md, A10) and raises.
+:func:`agreed` is the decision all ranks take together. A signal reaches
+one process: were each rank to break on its own flag, the others would wait
+in the next step's collectives. So a data-parallel epoch asks
+:func:`agreed` every ``preempt_sync_every`` batches (nkbx's default 8; 0:
+the epoch's end only), at the same batch on every rank, and every rank
+stops at the same step; the trainer's end-of-epoch check asks it too. On
+one process it is :func:`requested`.
 """
 
 from __future__ import annotations
@@ -22,14 +26,12 @@ def requested() -> bool:
 
 
 def agreed() -> bool:
-    """The preemption decision of every process: on one process its own
-    flag."""
-    import torch.distributed as dist
+    """The preemption decision of every rank: the OR of their flags, a MAX
+    all-reduce every rank must call together (nkbx's ``agreed``); on one
+    process its own flag."""
+    from nkbx_torch.parallel import collectives
 
-    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
-        raise NotImplementedError("preemption across processes is not ported to nkbx_torch "
-                                  "yet (ROADMAP.md, A10)")
-    return _requested
+    return collectives.agreed_any(_requested)
 
 
 def reset() -> None:

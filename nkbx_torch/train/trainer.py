@@ -1,5 +1,5 @@
 """The training loop (counterpart of ``nkbx/train/trainer.py``), on one
-card.
+card or data-parallel over ranks.
 
 Each epoch: the backbone's freeze scale from ``backbone_state_policy`` and
 the schedule's lr factor, a train epoch and a validation epoch, the epoch
@@ -19,8 +19,17 @@ EMA shadow. ``debug_nans`` raises FloatingPointError at the first step
 whose loss or gradients are not finite (nkbx's ``jax_debug_nans``, which
 ``train.py`` turns on for this key). ``export_serving`` writes
 ``weights/best.nkbx`` and ``weights/last.nkbx`` at the end
-(:func:`export_serving`). nkbx's other trainer options raise, naming the
-ROADMAP item that ports them.
+(:func:`export_serving`).
+
+Training spans every rank of the process group (nkbx's ``train.py``
+spans every chip): a config's ``mesh = {"data": N}`` must name them all
+(:mod:`nkbx_torch.parallel`), and one process trains alone. Under several
+ranks the step keeps nkbx's global-batch semantics
+(:mod:`nkbx_torch.train.engine`); rank 0's resume cursor and validation
+accuracy are broadcast, the cursor records the rank count (a cursor of
+another count replays its epoch), and rank 0 alone writes ``metrics.csv``,
+the image grids, the checkpoints and the serving bundles. ``fsdp`` and a
+mesh ``model`` axis larger than 1 raise (ROADMAP.md, A10b).
 """
 
 from __future__ import annotations
@@ -32,6 +41,7 @@ import torch
 from nkbx_torch.logging import TrainLogger
 from nkbx_torch.metrics import compute_metrics
 from nkbx_torch.models.classifier import ClassificationModel
+from nkbx_torch.parallel import A10B, collectives, mesh_from_cfg
 from nkbx_torch.train import preempt
 from nkbx_torch.train.checkpoint import (load_cursor, restore_train_state, save_checkpoint,
                                          save_weights)
@@ -42,30 +52,44 @@ from nkbx_torch.train.state import TrainState
 
 # config keys of nkbx's trainer that the port does not run yet: (default, ROADMAP item)
 UNPORTED = {
-    "mesh": (None, "A10"),
-    "fsdp": (False, "A10"),
-    "distributed": (False, "A10"),
+    "fsdp": (False, "A10b"),
 }
 
 
 def check_options(cfg):
-    """Raise for a config option the port's trainer does not run."""
+    """Raise for a config option the port's trainer does not run: ``fsdp``
+    and a mesh ``model`` axis larger than 1 (A10b)."""
     for key, (default, item) in UNPORTED.items():
         value = cfg.get(key, None)
         if value and value != default:
             raise NotImplementedError(f"config option {key}={value!r} is not ported to "
                                       f"nkbx_torch yet (ROADMAP.md, {item})")
+    mesh = cfg.get("mesh", None) or {}
+    if int(mesh.get("model", 1) or 1) != 1:
+        raise NotImplementedError(f"config option mesh={mesh!r}: {A10B}")
 
 
 def train(model, train_loader, val_loader, criterion, comet_experiment, local_experiment, cfg,
-          resume_from=None):
+          resume_from=None, mesh=None):
     """Run the training loop on the model's device; returns the final
-    :class:`TrainState`."""
+    :class:`TrainState`. ``mesh`` defaults to every rank of the process
+    group (the config's ``mesh`` must agree); the loaders must read the
+    mesh's shares (``get_dataset(..., mesh=mesh)``), and every rank passes
+    the same run directory."""
     check_options(cfg)
+    mesh = mesh if mesh is not None else mesh_from_cfg(cfg, default_all_devices=True)
+    for name, loader in (("train", train_loader), ("val", val_loader)):
+        shares = getattr(loader, "process_count", 1) * getattr(loader, "local_world", 1)
+        if shares != mesh.data:
+            raise ValueError(f"the {name} loader reads {shares} shares of each epoch, the mesh "
+                             f"has {mesh.data} ranks: build it with get_dataset(..., mesh=mesh)")
+    writer = collectives.rank() == 0  # rank 0 alone writes files
     model_path = local_experiment.path / "weights"
     classes = train_loader.dataset.classes
-    train_logger = TrainLogger(cfg, comet_experiment, local_experiment, classes)
-    train_logger.log_images_at_start(train_loader)
+    train_logger = None
+    if writer:
+        train_logger = TrainLogger(cfg, comet_experiment, local_experiment, classes)
+        train_logger.log_images_at_start(train_loader)
 
     bundle = get_optimizer(cfg.optimizer)
     schedule = get_scheduler(cfg.lr_policy)
@@ -84,14 +108,17 @@ def train(model, train_loader, val_loader, criterion, comet_experiment, local_ex
         if cur is not None:
             if (cur.get("step") == state.step and cur.get("epoch") == start_epoch
                     and cur.get("batch_size") == train_loader.batch_size
-                    and cur.get("process_count") == 1):
+                    and cur.get("process_count") == mesh.data):
                 resume_batch = int(cur["batch"])
-                print(f"[nkbx_torch] mid-epoch resume: epoch {start_epoch} continues at batch "
-                      f"{resume_batch} (metrics for this epoch cover the remaining batches)")
             else:
                 warnings.warn(f"preemption cursor at {resume_from} does not match the "
                               f"checkpoint or loader geometry ({cur}); replaying epoch "
                               f"{start_epoch} from its beginning")
+        # every rank skips rank 0's prefix, whatever it read of the sidecar
+        resume_batch = int(collectives.broadcast_object(resume_batch))
+        if resume_batch and writer:
+            print(f"[nkbx_torch] mid-epoch resume: epoch {start_epoch} continues at batch "
+                  f"{resume_batch} (metrics for this epoch cover the remaining batches)")
 
     augment_train = train_loader.pipeline.device_apply if train_loader.pipeline else None
     augment_val = val_loader.pipeline.device_apply if val_loader.pipeline else None
@@ -104,13 +131,13 @@ def train(model, train_loader, val_loader, criterion, comet_experiment, local_ex
         grad_accum_steps=int(cfg.get("grad_accum_steps", 1) or 1),
         ema_decay=ema_decay, mixup=cfg.get("mixup", None),
         freeze_semantics=cfg.get("freeze_semantics", "decay"),
-        debug_nans=bool(cfg.get("debug_nans", False)))
+        debug_nans=bool(cfg.get("debug_nans", False)), mesh=mesh)
     # with EMA, validation and the saved weights are the shadow's
     eval_model = (ClassificationModel(state.ema_module, model.classes, model.task,
                                       model.emb_size, model.input_size, model.dtype,
                                       model.device)
                   if state.ema_module is not None else model)
-    eval_step = build_eval_step(eval_model, criterion, augment_fn=augment_val)
+    eval_step = build_eval_step(eval_model, criterion, augment_fn=augment_val, mesh=mesh)
     weights = state.ema_module if state.ema_module is not None else state.module
 
     freeze_scale = 1.0
@@ -121,25 +148,29 @@ def train(model, train_loader, val_loader, criterion, comet_experiment, local_ex
         freeze_scale = backbone_state_factor(policy, epoch, prev=freeze_scale)
         state, train_results = train_epoch(
             state, train_loader, train_step, epoch, schedule(epoch), freeze_scale,
-            epoch_logger=EpochCollector(task, metrics_mode), cfg=cfg,
+            epoch_logger=EpochCollector(task, metrics_mode, mesh), cfg=cfg,
             start_batch=resume_batch if epoch == start_epoch else 0)
         if train_results["preempted"]:
             save_checkpoint(model_path / "last", state, epoch - 1, best_val_acc, cursor={
                 "epoch": epoch, "batch": int(train_results["consumed_batches"]),
-                "step": state.step, "batch_size": train_loader.batch_size, "process_count": 1})
+                "step": state.step, "batch_size": train_loader.batch_size,
+                "process_count": mesh.data})
             save_weights(model_path / "last.pt", weights)
             print(f"[nkbx_torch] preemption signal received during epoch {epoch}: full train "
                   f"state saved; resume with --resume {model_path / 'last'}")
             break
         val_results = val_epoch(state, val_loader, eval_step, epoch,
-                                epoch_logger=EpochCollector(task, metrics_mode))
+                                epoch_logger=EpochCollector(task, metrics_mode, mesh))
         train_results["metrics"] = compute_metrics(cfg, train_results)
         val_results["metrics"] = compute_metrics(cfg, val_results)
-        epoch_val_acc = val_results["metrics"]["epoch_acc"]
-        train_logger.log_epoch(epoch, train_results, val_results)
-        local_experiment.log_metric("train images/sec/chip",
-                                    train_results["throughput"]["images_per_sec_per_chip"],
-                                    epoch=epoch)
+        # every rank computed the same metrics; the best-checkpoint decision
+        # takes rank 0's, so that no rounding can part the ranks
+        epoch_val_acc = collectives.broadcast_object(val_results["metrics"]["epoch_acc"])
+        if writer:
+            train_logger.log_epoch(epoch, train_results, val_results)
+            local_experiment.log_metric("train images/sec/chip",
+                                        train_results["throughput"]["images_per_sec_per_chip"],
+                                        epoch=epoch)
         if epoch_val_acc is not None and epoch_val_acc > best_val_acc:
             best_val_acc = epoch_val_acc
             save_checkpoint(model_path / "best", state, epoch, best_val_acc)
@@ -150,7 +181,7 @@ def train(model, train_loader, val_loader, criterion, comet_experiment, local_ex
             print(f"[nkbx_torch] preemption signal received: stopping after epoch {epoch}; "
                   f"resume with --resume {model_path / 'last'}")
             break
-    if cfg.get("export_serving", False):
+    if cfg.get("export_serving", False) and writer:
         export_serving(weights, model, val_loader, model_path)
     return state
 

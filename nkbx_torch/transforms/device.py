@@ -39,6 +39,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from nkbx_torch.parallel import collectives
 from nkbx_torch.transforms import spec as S
 
 _FLIP_DIMS = {S.HorizontalFlip: 2, S.VerticalFlip: 1}  # NHWC: W is dim 2, H dim 1
@@ -712,6 +713,27 @@ _APPLIERS = {
 }
 
 
+# the draws with a row a round (R, B): the rows are their second dimension
+_ROUND_KEYS = ("op", "grid", "sign", "mag")
+# the draws of the grids the batch shares: not per row
+_SHARED_KEYS = ("grid_op", "grid_sign", "grid_mag")
+
+
+def local_rows(t: S.Transform, d: dict, rows: slice) -> dict:
+    """The draws ``d`` of op ``t`` for the global batch, cut to the rows
+    ``rows`` (a rank's share under a data-parallel step): every per-row
+    draw keeps those rows, the policies' per-round draws those columns, the
+    shared grids' draws all of theirs."""
+    def cut(k, v):
+        if k in _SHARED_KEYS:
+            return v
+        return v[:, rows] if k in _ROUND_KEYS else v[rows]
+
+    if isinstance(t, (S.RandAugment, S.TrivialAugmentWide)):
+        return {k: cut(k, v) for k, v in d.items()}
+    return {k: v[rows] for k, v in d.items()}
+
+
 class DeviceStage:
     """``stage(batch, out_dtype=torch.float32, generator=None, draws=None)``:
     a uint8 NHWC batch through the random ops in pipeline order, then
@@ -723,7 +745,12 @@ class DeviceStage:
     pipeline order. ``draws`` instead hands them in, one dict per random op
     (:meth:`draw` makes such a list), so that a test can feed the draws nkbx
     made from its key or hold one device against another. With neither,
-    only Normalize runs (evaluation and serving)."""
+    only Normalize runs (evaluation and serving).
+
+    Under a data-parallel train step (:mod:`nkbx_torch.parallel`) every op
+    draws for the global batch from the generator and the rank keeps its
+    rows (:func:`local_rows`): each rank's generator stays in step with the
+    others', and a row gets the draws it gets in a world of one."""
 
     def __init__(self, transforms: Sequence[S.Transform]):
         norm, self.ops = None, []
@@ -752,7 +779,14 @@ class DeviceStage:
         dev = batch.device
         x = batch
         if draws is None and generator is not None:
-            draws = self.draw(tuple(x.shape), generator, dev)
+            mesh = collectives.active()
+            if mesh is None:
+                draws = self.draw(tuple(x.shape), generator, dev)
+            else:  # the global batch's draws, this rank's rows of them
+                b = x.shape[0]
+                draws = [local_rows(t, d, mesh.rows(b)) for t, d in
+                         zip(self.ops, self.draw((b * mesh.data,) + tuple(x.shape[1:]),
+                                                 generator, dev))]
         if draws is not None:
             if len(draws) != len(self.ops):
                 raise ValueError(f"{len(draws)} draws for {len(self.ops)} random ops")

@@ -62,6 +62,8 @@ shows that the kernel, not its plain version, ran:
   width it takes (the bulk ring from 32 MiB with a one-vector last chunk
   and more chunks than its stages, odd counts and offset views, small and
   large); a wrong dtype is refused;
+- the collectives of data parallelism (nkbx_torch.parallel.collectives)
+  on two gloo ranks sharing cuda:0, the BatchNorm sum's backward included;
 - the singletask config's device stage (flips, brightness/contrast, HSV,
   coarse dropout, Normalize) on a CUDA batch against the CPU with the same
   draws (1e-3 on the 0-255 scale), and its own draws from a CUDA generator;
@@ -1736,6 +1738,96 @@ def test_bf16_master_update_on_card_matches_the_cpu(cuda_device):
         assert ((a.float() - b.float()).abs() <= ulp).all()
 
 
+def _collectives_rank(out):
+    """A rank of test_collectives_over_gloo_on_one_card (this file run as a
+    script, torchrun's variables in the environment): gloo's own all-gather
+    of a CUDA tensor, then every function of nkbx_torch.parallel.collectives
+    on tensors on cuda:0."""
+    import json
+
+    import torch.distributed as dist
+
+    from nkbx_torch.core.runtime import initialize
+    from nkbx_torch.parallel import collectives as C
+
+    info = initialize(distributed=True, device="cuda:0")
+    rank, dev = C.rank(), torch.device("cuda", 0)
+    res = {"backend": info["backend"]}
+    try:  # gloo's own all-gather of a CUDA tensor, which all_gather_rows relies on
+        parts = [torch.empty(2, device=dev) for _ in range(2)]
+        dist.all_gather(parts, torch.full((2,), float(rank), device=dev))
+        res["raw_all_gather"] = "ok"
+    except Exception as e:  # noqa: BLE001 - reported by the test
+        res["raw_all_gather"] = f"{type(e).__name__}: {str(e)[:200]}"
+    t = torch.arange(4, dtype=torch.float32, device=dev) + rank
+    res["all_reduce"] = C.all_reduce_(t.clone()).tolist()
+    res["all_reduce_max"] = C.all_reduce_(t.clone(), op="max").tolist()
+    p = torch.nn.Parameter(torch.zeros(3, device=dev))
+    p.grad = torch.full((3,), float(rank + 1), device=dev)
+    q = torch.nn.Parameter(torch.zeros(2, dtype=torch.bfloat16, device=dev))
+    q.grad = torch.full((2,), 0.5 * (rank + 1), dtype=torch.bfloat16, device=dev)
+    C.all_reduce_grads([p, q])
+    res["grads"] = [p.grad.tolist(), q.grad.float().tolist(), str(q.grad.device)]
+    g = C.all_gather_rows(torch.full((2, 2), rank, device=dev))
+    res["gather_rows"] = [g.tolist(), str(g.device)]
+    res["gather_bool"] = C.all_gather_rows(torch.tensor([rank == 0, True], device=dev)).tolist()
+    res["gather_object"] = C.all_gather_object({"rank": rank})
+    res["broadcast"] = C.broadcast_object(f"from {rank}")
+    res["sum_count"] = C.sum_count(rank + 2)
+    res["agreed"] = [C.agreed_any(rank == 1), C.agreed_any(False)]
+    C.barrier()
+    sums = []
+    for device in (dev, torch.device("cpu")):  # the BatchNorm sum and its backward
+        x = torch.full((3,), float(rank + 1), device=device, requires_grad=True)
+        y = C.sum_across_ranks(x * x)
+        (y * torch.tensor([1.0, 2.0, 3.0], device=device)).sum().backward()
+        sums.append([y.tolist(), x.grad.tolist(), str(y.device)])
+    res["bn_sum"] = sums
+    with open(f"{out}/rank{rank}.json", "w") as f:
+        json.dump(res, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_collectives_over_gloo_on_one_card(cuda_device, tmp_path):
+    """Two gloo ranks sharing cuda:0 (``initialize(device="cuda:0")``) run
+    every function of nkbx_torch.parallel.collectives on CUDA tensors,
+    against the sums worked out here (the CPU's, tests/test_torch_dist.py),
+    the differentiable BatchNorm sum and its backward on the card and on the
+    CPU; the gathers come back on the card. gloo's own all-gather takes a
+    CUDA tensor (all_gather_rows does not stage around it)."""
+    import json
+    import os
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, __file__, "--collectives", str(tmp_path)], cwd=ROOT,
+        env=dict(os.environ, RANK=str(r), WORLD_SIZE="2", LOCAL_RANK=str(r), LOCAL_WORLD_SIZE="2",
+                 MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                 PYTHONPATH=str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", "")),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for r in range(2)]
+    outs = [p.communicate(timeout=300) for p in procs]
+    for p, (o, e) in zip(procs, outs):
+        assert p.returncode == 0, o[-2000:] + e[-4000:]
+    for r in range(2):
+        res = json.loads((tmp_path / f"rank{r}.json").read_text())
+        assert res["raw_all_gather"] == "ok" and res["backend"] == "gloo"
+        assert res["all_reduce"] == [1.0, 3.0, 5.0, 7.0]
+        assert res["all_reduce_max"] == [1.0, 2.0, 3.0, 4.0]
+        assert res["grads"] == [[3.0, 3.0, 3.0], [1.5, 1.5], "cuda:0"]
+        assert res["gather_rows"] == [[[0, 0], [0, 0], [1, 1], [1, 1]], "cuda:0"]
+        assert res["gather_bool"] == [True, True, False, True]
+        assert res["gather_object"] == [{"rank": 0}, {"rank": 1}]
+        assert res["broadcast"] == "from 0" and res["sum_count"] == 5
+        assert res["agreed"] == [True, False]
+        want_grad = [2.0 * (r + 1) * 2 * w for w in (1.0, 2.0, 3.0)]
+        assert res["bn_sum"] == [[[5.0] * 3, want_grad, "cuda:0"], [[5.0] * 3, want_grad, "cpu"]]
+
+
 def test_card_tests_collect_without_jax_or_nkbx():
     """The card's machine has no JAX: this file must collect (and its card
     tests skip here) with jax, flax and nkbx unimportable and no conftest."""
@@ -1758,7 +1850,7 @@ def test_card_tests_collect_without_jax_or_nkbx():
          + len(MB_ROUTE_CASES) + 2 + len(COPY_CASES) + 1
          + 2 * len(UNICOM_SEQ) + len(EPS_CASES)
          + 2 * len(POLICY_SHAPES) + len(HEAVY_SHAPES) + 2 + 1
-         + len(OP_CASES) + 3 + 1 + len(REMAT_CASES) + 1 + 1)
+         + len(OP_CASES) + 3 + 1 + len(REMAT_CASES) + 1 + 1 + 1)
     word = "passed" if torch.cuda.is_available() else "skipped"
     assert re.search(rf"\b{n} {word}\b", proc.stdout), proc.stdout[-2000:]
 
@@ -1769,3 +1861,8 @@ def test_every_card_test_lives_in_this_file():
     for path in sorted((ROOT / "tests").glob("test_*.py")):
         if path.name != pathlib.Path(__file__).name:
             assert "@pytest.mark.cuda" not in path.read_text(), path.name
+
+
+if __name__ == "__main__":
+    if sys.argv[1] == "--collectives":
+        _collectives_rank(sys.argv[2])

@@ -13,7 +13,7 @@
   and modern_recipe load, and the trainer takes each, yolo_crops'
   ``export_serving`` included; the eval and inference configs' ``scripted:
   True`` passes the CLIs' option check (tests/test_torch_export.py runs
-  them on a bundle), a ``mesh`` raises naming A10; without a card the CLIs
+  them on a bundle), a mesh ``model`` axis raises naming A10b; without a card the CLIs
   raise.
 """
 
@@ -168,9 +168,11 @@ def test_inference_cli_matches_nkbx(workspace):
 
 def test_cli_options_that_raise(workspace, monkeypatch):
     cfg = load_config(workspace["cfg"])
-    cfg.mesh = {"data": 2}
-    with pytest.raises(NotImplementedError, match="A10"):
+    cfg.mesh = {"data": 2, "model": 2}
+    with pytest.raises(NotImplementedError, match="A10b"):
         teval.check_options(cfg)
+    cfg.mesh = {"data": 2}  # runs over 2 ranks (tests/test_torch_dist_cli.py)
+    teval.check_options(cfg)
     for name in ("eval_config", "inference_config"):
         shipped = load_config(ROOT / "configs" / f"{name}.py")
         assert shipped.model["scripted"] is True
