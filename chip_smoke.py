@@ -278,7 +278,19 @@
    stage on the same draws, ``migrate --check`` on a reference-format
    config. The Swin-T train step's profile (phase 5) is also aggregated
    from its chrome trace: K1, K2, K5 and K6 with key_averages' ms.
-14. Prints the kernels' JSON line (all 17 kernels), the card's name and
+14. Data parallelism over ranks (DIST, check_dist; ``python3 chip_smoke.py
+   --dist`` runs it alone), ranks as subprocesses: (a) 2 gloo ranks on the
+   card against one process (resnet50 exact and ghost2_fused, swin_tiny with
+   CutMix, bf16; resnet50 f32); (b) the trainer CLI under torchrun against
+   one process; (c) FSDP: vit_base with the fused flags, its state
+   scattered over 2 gloo ranks (``fsdp``), 3 bf16 nadam steps with EMA
+   against the replicated ranks on the same inputs (parameters, moments,
+   EMA and losses bit for bit, or within one bf16 ulp of each tensor's
+   largest value), against one process (a)'s rule, K3-K6 12 a step on each
+   rank, the state at rest at most 0.502 of the replicated rank's, the
+   peak memory of each step; the trainer CLI with ``fsdp = True`` against
+   (b)'s 2 ranks; (d) a NCCL group of one rank against no group.
+15. Prints the kernels' JSON line (all 17 kernels), the card's name and
    power limit, and last {"ok": true, "device": {...}}.
 
 Exits non-zero, before printing any result, without a CUDA device, outside
@@ -5316,25 +5328,14 @@ def dist_run(cfg, batch, mixup, mesh, dtype, steps, perturb=False):
 
     from nkbx_torch.core.profiling import categorize_kernel
     from nkbx_torch.train import TrainState, build_train_step, get_loss, get_optimizer
-    from nkbx_torch.transforms import spec as T
 
     model = get_model(cfg, [f"class{i}" for i in range(N_CLASSES)], input_size=(224, 224),
                       seed=0, dtype=DT[dtype], device=DEV)
     init = {k: v.detach().float().cpu() for k, v in model.module.state_dict().items()}
     state = TrainState.create(model, seed=0)
-    stage = T.Compose([T.HorizontalFlip(), T.Normalize()]).device_apply
-    augment = stage
-    if perturb:
-        gen = torch.Generator(device=DEV).manual_seed(11)
-        ulp = 2.0 ** (-8 if dtype == "bf16" else -23)
-
-        def augment(image, out_dtype=None, generator=None):
-            x = stage(image, out_dtype=torch.float32, generator=generator)
-            noise = torch.randn(x.shape, generator=gen, device=DEV)
-            return (x * (1 + ulp * noise)).to(out_dtype)
-
     step = build_train_step(model, get_loss({"type": "CrossEntropyLoss"}),
-                            get_optimizer(DIST_SGD), augment_fn=augment, mixup=mixup, mesh=mesh)
+                            get_optimizer(DIST_SGD), augment_fn=dist_stage(dtype, perturb),
+                            mixup=mixup, mesh=mesh)
     rng = np.random.default_rng(7)
     images = rng.integers(0, 256, (steps, batch, 224, 224, 3), dtype=np.uint8)
     labels = rng.integers(0, N_CLASSES, (steps, batch))
@@ -5559,6 +5560,203 @@ def dist_nccl(out):
     dist.destroy_process_group()
 
 
+# (c) FSDP: vit_base with the fused flags (K3-K6 on every rank), its state scattered
+FSDP_KERNELS = ("attention", "attention_bwd", "ln_mlp", "ln_mlp_bwd")
+FSDP_OPT = {"type": "nadam", "backbone_lr": 1e-5, "classifier_lr": 1e-4, "weight_decay": 0.05}
+FSDP_EMA = 0.9
+FSDP_STEPS = 3
+FSDP_RATIO = 0.502  # a rank's state at rest with fsdp over the replicated rank's, at most
+
+
+def dist_stage(dtype, perturb):
+    """DIST's device stage (flips + Normalize); ``perturb`` multiplies the
+    normalised input by 1 + ulp·N(0, 1) (one ulp of the dtype: the
+    yardstick of what rounding alone moves)."""
+    from nkbx_torch.transforms import spec as T
+
+    stage = T.Compose([T.HorizontalFlip(), T.Normalize()]).device_apply
+    if not perturb:
+        return stage
+    gen = torch.Generator(device=DEV).manual_seed(11)
+    ulp = 2.0 ** (-8 if dtype == "bf16" else -23)
+
+    def augment(image, out_dtype=None, generator=None):
+        x = stage(image, out_dtype=torch.float32, generator=generator)
+        noise = torch.randn(x.shape, generator=gen, device=DEV)
+        return (x * (1 + ulp * noise)).to(out_dtype)
+
+    return augment
+
+
+def fsdp_run(mesh, fsdp, perturb=False):
+    """``FSDP_STEPS`` bf16 nadam steps of vit_base (the fused flags) with
+    its EMA, from seed 0 on seeded batches of BUCKET rows (flips +
+    Normalize): the global batch without ``mesh``, this rank's rows under
+    it, the state scattered with ``fsdp``. Returns (numbers: losses, each
+    step's launches, host ms and peak MB, the state's MB at rest, the last
+    step's profile; the initial weights on the host; the whole state after
+    the steps on the card: parameters, EMA shadow, moments)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from nkbx_torch.core.profiling import categorize_kernel
+    from nkbx_torch.train import TrainState, build_train_step, get_loss, get_optimizer
+
+    model = get_model(VIT_CFG, [f"class{i}" for i in range(N_CLASSES)], input_size=(224, 224),
+                      seed=0, dtype=torch.bfloat16, device=DEV)
+    init = {k: v.detach().to("cpu", torch.float32, copy=True)
+            for k, v in model.module.state_dict().items()}
+    state = TrainState.create(model, seed=0, ema=True, mesh=mesh, fsdp=fsdp)
+    step = build_train_step(model, get_loss({"type": "CrossEntropyLoss"}),
+                            get_optimizer(FSDP_OPT), augment_fn=dist_stage("bf16", perturb),
+                            ema_decay=FSDP_EMA, mesh=mesh)
+    rng = np.random.default_rng(7)
+    images = rng.integers(0, 256, (FSDP_STEPS, BUCKET, 224, 224, 3), dtype=np.uint8)
+    labels = rng.integers(0, N_CLASSES, (FSDP_STEPS, BUCKET))
+    rows = mesh.rows(BUCKET // mesh.data) if mesh is not None else slice(None)
+    out = {"state_mb": state.nbytes() / 2 ** 20, "scattered": len(state.scattered[0].params)
+           if state.scattered else 0, "losses": [], "launches": [], "step_ms": [], "peak_mb": []}
+    for i in range(FSDP_STEPS):
+        x = torch.from_numpy(np.ascontiguousarray(images[i][rows])).to(DEV)
+        y = torch.from_numpy(np.ascontiguousarray(labels[i][rows])).to(DEV)
+        m = torch.ones(x.shape[0], dtype=torch.bool, device=DEV)
+        zero_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ctx = (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+               if i == FSDP_STEPS - 1 else contextlib.nullcontext())
+        t0 = time.perf_counter()
+        with ctx as prof:
+            state, metrics = step(state, x, y, m, 1.0, 1.0)
+            torch.cuda.synchronize()
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["peak_mb"].append(torch.cuda.max_memory_allocated() / 2 ** 20)
+        out["launches"].append({k: v for k, v in read_counts().items() if v})
+        out["losses"].append(float(metrics["loss"]))
+    events = device_events(prof)
+    out["profile_ms"] = {k: kernel_ms(events, k, 1, out["launches"][-1]) for k in FSDP_KERNELS}
+    out["profiled_port_kernels"] = sum(e.count for _, e in events
+                                       if categorize_kernel(e.key) == "port kernels")
+    out["state_mb_after"] = state.nbytes() / 2 ** 20
+    whole = {}
+    with state.gathered(state.module), state.gathered(state.ema_module):
+        for part, mod in (("module", state.module), ("ema", state.ema_module)):
+            whole.update({f"{part}/{k}": v.detach().clone() for k, v in mod.state_dict().items()})
+        for label, st in state.opt_state.items():
+            for kind in ("mu", "nu"):
+                for j, t in enumerate(state.whole(state.groups[label], getattr(st, kind))):
+                    whole[f"{label}/{kind}/{j}"] = t.detach().clone()
+    del model, state, step
+    torch.cuda.empty_cache()
+    return out, init, whole
+
+
+def bf16_ulps(got, want):
+    """|got − want|'s largest element in bf16 ulps of ``want``'s largest
+    magnitude."""
+    top = float(want.float().abs().max())
+    return float((got.float() - want.float()).abs().max()) / bf16_ulp(max(top, 1e-30))
+
+
+def fsdp_reference(perturb):
+    """fsdp_run in one process (the world of 1), its final weights on the
+    host."""
+    out, init, whole = fsdp_run(None, False, perturb)
+    final = {k[len("module/"):]: v.float().cpu() for k, v in whole.items()
+             if k.startswith("module/")}
+    return out, init, final
+
+
+def dist_fsdp_rank(out):
+    """A rank of DIST (c) (``--dist-fsdp OUT``, torchrun's variables in the
+    environment, gloo on cuda:0): fsdp_run replicated, then scattered, on
+    the same inputs; the whole states compared on the host (bit for bit,
+    and in bf16 ulps of each tensor's largest value); rank 0 saves the
+    scattered run's final weights; writes OUT/rank<r>.json."""
+    import torch.distributed as dist
+
+    from nkbx_torch.core.runtime import initialize
+    from nkbx_torch.parallel import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    initialize(distributed=True, device="cuda:0")
+    mesh = make_mesh()
+    res = {"rank": mesh.rank}
+    res["replicated"], _, want = fsdp_run(mesh, False)
+    want = {k: v.cpu() for k, v in want.items()}  # off the card: each run's peak its own
+    res["fsdp"], _, got = fsdp_run(mesh, True)
+    got = {k: v.cpu() for k, v in got.items()}
+    differ = sorted(k for k in want if not torch.equal(got[k], want[k]))
+    res["not_bit_equal"] = differ
+    res["worst_bf16_ulps"] = max((bf16_ulps(got[k], want[k]), k) for k in differ) if differ else [
+        0.0, ""]
+    res["n_tensors"] = len(want)
+    if mesh.rank == 0:
+        torch.save({k[len("module/"):]: v.float() for k, v in got.items()
+                    if k.startswith("module/")}, os.path.join(out, "vit_fsdp.pt"))
+    with open(os.path.join(out, f"rank{mesh.rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def hold_fsdp(ranks, out, ref):
+    """DIST (c)'s ranks against their replicated runs and against the world
+    of 1 (``ref``: fsdp_run without a mesh, and on a 1-ulp-perturbed input)
+    by hold_dist's rule; returns the numbers to report and each rank's
+    launches of every kernel over its scattered steps."""
+    for r, started in enumerate(ranks):
+        finish_cli(started, f"DIST (c) fsdp rank {r}", timeout=600)
+    runs = []
+    for r in range(len(ranks)):
+        with open(os.path.join(out, f"rank{r}.json")) as f:
+            runs.append(json.load(f))
+    (want, init, want_final), (y, _, y_final) = ref
+    got = torch.load(os.path.join(out, "vit_fsdp.pt"))
+    row, totals = {"card": torch.cuda.get_device_name(0)}, {}
+    for run in runs:
+        r, a, b = run["rank"], run["replicated"], run["fsdp"]
+        if run["worst_bf16_ulps"][0] > 1.0 or a["losses"] != b["losses"]:
+            fail(f"DIST (c) rank {r}: fsdp against replicated: losses {b['losses']} against "
+                 f"{a['losses']}, {len(run['not_bit_equal'])} of {run['n_tensors']} tensors not "
+                 f"bit-equal, worst {run['worst_bf16_ulps']} bf16 ulps")
+        for i, counts in enumerate(b["launches"]):
+            if any(counts.get(k) != 12 for k in FSDP_KERNELS) or counts != a["launches"][i]:
+                fail(f"DIST (c) rank {r}: step {i} launched {counts}, the replicated step "
+                     f"{a['launches'][i]}; K3-K6 12 each wanted")
+        if not all(b["profile_ms"][k] > 0 for k in FSDP_KERNELS):
+            fail(f"DIST (c) rank {r}: the profile of the last step misses K3-K6: "
+                 f"{b['profile_ms']}")
+        ratio = b["state_mb"] / a["state_mb"]
+        if ratio > FSDP_RATIO or b["scattered"] == 0:
+            fail(f"DIST (c) rank {r}: the state at rest is {ratio:.4f} of the replicated "
+                 f"rank's ({b['state_mb']:.1f} against {a['state_mb']:.1f} MB)")
+        row[f"rank{r}"] = {
+            "bit_equal": not run["not_bit_equal"], "not_bit_equal": run["not_bit_equal"][:20],
+            "worst_bf16_ulps": run["worst_bf16_ulps"], "losses": b["losses"],
+            "scattered_params": b["scattered"],
+            "state_mb": {"fsdp": b["state_mb"], "replicated": a["state_mb"], "ratio": ratio},
+            "peak_mb": {"fsdp": b["peak_mb"], "replicated": a["peak_mb"]},
+            "step_ms": {"fsdp": b["step_ms"], "replicated": a["step_ms"]},
+            "launches_per_step": b["launches"][-1], "profile_ms": b["profile_ms"],
+            "profiled_port_kernels": b["profiled_port_kernels"]}
+        totals[f"dist_fsdp_rank{r}"] = {k: sum(c.get(k, 0) for c in b["launches"])
+                                        for k in COUNTED}
+    loss = [abs(a - b) / abs(b) for a, b in zip(runs[0]["fsdp"]["losses"], want["losses"])]
+    y_loss = [abs(a - b) / abs(b) for a, b in zip(y["losses"], want["losses"])]
+    update, _ = dist_distance(got, want_final, init)
+    y_update, _ = dist_distance(y_final, want_final, init)
+    row.update({"loss_rel_err": loss, "yardstick_loss_rel_err": y_loss, "update_rel_l2": update,
+                "yardstick_update_rel_l2": y_update, "losses_world1": want["losses"],
+                "world1_peak_mb": want["peak_mb"], "world1_step_ms": want["step_ms"]})
+    log(f"DIST (c) fsdp, vit_base at global batch {BUCKET}: {json.dumps(row)}")
+    if (any(a > max(DIST_LOSS_TOL, 2 * b) for a, b in zip(loss, y_loss))
+            or update > 2 * y_update + DIST_FLOOR["bf16"][0]):
+        fail(f"DIST (c): fsdp world 2 against world 1 off the rule: losses {loss} (yardstick "
+             f"{y_loss}), update {update:.3g} ({y_update:.3g})")
+    return row, totals
+
+
 def check_dist():
     """DIST (A10; also ``--dist`` alone): data parallelism over ranks, the
     ranks subprocesses, every rank's failure the run's.
@@ -5577,7 +5775,16 @@ def check_dist():
         on the card (``--device cuda:0``, gloo), f32, sgd, 1 epoch of
         check_trainer's folder, against the CLI in one process: every
         metrics.csv value but the throughput within 1e-3 relative.
-    (c) NCCL: a world of one rank runs the ghost2_fused step with its
+    (c) FSDP: vit_base with the fused flags over 2 gloo ranks on the card,
+        its state scattered (``fsdp``; dist_fsdp_rank, hold_fsdp): 3 bf16
+        nadam steps with EMA at a global batch of 64 against the replicated
+        ranks on the same inputs and against the world of 1 here (and its
+        1-ulp yardstick) by (a)'s rule; K3-K6 12 a step on each rank, in the
+        last step's profile; the state at rest at most FSDP_RATIO of the
+        replicated rank's; each step's peak memory. The trainer CLI as (b)
+        with ``fsdp = True`` against (b)'s 2 ranks: metrics.csv within 1e-3
+        and last.pt's tensors within 1e-3 of each one's largest value.
+    (d) NCCL: a world of one rank runs the ghost2_fused step with its
         group's collectives and without a group, in turns (the step ms of
         each: what the reduction costs in a world of one); where the machine
         has 2 cards, two ranks over NCCL held as in (a).
@@ -5590,21 +5797,30 @@ def check_dist():
     if not os.path.isdir(data):
         write_image_folder(data)
     clis = {}
-    for n in (1, 2):
-        cfg_path = os.path.join(DIST_DIR, f"trainer_world{n}.py")
+    for n, name in ((1, "world1"), (2, "world2"), (2, "world2_fsdp")):
+        cfg_path = os.path.join(DIST_DIR, f"trainer_{name}.py")
         with open(cfg_path, "w") as f:
-            f.write(dist_trainer_config(data, os.path.join(DIST_DIR, f"run_world{n}"), n > 1))
+            f.write(dist_trainer_config(data, os.path.join(DIST_DIR, f"run_{name}"), n > 1)
+                    + ("fsdp = True\n" if name.endswith("fsdp") else ""))
         args = (["-m", "torch.distributed.run", "--standalone", "--nproc_per_node=2",
                  "-m", "nkbx_torch.train", "-cfg", cfg_path, "--device", "cuda:0"] if n > 1
                 else ["-m", "nkbx_torch.train", "-cfg", cfg_path])
-        clis[n] = start_cli(args, f"dist_trainer_world{n}.log")
+        clis[name] = start_cli(args, f"dist_trainer_{name}.log")
     ranks = start_ranks(os.path.join(DIST_DIR, "gloo"), "gloo")  # beside the world of 1
+    fsdp_dir = os.path.join(DIST_DIR, "fsdp")
+    os.makedirs(fsdp_dir)
+    port = free_port()
+    fsdp_ranks = [start_cli([os.path.abspath(__file__), "--dist-fsdp", fsdp_dir],
+                            f"dist_fsdp_rank{r}.log", env=dist_env(r, 2, port)) for r in range(2)]
     ref = {label: (dist_run(cfg, batch, mixup, None, dtype, steps),
                    dist_run(cfg, batch, mixup, None, dtype, steps, perturb=True))
            for label, cfg, batch, mixup, _, dtype, steps in DIST_CASES}
+    fsdp_ref = (fsdp_reference(False), fsdp_reference(True))
     out = {}
     out["gloo"], totals = hold_dist("gloo", ranks, os.path.join(DIST_DIR, "gloo"), ref)
-    logs = {n: finish_cli(clis[n], f"DIST trainer CLI, world {n}")[0] for n in (1, 2)}
+    out["fsdp"], fsdp_totals = hold_fsdp(fsdp_ranks, fsdp_dir, fsdp_ref)
+    logs = {n: finish_cli(clis[name], f"DIST trainer CLI, {name}")[0]
+            for n, name in ((1, "world1"), (2, "world2"))}
     if "backend gloo" not in logs[2] or "rank 1 of 2" not in logs[2]:
         fail("DIST (b): the trainer's ranks did not report their gloo group")
     rows = [read_metrics_csv(os.path.join(DIST_DIR, f"run_world{n}", "metrics.csv"))
@@ -5619,35 +5835,69 @@ def check_dist():
     log(f"DIST (b) trainer CLI, 2 ranks against 1, f32: metrics.csv within {worst:.3g}")
     if worst > DIST_CLI_TOL:
         fail(f"DIST (b): metrics.csv of 2 ranks differs from 1 rank's by {worst:.3g}")
+    out["fsdp_trainer_cli"] = check_fsdp_cli(finish_cli(clis["world2_fsdp"],
+                                                        "DIST trainer CLI, world2_fsdp")[0])
     nccl_dir = os.path.join(DIST_DIR, "nccl")
     os.makedirs(nccl_dir)
     finish_cli(start_cli([os.path.abspath(__file__), "--dist-nccl", nccl_dir], "dist_nccl.log",
-                         env=dist_env(0, 1, free_port())), "DIST (c) NCCL world of 1")
+                         env=dist_env(0, 1, free_port())), "DIST (d) NCCL world of 1")
     with open(os.path.join(nccl_dir, "nccl.json")) as f:
         nccl = json.load(f)
     for name in ("group", "no_group"):
         if not (nccl["launches_per_step"][name].get("bottleneck")
                 and nccl["launches_per_step"][name].get("bottleneck_bwd")):
-            fail(f"DIST (c): the {name} step launched no K9/K10")
+            fail(f"DIST (d): the {name} step launched no K9/K10")
     nccl["median_ms"] = {k: float(np.median(v)) for k, v in nccl["step_ms"].items()}
     nccl["overhead_ms"] = nccl["median_ms"]["group"] - nccl["median_ms"]["no_group"]
     out["nccl_world1"] = nccl
-    log(f"DIST (c) NCCL world of 1, resnet50 ghost2_fused at batch {BUCKET}: {json.dumps(nccl)}")
+    log(f"DIST (d) NCCL world of 1, resnet50 ghost2_fused at batch {BUCKET}: {json.dumps(nccl)}")
     if torch.cuda.device_count() >= 2:
         out["nccl"], _ = hold_dist("nccl", start_ranks(os.path.join(DIST_DIR, "nccl2"), "nccl"),
                                    os.path.join(DIST_DIR, "nccl2"), ref)
     else:
-        log("DIST (c): one card, so no two-rank NCCL world")
+        log("DIST (d): one card, so no two-rank NCCL world")
     out["seconds"] = time.perf_counter() - t0
     log(f"DIST: {out['seconds']:.1f} s")
     shutil.rmtree(DIST_DIR, ignore_errors=True)  # ~300 MB of states
-    return out, {f"dist_rank{r}": t for r, t in enumerate(totals)}
+    return out, {**{f"dist_rank{r}": t for r, t in enumerate(totals)}, **fsdp_totals}
+
+
+def check_fsdp_cli(log_text):
+    """DIST (c)'s trainer CLI with ``fsdp = True`` against (b)'s 2 ranks:
+    its log reports the scattered state, metrics.csv within DIST_CLI_TOL,
+    last.pt's tensors within DIST_CLI_TOL of each one's largest value."""
+    m = re.search(r"fsdp: (\d+) of (\d+) parameters scattered over 2 ranks; the state at rest "
+                  r"([0-9.]+) MiB", log_text)
+    if m is None:
+        fail("DIST (c): the fsdp trainer's log does not report its scattered state")
+    runs = [os.path.join(DIST_DIR, f"run_{name}") for name in ("world2", "world2_fsdp")]
+    a, b = (read_metrics_csv(os.path.join(r, "metrics.csv")) for r in runs)
+    worst = 0.0
+    for ra, rb in zip(a, b, strict=True):
+        for key, v in ra.items():
+            if key in ("Epoch", "train images/sec/chip") or not v:
+                continue
+            worst = max(worst, abs(float(rb[key]) - float(v)) / max(abs(float(v)), 1e-30))
+    want, got = (torch.load(os.path.join(r, "weights", "last.pt"), map_location="cpu")
+                 for r in runs)
+    if got.keys() != want.keys():
+        fail("DIST (c): the fsdp trainer's last.pt holds other tensors")
+    weights = max(float((got[k].double() - want[k].double()).abs().max())
+                  / max(float(want[k].double().abs().max()), 1e-30) for k in want)
+    row = {"scattered": int(m.group(1)), "parameters": int(m.group(2)),
+           "state_mib_a_rank": float(m.group(3)), "metrics_rel_err": worst,
+           "last_pt_rel_err": weights,
+           "last_pt_bit_equal": all(torch.equal(got[k], want[k]) for k in want)}
+    log(f"DIST (c) trainer CLI, fsdp against 2 replicated ranks, f32: {json.dumps(row)}")
+    if worst > DIST_CLI_TOL or weights > DIST_CLI_TOL:
+        fail(f"DIST (c): the fsdp trainer differs from the replicated one: {row}")
+    return row
 
 
 def dist_only():
     """``--dist``: the card's name and power limit, the kernels of the
-    phase built (K1, K2, K5, K6, K9, K10) and DIST alone, its numbers as the
-    last line."""
+    phase built (K1-K6, K9, K10) and DIST alone, its numbers as the last
+    line."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60).stdout.strip()
@@ -5656,8 +5906,8 @@ def dist_only():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    _build.build(["window_attention", "window_attention_bwd", "ln_mlp", "ln_mlp_bwd",
-                  "bottleneck", "bottleneck_bwd"])
+    _build.build(["window_attention", "window_attention_bwd", "attention", "attention_bwd",
+                  "ln_mlp", "ln_mlp_bwd", "bottleneck", "bottleneck_bwd"])
     log(f"build: {time.perf_counter() - t0:.1f} s")
     out, counts = check_dist()
     log(json.dumps({"dist": out, "counts": counts}))
@@ -5925,6 +6175,11 @@ def main():
         k["launches_per_step_by_rank"] = {
             f"{label}_{r}": c.get(k["name"], 0)
             for r, c in dist_out["gloo"][label]["launches_per_step"].items()}
+    # K3-K6 (vit_base) on every rank of DIST (c), its state scattered: launches a step
+    for k in (kernels[4], kernels[5], kernels[1], kernels[3]):
+        k.setdefault("launches_per_step_by_rank", {}).update({
+            f"vit_base_fsdp_{r}": dist_out["fsdp"][r]["launches_per_step"].get(k["name"], 0)
+            for r in ("rank0", "rank1")})
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -6033,6 +6288,8 @@ def optins_only():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dist-rank"]:
         dist_rank(sys.argv[2], sys.argv[3])
+    elif sys.argv[1:2] == ["--dist-fsdp"]:
+        dist_fsdp_rank(sys.argv[2])
     elif sys.argv[1:2] == ["--dist-nccl"]:
         dist_nccl(sys.argv[2])
     elif sys.argv[1:] == ["--dist"]:

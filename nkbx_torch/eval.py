@@ -16,7 +16,7 @@ ranks launched by torchrun (``python -m torch.distributed.run
 --nproc_per_node=N -m nkbx_torch.eval -cfg CONFIG``): each rank evaluates
 its rows of every batch, the metrics are gathered exactly, and rank 0
 writes ``metrics.json``. Several ranks without a ``mesh`` raise; a mesh
-``model`` axis larger than 1 raises (ROADMAP.md A10b).
+``model`` axis larger than 1 raises by design (ROADMAP.md A10b).
 """
 
 from __future__ import annotations
@@ -30,7 +30,7 @@ from pathlib import Path
 
 def check_options(cfg):
     """Raise for the config options of nkbx's eval and inference CLIs that
-    the port does not run: a mesh ``model`` axis larger than 1 (A10b)."""
+    the port does not run: a mesh ``model`` axis larger than 1 (by design, A10b)."""
     from nkbx_torch.parallel.mesh import A10B
 
     mesh = cfg.get("mesh") or {}

@@ -9,6 +9,10 @@ the explicit collectives here, over ``torch.distributed``'s default group:
 - :func:`all_reduce_` (sum or max, in place) and :func:`all_reduce_grads`
   (a sum over parameter gradients, flattened into f32 buckets in a fixed
   order, rounded back once);
+- for scattered parameters (:mod:`nkbx_torch.parallel.fsdp`):
+  :func:`reduce_scatter_grads` (the same sums, each rank keeping its block)
+  and :func:`all_gather_shards` (the whole tensors from every rank's
+  blocks);
 - :func:`all_gather_rows` (every rank's rows, concatenated in rank order),
   :func:`all_gather_object` and :func:`broadcast_object` (Python objects,
   from rank 0), :func:`barrier`, :func:`agreed_any` (the OR of a flag),
@@ -133,19 +137,71 @@ def all_reduce_grads(params) -> None:
     Every rank must hold a gradient for the same parameters."""
     if not grouped():
         return
-    buckets, size = [[]], 0
-    for g in (p.grad for p in params if p.grad is not None):
-        if buckets[-1] and (size + g.numel()) * 4 > _BUCKET_BYTES:
-            buckets.append([])
-            size = 0
-        buckets[-1].append(g)
-        size += g.numel()
-    for bucket in buckets:
-        if not bucket:
-            continue
+    for bucket in _buckets([p.grad for p in params if p.grad is not None],
+                           lambda g: g.numel() * 4):
         flat = all_reduce_(torch.cat([g.reshape(-1).float() for g in bucket]))
         for g, part in zip(bucket, flat.split([g.numel() for g in bucket])):
             g.copy_(part.view_as(g))
+
+
+def _buckets(tensors, nbytes):
+    """``tensors`` in order, cut into runs of at most ``_BUCKET_BYTES`` by
+    ``nbytes(t)`` (a tensor larger than that is a run of its own)."""
+    out, size = [[]], 0
+    for t in tensors:
+        if out[-1] and size + nbytes(t) > _BUCKET_BYTES:
+            out.append([])
+            size = 0
+        out[-1].append(t)
+        size += nbytes(t)
+    return [b for b in out if b]
+
+
+def _block(t: torch.Tensor, d: int, r: int, n: int) -> torch.Tensor:
+    """Block ``r`` of ``n`` of ``t`` along dimension ``d``."""
+    k = t.shape[d] // n
+    return t.narrow(d, r * k, k)
+
+
+def reduce_scatter_grads(grads, dims) -> list:
+    """The sums over the ranks of ``grads`` (whole gradients, the same
+    shapes on every rank), each rank getting its block of each along its
+    dimension in ``dims``: the gradients flattened in order into the f32
+    buckets of :func:`all_reduce_grads` (32 MB of whole gradients), one
+    reduce-scatter a bucket, each block rounded back to its gradient's dtype
+    once. Returns the blocks."""
+    d_, n, r = _dist(), world(), rank()
+    out = []
+    for bucket in _buckets(list(zip(grads, dims)), lambda gd: gd[0].numel() * 4):
+        flat = torch.cat([_block(g, d, q, n).reshape(-1).float()
+                          for q in range(n) for g, d in bucket])
+        mine = flat.new_empty(flat.numel() // n)
+        d_.reduce_scatter_tensor(mine, flat)
+        sizes = [g.numel() // n for g, _ in bucket]
+        for (g, d), part in zip(bucket, mine.split(sizes)):
+            out.append(part.view(_block(g, d, r, n).shape).to(g.dtype))
+    return out
+
+
+def all_gather_shards(shards, dims) -> list:
+    """The whole tensors of which each rank holds ``shards`` (blocks along
+    ``dims``, in rank order), each a new tensor: the blocks flattened in
+    order into buckets of one dtype and up to 32 MB of whole tensors, one
+    all-gather a bucket."""
+    n = world()
+    out = [None] * len(shards)
+    by_dtype = {}
+    for i, s in enumerate(shards):
+        by_dtype.setdefault(s.dtype, []).append(i)
+    for idx in by_dtype.values():
+        for bucket in _buckets(idx, lambda i: shards[i].numel() * shards[i].element_size() * n):
+            parts = all_gather_rows(torch.cat([shards[i].reshape(-1) for i in bucket])).chunk(n)
+            offset = 0
+            for i in bucket:
+                s, k = shards[i], shards[i].numel()
+                out[i] = torch.cat([p[offset:offset + k].view(s.shape) for p in parts], dim=dims[i])
+                offset += k
+    return out
 
 
 def all_gather_rows(t: torch.Tensor) -> torch.Tensor:

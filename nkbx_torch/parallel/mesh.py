@@ -5,9 +5,11 @@ nkbx builds a ``('data', 'model')`` device mesh and shards the global batch
 over ``data``; the port runs one process a GPU (``torchrun``), and a
 :class:`Mesh` is the data axis over those ranks: ``mesh["data"]`` must equal
 the world's rank count. The parameters are replicated on every rank, as
-nkbx's trainer replicates them over its mesh. Sharding them (``fsdp``, a
-``model`` axis larger than 1) is not ported: it raises, naming ROADMAP.md
-A10b.
+nkbx's trainer replicates them over its mesh, unless ``fsdp`` scatters them
+over the data axis (:func:`param_shardings`, :func:`state_shardings`: nkbx's
+rule, applied to the port's tensors; :mod:`nkbx_torch.parallel.fsdp` holds
+the shards). A ``model`` axis larger than 1 and ``tensor_parallel=True``
+raise by design (:data:`A10B`).
 
 Batch geometry keeps nkbx's meaning of ``batch_size``: one process's (one
 host's) batch. torchrun's node plays nkbx's process: the loader reads the
@@ -24,8 +26,10 @@ import os
 
 from nkbx_torch.parallel import collectives
 
-A10B = ("sharding the parameters (fsdp, a mesh 'model' axis > 1) is not ported to "
-        "nkbx_torch yet (ROADMAP.md, A10b); the port replicates them on every rank")
+A10B = ("a mesh 'model' axis > 1 (or tensor_parallel=True) is refused by design (ROADMAP.md, "
+        "A10b): nkbx's trainer only replicates the state over 'model', so a mesh "
+        "{'data': D, 'model': M} computes what {'data': D} computes; use {'data': D}")
+FSDP_MIN_SIZE = 2 ** 14  # nkbx's fsdp_min_size: smaller leaves stay replicated
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,12 +95,65 @@ def mesh_from_cfg(cfg, default_all_devices: bool = False) -> Mesh | None:
     return make_mesh(n_data=mesh_cfg.get("data"), n_model=mesh_cfg.get("model", 1))
 
 
-def param_shardings(*args, **kwargs):
-    """nkbx's per-leaf parameter shardings: the port replicates every
-    parameter, and sharding them raises (A10b)."""
-    raise NotImplementedError(A10B)
+def fsdp_dim(shape, n_data: int):
+    """nkbx's ``_fsdp_dim``: the largest dimension of ``shape`` that
+    ``n_data`` divides, the first on ties; None where none divides."""
+    best = None
+    for i, d in enumerate(shape):
+        if d % n_data:
+            continue
+        if best is None or d > shape[best]:
+            best = i
+    return best
 
 
-def state_shardings(*args, **kwargs):
-    """nkbx's FSDP shardings of a train state: raises (A10b)."""
-    raise NotImplementedError(A10B)
+def leaf_spec(shape, n_data: int, fsdp: bool, fsdp_min_size: int):
+    """nkbx's spec of one leaf (``PartitionSpec`` as a tuple): ``()``
+    replicated, else ``None`` on every dimension but the scattered one,
+    which says ``"data"``. A leaf scatters when ``fsdp``, more than one data
+    rank, at least ``fsdp_min_size`` elements and a dimension that divides."""
+    size = 1
+    for d in shape:
+        size *= int(d)
+    if not fsdp or n_data <= 1 or size < fsdp_min_size:
+        return ()
+    i = fsdp_dim(shape, n_data)
+    if i is None:
+        return ()
+    return tuple("data" if j == i else None for j in range(len(shape)))
+
+
+def param_shardings(mesh: Mesh, module, tensor_parallel: bool = False, fsdp: bool = False,
+                    fsdp_min_size: int = FSDP_MIN_SIZE) -> dict:
+    """nkbx's ``param_shardings`` over a module's parameters: {name: spec},
+    a spec as :func:`leaf_spec` makes it. Without ``fsdp`` every parameter
+    is replicated. ``tensor_parallel=True`` raises (:data:`A10B`)."""
+    if tensor_parallel:
+        raise NotImplementedError(f"tensor_parallel=True: {A10B}")
+    return {name: leaf_spec(tuple(p.shape), mesh.data, fsdp, fsdp_min_size)
+            for name, p in module.named_parameters()}
+
+
+def state_shardings(mesh: Mesh, state, fsdp: bool = True,
+                    fsdp_min_size: int = FSDP_MIN_SIZE) -> dict:
+    """nkbx's ``state_shardings`` over a port :class:`TrainState`, as a tree
+    of its checkpoint's parts (:mod:`nkbx_torch.train.checkpoint`):
+    ``module`` and ``ema`` (the EMA shadow, where kept) {state-dict key:
+    spec}, ``opt_state`` {group: {"mu": [spec], "nu": [spec]}}. The moments
+    and the EMA shadow's parameters scatter as their parameters do; the
+    BatchNorm running statistics and counters stay replicated (ROADMAP.md
+    §C: nkbx's rule leaves every zoo BatchNorm vector replicated at its
+    default ``fsdp_min_size``)."""
+    shapes = state.param_shapes()
+    specs = {n: leaf_spec(s, mesh.data, fsdp, fsdp_min_size) for n, s in shapes.items()}
+
+    def module_specs(module):
+        return {k: specs.get(k, ()) for k in module.state_dict()}
+
+    out = {"module": module_specs(state.module),
+           "opt_state": {label: {m: [specs[n] for n in state.names[label]]
+                                 for m in ("mu", "nu")}
+                         for label in state.opt_state}}
+    if state.ema_module is not None:
+        out["ema"] = module_specs(state.ema_module)
+    return out

@@ -20,10 +20,14 @@ A save writes into ``<path>.tmp`` and swaps it into place, so the previous
 checkpoint survives a preemption during the save. With several ranks (their
 states are equal) rank 0 alone writes, between two barriers: no rank goes
 on before the swap is done, nor reads a checkpoint that is being written.
+A scattered state (``fsdp``) is gathered first, every rank joining, so the
+files are those of the replicated state; a restore takes each rank's
+shards from the whole tensors, so either layout resumes the other.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import shutil
 from pathlib import Path
@@ -36,17 +40,21 @@ STATE_FILE = "train_state.pt"
 
 
 def _payload(state, epoch: int, best_val_acc: float):
-    payload = {
-        "module": state.module.state_dict(),
-        "opt_state": {label: {"count": st.count, "mu": st.mu, "nu": st.nu,
-                              "mu_product": st.mu_product}
-                      for label, st in state.opt_state.items()},
-        "generator": state.generator.get_state(),
-        "step": int(state.step),
-        "meta": {"epoch": int(epoch), "best_val_acc": float(best_val_acc)},
-    }
-    if state.ema_module is not None:
-        payload["ema"] = state.ema_module.state_dict()
+    """The checkpoint's contents, whole (every rank calls it)."""
+    with state.gathered(state.module), state.gathered(state.ema_module):
+        payload = {
+            "module": state.module.state_dict(),
+            "opt_state": {label: {"count": st.count,
+                                  "mu": state.whole(state.groups[label], st.mu),
+                                  "nu": state.whole(state.groups[label], st.nu),
+                                  "mu_product": st.mu_product}
+                          for label, st in state.opt_state.items()},
+            "generator": state.generator.get_state(),
+            "step": int(state.step),
+            "meta": {"epoch": int(epoch), "best_val_acc": float(best_val_acc)},
+        }
+        if state.ema_module is not None:
+            payload["ema"] = state.ema_module.state_dict()
     return payload
 
 
@@ -60,18 +68,19 @@ def save_checkpoint(path, state, epoch: int, best_val_acc: float = 0.0,
     match its checkpoint is ignored on resume. Every rank calls it; rank 0
     writes."""
     collectives.barrier()
+    payload = _payload(state, epoch, best_val_acc)
     if collectives.rank() == 0:
-        _write_checkpoint(path, state, epoch, best_val_acc, cursor)
+        _write_checkpoint(path, payload, cursor)
     collectives.barrier()
 
 
-def _write_checkpoint(path, state, epoch, best_val_acc, cursor):
+def _write_checkpoint(path, payload, cursor):
     path = Path(path).resolve()
     tmp = path.with_name(path.name + ".tmp")
     if tmp.exists():
         shutil.rmtree(tmp)
     tmp.mkdir(parents=True)
-    torch.save(_payload(state, epoch, best_val_acc), tmp / STATE_FILE)
+    torch.save(payload, tmp / STATE_FILE)
     if path.exists():
         shutil.rmtree(path)
     tmp.rename(path)
@@ -108,16 +117,19 @@ def restore_train_state(path, state):
     or, from a checkpoint saved without EMA, starts it at the restored
     weights; a state without one ignores a saved shadow."""
     payload = torch.load(Path(path) / STATE_FILE, map_location="cpu", weights_only=True)
-    state.module.load_state_dict(payload["module"])
-    if state.ema_module is not None:
-        state.ema_module.load_state_dict(payload.get("ema", payload["module"]))
+    for module, sd in ((state.module, payload["module"]),
+                       (state.ema_module, payload.get("ema", payload["module"]))):
+        if module is not None:
+            scat = state.scatter_of(module)
+            (scat or module).load_state_dict(sd)
     for label, saved in payload["opt_state"].items():
         st = state.opt_state[label]
         if len(saved["mu"]) != len(st.mu):
             raise ValueError(f"checkpoint {path}: optimizer group {label!r} holds "
                              f"{len(saved['mu'])} tensors, the model {len(st.mu)}")
-        for dst, src in zip(st.mu + st.nu, saved["mu"] + saved["nu"]):
-            dst.copy_(src)
+        owners = state.groups[label] * 2
+        for dst, src, owner in zip(st.mu + st.nu, saved["mu"] + saved["nu"], owners):
+            dst.copy_(state.local(owner, src))
         st.count, st.mu_product = int(saved["count"]), float(saved["mu_product"])
     state.generator.set_state(payload["generator"])
     state.step = int(payload["step"])
@@ -125,8 +137,10 @@ def restore_train_state(path, state):
     return state, int(meta["epoch"]), float(meta["best_val_acc"])
 
 
-def save_weights(path, module):
+def save_weights(path, module, state=None):
     """The module's state dict alone (``best.pt``, ``last.pt``): the trained
-    module, or the EMA shadow where the run keeps one. Rank 0 writes."""
-    if collectives.rank() == 0:
-        torch.save(module.state_dict(), path)
+    module, or the EMA shadow where the run keeps one. Rank 0 writes; with
+    the ``state`` that scatters ``module`` every rank joins its gather."""
+    with state.gathered(module) if state is not None else contextlib.nullcontext():
+        if collectives.rank() == 0:
+            torch.save(module.state_dict(), path)

@@ -24,11 +24,16 @@ share of the global loss; after the backward one sum of the gradients over
 the ranks (:func:`~nkbx_torch.parallel.collectives.all_reduce_grads`); the
 metrics' losses are the global ones on every rank, and the collectors
 gather the per-sample metrics in nkbx's global row order. Every rank then
-takes the same update.
+takes the same update. On a scattered state (``TrainState.create(...,
+fsdp=True)``, :mod:`nkbx_torch.parallel.fsdp`) the step gathers the whole
+parameters first, reduce-scatters the gradients in place of the
+all-reduce, updates its shards and frees the whole parameters; the eval
+step evaluates on gathered weights.
 """
 
 from __future__ import annotations
 
+import contextlib
 import warnings
 from collections import defaultdict
 
@@ -195,7 +200,6 @@ def build_train_step(model, criterion, bundle: OptimizerBundle, augment_fn=None,
     nkbx raises them: ``scan_steps`` with accumulation; A not dividing the
     batch; accumulation with a multi-task criterion that normalises by mass;
     mixup with accumulation and a criterion of non-uniform mass."""
-    from nkbx_torch.models.convert import flax_param_path
     from nkbx_torch.train.mixup import Mixup
 
     scan_steps, accum = int(scan_steps), int(grad_accum_steps)
@@ -224,8 +228,6 @@ def build_train_step(model, criterion, bundle: OptimizerBundle, augment_fn=None,
                 "weight cannot reproduce the full-batch gradient — drop one "
                 "of the three (unweighted loss, no accumulation, or no mixup)")
     module, dtype = model.module, model.dtype
-    grad_keys = ({p: flax_param_path(n, p) for n, p in module.named_parameters()}
-                 if log_gradients else None)
     dp = mesh is not None and collectives.grouped()
 
     def forward_loss(x, label, mask, label_b, lam, scales=None):
@@ -323,7 +325,7 @@ def build_train_step(model, criterion, bundle: OptimizerBundle, augment_fn=None,
         return _stack(per)
 
     def one_step(state, image, label, mask, lr_factor, freeze_scale):
-        with collectives.data_parallel(mesh):
+        with collectives.data_parallel(mesh), state.gathered(module):
             return rank_step(state, image, label, mask, lr_factor, freeze_scale)
 
     def rank_step(state, image, label, mask, lr_factor, freeze_scale):
@@ -357,13 +359,17 @@ def build_train_step(model, criterion, bundle: OptimizerBundle, augment_fn=None,
             _scalar(loss_out).backward()
             with torch.no_grad():
                 metrics = _iter_metrics(_detach(preds), label, mask, _detach(loss_out))
+        scat = state.scatter_of(module)
         if dp:
             with torch.no_grad():
                 collectives.flush()  # the ghost groups' running statistics
-                collectives.all_reduce_grads(module.parameters())
+                if scat is not None:
+                    scat.scatter_grads()
+                else:
+                    collectives.all_reduce_grads(module.parameters())
                 _sum_losses_(metrics)
         if debug_nans:
-            check_finite(state.step, metrics["loss"], module.parameters())
+            check_finite(state.step, metrics["loss"], state.tensors())
         grads = apply_updates(bundle, state.opt_state, state.groups, lr_factor, freeze_scale,
                               freeze_semantics)
         with torch.no_grad():
@@ -371,12 +377,7 @@ def build_train_step(model, criterion, bundle: OptimizerBundle, augment_fn=None,
                 state.update_ema(ema_decay)
             state.step += 1
             if log_gradients:
-                norms = {}
-                for label_, params in state.groups.items():
-                    if label_ in grads:
-                        gs = [g.float() for g in grads[label_]]
-                        norms.update(zip((grad_keys[p] for p in params), torch._foreach_norm(gs)))
-                metrics["grad_norms"] = dict(sorted(norms.items()))
+                metrics["grad_norms"] = grad_norms(state, grads)
         return state, metrics
 
     if scan_steps > 1:
@@ -399,12 +400,36 @@ def build_train_step(model, criterion, bundle: OptimizerBundle, augment_fn=None,
     return step
 
 
+def grad_norms(state, grads) -> dict:
+    """{flax path: f32 L2 norm} of ``grads`` ({label: [gradient]}, parallel
+    to ``state.groups``), sorted by path: each norm taken in f64 and rounded
+    once to f32. A shard's square is summed over the ranks, so that a
+    scattered gradient's norm is its whole gradient's."""
+    from nkbx_torch.models.convert import flax_param_path
+
+    scat = state.scatter_of(state.module)
+    keys, gs, shard = [], [], []
+    for label, ts in state.groups.items():
+        for name, t, g in zip(state.names[label], ts, grads.get(label, ())):
+            keys.append(flax_param_path(name, t))
+            gs.append(g)
+            shard.append(scat is not None and scat.dim_of(t) is not None)
+    if not gs:
+        return {}
+    norms = torch.stack(torch._foreach_norm(gs, 2, dtype=torch.float64))
+    if any(shard):
+        mask = torch.tensor(shard, device=norms.device)
+        sq = collectives.all_reduce_(torch.where(mask, norms.square(), 0.0))
+        norms = torch.where(mask, sq.sqrt(), norms)
+    return dict(sorted(zip(keys, norms.float().unbind())))
+
+
 def check_finite(step: int, loss, params):
     """Raise FloatingPointError unless ``loss`` and every gradient of
     ``params`` are finite: one fused non-finite check a (device, dtype)
     group of tensors (``torch._amp_foreach_non_finite_check_and_unscale_``
     with a scale of 1, the loss in the gradients' group), then one read on
-    the host."""
+    the host, agreed over the ranks (each may check other shards)."""
     groups = {}
     for t in [p.grad for p in params if p.grad is not None] + [loss.detach().float().reshape(-1)]:
         groups.setdefault((t.device, t.dtype), []).append(t)
@@ -414,7 +439,7 @@ def check_finite(step: int, loss, params):
         # the loss and the gradients are multiplied by 1 in place: unchanged
         torch._amp_foreach_non_finite_check_and_unscale_(ts, inf, torch.ones(1, device=dev))
         found = inf if found is None else found + inf.to(found.device)
-    if found is not None and float(found) > 0:
+    if collectives.agreed_any(found is not None and float(found) > 0):
         raise FloatingPointError(f"debug_nans: the loss or a gradient is not finite at train "
                                  f"step {step}")
 
@@ -436,8 +461,12 @@ def build_eval_step(model, criterion, augment_fn=None, mesh=None):
     module, dtype = model.module, model.dtype
     dp = mesh is not None and collectives.grouped()
 
-    @torch.inference_mode()
     def eval_step(state, image, label, mask):
+        with _gathered(state, module):
+            return evaluate(image, label, mask)
+
+    @torch.inference_mode()
+    def evaluate(image, label, mask):
         module.eval()
         x = augment_fn(image, out_dtype=dtype) if augment_fn is not None else image
         preds = module(x)
@@ -451,7 +480,15 @@ def build_eval_step(model, criterion, augment_fn=None, mesh=None):
             loss_out = _terms(loss_out, lambda i, term: glob[i])
         return _iter_metrics(preds, label, mask, loss_out)
 
+    eval_step.module = module
     return eval_step
+
+
+def _gathered(state, module):
+    """``state.gathered(module)`` for a :class:`TrainState`; nothing for a
+    state without scattered modules (the eval CLI's)."""
+    gathered = getattr(state, "gathered", None)
+    return gathered(module) if gathered is not None else contextlib.nullcontext()
 
 
 def build_predict_fn(model, augment_fn=None):
@@ -791,14 +828,16 @@ def val_epoch(state, val_loader, eval_step, epoch: int = 0, epoch_logger=None,
               progress: bool = True, task: str = "single", device=None):
     """One evaluation epoch of ``eval_step`` (:func:`build_eval_step`);
     returns the epoch's results. Under a mesh, give an ``epoch_logger``
-    made with it, so that the results cover every rank's rows."""
+    made with it, so that the results cover every rank's rows. A scattered
+    model is gathered once for the epoch and freed after it."""
     device = next(state.module.parameters()).device if device is None else device
     logger = epoch_logger if epoch_logger is not None else EpochCollector(task)
     logger.init_iter_logs()
     it = _progress(val_loader.epoch(epoch), "Evaluating", len(val_loader), progress)
-    for i, batch in enumerate(it):
-        dev = _put_batch(batch, device)
-        logger.log_iter(eval_step(state, dev["image"], dev["label"], dev["mask"]))
-        if i == 0:
-            logger.log_images_if_needed(batch["image"])
+    with _gathered(state, getattr(eval_step, "module", None)):
+        for i, batch in enumerate(it):
+            dev = _put_batch(batch, device)
+            logger.log_iter(eval_step(state, dev["image"], dev["label"], dev["mask"]))
+            if i == 0:
+                logger.log_images_if_needed(batch["image"])
     return logger.get_epoch_results()

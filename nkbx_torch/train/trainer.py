@@ -28,8 +28,12 @@ ranks the step keeps nkbx's global-batch semantics
 (:mod:`nkbx_torch.train.engine`); rank 0's resume cursor and validation
 accuracy are broadcast, the cursor records the rank count (a cursor of
 another count replays its epoch), and rank 0 alone writes ``metrics.csv``,
-the image grids, the checkpoints and the serving bundles. ``fsdp`` and a
-mesh ``model`` axis larger than 1 raise (ROADMAP.md, A10b).
+the image grids, the checkpoints and the serving bundles. ``fsdp = True``
+scatters the parameters, their moments and the EMA shadow over the mesh's
+data ranks (:mod:`nkbx_torch.parallel.fsdp`; nkbx's ``state_shardings``),
+every rank joining the gathers of validation, the checkpoints and the
+serving bundles; it needs a mesh, as nkbx's does. A mesh ``model`` axis
+larger than 1 raises by design (ROADMAP.md, A10b).
 """
 
 from __future__ import annotations
@@ -48,22 +52,11 @@ from nkbx_torch.train.checkpoint import (load_cursor, restore_train_state, save_
 from nkbx_torch.train.engine import (EpochCollector, build_eval_step, build_train_step,
                                      has_batchnorm, train_epoch, val_epoch)
 from nkbx_torch.train.optim import backbone_state_factor, get_optimizer, get_scheduler
-from nkbx_torch.train.state import TrainState
-
-# config keys of nkbx's trainer that the port does not run yet: (default, ROADMAP item)
-UNPORTED = {
-    "fsdp": (False, "A10b"),
-}
-
+from nkbx_torch.train.state import FSDP_NEEDS_MESH, TrainState
 
 def check_options(cfg):
-    """Raise for a config option the port's trainer does not run: ``fsdp``
-    and a mesh ``model`` axis larger than 1 (A10b)."""
-    for key, (default, item) in UNPORTED.items():
-        value = cfg.get(key, None)
-        if value and value != default:
-            raise NotImplementedError(f"config option {key}={value!r} is not ported to "
-                                      f"nkbx_torch yet (ROADMAP.md, {item})")
+    """Raise for a config option the port's trainer does not run: a mesh
+    ``model`` axis larger than 1 (by design, A10b)."""
     mesh = cfg.get("mesh", None) or {}
     if int(mesh.get("model", 1) or 1) != 1:
         raise NotImplementedError(f"config option mesh={mesh!r}: {A10B}")
@@ -77,6 +70,9 @@ def train(model, train_loader, val_loader, criterion, comet_experiment, local_ex
     mesh's shares (``get_dataset(..., mesh=mesh)``), and every rank passes
     the same run directory."""
     check_options(cfg)
+    fsdp = bool(cfg.get("fsdp", False))
+    if mesh is None and fsdp:  # nkbx's rule (trainer.py:101-102)
+        raise ValueError(FSDP_NEEDS_MESH)
     mesh = mesh if mesh is not None else mesh_from_cfg(cfg, default_all_devices=True)
     for name, loader in (("train", train_loader), ("val", val_loader)):
         shares = getattr(loader, "process_count", 1) * getattr(loader, "local_world", 1)
@@ -98,7 +94,12 @@ def train(model, train_loader, val_loader, criterion, comet_experiment, local_ex
     # parameters, moments and EMA shadow; the running statistics stay f32
     master_dtype = torch.bfloat16 if cfg.get("bf16_master_weights", False) else None
     state = TrainState.create(model, seed=cfg.get("seed", 0), ema=ema_decay > 0,
-                              master_dtype=master_dtype)
+                              master_dtype=master_dtype, mesh=mesh, fsdp=fsdp)
+    if state.scattered and writer:
+        scat = state.scattered[0]
+        print(f"[nkbx_torch] fsdp: {len(scat.params)} of {len(scat.shapes)} parameters "
+              f"scattered over {mesh.data} ranks; the state at rest {state.nbytes() / 2**20:.1f} "
+              "MiB a rank", flush=True)
 
     start_epoch, best_val_acc, resume_batch = 0, 0.0, 0
     if resume_from is not None:
@@ -155,7 +156,7 @@ def train(model, train_loader, val_loader, criterion, comet_experiment, local_ex
                 "epoch": epoch, "batch": int(train_results["consumed_batches"]),
                 "step": state.step, "batch_size": train_loader.batch_size,
                 "process_count": mesh.data})
-            save_weights(model_path / "last.pt", weights)
+            save_weights(model_path / "last.pt", weights, state)
             print(f"[nkbx_torch] preemption signal received during epoch {epoch}: full train "
                   f"state saved; resume with --resume {model_path / 'last'}")
             break
@@ -174,15 +175,17 @@ def train(model, train_loader, val_loader, criterion, comet_experiment, local_ex
         if epoch_val_acc is not None and epoch_val_acc > best_val_acc:
             best_val_acc = epoch_val_acc
             save_checkpoint(model_path / "best", state, epoch, best_val_acc)
-            save_weights(model_path / "best.pt", weights)
+            save_weights(model_path / "best.pt", weights, state)
         save_checkpoint(model_path / "last", state, epoch, best_val_acc)
-        save_weights(model_path / "last.pt", weights)
+        save_weights(model_path / "last.pt", weights, state)
         if preempt.agreed():
             print(f"[nkbx_torch] preemption signal received: stopping after epoch {epoch}; "
                   f"resume with --resume {model_path / 'last'}")
             break
-    if cfg.get("export_serving", False) and writer:
-        export_serving(weights, model, val_loader, model_path)
+    if cfg.get("export_serving", False):
+        with state.gathered(weights):  # every rank joins; rank 0 exports
+            if writer:
+                export_serving(weights, model, val_loader, model_path)
     return state
 
 

@@ -62,7 +62,8 @@ shows that the kernel, not its plain version, ran:
   width it takes (the bulk ring from 32 MiB with a one-vector last chunk
   and more chunks than its stages, odd counts and offset views, small and
   large); a wrong dtype is refused;
-- the collectives of data parallelism (nkbx_torch.parallel.collectives)
+- the collectives of data parallelism (nkbx_torch.parallel.collectives), and
+  a scattered ViT-B state's gather and scatter (nkbx_torch.parallel.fsdp)
   on two gloo ranks sharing cuda:0, the BatchNorm sum's backward included;
 - the singletask config's device stage (flips, brightness/contrast, HSV,
   coarse dropout, Normalize) on a CUDA batch against the CPU with the same
@@ -1828,6 +1829,84 @@ def test_collectives_over_gloo_on_one_card(cuda_device, tmp_path):
         assert res["bn_sum"] == [[[5.0] * 3, want_grad, "cuda:0"], [[5.0] * 3, want_grad, "cpu"]]
 
 
+def _fsdp_rank(out):
+    """A rank of test_fsdp_round_trip_of_vit_b_over_gloo_on_one_card (this file
+    run as a script, torchrun's variables in the environment)."""
+    import json
+
+    import torch.distributed as dist
+
+    from nkbx_torch.core.runtime import initialize
+    from nkbx_torch.models import get_model
+    from nkbx_torch.parallel import make_mesh
+    from nkbx_torch.train import TrainState
+
+    initialize(distributed=True, device="cuda:0")
+    mesh = make_mesh()
+    dev = torch.device("cuda", 0)
+    model = get_model({"model": "vit_base_patch16_224",
+                       "backbone_opts": {"fused_attention": True, "fused_mlp": True}},
+                      [f"class{i}" for i in range(10)], seed=0, device=dev)
+    whole = {k: v.clone() for k, v in model.module.state_dict().items()}
+    state = TrainState.create(model, ema=True, mesh=mesh, fsdp=True)
+    scat = state.scatter_of(state.module)
+    gen = torch.Generator(device=dev).manual_seed(mesh.rank)
+    owners, moments = [], []
+    for label, st in state.opt_state.items():  # moments of other values on each rank
+        for t in st.mu + st.nu:
+            t.normal_(generator=gen)
+        owners += state.groups[label] * 2
+        moments += st.mu + st.nu
+    kept = [t.clone() for t in moments]
+    shards = [s.clone() for _, _, s in scat.params]
+    res = {"scattered": len(scat.params), "whole": len(scat.replicated),
+           "device": str(shards[0].device),
+           "empty_at_rest": all(p.numel() == 0 for p, _, _ in scat.params)}
+    for module, name in ((state.module, "params"), (state.ema_module, "ema")):
+        with state.gathered(module):
+            sd = module.state_dict()
+            res[name] = all(torch.equal(sd[k], whole[k]) for k in whole)
+    full = state.whole(owners, moments)
+    res["moments"] = all(torch.equal(state.local(o, f), t)
+                         for o, f, t in zip(owners, full, kept))
+    scat.load_state_dict(whole)  # the gathered weights scattered again
+    res["reload"] = all(torch.equal(s, t) for (_, _, s), t in zip(scat.params, shards))
+    with open(f"{out}/fsdp{mesh.rank}.json", "w") as f:
+        json.dump(res, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_fsdp_round_trip_of_vit_b_over_gloo_on_one_card(cuda_device, tmp_path):
+    """Two gloo ranks on cuda:0 scatter a ViT-B train state (f32 masters,
+    nadam moments, the EMA shadow; nkbx's rule at its default threshold),
+    gather its parameters, moments and shadow whole, and scatter them again:
+    every tensor comes back bit for bit."""
+    import json
+    import os
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, __file__, "--fsdp", str(tmp_path)], cwd=ROOT,
+        env=dict(os.environ, RANK=str(r), WORLD_SIZE="2", LOCAL_RANK=str(r), LOCAL_WORLD_SIZE="2",
+                 MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                 PYTHONPATH=str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", "")),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for r in range(2)]
+    outs = [p.communicate(timeout=300) for p in procs]
+    for p, (o, e) in zip(procs, outs):
+        assert p.returncode == 0, o[-2000:] + e[-4000:]
+    for r in range(2):
+        res = json.loads((tmp_path / f"fsdp{r}.json").read_text())
+        # per block: query, key, value, out and the two MLP kernels; patch_embed, pos_embed
+        assert res["scattered"] == 6 * 12 + 2 and res["device"] == "cuda:0", res
+        assert res["empty_at_rest"] and res["params"] and res["ema"], res
+        assert res["moments"] and res["reload"], res
+
+
 def test_card_tests_collect_without_jax_or_nkbx():
     """The card's machine has no JAX: this file must collect (and its card
     tests skip here) with jax, flax and nkbx unimportable and no conftest."""
@@ -1850,7 +1929,7 @@ def test_card_tests_collect_without_jax_or_nkbx():
          + len(MB_ROUTE_CASES) + 2 + len(COPY_CASES) + 1
          + 2 * len(UNICOM_SEQ) + len(EPS_CASES)
          + 2 * len(POLICY_SHAPES) + len(HEAVY_SHAPES) + 2 + 1
-         + len(OP_CASES) + 3 + 1 + len(REMAT_CASES) + 1 + 1 + 1)
+         + len(OP_CASES) + 3 + 1 + len(REMAT_CASES) + 1 + 1 + 1 + 1)
     word = "passed" if torch.cuda.is_available() else "skipped"
     assert re.search(rf"\b{n} {word}\b", proc.stdout), proc.stdout[-2000:]
 
@@ -1866,3 +1945,5 @@ def test_every_card_test_lives_in_this_file():
 if __name__ == "__main__":
     if sys.argv[1] == "--collectives":
         _collectives_rank(sys.argv[2])
+    elif sys.argv[1] == "--fsdp":
+        _fsdp_rank(sys.argv[2])

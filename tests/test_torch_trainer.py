@@ -16,8 +16,9 @@ on the CPU.
   drawn from the state's generator), preempted at batch 1 of epoch 1 and
   resumed from ``weights/last``, ends with the weights and running
   statistics of an uninterrupted run within 1e-6.
-- Every trainer option the port does not run raises, naming its ROADMAP
-  item; Comet raises. The five train-step keys (EMA, mixup, steps per
+- A mesh ``model`` axis raises by design, naming ROADMAP A10b; ``fsdp``
+  passes the check and, without a mesh, raises nkbx's ValueError; Comet
+  raises. The five train-step keys (EMA, mixup, steps per
   dispatch, accumulation, gradient norms) each train one epoch.
 - The CLI, ``python -m nkbx_torch.train -cfg ... --device cpu``, on a
   config that says ``import nkbx.transforms as T``, over BMP files: exit
@@ -53,7 +54,7 @@ from nkbx_torch.models.classifier import ClassificationModel, SingletaskClassifi
 from nkbx_torch.models.swin import SwinTransformer
 from nkbx_torch.train import get_loss, preempt
 from nkbx_torch.train.__main__ import main as cli_main
-from nkbx_torch.train.trainer import UNPORTED, check_options, train
+from nkbx_torch.train.trainer import check_options, train
 from nkbx_torch.utils import Config
 
 TINY = dict(embed_dim=16, depths=(2, 2), n_heads=(1, 2), window=2)
@@ -227,18 +228,22 @@ def test_preempted_and_resumed_run_equals_an_uninterrupted_one(tmp_path):
     assert not (res_dir / "weights" / "last.cursor.json").exists()
 
 
-# what the trainer still refuses (A10b: sharded parameters), and a value of
-# the same key that it runs
-REFUSED = {"fsdp": (True, False), "mesh": ({"data": 2, "model": 2}, {"data": 2, "model": 1})}
+# the keys of A10b: what the trainer refuses of each (None: nothing; a mesh
+# 'model' axis > 1 by design), and a value of the key that it runs
+REFUSED = {"fsdp": (None, True), "mesh": ({"data": 2, "model": 2}, {"data": 2, "model": 1})}
 
 
 @pytest.mark.parametrize("key", sorted(REFUSED))
 def test_unported_trainer_options_raise(key):
-    assert sorted(UNPORTED) == ["fsdp"]
     refused, runs = REFUSED[key]
-    with pytest.raises(NotImplementedError, match="A10b"):
-        check_options(Config({"task": "single", key: refused}))
+    if refused is not None:
+        with pytest.raises(NotImplementedError, match="A10b"):
+            check_options(Config({"task": "single", key: refused}))
     check_options(Config({"task": "single", key: runs}))
+    if key == "fsdp":  # it runs over a mesh (tests/test_torch_fsdp.py); without one, nkbx's error
+        with pytest.raises(ValueError, match="fsdp=True requires a mesh"):
+            train(None, None, None, None, None, None, Config({"task": "single", key: runs}),
+                  mesh=None)
 
 
 A4_KEYS = {"model_ema_decay": 0.9, "mixup": {"alpha": 0.2, "cutmix_alpha": 1.0},
@@ -250,7 +255,6 @@ def test_a4_trainer_options_run(key, tmp_path):
     """Each of the five train-step keys, once refused, passes
     ``check_options`` and trains one CPU epoch of ``resnet_tiny_test`` (batches
     of 4, drop_last so that accumulation halves divide them)."""
-    assert key not in UNPORTED
     root = _write_folder(tmp_path, ".png", n_train=4, n_val=2, seed=3)
     cfg = Config({**_cfg(root, tmp_path / "run", T, flips=True, n_epochs=1,
                          model={"task": "single", "model": "resnet_tiny_test"}),
