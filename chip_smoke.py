@@ -178,15 +178,19 @@
    on the repo's own configs, which runs no kernel of ours (the counts stay
    0): (a) ``python -m nkbx_torch.train`` on configs/singletask_config.py
    with only the data paths, run directory, n_epochs (2) and num_workers
-   changed (resnet14t at 128 px, pretrained without a file: the warning
-   must appear; weighted sampling; flips, brightness/contrast, HSV, coarse
-   dropout and Normalize on the card; nadam, cosine, the freeze policy;
-   batch 64) over a seeded annotated CSV of 200 + 70 BMP images under
-   build/shipped_smoke/; (b) ``python -m nkbx_torch.eval`` on the run's
-   weights/best.pt: balanced accuracy and loss within 1e-6 relative of
-   metrics.csv's best epoch; (c) ``python -m nkbx_torch.inference`` on a
-   flat folder of the val images: a row per image, labels in classes.json
-   and equal to argmax of build_predict_fn; (d) the singletask device stage
+   changed and its Comet section set as its comment shows (resnet14t at 128
+   px, pretrained without a file: the warning must appear; no ``comet_ml``
+   on the card's machine: nkbx's warning must appear and metrics.csv carry
+   the columns of local logging alone; weighted sampling; flips,
+   brightness/contrast, HSV, coarse dropout and Normalize on the card;
+   nadam, cosine, the freeze policy; batch 64) over a seeded annotated CSV
+   of 200 + 70 BMP images under build/shipped_smoke/; then EXPORT (5)'s
+   two longest subprocesses start and run beside what follows; (b) ``python
+   -m nkbx_torch.eval`` on the run's weights/best.pt: balanced accuracy and
+   loss within 1e-6 relative of metrics.csv's best epoch; (c) ``python -m
+   nkbx_torch.inference`` on a flat folder of the val images (at once with
+   (b)): a row per image, labels in classes.json and equal to argmax of
+   build_predict_fn; (d) the singletask device stage
    on a batch of 64 at 128 px with fixed draws against the CPU (1e-3 on the
    0-255 scale, 1e-5 after Normalize) and its ms a batch; (e)
    configs/multitask_config.py (efficientnet_b0, 224 px) and
@@ -195,7 +199,7 @@
    build_train_step steps on their pipelines with finite losses, a
    bucket-64 ServingModule forward, step and serving img/s and peak memory;
    mobilenetv3_small_100 and efficientnetv2_s one forward each, bf16
-   against f32 (the yolo_crops train CLI runs in EXPORT).
+   against f32 (the yolo_crops train CLI runs from (a) on, for EXPORT).
 9. The rest of the zoo (ZOO, check_zoo): densenet121 at 224 px, batch 64:
    bf16 against f32, 1 + 5 train steps with finite and falling losses, step
    img/s, peak memory and a profile, a bucket-64 ServingModule forward and
@@ -214,22 +218,25 @@
    N = 577 (12 launches) against the plain versions, and its img/s.
 11. configs/modern_recipe_config.py in the port (MODERN, check_modern):
    (a) its device stage, RandAugment (num_ops 2, magnitude 9, 4 affine
-   grids) + Normalize, and TrivialAugmentWide, on a CUDA batch of 128 at 224
-   px against the CPU with the same draws, round by round, and their ms a
-   batch; (b) its bare step (resnet50, batch 128, bf16, exact BN, CutMix,
-   label smoothing, sgd lr 0.5, EMA 0.9998) as one call of 20 steps: finite
-   losses, stacked metrics, the EMA shadow; img/s of the call against 20
-   single calls, idle shares, peak memory, the device stage, mixup and EMA
-   alone; in f32 3 steps in one call against 3 single calls; (c) ``python
+   grids) + Normalize, and TrivialAugmentWide, on a CUDA batch of 32 at 224
+   px (every op drawn) against the CPU with the same draws, round by round,
+   and their ms a batch of 128; (b) its bare step (resnet50, batch 128,
+   bf16, exact BN, CutMix, label smoothing, sgd lr 0.5, EMA 0.9998) as one
+   call of 20 steps: finite losses, stacked metrics, the EMA shadow; img/s
+   of the call against 20 single calls, idle shares (the call's against a
+   profiled single step's device ms), peak memory, the device stage, mixup
+   and EMA alone; in f32 3 steps in one call against 3 single calls; (c)
+   ``python
    -m nkbx_torch.train`` on the config with only its data roots, run
    directory, n_epochs (2) and num_workers changed, over a seeded ImageFolder
    of BMP files (a call of 20 steps and one of 5 an epoch), with the
    pretrained and ``mixup_alpha`` warnings; (d) ``python -m nkbx_torch.eval``
    on its best.pt, equal to metrics.csv's best epoch, best.pt the EMA
-   shadow; none of (a)-(d) runs a kernel of ours (the counts stay 0); (e)
-   swin_tiny at batch 64 with grad_accum_steps=2, EMA, mixup and
-   log_gradients: K1, K2, K5 and K6 launch twice a step (counted), 3 steps
-   agree with the plain versions, the gradient norms carry nkbx's keys.
+   shadow; none of (a)-(d) runs a kernel of ours (the counts stay 0); (e),
+   beside (c)'s CLI: swin_tiny at batch 64 with grad_accum_steps=2, EMA,
+   mixup and log_gradients: K1, K2, K5 and K6 launch twice a step
+   (counted), 3 steps agree with the plain versions, the gradient norms
+   carry nkbx's keys.
 12. Export (EXPORT, check_export; ``python3 chip_smoke.py --export`` runs
    it alone after SHIPPED (a)-(c)), bf16, seed 0, 10 classes, full width:
    (1) swin_tiny's best.pt through ``python -m nkbx_torch.export`` in
@@ -243,9 +250,10 @@
    plain f32 model's largest logit; (2) vit_base_patch16_224 with the fused
    flags (K3 and K5, 12 each) and (3) convnext_tiny under
    NKBX_FUSED_LN_MLP=0 (K7, 18), fused bundles exported in this process,
-   the same checks; (4) benchmark(64) of swin's fused bundle, its portable
-   bundle and the eager model-backed ServingModule in turns, and ``python
-   -m nkbx_torch.export.serving --sweep`` on the portable bundle; (5) the
+   the same checks; (4) ``python -m nkbx_torch.export.serving --sweep`` on
+   the portable bundle (beside the rest of the phase), then, alone on the
+   card, one turn of benchmark(64) of swin's fused bundle, its portable
+   bundle and the eager model-backed ServingModule; (5) the
    shipped configs as shipped: SHIPPED (a)'s run exported with ``python -m
    nkbx_torch.export -cfg`` its config, configs/eval_config.py and
    configs/inference_config.py with ``scripted: True`` through the eval and
@@ -254,9 +262,11 @@
    configs/yolo_crops_config.py through the train CLI (2 epochs over a
    seeded YOLO-layout set; export_serving leaves best.nkbx and last.nkbx),
    and ``python -m nkbx_torch.det_cls_val`` on its best.nkbx with a
-   detections CSV; (6) swin_tiny's ``--to torchscript`` file reloaded with
-   torch.jit.load against the eager plain model (2 bf16 ulps). The phase's
-   seconds; the CLIs' logs go to OUT_DIR as export_*.log.
+   detections CSV (the train and the singletask export started in SHIPPED;
+   eval, inference and det_cls_val start with the phase, beside (1)-(3));
+   (6) swin_tiny's ``--to torchscript`` file reloaded with torch.jit.load
+   against the eager plain model (2 bf16 ulps). The phase's seconds; the
+   CLIs' logs go to OUT_DIR as export_*.log.
 13. nkbx's max-throughput opt-ins and the one-card tools (OPTINS,
    check_optins; ``python3 chip_smoke.py --optins`` runs it alone): (a)
    ``remat_stages=(0, 1, 2, 3)`` on convnext_tiny (K5/K6) and on the
@@ -289,9 +299,11 @@
    largest value), against one process (a)'s rule, K3-K6 12 a step on each
    rank, the state at rest at most 0.502 of the replicated rank's, the
    peak memory of each step; the trainer CLI with ``fsdp = True`` against
-   (b)'s 2 ranks; (d) a NCCL group of one rank against no group.
+   (b)'s 2 ranks; (d) a NCCL group of one rank against no group (beside
+   (a)-(c)).
 15. Prints the kernels' JSON line (all 17 kernels), the card's name and
-   power limit, and last {"ok": true, "device": {...}}.
+   power limit, and last {"ok": true, "device": {...}}. Each phase prints
+   its seconds and the whole run's so far as it ends.
 
 Exits non-zero, before printing any result, without a CUDA device, outside
 a checkout of the repository, or when any check fails.
@@ -3086,6 +3098,26 @@ def write_annotated_csv(data, seed=0):
         f.write("\n".join(rows) + "\n")
 
 
+NO_COMET = "comet_ml is not installed; continuing with local logging only"  # nkbx's warning
+
+
+def shipped_local_header():
+    """The metrics.csv columns that local logging writes for SHIPPED (a)'s
+    task and classes without Comet: the trainer's local calls on made-up
+    values, in a scratch run directory."""
+    from nkbx_torch.logging.experiment import LocalExperiment, log_metrics
+
+    path = os.path.join(SHIPPED_DIR, "local_header")
+    os.makedirs(path, exist_ok=True)
+    exp = LocalExperiment(path)
+    metrics = {"epoch_acc": 0.5, "epoch_roc_auc": 0.5, "epoch_loss": 1.0, "loss": [1.0]}
+    for fold in ("train", "Val"):
+        log_metrics(exp, None, SHIPPED_CLASSES, 0, metrics, fold)
+    exp.log_metric("train images/sec/chip", 1.0, epoch=0)
+    with open(os.path.join(path, "metrics.csv")) as f:
+        return f.readline().rstrip("\n").split("\t")
+
+
 def shipped_config(name, edits, path):
     """configs/<name>.py with each (old, new, count) edit made exactly
     ``count`` times, written to ``path``."""
@@ -3129,7 +3161,11 @@ def check_shipped_cli():
         brightness/contrast + HSV + coarse dropout + Normalize, nadam,
         cosine, the freeze policy, batch 64) over a seeded annotated CSV of
         200 + 70 BMP images; NKBX_PRETRAINED_DIR unset, so the pretrained
-        warning must appear; exit 0, its files, finite metrics;
+        warning must appear; the config's Comet section set as its comment
+        shows, with a side YAML: the card's machine has no ``comet_ml``, so
+        nkbx's warning must appear and the run log locally only; exit 0, its
+        files, a metrics.csv with the columns the local logger writes for
+        this task without Comet (shipped_local_header), finite metrics;
     (b) ``python -m nkbx_torch.eval`` (configs/eval_config.py, the model
         rebuilt from resnet14t and the run's weights/best.pt): balanced
         accuracy and loss within 1e-6 relative of metrics.csv's row of the
@@ -3151,8 +3187,14 @@ def check_shipped_cli():
     paths = [('annotations_path = "data/annotations.csv"',
               f'annotations_path = "{data}/annotations.csv"', 1),
              ('image_base_dir = "data/images"', f'image_base_dir = "{data}/images"', 1)]
+    comet_yaml = os.path.abspath(os.path.join(SHIPPED_DIR, "comet_api_cfg.yml"))
+    with open(comet_yaml, "w") as f:
+        f.write("api_key: not-a-key\nworkspace: nkbx\nproject_name: chip-smoke\n")
+    comet = ('"comet": {"comet_api_cfg_path": %r, "auto_metric_logging": False, '
+             '"name": experiment_name},' % comet_yaml)
     train_cfg = shipped_config("singletask_config", paths + [
         ('"path": f"data/runs/{experiment_name}"', f'"path": "{run}"', 1),
+        ('"comet": None,', comet, 1),
         ("n_epochs = 5", "n_epochs = 2", 1), (*workers, 2)],
         os.path.join(SHIPPED_DIR, "singletask.py"))
     env = {k: v for k, v in os.environ.items() if k != "NKBX_PRETRAINED_DIR"}
@@ -3164,10 +3206,17 @@ def check_shipped_cli():
     have = [n for n in ("classes.json", "metrics.csv", "weights/best.pt", "weights/last.pt",
                         "weights/last") if os.path.exists(os.path.join(run, n))]
     warned = "no converted checkpoint for 'resnet14t'" in proc.stderr
+    no_comet = NO_COMET in proc.stderr
+    header = list(rows[0]) if rows else []
+    local = header == shipped_local_header()
     log(f"shipped (a): python -m nkbx_torch.train on configs/singletask_config.py exit "
         f"{proc.returncode} in {out['train_cli_s']:.1f} s; {have}; metrics.csv rows {len(rows)}; "
-        f"the pretrained warning {'appeared' if warned else 'MISSING'}")
-    if proc.returncode != 0 or len(have) != 5 or len(rows) != 2 or not warned:
+        f"the pretrained warning {'appeared' if warned else 'MISSING'}; with its Comet section, "
+        f"nkbx's comet_ml warning {'appeared' if no_comet else 'MISSING'}, metrics.csv columns "
+        f"{'those' if local else 'NOT those'} of local logging without Comet ({len(header)})")
+    out["comet_warning"], out["metrics_columns_local"] = no_comet, local
+    if (proc.returncode != 0 or len(have) != 5 or len(rows) != 2 or not warned
+            or not no_comet or not local):
         fail(f"the shipped train run failed (log in {OUT_DIR}/shipped_train.log): "
              f"{proc.stderr[-2000:]}")
     shutil.copy(os.path.join(run, "metrics.csv"), os.path.join(OUT_DIR, "shipped_metrics.csv"))
@@ -3181,16 +3230,35 @@ def check_shipped_cli():
     for r in rows:  # the trainer's rule: the first epoch that beats the best so far
         if float(r["Val balanced accuracy"]) > best_acc:
             best, best_acc = r, float(r["Val balanced accuracy"])
+    # EXPORT (5)'s two longest subprocesses need only this run: they start now and
+    # run beside the rest of the run until EXPORT collects them
+    SHIPPED_RUN.update(run=run, paths=paths, workers=workers)
+    SHIPPED_RUN["export_started"] = start_export_shipped()
 
-    # (b) eval
+    # (b) eval and (c) inference, their CLIs at once
     save = os.path.abspath(os.path.join(SHIPPED_DIR, "eval"))
     eval_cfg = shipped_config("eval_config", paths + [
         ('train_run_path = "data/runs/train_singletask_run_1"', f'train_run_path = "{run}"', 1),
         ('save_path = "data/runs/val_singletask_run_1"', f'save_path = "{save}"', 1),
         workers + (1,), REBUILT], os.path.join(SHIPPED_DIR, "eval.py"))
-    proc, out["eval_cli_s"] = run_cli("nkbx_torch.eval", eval_cfg, "shipped_eval.log")
-    if proc.returncode != 0:
-        fail(f"the eval CLI failed (log in {OUT_DIR}/shipped_eval.log): {proc.stderr[-2000:]}")
+    folder = os.path.abspath(os.path.join(SHIPPED_DIR, "unknown"))
+    os.makedirs(folder)
+    for name in sorted(os.listdir(os.path.join(data, "images"))):
+        if name.startswith("val_"):
+            shutil.copy(os.path.join(data, "images", name), folder)
+    infer_save = os.path.abspath(os.path.join(SHIPPED_DIR, "infer"))
+    infer_cfg = shipped_config("inference_config", [
+        ('save_path = "data/runs/infer_singletask_run_1"', f'save_path = "{infer_save}"', 1),
+        ('train_run_path = "data/runs/train_singletask_run_1"', f'train_run_path = "{run}"', 1),
+        ('"folder_path": "data/unknown_images"', f'"folder_path": "{folder}"', 1),
+        workers + (1,), REBUILT], os.path.join(SHIPPED_DIR, "inference.py"))
+    t0 = time.perf_counter()
+    clis = {"eval": start_cli(["-m", "nkbx_torch.eval", "-cfg", eval_cfg], "shipped_eval.log"),
+            "inference": start_cli(["-m", "nkbx_torch.inference", "-cfg", infer_cfg],
+                                   "shipped_inference.log")}
+    for name, handle in clis.items():
+        finish_cli(handle, f"the shipped {name} CLI")
+        out[f"{name}_cli_s"] = time.perf_counter() - t0  # from the common start
     with open(os.path.join(save, "metrics.json")) as f:
         metrics = json.load(f)
     d_acc = abs(metrics["epoch_acc"] - float(best["Val balanced accuracy"])) / max(best_acc, 1e-12)
@@ -3207,23 +3275,7 @@ def check_shipped_cli():
         fail("the eval CLI does not reproduce the trainer's validation of the best epoch")
 
     # (c) inference
-    folder = os.path.abspath(os.path.join(SHIPPED_DIR, "unknown"))
-    os.makedirs(folder)
-    for name in sorted(os.listdir(os.path.join(data, "images"))):
-        if name.startswith("val_"):
-            shutil.copy(os.path.join(data, "images", name), folder)
-    save = os.path.abspath(os.path.join(SHIPPED_DIR, "infer"))
-    infer_cfg = shipped_config("inference_config", [
-        ('save_path = "data/runs/infer_singletask_run_1"', f'save_path = "{save}"', 1),
-        ('train_run_path = "data/runs/train_singletask_run_1"', f'train_run_path = "{run}"', 1),
-        ('"folder_path": "data/unknown_images"', f'"folder_path": "{folder}"', 1),
-        workers + (1,), REBUILT], os.path.join(SHIPPED_DIR, "inference.py"))
-    proc, out["inference_cli_s"] = run_cli("nkbx_torch.inference", infer_cfg,
-                                           "shipped_inference.log")
-    if proc.returncode != 0:
-        fail(f"the inference CLI failed (log in {OUT_DIR}/shipped_inference.log): "
-             f"{proc.stderr[-2000:]}")
-    with open(os.path.join(save, "inference_annotations.csv")) as f:
+    with open(os.path.join(infer_save, "inference_annotations.csv")) as f:
         head, *lines = [line.rstrip("\n").split(",") for line in f]
     with open(os.path.join(run, "classes.json")) as f:
         classes = json.load(f)
@@ -3248,7 +3300,7 @@ def check_shipped_cli():
         f"argmax of build_predict_fn over the same images: {got == want}")
     if not ok:
         fail("the inference CLI's annotations do not match the model's predictions")
-    SHIPPED_RUN.update(run=run, paths=paths, workers=workers, folder=folder, out=out, labels=got)
+    SHIPPED_RUN.update(folder=folder, out=out, labels=got)
     return out
 
 
@@ -3371,7 +3423,7 @@ def check_shipped_models():
     (mobilenetv3_large_100, 128 px, FocalLoss) through
     shipped_model_check; mobilenetv3_small_100 and efficientnetv2_s one
     bf16 forward each against f32 (5% of the largest f32 logit). The
-    yolo_crops train CLI runs in EXPORT (check_export_shipped)."""
+    yolo_crops train CLI runs from SHIPPED on (start_export_shipped)."""
     from nkbx_torch.utils import load_config
 
     out = {}
@@ -3647,6 +3699,7 @@ def check_resample():
 MODERN_DIR = os.path.join("build", "modern_smoke")  # data, configs and runs
 MODERN_CONFIG = os.path.join("configs", "modern_recipe_config.py")
 MODERN_BATCH = 128  # the recipe's batch
+MODERN_CHECK_ROWS = 32  # rows of MODERN (a)'s card-against-CPU check: every op drawn
 MODERN_K = 20  # the recipe's steps_per_dispatch
 # 25 full batches (a call of 20 and a shorter one of 5) and a padded val batch
 MODERN_SPLITS = (("train", 25 * MODERN_BATCH), ("val", 2 * MODERN_BATCH + 17))
@@ -3657,8 +3710,9 @@ A4_STEPS = 3
 def check_modern_stage(cfg):
     """MODERN (a): the recipe's device stage (RandAugment num_ops = 2,
     magnitude 9, 4 affine grids, then Normalize) on a CUDA uint8 batch of
-    128 at 224 px with fixed draws (from a CPU generator) against the CPU
-    with the same draws, and TrivialAugmentWide (4 grids) the same way: each
+    MODERN_CHECK_ROWS at 224 px with fixed draws (from a CPU generator; every
+    op of the policy drawn) against the CPU with the same draws, and
+    TrivialAugmentWide (4 grids) the same way: each
     round from the same input (the CPU's output of the round before) within
     1e-3 on the 0-255 scale, the samples on identity, a warp, posterize,
     solarize or equalize equal, leaving out the pixels whose source
@@ -3667,7 +3721,8 @@ def check_modern_stage(cfg):
     values off the CPU's whole stage logged (a tie in round 1 moves round 2's
     global ops: not held); a second run on the card bit-identical; then the
     stage's ms a batch in bf16 with its own draws from a CUDA generator (CUDA
-    events) and a profile of one batch (device ms, launches)."""
+    events) and a profile of one batch of MODERN_BATCH (device ms,
+    launches)."""
     from nkbx_torch.transforms import device as D
     from nkbx_torch.transforms import spec as S
 
@@ -3675,14 +3730,17 @@ def check_modern_stage(cfg):
     (ra,) = [t for t in pipe.device_transforms if isinstance(t, S.RandAugment)]
     norm = pipe.device_transforms[-1]
     std = 255.0 * min(norm.std)
-    x = torch.from_numpy(np.random.default_rng(0).integers(0, 256, (MODERN_BATCH, 224, 224, 3),
-                                                           dtype=np.uint8))
+    full = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 256, (MODERN_BATCH, 224, 224, 3), dtype=np.uint8)).to(DEV)  # the timed batch
+    x = full[:MODERN_CHECK_ROWS].cpu()  # the checked rows
     xd = x.to(DEV)
     out = {}
     for name, t in (("randaugment", ra), ("trivialaugment",
                                           S.TrivialAugmentWide(num_affine_grids=ra.num_affine_grids))):
         stage = pipe.device_stage() if t is ra else S.Compose([t, norm]).device_stage()
         (d,) = stage.draw(tuple(x.shape), torch.Generator().manual_seed(3))
+        if torch.bincount(d["op"].flatten(), minlength=14).min() == 0:
+            fail(f"modern (a): the {name} draws of {MODERN_CHECK_ROWS} rows miss an op")
         dc = {k: v.to(DEV) for k, v in d.items()}
         xr, errs, ties, equal = x.float(), [], 0, True
         for r in range(d["op"].shape[0]):
@@ -3705,11 +3763,11 @@ def check_modern_stage(cfg):
         whole = float(far.float().mean())
         again = torch.equal(got, stage(xd, draws=[dc]))
         gen = torch.Generator(device=DEV).manual_seed(0)
-        ms = cuda_ms(lambda: stage(xd, torch.bfloat16, generator=gen), iters=STAGE_ITERS)
+        ms = cuda_ms(lambda: stage(full, torch.bfloat16, generator=gen), iters=STAGE_ITERS)
         from torch.profiler import ProfilerActivity, profile
 
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            stage(xd, torch.bfloat16, generator=gen)
+            stage(full, torch.bfloat16, generator=gen)
             torch.cuda.synchronize()
         events = report_profile(prof, 1, f"in one {name} device-stage batch of {MODERN_BATCH} "
                                 f"at 224 px", ms, f"profile_modern_stage_{name}.txt")
@@ -3772,7 +3830,8 @@ def check_modern_step(cfg):
     moved and differs from the weights; then, warm, one timed 20-step call
     (host clock, synchronised) against 20 single calls, img/s each, the peak
     memory of the 20-step call, a profile of one single step (device ms by
-    kind of kernel, idle share) and of one 20-step call (its idle share),
+    kind of kernel, idle share; the 20-step call's idle share against that
+    step's device ms),
     and the device stage, the mixup and the EMA update alone on CUDA events.
     In f32 (TF32 off, cuDNN deterministic for this check): 3 steps in one
     call against 3 single calls from the same weights and generator seed:
@@ -3823,15 +3882,10 @@ def check_modern_step(cfg):
     out["profile_step"] = profile_step(
         lambda st: single(st, images[0], labels[0], masks[0], 1.0, 1.0), state, "resnet50_modern",
         MODERN_BATCH, ms1 / MODERN_K)
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        step(state, images, labels, masks, 1.0, 1.0)
-        torch.cuda.synchronize()
-    events = report_profile(prof, MODERN_K, f"a step of one {MODERN_K}-step call", ms20 / MODERN_K,
-                            "profile_modern_call20.txt")
-    out["idle_share_call20"] = (1 - device_ms(events, MODERN_K) / (ms20 / MODERN_K)
-                                if events else None)
+    # the call's steps launch the single step's kernels (mixup's draw moves a few), so
+    # its idle share takes that step's device ms: a profile of the whole call took a
+    # minute of host time to read
+    out["idle_share_call20"] = 1 - out["profile_step"]["device_ms"] / (ms20 / MODERN_K)
     x = cfg.train_pipeline.device_apply(images[0], torch.bfloat16)
     mix = Mixup({k: v for k, v in cfg.mixup.items() if k != "mixup_alpha"})
     gen = torch.Generator(device=DEV).manual_seed(1)
@@ -3903,8 +3957,29 @@ def write_modern_folder(root, seed=0):
             write_bmp(os.path.join(d, f"{i}.bmp"), img)
 
 
-def check_modern_cli():
-    """MODERN (c)-(d), each CLI in a subprocess:
+def start_modern_cli():
+    """MODERN (c)'s data, config and train CLI, started in a subprocess
+    (check_modern_cli holds it); returns (its handle, start, run directory,
+    data directory)."""
+    shutil.rmtree(MODERN_DIR, ignore_errors=True)
+    data = os.path.abspath(os.path.join(MODERN_DIR, "data"))
+    run = os.path.abspath(os.path.join(MODERN_DIR, "run"))
+    write_modern_folder(data)
+    cfg_path = shipped_config("modern_recipe_config", [
+        ('"root": "data/train"', f'"root": "{data}/train"', 1),
+        ('"root": "data/val"', f'"root": "{data}/val"', 1),
+        ('"path": f"data/runs/{experiment_name}"', f'"path": "{run}"', 1),
+        ("n_epochs = 90", "n_epochs = 2", 1),
+        ('"num_workers": 16', f'"num_workers": {MODERN_WORKERS}', 2)],
+        os.path.join(MODERN_DIR, "modern.py"))
+    env = {k: v for k, v in os.environ.items() if k != "NKBX_PRETRAINED_DIR"}
+    return (start_cli(["-m", "nkbx_torch.train", "-cfg", cfg_path], "modern_train.log", env),
+            time.perf_counter(), run, data)
+
+
+def check_modern_cli(started):
+    """MODERN (c)-(d), each CLI in a subprocess (``started``: (c)'s, from
+    start_modern_cli):
     (c) ``python -m nkbx_torch.train`` on configs/modern_recipe_config.py with
         only the data roots, the run directory, n_epochs (2) and num_workers
         changed (``shipped_config``), over a seeded ImageFolder of
@@ -3918,31 +3993,21 @@ def check_modern_cli():
         balanced accuracy and loss within 1e-6 relative of metrics.csv's best
         epoch; best.pt equal to the EMA shadow in weights/best/train_state.pt
         and not to its raw weights."""
-    shutil.rmtree(MODERN_DIR, ignore_errors=True)
-    data = os.path.abspath(os.path.join(MODERN_DIR, "data"))
-    run = os.path.abspath(os.path.join(MODERN_DIR, "run"))
-    write_modern_folder(data)
-    cfg_path = shipped_config("modern_recipe_config", [
-        ('"root": "data/train"', f'"root": "{data}/train"', 1),
-        ('"root": "data/val"', f'"root": "{data}/val"', 1),
-        ('"path": f"data/runs/{experiment_name}"', f'"path": "{run}"', 1),
-        ("n_epochs = 90", "n_epochs = 2", 1),
-        ('"num_workers": 16', f'"num_workers": {MODERN_WORKERS}', 2)],
-        os.path.join(MODERN_DIR, "modern.py"))
-    env = {k: v for k, v in os.environ.items() if k != "NKBX_PRETRAINED_DIR"}
+    handle, t0, run, data = started
     out = {}
-    proc, out["train_cli_s"] = run_cli("nkbx_torch.train", cfg_path, "modern_train.log", env)
-    rows = read_metrics_csv(os.path.join(run, "metrics.csv")) if proc.returncode == 0 else []
+    text, _ = finish_cli(handle, "the modern recipe's train run")
+    out["train_cli_s"] = time.perf_counter() - t0
+    rows = read_metrics_csv(os.path.join(run, "metrics.csv"))
     have = [n for n in ("classes.json", "metrics.csv", "weights/best.pt", "weights/last.pt",
                         "weights/best", "weights/last") if os.path.exists(os.path.join(run, n))]
-    warned = {"pretrained": "no converted checkpoint for 'resnet50'" in proc.stderr,
-              "mixup_alpha": "'mixup_alpha' is ignored" in proc.stderr}
-    log(f"modern (c): python -m nkbx_torch.train on configs/modern_recipe_config.py exit "
-        f"{proc.returncode} in {out['train_cli_s']:.1f} s; {have}; metrics.csv rows {len(rows)}; "
+    warned = {"pretrained": "no converted checkpoint for 'resnet50'" in text,
+              "mixup_alpha": "'mixup_alpha' is ignored" in text}
+    log(f"modern (c): python -m nkbx_torch.train on configs/modern_recipe_config.py exit 0 in "
+        f"{out['train_cli_s']:.1f} s (beside (e)); {have}; metrics.csv rows {len(rows)}; "
         f"warnings {warned}")
-    if proc.returncode != 0 or len(have) != 6 or len(rows) != 2 or not all(warned.values()):
+    if len(have) != 6 or len(rows) != 2 or not all(warned.values()):
         fail(f"the modern recipe's train run failed (log in {OUT_DIR}/modern_train.log): "
-             f"{proc.stderr[-2000:]}")
+             f"{text[-2000:]}")
     shutil.copy(os.path.join(run, "metrics.csv"), os.path.join(OUT_DIR, "modern_metrics.csv"))
     keys = ("train loss", "Val loss", "Val balanced accuracy", "train images/sec/chip")
     for r in rows:
@@ -4133,23 +4198,25 @@ def check_modern_kernels():
 
 def check_modern():
     """MODERN, configs/modern_recipe_config.py in the port: (a)
-    check_modern_stage, (b) check_modern_step, (c)-(d) check_modern_cli,
-    which run no kernel of ours (resnet50 with exact BatchNorm: the counts,
-    set to 0 before and read after the in-process phases, stay 0), then (e)
-    check_modern_kernels, the A4 options through K1, K2, K5 and K6. Returns
-    (the numbers, (e)'s counts)."""
+    check_modern_stage, (b) check_modern_step, which run no kernel of ours
+    (resnet50 with exact BatchNorm: the counts, set to 0 before and read
+    after, stay 0); then (c)'s train CLI starts (start_modern_cli) and runs
+    beside (e) check_modern_kernels, the A4 options through K1, K2, K5 and
+    K6, which times nothing; then (c)-(d) check_modern_cli. Returns (the
+    numbers, (e)'s counts)."""
     from nkbx_torch.utils import load_config
 
     cfg = load_config(MODERN_CONFIG)
     zero_counts()
     out = {"device_stage": check_modern_stage(cfg)}
     out["step"] = check_modern_step(cfg)
-    out["cli"] = check_modern_cli()
     torch.cuda.synchronize()
     counts = read_counts()
     if any(counts.values()):
-        fail(f"modern (a)-(d) launched port kernels they should not: {counts}")
+        fail(f"modern (a)-(b) launched port kernels they should not: {counts}")
+    started = start_modern_cli()
     counts, out["a4_swin"] = check_modern_kernels()
+    out["cli"] = check_modern_cli(started)
     log(f"modern: {json.dumps(out)}")
     return out, counts
 
@@ -4549,11 +4616,16 @@ def check_export_models(started, out):
             log(f"export {path.label}: {json.dumps(out[path.label])}")
             del model
 
-    # (1) Swin-T's two bundles from the CLI
+    # (1) Swin-T's two bundles from the CLI; the serving CLI's sweep (4) starts on the
+    # portable one at once
     swin = SWIN.model(torch.bfloat16)
     for kind in ("portable", "fused"):
         _, out[f"swin_tiny_{kind}_export_s"] = finish_cli(started[kind],
                                                           f"python -m nkbx_torch.export ({kind})")
+    started["sweep"] = (start_cli(
+        ["-m", "nkbx_torch.export.serving", os.path.join(root, "portable", "best.nkbx"),
+         "--sweep", "--iters", str(EXPORT_SWEEP_ITERS)], "export_serving_sweep.log"),
+        time.perf_counter())
     res, servers = hold_bundles(SWIN, swin, x, total,
                                 fused=os.path.join(root, "fused", "best.nkbx"),
                                 portable=os.path.join(root, "portable", "best.nkbx"))
@@ -4578,31 +4650,18 @@ def check_export_models(started, out):
     return (servers, swin), total
 
 
-def check_export_server(servers, swin, out):
-    """EXPORT (4), with nothing else on the card: benchmark(64) of Swin-T's
-    fused bundle, its portable bundle and the eager model-backed
-    ServingModule in turns (twice), then ``python -m
-    nkbx_torch.export.serving --sweep`` on the portable bundle. Numbers,
-    not a claim."""
+def check_export_server(servers, swin, sweep, out):
+    """EXPORT (4): ``python -m nkbx_torch.export.serving --sweep`` on the
+    portable bundle (``sweep``: its handle and start, from
+    check_export_models; it ran beside the rest of EXPORT, so its numbers
+    are a check of the CLI, not a measurement); then, with nothing else on
+    the card, one turn of benchmark(64) of Swin-T's fused bundle, its
+    portable bundle and the eager model-backed ServingModule. Numbers, not a
+    claim."""
     from nkbx_torch.export import ServingModule
 
-    eager = ServingModule(swin, buckets=(1, 8, BUCKET), warm_up_on_load=False)
-    bench = {}
-    for _ in range(2):
-        for name, serving in (("fused", servers["fused"]), ("portable", servers["portable"]),
-                              ("eager", eager)):
-            r = serving.benchmark(BUCKET, iters=EXPORT_BENCH_ITERS)
-            bench.setdefault(name, []).append(r)
-            log(f"export benchmark({BUCKET}) swin_tiny {name}: p50 {r['p50_ms']:.3f} ms, p99 "
-                f"{r['p99_ms']:.3f} ms, {r['images_per_sec']:.1f} img/s (compute p50 "
-                f"{r['compute_p50_ms']:.3f} ms, pipelined {r['pipelined_images_per_sec']:.1f} "
-                "img/s)")
-    out["benchmark"] = bench
-    t0 = time.perf_counter()
-    text, _ = finish_cli(start_cli(
-        ["-m", "nkbx_torch.export.serving", os.path.join(EXPORT_DIR, "portable", "best.nkbx"),
-         "--sweep", "--iters", str(EXPORT_SWEEP_ITERS)], "export_serving_sweep.log"),
-        "python -m nkbx_torch.export.serving --sweep")
+    handle, t0 = sweep
+    text, _ = finish_cli(handle, "python -m nkbx_torch.export.serving --sweep")
     rows = [json.loads(line) for line in text.splitlines() if line.startswith("{")]
     if [r["batch_size"] for r in rows] != [1, 2, 4, 8, 16, 32, BUCKET]:
         fail(f"the serving sweep's rows: {[r['batch_size'] for r in rows]}")
@@ -4610,7 +4669,18 @@ def check_export_server(servers, swin, out):
     for r in rows:
         log(f"export sweep swin_tiny portable: batch {r['batch_size']}: p50 {r['p50_ms']:.3f} ms, "
             f"compute p50 {r['compute_p50_ms']:.3f} ms, pipelined "
-            f"{r['pipelined_images_per_sec']:.1f} img/s")
+            f"{r['pipelined_images_per_sec']:.1f} img/s (beside other work)")
+    eager = ServingModule(swin, buckets=(1, 8, BUCKET), warm_up_on_load=False)
+    bench = {}
+    for name, serving in (("fused", servers["fused"]), ("portable", servers["portable"]),
+                          ("eager", eager)):
+        r = serving.benchmark(BUCKET, iters=EXPORT_BENCH_ITERS)
+        bench[name] = [r]
+        log(f"export benchmark({BUCKET}) swin_tiny {name}: p50 {r['p50_ms']:.3f} ms, p99 "
+            f"{r['p99_ms']:.3f} ms, {r['images_per_sec']:.1f} img/s (compute p50 "
+            f"{r['compute_p50_ms']:.3f} ms, pipelined {r['pipelined_images_per_sec']:.1f} "
+            "img/s)")
+    out["benchmark"] = bench
 
 
 def write_yolo_set(root, seed=0):
@@ -4668,14 +4738,16 @@ def write_detections(root, seed=0):
 
 
 def start_export_shipped():
-    """EXPORT (5)'s first two subprocesses: configs/yolo_crops_config.py
-    through ``python -m nkbx_torch.train`` (its data path, run directory,
-    n_epochs (2) and workers edited; mobilenetv3_large_100, pretrained
-    without a file, FocalLoss, export_serving) over a seeded YOLO-layout
-    set, and SHIPPED (a)'s run of configs/singletask_config.py through
-    ``python -m nkbx_torch.export --to serving`` into its weights/best.nkbx
-    (128 px, batch 64)."""
+    """EXPORT (5)'s first two subprocesses, started by SHIPPED once (a) has
+    written its run (they run beside the phases between):
+    configs/yolo_crops_config.py through ``python -m nkbx_torch.train`` (its
+    data path, run directory, n_epochs (2) and workers edited;
+    mobilenetv3_large_100, pretrained without a file, FocalLoss,
+    export_serving) over a seeded YOLO-layout set, and SHIPPED (a)'s run of
+    configs/singletask_config.py through ``python -m nkbx_torch.export --to
+    serving`` into its weights/best.nkbx (128 px, batch 64)."""
     run, workers = SHIPPED_RUN["run"], SHIPPED_RUN["workers"]
+    shutil.rmtree(EXPORT_DIR, ignore_errors=True)  # EXPORT's directory starts here
     root = os.path.abspath(os.path.join(EXPORT_DIR, "shipped"))
     yolo_data = os.path.join(root, "yolo")
     yaml_path = write_yolo_set(yolo_data)
@@ -4696,19 +4768,13 @@ def start_export_shipped():
                                  os.path.join(run, "weights")], "export_singletask.log")}
 
 
-def check_export_shipped(started):
-    """EXPORT (5), the three configs that waited on export, as shipped: on
-    SHIPPED (a)'s best.nkbx, configs/eval_config.py and
-    configs/inference_config.py with only their paths and workers edited
-    (``scripted: True`` kept) through the eval and inference CLIs at once:
-    eval's balanced accuracy and loss within 1e-3 relative of SHIPPED (b)'s
-    rebuilt model, inference's labels equal to SHIPPED (c)'s but where the
-    rebuilt model's top two logits lie within 2 bf16 ulps (counted); the
-    yolo_crops run must leave best.nkbx and last.nkbx; then ``python -m
-    nkbx_torch.det_cls_val`` with a detections CSV and that best.nkbx: its
-    CSVs and finite APs."""
-    from nkbx_torch.data import get_inference_dataset
-    from nkbx_torch.train import build_predict_fn
+def start_export_checks(started):
+    """EXPORT (5)'s second half, started at EXPORT's start: the two
+    subprocesses of start_export_shipped collected (the yolo_crops run must
+    leave best.nkbx and last.nkbx), then the eval and inference CLIs on
+    SHIPPED (a)'s best.nkbx and ``python -m nkbx_torch.det_cls_val`` on the
+    yolo_crops run's, at once (finish_export_checks holds them). Returns
+    (the numbers so far, the handles, the configs)."""
     from nkbx_torch.utils import load_config
 
     run, paths, workers = SHIPPED_RUN["run"], SHIPPED_RUN["paths"], SHIPPED_RUN["workers"]
@@ -4717,6 +4783,15 @@ def check_export_shipped(started):
     _, secs = finish_cli(started["export"],
                          "python -m nkbx_torch.export on configs/singletask_config.py's run")
     out["singletask_export_s"] = secs
+    finish_cli(started["yolo"], "python -m nkbx_torch.train on configs/yolo_crops_config.py")
+    out["yolo_train_s"] = time.perf_counter() - started["t0"]
+    weights = os.path.join(started["yolo_run"], "weights")
+    have = [n for n in ("best.nkbx", "last.nkbx", "best.pt", "last.pt")
+            if os.path.exists(os.path.join(weights, n))]
+    log(f"export shipped: python -m nkbx_torch.train on configs/yolo_crops_config.py "
+        f"(export_serving) exit 0 by {out['yolo_train_s']:.1f} s after it started; {have}")
+    if len(have) != 4:
+        fail("the yolo_crops run did not leave best.nkbx and last.nkbx")
     edits = paths + [('train_run_path = "data/runs/train_singletask_run_1"',
                       f'train_run_path = "{run}"', 1)]
     eval_save, infer_save = os.path.join(root, "eval"), os.path.join(root, "infer")
@@ -4731,11 +4806,32 @@ def check_export_shipped(started):
     for cfg_path in (eval_cfg, infer_cfg):
         if not load_config(cfg_path).model.get("scripted"):
             fail(f"the edited {cfg_path} lost scripted: True")
-    t0 = time.perf_counter()
+    det_out = os.path.join(root, "det_cls_val")
     clis = {name: start_cli(["-m", f"nkbx_torch.{name}", "-cfg", cfg], f"export_{name}.log")
             for name, cfg in (("eval", eval_cfg), ("inference", infer_cfg))}
-    for name, handle in clis.items():
-        finish_cli(handle, f"the {name} CLI on best.nkbx")
+    clis["det_cls_val"] = start_cli(
+        ["-m", "nkbx_torch.det_cls_val", "--config", started["yaml"], "--detections",
+         write_detections(started["yolo_data"]), "--weights_classifier",
+         os.path.join(weights, "best.nkbx"), "--img_size", "128", "-pad", "--output_folder",
+         det_out], "export_det_cls_val.log")
+    return out, (clis, time.perf_counter()), {"eval": eval_save, "infer": infer_save,
+                                              "infer_cfg": infer_cfg, "det": det_out}
+
+
+def finish_export_checks(pending):
+    """EXPORT (5) held: eval's balanced accuracy and loss within 1e-3
+    relative of SHIPPED (b)'s rebuilt model, inference's labels equal to
+    SHIPPED (c)'s but where the rebuilt model's top two logits lie within 2
+    bf16 ulps (counted); det_cls_val's CSVs and finite APs."""
+    from nkbx_torch.data import get_inference_dataset
+    from nkbx_torch.train import build_predict_fn
+    from nkbx_torch.utils import load_config
+
+    out, (clis, t0), paths = pending
+    run = SHIPPED_RUN["run"]
+    eval_save, infer_save, infer_cfg = paths["eval"], paths["infer"], paths["infer_cfg"]
+    for name in ("eval", "inference"):
+        finish_cli(clis[name], f"the {name} CLI on best.nkbx")
     out["eval_inference_s"] = time.perf_counter() - t0
 
     with open(os.path.join(eval_save, "metrics.json")) as f:
@@ -4780,23 +4876,8 @@ def check_export_shipped(started):
             or any(not near[p] for p in differ)):
         fail("the inference CLI on the bundle disagrees with the rebuilt model")
 
-    finish_cli(started["yolo"], "python -m nkbx_torch.train on configs/yolo_crops_config.py")
-    out["yolo_train_s"] = time.perf_counter() - started["t0"]
-    weights = os.path.join(started["yolo_run"], "weights")
-    have = [n for n in ("best.nkbx", "last.nkbx", "best.pt", "last.pt")
-            if os.path.exists(os.path.join(weights, n))]
-    log(f"export shipped: python -m nkbx_torch.train on configs/yolo_crops_config.py "
-        f"(export_serving) exit 0 by {out['yolo_train_s']:.1f} s; {have}")
-    if len(have) != 4:
-        fail("the yolo_crops run did not leave best.nkbx and last.nkbx")
-
-    det_out = os.path.join(root, "det_cls_val")
-    t0 = time.perf_counter()
-    text, _ = finish_cli(start_cli(
-        ["-m", "nkbx_torch.det_cls_val", "--config", started["yaml"], "--detections",
-         write_detections(started["yolo_data"]), "--weights_classifier",
-         os.path.join(weights, "best.nkbx"), "--img_size", "128", "-pad", "--output_folder",
-         det_out], "export_det_cls_val.log"), "python -m nkbx_torch.det_cls_val")
+    det_out = paths["det"]
+    text, _ = finish_cli(clis["det_cls_val"], "python -m nkbx_torch.det_cls_val")
     aps = [float(v) for v in re.findall(r"(?:detection|classification) ([0-9.]+|nan|-?inf)(?=,|$)",
                                         text, re.M)]
     files = [n for n in ("predictions.csv", "gt.csv", "metrics.csv")
@@ -4809,22 +4890,21 @@ def check_export_shipped(started):
 
 
 def check_export():
-    """EXPORT: the shipped configs' subprocesses and Swin-T's three export
-    CLIs start at once (from a best.pt of Swin-T written here); then
-    check_export_models, check_export_shipped (which runs no kernel of ours
+    """EXPORT: the shipped configs' subprocesses that SHIPPED started are
+    collected and the next ones (start_export_checks) and Swin-T's three
+    export CLIs start at once (from a best.pt of Swin-T written here); then
+    check_export_models, finish_export_checks (which runs no kernel of ours
     in this process) and, once no subprocess is left, check_export_server.
     Returns (the numbers, the fused bundles' launch counts)."""
     t0 = time.perf_counter()
-    shutil.rmtree(EXPORT_DIR, ignore_errors=True)
     root = os.path.abspath(EXPORT_DIR)
-    os.makedirs(root)
     set_plain(False)
     torch.save(SWIN.model(torch.bfloat16).module.state_dict(), os.path.join(root, "best.pt"))
     cfg = export_config(os.path.join(root, "swin.py"), os.path.join(root, "classes"),
                         os.path.join(root, "run"), SWIN_CFG, 224)
     common = ["-m", "nkbx_torch.export", "-cfg", cfg, "-w", os.path.join(root, "best.pt")]
     shape = ["--input-shape", str(BUCKET), "224", "224", "3"]
-    shipped = start_export_shipped()
+    pending = start_export_checks(SHIPPED_RUN["export_started"])
     started = {
         "portable": start_cli(common + shape + ["--to", "serving", "--save_path",
                                                 os.path.join(root, "portable")],
@@ -4838,11 +4918,11 @@ def check_export():
     out = {}
     (servers, swin), counts = check_export_models(started, out)
     zero_counts()
-    out["shipped"] = check_export_shipped(shipped)
+    out["shipped"] = finish_export_checks(pending)
     torch.cuda.synchronize()
     if any(read_counts().values()):
         fail(f"the shipped export path launched port kernels it should not: {read_counts()}")
-    check_export_server(servers, swin, out)
+    check_export_server(servers, swin, started["sweep"], out)
     out["seconds"] = time.perf_counter() - t0
     log(f"export: {json.dumps(out)}")
     log(f"export: the phase took {out['seconds']:.1f} s")
@@ -5786,8 +5866,9 @@ def check_dist():
         and last.pt's tensors within 1e-3 of each one's largest value.
     (d) NCCL: a world of one rank runs the ghost2_fused step with its
         group's collectives and without a group, in turns (the step ms of
-        each: what the reduction costs in a world of one); where the machine
-        has 2 cards, two ranks over NCCL held as in (a).
+        each: what the reduction costs in a world of one, read beside (a)-(c),
+        which share the card and the host with it); where the machine has 2
+        cards, two ranks over NCCL held as in (a).
 
     Two ranks sharing one card measure nothing of scaling."""
     t0 = time.perf_counter()
@@ -5812,6 +5893,10 @@ def check_dist():
     port = free_port()
     fsdp_ranks = [start_cli([os.path.abspath(__file__), "--dist-fsdp", fsdp_dir],
                             f"dist_fsdp_rank{r}.log", env=dist_env(r, 2, port)) for r in range(2)]
+    nccl_dir = os.path.join(DIST_DIR, "nccl")
+    os.makedirs(nccl_dir)
+    nccl_world1 = start_cli([os.path.abspath(__file__), "--dist-nccl", nccl_dir], "dist_nccl.log",
+                            env=dist_env(0, 1, free_port()))
     ref = {label: (dist_run(cfg, batch, mixup, None, dtype, steps),
                    dist_run(cfg, batch, mixup, None, dtype, steps, perturb=True))
            for label, cfg, batch, mixup, _, dtype, steps in DIST_CASES}
@@ -5837,10 +5922,7 @@ def check_dist():
         fail(f"DIST (b): metrics.csv of 2 ranks differs from 1 rank's by {worst:.3g}")
     out["fsdp_trainer_cli"] = check_fsdp_cli(finish_cli(clis["world2_fsdp"],
                                                         "DIST trainer CLI, world2_fsdp")[0])
-    nccl_dir = os.path.join(DIST_DIR, "nccl")
-    os.makedirs(nccl_dir)
-    finish_cli(start_cli([os.path.abspath(__file__), "--dist-nccl", nccl_dir], "dist_nccl.log",
-                         env=dist_env(0, 1, free_port())), "DIST (d) NCCL world of 1")
+    finish_cli(nccl_world1, "DIST (d) NCCL world of 1")
     with open(os.path.join(nccl_dir, "nccl.json")) as f:
         nccl = json.load(f)
     for name in ("group", "no_group"):
@@ -5914,6 +5996,7 @@ def dist_only():
 
 
 def main():
+    t_start = time.perf_counter()
     os.makedirs(OUT_DIR, exist_ok=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5937,6 +6020,8 @@ def main():
         t = time.perf_counter()
         out = fn(*args)
         phase_s[name] = round(time.perf_counter() - t, 1)
+        log(f"phase {name}: {phase_s[name]} s (whole run so far "
+            f"{time.perf_counter() - t_start:.1f} s)")
         return out
 
     attn_rows, attn_err = timed("attention", check_attention)

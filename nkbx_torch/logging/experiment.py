@@ -1,11 +1,20 @@
-"""Local experiment logging (counterpart of ``nkbx/logging/experiment.py``,
-local only): the run directory, deduplicated by a numeric suffix, with
+"""Experiment logging (counterpart of ``nkbx/logging/experiment.py``):
+local files and optional Comet ML.
+
+Locally: the run directory, deduplicated by a numeric suffix, with
 ``weights/``; ``metrics.csv``, tab-separated, Epoch first and the other
 columns sorted, rewritten on every call; ``classes.json``; start-up grids
 of the raw uint8 batches as PNG files written with ``zlib`` and ``struct``
-(nkbx draws them with matplotlib, which the port does not need). The port
-logs nothing to Comet: a config's ``comet`` section raises (ROADMAP.md,
-A5's rest).
+(nkbx draws them with matplotlib, which the port does not need).
+
+Comet ML, where a config's ``experiment["comet"]`` section is set:
+:func:`get_comet_experiment` imports ``comet_ml`` inside the call (without
+it, nkbx's warning and local logging only) and builds the experiment from
+the section and its side YAML (``comet_api_cfg_path``: ``api_key``,
+``workspace``, ``project_name``). :class:`TrainLogger` then sends nkbx's
+epoch fan-out there, in nkbx's order: the epoch's image grids, the
+per-target metrics of both folds, the validation confusion matrices (exact,
+multi-task or bounded) and the gradient norms.
 """
 
 from __future__ import annotations
@@ -13,7 +22,9 @@ from __future__ import annotations
 import csv
 import math
 import struct
+import warnings
 import zlib
+from collections import defaultdict
 from collections.abc import Sequence
 from pathlib import Path
 
@@ -21,8 +32,7 @@ import numpy as np
 
 from nkbx_torch.utils import save_classes
 
-COMET_ERROR = ("nkbx_torch logs locally only (metrics.csv, classes.json, image grids); "
-               "set experiment['comet'] = None (Comet logging: ROADMAP.md, A5)")
+CONFUSION_MAX_CATEGORIES = 25  # Comet's default max_categories, as nkbx passes it
 
 
 def write_png(path, image: np.ndarray):
@@ -100,11 +110,29 @@ def get_local_experiment(cfg_exp):
 
 
 def get_comet_experiment(cfg_exp):
-    """None for no Comet section; the port has no Comet logging, so a
-    section raises."""
-    if cfg_exp is not None:
-        raise NotImplementedError(COMET_ERROR)
-    return None
+    """A Comet ML experiment from a config's ``comet`` section (nkbx
+    ``get_comet_experiment``): None for no section, or with a warning where
+    ``comet_ml`` does not import. Otherwise the side YAML at
+    ``comet_api_cfg_path`` (PyYAML where it imports, else the port's flat
+    reader) gives ``api_key``, ``workspace`` and ``project_name``; the other
+    keys but ``name`` go to ``Experiment``, then ``set_name(name)``."""
+    if cfg_exp is None:
+        return None
+    try:
+        from comet_ml import Experiment as CometExperiment
+    except ImportError:
+        warnings.warn("comet_ml is not installed; continuing with local logging only")
+        return None
+    from nkbx_torch.utils.flat_yaml import load_yaml
+
+    cfg_exp = dict(cfg_exp)
+    comet_cfg = load_yaml(cfg_exp.pop("comet_api_cfg_path"))
+    for key in ("api_key", "workspace", "project_name"):
+        cfg_exp[key] = comet_cfg[key]
+    name = cfg_exp.pop("name")
+    exp = CometExperiment(**cfg_exp)
+    exp.set_name(name)
+    return exp
 
 
 def make_image_grid(batch, nrow=8, padding=2):
@@ -160,28 +188,70 @@ def log_metrics(experiment, target_names, classes, epoch, metrics, fold="train")
                           step=epoch)
 
 
+def log_confusion_matrices(experiment, target_names, classes, epoch, results,
+                           fold="validation", show_all=False):
+    """The epoch's confusion matrices (nkbx ``log_confusion_matrices``): from
+    the labels and predictions of exact results, one a target; from the
+    counts of bounded results, which are the matrix. ``max_categories`` is
+    the class count with ``show_all``, else Comet's default."""
+    def cap(cls):
+        return len(cls) if show_all else CONFUSION_MAX_CATEGORIES
+
+    if "bounded_metrics" in results:
+        counts = results["confusion_counts"]
+        items = ([(None, counts)] if target_names is None
+                 else [(t, counts[t]) for t in target_names])
+        for t, m in items:
+            cls = classes if t is None else classes[t]
+            tag = f"{fold} {t} " if t else f"{fold} "
+            experiment.log_confusion_matrix(
+                matrix=np.asarray(m).tolist(), labels=tuple(map(str, cls)),
+                max_categories=cap(cls), title=f"{tag}confusion matrix".replace("  ", " "),
+                file_name=f"{tag.strip().replace(' ', '-')}-confusion-matrix.json", epoch=epoch)
+        return
+    if target_names is None:
+        experiment.log_confusion_matrix(
+            results["ground_truth"], results["predictions"], labels=tuple(map(str, classes)),
+            max_categories=cap(classes), title=f"{fold} confusion matrix",
+            file_name=f"{fold}-confusion-matrix.json", epoch=epoch)
+        return
+    for t in target_names:
+        experiment.log_confusion_matrix(
+            results["ground_truth"][t], results["predictions"][t],
+            labels=tuple(map(str, classes[t])), max_categories=cap(classes[t]),
+            title=f"{fold} {t} confusion matrix", file_name=f"{fold}-{t}-confusion-matrix.json",
+            epoch=epoch)
+
+
+def _grad_means(metrics_grad_log) -> dict:
+    return {k: float(np.nanmean(v)) for k, v in metrics_grad_log.items()}
+
+
 def log_grads(experiment, epoch, metrics_grad_log):
-    """Each ``Gradients/...`` series of an epoch as its nan-mean (nkbx
-    ``log_grads``, which logs them to Comet)."""
-    experiment.log_metrics({k: float(np.nanmean(v)) for k, v in metrics_grad_log.items()},
-                           epoch=epoch, step=epoch)
+    """Each ``Gradients/...`` series of an epoch as its nan-mean, one
+    ``log_metric`` a series (nkbx ``log_grads``, Comet's side); returns a
+    new empty series log, as nkbx's does."""
+    for key, value in _grad_means(metrics_grad_log).items():
+        experiment.log_metric(key, value, epoch=epoch, step=epoch)
+    return defaultdict(list)
 
 
 class TrainLogger:
     """Epoch-level logging: ``classes.json`` at start, the start-up image
-    grids, and the local metrics of every epoch, with the gradient norms'
-    ``Gradients/*`` when ``cfg.log_gradients`` is set."""
+    grids, and every epoch the local metrics, with the gradient norms'
+    ``Gradients/*`` when ``cfg.log_gradients`` is set; then, given a Comet
+    experiment, nkbx's fan-out to it (the module's docstring)."""
 
     def __init__(self, cfg, comet_experiment, local_experiment, classes):
         if cfg.task not in ("single", "multi"):
             raise ValueError(f"Unknown task {cfg.task!r}")
-        if comet_experiment is not None:
-            raise NotImplementedError(COMET_ERROR)
         self.cfg = cfg
         self.task = cfg.task
         self.classes = classes
         self.target_names = sorted(classes) if self.task == "multi" else None
+        self.comet_experiment = comet_experiment
         self.local_experiment = local_experiment
+        self.show_full_conf_matrix = getattr(cfg, "show_all_classes_in_confusion_matrix", False)
         save_classes(self.classes, self.local_experiment.path / "classes.json")
 
     def log_images_at_start(self, loader, n_batches=3):
@@ -195,5 +265,20 @@ class TrainLogger:
                     train_results["metrics"], "train")
         log_metrics(self.local_experiment, self.target_names, self.classes, epoch,
                     val_results["metrics"], "Val")
-        if getattr(self.cfg, "log_gradients", False) and "metrics_grad_log" in train_results:
-            log_grads(self.local_experiment, epoch, train_results["metrics_grad_log"])
+        grads = (train_results.get("metrics_grad_log")
+                 if getattr(self.cfg, "log_gradients", False) else None)
+        if grads is not None:  # one rewrite of metrics.csv
+            self.local_experiment.log_metrics(_grad_means(grads), epoch=epoch, step=epoch)
+        comet = self.comet_experiment
+        if comet is None:
+            return
+        log_images(comet, "train", epoch, train_results["images"])
+        log_images(comet, "validation", epoch, val_results["images"])
+        log_metrics(comet, self.target_names, self.classes, epoch, train_results["metrics"],
+                    "train")
+        log_metrics(comet, self.target_names, self.classes, epoch, val_results["metrics"],
+                    "validation")
+        log_confusion_matrices(comet, self.target_names, self.classes, epoch, val_results,
+                               "validation", self.show_full_conf_matrix)
+        if grads is not None:
+            log_grads(comet, epoch, grads)

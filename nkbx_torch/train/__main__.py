@@ -16,6 +16,12 @@ Each rank takes ``cuda:LOCAL_RANK`` over NCCL; ``--device cpu`` (or
 ``cuda:0``, ranks sharing one card) runs the group over gloo
 (:func:`nkbx_torch.core.runtime.initialize`). Rank 0 makes the run
 directory and writes every file.
+
+A config's ``experiment["comet"]`` section logs to Comet ML as nkbx does
+(:func:`nkbx_torch.logging.get_comet_experiment`: without ``comet_ml``, a
+warning and local logging only), with the config's, the classifier's and
+the backbone's source files through ``log_code``. Under data parallelism
+rank 0 alone builds the experiment, as it alone writes the files.
 """
 
 from __future__ import annotations
@@ -72,7 +78,17 @@ def main(argv=None):
     model = get_model(cfg.model, classes, input_size=input_size, seed=cfg.get("seed", 0),
                       dtype=dtype, device=device)
     criterion = get_loss(cfg.criterion, device=device)
-    comet_experiment = get_comet_experiment(cfg.experiment.get("comet"))
+    comet_experiment = (get_comet_experiment(cfg.experiment.get("comet"))
+                        if collectives.rank() == 0 else None)
+    if comet_experiment is not None:  # the model's source beside the config (train.py:73-83)
+        import importlib
+
+        import nkbx_torch.models.classifier as classifier_mod
+
+        comet_experiment.log_code(args.config)
+        comet_experiment.log_code(classifier_mod.__file__)
+        backbone_mod = type(model.module.backbone).__module__
+        comet_experiment.log_code(importlib.import_module(backbone_mod).__file__)
     # rank 0 makes the run directory; every rank works in it
     local_experiment = (get_local_experiment(cfg.experiment["local"])
                         if collectives.rank() == 0 else None)

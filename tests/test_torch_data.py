@@ -20,7 +20,8 @@
   torch tensors equal to nkbx's ``bounded_*``.
 - Config loading: every shipped config loads (every device op of nkbx is
   ported), ``sys.modules`` keeps its ``nkbx`` entries.
-- Logging: the PNG writer against cv2's decoder; Comet raises.
+- Logging: the PNG writer against cv2's decoder; without comet_ml a Comet section
+  warns as nkbx does.
 """
 
 import builtins
@@ -508,10 +509,14 @@ def test_png_writer_round_trips(tmp_path):
                                   img[:, :, 0])
 
 
-def test_comet_raises():
+def test_comet_absent_warns_and_returns_none(monkeypatch):
+    """nkbx's behaviour without comet_ml: None for no section; for a section,
+    nkbx's warning and None (the trainer then logs locally only)."""
     assert get_comet_experiment(None) is None
-    with pytest.raises(NotImplementedError, match="locally only"):
-        get_comet_experiment({"name": "x"})
+    monkeypatch.setitem(sys.modules, "comet_ml", None)  # the import raises ImportError
+    with pytest.warns(UserWarning, match="^comet_ml is not installed; continuing with local "
+                                         "logging only$"):
+        assert get_comet_experiment({"comet_api_cfg_path": "x.yml", "name": "x"}) is None
 
 
 @pytest.fixture(scope="module")

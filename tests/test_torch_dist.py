@@ -19,14 +19,19 @@ process start-up is paid once a group, not once a case.
   1e-5 of its tensor's largest value; the epoch's results of an exact and a
   bounded EpochCollector (gathered over the ranks) with equal predictions,
   labels and confusion counts, confidences and losses within 1e-5; the two ranks' parameters equal bit
-  for bit. Also the collectives one by one, the refusals a rank meets, and
+  for bit. ``multitask`` holds its parameters and running statistics to a
+  rounding yardstick instead (:data:`YARDSTICK`): a ReLU gate of its data
+  lies within a few f32 ulps of 0 and falls either way under rounding alone.
+  Also the collectives one by one, the refusals a rank meets, and
   a group of one rank (which runs the collectives) against no group.
-- ``nkbx``: the port's world of 2 against nkbx's step under
-  ``make_mesh(n_data=2)`` on the virtual CPU devices of tests/conftest.py
-  (state replicated, batch sharded), from the same variables and numpy
-  batches, for exact BatchNorm and masked BatchNorm with padded rows: the
-  test that pins nkbx's global statistics (loss 1e-5 relative, parameters
-  and running statistics 2e-5 of the tensor's largest).
+- ``nkbx``: the port's world of 2, and its world of 1, against nkbx's step
+  under ``make_mesh(n_data=2)`` on the virtual CPU devices of
+  tests/conftest.py (state replicated, batch sharded), from the same
+  variables and numpy batches, for exact BatchNorm, masked BatchNorm with
+  padded rows, and a multi-task focal loss with ignored labels, masked
+  BatchNorm and padded rows in the last step: the test that pins nkbx's
+  global statistics and normalisers (loss 1e-5 relative, parameters and
+  running statistics 2e-5 of the tensor's largest).
 - ``nodes``: two ranks with ``LOCAL_WORLD_SIZE=1`` (two nodes of one rank)
   read nkbx's 2-process loader slices (``nkbx/data/loader.py:122-136``) row
   for row (exact), and one node of 2 ranks splits each node batch.
@@ -47,6 +52,18 @@ ROOT = Path(__file__).resolve().parents[1]
 B, S, STEPS = 8, 32, 3
 SGD = {"type": "sgd", "backbone_lr": 0.05, "classifier_lr": 0.05}
 REL = 1e-5
+# Scenarios whose parameters and running statistics are held to twice the
+# largest change that a 1-ulp perturbation of the normalised input makes in the
+# world of 1, over YARD_DRAWS seeded draws (at least REL): the rounding
+# yardstick of DIST in chip_smoke.py, sampled many times, since one draw in a
+# few flips a ReLU gate that lies within rounding of 0 (multitask's: a single
+# gate moves one channel of two BatchNorm biases by 0.86% of the tensor's
+# largest value, in the world of 2 and in such a draw alike). The port's
+# world of 2 and world of 1 agree with nkbx's mesh step on this combination
+# (NKBX_CASES["multitask"]).
+YARDSTICK = ("multitask",)
+YARD_DRAWS = 32
+ULP = 2.0 ** -23
 
 
 def free_port():
@@ -141,11 +158,12 @@ def _flat(tree, prefix=""):
     return {prefix: np.asarray(tree)}
 
 
-def _run(sc, mesh, seed):
+def _run(sc, mesh, seed, perturb=None):
     """Losses, state dicts, EMA state, gradient norms and the epoch results
     of an exact and a bounded EpochCollector of a scenario's steps: the
     global batch in a world of 1 (``mesh`` None), this rank's rows under
-    ``mesh``."""
+    ``mesh``. ``perturb`` (a seed): the normalised input times 1 + ulp·N(0, 1),
+    for the rounding yardstick."""
     import torch
 
     from nkbx_torch.train import TrainState, build_train_step, get_loss, get_optimizer
@@ -158,8 +176,15 @@ def _run(sc, mesh, seed):
     if sc.get("augment") == "randaugment":
         ops = [T.HorizontalFlip(), T.RandAugment(num_ops=2, magnitude=9), T.Normalize()]
     crit = sc.get("criterion", {"type": "CrossEntropyLoss"})
-    step = build_train_step(model, get_loss(crit), get_optimizer(SGD),
-                            augment_fn=T.Compose(ops).device_apply,
+    augment = T.Compose(ops).device_apply
+    if perturb is not None:
+        stage, noise = augment, torch.Generator().manual_seed(perturb)
+
+        def augment(image, out_dtype=None, generator=None):
+            x = stage(image, out_dtype=torch.float32, generator=generator)
+            return (x * (1 + ULP * torch.randn(x.shape, generator=noise))).to(out_dtype)
+
+    step = build_train_step(model, get_loss(crit), get_optimizer(SGD), augment_fn=augment,
                             masked_bn=sc.get("masked_bn", False), mixup=sc.get("mixup"),
                             grad_accum_steps=sc.get("grad_accum_steps", 1),
                             scan_steps=sc.get("scan_steps", 1),
@@ -305,16 +330,40 @@ def rank_step(out_dir):
         if gn1:
             r["grad_norms"] = max(_worst(b, a) for a, b in zip(gn1, gn2))
             r["n_norms"] = [len(gn1), len(gn1[0])]
+        if name in YARDSTICK and mesh.data > 1:
+            draws = [_run(sc, None, seed=10 + i, perturb=d)[1] for d in range(YARD_DRAWS)]
+            r["yardstick"] = {
+                "params": max(_worst({k: q[k] for k in params}, {k: sd1[k] for k in params})
+                              for q in draws),
+                "stats": max(_worst({k: q[k] for k in sd1 if k not in params},
+                                    {k: sd1[k] for k in sd1 if k not in params})
+                             for q in draws)}
         res["scenarios"][name] = r
     (Path(out_dir) / f"rank{mesh.rank}.json").write_text(json.dumps(res))
 
 
-NKBX_CASES = {"exact": {"masked_bn": False}, "masked": {"masked_bn": True}}
+NKBX_CASES = {"exact": {"masked_bn": False}, "masked": {"masked_bn": True},
+              # multi-task focal loss with ignored (-100) labels, masked BatchNorm and 2
+              # padded rows in the last step: the step scenario ``multitask``'s combination
+              "multitask": {"masked_bn": True, "multi": True}}
+MULTI_CLASSES = {"color": list("rgb"), "size": ["s", "l"]}
+MULTI_LOSS = {"task": "multi", "type": "FocalLoss"}
+
+
+def _nkbx_case_inputs(saved, case):
+    """(images (STEPS, B, ...), labels (STEPS, B) or {target: (STEPS, B)},
+    masks (STEPS, B)) of an NKBX_CASES case from the saved inputs."""
+    if NKBX_CASES[case].get("multi"):
+        d = saved["multi"]
+        return d["images"], d["labels"], d["masks"]
+    mask = saved["mask"] if NKBX_CASES[case]["masked_bn"] else np.ones(B, bool)
+    return saved["images"], saved["labels"], np.broadcast_to(mask, (STEPS, B))
 
 
 def rank_nkbx(out_dir, data):
     """The port's world-of-2 steps from the variables and batches the test
-    saved, for each case of NKBX_CASES."""
+    saved, for each case of NKBX_CASES; rank 0 also runs the world of 1 (the
+    global batch without the mesh) of each case."""
     import torch
 
     from nkbx_torch.core.runtime import initialize
@@ -328,24 +377,35 @@ def rank_nkbx(out_dir, data):
     saved = torch.load(Path(data) / "inputs.pt", weights_only=False)
     res = {}
     for case, opts in NKBX_CASES.items():
-        model = get_model({"task": "single", "model": "resnet_tiny_test"}, list("abc"),
-                          input_size=(S, S), dtype=torch.float32, device="cpu")
-        model.module.load_state_dict(saved["state_dict"])
-        state = TrainState.create(model)
-        step = build_train_step(model, get_loss({"type": "CrossEntropyLoss"}),
-                                get_optimizer(SGD),
-                                augment_fn=T.Compose([T.Normalize()]).device_apply,
-                                masked_bn=opts["masked_bn"], mesh=mesh)
-        rows = mesh.rows(B // 2)
-        mask = saved["mask"] if opts["masked_bn"] else np.ones(B, bool)
-        losses = []
-        for i in range(STEPS):
-            state, m = step(state, torch.from_numpy(saved["images"][i][rows]),
-                            torch.from_numpy(saved["labels"][i][rows]),
-                            torch.from_numpy(mask[rows]), 1.0, 1.0)
-            losses.append(float(m["loss"]))
-        torch.save({"losses": losses, "state_dict": model.module.state_dict()},
-                   Path(out_dir) / f"{case}{mesh.rank}.pt")
+        multi = opts.get("multi", False)
+        images, labels, masks = _nkbx_case_inputs(saved, case)
+        for world in ((2, 1) if mesh.rank == 0 else (2,)):
+            model = get_model({"task": "multi" if multi else "single",
+                               "model": "resnet_tiny_test"},
+                              MULTI_CLASSES if multi else list("abc"), input_size=(S, S),
+                              dtype=torch.float32, device="cpu")
+            model.module.load_state_dict(saved["multi"]["state_dict"] if multi
+                                         else saved["state_dict"])
+            state = TrainState.create(model)
+            step = build_train_step(model, get_loss(MULTI_LOSS if multi
+                                                    else {"type": "CrossEntropyLoss"}),
+                                    get_optimizer(SGD),
+                                    augment_fn=T.Compose([T.Normalize()]).device_apply,
+                                    masked_bn=opts["masked_bn"],
+                                    mesh=mesh if world == 2 else None)
+            rows = mesh.rows(B // 2) if world == 2 else slice(None)
+
+            def cut(v, i):
+                return torch.from_numpy(np.ascontiguousarray(v[i][rows]))
+
+            losses = []
+            for i in range(STEPS):
+                lab = ({t: cut(v, i) for t, v in labels.items()} if multi else cut(labels, i))
+                state, m = step(state, cut(images, i), lab, cut(masks, i), 1.0, 1.0)
+                losses.append(float(m["loss"]))
+            name = f"{case}{mesh.rank}.pt" if world == 2 else f"{case}_world1.pt"
+            torch.save({"losses": losses, "state_dict": model.module.state_dict()},
+                       Path(out_dir) / name)
     (Path(out_dir) / f"rank{mesh.rank}.json").write_text(json.dumps({"ok": True}))
 
 
@@ -398,9 +458,12 @@ def test_world_of_two_steps_equal_a_world_of_one(step_runs):
         l1, l2 = a["losses"]
         assert len(l1) == len(l2) and all(_close(x, y) for x, y in zip(l2, l1)), (name, l1, l2)
         assert b["losses"][1] == l2, name  # the global loss on every rank
+        yard = a.get("yardstick", {})
+        assert (name in YARDSTICK) == bool(yard), name
         for key in ("params", "stats", "ema", "grad_norms", "epoch"):
             if key in a:
-                assert a[key][0] <= REL, (name, key, a[key])
+                bound = max(REL, 2 * yard[key][0]) if key in yard else REL
+                assert a[key][0] <= bound, (name, key, a[key], yard.get(key))
         assert a["epoch_int_equal"] and a["epoch_rows"] > 0, name
     assert runs[0]["scenarios"]["log_gradients"]["n_norms"][1] > 10
     assert "ema" in runs[0]["scenarios"]["ema"]
@@ -447,7 +510,10 @@ def test_collectives_and_refusals_on_the_cpu(step_runs):
 
 def test_port_world_of_two_equals_nkbx_mesh_step(tmp_path):
     """nkbx's step under make_mesh(n_data=2) (8 virtual CPU devices), state
-    replicated and batch sharded, against the port's 2 ranks."""
+    replicated and batch sharded, against the port's 2 ranks and the port's
+    world of 1: single-task CE with exact and masked BatchNorm, and a
+    multi-task focal loss with ignored labels, masked BatchNorm and padded
+    rows in the last step."""
     import jax
     import jax.numpy as jnp
     import torch
@@ -467,40 +533,56 @@ def test_port_world_of_two_equals_nkbx_mesh_step(tmp_path):
     mask = np.ones(B, bool)
     mask[-3:] = False  # rank 1 holds one valid row
     images[:, -3:] = 0
-    jmodel = jget_model({"task": "single", "model": "resnet_tiny_test"}, list("abc"),
-                        input_size=(S, S), dtype=jnp.float32)
-    variables = jax.device_get(jmodel.variables)
+    # the multi-task case: 2 padded rows in the last step, focal's ignored rows
+    m_images = rng.integers(0, 256, (STEPS, B, S, S, 3), dtype=np.uint8)
+    m_masks = np.ones((STEPS, B), bool)
+    m_masks[-1, -2:] = False
+    m_images[-1, -2:] = 0
+    m_labels = {"color": rng.integers(0, 3, (STEPS, B)).astype(np.int64),
+                "size": rng.integers(0, 2, (STEPS, B)).astype(np.int64)}
+    m_labels["size"][:, ::3] = -100
+    jmodels = {False: jget_model({"task": "single", "model": "resnet_tiny_test"}, list("abc"),
+                                 input_size=(S, S), dtype=jnp.float32),
+               True: jget_model({"task": "multi", "model": "resnet_tiny_test"}, MULTI_CLASSES,
+                                input_size=(S, S), dtype=jnp.float32)}
+    variables = {k: jax.device_get(m.variables) for k, m in jmodels.items()}
     data = tmp_path / "data"
     data.mkdir()
-    torch.save({"state_dict": from_jax_variables(variables), "images": images,
-                "labels": labels, "mask": mask}, data / "inputs.pt")
+    saved = {"state_dict": from_jax_variables(variables[False]), "images": images,
+             "labels": labels, "mask": mask,
+             "multi": {"state_dict": from_jax_variables(variables[True]), "images": m_images,
+                       "labels": m_labels, "masks": m_masks}}
+    torch.save(saved, data / "inputs.pt")
     spawn("nkbx", tmp_path / "port", extra=(str(data),))
     mesh = make_mesh(n_data=2)
     for case, opts in NKBX_CASES.items():
+        multi = opts.get("multi", False)
+        jmodel, var = jmodels[multi], variables[multi]
         bundle = jopt(jmodel.params, SGD)
-        step = jstep(jmodel, jloss({"type": "CrossEntropyLoss"}), bundle,
-                     augment_fn=jspec.Compose([jspec.Normalize()]).device_apply,
+        step = jstep(jmodel, jloss(MULTI_LOSS if multi else {"type": "CrossEntropyLoss"}),
+                     bundle, augment_fn=jspec.Compose([jspec.Normalize()]).device_apply,
                      masked_bn=opts["masked_bn"])
-        state = JState.create(variables["params"], variables["batch_stats"], bundle.tx)
+        state = JState.create(var["params"], var["batch_stats"], bundle.tx)
         state = jax.device_put(state, replicated_sharding(mesh))
-        m = mask if opts["masked_bn"] else np.ones(B, bool)
+        c_images, c_labels, c_masks = _nkbx_case_inputs(saved, case)
         losses = []
         for i in range(STEPS):
-            batch = shard_batch(mesh, {"image": images[i], "label": labels[i], "mask": m})
+            lab = {t: v[i] for t, v in c_labels.items()} if multi else c_labels[i]
+            batch = shard_batch(mesh, {"image": c_images[i], "label": lab, "mask": c_masks[i]})
             state, metrics = step(state, batch["image"], batch["label"], batch["mask"],
                                   jax.random.PRNGKey(0), jnp.asarray(1.0, jnp.float32),
                                   jnp.asarray(1.0, jnp.float32))
             losses.append(float(metrics["loss"]))
         want = from_jax_variables(jax.device_get({"params": state.params,
                                                   "batch_stats": state.batch_stats}))
-        for r in range(2):
-            got = torch.load(tmp_path / "port" / f"{case}{r}.pt")
+        for run in ("0", "1", "_world1"):
+            got = torch.load(tmp_path / "port" / f"{case}{run}.pt")
             assert all(abs(a - b) <= 1e-5 * abs(b) for a, b in zip(got["losses"], losses)), (
-                case, got["losses"], losses)
+                case, run, got["losses"], losses)
             for key, w in want.items():
                 g, w = got["state_dict"][key].numpy(), w.numpy()
                 err = np.abs(g - w).max() / max(np.abs(w).max(), 1e-30)
-                assert err <= 2e-5, (case, r, key, err)
+                assert err <= 2e-5, (case, run, key, err)
 
 
 def _nkbx_slices(n_items, epoch, pi, pc):

@@ -7,7 +7,9 @@ inference, 2 gloo ranks on the CPU against one process.
   device, a padded last batch, 2 epochs, a frozen first epoch): ``classes.json``
   equal, every ``metrics.csv`` value within 1e-5 relative but the throughput
   column (a clock reading), ``best.pt`` and ``last.pt`` within 1e-5 of each
-  tensor's largest value.
+  tensor's largest value. The 2-rank run has a Comet section and a recording
+  fake ``comet_ml`` on its path: rank 0 alone builds the experiment and logs
+  to it.
 - Preemption: 2 ranks running :func:`nkbx_torch.train.trainer.train` (this
   file as a script); a SIGTERM to rank 1 alone while it reads batch 2 of
   epoch 1 stops both ranks at the same agreed batch (``preempt_sync_every =
@@ -55,7 +57,7 @@ def _folder(root, n_train=7, n_val=4, classes=3, seed=0):
     return root
 
 
-def _config(data, run, distributed, extra=""):
+def _config(data, run, distributed, extra="", comet=None):
     return textwrap.dedent(f"""
         import nkbx.transforms as T
 
@@ -76,25 +78,27 @@ def _config(data, run, distributed, extra=""):
         lr_policy = {{"type": "cosine", "n_epochs": 2}}
         backbone_state_policy = {{0: "freeze", 1: "unfreeze"}}
         criterion = {{"task": "single", "type": "CrossEntropyLoss"}}
-        experiment = {{"comet": None, "local": {{"path": "{run}"}}}}
+        experiment = {{"comet": {comet!r}, "local": {{"path": "{run}"}}}}
     """) + textwrap.dedent(extra)
 
 
-def _env():
-    return dict(os.environ, OMP_NUM_THREADS="1",
-                PYTHONPATH=str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+def _env(paths=(), **extra):
+    """The environment of a subprocess: ``paths`` first on PYTHONPATH, then the
+    repository; ``extra`` variables set."""
+    path = [str(p) for p in paths] + [str(ROOT), os.environ.get("PYTHONPATH", "")]
+    return dict(os.environ, OMP_NUM_THREADS="1", **extra, PYTHONPATH=os.pathsep.join(path))
 
 
-def _run(args, timeout=240):
-    proc = subprocess.run([sys.executable, *args], cwd=ROOT, env=_env(), capture_output=True,
-                          text=True, timeout=timeout)
+def _run(args, timeout=240, **env):
+    proc = subprocess.run([sys.executable, *args], cwd=ROOT, env=_env(**env),
+                          capture_output=True, text=True, timeout=timeout)
     assert proc.returncode == 0, f"STDOUT:{proc.stdout[-3000:]}\nSTDERR:{proc.stderr[-6000:]}"
     return proc
 
 
-def _torchrun(module, config, n=2):
+def _torchrun(module, config, n=2, **env):
     return _run(["-m", "torch.distributed.run", "--standalone", f"--nproc_per_node={n}",
-                 "-m", module, "-cfg", str(config), "--device", "cpu"])
+                 "-m", module, "-cfg", str(config), "--device", "cpu"], **env)
 
 
 def _read_csv(path):
@@ -110,19 +114,51 @@ def _close_tensors(got, want, rel=1e-5):
         assert err <= rel, (k, err)
 
 
+# a recording stand-in for the comet_ml package: each call of an Experiment,
+# as a JSON line [method, the first positional argument where it is a string,
+# the keyword names], in $FAKE_COMET_DIR/rank$RANK.jsonl
+FAKE_COMET = """
+import json, os
+
+
+class Experiment:
+    def __init__(self, **kwargs):
+        self._record("Experiment", (), kwargs)
+
+    def _record(self, name, args, kwargs):
+        path = os.path.join(os.environ["FAKE_COMET_DIR"], f"rank{os.environ['RANK']}.jsonl")
+        first = args[0] if args and isinstance(args[0], str) else None
+        with open(path, "a") as f:
+            f.write(json.dumps([name, first, sorted(kwargs)]) + "\\n")
+
+    def __getattr__(self, name):
+        if name.startswith("_"):
+            raise AttributeError(name)
+        return lambda *args, **kwargs: self._record(name, args, kwargs)
+"""
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """The trainer CLI's run dirs: one process and 2 ranks."""
+    """The trainer CLI's run dirs: one process and 2 ranks (the latter with
+    a Comet section, through the recording fake)."""
     tmp = tmp_path_factory.mktemp("dist_cli")
     data = _folder(tmp / "data")
-    out = {"data": data, "tmp": tmp}
+    out = {"data": data, "tmp": tmp, "comet": tmp / "comet_calls"}
+    (tmp / "fake" / "comet_ml").mkdir(parents=True)
+    (tmp / "fake" / "comet_ml" / "__init__.py").write_text(FAKE_COMET)
+    (tmp / "comet_api.yml").write_text("api_key: k\nworkspace: w\nproject_name: p\n")
+    out["comet"].mkdir()
     for name, n in (("one", 1), ("two", 2)):
         cfg = tmp / f"{name}.py"
-        cfg.write_text(_config(data, tmp / name, n > 1))
+        comet = ({"comet_api_cfg_path": str(tmp / "comet_api.yml"), "name": "two"}
+                 if n > 1 else None)
+        cfg.write_text(_config(data, tmp / name, n > 1, comet=comet))
         if n == 1:
             _run(["-m", "nkbx_torch.train", "-cfg", str(cfg), "--device", "cpu"])
         else:
-            proc = _torchrun("nkbx_torch.train", cfg)
+            proc = _torchrun("nkbx_torch.train", cfg, paths=[tmp / "fake"],
+                             FAKE_COMET_DIR=str(out["comet"]))
             out["log"] = proc.stdout + proc.stderr
         out[name] = tmp / name
     return out
@@ -145,6 +181,24 @@ def test_trainer_world_of_two_equals_world_of_one(runs):
     for d in ("best", "last"):  # one checkpoint, written by rank 0
         assert (two / "weights" / d / "train_state.pt").is_file()
     assert not list(two.parent.glob("two[0-9]*"))  # no second run directory
+
+
+def test_trainer_world_of_two_logs_to_comet_on_rank_0_only(runs):
+    """Rank 0 builds the experiment, names it, logs the config's and the
+    model's sources and each epoch's fan-out; rank 1 makes no call."""
+    assert sorted(p.name for p in runs["comet"].iterdir()) == ["rank0.jsonl"]
+    calls = [json.loads(line) for line in
+             (runs["comet"] / "rank0.jsonl").read_text().splitlines()]
+    assert calls[0] == ["Experiment", None, ["api_key", "project_name", "workspace"]]
+    assert calls[1] == ["set_name", "two", []]
+    assert [c[0] for c in calls[2:5]] == ["log_code"] * 3
+    assert [Path(c[1]).name for c in calls[2:5]] == ["two.py", "classifier.py", "resnet.py"]
+    epochs = [c for c in calls[5:] if c[0] == "log_image"]
+    assert [c[2] for c in epochs] == [["name", "step"]] * 4  # train, validation; 2 epochs
+    assert [c[0] for c in calls[5:]].count("log_confusion_matrix") == 2
+    assert {c[1] for c in calls[5:] if c[0] == "log_metric"} >= {
+        "train loss", "validation loss", "Average epoch train loss",
+        "validation balanced accuracy", "train ROC AUC, c0"}
 
 
 def test_eval_and_inference_over_a_mesh(runs, monkeypatch):

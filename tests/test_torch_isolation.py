@@ -69,6 +69,24 @@ def test_port_sources_import_no_jax_flax_nkbx_or_experiments():
             assert not uses, path.name
 
 
+_LAZY_PROBE = """
+import json, sys
+import nkbx_torch.logging, nkbx_torch.train, nkbx_torch.train.__main__, nkbx_torch.train.trainer
+print(json.dumps(sorted(m for m in sys.modules if m.split(".")[0] in ("comet_ml", "yaml"))))
+"""
+
+
+def test_logging_and_train_load_neither_comet_ml_nor_yaml():
+    """Comet ML and the side YAML's reader are imported inside
+    get_comet_experiment only, when a config has a Comet section."""
+    proc = _run(_LAZY_PROBE)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "[]"
+    src = (ROOT / "nkbx_torch/logging/experiment.py").read_text()
+    assert "COMET_ERROR" not in src and src.count("import comet_ml") + src.count(
+        "from comet_ml") == 1
+
+
 def test_chip_smoke_imports_no_jax_flax_or_nkbx():
     src = (ROOT / "chip_smoke.py").read_text()
     assert not FORBIDDEN_IMPORT.search(src) and "sys.path" not in src

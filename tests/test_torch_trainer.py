@@ -17,8 +17,9 @@ on the CPU.
   resumed from ``weights/last``, ends with the weights and running
   statistics of an uninterrupted run within 1e-6.
 - A mesh ``model`` axis raises by design, naming ROADMAP A10b; ``fsdp``
-  passes the check and, without a mesh, raises nkbx's ValueError; Comet
-  raises. The five train-step keys (EMA, mixup, steps per
+  passes the check and, without a mesh, raises nkbx's ValueError; a Comet
+  section without ``comet_ml`` warns as nkbx does and the CLI writes the
+  ``metrics.csv`` of the run without the section. The five train-step keys (EMA, mixup, steps per
   dispatch, accumulation, gradient norms) each train one epoch.
 - The CLI, ``python -m nkbx_torch.train -cfg ... --device cpu``, on a
   config that says ``import nkbx.transforms as T``, over BMP files: exit
@@ -28,6 +29,7 @@ on the CPU.
 
 import csv
 import signal
+import sys
 import textwrap
 
 import cv2
@@ -316,12 +318,45 @@ def test_cli_trains_from_a_config_file(tmp_path, monkeypatch):
     assert torch.isfinite(model(torch.zeros(1, 32, 32, 3))).all()
 
 
-def test_comet_section_raises(tmp_path):
+def test_comet_absent_warns_and_logs_locally(tmp_path, monkeypatch):
+    """A config with a Comet section where ``comet_ml`` does not import: the
+    CLI prints nkbx's warning, trains, and writes the metrics.csv (but the
+    throughput, a clock reading) and classes.json of the run without it."""
     root = _write_folder(tmp_path, ".png", n_train=2, n_val=1, seed=3)
-    cfg = Config(_cfg(root, tmp_path / "run", T,
-                      model={"task": "single", "model": "resnet_tiny_test"}))
-    loader = get_dataset(cfg.train_data, cfg.train_pipeline)
-    model = get_model(cfg.model, loader.dataset.classes, input_size=(SIZE, SIZE), device="cpu")
-    with pytest.raises(NotImplementedError, match="locally only"):
-        train(model, loader, loader, get_loss(cfg.criterion), object(),
-              get_local_experiment(cfg.experiment["local"]), cfg)
+    (tmp_path / "comet_api.yml").write_text("api_key: k\nworkspace: w\nproject_name: p\n")
+    for name, comet in (("plain", None), ("comet", {"comet_api_cfg_path": str(
+            tmp_path / "comet_api.yml"), "auto_metric_logging": False, "name": "run"})):
+        (tmp_path / f"{name}.py").write_text(textwrap.dedent(f"""
+            import nkbx.transforms as T
+
+            task = "single"
+            n_epochs = 2
+            enable_mixed_precision = False
+            train_data = {{"type": "ImageFolder", "root": "{root / 'train'}", "batch_size": 4,
+                          "shuffle": True, "num_workers": 1}}
+            val_data = {{"type": "ImageFolder", "root": "{root / 'val'}", "batch_size": 4}}
+            train_pipeline = T.Compose([T.LongestMaxSize(32), T.PadIfNeeded(32, 32),
+                                        T.Normalize()])
+            val_pipeline = train_pipeline
+            model = {{"task": "single", "model": "resnet_tiny_test"}}
+            optimizer = {{"type": "sgd", "backbone_lr": 0.05, "classifier_lr": 0.05}}
+            lr_policy = {{"type": "cosine", "n_epochs": 2}}
+            criterion = {{"task": "single", "type": "CrossEntropyLoss"}}
+            experiment = {{"comet": {comet!r}, "local": {{"path": "{tmp_path / name}"}}}}
+        """))
+    monkeypatch.setitem(sys.modules, "comet_ml", None)  # the import fails
+    handler = signal.getsignal(signal.SIGTERM)
+    try:
+        cli_main(["-cfg", str(tmp_path / "plain.py"), "--device", "cpu"])
+        with pytest.warns(UserWarning, match="^comet_ml is not installed; continuing with "
+                                             "local logging only$"):
+            cli_main(["-cfg", str(tmp_path / "comet.py"), "--device", "cpu"])
+    finally:
+        signal.signal(signal.SIGTERM, handler)
+    got, want = (_read_csv(tmp_path / d / "metrics.csv") for d in ("comet", "plain"))
+    assert got.keys() == want.keys() and len(want["Epoch"]) == 2
+    for key in want:
+        if key != "train images/sec/chip":
+            np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+    assert ((tmp_path / "comet" / "classes.json").read_text()
+            == (tmp_path / "plain" / "classes.json").read_text())
