@@ -161,7 +161,15 @@
    masked_bn=True on the batch of 64 with 6 padded rows: in f32 one step
    equals the exact step on the 58 valid rows (loss, running statistics,
    grads by check_gated_grads), then the bf16 step timed against the exact
-   step at batch 64.
+   step at batch 64. BENCH (check_bench): ``python -m nkbx_torch.bench`` in
+   a subprocess (RESNET_EXACT's program, K = 10 steps a call): one line, a
+   finite value between 0.85 times RESNET_EXACT's host img/s and 1.05
+   times its device-bound img/s, the card's name. DROPOUT (check_dropout;
+   ``python3 chip_smoke.py --bench`` runs RESNET_EXACT, BENCH and DROPOUT
+   alone): vit_base_patch16_224 with classifier and backbone dropout at
+   0.1, bf16: two 3-step runs from one seed bit-equal, a run resumed from
+   a checkpoint after step 2 bit-equal to them; the cost of a mask at
+   ViT-B's mid-MLP shape drawn for worlds of 1-8 ranks.
 6. The trainer path (check_trainer): a seeded ImageFolder of BMP files and
    a config in nkbx's form (swin_tiny, batch 64, 2 epochs) under
    build/trainer_smoke/; ``python -m nkbx_torch.train -cfg`` in a
@@ -291,7 +299,8 @@
 14. Data parallelism over ranks (DIST, check_dist; ``python3 chip_smoke.py
    --dist`` runs it alone), ranks as subprocesses: (a) 2 gloo ranks on the
    card against one process (resnet50 exact and ghost2_fused, swin_tiny with
-   CutMix, bf16; resnet50 f32); (b) the trainer CLI under torchrun against
+   CutMix, bf16; resnet50 f32 with classifier dropout); (b) the trainer CLI
+   under torchrun against
    one process; (c) FSDP: vit_base with the fused flags, its state
    scattered over 2 gloo ranks (``fsdp``), 3 bf16 nadam steps with EMA
    against the replicated ranks on the same inputs (parameters, moments,
@@ -2634,37 +2643,33 @@ def profile_step(step, state, label, batch, step_ms):
 
 
 def check_resnet_exact():
-    """RESNET_EXACT: bench.py's program (bench.py:52-74) through the port:
-    resnet50 at 224 px, 1000 classes, batch 128, bf16, exact BatchNorm,
-    HorizontalFlip(p=0.5) + Normalize on the card, cross-entropy, sgd at lr
-    0.1, every row valid, random weights from seed 0. No kernel of ours runs
-    on it (the counts, read around the bf16 steps, stay 0); its numerics
-    against nkbx are held on the CPU (tests/test_torch_resnet.py). Checks:
-    step 0's loss within 0.5% of the same step in f32 (TF32 off); finite
-    losses and grads. Two warm-up steps, then 5 timed steps (host clock,
-    synchronised): step ms, img/s and peak memory; then a profile of one
-    step."""
-    from nkbx_torch.transforms import Compose, HorizontalFlip, Normalize
-
-    classes = [f"c{i}" for i in range(1000)]
-    rng = np.random.default_rng(0)
-    images = torch.as_tensor(rng.integers(0, 255, (EXACT_BATCH, 224, 224, 3), dtype=np.uint8),
-                             device=DEV)
-    labels = torch.as_tensor(rng.integers(0, 1000, EXACT_BATCH), device=DEV)
-    mask = torch.ones(EXACT_BATCH, dtype=torch.bool, device=DEV)
-    pipe = Compose([HorizontalFlip(p=0.5), Normalize()])
+    """RESNET_EXACT: bench.py's program through the port, built by
+    ``nkbx_torch.bench.build_program`` (the benchmark's own program, with
+    one step a call): resnet50 at 224 px, 1000 classes, batch 128, bf16,
+    exact BatchNorm, HorizontalFlip(p=0.5) + Normalize on the card,
+    cross-entropy, sgd at lr 0.1, every row valid, random weights from seed
+    0, bench.py's seeded inputs. No kernel of ours runs on it (the counts,
+    read around the bf16 steps, stay 0); its numerics against nkbx are held
+    on the CPU (tests/test_torch_resnet.py, tests/test_torch_bench.py).
+    Checks: step 0's loss within 0.5% of the same step in f32 (TF32 off);
+    finite losses and grads. Two warm-up steps, then 5 timed steps (host
+    clock, synchronised): step ms, img/s and peak memory; then a profile of
+    one step."""
+    from nkbx_torch.bench import build_program
 
     def first_step(dtype):
-        model = get_model(RESNET_EXACT.cfg, classes, seed=0, dtype=dtype)
-        state, step = sgd_step(model, False, pipe.device_apply)
-        state, metrics = step(state, images, labels, mask, 1.0, 1.0)
-        return model, state, step, float(metrics["loss"])
+        program = build_program(dtype=dtype, scan_steps=1, device=DEV)
+        if program.batch_size != EXACT_BATCH:
+            fail(f"{RESNET_EXACT.label}: the bench program's batch is {program.batch_size}")
+        return program, float(program.call()["loss"])
 
-    loss32 = first_step(torch.float32)[3]
+    loss32 = first_step(torch.float32)[1]
     torch.cuda.empty_cache()
     zero_counts()
-    model, state, step, loss0 = first_step(torch.bfloat16)
-    state, _ = step(state, images, labels, mask, 1.0, 1.0)
+    program, loss0 = first_step(torch.bfloat16)
+    model, step = program.model, program.step
+    images, labels, mask = program.image, program.label, program.mask
+    state, _ = step(program.state, images, labels, mask, 1.0, 1.0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     losses = []
@@ -2690,6 +2695,145 @@ def check_resnet_exact():
     r["profile"] = profile_step(lambda st: step(st, images, labels, mask, 1.0, 1.0), state,
                                 RESNET_EXACT.label, EXACT_BATCH, ms)
     return r
+
+
+BENCH_BRACKET = (0.85, 1.05)  # of RESNET_EXACT's host img/s, of its device-bound img/s
+BENCH_TIMEOUT_S = 420  # the CLI's own watchdog ends its child at 210 s
+
+
+def check_bench(exact):
+    """BENCH: ``python -m nkbx_torch.bench``, the port's benchmark CLI, in a
+    subprocess (K = 10 steps a call by default, its own watchdog): its one
+    line must hold a finite, positive ``value``, this card's name as
+    ``device``, and a value between 0.85 times RESNET_EXACT's host-clock
+    img/s and 1.05 times its device-bound img/s (128 over the profiled
+    step's device ms), both from this run. Logs the line and the phase's
+    seconds."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    proc = subprocess.run([sys.executable, "-m", "nkbx_torch.bench"], capture_output=True,
+                          text=True, timeout=BENCH_TIMEOUT_S)
+    with open(os.path.join(OUT_DIR, "bench_cli.log"), "w") as f:
+        f.write(proc.stdout + proc.stderr)
+    lines = proc.stdout.strip().splitlines()
+    if len(lines) != 1:
+        fail(f"BENCH: the CLI printed {len(lines)} lines (rc {proc.returncode}): "
+             f"{proc.stdout[-1000:]} {proc.stderr[-2000:]}")
+    line = json.loads(lines[0])
+    host_ips = exact["images_per_sec"]
+    device_ips = EXACT_BATCH / exact["profile"]["device_ms"] * 1e3
+    lo, hi = BENCH_BRACKET[0] * host_ips, BENCH_BRACKET[1] * device_ips
+    value = line.get("value")
+    out = {"line": line, "rc": proc.returncode, "host_ips": host_ips,
+           "device_bound_ips": device_ips, "bracket": [lo, hi],
+           "seconds": time.perf_counter() - t0}
+    log(f"BENCH: {json.dumps(out)}")
+    if proc.returncode != 0 or value is None or not np.isfinite(value) or value <= 0:
+        fail(f"BENCH: no measurement: {line}")
+    if line.get("device") != torch.cuda.get_device_name():
+        fail(f"BENCH: the line names {line.get('device')!r}, not this card")
+    if not lo <= value <= hi:
+        fail(f"BENCH: {value} img/s outside [{lo:.1f}, {hi:.1f}] around RESNET_EXACT's rates")
+    return out
+
+
+DROPOUT_DIR = os.path.join("build", "dropout_smoke")  # the checkpoint after step 2
+DROPOUT_CFG = {"model": "vit_base_patch16_224", "classifier_dropout": 0.1,
+               "backbone_dropout": 0.1}
+DROPOUT_BATCH = 32
+DROPOUT_STEPS = 3
+DROPOUT_COST_ROWS = 64  # ViT-B's mid-MLP mask (rows, 197, 3072) a rank, bf16
+DROPOUT_WORLDS = (1, 2, 4, 8)
+
+
+def dropout_run(steps, resume=None, save_after=None):
+    """vit_base_patch16_224 with every dropout at 0.1 (embedding, attention,
+    mid-MLP, classifier; the kernels off, as nkbx turns them off), bf16,
+    flips + Normalize, sgd, from seed 0: (each step's loss, the state dict
+    on the host). ``save_after``: the train state checkpointed after that
+    many steps; ``resume``: the run starts from such a checkpoint."""
+    from nkbx_torch.train import TrainState, build_train_step, get_loss, get_optimizer
+    from nkbx_torch.train.checkpoint import restore_train_state, save_checkpoint
+    from nkbx_torch.transforms import Compose, HorizontalFlip, Normalize
+
+    model = get_model(DROPOUT_CFG, [f"class{i}" for i in range(N_CLASSES)], seed=0,
+                      dtype=torch.bfloat16, device=DEV)
+    state = TrainState.create(model, seed=0)
+    step = build_train_step(model, get_loss({"type": "CrossEntropyLoss"}),
+                            get_optimizer({"type": "sgd", "lr": 0.1}),
+                            augment_fn=Compose([HorizontalFlip(), Normalize()]).device_apply)
+    if resume is not None:
+        restore_train_state(resume, state)
+    rng = np.random.default_rng(11)
+    images = rng.integers(0, 256, (DROPOUT_STEPS, DROPOUT_BATCH, 224, 224, 3), dtype=np.uint8)
+    labels = rng.integers(0, N_CLASSES, (DROPOUT_STEPS, DROPOUT_BATCH))
+    mask = torch.ones(DROPOUT_BATCH, dtype=torch.bool, device=DEV)
+    losses = []
+    for i in range(state.step, steps):
+        state, metrics = step(state, torch.from_numpy(images[i]).to(DEV),
+                              torch.from_numpy(labels[i]).to(DEV), mask, 1.0, 1.0)
+        losses.append(float(metrics["loss"]))
+        if save_after == i + 1:
+            save_checkpoint(DROPOUT_DIR, state, epoch=0)
+    sd = {k: v.detach().cpu().clone() for k, v in model.module.state_dict().items()}
+    del model, state, step
+    torch.cuda.empty_cache()
+    return losses, sd
+
+
+def dropout_cost():
+    """What a mask costs on the card at ViT-B's mid-MLP shape: the port's
+    draw from a generator over a world of N (a rank draws N times its rows
+    and keeps its own), F.dropout's (torch's global generator), and the
+    draw of the rank's rows alone, in ms (CUDA events)."""
+    from nkbx_torch.models.common import dropout, dropout_source
+
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    x = torch.randn(DROPOUT_COST_ROWS, 197, 3072, device=DEV, dtype=torch.bfloat16)
+    out = {"shape": list(x.shape), "dtype": "bf16",
+           "F.dropout_ms": cuda_ms(lambda: F.dropout(x, 0.1, training=True))}
+    with dropout_source(gen):
+        out["port_dropout_world1_ms"] = cuda_ms(lambda: dropout(x, 0.1))
+    for n in DROPOUT_WORLDS:
+        shape = (DROPOUT_COST_ROWS * n, 197, 3072)
+        out[f"draw_world{n}_ms"] = cuda_ms(
+            lambda: torch.rand(shape, generator=gen, device=DEV)[:DROPOUT_COST_ROWS] < 0.9)
+    return out
+
+
+def check_dropout():
+    """DROPOUT: every mask drawn from the train state's generator, on the
+    card. vit_base_patch16_224 with classifier and backbone dropout at 0.1
+    (dropout_run), deterministic cuDNN: two 3-step runs from seed 0 are bit
+    for bit equal (losses and every tensor of the state dict), and a run
+    checkpointed after step 2 and resumed from the checkpoint in a fresh
+    model equals them, bit for bit. Then dropout_cost."""
+    t0 = time.perf_counter()
+    shutil.rmtree(DROPOUT_DIR, ignore_errors=True)
+    prev = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        runs = [dropout_run(DROPOUT_STEPS, save_after=2), dropout_run(DROPOUT_STEPS)]
+        resumed = dropout_run(DROPOUT_STEPS, resume=DROPOUT_DIR)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = prev
+    shutil.rmtree(DROPOUT_DIR, ignore_errors=True)
+
+    def equal(a, b):
+        return a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+
+    out = {"losses": runs[0][0], "resumed_losses": resumed[0],
+           "runs_bit_equal": runs[0][0] == runs[1][0] and equal(runs[0][1], runs[1][1]),
+           "resumed_bit_equal": (resumed[0] == runs[0][0][2:]
+                                 and equal(resumed[1], runs[0][1]))}
+    out["cost"] = dropout_cost()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"DROPOUT ({DROPOUT_CFG['model']}, batch {DROPOUT_BATCH}, bf16): {json.dumps(out)}")
+    if not out["runs_bit_equal"] or not out["resumed_bit_equal"]:
+        fail(f"DROPOUT: runs from one seed differ: {out}")
+    if not all(np.isfinite(out["losses"])):
+        fail("DROPOUT: a non-finite loss")
+    return out
 
 
 def check_resnet_masked():
@@ -5385,7 +5529,8 @@ DIST_CASES = (
      ("bottleneck", "bottleneck_bwd"), "bf16", 3),
     ("swin_tiny_cutmix", SWIN_CFG, BUCKET, {"cutmix_alpha": 1.0},
      ("window_attention", "window_attention_bwd", "ln_mlp", "ln_mlp_bwd"), "bf16", 3),
-    ("resnet50_exact_f32", {"model": "resnet50"}, 32, None, (), "f32", 1),
+    ("resnet50_exact_f32_dropout", {"model": "resnet50", "classifier_dropout": 0.1}, 32, None,
+     (), "f32", 1),
 )
 DIST_LOSS_TOL = 5e-3  # PERF.md §2: losses within 0.5%
 # floors of the rules against the yardstick (world 1 on a 1-ulp-perturbed input):
@@ -5847,7 +5992,9 @@ def check_dist():
         yardstick): 3 bf16 sgd steps of resnet50 exact BN and resnet50
         ghost2_fused at a global batch of 128 (64 a rank) and swin_tiny at
         64 with CutMix (the partners on the other rank), and one f32 step
-        (TF32 off) of resnet50 exact BN at 32, where the yardstick is tight.
+        (TF32 off) of resnet50 exact BN at 32 with classifier_dropout 0.1
+        (each rank keeps its rows of the global batch's mask, drawn from
+        the state's generator), where the yardstick is tight.
         Each rank launches its case's kernels every step (K9/K10,
         K1/K2/K5/K6) as the world of 1 does, and its profile of the last
         step holds them; hold_dist's rules.
@@ -6046,9 +6193,12 @@ def main():
             trained[p.label] = timed(f"train_{p.label}", check_train, p)
     resnet_step = timed("resnet_step", check_resnet_step)
     exact = timed("resnet_exact", check_resnet_exact)
+    bench = timed("bench", check_bench, exact)
     masked = timed("resnet_masked", check_resnet_masked)
     log(f"resnet50 exact BN (batch {EXACT_BATCH}) and masked BN (batch {BUCKET}): "
         f"{json.dumps({'exact': exact, 'masked_vs_exact_batch64': masked})}")
+    dropout = timed("dropout", check_dropout)
+    log(f"bench and dropout: {json.dumps({'bench': bench, 'dropout': dropout})}")
     trainer_counts = timed("trainer", check_trainer)
     served["trainer"] = trained["trainer"] = trainer_counts
     probe_counts, probe_wgmma = timed("probes", drive_probes)
@@ -6351,6 +6501,21 @@ def heavy_only():
     log(json.dumps({"heavy_counts": check_heavy()}))
 
 
+def bench_only():
+    """``--bench``: the card's name and power limit, RESNET_EXACT, BENCH and
+    DROPOUT alone (they run no kernel of ours, so nothing is built), their
+    numbers as the last line."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60).stdout.strip()
+    log(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    os.makedirs(OUT_DIR, exist_ok=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    exact = check_resnet_exact()
+    log(json.dumps({"exact": exact, "bench": check_bench(exact), "dropout": check_dropout()}))
+
+
 def optins_only():
     """``--optins``: the card's name and power limit, the kernels of the
     phase built (K1, K2, K5, K6, K9, K10) and OPTINS alone, its numbers as the
@@ -6391,5 +6556,7 @@ if __name__ == "__main__":
         export_only()
     elif sys.argv[1:] == ["--layout"]:
         layout_only()
+    elif sys.argv[1:] == ["--bench"]:
+        bench_only()
     else:
         main()

@@ -17,6 +17,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from nkbx_torch.core.runtime import resolve_device
+from nkbx_torch.models.common import Dropout
 from nkbx_torch.models.pretrained import load_checkpoint
 from nkbx_torch.models.registry import create_backbone
 
@@ -53,7 +54,7 @@ class SingletaskClassifier(nn.Module):
                  classifier_initialization: str = "kaiming_normal_", generator=None):
         super().__init__()
         self.backbone = backbone
-        self.dropout = nn.Dropout(classifier_dropout)
+        self.dropout = Dropout(classifier_dropout)
         self.head = _head(backbone.num_features, n_classes, classifier_initialization,
                           generator)
 
@@ -67,7 +68,7 @@ class MultitaskClassifier(nn.Module):
                  classifier_initialization: str = "kaiming_normal_", generator=None):
         super().__init__()
         self.backbone = backbone
-        self.dropout = nn.Dropout(classifier_dropout)
+        self.dropout = Dropout(classifier_dropout)
         self.targets = sorted(classes)
         for t in self.targets:
             self.add_module(f"head_{t}", _head(backbone.num_features, len(classes[t]),

@@ -71,12 +71,12 @@ def mlp_tail(x, shortcut, norm: LayerNorm, fc1: Dense, fc2: Dense, *, flag, auto
     nkbx's ``mlp_tail`` (common.py:249-298): the fused LN-MLP kernels
     (``"ln"``), the MLP-only kernels after the plain LayerNorm (``"mlp"``),
     or the plain version (None). ``auto`` is the family's default for
-    ``flag=None``. With ``drop_rate`` above 0 in training, the torch-parity
-    Dropout between the two Denses is active and the plain version runs
-    (the kernels draw no random numbers), as in nkbx."""
+    ``flag=None``. With ``drop_rate`` above 0 in training, the
+    :func:`dropout` between the two Denses is active and the plain version
+    runs (the kernels draw no random numbers), as in nkbx."""
     dt = fc1.dtype
     if drop_rate > 0 and train:
-        y = fc2(F.dropout(F.gelu(fc1(norm(x))), drop_rate, training=True))
+        y = fc2(dropout(F.gelu(fc1(norm(x))), drop_rate))
         return shortcut + (y if gamma is None else y * gamma.to(y.dtype))
     w0 = fc1.weight.t().to(dt).contiguous()
     w1 = fc2.weight.t().to(dt).contiguous()
@@ -91,15 +91,90 @@ def mlp_tail(x, shortcut, norm: LayerNorm, fc1: Dense, fc2: Dense, *, flag, auto
 
 
 _replay = threading.local()  # .depth > 0 on the thread where remat replays a forward
+_draws = threading.local()  # .generator: the train step's source of dropout masks
 
 
 @contextlib.contextmanager
-def _recompute():
+def dropout_source(generator: torch.Generator):
+    """Draw every dropout mask of the block from ``generator`` (the train
+    step's ``state.generator``, nkbx's per-step dropout key): a run is then
+    fixed by its seed and a resumed run draws what the uninterrupted one
+    draws. Under a data-parallel step (:mod:`nkbx_torch.parallel`) a mask
+    whose first dimension is the batch is drawn for the global batch and
+    the rank keeps its rows, as the device stage does, so that a world of N
+    draws what a world of 1 draws. Outside such a block a mask is drawn as
+    ``torch.nn.Dropout`` draws it, from torch's global generator."""
+    prev = getattr(_draws, "generator", None)
+    _draws.generator = generator
+    try:
+        yield
+    finally:
+        _draws.generator = prev
+
+
+def keep_mask(shape, keep_prob: float, device, batched: bool = True) -> torch.Tensor:
+    """A bool mask of ``shape`` on ``device``, each element True with
+    probability ``keep_prob``: from the :func:`dropout_source` generator
+    where one is installed (``batched``: the first dimension is the batch's,
+    drawn for the global batch under a data-parallel step), else from
+    torch's global generator."""
+    gen = getattr(_draws, "generator", None)
+    if gen is None:
+        return torch.rand(shape, device=device) < keep_prob
+    shape, mesh = tuple(shape), collectives.active()
+    if batched and mesh is not None:
+        u = torch.rand((shape[0] * mesh.data,) + shape[1:], generator=gen,
+                       device=gen.device)[mesh.rows(shape[0])]
+    else:
+        u = torch.rand(shape, generator=gen, device=gen.device)
+    return (u < keep_prob).to(device)
+
+
+def dropout(x: torch.Tensor, p: float, training: bool = True) -> torch.Tensor:
+    """torch's dropout of ``x`` (each element kept with probability 1 − p
+    and scaled by 1/(1 − p)), its mask from :func:`keep_mask`: the train
+    step's generator inside :func:`dropout_source`, ``F.dropout`` outside."""
+    if not training or p == 0:
+        return x
+    if getattr(_draws, "generator", None) is None:
+        return F.dropout(x, p, training=True)
+    if p >= 1:
+        return x * 0
+    return x * keep_mask(x.shape, 1.0 - p, x.device) * (1.0 / (1.0 - p))
+
+
+class Dropout(nn.Module):
+    """``torch.nn.Dropout`` whose mask comes from :func:`dropout` (the train
+    step's generator inside :func:`dropout_source`)."""
+
+    def __init__(self, p: float = 0.5):
+        super().__init__()
+        self.p = p
+
+    def forward(self, x):
+        return dropout(x, self.p, self.training)
+
+    def extra_repr(self) -> str:
+        return f"p={self.p}"
+
+
+@contextlib.contextmanager
+def _recompute(gen=None, state=None):
+    """A remat replay: BatchNorm updates nothing, and where the forward drew
+    its dropout masks from ``gen`` (at ``state``), the replay draws them
+    again from there and leaves ``gen`` where it found it."""
     _replay.depth = getattr(_replay, "depth", 0) + 1
+    if gen is not None:
+        now, prev = gen.get_state(), getattr(_draws, "generator", None)
+        gen.set_state(state)
+        _draws.generator = gen
     try:
         yield
     finally:
         _replay.depth -= 1
+        if gen is not None:
+            gen.set_state(now)
+            _draws.generator = prev
 
 
 def remat(module: nn.Module, *args):
@@ -108,12 +183,17 @@ def remat(module: nn.Module, *args):
     with ``use_reentrant=False``, so that parameter names and numbers do not
     change. The replay updates no BatchNorm running statistics
     (:meth:`TorchBatchNorm.update_running` skips while it runs): the forward
-    updated them once, as flax's remat keeps one update. Without gradients
-    the module just runs."""
+    updated them once, as flax's remat keeps one update. A dropout mask
+    drawn inside from the train step's generator is drawn again the same in
+    the replay, which does not advance the generator (``checkpoint`` itself
+    restores only torch's default generators). Without gradients the module
+    just runs."""
     if not torch.is_grad_enabled():
         return module(*args)
+    gen = getattr(_draws, "generator", None)
+    state = gen.get_state() if gen is not None else None
     return checkpoint(module, *args, use_reentrant=False,
-                      context_fn=lambda: (contextlib.nullcontext(), _recompute()))
+                      context_fn=lambda: (contextlib.nullcontext(), _recompute(gen, state)))
 
 
 def init_dense_(module: nn.Linear, generator: torch.Generator):

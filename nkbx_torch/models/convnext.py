@@ -28,8 +28,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from nkbx_torch.models.common import (Dense, LayerNorm, init_dense_, lecun_normal_, mlp_tail,
-                                      remat)
+from nkbx_torch.models.common import (Dense, Dropout, LayerNorm, init_dense_, lecun_normal_,
+                                      mlp_tail, remat)
 
 _EPS = 1e-6  # flax nn.LayerNorm's default, nkbx's everywhere in ConvNeXt
 
@@ -94,7 +94,7 @@ class ConvNeXt(nn.Module):
                 block += 1
         self.head_norm = LayerNorm(dims[-1], _EPS, dtype)
         # as in nkbx, the embedding dropout exists only with a rate above 0
-        self.dropout = nn.Dropout(drop_rate) if drop_rate > 0 else nn.Identity()
+        self.dropout = Dropout(drop_rate) if drop_rate > 0 else nn.Identity()
 
     def reset_parameters(self, generator: torch.Generator):
         """flax's initialisers, drawn from ``generator``: lecun-normal Dense

@@ -29,7 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from nkbx_torch.models.common import TorchBatchNorm, global_avg_pool, init_conv_
+from nkbx_torch.models.common import Dropout, TorchBatchNorm, global_avg_pool, init_conv_
 
 
 class _BNReluConv(nn.Module):
@@ -88,7 +88,7 @@ class DenseNet(nn.Module):
         self.final_norm = TorchBatchNorm(c, dtype=dtype)
         self.num_features = c
         # as in nkbx, the dropout exists only with a rate above 0
-        self.dropout = nn.Dropout(drop_rate) if drop_rate > 0 else nn.Identity()
+        self.dropout = Dropout(drop_rate) if drop_rate > 0 else nn.Identity()
 
     def reset_parameters(self, generator: torch.Generator):
         """flax's initialisers, drawn from ``generator``: lecun-normal

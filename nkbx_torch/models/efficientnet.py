@@ -17,7 +17,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from nkbx_torch.models.common import ConvBN, SqueezeExcite, global_avg_pool, make_divisible
+from nkbx_torch.models.common import (ConvBN, Dropout, SqueezeExcite, global_avg_pool,
+                                      make_divisible)
 from nkbx_torch.models.mobilenetv3 import reset_mobile_parameters
 
 # (expand_ratio, kernel, stride, repeats, out_channels)
@@ -108,7 +109,7 @@ class _Net(nn.Module):
         self.ConvBN_1 = ConvBN(ch, self.num_features, 1, 1, act=F.silu, dtype=dtype,
                                ghost_bn=ghost_bn)
         # as in nkbx, the dropout exists only with a rate above 0
-        self.dropout = nn.Dropout(drop_rate) if drop_rate > 0 else nn.Identity()
+        self.dropout = Dropout(drop_rate) if drop_rate > 0 else nn.Identity()
 
     def _add(self, block):
         """Register ``block`` under flax's name: its class, numbered per class."""

@@ -19,7 +19,7 @@ from typing import Sequence, Tuple
 import torch
 from torch import nn
 
-from nkbx_torch.models.common import (ConvBN, Dense, SqueezeExcite, TorchBatchNorm,
+from nkbx_torch.models.common import (ConvBN, Dense, Dropout, SqueezeExcite, TorchBatchNorm,
                                       global_avg_pool, hard_swish, init_conv_, init_dense_,
                                       make_divisible)
 
@@ -129,7 +129,7 @@ class MobileNetV3(nn.Module):
         self.ConvBN_1 = ConvBN(ch, last, 1, 1, act=hard_swish, dtype=dtype, ghost_bn=g)
         self.Dense_0 = Dense(last, head_features, dtype=dtype)
         # as in nkbx, the dropout exists only with a rate above 0
-        self.dropout = nn.Dropout(drop_rate) if drop_rate > 0 else nn.Identity()
+        self.dropout = Dropout(drop_rate) if drop_rate > 0 else nn.Identity()
 
     def reset_parameters(self, generator: torch.Generator):
         reset_mobile_parameters(self, generator)

@@ -33,7 +33,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from nkbx_torch.models.common import ConvBN, TorchBatchNorm, init_conv_, lecun_normal_, remat
+from nkbx_torch.models.common import (ConvBN, Dropout, TorchBatchNorm, init_conv_, lecun_normal_,
+                                      remat)
 from nkbx_torch.ops.bottleneck import fused_chain, stat_band
 from nkbx_torch.parallel import collectives
 
@@ -316,7 +317,7 @@ class ResNet(nn.Module):
                     self._remat.add(name)
                 ch = features * block_cls.expansion
         # as in nkbx, the embedding dropout exists only with a rate above 0
-        self.dropout = nn.Dropout(drop_rate) if drop_rate > 0 else nn.Identity()
+        self.dropout = Dropout(drop_rate) if drop_rate > 0 else nn.Identity()
 
     def reset_parameters(self, generator: torch.Generator):
         """flax's initialisers, drawn from ``generator``: lecun-normal

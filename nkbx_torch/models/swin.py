@@ -24,7 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from nkbx_torch.models.common import (Dense, LayerNorm, init_dense_, lecun_normal_,
+from nkbx_torch.models.common import (Dense, Dropout, LayerNorm, init_dense_, lecun_normal_,
                                       mlp_tail)
 from nkbx_torch.ops.attention import (fused_attention_qkv, reference_attention,
                                       resolve_fused)
@@ -187,7 +187,7 @@ class SwinTransformer(nn.Module):
                 grid = (grid[0] // 2, grid[1] // 2)
         self.norm = LayerNorm(dim, 1e-5, dtype)
         # as in nkbx, the embedding dropout exists only with a rate above 0
-        self.dropout = nn.Dropout(drop_rate) if drop_rate > 0 else nn.Identity()
+        self.dropout = Dropout(drop_rate) if drop_rate > 0 else nn.Identity()
 
     def reset_parameters(self, generator: torch.Generator):
         """flax's initialisers, drawn from ``generator``: lecun-normal Dense

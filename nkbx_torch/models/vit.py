@@ -36,8 +36,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from nkbx_torch.models.common import (Dense, LayerNorm, TorchBatchNorm, init_dense_, lecun_normal_,
-                                      mlp_tail)
+from nkbx_torch.models.common import (Dense, Dropout, LayerNorm, TorchBatchNorm, init_dense_,
+                                      keep_mask, lecun_normal_, mlp_tail)
 from nkbx_torch.ops.attention import fused_attention, resolve_fused
 
 
@@ -78,7 +78,7 @@ class MultiHeadDotProductAttention(nn.Module):
         w = torch.softmax(qh @ kh.transpose(-1, -2), dim=-1)
         if self.training and self.drop_rate > 0:
             keep_prob = 1.0 - self.drop_rate
-            keep = torch.rand((1, 1, n, n), device=q.device) < keep_prob
+            keep = keep_mask((1, 1, n, n), keep_prob, q.device, batched=False)
             w = w * (keep.to(dt) / torch.tensor(keep_prob, dtype=dt))
         return (w @ vh).transpose(1, 2).reshape(b, n, hd)
 
@@ -157,7 +157,7 @@ class ViT(nn.Module):
             tokens += 1
         self.pos_embed = nn.Parameter(torch.zeros(1, tokens, dim))
         # as in nkbx, the embedding dropout exists only with a rate above 0
-        self.dropout = nn.Dropout(drop_rate) if drop_rate > 0 else nn.Identity()
+        self.dropout = Dropout(drop_rate) if drop_rate > 0 else nn.Identity()
         for i in range(depth):
             self.add_module(f"TransformerBlock_{i}", TransformerBlock(
                 dim, n_heads, mlp_ratio, drop_rate, dtype, fused=fused_attention,
@@ -212,7 +212,7 @@ class UnicomViT(nn.Module):
         self.patch_embed = nn.Conv2d(3, dim, patch_size, stride=patch_size)
         tokens = (img_size[0] // patch_size) * (img_size[1] // patch_size)
         self.pos_embed = nn.Parameter(torch.zeros(1, tokens, dim))
-        self.dropout = nn.Dropout(drop_rate) if drop_rate > 0 else nn.Identity()
+        self.dropout = Dropout(drop_rate) if drop_rate > 0 else nn.Identity()
         for i in range(depth):
             self.add_module(f"TransformerBlock_{i}", TransformerBlock(
                 dim, n_heads, mlp_ratio, drop_rate, dtype, ln_eps=1e-5, fused=fused_attention,

@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from nkbx_torch.core.runtime import Throughput
+from nkbx_torch.models.common import dropout_source
 from nkbx_torch.parallel import collectives
 from nkbx_torch.train.optim import OptimizerBundle, apply_updates
 
@@ -149,7 +150,10 @@ def build_train_step(model, criterion, bundle: OptimizerBundle, augment_fn=None,
 
     ``augment_fn(image_u8, out_dtype=..., generator=...)`` is the device
     stage (``Compose.device_apply``): it receives the model's compute dtype
-    and the state's generator. ``freeze_semantics`` is ``"decay"`` or
+    and the state's generator. Every dropout mask of the forward is drawn
+    from that generator too, after the device stage and mixup
+    (:func:`~nkbx_torch.models.common.dropout_source`), so that a run is
+    fixed by the state's seed. ``freeze_semantics`` is ``"decay"`` or
     ``"torch"`` (see :mod:`nkbx_torch.train.optim`). ``masked_bn=True``
     weights padded batch rows out of the BatchNorm statistics: the model
     gets ``mask.reshape(-1, 1, 1, 1)`` in training (nkbx engine.py:150-159).
@@ -351,14 +355,16 @@ def build_train_step(model, criterion, bundle: OptimizerBundle, augment_fn=None,
             x, label, mask, label_b = relayout(x, label, mask, label_b)
         module.zero_grad(set_to_none=True)
         metrics = None
-        if accum > 1:
-            metrics = accumulate(x, label, mask, label_b, lam)
-        else:
-            scales = step_scales(label, mask, label_b) if dp else None
-            preds, loss_out = forward_loss(x, label, mask, label_b, lam, scales)
-            _scalar(loss_out).backward()
-            with torch.no_grad():
-                metrics = _iter_metrics(_detach(preds), label, mask, _detach(loss_out))
+        # the dropout masks, drawn after the device stage's and mixup's draws
+        with dropout_source(state.generator):
+            if accum > 1:
+                metrics = accumulate(x, label, mask, label_b, lam)
+            else:
+                scales = step_scales(label, mask, label_b) if dp else None
+                preds, loss_out = forward_loss(x, label, mask, label_b, lam, scales)
+                _scalar(loss_out).backward()
+                with torch.no_grad():
+                    metrics = _iter_metrics(_detach(preds), label, mask, _detach(loss_out))
         scat = state.scatter_of(module)
         if dp:
             with torch.no_grad():

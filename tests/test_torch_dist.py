@@ -13,8 +13,10 @@ process start-up is paid once a group, not once a case.
   last batch and class weights, ghost BatchNorm through the fused chain's
   plain version, CutMix and mixup with a padded batch (the partners live on
   the other rank), a flip + RandAugment device stage, ``grad_accum_steps=2``,
-  ``scan_steps=2``, EMA, ``log_gradients``, and a multi-task focal loss with
-  ignored labels. Tolerances (f32, sgd): each loss within 1e-5 relative;
+  ``scan_steps=2``, EMA, ``log_gradients``, a multi-task focal loss with
+  ignored labels, and ``classifier_dropout`` with ``backbone_dropout`` at
+  0.1, alone and with ``grad_accum_steps=2`` (every mask drawn for the
+  global batch from the state's generator). Tolerances (f32, sgd): each loss within 1e-5 relative;
   each parameter, running statistic, EMA tensor and gradient norm within
   1e-5 of its tensor's largest value; the epoch's results of an exact and a
   bounded EpochCollector (gathered over the ranks) with equal predictions,
@@ -127,7 +129,10 @@ SCENARIOS = {
     "log_gradients": {"log_gradients": True},
     "multitask": {"multi": True, "masked_bn": True, "pad_last": 2,
                   "criterion": {"task": "multi", "type": "FocalLoss"}},
+    "dropout": {"dropout": 0.1},
+    "dropout_accum": {"dropout": 0.1, "grad_accum_steps": 2, "pad_last": 3, "masked_bn": True},
 }
+DROPOUT = ("dropout", "dropout_accum")
 
 
 def _model(sc):
@@ -145,9 +150,10 @@ def _model(sc):
         return ClassificationModel(module, list("abc"), "single", module.backbone.num_features,
                                    (S, S), torch.float32, torch.device("cpu"))
     classes = {"color": list("rgb"), "size": ["s", "l"]} if sc.get("multi") else list("abc")
-    return get_model({"task": "multi" if sc.get("multi") else "single",
-                      "model": "resnet_tiny_test"}, classes, input_size=(S, S), seed=0,
-                     dtype=torch.float32, device="cpu")
+    cfg = {"task": "multi" if sc.get("multi") else "single", "model": "resnet_tiny_test"}
+    if sc.get("dropout"):
+        cfg.update(classifier_dropout=sc["dropout"], backbone_dropout=sc["dropout"])
+    return get_model(cfg, classes, input_size=(S, S), seed=0, dtype=torch.float32, device="cpu")
 
 
 def _flat(tree, prefix=""):
@@ -467,6 +473,21 @@ def test_world_of_two_steps_equal_a_world_of_one(step_runs):
         assert a["epoch_int_equal"] and a["epoch_rows"] > 0, name
     assert runs[0]["scenarios"]["log_gradients"]["n_norms"][1] > 10
     assert "ema" in runs[0]["scenarios"]["ema"]
+
+
+def test_world_of_two_with_dropout_equals_a_world_of_one(step_runs):
+    """``classifier_dropout`` and ``backbone_dropout`` at 0.1, alone and
+    with ``grad_accum_steps=2``: each rank draws every mask for the global
+    batch (each microbatch's, after accumulation's exchange of rows) from
+    the state's generator and keeps its rows, so the world of 2 takes the
+    steps of the world of 1 within the scenarios' 1e-5."""
+    for name in DROPOUT:
+        a, b = step_runs[0]["scenarios"][name], step_runs[1]["scenarios"][name]
+        assert a["digest"] == b["digest"], name
+        l1, l2 = a["losses"]
+        assert len(l1) == len(l2) and all(_close(x, y) for x, y in zip(l2, l1)), (name, l1, l2)
+        for key in ("params", "stats", "epoch"):
+            assert a[key][0] <= REL, (name, key, a[key])
 
 
 def test_a_group_of_one_rank_equals_no_group(tmp_path):

@@ -15,7 +15,12 @@ on the CPU.
 - Resume: ``resnet_tiny_test`` (BatchNorm, so the masked step, and flips
   drawn from the state's generator), preempted at batch 1 of epoch 1 and
   resumed from ``weights/last``, ends with the weights and running
-  statistics of an uninterrupted run within 1e-6.
+  statistics of an uninterrupted run within 1e-6; the same with
+  ``classifier_dropout`` and ``backbone_dropout`` at 0.1 (the masks come
+  from the checkpointed generator).
+- One seed fixes a run with dropout: two runs in one process (torch's
+  global generator seeded differently) and two CLI runs in fresh processes
+  are bit-equal, weights and metrics.csv (but the throughput).
 - A mesh ``model`` axis raises by design, naming ROADMAP A10b; ``fsdp``
   passes the check and, without a mesh, raises nkbx's ValueError; a Comet
   section without ``comet_ml`` warns as nkbx does and the CLI writes the
@@ -31,6 +36,7 @@ import csv
 import signal
 import sys
 import textwrap
+from pathlib import Path
 
 import cv2
 import jax
@@ -61,6 +67,7 @@ from nkbx_torch.utils import Config
 
 TINY = dict(embed_dim=16, depths=(2, 2), n_heads=(1, 2), window=2)
 SIZE = 32
+ROOT = Path(__file__).resolve().parents[1]
 
 
 def _write_folder(root, ext, n_train=8, n_val=4, classes=3, seed=0):
@@ -195,9 +202,11 @@ class PreemptAt:
         return getattr(self.inner, name)
 
 
-def _resnet_run(root, run, wrap=None, resume_from=None):
-    cfg = Config(_cfg(root, run, T, flips=True,
-                      model={"task": "single", "model": "resnet_tiny_test"}))
+def _resnet_run(root, run, wrap=None, resume_from=None, dropout=0.0):
+    model = {"task": "single", "model": "resnet_tiny_test"}
+    if dropout:
+        model.update(classifier_dropout=dropout, backbone_dropout=dropout)
+    cfg = Config(_cfg(root, run, T, flips=True, model=model))
     train_loader = get_dataset(cfg.train_data, cfg.train_pipeline)
     val_loader = get_dataset({**cfg.val_data, "classes": train_loader.dataset.classes},
                              cfg.val_pipeline)
@@ -210,24 +219,96 @@ def _resnet_run(root, run, wrap=None, resume_from=None):
     return exp.path, state
 
 
-def test_preempted_and_resumed_run_equals_an_uninterrupted_one(tmp_path):
+def _preempt_and_resume(tmp_path, dropout=0.0):
     root = _write_folder(tmp_path, ".png", seed=1)
-    _, full = _resnet_run(root, tmp_path / "full")
+    _, full = _resnet_run(root, tmp_path / "full", dropout=dropout)
     preempt.reset()
     try:
-        cut_dir, cut = _resnet_run(root, tmp_path / "cut", wrap=lambda lo: PreemptAt(lo, 1, 1))
+        cut_dir, cut = _resnet_run(root, tmp_path / "cut", wrap=lambda lo: PreemptAt(lo, 1, 1),
+                                   dropout=dropout)
     finally:
         preempt.reset()
     cursor = (cut_dir / "weights" / "last.cursor.json").read_text()
     assert '"epoch": 1' in cursor and '"batch": 1' in cursor
     assert len(_read_csv(cut_dir / "metrics.csv")["Epoch"]) == 1
     res_dir, resumed = _resnet_run(root, tmp_path / "resumed",
-                                   resume_from=cut_dir / "weights" / "last")
+                                   resume_from=cut_dir / "weights" / "last", dropout=dropout)
     want, got = full.module.state_dict(), resumed.module.state_dict()
     assert resumed.step == full.step
     for k in want:
         np.testing.assert_allclose(got[k].numpy(), want[k].numpy(), rtol=0, atol=1e-6, err_msg=k)
     assert not (res_dir / "weights" / "last.cursor.json").exists()
+
+
+def test_preempted_and_resumed_run_equals_an_uninterrupted_one(tmp_path):
+    _preempt_and_resume(tmp_path)
+
+
+def test_resumed_run_with_dropout_equals_an_uninterrupted_one(tmp_path):
+    """The same with ``classifier_dropout`` and ``backbone_dropout`` at 0.1:
+    the masks come from the checkpointed generator."""
+    _preempt_and_resume(tmp_path, dropout=0.1)
+
+
+def _state_dicts_equal(a, b):
+    return a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+
+
+def _without_clock(rows):
+    return {k: v for k, v in rows.items() if "images/sec" not in k}
+
+
+DROPOUT_CONFIG = """
+import nkbx.transforms as T
+
+task = "single"
+n_epochs = 2
+seed = 0
+enable_mixed_precision = False
+train_data = {{"type": "ImageFolder", "root": "{root}/train", "batch_size": 5, "shuffle": True,
+              "num_workers": 1}}
+val_data = {{"type": "ImageFolder", "root": "{root}/val", "batch_size": 5}}
+train_pipeline = T.Compose([T.LongestMaxSize(32), T.PadIfNeeded(32, 32), T.HorizontalFlip(),
+                            T.Normalize()])
+val_pipeline = T.Compose([T.LongestMaxSize(32), T.PadIfNeeded(32, 32), T.Normalize()])
+model = {{"task": "single", "model": "resnet_tiny_test", "classifier_dropout": 0.1,
+         "backbone_dropout": 0.1}}
+optimizer = {{"type": "adam", "backbone_lr": 1e-3, "classifier_lr": 1e-3}}
+lr_policy = {{"type": "cosine", "n_epochs": 2}}
+criterion = {{"task": "single", "type": "CrossEntropyLoss"}}
+experiment = {{"comet": None, "local": {{"path": "{run}"}}}}
+"""
+
+
+def test_dropout_runs_are_fixed_by_the_seed(tmp_path):
+    """Two trainer runs with one seed and ``classifier_dropout`` and
+    ``backbone_dropout`` at 0.1 are bit-equal: in one process (torch's
+    global generator seeded differently before each), and through the CLI
+    in two fresh processes (weights and metrics.csv but the throughput)."""
+    import subprocess
+
+    root = _write_folder(tmp_path, ".png", seed=4)
+    runs = []
+    for i, torch_seed in enumerate((1, 2)):
+        torch.manual_seed(torch_seed)
+        path, state = _resnet_run(root, tmp_path / f"in_process{i}", dropout=0.1)
+        runs.append((state.module.state_dict(), _without_clock(_read_csv(path / "metrics.csv"))))
+    assert _state_dicts_equal(runs[0][0], runs[1][0]) and runs[0][1] == runs[1][1]
+    procs = []
+    for i in range(2):
+        cfg = tmp_path / f"fresh{i}.py"
+        cfg.write_text(DROPOUT_CONFIG.format(root=root, run=tmp_path / f"fresh{i}"))
+        procs.append(subprocess.Popen([sys.executable, "-m", "nkbx_torch.train", "-cfg", str(cfg),
+                                       "--device", "cpu"], cwd=ROOT, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True))
+    for p in procs:
+        out = p.communicate(timeout=300)[0]
+        assert p.returncode == 0, out[-3000:]
+    a, b = (torch.load(tmp_path / f"fresh{i}" / "weights" / "last.pt", map_location="cpu")
+            for i in range(2))
+    assert _state_dicts_equal(a, b)
+    assert (_without_clock(_read_csv(tmp_path / "fresh0" / "metrics.csv"))
+            == _without_clock(_read_csv(tmp_path / "fresh1" / "metrics.csv")))
 
 
 # the keys of A10b: what the trainer refuses of each (None: nothing; a mesh
